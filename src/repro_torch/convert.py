@@ -1,0 +1,58 @@
+"""Carry state across from the JAX package.
+
+The system's "weights" are partition state: the assignments and the packed
+neighbor sets a run leaves behind, which a later run warm-starts from.
+These helpers take plain numpy arrays (never JAX objects), so a result of
+``repro.api.partition`` — or arrays saved from one — becomes a port result
+whose ``.refine(g2)`` continues from the same sets.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+from .api import ParsaConfig, PartitionResult
+from .core.bipartite import BipartiteGraph
+from .kernels.parsa_cost import coerce_packed_sets
+
+__all__ = ["graph_from_numpy", "result_from_numpy"]
+
+
+def graph_from_numpy(num_u: int, num_v: int, u_indptr, u_indices
+                     ) -> BipartiteGraph:
+    """The port's CSR graph from CSR arrays (copied, int64 / int32)."""
+    g = BipartiteGraph(int(num_u), int(num_v),
+                       np.array(u_indptr, dtype=np.int64),
+                       np.array(u_indices, dtype=np.int32))
+    g.validate()
+    return g
+
+
+def result_from_numpy(parts_u, parts_v, s_masks, k: int, num_v: int,
+                      config, *, device: str = "cuda") -> PartitionResult:
+    """A port ``PartitionResult`` from another run's arrays.
+
+    ``s_masks`` may be packed (k, W) words or dense (k, |V|) bool sets.
+    ``config`` is a port ``ParsaConfig`` or any object with the same field
+    names (such as the JAX ``ParsaConfig``); only the fields the port has
+    are read.  ``metrics`` is None: the source graph is not at hand.
+    """
+    if not isinstance(config, ParsaConfig):
+        names = [f.name for f in dataclasses.fields(ParsaConfig)]
+        config = ParsaConfig(**{n: getattr(config, n) for n in names
+                                if hasattr(config, n)})
+    s_masks = np.array(coerce_packed_sets(s_masks, num_v), dtype=np.int32)
+    if s_masks.shape[0] != k:
+        raise ValueError(f"s_masks has {s_masks.shape[0]} rows, expected {k}")
+    return PartitionResult(
+        parts_u=np.array(parts_u, dtype=np.int32),
+        parts_v=None if parts_v is None else np.array(parts_v, dtype=np.int32),
+        s_masks=s_masks,
+        num_v=int(num_v),
+        k=int(k),
+        config=config,
+        metrics=None,
+        timings={},
+        device=device,
+    )

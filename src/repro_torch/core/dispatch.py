@@ -1,0 +1,80 @@
+"""Dispatch accounting: one counted entry per pipeline phase launch, plus
+the CUDA kernel launches each phase really made.
+
+The counter API of ``repro.core.jax_partition`` (``DispatchEvent``,
+``DispatchLog``, ``dispatch_counter``, ``_count_dispatch``), without the
+tracer hook.  One counted dispatch per phase can hide thousands of kernel
+launches, so a phase run under ``phase(name)`` also records, in
+``DispatchLog.launches[name]``, how far each kernel's launch counter moved
+while it ran (``{"parsa_select_tile": 6647, ...}``).
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+
+from ..kernels.parsa_cost.ops import LAUNCHES
+
+__all__ = ["DispatchEvent", "DispatchLog", "dispatch_counter", "phase"]
+
+
+@dataclasses.dataclass
+class DispatchEvent:
+    """One labeled pipeline launch: phase, carry bytes, extras."""
+
+    phase: str
+    nbytes: int = 0
+    meta: dict = dataclasses.field(default_factory=dict)
+
+
+class DispatchLog(dict):
+    """A ``phase -> count`` dict with the ordered ``DispatchEvent`` records
+    behind it and the kernel launches per phase (``launches``)."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.records: list[DispatchEvent] = []
+        self.launches: dict[str, dict[str, int]] = {}
+
+
+_ACTIVE_COUNTERS: list[DispatchLog] = []
+
+
+def _count_dispatch(name: str, nbytes: int = 0, **meta) -> None:
+    for counts in _ACTIVE_COUNTERS:
+        counts[name] = counts.get(name, 0) + 1
+        counts.records.append(DispatchEvent(name, int(nbytes), dict(meta)))
+
+
+@contextlib.contextmanager
+def phase(name: str, nbytes: int = 0, **meta):
+    """Count one dispatch of ``name`` and attribute the kernel launches made
+    inside the ``with`` block to it."""
+    _count_dispatch(name, nbytes, **meta)
+    before = dict(LAUNCHES)
+    try:
+        yield
+    finally:
+        moved = {k: LAUNCHES[k] - before[k] for k in LAUNCHES
+                 if LAUNCHES[k] != before[k]}
+        for counts in _ACTIVE_COUNTERS:
+            per = counts.launches.setdefault(name, {})
+            for k, n in moved.items():
+                per[k] = per.get(k, 0) + n
+
+
+@contextlib.contextmanager
+def dispatch_counter():
+    """Yield a fresh ``{"partition_scan": 0, ...}`` log that records only
+    the pipeline launches issued inside this ``with`` block."""
+    counts = DispatchLog({"partition_scan": 0})
+    _ACTIVE_COUNTERS.append(counts)
+    try:
+        yield counts
+    finally:
+        # remove by identity: equal-valued dicts from nested scopes must not
+        # deregister each other
+        for i, c in enumerate(_ACTIVE_COUNTERS):
+            if c is counts:
+                del _ACTIVE_COUNTERS[i]
+                break

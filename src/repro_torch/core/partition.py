@@ -1,0 +1,325 @@
+r"""Blocked greedy Parsa over packed bitmasks, in PyTorch on the card.
+
+The counterpart of ``repro.core.jax_partition`` (its kernel path):
+
+1. *Packing* (host, numpy) — ``pack_graph_blocks`` packs the permuted U in
+   one sorted pass into per-row compact word lists of at most ``cap``
+   words, plus a dense side channel for the rare rows with more.  No dense
+   ``(n_blocks, B, W)`` stack exists: each block's (B, W) bitmask is
+   rebuilt on the card by a scatter-add (``_rebuild_nbr``).
+2. *The scan* — ``_partition_scan`` loops over blocks in Python and carries
+   ``(s_masks, sizes)`` on the card, updated in place.  Nothing returns to
+   the host until the scan ends: every branch of the JAX version is a
+   ``torch.where`` or index arithmetic, never ``.item()``.
+3. *Greedy rounds* — with sizes within one of each other, the next k picks
+   visit each partition once: first the catch-up set (partitions at the
+   minimum size, in stable-argsort order), then full rounds in index order.
+   ``_assign_block_rounds`` runs 1 + ⌈(B−1)/k⌉ rounds (static); each round
+   launches the fused select (``parsa_cost_select``: a cost-tile kernel
+   and a one-CTA greedy reduction) and commits the picks with a few torch
+   ops.  The block buffers carry one extra *sink* row at index B: an
+   inactive slot points there, so its commit writes only the sink.
+
+``blocked_partition_u_hostloop_impl`` / ``_assign_block`` are the
+sequential per-vertex parity oracle (the ``host_blocked_oracle`` backend),
+driven by the ``parsa_cost`` kernel.  On CPU tensors every kernel wrapper
+runs its plain PyTorch version; there is no ``use_kernel`` switch.  The
+JAX ``use_kernel=False`` path (carried tile, sparse down-date) is another
+realisation of the same integer program and is not ported.
+"""
+from __future__ import annotations
+
+import time
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..kernels.parsa_cost import (
+    BIG,
+    coerce_packed_sets,
+    pack_bitmask,
+    pack_bitmask_csr_sparse,
+    parsa_cost,
+    parsa_cost_select,
+)
+from .bipartite import BipartiteGraph
+from .dispatch import phase
+
+__all__ = [
+    "PackedBlocks",
+    "pack_graph_blocks",
+    "blocked_partition_u_impl",
+    "blocked_partition_u_hostloop_impl",
+]
+
+
+class PackedBlocks(NamedTuple):
+    """Blocked packing of (a permutation of) U, host side."""
+
+    valid: np.ndarray     # (n_blocks, B) bool — False for padding rows
+    widx: np.ndarray      # (n_blocks, B, cap) int32 nonzero-word indices
+    vals: np.ndarray      # (n_blocks, B, cap) int32 word values at widx
+    trunc: np.ndarray     # (n_blocks, B) bool — row has > cap nonzero words
+    tr_ids: np.ndarray    # (n_blocks, TB) int32 local row of each truncated
+                          #   row; B (out of range → dropped) for padding
+    tr_masks: np.ndarray  # (n_blocks, TB, W) int32 full masks of those rows
+    order: np.ndarray     # (num_u,) int64 — global vertex id per packed row
+
+
+def pack_graph_blocks(
+    graph: BipartiteGraph,
+    block: int,
+    order: np.ndarray | None = None,
+    cap: int = 48,
+) -> PackedBlocks:
+    """Pack all of U (in ``order``) into padded (n_blocks, B, …) stacks with
+    one CSR gather and one sorted pass; no per-vertex Python work and no
+    dense (n, W) array."""
+    n = graph.num_u
+    if order is None:
+        order = np.arange(n, dtype=np.int64)
+    order = np.asarray(order, dtype=np.int64)
+    uniq, wordvals, widx, vals, trunc = pack_bitmask_csr_sparse(
+        graph.u_indptr, graph.u_indices, graph.num_v, rows=order, cap=cap)[:5]
+    W = (graph.num_v + 31) // 32
+    n_blocks = max(1, -(-n // block))
+    pad = n_blocks * block - n
+    if pad:
+        widx = np.pad(widx, [(0, pad), (0, 0)])
+        vals = np.pad(vals, [(0, pad), (0, 0)])
+        trunc = np.pad(trunc, [(0, pad)])
+    valid = (np.arange(n_blocks * block) < n).reshape(n_blocks, block)
+    # side channel: full masks of truncated rows, grouped per block
+    t_rows = np.flatnonzero(trunc)                       # padded row ids
+    t_block = t_rows // block
+    t_counts = np.bincount(t_block, minlength=n_blocks)
+    TB = max(1, int(t_counts.max()) if t_rows.size else 1)
+    tr_ids = np.full((n_blocks, TB), block, np.int32)    # block == dropped
+    tr_masks = np.zeros((n_blocks, TB, W), np.int32)
+    if t_rows.size:
+        t_starts = np.concatenate([[0], np.cumsum(t_counts)[:-1]])
+        slot = np.arange(t_rows.size, dtype=np.int64) - t_starts[t_block]
+        tr_ids[t_block, slot] = (t_rows % block).astype(np.int32)
+        trunc_idx = np.full(n_blocks * block, -1, np.int64)
+        trunc_idx[t_rows] = t_block * TB + slot
+        r = uniq // W
+        member = trunc[r]
+        tr_masks.reshape(-1, W)[trunc_idx[r[member]], uniq[member] % W] = \
+            wordvals[member]
+    return PackedBlocks(
+        valid=valid,
+        widx=widx.reshape(n_blocks, block, cap),
+        vals=vals.reshape(n_blocks, block, cap),
+        trunc=trunc.reshape(n_blocks, block),
+        tr_ids=tr_ids,
+        tr_masks=tr_masks,
+        order=order,
+    )
+
+
+# --------------------------------------------------------------------------
+# Sequential per-vertex reference (the host_blocked_oracle backend).
+# --------------------------------------------------------------------------
+def _assign_block(
+    nbr: torch.Tensor,      # (B, W) int32 packed N(u)
+    s_masks: torch.Tensor,  # (k, W) int32 packed S_i — updated in place
+    sizes: torch.Tensor,    # (k,) int32 |U_i| — updated in place
+) -> torch.Tensor:
+    """Greedy-assign every row of the block, one vertex at a time: B steps,
+    each picking the smallest partition (first on ties), its cheapest row,
+    and down-dating that partition's column of the (B, k) cost tile.
+    Returns parts (B,) int32.  The down-date popcount(nbr & delta) is the
+    ``parsa_cost`` kernel against the complement ~delta."""
+    B = nbr.shape[0]
+    cost = parsa_cost(nbr, s_masks)
+    parts = torch.full((B,), -1, dtype=torch.int32, device=nbr.device)
+    one = torch.ones(1, dtype=torch.int32, device=nbr.device)
+    for _ in range(B):
+        i = sizes.argmin().view(1)                  # partition to grow
+        u = cost.index_select(1, i).argmin().view(1)  # cheapest row for it
+        mask_u = nbr.index_select(0, u)             # (1, W)
+        s_i = s_masks.index_select(0, i)
+        dec = parsa_cost(nbr, ~(mask_u & ~s_i))     # (B, 1) = |N(v) ∩ delta|
+        cost.index_add_(1, i, -dec)                 # cost never increases
+        cost.index_fill_(0, u, BIG)                 # retire u from the block
+        s_masks.index_copy_(0, i, s_i | mask_u)
+        sizes.index_add_(0, i, one)
+        parts.index_copy_(0, u, i.to(torch.int32))
+    return parts
+
+
+def blocked_partition_u_hostloop_impl(
+    graph: BipartiteGraph,
+    k: int,
+    block: int = 256,
+    init_sets: np.ndarray | None = None,
+    seed: int = 0,
+    device: str | torch.device = "cuda",
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-block host packing + per-vertex greedy: the parity oracle of the
+    scan.  Returns (parts_u (|U|,) int32, final packed s_masks (k, W))."""
+    device = torch.device(device)
+    s_masks, sizes = _init_state(graph, k, init_sets, device)
+    order = np.random.default_rng(seed).permutation(graph.num_u)
+    parts = torch.full((graph.num_u,), -1, dtype=torch.int32, device=device)
+    for start in range(0, graph.num_u, block):
+        ids = order[start : start + block]
+        masks = pack_bitmask([graph.neighbors(int(u)) for u in ids], graph.num_v)
+        p = _assign_block(torch.from_numpy(masks).to(device), s_masks, sizes)
+        parts[torch.from_numpy(ids).to(device)] = p
+    return parts, s_masks
+
+
+# --------------------------------------------------------------------------
+# Rounds-based blocked greedy.
+# --------------------------------------------------------------------------
+def _init_state(graph: BipartiteGraph, k: int, init_sets, device
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fresh (s_masks (k, W), sizes (k,)) on ``device``.  ``init_sets`` is
+    copied (dense bool or packed words), never aliased: the scan updates
+    its sets in place."""
+    W = (graph.num_v + 31) // 32
+    if init_sets is None:
+        s_masks = torch.zeros((k, W), dtype=torch.int32, device=device)
+    elif isinstance(init_sets, torch.Tensor):
+        s_masks = init_sets.to(device=device, dtype=torch.int32, copy=True)
+    else:
+        s_masks = torch.tensor(coerce_packed_sets(init_sets, graph.num_v),
+                               dtype=torch.int32, device=device)
+    if s_masks.shape != (k, W):
+        raise ValueError(f"init_sets packs to {tuple(s_masks.shape)}, "
+                         f"expected ({k}, {W})")
+    return s_masks, torch.zeros(k, dtype=torch.int32, device=device)
+
+
+def _rebuild_nbr(widx: torch.Tensor, vals: torch.Tensor,
+                 tr_ids: torch.Tensor, tr_masks: torch.Tensor) -> torch.Tensor:
+    """Densify a block's bitmask from its compact word lists into a
+    (B + 1, W) buffer whose last row is an all-zero sink.
+
+    A scatter-add: padding slots add 0 into word 0, and a row's real words
+    are distinct, so add equals OR.  Truncated rows are then overwritten
+    with their full masks; padding entries (``tr_ids == B``) land in the
+    sink, which is zeroed last.  The first B rows are a contiguous view.
+    """
+    B, cap = widx.shape
+    W = tr_masks.shape[-1]
+    nbr = torch.zeros((B + 1, W), dtype=torch.int32, device=widx.device)
+    rows = torch.arange(B, device=widx.device, dtype=torch.int64)[:, None] * W
+    nbr.view(-1).index_add_(0, (rows + widx).view(-1), vals.reshape(-1))
+    nbr[tr_ids.long()] = tr_masks
+    nbr[B] = 0
+    return nbr
+
+
+def _select_round(nbr, retired, parts, s_masks, sizes, order, enabled,
+                  inv) -> None:
+    """One greedy round over slots ``order``, committed in place: S_i |=
+    N(u), sizes, parts, retirement.  ``inv`` maps partitions to slots
+    (None for the identity order)."""
+    B = nbr.shape[0] - 1
+    u_sel, c_sel = parsa_cost_select(nbr[:B], s_masks, retired[:B],
+                                     order=order, enabled=enabled)
+    act = c_sel < BIG
+    idx = torch.where(act, u_sel, B).long()   # inactive slots → sink row
+    picked = nbr[idx]                          # (k, W); sink row is zero
+    if inv is None:
+        s_masks |= picked
+        sizes += act
+    else:
+        s_masks |= picked[inv]
+        sizes += act[inv]
+    parts[idx] = order                         # slot j's partition
+    retired[idx] = True
+
+
+def _assign_block_rounds(
+    nbr: torch.Tensor,       # (B + 1, W) int32 from _rebuild_nbr
+    retired: torch.Tensor,   # (B + 1,) bool, padding rows and sink True
+    parts: torch.Tensor,     # (B + 1,) int32, -1 — written in place
+    s_masks: torch.Tensor,   # (k, W) int32 — updated in place
+    sizes: torch.Tensor,     # (k,) int32 — updated in place
+    iota_k: torch.Tensor,    # (k,) int32 0..k-1
+    en_all: torch.Tensor,    # (k,) bool, all True
+) -> None:
+    """Greedy-assign a block in balanced rounds: the catch-up round (visit
+    order = stable argsort of sizes, only min-sized partitions enabled),
+    then ⌈(B−1)/k⌉ full rounds in index order (the catch-up may assign as
+    little as one row)."""
+    B, k = nbr.shape[0] - 1, iota_k.shape[0]
+    ord0 = torch.argsort(sizes, stable=True)
+    en0 = sizes[ord0] == sizes.min()
+    _select_round(nbr, retired, parts, s_masks, sizes,
+                  ord0.to(torch.int32), en0, torch.argsort(ord0))
+    for _ in range(-(-(B - 1) // k)):
+        _select_round(nbr, retired, parts, s_masks, sizes, iota_k, en_all,
+                      None)
+
+
+def _partition_scan(
+    widx: torch.Tensor,      # (n_blocks, B, cap) int32
+    vals: torch.Tensor,      # (n_blocks, B, cap) int32
+    tr_ids: torch.Tensor,    # (n_blocks, TB) int32
+    tr_masks: torch.Tensor,  # (n_blocks, TB, W) int32
+    valid: torch.Tensor,     # (n_blocks, B) bool
+    s_masks: torch.Tensor,   # (k, W) int32 — carried, updated in place
+    sizes: torch.Tensor,     # (k,) int32 — carried, updated in place
+) -> torch.Tensor:
+    """Scan the blocks in order, carrying (S, sizes) on the device.
+    Returns parts (n_blocks, B) int32 in packed row order."""
+    nb, B = valid.shape
+    k = s_masks.shape[0]
+    dev = s_masks.device
+    parts = torch.full((nb, B + 1), -1, dtype=torch.int32, device=dev)
+    retired = torch.ones((nb, B + 1), dtype=torch.bool, device=dev)
+    retired[:, :B] = ~valid
+    iota_k = torch.arange(k, dtype=torch.int32, device=dev)
+    en_all = torch.ones(k, dtype=torch.bool, device=dev)
+    for b in range(nb):
+        nbr = _rebuild_nbr(widx[b], vals[b], tr_ids[b], tr_masks[b])
+        _assign_block_rounds(nbr, retired[b], parts[b], s_masks, sizes,
+                             iota_k, en_all)
+    return parts[:, :B]
+
+
+def blocked_partition_u_impl(
+    graph: BipartiteGraph,
+    k: int,
+    block: int = 256,
+    init_sets: np.ndarray | torch.Tensor | None = None,
+    seed: int = 0,
+    cap: int = 48,
+    device: str | torch.device = "cuda",
+    timings: dict | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Blocked greedy partition of U on ``device``.
+    Returns (parts_u (|U|,) int32, final packed s_masks (k, W) int32), both
+    on ``device``.
+
+    Packs the permuted U once on the host (vertex order
+    ``default_rng(seed).permutation(|U|)``, as in the JAX package), moves
+    the compact lists to the device and scans the blocks there.
+    ``init_sets`` may be dense (k, |V|) bool or packed (k, W) words.  A
+    ``timings`` dict receives the host ``"pack"`` seconds.
+    """
+    device = torch.device(device)
+    t_pack = time.perf_counter()
+    s_masks, sizes = _init_state(graph, k, init_sets, device)
+    order = np.random.default_rng(seed).permutation(graph.num_u)
+    packed = pack_graph_blocks(graph, block, order=order, cap=cap)
+    if timings is not None:
+        timings["pack"] = time.perf_counter() - t_pack
+    with phase("partition_scan", nbytes=s_masks.nbytes + sizes.nbytes,
+               k=k, blocks=packed.valid.shape[0]):
+        parts_blocks = _partition_scan(
+            torch.from_numpy(packed.widx).to(device),
+            torch.from_numpy(packed.vals).to(device),
+            torch.from_numpy(packed.tr_ids).to(device),
+            torch.from_numpy(packed.tr_masks).to(device),
+            torch.from_numpy(packed.valid).to(device),
+            s_masks, sizes)
+        parts = torch.empty(graph.num_u, dtype=torch.int32, device=device)
+        parts[torch.from_numpy(order).to(device)] = \
+            parts_blocks.reshape(-1)[: graph.num_u]
+    return parts, s_masks

@@ -1,0 +1,31 @@
+"""Packed-bitmask Parsa kernels: hand-written CUDA for Hopper (``csrc/``),
+their wrappers (``ops``), plain PyTorch versions (``ref``) and the numpy
+packers of the wire format (``pack``)."""
+from .ops import (  # noqa: F401
+    LAUNCHES,
+    REFINE_MAX_K,
+    SELECT_MAX_B,
+    SELECT_MAX_K,
+    parsa_cost,
+    parsa_cost_select,
+    parsa_select_reduce,
+    parsa_select_tile,
+    refine_sweep_chunk,
+    reset_launch_counts,
+)
+from .pack import (  # noqa: F401
+    coerce_packed_sets,
+    pack_bitmask,
+    pack_bitmask_csr_sparse,
+    unpack_bitmask,
+)
+from .ref import (  # noqa: F401
+    BIG,
+    parsa_cost_ref,
+    parsa_select_greedy_ref,
+    parsa_select_ref,
+    popcount32,
+    refine_sweep_ref,
+    select_from_cost,
+    select_greedy_from_cost,
+)

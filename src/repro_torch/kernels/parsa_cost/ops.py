@@ -1,0 +1,203 @@
+"""Wrappers of the hand-written CUDA kernels in ``csrc/``.
+
+The device of the tensors decides: a CUDA tensor launches the kernel (or
+raises), a CPU tensor runs the plain PyTorch version from ``ref.py``.  There
+is no fallback from one to the other, and no ``use_kernel`` / ``interpret``
+switch as in the JAX package.  Each wrapper checks device, dtype, shape and
+contiguity, allocates its outputs (and the select tile's scratch) with
+``torch.empty``, launches on ``torch.cuda.current_stream()`` without a
+synchronize, and raises if the launch returns a CUDA error.
+
+``LAUNCHES`` counts kernel launches, one entry per kernel, bumped only where
+that kernel is launched; ``reset_launch_counts`` zeroes it.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import build
+from .ref import (
+    parsa_cost_ref,
+    refine_sweep_ref,
+    select_from_cost,
+    select_greedy_from_cost,
+)
+
+__all__ = ["LAUNCHES", "reset_launch_counts", "parsa_cost",
+           "parsa_select_tile", "parsa_select_reduce", "parsa_cost_select",
+           "refine_sweep_chunk", "SELECT_MAX_B", "SELECT_MAX_K",
+           "REFINE_MAX_K"]
+
+# parsa_select_reduce keeps each thread's retired rows in one 32-bit mask
+# over at most 1024 threads; the slot loop itself takes any k, capped here
+# so an absurd k fails loudly instead of running for minutes.
+SELECT_MAX_B = 32 * 1024
+SELECT_MAX_K = 1024
+# refine_sweep holds k costs in 32 lanes × at most 32 registers
+REFINE_MAX_K = 1024
+
+LAUNCHES: dict[str, int] = {"parsa_cost": 0, "parsa_select_tile": 0,
+                            "parsa_select_reduce": 0, "refine_sweep": 0}
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _ptr(t: torch.Tensor | None) -> ctypes.c_void_p:
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
+
+
+def _launch(entry: str, *args) -> None:
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    rc = build.load(entry)(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{entry}: kernel launch failed with CUDA error {rc}")
+    LAUNCHES[entry] += 1
+
+
+def _check(name: str, t: torch.Tensor, dtype: torch.dtype, ndim: int,
+           device: torch.device) -> None:
+    if t.dtype != dtype or t.dim() != ndim:
+        raise ValueError(f"{name} must be a {ndim}-D {dtype} tensor, got "
+                         f"{t.dim()}-D {t.dtype}")
+    if t.device != device:
+        raise ValueError(f"{name} lies on {t.device}, expected {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _on_cuda(device: torch.device) -> bool:
+    if device.type == "cpu":
+        return False
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
+    if device.index is not None and device.index != torch.cuda.current_device():
+        raise ValueError(f"tensors lie on {device} but the current CUDA "
+                         f"device is {torch.cuda.current_device()}")
+    return True
+
+
+def parsa_cost(nbr_masks: torch.Tensor, s_masks: torch.Tensor) -> torch.Tensor:
+    """cost[u, i] = |N(u) \\ S_i|: (U, W), (K, W) int32 words → (U, K) int32."""
+    dev = nbr_masks.device
+    _check("nbr_masks", nbr_masks, torch.int32, 2, dev)
+    _check("s_masks", s_masks, torch.int32, 2, dev)
+    (U, W), K = nbr_masks.shape, s_masks.shape[0]
+    if s_masks.shape[1] != W:
+        raise ValueError(f"word widths differ: {W} vs {s_masks.shape[1]}")
+    if not _on_cuda(dev):
+        return parsa_cost_ref(nbr_masks, s_masks)
+    out = torch.empty((U, K), dtype=torch.int32, device=dev)
+    if U and K:
+        _launch("parsa_cost", _ptr(nbr_masks), _ptr(s_masks), U, K, W,
+                _ptr(out))
+    return out
+
+
+def parsa_select_tile(nbr_masks: torch.Tensor, s_masks: torch.Tensor
+                      ) -> torch.Tensor:
+    """The select's cost tile, transposed: (B, W), (k, W) → (k, B) int32."""
+    dev = nbr_masks.device
+    _check("nbr_masks", nbr_masks, torch.int32, 2, dev)
+    _check("s_masks", s_masks, torch.int32, 2, dev)
+    (B, W), k = nbr_masks.shape, s_masks.shape[0]
+    if s_masks.shape[1] != W:
+        raise ValueError(f"word widths differ: {W} vs {s_masks.shape[1]}")
+    if not 1 <= B <= SELECT_MAX_B or not 1 <= k <= SELECT_MAX_K:
+        raise ValueError(f"select takes 1 <= B <= {SELECT_MAX_B} and "
+                         f"1 <= k <= {SELECT_MAX_K}, got B={B}, k={k}")
+    if not _on_cuda(dev):
+        return parsa_cost_ref(nbr_masks, s_masks).T.contiguous()
+    tile = torch.empty((k, B), dtype=torch.int32, device=dev)
+    _launch("parsa_select_tile", _ptr(nbr_masks), _ptr(s_masks), B, k, W,
+            _ptr(tile))
+    return tile
+
+
+def parsa_select_reduce(
+    tile_t: torch.Tensor,               # (k, B) int32 from parsa_select_tile
+    retired: torch.Tensor,              # (B,) bool
+    order: torch.Tensor | None = None,  # (k,) int32 → greedy-round mode
+    enabled: torch.Tensor | None = None,  # (k,) bool slot gate (greedy mode)
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Reduce a transposed cost tile.  Independent mode (``order is None``)
+    → ((k,) mins, (k,) argmins) over unretired rows; greedy mode → ((k,)
+    u_sel, (k,) c_sel) of one round in ``order`` with progressive
+    retirement, (-1, BIG) for an inactive slot.  Ties go to the lowest row.
+    """
+    dev = tile_t.device
+    _check("tile_t", tile_t, torch.int32, 2, dev)
+    k, B = tile_t.shape
+    _check("retired", retired, torch.bool, 1, dev)
+    if retired.shape[0] != B:
+        raise ValueError(f"retired has {retired.shape[0]} rows, tile has {B}")
+    if not 1 <= B <= SELECT_MAX_B or not 1 <= k <= SELECT_MAX_K:
+        raise ValueError(f"select takes 1 <= B <= {SELECT_MAX_B} and "
+                         f"1 <= k <= {SELECT_MAX_K}, got B={B}, k={k}")
+    greedy = order is not None
+    if greedy:
+        _check("order", order, torch.int32, 1, dev)
+        if enabled is None:
+            enabled = torch.ones(k, dtype=torch.bool, device=dev)
+        _check("enabled", enabled, torch.bool, 1, dev)
+        if order.shape[0] != k or enabled.shape[0] != k:
+            raise ValueError(f"order and enabled must have {k} slots")
+    if not _on_cuda(dev):
+        if greedy:
+            return select_greedy_from_cost(tile_t.T, retired, order, enabled)
+        return select_from_cost(tile_t.T, retired)
+    out_a = torch.empty(k, dtype=torch.int32, device=dev)
+    out_b = torch.empty(k, dtype=torch.int32, device=dev)
+    _launch("parsa_select_reduce", _ptr(tile_t), _ptr(retired),
+            _ptr(order if greedy else None), _ptr(enabled if greedy else None),
+            B, k, int(greedy), _ptr(out_a), _ptr(out_b))
+    return out_a, out_b
+
+
+def parsa_cost_select(
+    nbr_masks: torch.Tensor,   # (B, W) int32 packed N(u)
+    s_masks: torch.Tensor,     # (k, W) int32 packed S_i
+    retired: torch.Tensor,     # (B,) bool — rows excluded from selection
+    *,
+    order: torch.Tensor | None = None,    # (k,) int32 → greedy-round mode
+    enabled: torch.Tensor | None = None,  # (k,) bool slot gate (greedy mode)
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused cost+select: per-partition (min, argmin) of the (B, k) cost tile.
+
+    Independent mode (``order is None``) returns ((k,) mins, (k,) argmins);
+    greedy mode returns ((k,) u_sel, (k,) c_sel) with u_sel = -1 /
+    c_sel = BIG for inactive slots — the contract of the JAX
+    ``parsa_cost_select``.  On CUDA it is two launches, the tile through L2
+    then a one-CTA reduction.
+    """
+    return parsa_select_reduce(parsa_select_tile(nbr_masks, s_masks),
+                               retired, order, enabled)
+
+
+def refine_sweep_chunk(
+    tile_words: torch.Tensor,  # (k, cw) int32 packed need bits of one V chunk
+    prev: torch.Tensor,        # (C,) int32 entering assignments, C == 32·cw
+    cost: torch.Tensor,        # (k,) int32 Alg 2 cost vector
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """One Algorithm 2 chunk sweep → (cost' (k,), parts (C,)), int32."""
+    dev = tile_words.device
+    _check("tile_words", tile_words, torch.int32, 2, dev)
+    _check("prev", prev, torch.int32, 1, dev)
+    _check("cost", cost, torch.int32, 1, dev)
+    k, cw = tile_words.shape
+    if not 1 <= k <= REFINE_MAX_K or cw < 1:
+        raise ValueError(f"refine_sweep takes 1 <= k <= {REFINE_MAX_K} and "
+                         f"cw >= 1, got k={k}, cw={cw}")
+    if prev.shape[0] != 32 * cw or cost.shape[0] != k:
+        raise ValueError(f"prev must have {32 * cw} entries and cost {k}")
+    if not _on_cuda(dev):
+        return refine_sweep_ref(tile_words, prev, cost)
+    parts = torch.empty(32 * cw, dtype=torch.int32, device=dev)
+    cost_out = torch.empty(k, dtype=torch.int32, device=dev)
+    _launch("refine_sweep", _ptr(tile_words), _ptr(prev), _ptr(cost), k, cw,
+            _ptr(parts), _ptr(cost_out))
+    return cost_out, parts

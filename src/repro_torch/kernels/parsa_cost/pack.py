@@ -1,0 +1,128 @@
+"""Host-side (numpy) bitmask packers: the packed little-endian int32 wire
+format, ``(rows, ⌈|V|/32⌉)`` words, bit ``j % 32`` of word ``j // 32``.
+
+Copies of the packers in ``repro.kernels.parsa_cost.ops`` so both packages
+put the same bits in the same words.
+"""
+from __future__ import annotations
+
+import numpy as np
+
+__all__ = ["pack_bitmask", "unpack_bitmask", "coerce_packed_sets",
+           "pack_bitmask_csr_sparse"]
+
+
+def pack_bitmask(ids_per_row: list[np.ndarray] | np.ndarray, num_v: int) -> np.ndarray:
+    """Pack per-row V-id sets (or a (rows, num_v) bool matrix) into
+    (rows, ceil(num_v/32)) int32 bitmasks."""
+    W = (num_v + 31) // 32
+    if isinstance(ids_per_row, np.ndarray) and ids_per_row.ndim == 2:
+        rows = ids_per_row.shape[0]
+        dense = ids_per_row if ids_per_row.dtype == np.bool_ \
+            else ids_per_row.astype(bool)
+        packed = np.packbits(dense, axis=-1, bitorder="little")  # (rows, ⌈V/8⌉)
+        out = np.zeros((rows, W * 4), dtype=np.uint8)
+        out[:, : packed.shape[1]] = packed
+        return out.view(np.uint32).reshape(rows, W).view(np.int32)
+    out = np.zeros((len(ids_per_row), W), dtype=np.uint32)
+    for r, ids in enumerate(ids_per_row):
+        ids = np.asarray(ids, dtype=np.int64)
+        np.bitwise_or.at(out[r], ids // 32, np.uint32(1) << (ids % 32).astype(np.uint32))
+    return out.view(np.int32)
+
+
+def unpack_bitmask(masks: np.ndarray, num_v: int) -> np.ndarray:
+    """Inverse of ``pack_bitmask``: (rows, W) int32 words → (rows, num_v) bool."""
+    masks = np.ascontiguousarray(masks).view(np.uint32)
+    rows, W = masks.shape
+    bits = np.unpackbits(
+        masks.view(np.uint8).reshape(rows, W * 4), axis=-1, bitorder="little")
+    return bits[:, :num_v].view(np.bool_)
+
+
+def coerce_packed_sets(sets, num_v: int) -> np.ndarray:
+    """Normalize neighbor sets to packed (k, ⌈num_v/32⌉) int32 words.
+    Accepts packed int32/uint32 words (returned as-is, no copy) or a dense
+    (k, num_v) membership matrix."""
+    W = (num_v + 31) // 32
+    a = np.asarray(sets)
+    if a.ndim != 2:
+        raise ValueError(f"neighbor sets must be 2-D, got shape {a.shape}")
+    if a.dtype != np.bool_ and np.issubdtype(a.dtype, np.integer) \
+            and a.shape[1] == W and a.shape[1] != num_v:
+        return a.view(np.int32) if a.dtype == np.uint32 else \
+            a.astype(np.int32, copy=False)
+    if a.shape[1] != num_v:
+        raise ValueError(
+            f"neighbor sets width {a.shape[1]} matches neither num_v="
+            f"{num_v} (dense) nor {W} packed words")
+    return pack_bitmask(a.astype(bool, copy=False), num_v)
+
+
+def _gather_row_cols(
+    indptr: np.ndarray,
+    indices: np.ndarray,
+    rows: np.ndarray | None,
+) -> tuple[int, np.ndarray, np.ndarray, np.ndarray]:
+    """Gather the CSR edge array in (optionally permuted) row order.
+    Returns (n, lens, row_ids, cols)."""
+    indptr = np.asarray(indptr, dtype=np.int64)
+    indices = np.asarray(indices, dtype=np.int64)
+    if rows is None:
+        n = indptr.shape[0] - 1
+        lens = np.diff(indptr)
+        cols = indices
+    else:
+        rows = np.asarray(rows, dtype=np.int64)
+        n = rows.shape[0]
+        lens = indptr[rows + 1] - indptr[rows]
+        total = int(lens.sum())
+        ends = np.cumsum(lens)
+        offs = np.arange(total, dtype=np.int64) - np.repeat(ends - lens, lens)
+        cols = indices[np.repeat(indptr[rows], lens) + offs]
+    row_ids = np.repeat(np.arange(n, dtype=np.int64), lens)
+    return n, lens, row_ids, cols
+
+
+def pack_bitmask_csr_sparse(
+    indptr: np.ndarray,
+    indices: np.ndarray,
+    num_v: int,
+    rows: np.ndarray | None = None,
+    cap: int = 48,
+) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray, np.ndarray, int, int]:
+    """Sparse packing in one sorted pass: the bitmask as (distinct flat word
+    index, word value) pairs plus per-row compact word lists of at most
+    ``cap`` words.
+
+    Returns (uniq (nnz,) int64 flat indices into the (n, W) mask,
+    wordvals (nnz,) int32, widx (n, cap) int32, vals (n, cap) int32,
+    truncated (n,) bool, n, W).  Padding slots point at word 0 with value 0.
+    """
+    n, _, row_ids, cols = _gather_row_cols(indptr, indices, rows)
+    W = (num_v + 31) // 32
+    widx = np.zeros((n, cap), dtype=np.int32)
+    vals = np.zeros((n, cap), dtype=np.uint32)
+    if cols.size == 0:
+        return (np.zeros(0, np.int64), np.zeros(0, np.int32), widx,
+                vals.view(np.int32), np.zeros(n, bool), n, W)
+    fw = row_ids * W + (cols >> 5)            # flat (row, word) key per edge
+    bit = (np.int64(1) << (cols & 31)).astype(np.uint32)
+    srt = np.argsort(fw, kind="stable")
+    fs, bs = fw[srt], bit[srt]
+    boundary = np.empty(fs.size, bool)
+    boundary[0] = True
+    np.not_equal(fs[1:], fs[:-1], out=boundary[1:])
+    first = np.flatnonzero(boundary)
+    uniq = fs[first]                          # distinct (row, word), sorted
+    acc = np.bitwise_or.reduceat(bs, first)   # the word values
+    r = uniq // W
+    counts = np.bincount(r, minlength=n)
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    pos = np.arange(uniq.size, dtype=np.int64) - starts[r]
+    keep = pos < cap
+    flat = r[keep] * cap + pos[keep]
+    widx.reshape(-1)[flat] = (uniq[keep] % W).astype(np.int32)
+    vals.reshape(-1)[flat] = acc[keep]
+    return (uniq, acc.view(np.int32), widx, vals.view(np.int32),
+            counts > cap, n, W)
