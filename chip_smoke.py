@@ -18,12 +18,24 @@ Phases, in order; any failure exits non-zero:
    with its launch counts, held to the numpy oracles and to the
    host_blocked_oracle backend on the card;
 4. cpu against cuda on a reduced graph, both backends, every output equal;
-5. each kernel timed at the main path's shapes (CUDA events, median of 21
+5. the sketch path (``set_repr="sketch"``): the acceptance geometry of
+   ``benchmarks/bench_sketch.py`` (``ctr_like(1_000_000, 100_000_000,
+   nnz_per_row=10, seed=11)``, k=16, B=1024, 65,536 hot and 65,536 bucket
+   bits, so 4,096 words) with its launch counts, held to the numpy oracles
+   on the sketched graph; the exact collapse on the main graph, equal to
+   phase 3; the quality band of the sketch against the exact run, scored
+   on the true graph (reported); cpu against cuda on a reduced sketched
+   graph, both backends;
+6. each kernel timed at the main path's shapes (CUDA events, median of 21
    samples after warm-up; ``ms`` from launches replayed in a CUDA graph,
    ``eager_ms`` from launches made one by one from Python) beside its bound
-   and its plain version, then a window of the scan and the whole refine
-   under ``torch.profiler``: device kernels per round and the device's idle
-   share.
+   and its plain version (``sketch_select`` at the sketch path's shape and
+   at the main path's), then a window of the scan, of the sketched scan
+   and the whole refine under ``torch.profiler``: device kernels per round
+   and the device's idle share.
+
+``--phases build,kernels,sketch`` is a short check of the sketch kernel
+and path (it prints no result and exits 1).
 
 The last lines are the card, one ``{"kernels": [...]}`` JSON line and
 ``{"ok": true, "device": {...}}``.
@@ -39,7 +51,7 @@ import sys
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
-PHASES = ("build", "kernels", "main", "parity", "times")
+PHASES = ("build", "kernels", "main", "parity", "sketch", "times")
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, and the non-tensor fp32
 # rate, the only CUDA-core rate in that sheet; int32 and popcount work is
@@ -53,6 +65,25 @@ K = 16
 BLOCK = 256
 PROFILE_BLOCKS = 8  # scan blocks in the profiled window
 
+# the sketch path: bench_sketch.py's acceptance geometry (10^8 features,
+# 2^17 sketched bits), its quality-band graph and a reduced graph for cpu
+# against cuda.  Only num_impressions of SKETCH_GRAPH may be cut to fit
+# the time limit; |V| and the hot and bucket bits stay.
+SKETCH_GRAPH = dict(num_impressions=1_000_000, num_features=100_000_000,
+                    nnz_per_row=10, seed=11)
+SKETCH_BITS = 65_536         # hot bits = bucket bits
+SKETCH_BLOCK = 1024
+BAND_GRAPH = dict(num_impressions=20_000, num_features=100_000,
+                  nnz_per_row=25, seed=7)
+BAND_BITS = 8192
+SKETCH_SMALL_GRAPH = dict(num_impressions=4_000, num_features=200_000,
+                          nnz_per_row=25, seed=1)
+SKETCH_SMALL_BITS = 2048
+# the sketch's true-graph traffic_max may exceed the exact run's by at most
+# this percentage at the band geometry: SKETCH_MAX_QUALITY_PCT of
+# benchmarks/common.py:40.  Reported here, not gated.
+SKETCH_MAX_QUALITY_PCT = 5.0
+
 # which TPU kernel each CUDA kernel replaces (repro/ file:line of the
 # pallas_call wrapper), and its source in this repository
 KERNELS = {
@@ -64,6 +95,8 @@ KERNELS = {
                             "src/repro_torch/kernels/parsa_cost/csrc/parsa_select.cu"),
     "refine_sweep": ("src/repro/kernels/parsa_cost/select.py:263",
                      "src/repro_torch/kernels/parsa_cost/csrc/refine_sweep.cu"),
+    "sketch_select": ("src/repro/kernels/parsa_cost/select.py:186",
+                      "src/repro_torch/kernels/parsa_cost/csrc/sketch_select.cu"),
 }
 
 
@@ -122,7 +155,7 @@ def phase_kernels(dev) -> dict:
 
     from repro_torch.kernels.parsa_cost import (
         ops, parsa_cost_ref, refine_sweep_ref, select_from_cost,
-        select_greedy_from_cost)
+        select_greedy_from_cost, sketch_select_ref)
 
     rng = np.random.default_rng(0)
     res = {name: {"cases": 0, "max_abs_err": 0} for name in KERNELS}
@@ -140,6 +173,28 @@ def phase_kernels(dev) -> dict:
 
     def T(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def check_sketch_select(nbr, s, retired, order, enabled, greedy, case):
+        """One sketch_cost_select against sketch_select_ref, and the route
+        it took: sketch_select inside the guard, parsa_select past it."""
+        kw = dict(order=order, enabled=enabled) if greedy else {}
+        before = dict(ops.LAUNCHES)
+        got = ops.sketch_cost_select(nbr, s, retired, **kw)
+        moved = {n: ops.LAUNCHES[n] - before[n] for n in ops.LAUNCHES
+                 if ops.LAUNCHES[n] != before[n]}
+        u, c = sketch_select_ref(nbr, s, retired, *kw.values(),
+                                 greedy=greedy)
+        compare("sketch_select", got,
+                (u[0], c[0]) if greedy else (c[0], u[0]), case)
+        B, k = nbr.shape[0], s.shape[0]
+        if ops.sketch_select_fits(B, k):
+            check(moved == {"sketch_select": 1},
+                  f"sketch_select {case}: launched {moved}")
+        else:
+            check(moved == {"parsa_select_tile": 1, "parsa_select_reduce": 1},
+                  f"sketch_select {case} past the guard: launched {moved}")
+            res["sketch_select"]["routed_past_guard"] += 1
+        return got
 
     for U in (7, 256, 1000):
         for Kc in (3, 16, 64):
@@ -185,6 +240,44 @@ def phase_kernels(dev) -> dict:
         parsa_cost_ref(nbr, s), retired, order, enabled), "cascade")
     check(len(set(u.tolist())) == k and bool((c < 2**30).all()),
           "cascade: picks are not k distinct active rows")
+    torch.cuda.synchronize()
+
+    # sketch_select: one launch per round inside its shared-memory guard,
+    # the two parsa_select launches past it (B=1024, k=64), same bits
+    res["sketch_select"]["routed_past_guard"] = 0
+    words = {"sparse": lambda B, W: sparse_rows(rng, B, 32 * W, max_len=30),
+             "full": lambda B, W: rand_words(rng, (B, W)),
+             "bit31": lambda B, W: rand_words(rng, (B, W), 0.1)
+             | np.int32(-2**31)}
+    for B in (8, 256, 1024):
+        for k in (1, 8, 16, 64):
+            for W, kind in ((12, "sparse"), (37, "bit31"), (131, "full"),
+                            (4096, "sparse")):
+                if W == 4096 and k > 16:
+                    continue
+                nbr = T(words[kind](B, W))
+                s = T(rand_words(rng, (k, W), 0.2)
+                      | (np.int32(-2**31) if kind == "bit31" else 0))
+                retired = T(rng.random(B) < 0.3)
+                order = T(rng.permutation(k).astype(np.int32))
+                enabled = T(rng.random(k) < 0.8)
+                for greedy in (False, True):
+                    case = (B, k, W, kind, "greedy" if greedy else "indep")
+                    check_sketch_select(nbr, s, retired, order, enabled,
+                                        greedy, case)
+    # the all-identical-columns cascade, inside and past the guard
+    for B, k in ((1024, 16), (256, 64), (1024, 64)):
+        nbr = T(sparse_rows(rng, B, 32 * 4096, max_len=25))
+        s = torch.zeros((k, 4096), dtype=torch.int32, device=dev)
+        retired = torch.zeros(B, dtype=torch.bool, device=dev)
+        order = torch.arange(k, dtype=torch.int32, device=dev)
+        enabled = torch.ones(k, dtype=torch.bool, device=dev)
+        u, c = check_sketch_select(nbr, s, retired, order, enabled, True,
+                                   (B, k, "cascade"))
+        check(len(set(u.tolist())) == k and bool((c < 2**30).all()),
+              f"sketch_select cascade {B, k}: picks are not k distinct rows")
+    check(res["sketch_select"]["routed_past_guard"] > 0,
+          "no sketch_select case past the guard")
     torch.cuda.synchronize()
 
     # the main path's chunk width, plus the largest k the wrapper takes
@@ -238,6 +331,8 @@ def phase_main(dev) -> dict:
           f"refine_sweep launches {launches['refine_sweep']} != "
           f"{n_chunks * cfg.sweeps}")
     check(launches["parsa_cost"] == 0, "parsa_cost ran on the scan path")
+    check(launches["sketch_select"] == 0,
+          "sketch_select ran on the exact path")
 
     sizes = np.bincount(res.parts_u, minlength=K)
     check(int(sizes.max() - sizes.min()) <= 1, f"unbalanced sizes {sizes}")
@@ -275,6 +370,18 @@ def phase_main(dev) -> dict:
 
 
 # ---------------------------------------------------------------- phase 4
+def same_result(a, b, what: str) -> None:
+    """Every output of two partition() results equal, bit for bit."""
+    import numpy as np
+
+    for name in ("parts_u", "s_masks", "parts_v"):
+        check(np.array_equal(getattr(a, name), getattr(b, name)),
+              f"{what}: {name} differs")
+    for f in ("sizes", "footprint", "traffic", "worker_recv", "server_send"):
+        check(np.array_equal(getattr(a.metrics, f), getattr(b.metrics, f)),
+              f"{what}: metrics.{f} differs")
+
+
 def phase_parity(dev) -> None:
     import numpy as np
 
@@ -296,14 +403,7 @@ def phase_parity(dev) -> None:
         if backend == "host_blocked_oracle":
             hbo_launches = dict(ops.LAUNCHES)
         t2 = time.perf_counter()
-        for name in ("parts_u", "s_masks", "parts_v"):
-            check(np.array_equal(getattr(rc, name), getattr(rg, name)),
-                  f"{backend}: {name} differs between cpu and cuda")
-        for f in ("sizes", "footprint", "traffic", "worker_recv",
-                  "server_send"):
-            check(np.array_equal(getattr(rc.metrics, f),
-                                 getattr(rg.metrics, f)),
-                  f"{backend}: metrics.{f} differs between cpu and cuda")
+        same_result(rc, rg, f"{backend}: cpu vs cuda")
         if ref is not None:
             check(np.array_equal(ref.parts_u, rg.parts_u),
                   "host_blocked_oracle != device_scan on the reduced graph")
@@ -315,6 +415,146 @@ def phase_parity(dev) -> None:
 
 
 # ---------------------------------------------------------------- phase 5
+def phase_sketch(dev, main: dict) -> dict:
+    import numpy as np
+
+    from repro_torch.api import ParsaConfig, partition
+    from repro_torch.core.costs import evaluate, need_matrix
+    from repro_torch.core.dispatch import dispatch_counter
+    from repro_torch.core.partition_v import partition_v
+    from repro_torch.graphs import ctr_like, text_like
+    from repro_torch.kernels.parsa_cost import ops, pack_bitmask
+
+    def rounds_of(num_u, block):
+        return -(-num_u // block) * (1 + -(-(block - 1) // K))
+
+    # 1. the acceptance geometry: 10^8 features, 4,096 sketched words
+    t0 = time.perf_counter()
+    g = ctr_like(**SKETCH_GRAPH)
+    log(f"sketch graph: |U|={g.num_u} |V|={g.num_v} |E|={g.num_edges} "
+        f"(generated in {time.perf_counter() - t0:.2f} s)")
+    cfg = ParsaConfig(k=K, backend="device_scan", block_size=SKETCH_BLOCK,
+                      refine_backend="device", sweeps=2, set_repr="sketch",
+                      sketch_hot_bits=SKETCH_BITS,
+                      sketch_bucket_bits=SKETCH_BITS)
+    ops.reset_launch_counts()
+    with dispatch_counter() as counts:
+        res = partition(g, cfg, device=dev)
+    launches = dict(ops.LAUNCHES)
+    sk = res.sketch
+    log(f"sketch path: width {sk.width_bits} bits = {sk.width_words} words "
+        f"({sk.compression:.1f}x narrower than {(g.num_v + 31) // 32}); "
+        f"dispatches {dict(counts)}; kernel launches per phase "
+        f"{counts.launches}")
+    log("sketch path timings (s): " + json.dumps(res.timings))
+    rounds = rounds_of(g.num_u, SKETCH_BLOCK)
+    n_chunks = -(-sk.width_words // (cfg.refine_chunk // 32))
+    check(launches["sketch_select"] == rounds,
+          f"sketch_select launches {launches['sketch_select']} != {rounds}")
+    check(launches["parsa_select_tile"] == 0
+          and launches["parsa_select_reduce"] == 0,
+          f"parsa_select ran on the sketch path: {launches}")
+    check(launches["refine_sweep"] == n_chunks * cfg.sweeps,
+          f"refine_sweep launches {launches['refine_sweep']} != "
+          f"{n_chunks * cfg.sweeps}")
+    check(dict(counts) == {"partition_scan": 1, "refine_scan": 1,
+                           "metrics": 1}, f"dispatches {dict(counts)}")
+    t0 = time.perf_counter()
+    sizes = np.bincount(res.parts_u, minlength=K)
+    check(int(sizes.max() - sizes.min()) <= 1, f"unbalanced sizes {sizes}")
+    run_graph = sk.sketch_graph(g)
+    need = need_matrix(run_graph, res.parts_u, K)
+    check(np.array_equal(res.s_masks, pack_bitmask(need, run_graph.num_v)),
+          "sketch s_masks != packed N(U_i) of the sketched graph")
+    want_v = partition_v(run_graph, res.parts_u, K, sweeps=2, need=need)
+    check(res.parts_v.shape == (g.num_v,),
+          f"expanded parts_v has shape {res.parts_v.shape}")
+    check(np.array_equal(res.parts_v[sk.hot_ids], want_v[:sk.hot_bits]),
+          "parts_v[hot_ids] != sketch-space partition_v of the hot slots")
+    check(np.array_equal(res.parts_v, sk.expand_parts_v(want_v)),
+          "expanded parts_v != expanded numpy partition_v")
+    mh = evaluate(run_graph, res.parts_u, want_v, K)
+    for f in ("sizes", "footprint", "traffic", "worker_recv", "server_send"):
+        check(np.array_equal(getattr(mh, f), getattr(res.metrics, f)),
+              f"sketch metrics.{f} != numpy evaluate on the sketched graph")
+    log(f"sketch path oracles (balance, S_i = N(U_i), partition_v, expand, "
+        f"evaluate) agree ({time.perf_counter() - t0:.2f} s); sketch-space "
+        f"metrics {res.metrics.as_dict()}")
+    out = {"graph": run_graph, "result": res, "launches": launches,
+           "rounds": rounds}
+
+    # 2. the exact collapse (hot bits >= |V|) equals the exact main path
+    gm = main["graph"] if "graph" in main else text_like(**MAIN_GRAPH)
+    base = ParsaConfig(k=K, backend="device_scan", block_size=BLOCK,
+                       refine_backend="device", sweeps=2)
+    exact = (main["result"] if "result" in main
+             else partition(gm, base, device=dev))
+    ops.reset_launch_counts()
+    col = partition(gm, base.replace(set_repr="sketch",
+                                     sketch_hot_bits=SKETCH_BITS),
+                    device=dev)
+    cl = dict(ops.LAUNCHES)
+    check(col.sketch.is_exact, "main graph sketch is not the exact collapse")
+    same_result(col, exact, "exact collapse vs exact main path")
+    rounds_main = rounds_of(gm.num_u, BLOCK)
+    check(cl["sketch_select"] == rounds_main
+          and cl["parsa_select_tile"] == cl["parsa_select_reduce"] == 0,
+          f"exact collapse launches {cl} (want {rounds_main} sketch_select)")
+    out["collapse_launches"] = cl["sketch_select"]
+    log(f"exact collapse on the main graph equals the exact run; launches "
+        f"{cl}; timings (s) {json.dumps(col.timings)}")
+
+    # 3. the quality band, scored on the true graph (reported, not gated)
+    t0 = time.perf_counter()
+    gb = ctr_like(**BAND_GRAPH)
+    cb = ParsaConfig(k=K, backend="device_scan", block_size=SKETCH_BLOCK,
+                     refine_v=False)
+    band = {}
+    for name, c in (("exact", cb),
+                    ("sketch", cb.replace(set_repr="sketch",
+                                          sketch_hot_bits=BAND_BITS,
+                                          sketch_bucket_bits=BAND_BITS))):
+        r = partition(gb, c, device=dev)
+        pv = partition_v(gb, r.parts_u, K, sweeps=2)
+        band[name] = int(evaluate(gb, r.parts_u, pv, K).traffic_max)
+    pct = (band["sketch"] / band["exact"] - 1.0) * 100.0
+    out["band"] = dict(band, delta_pct=pct)
+    log(f"quality band: true-graph traffic_max sketch {band['sketch']} vs "
+        f"exact {band['exact']} ({pct:+.2f}%; band "
+        f"{SKETCH_MAX_QUALITY_PCT}%, "
+        f"{'inside' if pct <= SKETCH_MAX_QUALITY_PCT else 'OUTSIDE'}; "
+        f"reported, not gated) ({time.perf_counter() - t0:.2f} s)")
+
+    # 4. cpu against cuda on a reduced sketched graph, both backends
+    gs = ctr_like(**SKETCH_SMALL_GRAPH)
+    for backend in ("device_scan", "host_blocked_oracle"):
+        c = ParsaConfig(k=K, backend=backend, block_size=BLOCK,
+                        refine_backend="device", sweeps=2, set_repr="sketch",
+                        sketch_hot_bits=SKETCH_SMALL_BITS,
+                        sketch_bucket_bits=SKETCH_SMALL_BITS)
+        t0 = time.perf_counter()
+        rc = partition(gs, c, device="cpu")
+        t1 = time.perf_counter()
+        ops.reset_launch_counts()
+        rg = partition(gs, c, device=dev)
+        t2 = time.perf_counter()
+        same_result(rc, rg, f"sketched {backend}: cpu vs cuda")
+        check(rc.parts_v.shape == (gs.num_v,) and set(rc.timings)
+              == set(rg.timings), f"sketched {backend}: shapes or timings")
+        for f in ("num_v", "hot_bits", "bucket_bits", "seed"):
+            check(getattr(rc.sketch, f) == getattr(rg.sketch, f),
+                  f"sketched {backend}: sketch.{f} differs")
+        check(np.array_equal(rc.sketch.hot_ids, rg.sketch.hot_ids),
+              f"sketched {backend}: hot_ids differ")
+        kern = "sketch_select" if backend == "device_scan" else "parsa_cost"
+        check(ops.LAUNCHES[kern] > 0, f"sketched {backend} never launched "
+              f"{kern}")
+        log(f"reduced sketched graph {backend}: cpu == cuda (cpu "
+            f"{t1 - t0:.2f} s, cuda {t2 - t1:.2f} s)")
+    return out
+
+
+# ---------------------------------------------------------------- phase 6
 def time_ms(fn, inner: int, samples: int = 21) -> float:
     """Median per-call time over ``samples`` CUDA-event windows of ``inner``
     calls each, after one warm-up call."""
@@ -383,7 +623,7 @@ def profile_window(fn) -> dict:
     ours = collections.defaultdict(list)
     for e in kern:
         for name in ("cost_tile_kernel", "select_reduce_kernel",
-                     "refine_sweep_kernel"):
+                     "sketch_select_kernel", "refine_sweep_kernel"):
             if name in e.name:
                 ours[name].append(e.time_range.elapsed_us())
     out.update(busy_s=busy, idle_share=1 - busy / wall,
@@ -399,6 +639,21 @@ def bound_ms(nbytes: int, nops: int) -> tuple[float, str]:
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
+def head_rows(graph, rows):
+    """The subgraph of ``graph``'s U rows ``rows``, in that order."""
+    import numpy as np
+
+    from repro_torch.core.bipartite import BipartiteGraph
+
+    lens = graph.u_indptr[rows + 1] - graph.u_indptr[rows]
+    indices = np.concatenate([graph.u_indices[graph.u_indptr[r]:
+                                              graph.u_indptr[r + 1]]
+                              for r in rows])
+    indptr = np.concatenate([[0], np.cumsum(lens)]).astype(np.int64)
+    return BipartiteGraph(len(rows), graph.num_v, indptr,
+                          indices.astype(np.int32))
+
+
 def phase_times(dev, main: dict) -> list[dict]:
     import numpy as np
     import torch
@@ -408,7 +663,7 @@ def phase_times(dev, main: dict) -> list[dict]:
     from repro_torch.core.refine import refine_v_device
     from repro_torch.kernels.parsa_cost import (
         ops, parsa_cost_ref, popcount32, refine_sweep_ref,
-        select_greedy_from_cost)
+        select_greedy_from_cost, sketch_select_ref)
 
     g, res = main["graph"], main["result"]
     order = np.random.default_rng(0).permutation(g.num_u)
@@ -417,9 +672,12 @@ def phase_times(dev, main: dict) -> list[dict]:
     def T(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
+    def block0(pk, block):
+        return _rebuild_nbr(T(pk.widx[0]), T(pk.vals[0]), T(pk.tr_ids[0]),
+                            T(pk.tr_masks[0]))[:block]
+
     # block 0 of the main run against the final sets: the select's shapes
-    nbr = _rebuild_nbr(T(packed.widx[0]), T(packed.vals[0]),
-                       T(packed.tr_ids[0]), T(packed.tr_masks[0]))[:BLOCK]
+    nbr = block0(packed, BLOCK)
     s = T(res.s_masks)
     B, W = nbr.shape
     retired = T(np.random.default_rng(1).random(B) < 0.5)
@@ -436,6 +694,24 @@ def phase_times(dev, main: dict) -> list[dict]:
     nz_cols = int((nbr != 0).any(0).sum())
     tile_bytes = 4 * (B * W + K * nz_cols + K * B)
     tile_ops = 3 * nz_words * K
+
+    def measure(kern, plain, inner, plain_inner, nbytes, nops) -> dict:
+        saved = dict(ops.LAUNCHES)
+        ms = time_graph_ms(kern, inner)
+        eager_ms = time_ms(kern, inner)
+        plain_ms = time_ms(plain, plain_inner)
+        ops.LAUNCHES.update(saved)  # timing launches are not path launches
+        b_ms, b_by = bound_ms(nbytes, nops)
+        return {"ms": ms, "eager_ms": eager_ms, "plain_ms": plain_ms,
+                "bound_ms": b_ms, "bound_by": b_by}
+
+    def log_time(name, t, shape=""):
+        log(f"time {name}{shape}: {t['ms'] * 1e3:.2f} us in a CUDA graph, "
+            f"{t['eager_ms'] * 1e3:.2f} us per eager launch (plain "
+            f"{t['plain_ms'] * 1e3:.1f} us, bound {t['bound_ms'] * 1e3:.3f} "
+            f"us by {t['bound_by']}); no single PyTorch call computes it, "
+            f"so library_ms is null")
+
     rows = []
     specs = [
         ("parsa_cost", lambda: ops.parsa_cost(nbr, s),
@@ -453,12 +729,7 @@ def phase_times(dev, main: dict) -> list[dict]:
     ]
     launches = main["launches"]
     for name, kern, plain, inner, plain_inner, nbytes, nops in specs:
-        saved = dict(ops.LAUNCHES)
-        ms = time_graph_ms(kern, inner)
-        eager_ms = time_ms(kern, inner)
-        plain_ms = time_ms(plain, plain_inner)
-        ops.LAUNCHES.update(saved)  # timing launches are not path launches
-        b_ms, b_by = bound_ms(nbytes, nops)
+        t = measure(kern, plain, inner, plain_inner, nbytes, nops)
         rows.append({
             "name": name, "route": "cuda", "source": KERNELS[name][1],
             "replaces": KERNELS[name][0],
@@ -467,13 +738,9 @@ def phase_times(dev, main: dict) -> list[dict]:
                               else "device_scan") + ", main graph",
             "max_abs_err": main["checks"][name]["max_abs_err"],
             "cases": main["checks"][name]["cases"],
-            "ms": ms, "eager_ms": eager_ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            **t, "library_ms": None,
         })
-        log(f"time {name}: {ms * 1e3:.2f} us in a CUDA graph, "
-            f"{eager_ms * 1e3:.2f} us per eager launch (plain "
-            f"{plain_ms * 1e3:.1f} us, bound {b_ms * 1e3:.3f} us by {b_by}); "
-            f"no single PyTorch call computes it, so library_ms is null")
+        log_time(name, t)
     per_round = rows[1]["ms"] + rows[2]["ms"]
     busy = (main["rounds"] * per_round
             + launches["refine_sweep"] * rows[3]["ms"]) / 1e3
@@ -481,21 +748,68 @@ def phase_times(dev, main: dict) -> list[dict]:
     log(f"kernel time on the main path ~ {busy:.4f} s of {wall:.4f} s "
         f"scan+refine wall ({100 * busy / wall:.1f}%)")
 
-    # where the time goes: the first PROFILE_BLOCKS blocks of the scan and
-    # the whole refine, each under torch.profiler
+    # sketch_select at the sketch path's shape (block 0 of the acceptance
+    # run, B=1024, Ws=4096) and at the main path's (B=256, W=2048)
+    sk = main["sketch"]
     nb = PROFILE_BLOCKS
+    sg = sk["graph"]
+    head = np.random.default_rng(0).permutation(sg.num_u)[
+        : nb * SKETCH_BLOCK]
+    packed_s = pack_graph_blocks(head_rows(sg, head), SKETCH_BLOCK)
+    nbr_a = block0(packed_s, SKETCH_BLOCK)
+    s_a = T(sk["result"].s_masks)
+    ret_a = T(np.random.default_rng(1).random(SKETCH_BLOCK) < 0.5)
+    timed = {}
+    for shape, (nb_, s_, r_) in (("acceptance", (nbr_a, s_a, ret_a)),
+                                 ("main", (nbr, s, retired))):
+        Bs, Ws = nb_.shape
+        nz = int((nb_ != 0).sum())
+        timed[shape] = dict(shape=f"B={Bs}, Ws={Ws}, k={K}", **measure(
+            lambda: ops.sketch_cost_select(nb_, s_, r_, order=order_k,
+                                           enabled=enabled),
+            lambda: sketch_select_ref(nb_, s_, r_, order_k, enabled,
+                                      greedy=True),
+            100, 2, 4 * Bs * Ws + 4 * K * Ws + Bs + 8 * K,
+            3 * nz * K + 2 * K * Bs))
+        log_time("sketch_select", timed[shape], f" ({timed[shape]['shape']})")
+    main_t = dict(timed["main"], launches=sk["collapse_launches"],
+                  launches_path="device_scan set_repr=sketch, exact collapse "
+                                "on the main graph")
+    rows.append({
+        "name": "sketch_select", "route": "cuda",
+        "source": KERNELS["sketch_select"][1],
+        "replaces": KERNELS["sketch_select"][0],
+        "launches": sk["launches"]["sketch_select"],
+        "launches_path": "device_scan set_repr=sketch, acceptance graph",
+        "max_abs_err": main["checks"]["sketch_select"]["max_abs_err"],
+        "cases": main["checks"]["sketch_select"]["cases"],
+        **timed["acceptance"], "library_ms": None, "at_main_shape": main_t,
+    })
+    busy_s = sk["rounds"] * timed["acceptance"]["ms"] / 1e3
+    wall_s = sk["result"].timings["partition_u"]
+    log(f"sketch_select time on the sketch path ~ {busy_s:.4f} s of "
+        f"{wall_s:.4f} s scan wall ({100 * busy_s / wall_s:.1f}%)")
+
+    # where the time goes: the first PROFILE_BLOCKS blocks of the scan, of
+    # the sketched scan, and the whole refine, each under torch.profiler
     blocks = [T(x[:nb]) for x in (packed.widx, packed.vals, packed.tr_ids,
                                   packed.tr_masks, packed.valid)]
+    blocks_s = [T(x[:nb]) for x in (packed_s.widx, packed_s.vals,
+                                    packed_s.tr_ids, packed_s.tr_masks,
+                                    packed_s.valid)]
 
-    def scan():
-        _partition_scan(*blocks, torch.zeros((K, W), dtype=torch.int32,
-                                             device=dev),
-                        torch.zeros(K, dtype=torch.int32, device=dev))
+    def scan(bl, width, sketch):
+        _partition_scan(*bl, torch.zeros((K, width), dtype=torch.int32,
+                                         device=dev),
+                        torch.zeros(K, dtype=torch.int32, device=dev), sketch)
 
     parts_u = T(res.parts_u)
     saved = dict(ops.LAUNCHES)
     for name, fn, steps in (
-            ("scan", scan, nb * (1 + -(-(BLOCK - 1) // K))),
+            ("scan", lambda: scan(blocks, W, False),
+             nb * (1 + -(-(BLOCK - 1) // K))),
+            ("sketched scan", lambda: scan(blocks_s, nbr_a.shape[1], True),
+             nb * (1 + -(-(SKETCH_BLOCK - 1) // K))),
             ("refine", lambda: refine_v_device(g, parts_u, K, sweeps=2,
                                                need_words=s),
              launches["refine_sweep"])):
@@ -557,6 +871,10 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         phase_parity(dev)
         log(f"parity phase {time.perf_counter() - t0:.2f} s")
+    if "sketch" in phases:
+        t0 = time.perf_counter()
+        state["sketch"] = phase_sketch(dev, state)
+        log(f"sketch phase {time.perf_counter() - t0:.2f} s")
     if "times" in phases:
         rows = phase_times(dev, state)
         log(f"card: {card}")

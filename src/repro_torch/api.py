@@ -10,6 +10,10 @@ entry point, one result type.
     res.timings["partition_u"]              # wall clock per phase
     res2 = res.refine(tomorrows_graph)      # warm start from res.s_masks
 
+    # sketched server sets: scan, refine and metrics at the sketch's width
+    cfg = ParsaConfig(k=16, set_repr="sketch", sketch_hot_bits=65_536,
+                      sketch_bucket_bits=65_536, refine_backend="device")
+
 The device decides where everything runs: ``partition(..., device="cuda")``
 (the default) launches the hand-written kernels and raises when there is
 no card; ``device="cpu"`` runs their plain PyTorch versions.  The JAX
@@ -30,10 +34,12 @@ from .core.costs import PartitionMetrics, evaluate
 from .core.partition_v import partition_v
 from .core.refine import evaluate_device, refine_v_device
 from .kernels.parsa_cost import unpack_bitmask
+from .sketch import SketchSpec, rank_hot_columns
 
 __all__ = ["ParsaConfig", "PartitionResult", "PartitionMetrics", "partition"]
 
 _REFINE_BACKENDS = ("host", "device")
+_SET_REPRS = ("exact", "sketch")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,6 +51,11 @@ class ParsaConfig:
     seed: int = 0
     block_size: int = 256      # B: vertices greedily assigned per block
     cap: int = 48              # compact word-list width per vertex
+    # sketched server sets (repro_torch.sketch): every phase runs at the
+    # sketch's width, and the scan selects with the one-launch kernel
+    set_repr: str = "exact"    # "exact" | "sketch" (column-compressed sets)
+    sketch_hot_bits: int = 4096    # exact identity slots (top-footprint V)
+    sketch_bucket_bits: int = 8192  # hashed shared slots for the cold tail
     refine_v: bool = True      # run Alg 2 after partition_u
     sweeps: int = 2            # Alg 2 re-assignment sweeps
     refine_backend: str = "host"   # "host" = numpy oracle; "device" = the
@@ -64,6 +75,18 @@ class ParsaConfig:
                 f"{self.block_size}")
         if self.cap <= 0:
             raise ValueError(f"cap must be > 0, got {self.cap}")
+        if self.set_repr not in _SET_REPRS:
+            raise ValueError(
+                f"set_repr must be one of {_SET_REPRS}, got "
+                f"{self.set_repr!r}")
+        if self.sketch_hot_bits < 0 or self.sketch_hot_bits % 32 != 0:
+            raise ValueError(
+                f"sketch_hot_bits must be a nonnegative multiple of 32 "
+                f"(packed word alignment), got {self.sketch_hot_bits}")
+        if self.sketch_bucket_bits <= 0 or self.sketch_bucket_bits % 32 != 0:
+            raise ValueError(
+                f"sketch_bucket_bits must be a positive multiple of 32 "
+                f"(packed word alignment), got {self.sketch_bucket_bits}")
         if self.sweeps < 1:
             raise ValueError(f"sweeps must be >= 1, got {self.sweeps}")
         if self.refine_backend not in _REFINE_BACKENDS:
@@ -85,13 +108,18 @@ class PartitionResult:
 
     parts_u: np.ndarray                 # (|U|,) int32
     parts_v: np.ndarray | None          # (|V|,) int32 or None (refine_v=False)
-    s_masks: np.ndarray                 # (k, ⌈|V|/32⌉) int32 packed sets
-    num_v: int
+    s_masks: np.ndarray                 # (k, ⌈num_v/32⌉) int32 packed sets
+    num_v: int                          # domain of s_masks — the sketched
+                                        #   width when ``sketch`` is set
     k: int
     config: ParsaConfig
     metrics: PartitionMetrics | None    # None for a result converted in
     timings: dict[str, float]           # seconds per phase + "total"
     device: str = "cuda"
+    sketch: SketchSpec | None = None    # set_repr="sketch": the column map
+                                        #   (parts_v is expanded to the TRUE
+                                        #   extent ``sketch.num_v``; metrics
+                                        #   are sketch-space estimates)
 
     @property
     def neighbor_sets(self) -> np.ndarray:
@@ -103,13 +131,20 @@ class PartitionResult:
                ) -> "PartitionResult":
         """Warm-start repartitioning: partition ``graph`` seeding the
         neighbor sets with this result's packed ``s_masks`` (§4.4
-        incremental mode), on this result's device unless told otherwise."""
-        if graph.num_v != self.num_v:
+        incremental mode), on this result's device unless told otherwise.
+
+        A sketched result refines against the TRUE graph and hands its
+        ``SketchSpec`` on, so the new run reuses the same column map (a map
+        re-ranked on the new graph would scramble the warm-start masks)."""
+        if graph.num_v != self.num_v and not (
+                self.sketch is not None
+                and graph.num_v == self.sketch.num_v):
             raise ValueError(
                 f"refine() needs a graph over the same parameter side: "
                 f"result has num_v={self.num_v}, graph has "
                 f"num_v={graph.num_v}")
         return partition(graph, config or self.config, init_sets=self.s_masks,
+                         sketch_spec=self.sketch,
                          device=self.device if device is None else device)
 
 
@@ -123,15 +158,24 @@ def partition(
     config: ParsaConfig,
     *,
     init_sets: np.ndarray | torch.Tensor | None = None,
+    sketch_spec: SketchSpec | None = None,
     device: str | torch.device = "cuda",
 ) -> PartitionResult:
     """Run the Parsa pipeline described by ``config`` on ``graph``.
 
-    Phases: backend partition_u → optional Alg 2 V-refinement → exact
-    metrics.  ``timings`` gets ``pack`` (host packing, device backends),
-    ``partition_u`` (the scan alone), ``partition_v``, ``metrics`` and
-    ``total``; each phase ends in a device synchronize so no phase's
-    queued work leaks into the next one's clock.
+    Phases: optional sketch → backend partition_u → optional Alg 2
+    V-refinement → exact metrics.  ``timings`` gets ``sketch`` (the host
+    column map, ``set_repr="sketch"``), ``pack`` (host packing, device
+    backends), ``partition_u`` (the scan alone), ``partition_v``,
+    ``metrics`` and ``total``; each phase ends in a device synchronize so
+    no phase's queued work leaks into the next one's clock.
+
+    With ``set_repr="sketch"`` the columns are compressed once on the host
+    (``sketch_spec``, else ``SketchSpec.for_graph`` with a footprint-ranked
+    hot set) and every later phase runs on the sketched graph; true-domain
+    ``init_sets`` are compressed too, and ``parts_v`` comes back expanded
+    to the true |V|.  A hash of a union is the union of the hashes, so the
+    scan's set algebra is unchanged: only the packed width shrinks.
 
     With ``refine_backend="device"`` the refinement and metrics run on
     ``device`` over packed words; on a cold start (no ``init_sets``) every
@@ -148,8 +192,30 @@ def partition(
     timings: dict[str, float] = {}
     t_start = time.perf_counter()
 
+    sketch = None
+    run_graph = graph
+    if config.set_repr == "sketch":
+        t0 = time.perf_counter()
+        sketch = sketch_spec
+        if sketch is None:
+            hot_ids = None
+            if 0 < config.sketch_hot_bits < graph.num_v:
+                hot_ids = rank_hot_columns(graph, config.sketch_hot_bits)
+            sketch = SketchSpec.for_graph(
+                graph.num_v, config.sketch_hot_bits,
+                config.sketch_bucket_bits, seed=config.seed,
+                hot_ids=hot_ids)
+        run_graph = sketch.sketch_graph(graph)
+        if init_sets is not None and not sketch.is_exact \
+                and init_sets.shape[1] != sketch.width_words:
+            # true-domain sets: compress them, on the host
+            if isinstance(init_sets, torch.Tensor):
+                init_sets = init_sets.cpu().numpy()
+            init_sets = sketch.sketch_masks(init_sets, graph.num_v)
+        timings["sketch"] = time.perf_counter() - t0
+
     t0 = time.perf_counter()
-    out = backend(graph, config, init_sets=init_sets, device=device)
+    out = backend(run_graph, config, init_sets=init_sets, device=device)
     _sync(device)
     elapsed = time.perf_counter() - t0
     pack_s = (out.timings or {}).get("pack")
@@ -167,33 +233,40 @@ def partition(
         t0 = time.perf_counter()
         if on_device:
             parts_v_dev, need_words = refine_v_device(
-                graph, out.parts_u, config.k, sweeps=config.sweeps,
+                run_graph, out.parts_u, config.k, sweeps=config.sweeps,
                 chunk=config.refine_chunk, need_words=need_words,
                 device=device)
             parts_v = parts_v_dev.cpu().numpy()
         else:
-            parts_v = partition_v(graph, out.parts_u.cpu().numpy(), config.k,
-                                  sweeps=config.sweeps)
+            parts_v = partition_v(run_graph, out.parts_u.cpu().numpy(),
+                                  config.k, sweeps=config.sweeps)
         timings["partition_v"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
     if on_device:
-        metrics = evaluate_device(graph, out.parts_u, parts_v_dev, config.k,
-                                  need_words=need_words, device=device)
+        metrics = evaluate_device(run_graph, out.parts_u, parts_v_dev,
+                                  config.k, need_words=need_words,
+                                  device=device)
     else:
-        metrics = evaluate(graph, out.parts_u.cpu().numpy(), parts_v,
+        metrics = evaluate(run_graph, out.parts_u.cpu().numpy(), parts_v,
                            config.k)
     timings["metrics"] = time.perf_counter() - t0
+    if sketch is not None and parts_v is not None and not sketch.is_exact:
+        # back to the true parameter extent: every real column is served by
+        # the machine of its sketch slot (hot → its exact Alg 2 host,
+        # bucketed tail → hash co-location)
+        parts_v = sketch.expand_parts_v(parts_v)
     timings["total"] = time.perf_counter() - t_start
 
     return PartitionResult(
         parts_u=out.parts_u.cpu().numpy(),
         parts_v=parts_v,
         s_masks=out.s_masks.cpu().numpy(),
-        num_v=graph.num_v,
+        num_v=run_graph.num_v,
         k=config.k,
         config=config,
         metrics=metrics,
         timings=timings,
         device=str(device),
+        sketch=sketch,
     )

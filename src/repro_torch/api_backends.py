@@ -4,7 +4,8 @@ Every strategy is one registered function with the signature
 ``fn(graph, config, init_sets=None, device=...) -> BackendOutput``:
 
   * ``device_scan``         — the blocked rounds pipeline on the device:
-    fused select kernel per round (``blocked_partition_u_impl``).
+    fused select kernel per round (``blocked_partition_u_impl``); with
+    ``set_repr="sketch"`` the one-launch ``sketch_select``.
   * ``host_blocked_oracle`` — the sequential per-block loop, driven by the
     ``parsa_cost`` kernel; the parity oracle of ``device_scan``.
 
@@ -69,11 +70,12 @@ def available_backends() -> list[str]:
 @register_backend("device_scan")
 def device_scan_backend(graph: BipartiteGraph, config, init_sets=None,
                         device="cuda") -> BackendOutput:
-    """Blocked rounds pipeline: one select launch pair per greedy round."""
+    """Blocked rounds pipeline: one fused select per greedy round."""
     timings: dict = {}
     parts_u, s_masks = blocked_partition_u_impl(
         graph, config.k, block=config.block_size, init_sets=init_sets,
-        seed=config.seed, cap=config.cap, device=device, timings=timings)
+        seed=config.seed, cap=config.cap, device=device, timings=timings,
+        sketch=config.set_repr == "sketch")
     return BackendOutput(parts_u, s_masks, timings)
 
 

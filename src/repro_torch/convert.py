@@ -4,7 +4,9 @@ The system's "weights" are partition state: the assignments and the packed
 neighbor sets a run leaves behind, which a later run warm-starts from.
 These helpers take plain numpy arrays (never JAX objects), so a result of
 ``repro.api.partition`` — or arrays saved from one — becomes a port result
-whose ``.refine(g2)`` continues from the same sets.
+whose ``.refine(g2)`` continues from the same sets.  A sketched result also
+carries its column map (``sketch_from_numpy``), so its refine continues in
+the same sketch space.
 """
 from __future__ import annotations
 
@@ -15,8 +17,9 @@ import numpy as np
 from .api import ParsaConfig, PartitionResult
 from .core.bipartite import BipartiteGraph
 from .kernels.parsa_cost import coerce_packed_sets
+from .sketch import SketchSpec
 
-__all__ = ["graph_from_numpy", "result_from_numpy"]
+__all__ = ["graph_from_numpy", "result_from_numpy", "sketch_from_numpy"]
 
 
 def graph_from_numpy(num_u: int, num_v: int, u_indptr, u_indices
@@ -29,14 +32,29 @@ def graph_from_numpy(num_u: int, num_v: int, u_indptr, u_indices
     return g
 
 
+def sketch_from_numpy(num_v: int, hot_bits: int, bucket_bits: int,
+                      seed: int = 0, hot_ids=None) -> SketchSpec:
+    """The port's ``SketchSpec`` from another spec's fields (those of a JAX
+    ``SketchSpec``, as plain numbers and a numpy ``hot_ids``): the same
+    column map, so a warm start lands in the same sketch space."""
+    return SketchSpec(
+        num_v=int(num_v), hot_bits=int(hot_bits),
+        bucket_bits=int(bucket_bits), seed=int(seed),
+        hot_ids=None if hot_ids is None else np.array(hot_ids,
+                                                      dtype=np.int64))
+
+
 def result_from_numpy(parts_u, parts_v, s_masks, k: int, num_v: int,
-                      config, *, device: str = "cuda") -> PartitionResult:
+                      config, *, device: str = "cuda",
+                      sketch: SketchSpec | None = None) -> PartitionResult:
     """A port ``PartitionResult`` from another run's arrays.
 
-    ``s_masks`` may be packed (k, W) words or dense (k, |V|) bool sets.
+    ``s_masks`` may be packed (k, W) words or dense (k, num_v) bool sets.
     ``config`` is a port ``ParsaConfig`` or any object with the same field
     names (such as the JAX ``ParsaConfig``); only the fields the port has
-    are read.  ``metrics`` is None: the source graph is not at hand.
+    are read.  For a sketched result ``num_v`` is the sketch's width (the
+    result's own ``num_v``) and ``sketch`` its column map.  ``metrics`` is
+    None: the source graph is not at hand.
     """
     if not isinstance(config, ParsaConfig):
         names = [f.name for f in dataclasses.fields(ParsaConfig)]
@@ -55,4 +73,5 @@ def result_from_numpy(parts_u, parts_v, s_masks, k: int, num_v: int,
         metrics=None,
         timings={},
         device=device,
+        sketch=sketch,
     )

@@ -15,10 +15,17 @@ The counterpart of ``repro.core.jax_partition`` (its kernel path):
    visit each partition once: first the catch-up set (partitions at the
    minimum size, in stable-argsort order), then full rounds in index order.
    ``_assign_block_rounds`` runs 1 + ⌈(B−1)/k⌉ rounds (static); each round
-   launches the fused select (``parsa_cost_select``: a cost-tile kernel
-   and a one-CTA greedy reduction) and commits the picks with a few torch
-   ops.  The block buffers carry one extra *sink* row at index B: an
-   inactive slot points there, so its commit writes only the sink.
+   launches one fused select and commits the picks with a few torch ops.
+   The select is ``parsa_cost_select`` (a cost-tile kernel, the tile
+   through L2, then a one-CTA greedy reduction: two launches) at exact
+   widths.  With ``sketch=True`` (``set_repr="sketch"``, where the packed
+   width is the sketch's few thousand words) it is ``sketch_cost_select``:
+   one ``sketch_select`` launch whose (B, k) tile stays in shared memory,
+   as the JAX scan switches to ``sketch_cost_select`` there.  A tile too
+   large for one CTA's shared memory takes ``parsa_cost_select`` inside
+   that wrapper; both give the same bits.  The block buffers carry one
+   extra *sink* row at index B: an inactive slot points there, so its
+   commit writes only the sink.
 
 ``blocked_partition_u_hostloop_impl`` / ``_assign_block`` are the
 sequential per-vertex parity oracle (the ``host_blocked_oracle`` backend),
@@ -42,6 +49,7 @@ from ..kernels.parsa_cost import (
     pack_bitmask_csr_sparse,
     parsa_cost,
     parsa_cost_select,
+    sketch_cost_select,
 )
 from .bipartite import BipartiteGraph
 from .dispatch import phase
@@ -214,13 +222,14 @@ def _rebuild_nbr(widx: torch.Tensor, vals: torch.Tensor,
 
 
 def _select_round(nbr, retired, parts, s_masks, sizes, order, enabled,
-                  inv) -> None:
+                  inv, sketch) -> None:
     """One greedy round over slots ``order``, committed in place: S_i |=
     N(u), sizes, parts, retirement.  ``inv`` maps partitions to slots
-    (None for the identity order)."""
+    (None for the identity order); ``sketch`` picks ``sketch_cost_select``."""
     B = nbr.shape[0] - 1
-    u_sel, c_sel = parsa_cost_select(nbr[:B], s_masks, retired[:B],
-                                     order=order, enabled=enabled)
+    select = sketch_cost_select if sketch else parsa_cost_select
+    u_sel, c_sel = select(nbr[:B], s_masks, retired[:B], order=order,
+                          enabled=enabled)
     act = c_sel < BIG
     idx = torch.where(act, u_sel, B).long()   # inactive slots → sink row
     picked = nbr[idx]                          # (k, W); sink row is zero
@@ -242,6 +251,7 @@ def _assign_block_rounds(
     sizes: torch.Tensor,     # (k,) int32 — updated in place
     iota_k: torch.Tensor,    # (k,) int32 0..k-1
     en_all: torch.Tensor,    # (k,) bool, all True
+    sketch: bool = False,    # sketched width: the one-launch select
 ) -> None:
     """Greedy-assign a block in balanced rounds: the catch-up round (visit
     order = stable argsort of sizes, only min-sized partitions enabled),
@@ -251,10 +261,10 @@ def _assign_block_rounds(
     ord0 = torch.argsort(sizes, stable=True)
     en0 = sizes[ord0] == sizes.min()
     _select_round(nbr, retired, parts, s_masks, sizes,
-                  ord0.to(torch.int32), en0, torch.argsort(ord0))
+                  ord0.to(torch.int32), en0, torch.argsort(ord0), sketch)
     for _ in range(-(-(B - 1) // k)):
         _select_round(nbr, retired, parts, s_masks, sizes, iota_k, en_all,
-                      None)
+                      None, sketch)
 
 
 def _partition_scan(
@@ -265,6 +275,7 @@ def _partition_scan(
     valid: torch.Tensor,     # (n_blocks, B) bool
     s_masks: torch.Tensor,   # (k, W) int32 — carried, updated in place
     sizes: torch.Tensor,     # (k,) int32 — carried, updated in place
+    sketch: bool = False,    # sketched width: the one-launch select
 ) -> torch.Tensor:
     """Scan the blocks in order, carrying (S, sizes) on the device.
     Returns parts (n_blocks, B) int32 in packed row order."""
@@ -279,7 +290,7 @@ def _partition_scan(
     for b in range(nb):
         nbr = _rebuild_nbr(widx[b], vals[b], tr_ids[b], tr_masks[b])
         _assign_block_rounds(nbr, retired[b], parts[b], s_masks, sizes,
-                             iota_k, en_all)
+                             iota_k, en_all, sketch)
     return parts[:, :B]
 
 
@@ -292,6 +303,7 @@ def blocked_partition_u_impl(
     cap: int = 48,
     device: str | torch.device = "cuda",
     timings: dict | None = None,
+    sketch: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Blocked greedy partition of U on ``device``.
     Returns (parts_u (|U|,) int32, final packed s_masks (k, W) int32), both
@@ -301,7 +313,9 @@ def blocked_partition_u_impl(
     ``default_rng(seed).permutation(|U|)``, as in the JAX package), moves
     the compact lists to the device and scans the blocks there.
     ``init_sets`` may be dense (k, |V|) bool or packed (k, W) words.  A
-    ``timings`` dict receives the host ``"pack"`` seconds.
+    ``timings`` dict receives the host ``"pack"`` seconds.  ``sketch=True``
+    marks the packed width as a sketched domain: every round then selects
+    with ``sketch_cost_select``; nothing else changes.
     """
     device = torch.device(device)
     t_pack = time.perf_counter()
@@ -318,7 +332,7 @@ def blocked_partition_u_impl(
             torch.from_numpy(packed.tr_ids).to(device),
             torch.from_numpy(packed.tr_masks).to(device),
             torch.from_numpy(packed.valid).to(device),
-            s_masks, sizes)
+            s_masks, sizes, sketch)
         parts = torch.empty(graph.num_u, dtype=torch.int32, device=device)
         parts[torch.from_numpy(order).to(device)] = \
             parts_blocks.reshape(-1)[: graph.num_u]

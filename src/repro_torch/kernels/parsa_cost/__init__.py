@@ -6,12 +6,15 @@ from .ops import (  # noqa: F401
     REFINE_MAX_K,
     SELECT_MAX_B,
     SELECT_MAX_K,
+    SKETCH_SELECT_MAX_TILE_BYTES,
     parsa_cost,
     parsa_cost_select,
     parsa_select_reduce,
     parsa_select_tile,
     refine_sweep_chunk,
     reset_launch_counts,
+    sketch_cost_select,
+    sketch_select_fits,
 )
 from .pack import (  # noqa: F401
     coerce_packed_sets,
@@ -28,4 +31,5 @@ from .ref import (  # noqa: F401
     refine_sweep_ref,
     select_from_cost,
     select_greedy_from_cost,
+    sketch_select_ref,
 )

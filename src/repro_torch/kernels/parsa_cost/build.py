@@ -25,7 +25,7 @@ import threading
 __all__ = ["SOURCES", "NVCC_FLAGS", "build_dir", "build_all", "load"]
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
-SOURCES = ("parsa_cost", "parsa_select", "refine_sweep")
+SOURCES = ("parsa_cost", "parsa_select", "sketch_select", "refine_sweep")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -37,6 +37,8 @@ _ENTRIES = {
     "parsa_select_tile": ("parsa_select", (_P, _P, _I, _I, _I, _P, _P)),
     "parsa_select_reduce": ("parsa_select",
                             (_P, _P, _P, _P, _I, _I, _I, _P, _P, _P)),
+    "sketch_select": ("sketch_select",
+                      (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P)),
     "refine_sweep": ("refine_sweep", (_P, _P, _P, _I, _I, _P, _P, _P)),
 }
 

@@ -23,11 +23,13 @@ from .ref import (
     refine_sweep_ref,
     select_from_cost,
     select_greedy_from_cost,
+    sketch_select_ref,
 )
 
 __all__ = ["LAUNCHES", "reset_launch_counts", "parsa_cost",
            "parsa_select_tile", "parsa_select_reduce", "parsa_cost_select",
-           "refine_sweep_chunk", "SELECT_MAX_B", "SELECT_MAX_K",
+           "sketch_cost_select", "sketch_select_fits", "refine_sweep_chunk",
+           "SELECT_MAX_B", "SELECT_MAX_K", "SKETCH_SELECT_MAX_TILE_BYTES",
            "REFINE_MAX_K"]
 
 # parsa_select_reduce keeps each thread's retired rows in one 32-bit mask
@@ -35,11 +37,16 @@ __all__ = ["LAUNCHES", "reset_launch_counts", "parsa_cost",
 # so an absurd k fails loudly instead of running for minutes.
 SELECT_MAX_B = 32 * 1024
 SELECT_MAX_K = 1024
+# sketch_select holds the whole (B, k) int32 tile in one CTA's shared
+# memory: the H100's opt-in limit of 227 KiB a CTA, less 1 KiB for the
+# epilogue's own shared words.  Larger tiles take parsa_cost_select.
+SKETCH_SELECT_MAX_TILE_BYTES = 227 * 1024 - 1024
 # refine_sweep holds k costs in 32 lanes × at most 32 registers
 REFINE_MAX_K = 1024
 
 LAUNCHES: dict[str, int] = {"parsa_cost": 0, "parsa_select_tile": 0,
-                            "parsa_select_reduce": 0, "refine_sweep": 0}
+                            "parsa_select_reduce": 0, "sketch_select": 0,
+                            "refine_sweep": 0}
 
 
 def reset_launch_counts() -> None:
@@ -79,6 +86,28 @@ def _on_cuda(device: torch.device) -> bool:
         raise ValueError(f"tensors lie on {device} but the current CUDA "
                          f"device is {torch.cuda.current_device()}")
     return True
+
+
+def _check_select(B: int, k: int, retired: torch.Tensor,
+                  order: torch.Tensor | None, enabled: torch.Tensor | None,
+                  device: torch.device) -> torch.Tensor | None:
+    """Check a select's shape and its row / slot arguments; returns
+    ``enabled``, all True by default in greedy mode."""
+    if not 1 <= B <= SELECT_MAX_B or not 1 <= k <= SELECT_MAX_K:
+        raise ValueError(f"select takes 1 <= B <= {SELECT_MAX_B} and "
+                         f"1 <= k <= {SELECT_MAX_K}, got B={B}, k={k}")
+    _check("retired", retired, torch.bool, 1, device)
+    if retired.shape[0] != B:
+        raise ValueError(f"retired has {retired.shape[0]} rows, tile has {B}")
+    if order is None:
+        return enabled
+    _check("order", order, torch.int32, 1, device)
+    if enabled is None:
+        enabled = torch.ones(k, dtype=torch.bool, device=device)
+    _check("enabled", enabled, torch.bool, 1, device)
+    if order.shape[0] != k or enabled.shape[0] != k:
+        raise ValueError(f"order and enabled must have {k} slots")
+    return enabled
 
 
 def parsa_cost(nbr_masks: torch.Tensor, s_masks: torch.Tensor) -> torch.Tensor:
@@ -132,20 +161,8 @@ def parsa_select_reduce(
     dev = tile_t.device
     _check("tile_t", tile_t, torch.int32, 2, dev)
     k, B = tile_t.shape
-    _check("retired", retired, torch.bool, 1, dev)
-    if retired.shape[0] != B:
-        raise ValueError(f"retired has {retired.shape[0]} rows, tile has {B}")
-    if not 1 <= B <= SELECT_MAX_B or not 1 <= k <= SELECT_MAX_K:
-        raise ValueError(f"select takes 1 <= B <= {SELECT_MAX_B} and "
-                         f"1 <= k <= {SELECT_MAX_K}, got B={B}, k={k}")
+    enabled = _check_select(B, k, retired, order, enabled, dev)
     greedy = order is not None
-    if greedy:
-        _check("order", order, torch.int32, 1, dev)
-        if enabled is None:
-            enabled = torch.ones(k, dtype=torch.bool, device=dev)
-        _check("enabled", enabled, torch.bool, 1, dev)
-        if order.shape[0] != k or enabled.shape[0] != k:
-            raise ValueError(f"order and enabled must have {k} slots")
     if not _on_cuda(dev):
         if greedy:
             return select_greedy_from_cost(tile_t.T, retired, order, enabled)
@@ -176,6 +193,54 @@ def parsa_cost_select(
     """
     return parsa_select_reduce(parsa_select_tile(nbr_masks, s_masks),
                                retired, order, enabled)
+
+
+def sketch_select_fits(B: int, k: int) -> bool:
+    """Whether a (B, k) round runs in the one-launch ``sketch_select``
+    kernel: its int32 tile fits ``SKETCH_SELECT_MAX_TILE_BYTES`` and B the
+    epilogue's ``SELECT_MAX_B``.  A shape function only."""
+    return 4 * B * k <= SKETCH_SELECT_MAX_TILE_BYTES and B <= SELECT_MAX_B
+
+
+def sketch_cost_select(
+    nbr_masks: torch.Tensor,   # (B, Ws) int32 packed sketched N(u)
+    s_masks: torch.Tensor,     # (k, Ws) int32 packed sketched S_i
+    retired: torch.Tensor,     # (B,) bool — rows excluded from selection
+    *,
+    order: torch.Tensor | None = None,    # (k,) int32 → greedy-round mode
+    enabled: torch.Tensor | None = None,  # (k,) bool slot gate (greedy mode)
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused cost+select at sketched widths: the contract of
+    ``parsa_cost_select`` (independent → (mins, argmins), greedy → (u_sel,
+    c_sel) with (-1, BIG) for an inactive slot).
+
+    On CUDA it is ONE ``sketch_select`` launch whose (B, k) tile lives in
+    shared memory.  A tile past ``sketch_select_fits`` routes, by shape and
+    before any launch, to ``parsa_cost_select`` (its launches are counted
+    there), as the JAX wrapper routes past its VMEM budget; the results are
+    the same bits.  A CPU tensor runs ``sketch_select_ref``.
+    """
+    dev = nbr_masks.device
+    _check("nbr_masks", nbr_masks, torch.int32, 2, dev)
+    _check("s_masks", s_masks, torch.int32, 2, dev)
+    (B, W), k = nbr_masks.shape, s_masks.shape[0]
+    if s_masks.shape[1] != W:
+        raise ValueError(f"word widths differ: {W} vs {s_masks.shape[1]}")
+    enabled = _check_select(B, k, retired, order, enabled, dev)
+    greedy = order is not None
+    if not _on_cuda(dev):
+        u, c = sketch_select_ref(nbr_masks, s_masks, retired, order, enabled,
+                                 greedy=greedy)
+        return (u[0], c[0]) if greedy else (c[0], u[0])
+    if not sketch_select_fits(B, k):
+        return parsa_cost_select(nbr_masks, s_masks, retired, order=order,
+                                 enabled=enabled)
+    out_a = torch.empty(k, dtype=torch.int32, device=dev)
+    out_b = torch.empty(k, dtype=torch.int32, device=dev)
+    _launch("sketch_select", _ptr(nbr_masks), _ptr(s_masks), _ptr(retired),
+            _ptr(order), _ptr(enabled if greedy else None), B, k, W,
+            int(greedy), _ptr(out_a), _ptr(out_b))
+    return out_a, out_b
 
 
 def refine_sweep_chunk(

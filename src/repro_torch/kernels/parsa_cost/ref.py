@@ -1,6 +1,6 @@
-r"""Plain PyTorch versions of the parsa_cost / parsa_select / refine-sweep
-kernels: the CPU path of every wrapper in ``ops.py`` and the yardstick each
-CUDA kernel is held to, bit for bit, on the card.
+r"""Plain PyTorch versions of the parsa_cost / parsa_select / sketch_select /
+refine-sweep kernels: the CPU path of every wrapper in ``ops.py`` and the
+yardstick each CUDA kernel is held to, bit for bit, on the card.
 
     cost[u, i] = |N(u) \ S_i| = Σ_w popcount(nbr[u, w] & ~s[i, w])
 
@@ -20,7 +20,8 @@ import torch
 
 __all__ = ["BIG", "popcount32", "parsa_cost_ref", "select_from_cost",
            "select_greedy_from_cost", "parsa_select_ref",
-           "parsa_select_greedy_ref", "refine_sweep_ref", "unpack_bits"]
+           "parsa_select_greedy_ref", "sketch_select_ref", "refine_sweep_ref",
+           "unpack_bits"]
 
 BIG = 2**30  # sentinel cost for retired / padded vertices (fits int32)
 
@@ -97,6 +98,24 @@ def parsa_select_greedy_ref(nbr_masks, s_masks, retired, order, enabled):
     """Fused cost+select, greedy-round mode → ((k,) u_sel, (k,) c_sel)."""
     return select_greedy_from_cost(
         parsa_cost_ref(nbr_masks, s_masks), retired, order, enabled)
+
+
+def sketch_select_ref(nbr_masks, s_masks, retired, order=None, enabled=None,
+                      *, greedy=False):
+    """Fused cost+select at sketched widths, the plain version of the
+    ``sketch_select`` kernel: the same integer program as
+    ``parsa_select_ref`` / ``parsa_select_greedy_ref``, over fewer words.
+    Returns ((1, k) u_sel or argmins, (1, k) c_sel or mins), the layout of
+    the JAX ``sketch_select_ref``."""
+    cost = parsa_cost_ref(nbr_masks, s_masks)
+    if greedy:
+        if enabled is None:
+            enabled = torch.ones(cost.shape[1], dtype=torch.bool,
+                                 device=cost.device)
+        u, c = select_greedy_from_cost(cost, retired, order, enabled)
+    else:
+        c, u = select_from_cost(cost, retired)
+    return u[None, :], c[None, :]
 
 
 def refine_sweep_ref(

@@ -179,7 +179,8 @@ def test_config_validation():
 # ------------------------------------------------------------ guards
 def test_import_leaves_no_jax_or_repro():
     code = ("import sys, repro_torch, repro_torch.api, repro_torch.convert, "
-            "repro_torch.core.refine, repro_torch.graphs;"
+            "repro_torch.core.refine, repro_torch.graphs, repro_torch.sketch, "
+            "repro_torch.kernels.parsa_cost.ops;"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')];"
             "print(bad); sys.exit(1 if bad else 0)")
@@ -187,6 +188,33 @@ def test_import_leaves_no_jax_or_repro():
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_chip_smoke_names_no_jax_or_repro_module():
+    """chip_smoke.py imports neither JAX nor ``repro``: the reference
+    package appears only as file paths in ``KERNELS`` (what each CUDA
+    kernel replaces)."""
+    import ast
+
+    text = (ROOT / "chip_smoke.py").read_text()
+    tree = ast.parse(text)
+    for node in ast.walk(tree):
+        names = ([a.name for a in node.names] if isinstance(node, ast.Import)
+                 else [node.module or ""] if isinstance(node, ast.ImportFrom)
+                 else [])
+        for name in names:
+            assert name.split(".")[0] not in ("jax", "jaxlib", "repro"), name
+    kernels = next(n for n in tree.body if isinstance(n, ast.Assign)
+                   and any(getattr(t, "id", None) == "KERNELS"
+                           for t in n.targets))
+    rest = text.replace(ast.get_source_segment(text, kernels), "")
+    assert "repro." not in rest.replace("repro_torch.", "")
+    assert "src/repro/" not in rest
+    for replaces, source in ast.literal_eval(kernels.value).values():
+        assert replaces.startswith("src/repro/kernels/")
+        assert source.startswith("src/repro_torch/")
+        assert (ROOT / source).is_file() and \
+            (ROOT / replaces.split(":")[0]).is_file()
 
 
 def test_default_device_is_the_card_and_never_falls_back(monkeypatch):
