@@ -26,16 +26,26 @@ Phases, in order; any failure exits non-zero:
    phase 3; the quality band of the sketch against the exact run, scored
    on the true graph (reported); cpu against cuda on a reduced sketched
    graph, both backends;
-6. each kernel timed at the main path's shapes (CUDA events, median of 21
+6. Algorithm 4 on the card (``backend="parallel_device"``): the acceptance
+   configuration of ``benchmarks/bench_fig10_scalability.py`` (8 workers,
+   B=128, an OR-merge every 12 blocks) on the main graph, with its launch
+   counts and traffic, held to the numpy oracles; one worker, equal to
+   phase 3 in every output; its quality against phase 3, gated at 5%;
+   the host simulation ``parallel_sim`` at full size (reported); cpu
+   against cuda on the reduced graph at 4 and 8 workers, with global
+   initialization and sketched;
+7. each kernel timed at the main path's shapes (CUDA events, median of 21
    samples after warm-up; ``ms`` from launches replayed in a CUDA graph,
    ``eager_ms`` from launches made one by one from Python) beside its bound
    and its plain version (``sketch_select`` at the sketch path's shape and
-   at the main path's), then a window of the scan, of the sketched scan
-   and the whole refine under ``torch.profiler``: device kernels per round
-   and the device's idle share.
+   at the main path's, ``packed_union_delta`` at the parallel path's
+   merge), then a window of the scan, of the sketched scan, of one
+   super-step of the parallel scan and the whole refine under
+   ``torch.profiler``: device kernels per round and the device's idle
+   share.
 
-``--phases build,kernels,sketch`` is a short check of the sketch kernel
-and path (it prints no result and exits 1).
+``--phases build,kernels,sketch`` and ``--phases build,kernels,parallel``
+are short checks of one path (they print no result and exit 1).
 
 The last lines are the card, one ``{"kernels": [...]}`` JSON line and
 ``{"ok": true, "device": {...}}``.
@@ -51,7 +61,7 @@ import sys
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
-PHASES = ("build", "kernels", "main", "parity", "sketch", "times")
+PHASES = ("build", "kernels", "main", "parity", "sketch", "parallel", "times")
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, and the non-tensor fp32
 # rate, the only CUDA-core rate in that sheet; int32 and popcount work is
@@ -84,6 +94,15 @@ SKETCH_SMALL_BITS = 2048
 # benchmarks/common.py:40.  Reported here, not gated.
 SKETCH_MAX_QUALITY_PCT = 5.0
 
+# Algorithm 4 on the card: the acceptance configuration of
+# benchmarks/bench_fig10_scalability.py:187-189 on the main graph, gated
+# at its 5% traffic_max slack against the sequential scan
+# (bench_fig10_scalability.py:206-209), and the host simulation it is
+# measured against (:196-197)
+PAR = dict(workers=8, block_size=128, merge_every=12)
+PAR_MAX_QUALITY_PCT = 5.0
+SIM = dict(workers=8, blocks=64, tau=None)
+
 # which TPU kernel each CUDA kernel replaces (repro/ file:line of the
 # pallas_call wrapper), and its source in this repository
 KERNELS = {
@@ -97,6 +116,8 @@ KERNELS = {
                      "src/repro_torch/kernels/parsa_cost/csrc/refine_sweep.cu"),
     "sketch_select": ("src/repro/kernels/parsa_cost/select.py:186",
                       "src/repro_torch/kernels/parsa_cost/csrc/sketch_select.cu"),
+    "packed_union_delta": ("src/repro/kernels/parsa_cost/select.py:292",
+                           "src/repro_torch/kernels/parsa_cost/csrc/union_delta.cu"),
 }
 
 
@@ -154,8 +175,9 @@ def phase_kernels(dev) -> dict:
     import torch
 
     from repro_torch.kernels.parsa_cost import (
-        ops, parsa_cost_ref, refine_sweep_ref, select_from_cost,
-        select_greedy_from_cost, sketch_select_ref)
+        merge_worker_sets_ref, ops, packed_union_delta_ref, parsa_cost_ref,
+        refine_sweep_ref, select_from_cost, select_greedy_from_cost,
+        sketch_select_ref)
 
     rng = np.random.default_rng(0)
     res = {name: {"cases": 0, "max_abs_err": 0} for name in KERNELS}
@@ -291,6 +313,30 @@ def phase_kernels(dev) -> dict:
             w_t, p_t, c_t = T(words), T(prev), T(cost)
             compare("refine_sweep", ops.refine_sweep_chunk(w_t, p_t, c_t),
                     refine_sweep_ref(w_t, p_t, c_t), (k, cw, sweep))
+    torch.cuda.synchronize()
+
+    # packed_union_delta: the TPU contract (n = 1, with delta) over the
+    # k x W sweep, the parallel path's width and ragged widths; then the
+    # n-worker merge with its pushed-word count, at the acceptance shape
+    # (n = 8, k = 16, W = 2,048) among them.  Words with bit 31 set in all.
+    for k in (1, 3, 8, 16):
+        for W in (1, 37, 512, 1000, 2048, 2049, 3001):
+            new = rand_words(rng, (k, W))
+            new[:, 0] |= np.int32(-2**31)
+            old = rand_words(rng, (k, W), 0.3)
+            n_t, o_t = T(new), T(old)
+            compare("packed_union_delta", ops.packed_union_delta(n_t, o_t),
+                    packed_union_delta_ref(n_t, o_t), (k, W))
+    for n in (1, 4, 8):
+        for k, W in ((1, 1), (3, 37), (16, 2048), (16, 2049), (8, 1000)):
+            old = rand_words(rng, (k, W), 0.3)
+            local = old | rand_words(rng, (n, k, W), 0.02)
+            l_t, o_t = T(local), T(old)
+            pushed = torch.full((1,), 5, dtype=torch.int64, device=dev)
+            merged = ops.merge_worker_sets(l_t, o_t, pushed)
+            want, n_words = merge_worker_sets_ref(l_t, o_t)
+            compare("packed_union_delta", [merged, pushed - 5],
+                    [want, n_words.view(1)], ("merge", n, k, W))
     torch.cuda.synchronize()
     return res
 
@@ -555,6 +601,153 @@ def phase_sketch(dev, main: dict) -> dict:
 
 
 # ---------------------------------------------------------------- phase 6
+def phase_parallel(dev, main: dict) -> dict:
+    import numpy as np
+
+    from repro_torch.api import ParsaConfig, partition
+    from repro_torch.core.costs import evaluate, need_matrix
+    from repro_torch.core.dispatch import dispatch_counter
+    from repro_torch.core.partition_v import partition_v
+    from repro_torch.graphs import text_like
+    from repro_torch.kernels.parsa_cost import ops, pack_bitmask
+
+    g = main["graph"] if "graph" in main else text_like(**MAIN_GRAPH)
+    base = ParsaConfig(k=K, backend="device_scan", block_size=BLOCK,
+                       refine_backend="device", sweeps=2)
+    exact = (main["result"] if "result" in main
+             else partition(g, base, device=dev))
+
+    def rounds_of(n_blocks, block):
+        return n_blocks * (1 + -(-(block - 1) // K))
+
+    def padded_blocks(block, workers, merge_every):
+        nb_per = -(-(-(-g.num_u // block)) // workers)
+        return -(-nb_per // merge_every) * merge_every * workers
+
+    # (a) the acceptance configuration of bench_fig10_scalability.py
+    cfg = base.replace(backend="parallel_device", **PAR)
+    ops.reset_launch_counts()
+    with dispatch_counter() as counts:
+        res = partition(g, cfg, device=dev)
+    launches = dict(ops.LAUNCHES)
+    log(f"parallel path: dispatches {dict(counts)}; kernel launches per "
+        f"phase {counts.launches}")
+    log("parallel path timings (s): " + json.dumps(res.timings))
+    log(f"parallel path traffic: {res.traffic}")
+    n_tot = padded_blocks(PAR["block_size"], PAR["workers"],
+                          PAR["merge_every"])
+    n_real = -(-g.num_u // PAR["block_size"])
+    rounds = rounds_of(n_tot, PAR["block_size"])
+    merges = n_tot // PAR["workers"] // PAR["merge_every"]
+    n_chunks = -(-((g.num_v + 31) // 32) // (cfg.refine_chunk // 32))
+    want_launches = {"parsa_select_tile": rounds,
+                     "parsa_select_reduce": rounds,
+                     "packed_union_delta": merges,
+                     "refine_sweep": n_chunks * cfg.sweeps,
+                     "sketch_select": 0, "parsa_cost": 0}
+    check(launches == want_launches,
+          f"parallel launches {launches} != {want_launches}")
+    log(f"parallel path: {n_tot} blocks ({n_tot - n_real} of them padding) "
+        f"x {rounds // n_tot} rounds = {rounds} select rounds, {merges} "
+        f"merges")
+    t0 = time.perf_counter()
+    check(bool(((res.parts_u >= 0) & (res.parts_u < K)).all()),
+          "parts_u outside [0, k)")
+    sizes = np.bincount(res.parts_u, minlength=K)
+    check(int(sizes.max() - sizes.min()) <= PAR["workers"],
+          f"sizes {sizes} spread more than workers")
+    need = need_matrix(g, res.parts_u, K)
+    check(np.array_equal(res.s_masks, pack_bitmask(need, g.num_v)),
+          "parallel s_masks != packed N(U_i)")
+    want_v = partition_v(g, res.parts_u, K, sweeps=2, need=need)
+    check(np.array_equal(res.parts_v, want_v),
+          "parallel parts_v != numpy partition_v")
+    mh = evaluate(g, res.parts_u, res.parts_v, K)
+    for f in ("sizes", "footprint", "traffic", "worker_recv", "server_send"):
+        check(np.array_equal(getattr(mh, f), getattr(res.metrics, f)),
+              f"parallel metrics.{f} != numpy evaluate")
+    W = (g.num_v + 31) // 32
+    tr = res.traffic
+    check(tr.pulled_bytes == 4 * PAR["workers"] * merges * K * W
+          and tr.tasks == PAR["workers"] * merges
+          and tr.stale_pushes_missed
+          == merges * PAR["workers"] * (PAR["workers"] - 1)
+          and tr.pushed_bytes > 0 and tr.migration_bytes == 0,
+          f"parallel traffic {tr}")
+    log(f"parallel path oracles (parts in range, sizes {int(sizes.min())}.."
+        f"{int(sizes.max())}, S_i = N(U_i), partition_v, evaluate, traffic) "
+        f"agree ({time.perf_counter() - t0:.2f} s); metrics "
+        f"{res.metrics.as_dict()}")
+    out = {"result": res, "launches": launches, "rounds": rounds,
+           "merges": merges, "blocks": n_tot, "real_blocks": n_real}
+
+    # (b) one worker collapses to the sequential scan of phase main
+    c1 = base.replace(backend="parallel_device", workers=1,
+                      merge_every=PAR["merge_every"])
+    ops.reset_launch_counts()
+    r1 = partition(g, c1, device=dev)
+    l1 = dict(ops.LAUNCHES)
+    same_result(r1, exact, "parallel_device W=1 vs device_scan")
+    n1 = padded_blocks(BLOCK, 1, PAR["merge_every"])
+    want1 = {"parsa_select_tile": rounds_of(n1, BLOCK),
+             "parsa_select_reduce": rounds_of(n1, BLOCK),
+             "packed_union_delta": n1 // PAR["merge_every"],
+             "refine_sweep": n_chunks * c1.sweeps,
+             "sketch_select": 0, "parsa_cost": 0}
+    check(l1 == want1, f"W=1 launches {l1} != {want1}")
+    check(r1.traffic.stale_pushes_missed == 0, f"W=1 traffic {r1.traffic}")
+    out["w1_merges"] = want1["packed_union_delta"]
+    log(f"parallel_device W=1 equals device_scan in every output; launches "
+        f"{l1}; timings (s) {json.dumps(r1.timings)}")
+
+    # (c) quality against the sequential scan, bench_fig10's 5% gate
+    pct = (res.metrics.traffic_max / exact.metrics.traffic_max - 1) * 100
+    out["quality_pct"] = pct
+    log(f"parallel quality: traffic_max {res.metrics.traffic_max} vs "
+        f"device_scan {exact.metrics.traffic_max} ({pct:+.2f}%, gate "
+        f"{PAR_MAX_QUALITY_PCT}%)")
+    check(pct <= PAR_MAX_QUALITY_PCT,
+          f"parallel quality {pct:+.2f}% past {PAR_MAX_QUALITY_PCT}%")
+
+    # (d) the host simulation of Algorithm 4 at full size (not gated)
+    t0 = time.perf_counter()
+    sim = partition(g, base.replace(backend="parallel_sim", **SIM),
+                    device=dev)
+    pct_sim = (sim.metrics.traffic_max / exact.metrics.traffic_max - 1) * 100
+    out["sim"] = {"timings": sim.timings, "quality_pct": pct_sim}
+    log(f"parallel_sim {SIM} on the host: {time.perf_counter() - t0:.2f} s; "
+        f"timings (s) {json.dumps(sim.timings)}; traffic {sim.traffic}; "
+        f"traffic_max {sim.metrics.traffic_max} ({pct_sim:+.2f}% vs "
+        f"device_scan; reported, not gated)")
+
+    # (e) cpu against cuda on the reduced graph
+    gs = text_like(**SMALL_GRAPH)
+    small = base.replace(backend="parallel_device",
+                         block_size=PAR["block_size"])
+    for name, c in (("W=4 m=1", small.replace(workers=4, merge_every=1)),
+                    ("W=8 m=2", small.replace(workers=8, merge_every=2)),
+                    ("W=4 m=2 global init", small.replace(
+                        workers=4, merge_every=2, global_init_frac=0.05)),
+                    ("W=4 m=1 sketch", small.replace(
+                        workers=4, merge_every=1, set_repr="sketch",
+                        sketch_hot_bits=SKETCH_SMALL_BITS,
+                        sketch_bucket_bits=SKETCH_SMALL_BITS))):
+        t0 = time.perf_counter()
+        rc = partition(gs, c, device="cpu")
+        t1 = time.perf_counter()
+        ops.reset_launch_counts()
+        rg = partition(gs, c, device=dev)
+        t2 = time.perf_counter()
+        same_result(rc, rg, f"parallel_device {name}: cpu vs cuda")
+        check(rc.traffic == rg.traffic, f"{name}: traffic differs")
+        check(ops.LAUNCHES["packed_union_delta"] > 0,
+              f"{name}: no packed_union_delta launch on the card")
+        log(f"reduced graph parallel_device {name}: cpu == cuda (cpu "
+            f"{t1 - t0:.2f} s, cuda {t2 - t1:.2f} s)")
+    return out
+
+
+# ---------------------------------------------------------------- phase 7
 def time_ms(fn, inner: int, samples: int = 21) -> float:
     """Median per-call time over ``samples`` CUDA-event windows of ``inner``
     calls each, after one warm-up call."""
@@ -623,7 +816,8 @@ def profile_window(fn) -> dict:
     ours = collections.defaultdict(list)
     for e in kern:
         for name in ("cost_tile_kernel", "select_reduce_kernel",
-                     "sketch_select_kernel", "refine_sweep_kernel"):
+                     "sketch_select_kernel", "refine_sweep_kernel",
+                     "union_delta_kernel"):
             if name in e.name:
                 ours[name].append(e.time_range.elapsed_us())
     out.update(busy_s=busy, idle_share=1 - busy / wall,
@@ -659,11 +853,12 @@ def phase_times(dev, main: dict) -> list[dict]:
     import torch
 
     from repro_torch.core.partition import (
-        _partition_scan, _rebuild_nbr, pack_graph_blocks)
+        _pad_block_stack, _parallel_scan, _partition_scan, _rebuild_nbr,
+        pack_graph_blocks)
     from repro_torch.core.refine import refine_v_device
     from repro_torch.kernels.parsa_cost import (
-        ops, parsa_cost_ref, popcount32, refine_sweep_ref,
-        select_greedy_from_cost, sketch_select_ref)
+        merge_worker_sets_ref, ops, parsa_cost_ref, popcount32,
+        refine_sweep_ref, select_greedy_from_cost, sketch_select_ref)
 
     g, res = main["graph"], main["result"]
     order = np.random.default_rng(0).permutation(g.num_u)
@@ -790,6 +985,30 @@ def phase_times(dev, main: dict) -> list[dict]:
     log(f"sketch_select time on the sketch path ~ {busy_s:.4f} s of "
         f"{wall_s:.4f} s scan wall ({100 * busy_s / wall_s:.1f}%)")
 
+    # packed_union_delta at the parallel path's merge: n = 8 workers'
+    # (k, W) sets against the pre-merge sets, with the pushed-word count
+    par = main["parallel"]
+    s_old = T(res.s_masks)
+    local = s_old | T(rand_words(np.random.default_rng(2), (PAR["workers"],)
+                                 + tuple(s_old.shape), 0.02))
+    pushed = torch.zeros(1, dtype=torch.int64, device=dev)
+    n, (k_, W_) = local.shape[0], s_old.shape
+    t = measure(lambda: ops.merge_worker_sets(local, s_old, pushed),
+                lambda: merge_worker_sets_ref(local, s_old), 100, 20,
+                4 * ((n + 1) * k_ * W_ + k_ * W_) + 8, 3 * n * k_ * W_)
+    rows.append({
+        "name": "packed_union_delta", "route": "cuda",
+        "source": KERNELS["packed_union_delta"][1],
+        "replaces": KERNELS["packed_union_delta"][0],
+        "launches": par["launches"]["packed_union_delta"],
+        "launches_path": "parallel_device W=8 B=128 merge_every=12, main "
+                         f"graph; {par['w1_merges']} at W=1 B=256",
+        "max_abs_err": main["checks"]["packed_union_delta"]["max_abs_err"],
+        "cases": main["checks"]["packed_union_delta"]["cases"],
+        "shape": f"n={n}, k={k_}, W={W_}", **t, "library_ms": None,
+    })
+    log_time("packed_union_delta", t, f" (merge, n={n}, k={k_}, W={W_})")
+
     # where the time goes: the first PROFILE_BLOCKS blocks of the scan, of
     # the sketched scan, and the whole refine, each under torch.profiler
     blocks = [T(x[:nb]) for x in (packed.widx, packed.vals, packed.tr_ids,
@@ -803,6 +1022,21 @@ def phase_times(dev, main: dict) -> list[dict]:
                                          device=dev),
                         torch.zeros(K, dtype=torch.int32, device=dev), sketch)
 
+    # one super-step of the parallel scan: every worker's first
+    # merge_every blocks, in the acceptance run's order, and one merge
+    nw, m, bp = PAR["workers"], PAR["merge_every"], PAR["block_size"]
+    pk_p = _pad_block_stack(pack_graph_blocks(g, bp, order=order),
+                            par["blocks"])
+    nb_per = par["blocks"] // nw
+    step_blocks = [T(x.reshape((nw, nb_per) + x.shape[1:])[:, :m])
+                   for x in (pk_p.widx, pk_p.vals, pk_p.tr_ids,
+                             pk_p.tr_masks, pk_p.valid)]
+
+    def super_step():
+        _parallel_scan(*step_blocks, torch.zeros((K, W), dtype=torch.int32,
+                                                 device=dev),
+                       torch.zeros(K, dtype=torch.int32, device=dev), m)
+
     parts_u = T(res.parts_u)
     saved = dict(ops.LAUNCHES)
     for name, fn, steps in (
@@ -810,6 +1044,8 @@ def phase_times(dev, main: dict) -> list[dict]:
              nb * (1 + -(-(BLOCK - 1) // K))),
             ("sketched scan", lambda: scan(blocks_s, nbr_a.shape[1], True),
              nb * (1 + -(-(SKETCH_BLOCK - 1) // K))),
+            ("parallel super-step", super_step,
+             nw * m * (1 + -(-(bp - 1) // K))),
             ("refine", lambda: refine_v_device(g, parts_u, K, sweeps=2,
                                                need_words=s),
              launches["refine_sweep"])):
@@ -875,6 +1111,10 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         state["sketch"] = phase_sketch(dev, state)
         log(f"sketch phase {time.perf_counter() - t0:.2f} s")
+    if "parallel" in phases:
+        t0 = time.perf_counter()
+        state["parallel"] = phase_parallel(dev, state)
+        log(f"parallel phase {time.perf_counter() - t0:.2f} s")
     if "times" in phases:
         rows = phase_times(dev, state)
         log(f"card: {card}")

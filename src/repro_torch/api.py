@@ -14,11 +14,23 @@ entry point, one result type.
     cfg = ParsaConfig(k=16, set_repr="sketch", sketch_hot_bits=65_536,
                       sketch_bucket_bits=65_536, refine_backend="device")
 
+    # Algorithm 4: 8 workers on the card, an OR-merge every 12 blocks
+    cfg = ParsaConfig(k=16, backend="parallel_device", workers=8,
+                      block_size=128, merge_every=12, refine_backend="device")
+    res = partition(graph, cfg)
+    res.traffic.pushed_bytes                # delta-encoded worker pushes
+
+Backends (``available_backends()``): ``device_scan`` (the default, on the
+card), ``host_blocked_oracle``, ``parallel_device`` (on the card), and the
+host algorithms ``host`` and ``parallel_sim`` (numpy; their refine and
+metrics still run where ``refine_backend`` and ``device`` say).
+
 The device decides where everything runs: ``partition(..., device="cuda")``
 (the default) launches the hand-written kernels and raises when there is
 no card; ``device="cpu"`` runs their plain PyTorch versions.  The JAX
 ``ParsaConfig`` fields ``use_kernel`` and ``interpret`` are gone for that
-reason, and the config holds only the fields this port implements.
+reason, and ``placement`` is not ported.  The default backend is
+``device_scan`` (JAX: ``host``), so that the default path runs on the card.
 """
 from __future__ import annotations
 
@@ -28,16 +40,24 @@ import time
 import numpy as np
 import torch
 
-from .api_backends import BACKENDS, available_backends, get_backend
+from .api_backends import (
+    BACKENDS,
+    BackendOutput,
+    TrafficCounters,
+    available_backends,
+    get_backend,
+)
 from .core.bipartite import BipartiteGraph
 from .core.costs import PartitionMetrics, evaluate
 from .core.partition_v import partition_v
 from .core.refine import evaluate_device, refine_v_device
-from .kernels.parsa_cost import unpack_bitmask
+from .kernels.parsa_cost import pack_bitmask, unpack_bitmask
 from .sketch import SketchSpec, rank_hot_columns
 
-__all__ = ["ParsaConfig", "PartitionResult", "PartitionMetrics", "partition"]
+__all__ = ["ParsaConfig", "PartitionResult", "PartitionMetrics",
+           "TrafficCounters", "partition", "available_backends"]
 
+_SELECTS = ("size", "footprint")
 _REFINE_BACKENDS = ("host", "device")
 _SET_REPRS = ("exact", "sketch")
 
@@ -48,9 +68,27 @@ class ParsaConfig:
 
     k: int
     backend: str = "device_scan"
+
+    # ---- subgraph streaming (§4.2/§4.4) — host / parallel_sim backends
+    blocks: int = 1            # b: number of subgraphs (1 = global greedy)
+    init_iters: int = 0        # a: individual-initialization iterations
+    theta: int = 1000          # bucket-queue head-pointer range (§4.1)
+    select: str = "size"       # "size" (perfect balance) | "footprint"
     seed: int = 0
+
+    # ---- device backend knobs (device_scan / host_blocked_oracle /
+    #      parallel_device)
     block_size: int = 256      # B: vertices greedily assigned per block
     cap: int = 48              # compact word-list width per vertex
+
+    # ---- parallel backend knobs (Alg 4: parallel_sim / parallel_device)
+    workers: int = 4           # W concurrent workers
+    tau: int | None = 0        # max push delay in tasks; None = eventual
+    global_init_frac: float = 0.0  # §4.4 global-init sample fraction
+    merge_every: int = 1       # parallel_device: blocks between OR-merges
+                               #   (τ ≡ merge_every − 1 blocks of staleness)
+    devices: int | None = None  # parallel_device: overrides workers
+
     # sketched server sets (repro_torch.sketch): every phase runs at the
     # sketch's width, and the scan selects with the one-launch kernel
     set_repr: str = "exact"    # "exact" | "sketch" (column-compressed sets)
@@ -69,12 +107,33 @@ class ParsaConfig:
             raise ValueError(
                 f"unknown Parsa backend {self.backend!r}; available: "
                 f"{', '.join(available_backends())}")
+        if self.blocks < 1:
+            raise ValueError(f"blocks must be >= 1, got {self.blocks}")
+        if self.init_iters < 0:
+            raise ValueError(f"init_iters must be >= 0, got {self.init_iters}")
+        if self.select not in _SELECTS:
+            raise ValueError(
+                f"select must be one of {_SELECTS}, got {self.select!r}")
         if self.block_size <= 0 or self.block_size % 8 != 0:
             raise ValueError(
                 f"block_size must be a positive multiple of 8, got "
                 f"{self.block_size}")
         if self.cap <= 0:
             raise ValueError(f"cap must be > 0, got {self.cap}")
+        if self.workers < 1:
+            raise ValueError(f"workers must be >= 1, got {self.workers}")
+        if self.tau is not None and self.tau < 0:
+            raise ValueError(f"tau must be >= 0 or None, got {self.tau}")
+        if not 0.0 <= self.global_init_frac <= 1.0:
+            raise ValueError(
+                f"global_init_frac must be in [0, 1], got "
+                f"{self.global_init_frac}")
+        if self.merge_every < 1:
+            raise ValueError(
+                f"merge_every must be >= 1, got {self.merge_every}")
+        if self.devices is not None and self.devices < 1:
+            raise ValueError(
+                f"devices must be >= 1 or None, got {self.devices}")
         if self.set_repr not in _SET_REPRS:
             raise ValueError(
                 f"set_repr must be one of {_SET_REPRS}, got "
@@ -120,6 +179,7 @@ class PartitionResult:
                                         #   (parts_v is expanded to the TRUE
                                         #   extent ``sketch.num_v``; metrics
                                         #   are sketch-space estimates)
+    traffic: TrafficCounters | None = None  # parallel_sim / parallel_device
 
     @property
     def neighbor_sets(self) -> np.ndarray:
@@ -153,6 +213,10 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _numpy(x: torch.Tensor | np.ndarray) -> np.ndarray:
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
 def partition(
     graph: BipartiteGraph,
     config: ParsaConfig,
@@ -178,9 +242,12 @@ def partition(
     scan's set algebra is unchanged: only the packed width shrinks.
 
     With ``refine_backend="device"`` the refinement and metrics run on
-    ``device`` over packed words; on a cold start (no ``init_sets``) every
-    backend's final S_i is exactly N(U_i), so its ``s_masks`` are reused as
-    the need matrix and the need pack is skipped.  ``device="cuda"`` (the
+    ``device`` over packed words; on a cold start (no ``init_sets``, no
+    ``init_iters``, no ``global_init_frac``) every backend's final S_i is
+    exactly N(U_i), so its ``s_masks`` are reused as the need matrix and the
+    need pack is skipped.  Otherwise the sets may hold more than N(U_i)
+    and the need matrix is packed from ``parts_u``.  A host backend's dense
+    ``neighbor_sets`` are packed for the result.  ``device="cuda"`` (the
     default) raises when there is no card: nothing falls back to the CPU.
     """
     device = torch.device(device)
@@ -215,7 +282,8 @@ def partition(
         timings["sketch"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    out = backend(run_graph, config, init_sets=init_sets, device=device)
+    out: BackendOutput = backend(run_graph, config, init_sets=init_sets,
+                                 device=device)
     _sync(device)
     elapsed = time.perf_counter() - t0
     pack_s = (out.timings or {}).get("pack")
@@ -225,31 +293,40 @@ def partition(
     else:
         timings["partition_u"] = elapsed
 
+    s_masks = out.s_masks
+    if s_masks is None:  # a host backend's dense sets
+        s_masks = pack_bitmask(out.neighbor_sets, run_graph.num_v)
+    parts_u = out.parts_u
     on_device = config.refine_backend == "device"
-    # cold-start invariant: S_i == N(U_i), so the sets ARE the need matrix
-    need_words = out.s_masks if on_device and init_sets is None else None
+    need_words = None
+    if on_device:
+        parts_u = torch.as_tensor(parts_u, device=device)
+        if init_sets is None and config.init_iters == 0 \
+                and config.global_init_frac == 0.0:
+            # cold-start invariant: S_i == N(U_i), so the sets ARE the
+            # need matrix
+            need_words = torch.as_tensor(s_masks, device=device)
     parts_v = parts_v_dev = None
     if config.refine_v:
         t0 = time.perf_counter()
         if on_device:
             parts_v_dev, need_words = refine_v_device(
-                run_graph, out.parts_u, config.k, sweeps=config.sweeps,
+                run_graph, parts_u, config.k, sweeps=config.sweeps,
                 chunk=config.refine_chunk, need_words=need_words,
                 device=device)
             parts_v = parts_v_dev.cpu().numpy()
         else:
-            parts_v = partition_v(run_graph, out.parts_u.cpu().numpy(),
-                                  config.k, sweeps=config.sweeps)
+            parts_v = partition_v(run_graph, _numpy(parts_u), config.k,
+                                  sweeps=config.sweeps)
         timings["partition_v"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
     if on_device:
-        metrics = evaluate_device(run_graph, out.parts_u, parts_v_dev,
+        metrics = evaluate_device(run_graph, parts_u, parts_v_dev,
                                   config.k, need_words=need_words,
                                   device=device)
     else:
-        metrics = evaluate(run_graph, out.parts_u.cpu().numpy(), parts_v,
-                           config.k)
+        metrics = evaluate(run_graph, _numpy(parts_u), parts_v, config.k)
     timings["metrics"] = time.perf_counter() - t0
     if sketch is not None and parts_v is not None and not sketch.is_exact:
         # back to the true parameter extent: every real column is served by
@@ -259,9 +336,9 @@ def partition(
     timings["total"] = time.perf_counter() - t_start
 
     return PartitionResult(
-        parts_u=out.parts_u.cpu().numpy(),
+        parts_u=_numpy(parts_u),
         parts_v=parts_v,
-        s_masks=out.s_masks.cpu().numpy(),
+        s_masks=_numpy(s_masks),
         num_v=run_graph.num_v,
         k=config.k,
         config=config,
@@ -269,4 +346,5 @@ def partition(
         timings=timings,
         device=str(device),
         sketch=sketch,
+        traffic=out.traffic,
     )

@@ -14,7 +14,7 @@ import dataclasses
 
 import numpy as np
 
-from .api import ParsaConfig, PartitionResult
+from .api import ParsaConfig, PartitionResult, TrafficCounters
 from .core.bipartite import BipartiteGraph
 from .kernels.parsa_cost import coerce_packed_sets
 from .sketch import SketchSpec
@@ -46,20 +46,28 @@ def sketch_from_numpy(num_v: int, hot_bits: int, bucket_bits: int,
 
 def result_from_numpy(parts_u, parts_v, s_masks, k: int, num_v: int,
                       config, *, device: str = "cuda",
-                      sketch: SketchSpec | None = None) -> PartitionResult:
+                      sketch: SketchSpec | None = None,
+                      traffic=None) -> PartitionResult:
     """A port ``PartitionResult`` from another run's arrays.
 
     ``s_masks`` may be packed (k, W) words or dense (k, num_v) bool sets.
     ``config`` is a port ``ParsaConfig`` or any object with the same field
     names (such as the JAX ``ParsaConfig``); only the fields the port has
     are read.  For a sketched result ``num_v`` is the sketch's width (the
-    result's own ``num_v``) and ``sketch`` its column map.  ``metrics`` is
-    None: the source graph is not at hand.
+    result's own ``num_v``) and ``sketch`` its column map.  ``traffic`` is
+    a ``TrafficCounters`` or any object with its field names (such as the
+    JAX one), or None.  ``metrics`` is None: the source graph is not at
+    hand.
     """
     if not isinstance(config, ParsaConfig):
         names = [f.name for f in dataclasses.fields(ParsaConfig)]
         config = ParsaConfig(**{n: getattr(config, n) for n in names
                                 if hasattr(config, n)})
+    if traffic is not None and not isinstance(traffic, TrafficCounters):
+        traffic = TrafficCounters(**{
+            f.name: int(getattr(traffic, f.name))
+            for f in dataclasses.fields(TrafficCounters)
+            if hasattr(traffic, f.name)})
     s_masks = np.array(coerce_packed_sets(s_masks, num_v), dtype=np.int32)
     if s_masks.shape[0] != k:
         raise ValueError(f"s_masks has {s_masks.shape[0]} rows, expected {k}")
@@ -74,4 +82,5 @@ def result_from_numpy(parts_u, parts_v, s_masks, k: int, num_v: int,
         timings={},
         device=device,
         sketch=sketch,
+        traffic=traffic,
     )

@@ -1,6 +1,7 @@
 """Parsa core of the port: the numpy host oracles (``bipartite``, ``costs``,
-``partition_v``) and the torch pipeline (``partition``, ``refine``,
-``dispatch``)."""
+``partition_v``), the numpy host algorithms (``bucket_queue``,
+``partition_u``, ``subgraphs``, ``parallel``) and the torch pipeline
+(``partition``, ``refine``, ``dispatch``)."""
 from .bipartite import BipartiteGraph, from_edges, load_npz  # noqa: F401
 from .costs import PartitionMetrics, evaluate, need_matrix  # noqa: F401
 from .partition_v import partition_v  # noqa: F401

@@ -27,6 +27,17 @@ The counterpart of ``repro.core.jax_partition`` (its kernel path):
    extra *sink* row at index B: an inactive slot points there, so its
    commit writes only the sink.
 
+4. *Parallel workers* (Algorithm 4, the ``parallel_device`` backend) —
+   ``parallel_blocked_partition_u_impl`` shards the same packed blocks
+   over W workers.  On one card the workers are a leading axis of the
+   carried state, ``s_local`` (W, k, Wwords) and ``sz_local`` (W, k):
+   within a super-step each worker scans its ``merge_every`` blocks against
+   its own stale slice through ``_assign_block_rounds``, then one
+   ``merge_worker_sets`` launch OR-merges the sets and counts the pushed
+   words on the device, and the sizes merge as ``sz_global + Σ_w
+   (sz_local[w] − sz_global)``.  The JAX ``shard_map`` + ``all_gather``
+   image of the same protocol gives the same bits.
+
 ``blocked_partition_u_hostloop_impl`` / ``_assign_block`` are the
 sequential per-vertex parity oracle (the ``host_blocked_oracle`` backend),
 driven by the ``parsa_cost`` kernel.  On CPU tensors every kernel wrapper
@@ -45,6 +56,7 @@ import torch
 from ..kernels.parsa_cost import (
     BIG,
     coerce_packed_sets,
+    merge_worker_sets,
     pack_bitmask,
     pack_bitmask_csr_sparse,
     parsa_cost,
@@ -59,6 +71,7 @@ __all__ = [
     "pack_graph_blocks",
     "blocked_partition_u_impl",
     "blocked_partition_u_hostloop_impl",
+    "parallel_blocked_partition_u_impl",
 ]
 
 
@@ -337,3 +350,248 @@ def blocked_partition_u_impl(
         parts[torch.from_numpy(order).to(device)] = \
             parts_blocks.reshape(-1)[: graph.num_u]
     return parts, s_masks
+
+
+# --------------------------------------------------------------------------
+# Parallel workers (Algorithm 4) on one card.
+# --------------------------------------------------------------------------
+def _pad_block_stack(packed: PackedBlocks, n_total: int) -> PackedBlocks:
+    """Append ``n_total - n_blocks`` empty blocks (all rows padding: valid
+    False, tr_ids == B ⇒ dropped) so a block stack divides evenly into
+    per-worker shards and merge groups.  Empty blocks assign nothing and
+    leave (S, sizes) untouched, so trailing padding is parity-safe."""
+    nb, B = packed.valid.shape
+    if n_total == nb:
+        return packed
+    e = n_total - nb
+
+    def pad0(a):
+        return np.pad(a, [(0, e)] + [(0, 0)] * (a.ndim - 1))
+
+    tr_pad = np.full((e, packed.tr_ids.shape[1]), B, np.int32)
+    return PackedBlocks(
+        valid=pad0(packed.valid),
+        widx=pad0(packed.widx),
+        vals=pad0(packed.vals),
+        trunc=pad0(packed.trunc),
+        tr_ids=np.concatenate([packed.tr_ids, tr_pad]),
+        tr_masks=pad0(packed.tr_masks),
+        order=packed.order,
+    )
+
+
+def _weighted_block_targets(weights: np.ndarray, nb: int) -> np.ndarray:
+    """Largest-remainder apportionment of ``nb`` real blocks proportional
+    to per-worker ``weights`` (higher weight ⇒ more blocks)."""
+    raw = weights / weights.sum() * nb
+    t = np.floor(raw).astype(np.int64)
+    short = nb - int(t.sum())
+    if short:
+        t[np.argsort(-(raw - t), kind="stable")[:short]] += 1
+    return t
+
+
+def _biased_perm(targets: np.ndarray, nb: int, nb_per: int,
+                 shuffle_rng: np.random.Generator | None) -> np.ndarray:
+    """Block→worker permutation handing worker ``w`` exactly
+    ``targets[w]`` real blocks (randomized across workers when a rng is
+    given) and topping every worker up to ``nb_per`` with trailing padding
+    blocks — the parity-safe no-ops ``_pad_block_stack`` appends — so every
+    shard keeps the same shape while slow workers scan mostly padding."""
+    real = (shuffle_rng.permutation(nb) if shuffle_rng is not None
+            else np.arange(nb, dtype=np.int64))
+    pad_ids = np.arange(nb, nb_per * targets.shape[0], dtype=np.int64)
+    out, r0, p0 = [], 0, 0
+    for t_w in targets:
+        t_w = int(t_w)
+        out.append(real[r0 : r0 + t_w])
+        out.append(pad_ids[p0 : p0 + nb_per - t_w])
+        r0 += t_w
+        p0 += nb_per - t_w
+    return np.concatenate(out)
+
+
+def _parallel_scan(
+    widx: torch.Tensor,      # (workers, nb_per, B, cap) int32
+    vals: torch.Tensor,      # (workers, nb_per, B, cap) int32
+    tr_ids: torch.Tensor,    # (workers, nb_per, TB) int32
+    tr_masks: torch.Tensor,  # (workers, nb_per, TB, W) int32
+    valid: torch.Tensor,     # (workers, nb_per, B) bool
+    s_masks: torch.Tensor,   # (k, W) int32 — the shared sets at entry
+    sizes: torch.Tensor,     # (k,) int32 — the shared sizes at entry
+    merge_every: int,
+    sketch: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Every worker's blocked scan with an OR-merge each ``merge_every``
+    blocks, all on the device.  Returns (parts (workers, n_super,
+    merge_every, B) int32 in sharded order, merged s_masks, merged sizes,
+    pushed (1,) int64 changed words); ``s_masks`` and ``sizes`` themselves
+    are left as they were."""
+    nw, nb_per, B = valid.shape
+    k = s_masks.shape[0]
+    dev = s_masks.device
+    n_super = nb_per // merge_every
+    parts = torch.full((nw, nb_per, B + 1), -1, dtype=torch.int32, device=dev)
+    retired = torch.ones((nw, nb_per, B + 1), dtype=torch.bool, device=dev)
+    retired[..., :B] = ~valid
+    iota_k = torch.arange(k, dtype=torch.int32, device=dev)
+    en_all = torch.ones(k, dtype=torch.bool, device=dev)
+    s_global, sz_global = s_masks, sizes
+    # each worker's stale copy plus its own picks, updated in place (a
+    # fresh buffer: at nw == 1 ``contiguous()`` would alias s_masks)
+    fresh = torch.contiguous_format
+    s_local = s_global.expand(nw, -1, -1).clone(memory_format=fresh)
+    sz_local = sz_global.expand(nw, -1).clone(memory_format=fresh)
+    pushed = torch.zeros(1, dtype=torch.int64, device=dev)
+    for step in range(n_super):
+        for w in range(nw):
+            for b in range(step * merge_every, (step + 1) * merge_every):
+                nbr = _rebuild_nbr(widx[w, b], vals[w, b], tr_ids[w, b],
+                                   tr_masks[w, b])
+                _assign_block_rounds(nbr, retired[w, b], parts[w, b],
+                                     s_local[w], sz_local[w], iota_k, en_all,
+                                     sketch)
+        # server union-push: OR-merge the sets (counting the pushed words)
+        # and add every worker's size delta onto the pre-merge totals
+        s_global = merge_worker_sets(s_local, s_global, pushed)
+        sz_global = sz_global + (sz_local - sz_global).sum(
+            dim=0, dtype=torch.int32)
+        s_local.copy_(s_global.expand_as(s_local))
+        sz_local.copy_(sz_global.expand_as(sz_local))
+    return (parts[..., :B].reshape(nw, n_super, merge_every, B), s_global,
+            sz_global, pushed)
+
+
+def _run_parallel_packed_scan(
+    packed: PackedBlocks,
+    s_masks: torch.Tensor,
+    sizes: torch.Tensor,
+    *,
+    k: int,
+    workers: int,
+    merge_every: int,
+    shuffle_rng: np.random.Generator | None = None,
+    worker_weights: np.ndarray | None = None,
+    sketch: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, dict, np.ndarray | None]:
+    """Pad the block stack to whole per-worker merge groups, shard it over
+    the worker axis (optionally in a randomized block→worker order drawn
+    from ``shuffle_rng``) and run every worker's scan with its merges on
+    the device of ``s_masks``.
+
+    ``worker_weights`` (workers-long, nonnegative) biases the block
+    distribution: real blocks are apportioned proportionally to weight
+    (largest remainder) and the shortfall is filled with parity-safe
+    padding blocks, so every shard keeps the same shape.  The merge cadence
+    is untouched.
+
+    Returns ``(parts_blocks, s_out, sizes_out, traffic, perm)`` where
+    ``parts_blocks`` is the (workers, n_super, merge_every, B) output in
+    *sharded* block order (flatten + ``argsort(perm)`` to recover stack
+    order when a permutation was applied; ``perm`` is None only when
+    neither shuffle nor weights were given), and ``traffic`` the push/pull
+    dict in bitmask-word bytes, with the formulas of the JAX package.
+    Nothing reads back to the host until the scan has ended.
+    """
+    nb = packed.valid.shape[0]
+    if worker_weights is not None and workers > 1:
+        w = np.asarray(worker_weights, np.float64)
+        if w.shape != (workers,):
+            raise ValueError(
+                f"worker_weights must have shape ({workers},), got {w.shape}")
+        if not np.all(np.isfinite(w)) or np.any(w < 0) or w.sum() <= 0:
+            raise ValueError(
+                "worker_weights must be finite, nonnegative, with a "
+                "positive sum")
+        targets = _weighted_block_targets(w, nb)
+        nb_per = max(int(targets.max()), 1)
+        nb_per = -(-nb_per // merge_every) * merge_every
+        packed = _pad_block_stack(packed, nb_per * workers)
+        perm = _biased_perm(targets, nb, nb_per, shuffle_rng)
+    else:
+        # blocks per worker, rounded up to whole merge groups
+        nb_per = -(-nb // workers)
+        nb_per = -(-nb_per // merge_every) * merge_every
+        packed = _pad_block_stack(packed, nb_per * workers)
+        total = nb_per * workers
+        perm = (shuffle_rng.permutation(total) if shuffle_rng is not None
+                else None)
+    dev = s_masks.device
+
+    def shard(x):
+        if perm is not None:
+            x = x[perm]
+        return torch.from_numpy(np.ascontiguousarray(
+            x.reshape((workers, nb_per) + x.shape[1:]))).to(dev)
+
+    with phase("parallel_partition_scan",
+               nbytes=s_masks.nbytes + sizes.nbytes, k=k,
+               workers=workers, blocks=nb_per * workers):
+        parts_blocks, s_out, sizes_out, pushed = _parallel_scan(
+            shard(packed.widx), shard(packed.vals), shard(packed.tr_ids),
+            shard(packed.tr_masks), shard(packed.valid), s_masks, sizes,
+            merge_every, sketch)
+    W = packed.tr_masks.shape[-1]
+    n_super = nb_per // merge_every
+    traffic = {
+        "pushed_bytes": 4 * int(pushed.item()),
+        "pulled_bytes": 4 * workers * n_super * k * W,
+        "tasks": workers * n_super,
+        "stale_pushes_missed": n_super * workers * (workers - 1),
+    }
+    return parts_blocks, s_out, sizes_out, traffic, perm
+
+
+def parallel_blocked_partition_u_impl(
+    graph: BipartiteGraph,
+    k: int,
+    workers: int = 4,
+    block: int = 256,
+    merge_every: int = 1,
+    init_sets: np.ndarray | torch.Tensor | None = None,
+    seed: int = 0,
+    cap: int = 48,
+    device: str | torch.device = "cuda",
+    timings: dict | None = None,
+    sketch: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor, dict]:
+    """Algorithm 4 with ``workers`` workers on one device.
+
+    The permuted U is packed once (the permutation of ``device_scan``) and
+    split into ``workers`` contiguous shards of whole blocks; each worker
+    scans its shard against a stale copy of the packed server sets, and
+    every ``merge_every`` blocks the copies OR-merge (τ ≡ merge_every − 1
+    blocks of staleness).  With ``workers=1`` the schedule collapses to
+    ``blocked_partition_u_impl`` bit for bit, for any ``merge_every``.
+
+    Balance: every worker keeps §4.1 perfect balance against its *stale*
+    view of the global sizes, so when a merge lands with uneven sizes
+    (possible whenever k ∤ |U|) each worker applies the same catch-up and
+    the corrections overlap — global ``max|U_i| − min|U_i|`` is bounded by
+    ``workers`` (exactly ≤ 1 at workers=1).
+
+    Returns (parts_u (|U|,) int32, final packed s_masks (k, W) int32), both
+    on ``device``, and the traffic dict: each worker pulls the full packed
+    (k, W) set at every merge and pushes only its changed words;
+    ``stale_pushes_missed`` counts W−1 peers per worker per merge.  Unlike
+    the JAX package, the worker count is not limited by a device count:
+    the workers are an axis of one card's state.
+    """
+    if workers < 1:
+        raise ValueError(f"workers must be >= 1, got {workers}")
+    if merge_every < 1:
+        raise ValueError(f"merge_every must be >= 1, got {merge_every}")
+    device = torch.device(device)
+    t_pack = time.perf_counter()
+    s_masks, sizes = _init_state(graph, k, init_sets, device)
+    order = np.random.default_rng(seed).permutation(graph.num_u)
+    packed = pack_graph_blocks(graph, block, order=order, cap=cap)
+    if timings is not None:
+        timings["pack"] = time.perf_counter() - t_pack
+    parts_blocks, s_out, _, traffic, _ = _run_parallel_packed_scan(
+        packed, s_masks, sizes, k=k, workers=workers,
+        merge_every=merge_every, sketch=sketch)
+    parts = torch.empty(graph.num_u, dtype=torch.int32, device=device)
+    parts[torch.from_numpy(order).to(device)] = \
+        parts_blocks.reshape(-1)[: graph.num_u]
+    return parts, s_out, traffic

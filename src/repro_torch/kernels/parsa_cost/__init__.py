@@ -7,6 +7,8 @@ from .ops import (  # noqa: F401
     SELECT_MAX_B,
     SELECT_MAX_K,
     SKETCH_SELECT_MAX_TILE_BYTES,
+    merge_worker_sets,
+    packed_union_delta,
     parsa_cost,
     parsa_cost_select,
     parsa_select_reduce,
@@ -17,13 +19,18 @@ from .ops import (  # noqa: F401
     sketch_select_fits,
 )
 from .pack import (  # noqa: F401
+    coerce_dense_sets,
     coerce_packed_sets,
     pack_bitmask,
     pack_bitmask_csr_sparse,
+    packed_delta,
+    packed_union,
     unpack_bitmask,
 )
 from .ref import (  # noqa: F401
     BIG,
+    merge_worker_sets_ref,
+    packed_union_delta_ref,
     parsa_cost_ref,
     parsa_select_greedy_ref,
     parsa_select_ref,

@@ -25,12 +25,14 @@ import threading
 __all__ = ["SOURCES", "NVCC_FLAGS", "build_dir", "build_all", "load"]
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
-SOURCES = ("parsa_cost", "parsa_select", "sketch_select", "refine_sweep")
+SOURCES = ("parsa_cost", "parsa_select", "sketch_select", "refine_sweep",
+           "union_delta")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_int64
 # C signature of every entry point: name -> (library, argtypes)
 _ENTRIES = {
     "parsa_cost": ("parsa_cost", (_P, _P, _I, _I, _I, _P, _P)),
@@ -40,6 +42,7 @@ _ENTRIES = {
     "sketch_select": ("sketch_select",
                       (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P)),
     "refine_sweep": ("refine_sweep", (_P, _P, _P, _I, _I, _P, _P, _P)),
+    "packed_union_delta": ("union_delta", (_P, _P, _I, _L, _P, _P, _P, _P)),
 }
 
 _lock = threading.Lock()

@@ -19,6 +19,8 @@ import torch
 
 from . import build
 from .ref import (
+    merge_worker_sets_ref,
+    packed_union_delta_ref,
     parsa_cost_ref,
     refine_sweep_ref,
     select_from_cost,
@@ -29,8 +31,8 @@ from .ref import (
 __all__ = ["LAUNCHES", "reset_launch_counts", "parsa_cost",
            "parsa_select_tile", "parsa_select_reduce", "parsa_cost_select",
            "sketch_cost_select", "sketch_select_fits", "refine_sweep_chunk",
-           "SELECT_MAX_B", "SELECT_MAX_K", "SKETCH_SELECT_MAX_TILE_BYTES",
-           "REFINE_MAX_K"]
+           "packed_union_delta", "merge_worker_sets", "SELECT_MAX_B",
+           "SELECT_MAX_K", "SKETCH_SELECT_MAX_TILE_BYTES", "REFINE_MAX_K"]
 
 # parsa_select_reduce keeps each thread's retired rows in one 32-bit mask
 # over at most 1024 threads; the slot loop itself takes any k, capped here
@@ -46,7 +48,7 @@ REFINE_MAX_K = 1024
 
 LAUNCHES: dict[str, int] = {"parsa_cost": 0, "parsa_select_tile": 0,
                             "parsa_select_reduce": 0, "sketch_select": 0,
-                            "refine_sweep": 0}
+                            "refine_sweep": 0, "packed_union_delta": 0}
 
 
 def reset_launch_counts() -> None:
@@ -266,3 +268,51 @@ def refine_sweep_chunk(
     _launch("refine_sweep", _ptr(tile_words), _ptr(prev), _ptr(cost), k, cw,
             _ptr(parts), _ptr(cost_out))
     return cost_out, parts
+
+
+def packed_union_delta(new: torch.Tensor, old: torch.Tensor
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Alg 4's wire ops on packed (k, W) int32 words: (union = new | old,
+    delta = new & ~old), for any k and W (no padding)."""
+    dev = new.device
+    _check("new", new, torch.int32, 2, dev)
+    _check("old", old, torch.int32, 2, dev)
+    if new.shape != old.shape:
+        raise ValueError(f"shapes differ: {tuple(new.shape)} vs "
+                         f"{tuple(old.shape)}")
+    if not _on_cuda(dev):
+        return packed_union_delta_ref(new, old)
+    union = torch.empty_like(new)
+    delta = torch.empty_like(new)
+    if new.numel():
+        _launch("packed_union_delta", _ptr(new), _ptr(old), 1, new.numel(),
+                _ptr(union), _ptr(delta), _ptr(None))
+    return union, delta
+
+
+def merge_worker_sets(s_local: torch.Tensor, s_global: torch.Tensor,
+                      pushed: torch.Tensor) -> torch.Tensor:
+    """The server OR-merge of ``n`` workers: ``s_local`` (n, k, W) int32,
+    each worker's sets grown from ``s_global`` (k, W) int32, → the merged
+    (k, W) sets ``s_global | OR_w s_local[w]``.  Adds the number of
+    nonzero words of ``s_local[w] & ~s_global``, summed over w (the
+    delta-encoded push), into ``pushed``, a one-element int64 tensor on the
+    same device, in place.  One launch on CUDA; nothing reads back."""
+    dev = s_global.device
+    _check("s_local", s_local, torch.int32, 3, dev)
+    _check("s_global", s_global, torch.int32, 2, dev)
+    _check("pushed", pushed, torch.int64, 1, dev)
+    if s_local.shape[1:] != s_global.shape or pushed.shape != (1,):
+        raise ValueError(f"s_local {tuple(s_local.shape)} must be (n, "
+                         f"*{tuple(s_global.shape)}) and pushed (1,), got "
+                         f"{tuple(pushed.shape)}")
+    if not _on_cuda(dev):
+        merged, n_words = merge_worker_sets_ref(s_local, s_global)
+        pushed += n_words
+        return merged
+    merged = torch.empty_like(s_global)
+    if s_global.numel():
+        _launch("packed_union_delta", _ptr(s_local), _ptr(s_global),
+                s_local.shape[0], s_global.numel(), _ptr(merged), _ptr(None),
+                _ptr(pushed))
+    return merged

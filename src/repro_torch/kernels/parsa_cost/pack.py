@@ -9,6 +9,7 @@ from __future__ import annotations
 import numpy as np
 
 __all__ = ["pack_bitmask", "unpack_bitmask", "coerce_packed_sets",
+           "coerce_dense_sets", "packed_union", "packed_delta",
            "pack_bitmask_csr_sparse"]
 
 
@@ -57,6 +58,37 @@ def coerce_packed_sets(sets, num_v: int) -> np.ndarray:
             f"neighbor sets width {a.shape[1]} matches neither num_v="
             f"{num_v} (dense) nor {W} packed words")
     return pack_bitmask(a.astype(bool, copy=False), num_v)
+
+
+def coerce_dense_sets(sets, num_v: int) -> np.ndarray:
+    """Inverse normalization: dense (k, num_v) bool view of neighbor sets
+    handed in either format (packed input is unpacked into a fresh,
+    writable scratch)."""
+    W = (num_v + 31) // 32
+    a = np.asarray(sets)
+    if a.ndim != 2:
+        raise ValueError(f"neighbor sets must be 2-D, got shape {a.shape}")
+    if a.dtype != np.bool_ and np.issubdtype(a.dtype, np.integer) \
+            and a.shape[1] == W and a.shape[1] != num_v:
+        return unpack_bitmask(a, num_v)
+    if a.shape[1] != num_v:
+        raise ValueError(
+            f"neighbor sets width {a.shape[1]} matches neither num_v="
+            f"{num_v} (dense) nor {W} packed words")
+    return a.astype(bool, copy=False)
+
+
+def packed_union(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """Word-wise union of packed bitmasks: the Alg 4 server OR-merge
+    (line 9) on the wire format — works on any int word dtype."""
+    return a | b
+
+
+def packed_delta(new: np.ndarray, old: np.ndarray) -> np.ndarray:
+    """Word-wise set difference ``new \\ old`` on packed bitmasks — the
+    delta a worker pushes back to the server (Alg 4 worker line 9).
+    ``packed_union(old, packed_delta(new, old)) == packed_union(old, new)``."""
+    return new & ~old
 
 
 def _gather_row_cols(

@@ -1,6 +1,7 @@
 r"""Plain PyTorch versions of the parsa_cost / parsa_select / sketch_select /
-refine-sweep kernels: the CPU path of every wrapper in ``ops.py`` and the
-yardstick each CUDA kernel is held to, bit for bit, on the card.
+refine-sweep / union-delta kernels: the CPU path of every wrapper in
+``ops.py`` and the yardstick each CUDA kernel is held to, bit for bit, on
+the card.
 
     cost[u, i] = |N(u) \ S_i| = Σ_w popcount(nbr[u, w] & ~s[i, w])
 
@@ -21,7 +22,7 @@ import torch
 __all__ = ["BIG", "popcount32", "parsa_cost_ref", "select_from_cost",
            "select_greedy_from_cost", "parsa_select_ref",
            "parsa_select_greedy_ref", "sketch_select_ref", "refine_sweep_ref",
-           "unpack_bits"]
+           "packed_union_delta_ref", "merge_worker_sets_ref", "unpack_bits"]
 
 BIG = 2**30  # sentinel cost for retired / padded vertices (fits int32)
 
@@ -147,3 +148,23 @@ def refine_sweep_ref(
                      torch.where(act, nj - 2, 0).to(torch.int32))
         parts[j:j + 1] = torch.where(act, xi, -1)
     return c, parts
+
+
+def packed_union_delta_ref(new: torch.Tensor, old: torch.Tensor
+                           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Alg 4's wire ops on packed words: (union, delta) = (new | old,
+    new & ~old), word-wise over any common shape."""
+    return new | old, new & ~old
+
+
+def merge_worker_sets_ref(s_local: torch.Tensor, s_global: torch.Tensor
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The server OR-merge of ``n`` workers' sets: ``s_local`` (n, k, W)
+    against the pre-merge ``s_global`` (k, W) → (merged (k, W) =
+    s_global | OR_w s_local[w], pushed = Σ_w #nonzero words of
+    s_local[w] & ~s_global, an int64 scalar tensor)."""
+    merged = s_global.clone()
+    for w in range(s_local.shape[0]):
+        merged |= s_local[w]
+    pushed = torch.count_nonzero(s_local & ~s_global).to(torch.int64)
+    return merged, pushed

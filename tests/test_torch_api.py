@@ -164,7 +164,7 @@ def test_load_npz_reads_a_jax_saved_graph(tmp_path):
 
 # ----------------------------------------------------------- config
 def test_config_validation():
-    for bad, match in [(dict(k=0), "k must"), (dict(k=4, backend="host"),
+    for bad, match in [(dict(k=0), "k must"), (dict(k=4, backend="nope"),
                                                  "unknown Parsa backend"),
                        (dict(k=4, block_size=12), "block_size"),
                        (dict(k=4, sweeps=0), "sweeps"),
@@ -173,7 +173,9 @@ def test_config_validation():
         with pytest.raises(ValueError, match=match):
             ParsaConfig(**bad)
     assert not hasattr(ParsaConfig(k=4), "use_kernel")
-    assert sorted(api.BACKENDS) == ["device_scan", "host_blocked_oracle"]
+    assert sorted(api.BACKENDS) == ["device_scan", "host",
+                                    "host_blocked_oracle", "parallel_device",
+                                    "parallel_sim"]
 
 
 # ------------------------------------------------------------ guards
