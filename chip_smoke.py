@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port of Parsa on one NVIDIA GPU and hold every CUDA
-kernel to its plain PyTorch version.
+kernel to its plain PyTorch version: the partitioner's paths and the LM
+serving path (qwen3-14b at full width).
 
     python3 chip_smoke.py                 # all phases, one card
 
@@ -11,7 +12,10 @@ Phases, in order; any failure exits non-zero:
 
 1. the card (``nvidia-smi`` name and power limit) and the kernel build;
 2. each kernel against its plain version on the card, bit for bit, across
-   shape sweeps (tolerance: 0, the program is integer);
+   shape sweeps (tolerance: 0, the program is integer); flash attention
+   within float tolerances (float32 3e-5 with TF32 off, bfloat16 2e-2),
+   across dtypes, GQA and MHA, masks, Sq < Skv, ragged lengths, head dims
+   and the prefill's full-width shape;
 3. the main path at full size: ``text_like(100_000, 65_536, mean_len=20,
    seed=0)`` through ``partition(..., ParsaConfig(k=16,
    backend="device_scan", refine_backend="device", sweeps=2))`` on cuda,
@@ -34,18 +38,28 @@ Phases, in order; any failure exits non-zero:
    the host simulation ``parallel_sim`` at full size (reported); cpu
    against cuda on the reduced graph at 4 and 8 workers, with global
    initialization and sketched;
-7. each kernel timed at the main path's shapes (CUDA events, median of 21
+7. the LM serving path (phase ``lm``): qwen3-14b at full width and depth
+   with random bf16 weights drawn on the card, ``make_prefill_step`` at
+   B=2, S=4,096 (one flash_attention launch per layer, against the plain
+   route), layer 0's attention kernel against plain, greedy decode through
+   the serving engine (``decode_loop_engine``, batch 4, prompt 64, 32 new
+   tokens) bit-identical to ``decode_loop``, teacher forcing, cpu against
+   cuda on the reduced config, peak device memory and a profile window of
+   one prefill and one decode step;
+8. each kernel timed at the main path's shapes (CUDA events, median of 21
    samples after warm-up; ``ms`` from launches replayed in a CUDA graph,
    ``eager_ms`` from launches made one by one from Python) beside its bound
    and its plain version (``sketch_select`` at the sketch path's shape and
    at the main path's, ``packed_union_delta`` at the parallel path's
-   merge), then a window of the scan, of the sketched scan, of one
+   merge, ``flash_attention`` at the prefill's shape beside
+   ``scaled_dot_product_attention``), then a window of the scan, of the sketched scan, of one
    super-step of the parallel scan and the whole refine under
    ``torch.profiler``: device kernels per round and the device's idle
    share.
 
-``--phases build,kernels,sketch`` and ``--phases build,kernels,parallel``
-are short checks of one path (they print no result and exit 1).
+``--phases build,kernels,sketch``, ``--phases build,kernels,parallel`` and
+``--phases build,kernels,lm`` are short checks of one path (they print no
+result and exit 1).
 
 The last lines are the card, one ``{"kernels": [...]}`` JSON line and
 ``{"ok": true, "device": {...}}``.
@@ -61,13 +75,17 @@ import sys
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
-PHASES = ("build", "kernels", "main", "parity", "sketch", "parallel", "times")
+PHASES = ("build", "kernels", "main", "parity", "sketch", "parallel", "lm",
+          "times")
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, and the non-tensor fp32
 # rate, the only CUDA-core rate in that sheet; int32 and popcount work is
 # counted against it one operation per instruction.
 HBM_BYTES_PER_S = 3.35e12
 CORE_OPS_PER_S = 67e12
+# dense bf16 tensor-core rate (same sheet): the bound of flash attention's
+# bf16 products
+TENSOR_BF16_FLOPS = 989e12
 
 MAIN_GRAPH = dict(num_docs=100_000, vocab=65_536, mean_len=20, seed=0)
 SMALL_GRAPH = dict(num_docs=4_000, vocab=8_192, mean_len=20, seed=1)
@@ -118,7 +136,20 @@ KERNELS = {
                       "src/repro_torch/kernels/parsa_cost/csrc/sketch_select.cu"),
     "packed_union_delta": ("src/repro/kernels/parsa_cost/select.py:292",
                            "src/repro_torch/kernels/parsa_cost/csrc/union_delta.cu"),
+    "flash_attention": ("src/repro/kernels/flash_attention/flash_attention.py:86",
+                        "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"),
 }
+
+# the LM serving path: qwen3-14b at full width and depth (40 layers,
+# d_model 5,120, 40 query heads over 8 KV heads, head dim 128, d_ff 17,408,
+# vocab 151,936 padded to 152,064), random bf16 weights from SEED; the
+# prefill at B=2, S=4,096 into a 4,128-slot cache, the decode loop at
+# batch 4, a 64-token prompt and 32 new tokens.  Only num_layers may be cut
+# to fit the time limit, never a width.
+LM = dict(arch="qwen3-14b", num_layers=None, seed=0, prefill_batch=2,
+          prefill_seq=4096, cache_seq=4128, serve_batch=4, prompt=64, gen=32)
+LM_MAX_REL_L2 = 5e-2        # kernel route against plain route, and teacher forcing
+FLASH_TOL = {"float32": 3e-5, "bfloat16": 2e-2}
 
 
 class SmokeFailure(RuntimeError):
@@ -338,7 +369,79 @@ def phase_kernels(dev) -> dict:
             compare("packed_union_delta", [merged, pushed - 5],
                     [want, n_words.view(1)], ("merge", n, k, W))
     torch.cuda.synchronize()
+    res["flash_attention"] = check_flash(dev)
     return res
+
+
+def check_flash(dev, full=(2, 4096, 40, 8, 128)) -> dict:
+    """flash_attention against its plain version on the card, within
+    FLASH_TOL (|got - want| <= tol + tol * |want|): float32 with TF32 off
+    in the plain version's products, bfloat16; GQA and MHA; causal,
+    non-causal, causal with a window whose first tile lies outside some
+    rows' window; Sq < Skv (left-aligned); S=100; D in {32, 64, 128, 256};
+    K and V as strided views of a longer cache; the prefill's full-width
+    shape.  Both kernel routes (tensor cores for bf16 at D in {64, 128},
+    FMA otherwise) are run."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_ref, uses_tensor_cores)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device=dev).manual_seed(0)
+    out = {"cases": 0, "max_abs_err": 0.0, "max_abs_err_full_shape": None,
+           "tolerance": dict(FLASH_TOL), "mma_cases": 0, "fma_cases": 0}
+    cases = []
+    for dt in ("float32", "bfloat16"):
+        for (B, Sq, Skv, H, KV, D, causal, window) in (
+                (2, 128, 128, 8, 2, 64, True, None),     # GQA
+                (2, 128, 128, 4, 4, 128, True, None),    # MHA
+                (1, 192, 192, 4, 2, 128, False, None),   # non-causal
+                (1, 256, 256, 4, 2, 64, True, 64),       # window, tiles of 64
+                (1, 256, 256, 2, 1, 128, True, 100),     # window, no tile multiple
+                (2, 64, 192, 4, 2, 64, True, None),      # Sq < Skv
+                (1, 64, 192, 4, 1, 128, False, None),    # Sq < Skv, non-causal
+                (2, 100, 100, 4, 2, 128, True, None),    # ragged length
+                (1, 100, 100, 4, 4, 64, False, 30),
+                (1, 96, 96, 4, 2, 32, True, None),       # FMA route for bf16
+                (1, 80, 80, 2, 1, 256, True, None)):
+            cases.append((dt, B, Sq, Skv, H, KV, D, causal, window, False))
+        cases.append((dt, 2, 200, 200, 8, 2, 128, True, None, True))  # strided
+    fb, fs, fh, fkv, fd = full     # the prefill's shape
+    cases.append(("bfloat16", fb, fs, fs, fh, fkv, fd, True, None, False))
+    for dt, B, Sq, Skv, H, KV, D, causal, window, strided in cases:
+        dtype = getattr(torch, dt)
+
+        def rnd(*shape):
+            return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+        q = rnd(B, Sq, H, D)
+        if strided:  # views of a longer cache, as the prefill hands them
+            k = rnd(B, Skv + 56, KV, D)[:, :Skv]
+            v = rnd(B, Skv + 56, KV, D)[:, :Skv]
+        else:
+            k, v = rnd(B, Skv, KV, D), rnd(B, Skv, KV, D)
+        got = flash_attention(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        want = flash_attention_ref(q, k, v, causal=causal, window=window)
+        tol = FLASH_TOL[dt]
+        diff = (got.float() - want.float()).abs()
+        err = float(diff.max())
+        case = (dt, B, Sq, Skv, H, KV, D, causal, window, strided)
+        check(bool(torch.isfinite(got.float()).all()), f"flash {case}: not finite")
+        check(bool((diff <= tol + tol * want.float().abs()).all()),
+              f"flash_attention {case}: max abs err {err} past tolerance {tol}")
+        out["cases"] += 1
+        out["max_abs_err"] = max(out["max_abs_err"], err)
+        out["mma_cases" if uses_tensor_cores(q, k, v) else "fma_cases"] += 1
+        if (B, Sq, H, KV, D) == full:
+            out["max_abs_err_full_shape"] = err
+        del q, k, v, got, want, diff
+    check(out["mma_cases"] > 0 and out["fma_cases"] > 0,
+          f"flash routes not both run: {out}")
+    torch.cuda.empty_cache()
+    return out
 
 
 # ---------------------------------------------------------------- phase 3
@@ -748,6 +851,209 @@ def phase_parallel(dev, main: dict) -> dict:
 
 
 # ---------------------------------------------------------------- phase 7
+def rel_l2(a, b) -> float:
+    a, b = a.float(), b.float()
+    return float((a - b).norm() / b.norm())
+
+
+def phase_lm(dev, lm: dict = LM) -> dict:
+    """The LM serving path on the card; see the module docstring, item 7."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch.serve import decode_loop, decode_loop_engine
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import layers as LL
+
+    cfg = get_config(lm["arch"])
+    if lm["num_layers"]:
+        cfg = dataclasses.replace(cfg, num_layers=lm["num_layers"])
+    out: dict = {"arch": cfg.name, "num_layers": cfg.num_layers,
+                 "d_model": cfg.d_model, "d_ff": cfg.d_ff,
+                 "heads": f"{cfg.num_heads}/{cfg.num_kv_heads}x{cfg.head_dim}",
+                 "vocab": f"{cfg.vocab_size} (padded {cfg.padded_vocab})"}
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    model, prefill = make_prefill_step(cfg, dev)
+    _, prefill_plain = make_prefill_step(cfg, dev, flash=False)
+    params = model.init(lm["seed"])
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t0
+    out["params"] = model.param_count(params)
+    out["weights_gb"] = torch.cuda.memory_allocated(dev) / 1e9
+    log(f"lm: {cfg.name}, {cfg.num_layers} layers, {out['params']:,} "
+        f"parameters ({out['weights_gb']:.2f} GB bf16) drawn in "
+        f"{out['init_s']:.2f} s")
+
+    # (a) the prefill: one flash_attention launch per layer
+    rng = np.random.default_rng(lm["seed"])
+    B, S = lm["prefill_batch"], lm["prefill_seq"]
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S))).to(dev)
+    batch = {"tokens": tokens, "cache_seq": lm["cache_seq"]}
+    logits, cache = prefill(params, batch)           # warm-up
+    del logits, cache
+    torch.cuda.synchronize()
+    FA.reset_launch_counts()
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, batch)
+    torch.cuda.synchronize()
+    out["prefill_s"] = time.perf_counter() - t0
+    launches = FA.LAUNCHES["flash_attention"]
+    out["prefill_flash_launches"] = launches
+    check(launches == cfg.num_layers,
+          f"prefill made {launches} flash_attention launches, want "
+          f"{cfg.num_layers} (one per layer)")
+    check(tuple(logits.shape) == (B, cfg.padded_vocab)
+          and bool(torch.isfinite(logits).all()), "prefill logits not finite")
+    out["prefill_peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    t0 = time.perf_counter()
+    logits_p, cache_p = prefill_plain(params, batch)
+    torch.cuda.synchronize()
+    out["prefill_plain_s"] = time.perf_counter() - t0
+    check(FA.LAUNCHES["flash_attention"] == launches,
+          "the plain route launched the flash kernel")
+    out["prefill_logits_max_abs_err"] = float(
+        (logits.float() - logits_p.float()).abs().max())
+    out["prefill_logits_rel_l2"] = rel_l2(logits, logits_p)
+    out["prefill_last_layer_k_rel_l2"] = rel_l2(cache["k"][-1, :, :S],
+                                                cache_p["k"][-1, :, :S])
+    check(out["prefill_logits_rel_l2"] <= LM_MAX_REL_L2,
+          f"prefill logits, kernel route against plain route: relative L2 "
+          f"{out['prefill_logits_rel_l2']:.3e} > {LM_MAX_REL_L2}")
+    log(f"lm prefill B={B} S={S}: {out['prefill_s']:.3f} s with the kernel "
+        f"({launches} launches), {out['prefill_plain_s']:.3f} s plain; "
+        f"logits max abs err {out['prefill_logits_max_abs_err']:.3e}, "
+        f"relative L2 {out['prefill_logits_rel_l2']:.3e}")
+    del logits, cache, logits_p, cache_p
+
+    # layer 0's attention: kernel against plain on the same inputs
+    p0, dt = params["stack"][0], getattr(torch, cfg.dtype)
+    positions = torch.arange(S, dtype=torch.int32, device=dev).expand(B, S)
+    with torch.no_grad():
+        h = LL.apply_norm(p0["ln1"], model._embed(params, tokens), cfg.norm)
+        xq, xk, xv = LL.qkv_projection(p0["attn"], h, cfg, positions, dt)
+        got = FA.flash_attention(xq, xk, xv, causal=True)
+        want = FA.flash_attention_ref(xq, xk, xv, causal=True)
+        chunked = LL.attention(xq, xk, xv, q_positions=positions,
+                               k_positions=positions, causal=True,
+                               impl=cfg.attn_impl, chunk=cfg.attn_chunk,
+                               dtype=dt)
+    tol = FLASH_TOL[cfg.dtype]
+    for name, ref in (("plain", want), ("chunked", chunked)):
+        d = (got.float() - ref.float()).abs()
+        out[f"layer0_attn_max_abs_err_{name}"] = float(d.max())
+        check(bool((d <= tol + tol * ref.float().abs()).all()),
+              f"layer 0 attention, kernel against {name}: max abs err "
+              f"{float(d.max()):.3e} past {tol}")
+    out["layer0_qkv"] = (xq, xk, xv)
+    del got, want, chunked, h
+
+    # (b) greedy decode through the serving engine, against decode_loop
+    smodel, step = make_serve_step(cfg, dev)
+    Bs, P, G = lm["serve_batch"], lm["prompt"], lm["gen"]
+    prompt = rng.integers(0, cfg.vocab_size, (Bs, P))
+    t0 = time.perf_counter()
+    ref_tokens = decode_loop(smodel, step, params, prompt, G, P + G)
+    out["decode_loop_s"] = time.perf_counter() - t0
+    FA.reset_launch_counts()
+    t0 = time.perf_counter()
+    tokens_e, summary = decode_loop_engine(smodel, step, params, prompt, G,
+                                           P + G, prefetch=True)
+    wall = time.perf_counter() - t0
+    check(FA.LAUNCHES["flash_attention"] == 0,
+          "decode launched the flash kernel (it stays on the plain route)")
+    check(np.array_equal(tokens_e, ref_tokens),
+          "engine tokens differ from decode_loop's")
+    check(bool(((tokens_e >= 0) & (tokens_e < cfg.vocab_size)).all()),
+          "a generated token lies outside the vocabulary")
+    check(summary["requests"] == P - 1 + G,
+          f"engine served {summary['requests']} requests, want {P - 1 + G}")
+    out["engine"] = {k: summary[k] for k in (
+        "requests", "tokens", "wall_s", "tokens_s", "p50_ms", "p99_ms",
+        "mean_ms", "compute_s")}
+    out["engine"]["per_tenant"] = summary["per_tenant"]
+    out["engine_s"] = wall
+    out["generated_tok_s"] = Bs * G / wall
+    log(f"lm serve B={Bs} prompt={P} gen={G}: {summary['requests']} engine "
+        f"requests in {wall:.3f} s, {out['generated_tok_s']:.1f} generated "
+        f"tok/s, {summary['tokens_s']:.1f} token-steps/s, p50 "
+        f"{summary['p50_ms']:.2f} ms, p99 {summary['p99_ms']:.2f} ms per "
+        f"token step; tokens equal decode_loop's ({out['decode_loop_s']:.3f} s)")
+
+    # (c) teacher forcing: prefill's last logits against the last prompt
+    # step of the decode (the padded columns are masked only in decode)
+    lp, _ = prefill(params, {"tokens": torch.from_numpy(prompt).to(dev),
+                             "cache_seq": P + G})
+    c = smodel.init_cache(Bs, P + G)
+    toks = torch.from_numpy(prompt).to(dev)
+    for t in range(P):
+        _, ls, c = step(params, {"token": toks[:, t:t + 1], "pos": t,
+                                 "cache": c})
+    V = cfg.vocab_size
+    out["teacher_forcing_rel_l2"] = rel_l2(ls[:, :V], lp[:, :V])
+    out["teacher_forcing_max_abs_err"] = float(
+        (ls[:, :V].float() - lp[:, :V].float()).abs().max())
+    check(out["teacher_forcing_rel_l2"] <= LM_MAX_REL_L2,
+          f"teacher forcing: relative L2 {out['teacher_forcing_rel_l2']:.3e}")
+    del lp, c, ls
+
+    # where the time goes: one prefill and one decode step, profiled
+    c = smodel.init_cache(Bs, P + G)
+    tok = toks[:, :1]
+    out["profile_prefill"] = profile_window(lambda: prefill(params, batch))
+    out["profile_decode_step"] = profile_window(
+        lambda: step(params, {"token": tok, "pos": 0, "cache": c}))
+    out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    del c, params, model, smodel
+    torch.cuda.empty_cache()
+
+    # (d) cpu against cuda on the reduced config (float32, naive attention)
+    rcfg = get_config(lm["arch"]).reduced()
+    rm_c, pre_c = make_prefill_step(rcfg, "cpu")
+    rm_g, pre_g = make_prefill_step(rcfg, dev)
+    _, step_c = make_serve_step(rcfg, "cpu")
+    _, step_g = make_serve_step(rcfg, dev)
+    rp_c = rm_c.init(lm["seed"])
+    rp_g = _tree_to(rp_c, dev)
+    rtoks = np.random.default_rng(1).integers(0, rcfg.vocab_size, (2, 12))
+    FA.reset_launch_counts()
+    lc, cc = pre_c(rp_c, {"tokens": torch.from_numpy(rtoks), "cache_seq": 16})
+    lg, cg = pre_g(rp_g, {"tokens": torch.from_numpy(rtoks).to(dev),
+                          "cache_seq": 16})
+    check(FA.LAUNCHES["flash_attention"] == rcfg.num_layers,
+          "reduced prefill on cuda: flash launches "
+          f"{FA.LAUNCHES['flash_attention']} != {rcfg.num_layers}")
+    out["reduced_prefill_max_abs_err"] = float((lg.cpu() - lc).abs().max())
+    out["reduced_cache_max_abs_err"] = float(
+        (cg["k"].cpu() - cc["k"]).abs().max())
+    check(torch.allclose(lg.cpu(), lc, atol=1e-4, rtol=1e-4)
+          and torch.allclose(cg["k"].cpu(), cc["k"], atol=1e-4, rtol=1e-4),
+          f"reduced prefill: cpu against cuda {out['reduced_prefill_max_abs_err']}")
+    tc = decode_loop(rm_c, step_c, rp_c, rtoks, 6, 18)
+    tg = decode_loop(rm_g, step_g, rp_g, rtoks, 6, 18)
+    check(np.array_equal(tc, tg), "reduced decode: cpu tokens != cuda tokens")
+    log(f"lm reduced {rcfg.name}: cpu == cuda (prefill logits max abs err "
+        f"{out['reduced_prefill_max_abs_err']:.2e}, decode tokens equal)")
+    log("lm: " + json.dumps({k: v for k, v in out.items()
+                             if k != "layer0_qkv"}))
+    return out
+
+
+def _tree_to(tree, dev):
+    import torch
+
+    if isinstance(tree, torch.Tensor):
+        return tree.to(dev)
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, dev) for k, v in tree.items()}
+    return [_tree_to(v, dev) for v in tree]
+
+
+# ---------------------------------------------------------------- phase 8
 def time_ms(fn, inner: int, samples: int = 21) -> float:
     """Median per-call time over ``samples`` CUDA-event windows of ``inner``
     calls each, after one warm-up call."""
@@ -817,7 +1123,7 @@ def profile_window(fn) -> dict:
     for e in kern:
         for name in ("cost_tile_kernel", "select_reduce_kernel",
                      "sketch_select_kernel", "refine_sweep_kernel",
-                     "union_delta_kernel"):
+                     "union_delta_kernel", "flash_mma", "flash_fma"):
             if name in e.name:
                 ours[name].append(e.time_range.elapsed_us())
     out.update(busy_s=busy, idle_share=1 - busy / wall,
@@ -1009,6 +1315,9 @@ def phase_times(dev, main: dict) -> list[dict]:
     })
     log_time("packed_union_delta", t, f" (merge, n={n}, k={k_}, W={W_})")
 
+    if "lm" in main:
+        rows.append(time_flash(dev, main["lm"], main["checks"]))
+
     # where the time goes: the first PROFILE_BLOCKS blocks of the scan, of
     # the sketched scan, and the whole refine, each under torch.profiler
     blocks = [T(x[:nb]) for x in (packed.widx, packed.vals, packed.tr_ids,
@@ -1058,6 +1367,66 @@ def phase_times(dev, main: dict) -> list[dict]:
     return rows
 
 
+def time_flash(dev, lm: dict, checks: dict) -> dict:
+    """flash_attention at the prefill's shape, on layer 0's q, k, v of the
+    lm phase: CUDA-graph and eager times, its plain version, and
+    scaled_dot_product_attention (top-left causal, GQA) as the library
+    yardstick, which the port never calls.  The bound counts the FLOPs of
+    the admissible (query, key) pairs of this causal shape."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as FA
+
+    q, k, v = lm["layer0_qkv"]
+    B, S, H, D = q.shape
+    KV = k.shape[2]
+    saved = dict(FA.LAUNCHES)
+    ms = time_graph_ms(lambda: FA.flash_attention(q, k, v), 5, 11)
+    eager_ms = time_ms(lambda: FA.flash_attention(q, k, v), 5, 11)
+    plain_ms = time_ms(lambda: FA.flash_attention_ref(q, k, v), 1, 5)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True), 5, 11)
+    FA.LAUNCHES.update(saved)   # timing launches are not path launches
+    pairs = int(FA.admissible(S, S, causal=True, window=None,
+                              device=dev).sum())
+    flops = 4 * D * B * H * pairs          # QK^T and PV, 2 FLOP a product
+    nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / TENSOR_BF16_FLOPS * 1e3
+    row = {
+        "name": "flash_attention", "route": "cuda",
+        "source": KERNELS["flash_attention"][1],
+        "replaces": KERNELS["flash_attention"][0],
+        "launches": lm["prefill_flash_launches"],
+        "launches_path": f"make_prefill_step {lm['arch']} B={B} S={S} "
+                         f"(one per layer of {lm['num_layers']})",
+        "max_abs_err": checks["flash_attention"]["max_abs_err_full_shape"],
+        "max_abs_err_all_cases": checks["flash_attention"]["max_abs_err"],
+        "cases": checks["flash_attention"]["cases"],
+        "shape": f"B={B}, S={S}, H={H}, KV={KV}, D={D}, causal, "
+                 f"{str(q.dtype).split('.')[-1]}",
+        "tensor_cores": FA.uses_tensor_cores(q, k, v),
+        "ms": ms, "eager_ms": eager_ms, "plain_ms": plain_ms,
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "flops": flops, "bytes": nbytes,
+        "library_ms": library_ms,
+        "library": "torch.nn.functional.scaled_dot_product_attention"
+                   "(is_causal=True, enable_gqa=True)",
+    }
+    row["prefill_kernel_ms"] = row["launches"] * ms
+    log(f"time flash_attention ({row['shape']}): {ms * 1e3:.1f} us in a CUDA "
+        f"graph, {eager_ms * 1e3:.1f} us eager, plain {plain_ms * 1e3:.1f} "
+        f"us, sdpa {library_ms * 1e3:.1f} us, bound {row['bound_ms'] * 1e3:.1f}"
+        f" us by {row['bound_by']} ({flops:.3e} FLOP, {nbytes:,} bytes); "
+        f"{row['launches']} launches a prefill ~ "
+        f"{row['prefill_kernel_ms']:.1f} ms of its {lm['prefill_s'] * 1e3:.1f}"
+        f" ms")
+    return row
+
+
 # ---------------------------------------------------------------- entry point
 def card_line() -> str:
     out = subprocess.run(
@@ -1083,14 +1452,14 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     dev = torch.device("cuda", torch.cuda.current_device())
-    from repro_torch.kernels.parsa_cost import build
+    from repro_torch import kernels
 
     card = card_line()
     log(f"card: {card}")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    libs = build.build_all(verbose=True)
+    libs = kernels.build_all(verbose=True)
     log(f"kernels built in {time.perf_counter() - t0:.2f} s: "
         f"{sorted(p.name for p in libs.values())}")
     state: dict = {}
@@ -1115,6 +1484,10 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         state["parallel"] = phase_parallel(dev, state)
         log(f"parallel phase {time.perf_counter() - t0:.2f} s")
+    if "lm" in phases:
+        t0 = time.perf_counter()
+        state["lm"] = phase_lm(dev)
+        log(f"lm phase {time.perf_counter() - t0:.2f} s")
     if "times" in phases:
         rows = phase_times(dev, state)
         log(f"card: {card}")

@@ -4,7 +4,9 @@ A port of the JAX package ``repro`` (which stays the reference).  This
 package imports nothing of ``repro`` or of JAX; it keeps its own copies of
 the numpy pieces it needs.  Entry points run on the card
 (``device="cuda"``) unless the caller passes ``device="cpu"``, which runs
-every kernel's plain PyTorch version.
+every kernel's plain PyTorch version.  The dense LM family is served by
+``launch.steps`` / ``launch.serve`` (prefill through the hand-written
+flash attention kernel, greedy decode through ``serving.ServingEngine``).
 
     from repro_torch.api import ParsaConfig, partition
     from repro_torch.graphs import text_like

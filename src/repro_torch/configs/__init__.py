@@ -1,0 +1,22 @@
+"""Architecture registry of the port: the dense configurations.
+
+The port's own copy of ``repro.configs`` for the dense family (the port
+imports nothing of ``repro``).  The other families' configurations come
+with the slices that port their blocks (``ROADMAP.md`` Queue 1 item 10).
+"""
+from .base import REGISTRY, ModelConfig, get_config, list_configs, register  # noqa: F401
+
+_LOADED = False
+
+
+def _load_all():
+    global _LOADED
+    if _LOADED:
+        return
+    _LOADED = True
+    from . import (  # noqa: F401
+        codeqwen15_7b,
+        command_r_35b,
+        nemotron_4_340b,
+        qwen3_14b,
+    )

@@ -6,20 +6,28 @@ These helpers take plain numpy arrays (never JAX objects), so a result of
 ``repro.api.partition`` — or arrays saved from one — becomes a port result
 whose ``.refine(g2)`` continues from the same sets.  A sketched result also
 carries its column map (``sketch_from_numpy``), so its refine continues in
-the same sketch space.
+the same sketch space.  For the LM stack, ``model_params_from_numpy``
+carries a model's weights across.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import numpy as np
+import torch
 
 from .api import ParsaConfig, PartitionResult, TrafficCounters
 from .core.bipartite import BipartiteGraph
 from .kernels.parsa_cost import coerce_packed_sets
 from .sketch import SketchSpec
 
-__all__ = ["graph_from_numpy", "result_from_numpy", "sketch_from_numpy"]
+__all__ = ["graph_from_numpy", "result_from_numpy", "sketch_from_numpy",
+           "model_params_from_numpy"]
+
+# the weight matrices of the dense family: stored in the compute dtype;
+# every other leaf (norm scales, biases) stays float32, cast where used
+_MATRICES = frozenset({"embed", "lm_head", "wq", "wk", "wv", "wo", "wg", "wu",
+                       "wd", "wi"})
 
 
 def graph_from_numpy(num_u: int, num_v: int, u_indptr, u_indices
@@ -84,3 +92,38 @@ def result_from_numpy(parts_u, parts_v, s_masks, k: int, num_v: int,
         sketch=sketch,
         traffic=traffic,
     )
+
+
+def model_params_from_numpy(cfg, params, *, device="cuda") -> dict:
+    """The port's parameter dict (``models.model``) from the reference's
+    parameter tree as numpy arrays: {"embed", "final_norm", "lm_head",
+    "stack"}, with the stack's leaves stacked on a leading layer axis
+    (L, ...).  Returns the stack as a list of per-layer dicts.
+
+    Weight matrices are stored in the config's compute dtype on
+    ``device``; the reference keeps float32 masters and casts them to the
+    compute dtype at every product, so the stored cast gives the same
+    values.  Norm scales and biases stay float32, as the
+    reference casts them where it uses them."""
+    dt = getattr(torch, cfg.dtype)
+    if cfg.family != "dense":
+        raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
+
+    def leaf(name, a):
+        t = torch.from_numpy(np.array(a, dtype=np.float32))
+        return t.to(device=device, dtype=dt if name in _MATRICES
+                    else torch.float32)
+
+    def tree(p, index=None):
+        return {name: tree(a, index) if isinstance(a, dict)
+                else leaf(name, a if index is None else np.asarray(a)[index])
+                for name, a in p.items()}
+
+    out = {name: tree(p) if isinstance(p, dict) else leaf(name, p)
+           for name, p in params.items() if name != "stack"}
+    L = len(np.asarray(params["stack"]["ln1"]["scale"]))
+    out["stack"] = [tree(params["stack"], l) for l in range(L)]
+    if L != cfg.num_layers:
+        raise ValueError(f"{L} layers in the tree, the config has "
+                         f"{cfg.num_layers}")
+    return out

@@ -1,9 +1,26 @@
 """Hand-written CUDA kernels for Hopper (sm_90a), one folder per family.
 
-parsa_cost/ — packed-bitmask popcount cost tile, the fused greedy select,
-              and the Algorithm 2 refine sweep
+parsa_cost/       — packed-bitmask popcount cost tile, the fused greedy
+                    select, the sketched select, the Algorithm 2 refine sweep
+                    and the Algorithm 4 merge
+flash_attention/  — forward flash attention (causal and sliding-window
+                    masks, GQA by head index), the attention of the LM
+                    prefill
 
 Each family ships ``csrc/*.cu`` (the kernels), ``build.py`` (nvcc + ctypes,
-at first use), ``ops.py`` (checked wrappers with launch counters) and
-``ref.py`` (the plain PyTorch versions the CPU runs and the card is held to).
+at first use, through ``nvcc.KernelFamily``), ``ops.py`` (checked wrappers
+with launch counters) and ``ref.py`` (the plain PyTorch versions the CPU
+runs and the card is held to).  ``build_all()`` compiles every family's
+libraries at once.
 """
+from __future__ import annotations
+
+
+def build_all(verbose: bool = False):
+    """Compile every kernel library of every family, one ``nvcc`` per
+    source, all started together; return ``{library: path}``."""
+    from . import nvcc
+    from .flash_attention import build as fa_build
+    from .parsa_cost import build as pc_build
+
+    return nvcc.build_all((pc_build.FAMILY, fa_build.FAMILY), verbose)

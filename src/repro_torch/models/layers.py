@@ -1,0 +1,273 @@
+"""Transformer layers of the dense family: norms, rotary, GQA attention
+with a KV cache, MLPs.
+
+The port of ``repro/models/layers.py``.  Parameters are plain dicts of
+tensors (``init_*`` builds them, ``apply_*`` reads them).  Dtype policy as
+in the reference: matrices are used in the compute ``dtype``; the reference
+keeps float32 masters and casts them at every product, the port stores the
+cast once (``convert.model_params_from_numpy``, ``Model.init``), which
+gives the same values.  Vectors (norm scales, biases) stay float32 and are
+cast where the reference casts them.
+
+Attention routes:
+  * ``naive``   — the full (Sq, Skv) score matrix;
+  * ``chunked`` — a loop over query chunks, bounding the live score tensor
+    to (B, KV, G, chunk, Skv);
+  * the flash kernel (``kernels/flash_attention``) — prefill from cache
+    slot 0, where query and key positions are both ``arange``: the caller
+    (``Model.prefill``) asks for it with ``flash=True``.  Decode, one query
+    against a cache whose unwritten slots are pushed to position 2**30,
+    stays on the plain routes, as it stays in XLA in the reference.
+Not ported yet: the SWA ring buffer cache, MLA and cross-attention
+(``ROADMAP.md`` Queue 1 item 10), and ``context_parallel`` (there is no
+mesh on one card).
+"""
+from __future__ import annotations
+
+import functools
+import math
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..kernels.flash_attention import flash_attention
+
+__all__ = ["NEG_INF", "apply_norm", "rms_head_norm", "rope_freqs",
+           "apply_rope", "init_norm", "init_attention", "attention",
+           "qkv_projection", "attention_block", "init_mlp", "apply_mlp"]
+
+NEG_INF = -1e30
+
+
+# --------------------------------------------------------------------- init
+def _dense_init(gen: torch.Generator, shape, scale_axis, dtype, device):
+    """Normal(0, 1/fan_in) drawn on ``device`` from ``gen``, in ``dtype``
+    (the reference's ``_dense_init`` scale; other numbers than
+    ``jax.random`` for the same seed)."""
+    axes = (scale_axis,) if isinstance(scale_axis, int) else scale_axis
+    fan_in = int(np.prod([shape[a] for a in axes]))
+    w = torch.randn(shape, generator=gen, dtype=dtype, device=device)
+    return w.mul_(1.0 / math.sqrt(fan_in))
+
+
+# --------------------------------------------------------------------- norms
+def init_norm(cfg, device):
+    D = cfg.d_model
+    p = {"scale": torch.ones(D, dtype=torch.float32, device=device)}
+    if cfg.norm == "layernorm" and cfg.use_bias:
+        p["bias"] = torch.zeros(D, dtype=torch.float32, device=device)
+    return p
+
+
+def apply_norm(p, x, kind: str, eps: float = 1e-6):
+    """Norm with float32 statistics and elementwise math in x.dtype."""
+    xf = x.float()
+    if kind == "rmsnorm":
+        var = (xf * xf).mean(dim=-1, keepdim=True)
+        inv = torch.rsqrt(var + eps).to(x.dtype)
+        out = x * inv * p["scale"].to(x.dtype)
+    else:  # layernorm
+        mu = xf.mean(dim=-1, keepdim=True)
+        var = xf.var(dim=-1, keepdim=True, unbiased=False)
+        inv = torch.rsqrt(var + eps).to(x.dtype)
+        out = (x - mu.to(x.dtype)) * inv * p["scale"].to(x.dtype)
+        if "bias" in p:
+            out = out + p["bias"].to(x.dtype)
+    return out.to(x.dtype)
+
+
+def rms_head_norm(scale, x, eps: float = 1e-6):
+    """Per-head qk-norm (qwen3): normalize the trailing head_dim."""
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * scale).to(x.dtype)
+
+
+# --------------------------------------------------------------------- rope
+def rope_freqs(head_dim: int, theta: float):
+    return 1.0 / (theta ** (np.arange(0, head_dim, 2) / head_dim))
+
+
+@functools.lru_cache(maxsize=None)
+def _rope_freqs_on(head_dim: int, theta: float, device: torch.device):
+    # made once per device: a copy from host memory at every call would
+    # block the host until the device drains, twice a layer
+    return torch.as_tensor(rope_freqs(head_dim, theta), dtype=torch.float32,
+                           device=device)
+
+
+def apply_rope(x, positions, theta: float):
+    """x: (..., S, H, D) with positions (..., S)."""
+    freqs = _rope_freqs_on(x.shape[-1], float(theta), x.device)
+    angles = positions[..., :, None].float()[..., None, :] * freqs  # (..., S, 1, D/2)
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ----------------------------------------------------------------- attention
+def init_attention(gen, cfg, dtype, device):
+    D, H, KV, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    p = {
+        "wq": _dense_init(gen, (D, H, hd), 0, dtype, device),
+        "wk": _dense_init(gen, (D, KV, hd), 0, dtype, device),
+        "wv": _dense_init(gen, (D, KV, hd), 0, dtype, device),
+        "wo": _dense_init(gen, (H, hd, D), (0, 1), dtype, device),
+    }
+    f32 = dict(dtype=torch.float32, device=device)
+    if cfg.use_bias:
+        p["bq"] = torch.zeros((H, hd), **f32)
+        p["bk"] = torch.zeros((KV, hd), **f32)
+        p["bv"] = torch.zeros((KV, hd), **f32)
+    if cfg.qk_norm:
+        p["q_norm"] = torch.ones(hd, **f32)
+        p["k_norm"] = torch.ones(hd, **f32)
+    return p
+
+
+def _scores_mask(q_pos, k_pos, window, causal: bool):
+    """(..., Sq, Skv) additive float32 mask from position vectors."""
+    ok = torch.ones(q_pos.shape[:-1] + (q_pos.shape[-1], k_pos.shape[-1]),
+                    dtype=torch.bool, device=q_pos.device)
+    if causal:
+        ok &= k_pos[..., None, :] <= q_pos[..., :, None]
+    if window is not None:
+        ok &= k_pos[..., None, :] > q_pos[..., :, None] - window
+    zero = torch.zeros((), dtype=torch.float32, device=q_pos.device)
+    return torch.where(ok, zero, torch.full_like(zero, NEG_INF))
+
+
+def _sdpa(q, k, v, mask, dtype):
+    """q (B,Sq,H,dh) k/v (B,Skv,KV,dh) -> (B,Sq,H,dh); GQA via head
+    grouping.  Scores from a product in the compute dtype, softmax in
+    float32, probabilities rounded to ``dtype`` before the PV product."""
+    B, Sq, H, dh = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    qg = q.reshape(B, Sq, KV, G, dh).permute(0, 2, 3, 1, 4)    # (B,KV,G,Sq,dh)
+    kt = k.permute(0, 2, 3, 1)[:, :, None]                     # (B,KV,1,dh,Skv)
+    scores = torch.matmul(qg, kt).float()
+    scores = scores / math.sqrt(dh) + mask[:, None, None]
+    probs = torch.softmax(scores, dim=-1).to(dtype)
+    out = torch.matmul(probs, v.permute(0, 2, 1, 3)[:, :, None])  # (B,KV,G,Sq,dv)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, v.shape[-1])
+
+
+def attention(q, k, v, *, q_positions, k_positions, causal=True,
+              window=None, impl="chunked", chunk=1024, dtype=torch.bfloat16):
+    """Masked GQA attention; chunked over queries when impl == 'chunked'."""
+    B, Sq = q.shape[:2]
+    if impl == "naive" or Sq <= chunk:
+        mask = _scores_mask(q_positions, k_positions, window, causal)
+        return _sdpa(q, k, v, mask, dtype)
+    while Sq % chunk:  # non-multiple sequence
+        chunk //= 2
+        if chunk < 64:
+            mask = _scores_mask(q_positions, k_positions, window, causal)
+            return _sdpa(q, k, v, mask, dtype)
+    outs = []
+    for c in range(Sq // chunk):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        mask = _scores_mask(q_positions[:, sl], k_positions, window, causal)
+        outs.append(_sdpa(q[:, sl], k, v, mask, dtype))
+    return torch.cat(outs, dim=1)
+
+
+def qkv_projection(p, x, cfg, positions, dtype=torch.bfloat16):
+    """q (B,S,H,dh), k and v (B,S,KV,dh) of an attention sub-block: the
+    projections, biases, qk-norm and rotary embedding."""
+    B, S, D = x.shape
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    xq = (x @ p["wq"].reshape(D, H * hd)).view(B, S, H, hd)
+    xk = (x @ p["wk"].reshape(D, KV * hd)).view(B, S, KV, hd)
+    xv = (x @ p["wv"].reshape(D, KV * hd)).view(B, S, KV, hd)
+    if "bq" in p:
+        xq = xq + p["bq"].to(dtype)
+        xk = xk + p["bk"].to(dtype)
+        xv = xv + p["bv"].to(dtype)
+    if cfg.qk_norm:
+        xq = rms_head_norm(p["q_norm"], xq)
+        xk = rms_head_norm(p["k_norm"], xk)
+    if cfg.rope_theta:
+        xq = apply_rope(xq, positions, cfg.rope_theta)
+        xk = apply_rope(xk, positions, cfg.rope_theta)
+    return xq, xk, xv
+
+
+def attention_block(p, x, cfg, positions, *, kv_cache=None, cache_len=None,
+                    dtype=torch.bfloat16, flash=False):
+    """Causal self-attention sub-block: qkv proj -> rope -> (cache) ->
+    attention -> out proj.
+
+    kv_cache: optional dict {"k","v"} (B, Smax, KV, dh), written IN PLACE
+    at ``cache_len`` (a Python int; the reference returns a new cache, the
+    port saves the copy).  ``flash=True`` routes the attention to the flash
+    kernel; the caller sets it only where positions are ``arange`` from 0
+    and the cache is written from slot 0 (prefill).
+    """
+    B, S, D = x.shape
+    H, hd = cfg.num_heads, cfg.head_dim
+    xq, xk, xv = qkv_projection(p, x, cfg, positions, dtype)
+    if kv_cache is not None:
+        kv_cache["k"][:, cache_len:cache_len + S] = xk.to(kv_cache["k"].dtype)
+        kv_cache["v"][:, cache_len:cache_len + S] = xv.to(kv_cache["v"].dtype)
+    if flash:
+        if kv_cache is not None and cache_len != 0:
+            raise ValueError("flash=True needs cache_len == 0 (prefill)")
+        # q and k positions are both 0..S-1: the kernel's left-aligned
+        # contract; the cache slots past S would be masked by causality, so
+        # the fresh keys and values are all it needs
+        out = flash_attention(xq, xk, xv, causal=True, window=cfg.swa_window)
+    else:
+        if kv_cache is not None:
+            Smax = kv_cache["k"].shape[1]
+            k_positions = torch.arange(Smax, device=x.device).expand(B, Smax)
+            # mask out unwritten cache slots by pushing their positions past q
+            k_positions = torch.where(k_positions < cache_len + S, k_positions,
+                                      2**30)
+            xk, xv = kv_cache["k"].to(dtype), kv_cache["v"].to(dtype)
+        else:
+            k_positions = positions
+        out = attention(xq, xk, xv, q_positions=positions,
+                        k_positions=k_positions, causal=True,
+                        window=cfg.swa_window, impl=cfg.attn_impl,
+                        chunk=cfg.attn_chunk, dtype=dtype)
+    return out.reshape(B, S, H * hd) @ p["wo"].reshape(H * hd, D)
+
+
+# ----------------------------------------------------------------- MLPs
+def init_mlp(gen, cfg, dtype, device):
+    D, Fd = cfg.d_model, cfg.d_ff
+    if cfg.mlp == "swiglu":
+        return {
+            "wg": _dense_init(gen, (D, Fd), 0, dtype, device),
+            "wu": _dense_init(gen, (D, Fd), 0, dtype, device),
+            "wd": _dense_init(gen, (Fd, D), 0, dtype, device),
+        }
+    p = {"wi": _dense_init(gen, (D, Fd), 0, dtype, device),
+         "wd": _dense_init(gen, (Fd, D), 0, dtype, device)}
+    if cfg.use_bias:
+        p["bi"] = torch.zeros(Fd, dtype=torch.float32, device=device)
+        p["bd"] = torch.zeros(D, dtype=torch.float32, device=device)
+    return p
+
+
+def apply_mlp(p, x, kind: str, dtype=torch.bfloat16):
+    if kind == "swiglu":
+        g = x @ p["wg"]
+        u = x @ p["wu"]
+        h = F.silu(g) * u
+    else:
+        h = x @ p["wi"]
+        if "bi" in p:
+            h = h + p["bi"].to(dtype)
+        if kind == "squared_relu":
+            h = torch.square(F.relu(h))
+        else:  # gelu (tanh approximation, as jax.nn.gelu's default)
+            h = F.gelu(h, approximate="tanh")
+    out = h @ p["wd"]
+    if "bd" in p:
+        out = out + p["bd"].to(dtype)
+    return out

@@ -1,0 +1,144 @@
+"""Model facade of the dense family: build_model(cfg) -> init / prefill /
+decode_step.
+
+The port of ``repro/models/model.py`` for ``family == "dense"``.  Batch
+formats as in the reference:
+  prefill : {"tokens": (B, S) int, "cache_seq": int (default S)}
+  decode  : {"token": (B, 1) int, "pos": int, "cache": {"k", "v"}}
+``pos`` is a Python int here (the reference's is a traced scalar), so
+that a decode step needs no read from the device.  Caches are updated in
+place and returned.
+
+Parameters are a dict: ``embed`` (V, D), ``final_norm``, ``lm_head`` (D, V)
+unless the embeddings are tied, and ``stack``, a list of per-layer dicts
+(``transformer.init_layer``).  Matrices live in the compute dtype on the
+model's device, vectors in float32.  ``loss_fn`` comes with training, and
+the other families with their slices (``ROADMAP.md`` Queue 1 item 10).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+from ..configs.base import ModelConfig
+from . import layers as LL
+from . import transformer as TR
+
+__all__ = ["Model", "build_model", "compute_dtype"]
+
+
+def compute_dtype(cfg: ModelConfig) -> torch.dtype:
+    return getattr(torch, cfg.dtype)
+
+
+@dataclasses.dataclass
+class Model:
+    cfg: ModelConfig
+    device: torch.device = torch.device("cuda")
+
+    # ------------------------------------------------------------- params
+    def init(self, seed: int = 0) -> dict:
+        """Random weights with the reference's scales, drawn on the device
+        from ``torch.Generator(device).manual_seed(seed)`` one tensor at a
+        time in the compute dtype (a float32 copy of a 14.8 B-parameter
+        model would be 59 GB).  Other numbers than ``jax.random`` for the
+        same seed: to carry the reference's weights across, use
+        ``convert.model_params_from_numpy``."""
+        cfg, dev = self.cfg, torch.device(self.device)
+        dt = compute_dtype(cfg)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        D, V = cfg.d_model, cfg.padded_vocab
+        params = {
+            "embed": torch.randn((V, D), generator=gen, dtype=dt,
+                                 device=dev).mul_(0.02),
+            "final_norm": LL.init_norm(cfg, dev),
+        }
+        if not cfg.tie_embeddings:
+            params["lm_head"] = torch.randn(
+                (D, V), generator=gen, dtype=dt, device=dev).mul_(
+                    0.02 / math.sqrt(D))
+        params["stack"] = TR.init_dense_stack(gen, cfg, dt, dev)
+        return params
+
+    @staticmethod
+    def param_count(params) -> int:
+        def count(p):
+            if isinstance(p, torch.Tensor):
+                return p.numel()
+            vals = p.values() if isinstance(p, dict) else p
+            return sum(count(x) for x in vals)
+        return count(params)
+
+    # ------------------------------------------------------------- helpers
+    def _embed(self, params, tokens):
+        return params["embed"][tokens].to(compute_dtype(self.cfg))
+
+    def _logits(self, params, x):
+        cfg = self.cfg
+        # the reference's bf16_grad_barrier() is the identity in the forward
+        x = LL.apply_norm(params["final_norm"], x, cfg.norm)
+        head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+        return x @ head.to(compute_dtype(cfg))
+
+    # ------------------------------------------------------------- serve
+    def init_cache(self, batch: int, cache_seq: int):
+        """{"k", "v"}: (L, B, cache_seq, KV, dh) zeros in the compute dtype.
+        The reference's SWA ring buffer (``ring=True``) is not ported yet
+        (``ROADMAP.md`` Queue 1 item 10)."""
+        return TR.init_kv_caches(self.cfg, batch, cache_seq,
+                                 torch.device(self.device),
+                                 dtype=compute_dtype(self.cfg))
+
+    def decode_step(self, params, batch):
+        """One token against a populated cache: (logits (B, V), cache).
+        Attention stays on the plain route (one query against the cache)."""
+        cfg = self.cfg
+        token, pos, cache = batch["token"], int(batch["pos"]), batch["cache"]
+        B = token.shape[0]
+        x = self._embed(params, token)
+        positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+        x, cache = TR.apply_dense_stack(params["stack"], x, cfg, positions,
+                                        caches=cache, cache_len=pos)
+        logits = self._logits(params, x)
+        if cfg.padded_vocab != cfg.vocab_size:
+            # never sample a padding row
+            logits[..., cfg.vocab_size:] = LL.NEG_INF
+        return logits[:, 0], cache
+
+    def prefill(self, params, batch, flash: bool = True):
+        """Populate a cache from a full prompt: (last-position logits,
+        cache).  ``flash=True`` routes every layer's attention to the flash
+        kernel (one launch per layer on a CUDA tensor; its plain version
+        on the CPU); ``flash=False`` takes the reference's
+        ``cfg.attn_impl`` route."""
+        tokens = batch["tokens"]
+        B, S = tokens.shape
+        cache_seq = batch.get("cache_seq", S)
+        x = self._embed(params, tokens)
+        positions = torch.arange(S, dtype=torch.int32,
+                                 device=x.device).expand(B, S)
+        caches = self.init_cache(B, cache_seq)
+        x, cache = TR.apply_dense_stack(params["stack"], x, self.cfg,
+                                        positions, caches=caches, cache_len=0,
+                                        flash=flash)
+        logits = self._logits(params, x[:, -1:])
+        return logits[:, 0], cache
+
+
+def build_model(cfg: ModelConfig, device="cuda") -> Model:
+    """The dense family's model on ``device`` (default: the card).  Other
+    families raise: their blocks are not ported yet."""
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"{cfg.name}: family {cfg.family!r} is not ported yet; the port "
+            "builds the dense family (ROADMAP.md Queue 1 item 10 lists the "
+            "rest in order)")
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"build_model(device={str(device)!r}) needs a CUDA device and "
+            "none is available; pass device='cpu' to run the plain PyTorch "
+            "path")
+    return Model(cfg, device)

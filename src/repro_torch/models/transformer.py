@@ -1,0 +1,60 @@
+"""The dense block stack: [ln -> attn(GQA/qk-norm) -> ln -> mlp] x L.
+
+The port of the dense part of ``repro/models/transformer.py``.  A Python
+loop over a list of per-layer parameter dicts takes the place of
+``lax.scan`` over stacked parameters, and there is no remat (the port
+serves; training comes with a later slice).  Caches keep the reference's
+stacked layout, {"k", "v"}: (L, B, Smax, KV, dh), and each layer writes
+its slice in place.  MoE, MLA, cross-attention and the recurrent stacks
+are not ported yet (``ROADMAP.md`` Queue 1 item 10).
+"""
+from __future__ import annotations
+
+import torch
+
+from . import layers as LL
+
+__all__ = ["init_layer", "apply_layer", "init_dense_stack",
+           "apply_dense_stack", "init_kv_caches"]
+
+
+def init_layer(gen, cfg, dtype, device):
+    return {"ln1": LL.init_norm(cfg, device), "ln2": LL.init_norm(cfg, device),
+            "attn": LL.init_attention(gen, cfg, dtype, device),
+            "mlp": LL.init_mlp(gen, cfg, dtype, device)}
+
+
+def apply_layer(p, x, cfg, positions, *, cache=None, cache_len=None,
+                flash=False):
+    dt = getattr(torch, cfg.dtype)
+    h = LL.apply_norm(p["ln1"], x, cfg.norm)
+    a = LL.attention_block(p["attn"], h, cfg, positions, kv_cache=cache,
+                           cache_len=cache_len, dtype=dt, flash=flash)
+    # the reference's constrain() and bf16_grad_barrier() here are the
+    # identity without a mesh and in the forward pass
+    x = x + a
+    h = LL.apply_norm(p["ln2"], x, cfg.norm)
+    return x + LL.apply_mlp(p["mlp"], h, cfg.mlp, dtype=dt)
+
+
+def init_dense_stack(gen, cfg, dtype, device):
+    """One parameter dict per layer, drawn one tensor at a time."""
+    return [init_layer(gen, cfg, dtype, device)
+            for _ in range(cfg.num_layers)]
+
+
+def apply_dense_stack(params_L, x, cfg, positions, *, caches=None,
+                      cache_len=None, flash=False):
+    """A loop over the layers (and the layer slices of the caches)."""
+    for l, p in enumerate(params_L):
+        cache_l = (None if caches is None
+                   else {"k": caches["k"][l], "v": caches["v"][l]})
+        x = apply_layer(p, x, cfg, positions, cache=cache_l,
+                        cache_len=cache_len, flash=flash)
+    return x, caches
+
+
+def init_kv_caches(cfg, batch, cache_seq, device, dtype=torch.bfloat16):
+    shape = (cfg.num_layers, batch, cache_seq, cfg.num_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}

@@ -182,7 +182,10 @@ def test_config_validation():
 def test_import_leaves_no_jax_or_repro():
     code = ("import sys, repro_torch, repro_torch.api, repro_torch.convert, "
             "repro_torch.core.refine, repro_torch.graphs, repro_torch.sketch, "
-            "repro_torch.kernels.parsa_cost.ops;"
+            "repro_torch.kernels.parsa_cost.ops, "
+            "repro_torch.kernels.flash_attention, repro_torch.models.model, "
+            "repro_torch.launch.serve, repro_torch.launch.steps, "
+            "repro_torch.serving, repro_torch.configs;"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')];"
             "print(bad); sys.exit(1 if bad else 0)")
