@@ -12,10 +12,14 @@ Phases, in order; any failure exits non-zero:
 
 1. the card (``nvidia-smi`` name and power limit) and the kernel build;
 2. each kernel against its plain version on the card, bit for bit, across
-   shape sweeps (tolerance: 0, the program is integer); flash attention
-   within float tolerances (float32 3e-5 with TF32 off, bfloat16 2e-2),
-   across dtypes, GQA and MHA, masks, Sq < Skv, ragged lengths, head dims
-   and the prefill's full-width shape;
+   shape sweeps (tolerance: 0, the program is integer; sketch_select on
+   row lists it builds and on lists passed in); flash attention within
+   float tolerances (float32 3e-5 with TF32 off, bfloat16 2e-2), across
+   dtypes, GQA and MHA, masks, Sq < Skv, ragged lengths, head dims, the
+   tensor-core route's 128-row and 128-key tile edges and the prefill's
+   full-width shape; what ``-Xptxas -v`` says of the two kernels
+   redesigned for Hopper (registers, shared memory, spills), and HGMMA and
+   UTMALDG instructions in the flash library's SASS (``cuobjdump``);
 3. the main path at full size: ``text_like(100_000, 65_536, mean_len=20,
    seed=0)`` through ``partition(..., ParsaConfig(k=16,
    backend="device_scan", refine_backend="device", sweeps=2))`` on cuda,
@@ -49,11 +53,13 @@ Phases, in order; any failure exits non-zero:
 8. each kernel timed at the main path's shapes (CUDA events, median of 21
    samples after warm-up; ``ms`` from launches replayed in a CUDA graph,
    ``eager_ms`` from launches made one by one from Python) beside its bound
-   and its plain version (``sketch_select`` at the sketch path's shape and
-   at the main path's, ``packed_union_delta`` at the parallel path's
-   merge, ``flash_attention`` at the prefill's shape beside
-   ``scaled_dot_product_attention``), then a window of the scan, of the sketched scan, of one
-   super-step of the parallel scan and the whole refine under
+   and its plain version (``sketch_select`` on the scan's row lists at the
+   sketch path's shape and at the main path's, beside the bound of those
+   compact inputs and the dense contract's, ``packed_union_delta`` at the
+   parallel path's merge, ``flash_attention`` at the prefill's shape
+   beside ``scaled_dot_product_attention``), then a window of the scan, of
+   the sketched scan, of one super-step of the parallel scan and the whole
+   refine under
    ``torch.profiler``: device kernels per round and the device's idle
    share.
 
@@ -206,9 +212,9 @@ def phase_kernels(dev) -> dict:
     import torch
 
     from repro_torch.kernels.parsa_cost import (
-        merge_worker_sets_ref, ops, packed_union_delta_ref, parsa_cost_ref,
-        refine_sweep_ref, select_from_cost, select_greedy_from_cost,
-        sketch_select_ref)
+        compact_rows, merge_worker_sets_ref, ops, packed_union_delta_ref,
+        parsa_cost_ref, refine_sweep_ref, select_from_cost,
+        select_greedy_from_cost, sketch_select_ref)
 
     rng = np.random.default_rng(0)
     res = {name: {"cases": 0, "max_abs_err": 0} for name in KERNELS}
@@ -228,26 +234,34 @@ def phase_kernels(dev) -> dict:
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
     def check_sketch_select(nbr, s, retired, order, enabled, greedy, case):
-        """One sketch_cost_select against sketch_select_ref, and the route
-        it took: sketch_select inside the guard, parsa_select past it."""
+        """sketch_cost_select against sketch_select_ref, twice: on lists
+        the wrapper builds from the dense block (cap ROW_CAP) and on lists
+        of cap 6 passed in (most rows truncated, read densely), as the scan
+        passes its own; and the route each took: sketch_select inside the
+        guard, parsa_select past it."""
         kw = dict(order=order, enabled=enabled) if greedy else {}
-        before = dict(ops.LAUNCHES)
-        got = ops.sketch_cost_select(nbr, s, retired, **kw)
-        moved = {n: ops.LAUNCHES[n] - before[n] for n in ops.LAUNCHES
-                 if ops.LAUNCHES[n] != before[n]}
         u, c = sketch_select_ref(nbr, s, retired, *kw.values(),
                                  greedy=greedy)
-        compare("sketch_select", got,
-                (u[0], c[0]) if greedy else (c[0], u[0]), case)
+        want = (u[0], c[0]) if greedy else (c[0], u[0])
         B, k = nbr.shape[0], s.shape[0]
-        if ops.sketch_select_fits(B, k):
-            check(moved == {"sketch_select": 1},
-                  f"sketch_select {case}: launched {moved}")
-        else:
-            check(moved == {"parsa_select_tile": 1, "parsa_select_reduce": 1},
-                  f"sketch_select {case} past the guard: launched {moved}")
-            res["sketch_select"]["routed_past_guard"] += 1
-        return got
+        out = None
+        for rows in (None, compact_rows(nbr, 6)):
+            before = dict(ops.LAUNCHES)
+            got = ops.sketch_cost_select(nbr, s, retired, rows=rows, **kw)
+            moved = {n: ops.LAUNCHES[n] - before[n] for n in ops.LAUNCHES
+                     if ops.LAUNCHES[n] != before[n]}
+            compare("sketch_select", got, want,
+                    case + ("built lists" if rows is None else "cap 6",))
+            if ops.sketch_select_fits(B, k):
+                check(moved == {"sketch_select": 1},
+                      f"sketch_select {case}: launched {moved}")
+            else:
+                check(moved == {"parsa_select_tile": 1,
+                                "parsa_select_reduce": 1},
+                      f"sketch_select {case} past the guard: launched {moved}")
+                res["sketch_select"]["routed_past_guard"] += 1
+            out = got if out is None else out
+        return out
 
     for U in (7, 256, 1000):
         for Kc in (3, 16, 64):
@@ -380,8 +394,11 @@ def check_flash(dev, full=(2, 4096, 40, 8, 128)) -> dict:
     non-causal, causal with a window whose first tile lies outside some
     rows' window; Sq < Skv (left-aligned); S=100; D in {32, 64, 128, 256};
     K and V as strided views of a longer cache; the prefill's full-width
-    shape.  Both kernel routes (tensor cores for bf16 at D in {64, 128},
-    FMA otherwise) are run."""
+    shape; the tensor-core route's tile edges (Sq of 127, 129, 255, a
+    window of 100 across 128-key tiles, Sq < Skv, strided views, D of 64
+    and 128).  Both kernel routes (TMA + wgmma for bf16 at D in {64, 128},
+    FMA otherwise) are run, every bf16 case at D in {64, 128} on the
+    first."""
     import torch
 
     from repro_torch.kernels.flash_attention import (
@@ -391,7 +408,7 @@ def check_flash(dev, full=(2, 4096, 40, 8, 128)) -> dict:
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device=dev).manual_seed(0)
     out = {"cases": 0, "max_abs_err": 0.0, "max_abs_err_full_shape": None,
-           "tolerance": dict(FLASH_TOL), "mma_cases": 0, "fma_cases": 0}
+           "tolerance": dict(FLASH_TOL), "wgmma_cases": 0, "fma_cases": 0}
     cases = []
     for dt in ("float32", "bfloat16"):
         for (B, Sq, Skv, H, KV, D, causal, window) in (
@@ -405,9 +422,18 @@ def check_flash(dev, full=(2, 4096, 40, 8, 128)) -> dict:
                 (2, 100, 100, 4, 2, 128, True, None),    # ragged length
                 (1, 100, 100, 4, 4, 64, False, 30),
                 (1, 96, 96, 4, 2, 32, True, None),       # FMA route for bf16
-                (1, 80, 80, 2, 1, 256, True, None)):
+                (1, 80, 80, 2, 1, 256, True, None),
+                # the tensor-core route's 128-row query and 128-key tiles:
+                (2, 127, 127, 4, 2, 128, True, None),    # a row short
+                (2, 129, 129, 4, 2, 64, True, None),     # a row past
+                (1, 255, 255, 4, 1, 128, True, None),
+                (1, 300, 300, 2, 2, 128, True, 100),     # window across tiles
+                (1, 300, 300, 4, 2, 64, True, 100),
+                (2, 100, 260, 4, 2, 128, True, None),    # Sq < Skv
+                (1, 129, 333, 4, 2, 64, False, None)):
             cases.append((dt, B, Sq, Skv, H, KV, D, causal, window, False))
         cases.append((dt, 2, 200, 200, 8, 2, 128, True, None, True))  # strided
+        cases.append((dt, 2, 255, 255, 4, 2, 64, False, None, True))
     fb, fs, fh, fkv, fd = full     # the prefill's shape
     cases.append(("bfloat16", fb, fs, fs, fh, fkv, fd, True, None, False))
     for dt, B, Sq, Skv, H, KV, D, causal, window, strided in cases:
@@ -434,13 +460,79 @@ def check_flash(dev, full=(2, 4096, 40, 8, 128)) -> dict:
               f"flash_attention {case}: max abs err {err} past tolerance {tol}")
         out["cases"] += 1
         out["max_abs_err"] = max(out["max_abs_err"], err)
-        out["mma_cases" if uses_tensor_cores(q, k, v) else "fma_cases"] += 1
+        wgmma = uses_tensor_cores(q, k, v)
+        check(wgmma == (dt == "bfloat16" and D in (64, 128)),
+              f"flash_attention {case}: tensor-core route {wgmma}")
+        out["wgmma_cases" if wgmma else "fma_cases"] += 1
         if (B, Sq, H, KV, D) == full:
             out["max_abs_err_full_shape"] = err
         del q, k, v, got, want, diff
-    check(out["mma_cases"] > 0 and out["fma_cases"] > 0,
+    check(out["wgmma_cases"] > 0 and out["fma_cases"] > 0,
           f"flash routes not both run: {out}")
     torch.cuda.empty_cache()
+    return out
+
+
+def kernel_resources(libs: dict) -> dict:
+    """What ``nvcc -Xptxas -v`` said of the two kernels redesigned for
+    Hopper (registers, static shared memory, spills of each entry, and any
+    setmaxnreg or wgmma warning), and whether the flash library's SASS
+    holds HGMMA (wgmma) and UTMALDG (TMA load) instructions, by
+    ``cuobjdump -sass``.  The dynamic shared memory is the kernels' own:
+    160 KB + 1 KB a CTA for flash_wgmma at D=128, B * k * 4 bytes for
+    sketch_select."""
+    import re
+    import shutil
+
+    from repro_torch.kernels import nvcc
+    from repro_torch.kernels.flash_attention import build as fa_build
+    from repro_torch.kernels.parsa_cost import build as pc_build
+
+    logs = {**pc_build.FAMILY.logs, **fa_build.FAMILY.logs}
+    tool = pathlib.Path(nvcc._nvcc()).parent / "cuobjdump"
+    tool = str(tool) if tool.exists() else shutil.which("cuobjdump")
+    check(tool is not None, "cuobjdump not found: the SASS is not checked")
+    out = {}
+    for lib, kern in (("flash_attention", "flash_wgmma"),
+                      ("sketch_select", "sketch_select_kernel")):
+        entries, cur, notes = [], None, []
+        if lib not in logs:  # built by an earlier process
+            res = subprocess.run([tool, "--dump-resource-usage",
+                                  str(libs[lib])], capture_output=True,
+                                 text=True, check=True).stdout
+            entries = [line.strip() for line in res.splitlines()
+                       if kern in line or "REG:" in line]
+        for line in logs.get(lib, "").splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                cur = {"entry": m.group(1)} if kern in m.group(1) else None
+                if cur is not None:
+                    entries.append(cur)
+                continue
+            if re.search(r"setmaxnreg|[Pp]erformance|[Ww]arning", line):
+                notes.append(line.strip())
+            if cur is None:
+                continue
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          line)
+            if m:
+                cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                cur["registers"] = int(m.group(1))
+                m = re.search(r"(\d+) bytes smem", line)
+                cur["static_smem"] = int(m.group(1)) if m else 0
+        out[kern] = {"ptxas": entries, "notes": notes}
+        log(f"ptxas {kern}: " + json.dumps(out[kern]))
+    sass = subprocess.run([tool, "-sass", str(libs["flash_attention"])],
+                          capture_output=True, text=True, check=True).stdout
+    counts = {op: len(re.findall(rf"\b{op}\b", sass))
+              for op in ("HGMMA", "UTMALDG", "HMMA")}
+    out["flash_sass"] = counts
+    log(f"flash_attention SASS: {counts['HGMMA']} HGMMA, "
+        f"{counts['UTMALDG']} UTMALDG, {counts['HMMA']} HMMA instructions")
+    check(counts["HGMMA"] > 0 and counts["UTMALDG"] > 0,
+          f"the flash library holds no wgmma or TMA instruction: {counts}")
     return out
 
 
@@ -590,16 +682,20 @@ def phase_sketch(dev, main: dict) -> dict:
     with dispatch_counter() as counts:
         res = partition(g, cfg, device=dev)
     launches = dict(ops.LAUNCHES)
+    built = ops.ROWS_BUILT["sketch_select"]
     sk = res.sketch
     log(f"sketch path: width {sk.width_bits} bits = {sk.width_words} words "
         f"({sk.compression:.1f}x narrower than {(g.num_v + 31) // 32}); "
         f"dispatches {dict(counts)}; kernel launches per phase "
-        f"{counts.launches}")
+        f"{counts.launches}; sketch_select calls that built their own row "
+        f"lists: {built}")
     log("sketch path timings (s): " + json.dumps(res.timings))
     rounds = rounds_of(g.num_u, SKETCH_BLOCK)
     n_chunks = -(-sk.width_words // (cfg.refine_chunk // 32))
     check(launches["sketch_select"] == rounds,
           f"sketch_select launches {launches['sketch_select']} != {rounds}")
+    check(built == 0, f"{built} sketch_select calls built their own row "
+          "lists: the scan did not pass its lists")
     check(launches["parsa_select_tile"] == 0
           and launches["parsa_select_reduce"] == 0,
           f"parsa_select ran on the sketch path: {launches}")
@@ -643,6 +739,8 @@ def phase_sketch(dev, main: dict) -> dict:
                                      sketch_hot_bits=SKETCH_BITS),
                     device=dev)
     cl = dict(ops.LAUNCHES)
+    check(ops.ROWS_BUILT["sketch_select"] == 0,
+          "exact collapse: a sketch_select call built its own row lists")
     check(col.sketch.is_exact, "main graph sketch is not the exact collapse")
     same_result(col, exact, "exact collapse vs exact main path")
     rounds_main = rounds_of(gm.num_u, BLOCK)
@@ -651,7 +749,8 @@ def phase_sketch(dev, main: dict) -> dict:
           f"exact collapse launches {cl} (want {rounds_main} sketch_select)")
     out["collapse_launches"] = cl["sketch_select"]
     log(f"exact collapse on the main graph equals the exact run; launches "
-        f"{cl}; timings (s) {json.dumps(col.timings)}")
+        f"{cl}, every sketch_select on the scan's row lists; timings (s) "
+        f"{json.dumps(col.timings)}")
 
     # 3. the quality band, scored on the true graph (reported, not gated)
     t0 = time.perf_counter()
@@ -1123,7 +1222,7 @@ def profile_window(fn) -> dict:
     for e in kern:
         for name in ("cost_tile_kernel", "select_reduce_kernel",
                      "sketch_select_kernel", "refine_sweep_kernel",
-                     "union_delta_kernel", "flash_mma", "flash_fma"):
+                     "union_delta_kernel", "flash_wgmma", "flash_fma"):
             if name in e.name:
                 ours[name].append(e.time_range.elapsed_us())
     out.update(busy_s=busy, idle_share=1 - busy / wall,
@@ -1160,11 +1259,11 @@ def phase_times(dev, main: dict) -> list[dict]:
 
     from repro_torch.core.partition import (
         _pad_block_stack, _parallel_scan, _partition_scan, _rebuild_nbr,
-        pack_graph_blocks)
+        _trunc_flags, pack_graph_blocks)
     from repro_torch.core.refine import refine_v_device
     from repro_torch.kernels.parsa_cost import (
         merge_worker_sets_ref, ops, parsa_cost_ref, popcount32,
-        refine_sweep_ref, select_greedy_from_cost, sketch_select_ref)
+        refine_sweep_ref, select_greedy_from_cost, sketch_select_rows_ref)
 
     g, res = main["graph"], main["result"]
     order = np.random.default_rng(0).permutation(g.num_u)
@@ -1250,7 +1349,14 @@ def phase_times(dev, main: dict) -> list[dict]:
         f"scan+refine wall ({100 * busy / wall:.1f}%)")
 
     # sketch_select at the sketch path's shape (block 0 of the acceptance
-    # run, B=1024, Ws=4096) and at the main path's (B=256, W=2048)
+    # run, B=1024, Ws=4096) and at the main path's (B=256, W=2048), on the
+    # scan's own row lists.  Two bounds: the bytes of the compact inputs
+    # the function needs (each row's nonzero pairs and the one padding
+    # pair that ends it, the truncation flags, the dense words of truncated
+    # rows, the set words at the block's nonzero columns), which the row's
+    # share is against, and the dense contract's (the (B, Ws) block and the
+    # (k, Ws) sets).  The padded lists the kernel reads, (B, cap) pairs,
+    # are logged beside them.
     sk = main["sketch"]
     nb = PROFILE_BLOCKS
     sg = sk["graph"]
@@ -1261,18 +1367,43 @@ def phase_times(dev, main: dict) -> list[dict]:
     s_a = T(sk["result"].s_masks)
     ret_a = T(np.random.default_rng(1).random(SKETCH_BLOCK) < 0.5)
     timed = {}
-    for shape, (nb_, s_, r_) in (("acceptance", (nbr_a, s_a, ret_a)),
-                                 ("main", (nbr, s, retired))):
+    for shape, (pk, nb_, s_, r_) in (("acceptance", (packed_s, nbr_a, s_a,
+                                                     ret_a)),
+                                     ("main", (packed, nbr, s, retired))):
         Bs, Ws = nb_.shape
-        nz = int((nb_ != 0).sum())
-        timed[shape] = dict(shape=f"B={Bs}, Ws={Ws}, k={K}", **measure(
+        rows_ = (T(pk.widx[0]), T(pk.vals[0]),
+                 _trunc_flags(T(pk.tr_ids[0]), Bs))
+        cap = rows_[0].shape[1]
+        nzm = nb_ != 0
+        nz, nz_cols = int(nzm.sum()), int(nzm.any(0).sum())
+        n_tr = int(rows_[2].sum())
+        live = ~rows_[2]
+        pairs = int(torch.clamp((rows_[1][live] != 0).sum(1) + 1,
+                                max=cap).sum())
+        nops = 3 * nz * K + 2 * K * Bs
+        rest = Bs + 4 * Ws * n_tr + 4 * K * nz_cols + Bs + 8 * K
+        compact, padded = 8 * pairs + rest, 8 * Bs * cap + rest
+        dense = 4 * Bs * Ws + 4 * K * Ws + Bs + 8 * K
+        t = measure(
             lambda: ops.sketch_cost_select(nb_, s_, r_, order=order_k,
-                                           enabled=enabled),
-            lambda: sketch_select_ref(nb_, s_, r_, order_k, enabled,
-                                      greedy=True),
-            100, 2, 4 * Bs * Ws + 4 * K * Ws + Bs + 8 * K,
-            3 * nz * K + 2 * K * Bs))
-        log_time("sketch_select", timed[shape], f" ({timed[shape]['shape']})")
+                                           enabled=enabled, rows=rows_),
+            lambda: sketch_select_rows_ref(nb_, *rows_, s_, r_, order_k,
+                                           enabled, greedy=True),
+            100, 2, compact, nops)
+        d_ms, d_by = bound_ms(dense, nops)
+        timed[shape] = dict(
+            shape=f"B={Bs}, Ws={Ws}, k={K}, cap={cap}, {nz} nonzero words, "
+                  f"{n_tr} truncated rows", **t, bound_bytes=compact,
+            bound_bytes_padded=padded,
+            bound_ms_dense=d_ms, bound_by_dense=d_by, bound_bytes_dense=dense,
+            bound_of="the compact inputs of the list route")
+        log_time("sketch_select", t, f" ({timed[shape]['shape']})")
+        log(f"  sketch_select bounds: {compact:,} bytes of list pairs "
+            f"({pairs:,} of the {Bs * cap:,} padded slots) and gathered set "
+            f"words {t['bound_ms'] * 1e3:.3f} us (the row's); the padded "
+            f"lists the kernel reads {padded:,} bytes "
+            f"{bound_ms(padded, nops)[0] * 1e3:.3f} us; the dense "
+            f"contract's {dense:,} bytes {d_ms * 1e3:.3f} us")
     main_t = dict(timed["main"], launches=sk["collapse_launches"],
                   launches_path="device_scan set_repr=sketch, exact collapse "
                                 "on the main graph")
@@ -1465,7 +1596,9 @@ def main(argv=None) -> int:
     state: dict = {}
     if "kernels" in phases:
         t0 = time.perf_counter()
+        resources = kernel_resources(libs)
         state["checks"] = phase_kernels(dev)
+        state["checks"]["resources"] = resources
         log("kernel checks: " + json.dumps(state["checks"]) +
             f" ({time.perf_counter() - t0:.2f} s)")
     if "main" in phases:

@@ -21,7 +21,9 @@ The counterpart of ``repro.core.jax_partition`` (its kernel path):
    widths.  With ``sketch=True`` (``set_repr="sketch"``, where the packed
    width is the sketch's few thousand words) it is ``sketch_cost_select``:
    one ``sketch_select`` launch whose (B, k) tile stays in shared memory,
-   as the JAX scan switches to ``sketch_cost_select`` there.  A tile too
+   as the JAX scan switches to ``sketch_cost_select`` there.  That kernel
+   reads each row's compact word list (the block's ``widx``/``vals`` and a
+   truncation flag from ``tr_ids``), not the dense block.  A tile too
    large for one CTA's shared memory takes ``parsa_cost_select`` inside
    that wrapper; both give the same bits.  The block buffers carry one
    extra *sink* row at index B: an inactive slot points there, so its
@@ -234,15 +236,30 @@ def _rebuild_nbr(widx: torch.Tensor, vals: torch.Tensor,
     return nbr
 
 
+def _trunc_flags(tr_ids: torch.Tensor, B: int) -> torch.Tensor:
+    """(B,) bool on the device: the block's rows truncated past ``cap``,
+    from its side channel's ids (padding entries point at the sink row B).
+    No host sync."""
+    flags = torch.zeros(B + 1, dtype=torch.bool, device=tr_ids.device)
+    flags.index_fill_(0, tr_ids.long(), True)
+    return flags[:B]
+
+
 def _select_round(nbr, retired, parts, s_masks, sizes, order, enabled,
-                  inv, sketch) -> None:
+                  inv, rows=None) -> None:
     """One greedy round over slots ``order``, committed in place: S_i |=
     N(u), sizes, parts, retirement.  ``inv`` maps partitions to slots
-    (None for the identity order); ``sketch`` picks ``sketch_cost_select``."""
+    (None for the identity order).  The block's compact ``rows`` (widx,
+    vals, trunc) mark a sketched width: they pick ``sketch_cost_select``,
+    which reads them."""
     B = nbr.shape[0] - 1
-    select = sketch_cost_select if sketch else parsa_cost_select
-    u_sel, c_sel = select(nbr[:B], s_masks, retired[:B], order=order,
-                          enabled=enabled)
+    if rows is not None:
+        u_sel, c_sel = sketch_cost_select(nbr[:B], s_masks, retired[:B],
+                                          order=order, enabled=enabled,
+                                          rows=rows)
+    else:
+        u_sel, c_sel = parsa_cost_select(nbr[:B], s_masks, retired[:B],
+                                         order=order, enabled=enabled)
     act = c_sel < BIG
     idx = torch.where(act, u_sel, B).long()   # inactive slots → sink row
     picked = nbr[idx]                          # (k, W); sink row is zero
@@ -264,7 +281,8 @@ def _assign_block_rounds(
     sizes: torch.Tensor,     # (k,) int32 — updated in place
     iota_k: torch.Tensor,    # (k,) int32 0..k-1
     en_all: torch.Tensor,    # (k,) bool, all True
-    sketch: bool = False,    # sketched width: the one-launch select
+    rows: tuple | None = None,  # sketched width: the block's (widx, vals,
+                                # trunc) for the one-launch select
 ) -> None:
     """Greedy-assign a block in balanced rounds: the catch-up round (visit
     order = stable argsort of sizes, only min-sized partitions enabled),
@@ -274,10 +292,10 @@ def _assign_block_rounds(
     ord0 = torch.argsort(sizes, stable=True)
     en0 = sizes[ord0] == sizes.min()
     _select_round(nbr, retired, parts, s_masks, sizes,
-                  ord0.to(torch.int32), en0, torch.argsort(ord0), sketch)
+                  ord0.to(torch.int32), en0, torch.argsort(ord0), rows)
     for _ in range(-(-(B - 1) // k)):
         _select_round(nbr, retired, parts, s_masks, sizes, iota_k, en_all,
-                      None, sketch)
+                      None, rows)
 
 
 def _partition_scan(
@@ -302,8 +320,10 @@ def _partition_scan(
     en_all = torch.ones(k, dtype=torch.bool, device=dev)
     for b in range(nb):
         nbr = _rebuild_nbr(widx[b], vals[b], tr_ids[b], tr_masks[b])
+        rows = ((widx[b], vals[b], _trunc_flags(tr_ids[b], B)) if sketch
+                else None)
         _assign_block_rounds(nbr, retired[b], parts[b], s_masks, sizes,
-                             iota_k, en_all, sketch)
+                             iota_k, en_all, rows)
     return parts[:, :B]
 
 
@@ -448,9 +468,11 @@ def _parallel_scan(
             for b in range(step * merge_every, (step + 1) * merge_every):
                 nbr = _rebuild_nbr(widx[w, b], vals[w, b], tr_ids[w, b],
                                    tr_masks[w, b])
+                rows = ((widx[w, b], vals[w, b],
+                         _trunc_flags(tr_ids[w, b], B)) if sketch else None)
                 _assign_block_rounds(nbr, retired[w, b], parts[w, b],
                                      s_local[w], sz_local[w], iota_k, en_all,
-                                     sketch)
+                                     rows)
         # server union-push: OR-merge the sets (counting the pushed words)
         # and add every worker's size delta onto the pre-merge totals
         s_global = merge_worker_sets(s_local, s_global, pushed)

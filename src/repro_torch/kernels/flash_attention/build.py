@@ -19,7 +19,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_int64
 # q, k, v, o, dtype, B, Sq, Skv, H, KV, D, 9 strides, causal, window,
-# use_mma, stream
+# use_wgmma, stream
 _ENTRIES = {
     "flash_attention_fwd": ("flash_attention",
                             (_P, _P, _P, _P) + (_I,) * 7 + (_L,) * 9

@@ -9,8 +9,9 @@ raises), a CPU tensor runs ``ref.flash_attention_ref``.  There is no
 fallback from one to the other.
 
 On the card the wrapper picks the kernel's route from dtype and shape: the
-tensor-core route for bfloat16 with D in {64, 128}, 16-byte aligned data and
-strides that are multiples of 8 elements; the FMA route otherwise.  It
+Hopper tensor-core route (TMA + wgmma) for bfloat16 with D in {64, 128},
+16-byte aligned data and strides that are multiples of 8 elements, which
+TMA requires; the FMA route otherwise.  It
 reads q, k and v through their strides (the last dimension must be
 contiguous), so a view of a cache or of a projection needs no copy.
 
@@ -31,6 +32,9 @@ __all__ = ["LAUNCHES", "reset_launch_counts", "flash_attention", "MAX_D",
 
 MAX_D = 256
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# flash_attention_fwd returns this plus the CUresult of a tensor map that
+# could not be encoded (csrc/flash_attention.cu, kEncodeError)
+_ENCODE_ERROR = 100000
 
 LAUNCHES: dict[str, int] = {"flash_attention": 0}
 
@@ -67,7 +71,8 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def uses_tensor_cores(q: torch.Tensor, k: torch.Tensor,
                       v: torch.Tensor) -> bool:
-    """True when the kernel takes its mma.sync route for these tensors."""
+    """True when the kernel takes its tensor-core route (TMA + wgmma) for
+    these tensors."""
     return (q.dtype == torch.bfloat16 and q.shape[3] in (64, 128)
             and all(t.data_ptr() % 16 == 0
                     and all(s % 8 == 0 for s in t.stride()[:3])
@@ -97,6 +102,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             int(causal), int(window or 0), int(uses_tensor_cores(q, k, v)),
             stream)
+    if rc >= _ENCODE_ERROR:
+        raise RuntimeError("flash_attention_fwd: cuTensorMapEncodeTiled "
+                           f"failed with CUresult {rc - _ENCODE_ERROR}")
     if rc != 0:
         raise RuntimeError(
             f"flash_attention_fwd: kernel launch failed with CUDA error {rc}")

@@ -40,7 +40,9 @@ def _nvcc() -> str:
 class KernelFamily:
     """The libraries of one ``csrc/`` folder and their C entry points
     (``entries``: name -> (library, ctypes argtypes); every entry returns
-    an ``int``, the CUDA error of its launch)."""
+    an ``int``, the CUDA error of its launch).  ``logs`` holds the
+    compiler's output (``-Xptxas -v``: registers, shared memory, spills)
+    of each library this object built, by library name."""
 
     def __init__(self, csrc: pathlib.Path, sources: tuple[str, ...],
                  entries: dict[str, tuple[str, tuple]]):
@@ -50,6 +52,7 @@ class KernelFamily:
         self._lock = threading.Lock()
         self._libs: dict[str, ctypes.CDLL] = {}
         self._fns: dict[str, ctypes._CFuncPtr] = {}
+        self.logs: dict[str, str] = {}
 
     def build_dir(self) -> pathlib.Path:
         env = os.environ.get("REPRO_TORCH_BUILD_DIR")
@@ -80,7 +83,7 @@ class KernelFamily:
             os.close(fd)
             cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp,
                    str(self.csrc / f"{name}.cu")]
-            jobs.append((name, path, tmp, subprocess.Popen(
+            jobs.append((self, name, path, tmp, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
         return jobs
 
@@ -113,13 +116,14 @@ def build_all(families, verbose: bool = False) -> dict[str, pathlib.Path]:
     compiler's output if any build fails."""
     jobs = [job for fam in families for job in fam._start()]
     failed = []
-    for name, path, tmp, proc in jobs:
+    for fam, name, path, tmp, proc in jobs:
         log = proc.communicate()[0].decode(errors="replace")
         if proc.returncode != 0:
             failed.append(f"--- {name}.cu (nvcc exit {proc.returncode})\n{log}")
             pathlib.Path(tmp).unlink(missing_ok=True)
             continue
         os.replace(tmp, path)
+        fam.logs[name] = log
         if verbose:
             print(f"--- {name}.cu\n{log}", end="", flush=True)
     if failed:

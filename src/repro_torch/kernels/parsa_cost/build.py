@@ -29,7 +29,8 @@ _ENTRIES = {
     "parsa_select_reduce": ("parsa_select",
                             (_P, _P, _P, _P, _I, _I, _I, _P, _P, _P)),
     "sketch_select": ("sketch_select",
-                      (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P)),
+                      (_P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I,
+                       _P, _P, _P)),
     "refine_sweep": ("refine_sweep", (_P, _P, _P, _I, _I, _P, _P, _P)),
     "packed_union_delta": ("union_delta", (_P, _P, _I, _L, _P, _P, _P, _P)),
 }

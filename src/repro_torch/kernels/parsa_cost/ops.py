@@ -19,6 +19,7 @@ import torch
 
 from . import build
 from .ref import (
+    compact_rows,
     merge_worker_sets_ref,
     packed_union_delta_ref,
     parsa_cost_ref,
@@ -26,13 +27,15 @@ from .ref import (
     select_from_cost,
     select_greedy_from_cost,
     sketch_select_ref,
+    sketch_select_rows_ref,
 )
 
 __all__ = ["LAUNCHES", "reset_launch_counts", "parsa_cost",
            "parsa_select_tile", "parsa_select_reduce", "parsa_cost_select",
            "sketch_cost_select", "sketch_select_fits", "refine_sweep_chunk",
            "packed_union_delta", "merge_worker_sets", "SELECT_MAX_B",
-           "SELECT_MAX_K", "SKETCH_SELECT_MAX_TILE_BYTES", "REFINE_MAX_K"]
+           "SELECT_MAX_K", "SKETCH_SELECT_MAX_TILE_BYTES", "REFINE_MAX_K",
+           "ROW_CAP", "ROWS_BUILT"]
 
 # parsa_select_reduce keeps each thread's retired rows in one 32-bit mask
 # over at most 1024 threads; the slot loop itself takes any k, capped here
@@ -45,15 +48,24 @@ SELECT_MAX_K = 1024
 SKETCH_SELECT_MAX_TILE_BYTES = 227 * 1024 - 1024
 # refine_sweep holds k costs in 32 lanes × at most 32 registers
 REFINE_MAX_K = 1024
+# the list length sketch_cost_select gives a row when it builds the lists
+# itself: the scan's packing cap (core/partition.py, cap=48)
+ROW_CAP = 48
 
 LAUNCHES: dict[str, int] = {"parsa_cost": 0, "parsa_select_tile": 0,
                             "parsa_select_reduce": 0, "sketch_select": 0,
                             "refine_sweep": 0, "packed_union_delta": 0}
 
 
+# sketch_cost_select calls on the card that were given only the dense
+# block and built the row lists themselves (the scan passes its own)
+ROWS_BUILT: dict[str, int] = {"sketch_select": 0}
+
+
 def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, ROWS_BUILT):
+        for name in counts:
+            counts[name] = 0
 
 
 def _ptr(t: torch.Tensor | None) -> ctypes.c_void_p:
@@ -204,6 +216,20 @@ def sketch_select_fits(B: int, k: int) -> bool:
     return 4 * B * k <= SKETCH_SELECT_MAX_TILE_BYTES and B <= SELECT_MAX_B
 
 
+def _check_rows(rows, B: int, device: torch.device
+                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    widx, vals, trunc = rows
+    _check("widx", widx, torch.int32, 2, device)
+    _check("vals", vals, torch.int32, 2, device)
+    _check("trunc", trunc, torch.bool, 1, device)
+    if (widx.shape != vals.shape or widx.shape[0] != B or trunc.shape[0] != B
+            or widx.shape[1] < 1):
+        raise ValueError(f"rows must be (B, cap), (B, cap), (B,) with B={B} "
+                         f"and cap >= 1, got {tuple(widx.shape)}, "
+                         f"{tuple(vals.shape)}, {tuple(trunc.shape)}")
+    return widx, vals, trunc
+
+
 def sketch_cost_select(
     nbr_masks: torch.Tensor,   # (B, Ws) int32 packed sketched N(u)
     s_masks: torch.Tensor,     # (k, Ws) int32 packed sketched S_i
@@ -211,16 +237,26 @@ def sketch_cost_select(
     *,
     order: torch.Tensor | None = None,    # (k,) int32 → greedy-round mode
     enabled: torch.Tensor | None = None,  # (k,) bool slot gate (greedy mode)
+    rows: tuple[torch.Tensor, torch.Tensor, torch.Tensor] | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Fused cost+select at sketched widths: the contract of
     ``parsa_cost_select`` (independent → (mins, argmins), greedy → (u_sel,
     c_sel) with (-1, BIG) for an inactive slot).
 
-    On CUDA it is ONE ``sketch_select`` launch whose (B, k) tile lives in
-    shared memory.  A tile past ``sketch_select_fits`` routes, by shape and
-    before any launch, to ``parsa_cost_select`` (its launches are counted
+    ``rows = (widx, vals, trunc)`` is the block in the compact form the scan
+    keeps: each row's nonzero words as (B, cap) int32 (word index, word)
+    pairs padded with (0, 0), and a (B,) bool flag for the rows truncated
+    past ``cap``, whose words are read from ``nbr_masks``.  Without it the
+    wrapper builds the lists from ``nbr_masks`` on the device
+    (``ref.compact_rows`` with ``ROW_CAP``; counted in ``ROWS_BUILT``).
+
+    On CUDA it is ONE ``sketch_select`` launch, which reads the lists and
+    keeps the (B, k) tile in shared memory.  A tile past
+    ``sketch_select_fits`` routes, by shape and before any launch, to
+    ``parsa_cost_select`` on the dense block (its launches are counted
     there), as the JAX wrapper routes past its VMEM budget; the results are
-    the same bits.  A CPU tensor runs ``sketch_select_ref``.
+    the same bits.  A CPU tensor runs ``sketch_select_rows_ref`` when given
+    the lists, else ``sketch_select_ref``.
     """
     dev = nbr_masks.device
     _check("nbr_masks", nbr_masks, torch.int32, 2, dev)
@@ -230,16 +266,27 @@ def sketch_cost_select(
         raise ValueError(f"word widths differ: {W} vs {s_masks.shape[1]}")
     enabled = _check_select(B, k, retired, order, enabled, dev)
     greedy = order is not None
+    if rows is not None:
+        rows = _check_rows(rows, B, dev)
     if not _on_cuda(dev):
-        u, c = sketch_select_ref(nbr_masks, s_masks, retired, order, enabled,
-                                 greedy=greedy)
+        if rows is None:
+            u, c = sketch_select_ref(nbr_masks, s_masks, retired, order,
+                                     enabled, greedy=greedy)
+        else:
+            u, c = sketch_select_rows_ref(nbr_masks, *rows, s_masks, retired,
+                                          order, enabled, greedy=greedy)
         return (u[0], c[0]) if greedy else (c[0], u[0])
     if not sketch_select_fits(B, k):
         return parsa_cost_select(nbr_masks, s_masks, retired, order=order,
                                  enabled=enabled)
+    if rows is None:
+        rows = compact_rows(nbr_masks, ROW_CAP)
+        ROWS_BUILT["sketch_select"] += 1
+    widx, vals, trunc = rows
     out_a = torch.empty(k, dtype=torch.int32, device=dev)
     out_b = torch.empty(k, dtype=torch.int32, device=dev)
-    _launch("sketch_select", _ptr(nbr_masks), _ptr(s_masks), _ptr(retired),
+    _launch("sketch_select", _ptr(nbr_masks), _ptr(widx), _ptr(vals),
+            _ptr(trunc), widx.shape[1], _ptr(s_masks), _ptr(retired),
             _ptr(order), _ptr(enabled if greedy else None), B, k, W,
             int(greedy), _ptr(out_a), _ptr(out_b))
     return out_a, out_b

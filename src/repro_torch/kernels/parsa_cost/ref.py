@@ -21,7 +21,8 @@ import torch
 
 __all__ = ["BIG", "popcount32", "parsa_cost_ref", "select_from_cost",
            "select_greedy_from_cost", "parsa_select_ref",
-           "parsa_select_greedy_ref", "sketch_select_ref", "refine_sweep_ref",
+           "parsa_select_greedy_ref", "sketch_select_ref",
+           "sketch_select_rows_ref", "compact_rows", "refine_sweep_ref",
            "packed_union_delta_ref", "merge_worker_sets_ref", "unpack_bits"]
 
 BIG = 2**30  # sentinel cost for retired / padded vertices (fits int32)
@@ -109,6 +110,53 @@ def sketch_select_ref(nbr_masks, s_masks, retired, order=None, enabled=None,
     Returns ((1, k) u_sel or argmins, (1, k) c_sel or mins), the layout of
     the JAX ``sketch_select_ref``."""
     cost = parsa_cost_ref(nbr_masks, s_masks)
+    if greedy:
+        if enabled is None:
+            enabled = torch.ones(cost.shape[1], dtype=torch.bool,
+                                 device=cost.device)
+        u, c = select_greedy_from_cost(cost, retired, order, enabled)
+    else:
+        c, u = select_from_cost(cost, retired)
+    return u[None, :], c[None, :]
+
+
+def compact_rows(nbr_masks: torch.Tensor, cap: int
+                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The compact form of a (B, W) int32 block, as the scan packs it:
+    (widx (B, cap) int32, vals (B, cap) int32, trunc (B,) bool).  Row u
+    lists its first ``cap`` nonzero words in column order, padded with
+    (0, 0); ``trunc[u]`` marks a row with more than ``cap`` nonzero words
+    (only its first ``cap`` are listed).  A stable argsort puts each row's
+    nonzero columns first, so on the card nothing waits for the host."""
+    B, W = nbr_masks.shape
+    nz = nbr_masks != 0
+    c = min(cap, W)
+    idx = torch.argsort((~nz).to(torch.uint8), dim=1, stable=True)[:, :c]
+    vals = nbr_masks.gather(1, idx)
+    keep = vals != 0
+    widx = torch.where(keep, idx, 0).to(torch.int32)
+    vals = torch.where(keep, vals, 0)
+    if c < cap:
+        widx = torch.nn.functional.pad(widx, (0, cap - c))
+        vals = torch.nn.functional.pad(vals, (0, cap - c))
+    return (widx.contiguous(), vals.contiguous(),
+            nz.sum(dim=1) > cap)
+
+
+def sketch_select_rows_ref(nbr_masks, widx, vals, trunc, s_masks, retired,
+                           order=None, enabled=None, *, greedy=False):
+    """The plain version of the ``sketch_select`` kernel's list route: the
+    cost of each row from its compact (word index, word) pairs,
+    ``cost[u, i] = Σ_e popcount(vals[u, e] & ~s[i, widx[u, e]])`` (padding
+    pairs (0, 0) count nothing), and from the dense ``nbr_masks`` row where
+    ``trunc`` marks it; then the select of ``sketch_select_ref``, the same
+    bits.  Returns ((1, k) u_sel or argmins, (1, k) c_sel or mins)."""
+    gathered = s_masks[:, widx.long()]                  # (k, B, cap)
+    cost = popcount32(vals[None] & ~gathered).sum(dim=-1, dtype=torch.int32).T
+    rows = trunc.nonzero().flatten()
+    if rows.numel():
+        cost = cost.clone()
+        cost[rows] = parsa_cost_ref(nbr_masks[rows], s_masks)
     if greedy:
         if enabled is None:
             enabled = torch.ones(cost.shape[1], dtype=torch.bool,

@@ -198,3 +198,49 @@ def test_cuda_kernel_equals_plain_version(cuda_device, dtype, tol, Sq, Skv,
     assert LAUNCHES["flash_attention"] == before + 1
     want = flash_attention_ref(q, k, v, causal=causal, window=window)
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.fixture
+def wgmma_case(cuda_device, request):
+    """q, k, v on the card for one edge case of the tensor-core route
+    (128-row query tiles, 128-key tiles), K and V as views of a longer
+    cache when ``strided``."""
+    Sq, Skv, H, KV, D, causal, window, strided = request.param
+    g = torch.Generator().manual_seed(Sq * 7 + Skv + D)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g).to(cuda_device,
+                                                   torch.bfloat16)
+
+    q = rnd(2, Sq, H, D)
+    if strided:
+        k = rnd(2, Skv + 72, KV, D)[:, :Skv]
+        v = rnd(2, Skv + 72, KV, D)[:, :Skv]
+    else:
+        k, v = rnd(2, Skv, KV, D), rnd(2, Skv, KV, D)
+    return q, k, v, causal, window
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wgmma_case", [
+    (127, 127, 4, 2, 128, True, None, False),    # one row short of a tile
+    (129, 129, 4, 2, 64, True, None, False),     # one row past a tile
+    (255, 255, 4, 1, 128, True, None, False),
+    (300, 300, 2, 2, 128, True, 100, False),     # window across 128-key tiles
+    (300, 300, 4, 2, 64, True, 100, False),
+    (100, 260, 4, 2, 128, True, None, False),    # Sq < Skv
+    (129, 333, 4, 2, 64, False, None, False),
+    (200, 200, 8, 2, 128, True, None, True),     # strided cache views
+    (255, 255, 4, 2, 64, False, None, True),
+], indirect=True)
+def test_cuda_wgmma_route_tile_edges(wgmma_case):
+    q, k, v, causal, window = wgmma_case
+    assert uses_tensor_cores(q, k, v)
+    before = LAUNCHES["flash_attention"]
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_attention"] == before + 1
+    want = flash_attention_ref(q, k, v, causal=causal, window=window)
+    assert torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                               rtol=2e-2)
