@@ -13,23 +13,33 @@ Phases, in order; any failure exits non-zero:
 1. the card (``nvidia-smi`` name and power limit) and the kernel build;
 2. each kernel against its plain version on the card, bit for bit, across
    shape sweeps (tolerance: 0, the program is integer; sketch_select on
-   row lists it builds and on lists passed in); flash attention within
+   row lists it builds and on lists passed in; parsa_scan's parts, sets and
+   sizes at 64, 2,048 and 4,096 words, B of 8, 40 and 128, k of 1, 3 and
+   16, 1, 4 and 8 workers, with truncated rows, padding blocks, bit-31
+   words, entering sets and unequal sizes, and at the sketch path's B of
+   512 and 1,024 (more than 32 rows a CTA); the one-launch refine over
+   chunks and sweeps, in place and not); flash attention within
    float tolerances (float32 3e-5 with TF32 off, bfloat16 2e-2), across
    dtypes, GQA and MHA, masks, Sq < Skv, ragged lengths, head dims, the
    tensor-core route's 128-row and 128-key tile edges and the prefill's
    full-width shape; what ``-Xptxas -v`` says of the two kernels
    redesigned for Hopper (registers, shared memory, spills), and HGMMA and
-   UTMALDG instructions in the flash library's SASS (``cuobjdump``);
+   UTMALDG instructions in the flash library's SASS (``cuobjdump``), and
+   parsa_scan's global loads (S only by strong loads);
 3. the main path at full size: ``text_like(100_000, 65_536, mean_len=20,
    seed=0)`` through ``partition(..., ParsaConfig(k=16,
    backend="device_scan", refine_backend="device", sweeps=2))`` on cuda,
-   with its launch counts, held to the numpy oracles and to the
-   host_blocked_oracle backend on the card;
+   with its launch counts (one parsa_scan, one refine_sweep), held to the
+   numpy oracles and to the host_blocked_oracle backend on the card; the
+   per-round route of the scan (tiles past parsa_scan's shared memory) on
+   the same graph at B=1,024, k=64 exact and k=56 sketched, held to the
+   numpy oracles;
 4. cpu against cuda on a reduced graph, both backends, every output equal;
 5. the sketch path (``set_repr="sketch"``): the acceptance geometry of
    ``benchmarks/bench_sketch.py`` (``ctr_like(1_000_000, 100_000_000,
    nnz_per_row=10, seed=11)``, k=16, B=1024, 65,536 hot and 65,536 bucket
-   bits, so 4,096 words) with its launch counts, held to the numpy oracles
+   bits, so 4,096 words) with its launch counts (one parsa_scan, one
+   refine_sweep), held to the numpy oracles
    on the sketched graph; the exact collapse on the main graph, equal to
    phase 3; the quality band of the sketch against the exact run, scored
    on the true graph (reported); cpu against cuda on a reduced sketched
@@ -37,7 +47,8 @@ Phases, in order; any failure exits non-zero:
 6. Algorithm 4 on the card (``backend="parallel_device"``): the acceptance
    configuration of ``benchmarks/bench_fig10_scalability.py`` (8 workers,
    B=128, an OR-merge every 12 blocks) on the main graph, with its launch
-   counts and traffic, held to the numpy oracles; one worker, equal to
+   counts (a parsa_scan and a merge a super-step, one refine_sweep) and
+   traffic, held to the numpy oracles; one worker, equal to
    phase 3 in every output; its quality against phase 3, gated at 5%;
    the host simulation ``parallel_sim`` at full size (reported); cpu
    against cuda on the reduced graph at 4 and 8 workers, with global
@@ -53,15 +64,17 @@ Phases, in order; any failure exits non-zero:
 8. each kernel timed at the main path's shapes (CUDA events, median of 21
    samples after warm-up; ``ms`` from launches replayed in a CUDA graph,
    ``eager_ms`` from launches made one by one from Python) beside its bound
-   and its plain version (``sketch_select`` on the scan's row lists at the
-   sketch path's shape and at the main path's, beside the bound of those
-   compact inputs and the dense contract's, ``packed_union_delta`` at the
-   parallel path's merge, ``flash_attention`` at the prefill's shape
-   beside ``scaled_dot_product_attention``), then a window of the scan, of
-   the sketched scan, of one super-step of the parallel scan and the whole
-   refine under
-   ``torch.profiler``: device kernels per round and the device's idle
-   share.
+   and its plain version (``parsa_scan`` over the main path's whole scan,
+   one launch, its plain version once, and its time a round;
+   ``refine_sweep`` at one chunk and sweep and over the main path's whole
+   refine, with its chain of dependent steps; ``sketch_select`` on the
+   scan's row lists at the sketch path's shape and at the main path's,
+   beside the bound of those compact inputs and the dense contract's,
+   ``packed_union_delta`` at the parallel path's merge, ``flash_attention``
+   at the prefill's shape beside ``scaled_dot_product_attention``), then
+   the main, the sketched and the parallel scan and the whole refine under
+   ``torch.profiler``: device time per round and the device's idle share;
+   and the sketched scan's first blocks against ``parsa_scan_ref``.
 
 ``--phases build,kernels,sketch``, ``--phases build,kernels,parallel`` and
 ``--phases build,kernels,lm`` are short checks of one path (they print no
@@ -97,7 +110,9 @@ MAIN_GRAPH = dict(num_docs=100_000, vocab=65_536, mean_len=20, seed=0)
 SMALL_GRAPH = dict(num_docs=4_000, vocab=8_192, mean_len=20, seed=1)
 K = 16
 BLOCK = 256
-PROFILE_BLOCKS = 8  # scan blocks in the profiled window
+# the per-round route: B=1,024 on the main graph at k=64 (parsa_select) and
+# k=56 (sketch_select), both past parsa_scan's shared memory
+PER_ROUND_BLOCK = 1024
 
 # the sketch path: bench_sketch.py's acceptance geometry (10^8 features,
 # 2^17 sketched bits), its quality-band graph and a reduced graph for cpu
@@ -107,6 +122,8 @@ SKETCH_GRAPH = dict(num_impressions=1_000_000, num_features=100_000_000,
                     nnz_per_row=10, seed=11)
 SKETCH_BITS = 65_536         # hot bits = bucket bits
 SKETCH_BLOCK = 1024
+# blocks of the sketched scan held to parsa_scan_ref in phase times
+SKETCH_REF_BLOCKS = 8
 BAND_GRAPH = dict(num_impressions=20_000, num_features=100_000,
                   nnz_per_row=25, seed=7)
 BAND_BITS = 8192
@@ -136,6 +153,8 @@ KERNELS = {
                           "src/repro_torch/kernels/parsa_cost/csrc/parsa_select.cu"),
     "parsa_select_reduce": ("src/repro/kernels/parsa_cost/select.py:327",
                             "src/repro_torch/kernels/parsa_cost/csrc/parsa_select.cu"),
+    "parsa_scan": ("src/repro/kernels/parsa_cost/select.py:327",
+                   "src/repro_torch/kernels/parsa_cost/csrc/parsa_scan.cu"),
     "refine_sweep": ("src/repro/kernels/parsa_cost/select.py:263",
                      "src/repro_torch/kernels/parsa_cost/csrc/refine_sweep.cu"),
     "sketch_select": ("src/repro/kernels/parsa_cost/select.py:186",
@@ -204,6 +223,52 @@ def consistent_prev(rng, words, frac=0.6):
         if nz.size and rng.random() < frac:
             prev[j] = rng.choice(nz)
     return prev
+
+
+def scan_case(rng, nw, nb, B, W, k, cap, *, pad_block=False, init=False,
+              unequal=False, dup=False):
+    """A worker-sharded block stack for parsa_scan, packed by the scan's
+    own packer from a random graph on 32 W columns: (nw, nb, B, ...) lists
+    and side channel, every 7th row's columns on bit 31 (negative words),
+    a short last real block, then ``nw`` blocks of padding rows only if
+    ``pad_block``; with ``dup`` every row repeats one of 3 rows (ties
+    everywhere: the greedy slots collide on the same rows).  Also the
+    entering (nw, k, W) sets (random sparse words if ``init``) and (nw, k)
+    sizes (unequal by one if ``unequal``)."""
+    import numpy as np
+
+    from repro_torch.core.bipartite import BipartiteGraph
+    from repro_torch.core.partition import _pad_block_stack, pack_graph_blocks
+
+    real = max(1, nw * nb - (nw if pad_block else 0))
+    n = max(1, real * B - B // 3)
+    num_v = 32 * W
+    lens = rng.integers(0, 3 * cap, n)
+    rows = []
+    for u, m in enumerate(lens):
+        if dup and u >= 3:
+            rows.append(rows[u % 3])
+            continue
+        cols = rng.choice(num_v, size=min(int(m), num_v), replace=False)
+        if u % 7 == 0:
+            cols = np.unique(cols | 31)
+        rows.append(np.sort(cols))
+    indptr = np.concatenate([[0], np.cumsum([len(r) for r in rows])])
+    g = BipartiteGraph(n, num_v, indptr.astype(np.int64),
+                       np.concatenate(rows).astype(np.int32))
+    pk = _pad_block_stack(pack_graph_blocks(g, B, cap=cap), nw * nb)
+
+    def shard(a):
+        return np.ascontiguousarray(a.reshape((nw, nb) + a.shape[1:]))
+
+    s = (rand_words(rng, (nw, k, W), 0.05) if init
+         else np.zeros((nw, k, W), np.int32))
+    sizes = np.full((nw, k), 3, np.int32)
+    if unequal:
+        sizes += (rng.random((nw, k)) < 0.5).astype(np.int32)
+    return ([shard(x) for x in (pk.widx, pk.vals, pk.tr_ids, pk.tr_masks,
+                                pk.valid)], s, sizes,
+            int(pk.trunc.sum()))
 
 
 # ---------------------------------------------------------------- phase 2
@@ -347,7 +412,70 @@ def phase_kernels(dev) -> dict:
           "no sketch_select case past the guard")
     torch.cuda.synchronize()
 
-    # the main path's chunk width, plus the largest k the wrapper takes
+    # parsa_scan against its plain version, bit for bit: parts, sets and
+    # sizes, at W of 64, 2,048 and 4,096 words, B of 8, 40 and 128, k of
+    # 1, 3 and 16, with 1, 4 and 8 workers; truncated rows (cap 6 or 12),
+    # all-padding blocks, bit-31 words, entering sets, entering sizes
+    # unequal by one (the catch-up round); and a sub-range of blocks, as a
+    # super-step scans it
+    from repro_torch.kernels.parsa_cost import parsa_scan_ref
+
+    res["parsa_scan"].update(truncated_rows=0, rounds_max=0)
+    flags = [dict(), dict(pad_block=True, unequal=True),
+             dict(init=True, unequal=True), dict(pad_block=True, init=True),
+             dict(dup=True, unequal=True)]
+    n_case = 0
+    # past the epilogue's 32 candidates a slot (k of 33 and 64) and k = 16
+    # with every row tied, beside the sweep; then the sketch path's shape,
+    # more than 32 rows a CTA (B of 512 and 1,024 at 4,096 words, k = 16:
+    # the cost pass at 8 lanes a row), at 1 and 8 workers with truncated
+    # rows
+    shapes = ([(W, B, k, None) for W in (64, 2048, 4096)
+               for B in (8, 40, 128) for k in (1, 3, 16)]
+              + [(64, 40, 33, None), (64, 128, 64, None),
+                 (2048, 128, 64, None)]
+              + [(4096, B, 16, nw) for B in (512, 1024) for nw in (1, 8)])
+    for W, B, k, nw in shapes:
+        wide = nw is not None
+        nw = nw or (1, 4, 8)[n_case % 3]
+        nb = 3 if nw == 1 else 2
+        cap = (6, 12)[n_case % 2] if wide else (6, 12, 48)[n_case % 3]
+        fl = flags[n_case % 5]
+        n_case += 1
+        arrays, s0, sz0, n_tr = scan_case(rng, nw, nb, B, W, k, cap,
+                                          **fl)
+        check(not wide or n_tr > 0, f"parsa_scan {W, B, k, nw}: no "
+              "truncated row")
+        res["parsa_scan"]["truncated_rows"] += n_tr
+        res["parsa_scan"]["rows_a_cta_max"] = max(
+            res["parsa_scan"].get("rows_a_cta_max", 0), -(-B // 8))
+        res["parsa_scan"]["rounds_max"] = max(
+            res["parsa_scan"]["rounds_max"], 1 + -(-(B - 1) // k))
+        args = [T(a) for a in arrays]
+        ranges = [(0, nb)] + ([(1, nb - 1)] if nb > 2 else [])
+        for b0, nblk in ranges:
+            out = []
+            for fn in (ops.parsa_scan, parsa_scan_ref):
+                st = [T(s0.copy()), T(sz0.copy()),
+                      torch.full((nw, nb, B), -1,
+                                 dtype=torch.int32, device=dev)]
+                if fn is ops.parsa_scan:
+                    fn(*args, *st, b0=b0, nblk=nblk)
+                else:
+                    fn(*args, *st, b0, nblk)
+                out.append(st)
+            compare("parsa_scan", out[0], out[1],
+                    (W, B, k, nw, cap, b0, nblk, tuple(fl)))
+    torch.cuda.synchronize()
+
+    # refine: one chunk and one sweep (refine_sweep_chunk) at the main
+    # path's chunk width and the largest k the wrapper takes; then the
+    # one-launch refine (refine_scan) over chunks and sweeps against
+    # refine_scan_ref, in place and not, with costs near and past the
+    # packed key's range (kSat = 2^22 - 1) and negative ones, which take
+    # the exact min
+    from repro_torch.kernels.parsa_cost import refine_scan_ref
+
     for k, cw in ((16, 32), (64, 32), (ops.REFINE_MAX_K, 4)):
         for sweep in (1, 2):
             words = rand_words(rng, (k, cw), 0.2)
@@ -358,6 +486,30 @@ def phase_kernels(dev) -> dict:
             w_t, p_t, c_t = T(words), T(prev), T(cost)
             compare("refine_sweep", ops.refine_sweep_chunk(w_t, p_t, c_t),
                     refine_sweep_ref(w_t, p_t, c_t), (k, cw, sweep))
+    for k in (1, 16, 33):
+        for sweeps in (1, 2, 3):
+            for n, cw in ((1, 1), (3, 4), (2, 32)):
+                words = rand_words(rng, (n, k, cw), 0.3)
+                words[:, :, -1] &= 0xFFFF
+                prev = np.stack([consistent_prev(rng, words[c], 0.3)
+                                 for c in range(n)])
+                cost = rng.integers(0, 3000, k).astype(np.int32)
+                if sweeps == 2:
+                    cost[::2] += (1 << 22) - 40   # near and past kSat
+                if sweeps == 3:
+                    cost[1::3] -= 4000            # negative costs
+                w_t, p_t, c_t = T(words), T(prev), T(cost)
+                want = refine_scan_ref(w_t, p_t, c_t, sweeps)
+                compare("refine_sweep", ops.refine_scan(w_t, p_t, c_t,
+                                                        sweeps),
+                        want, (k, sweeps, n, cw))
+                inplace = p_t.clone()
+                got_c, got_p = ops.refine_scan(w_t, inplace, c_t, sweeps,
+                                               out=inplace)
+                compare("refine_sweep", [got_c, got_p], want,
+                        (k, sweeps, n, cw, "in place"))
+                check(got_p.data_ptr() == inplace.data_ptr(),
+                      "refine_scan(out=prev) did not write in place")
     torch.cuda.synchronize()
 
     # packed_union_delta: the TPU contract (n = 1, with delta) over the
@@ -474,13 +626,14 @@ def check_flash(dev, full=(2, 4096, 40, 8, 128)) -> dict:
 
 
 def kernel_resources(libs: dict) -> dict:
-    """What ``nvcc -Xptxas -v`` said of the two kernels redesigned for
-    Hopper (registers, static shared memory, spills of each entry, and any
-    setmaxnreg or wgmma warning), and whether the flash library's SASS
-    holds HGMMA (wgmma) and UTMALDG (TMA load) instructions, by
-    ``cuobjdump -sass``.  The dynamic shared memory is the kernels' own:
-    160 KB + 1 KB a CTA for flash_wgmma at D=128, B * k * 4 bytes for
-    sketch_select."""
+    """What ``nvcc -Xptxas -v`` said of the kernels redesigned for Hopper
+    (registers, static shared memory, spills of each entry, and any
+    setmaxnreg or wgmma warning), whether the flash library's SASS holds
+    HGMMA (wgmma) and UTMALDG (TMA load) instructions, and which global
+    loads parsa_scan's SASS holds, by ``cuobjdump -sass``.  The dynamic
+    shared memory is the kernels' own: 160 KB + 1 KB a CTA for
+    flash_wgmma at D=128, B * k * 4 bytes for sketch_select,
+    ``ops.scan_smem_bytes`` for parsa_scan."""
     import re
     import shutil
 
@@ -494,7 +647,9 @@ def kernel_resources(libs: dict) -> dict:
     check(tool is not None, "cuobjdump not found: the SASS is not checked")
     out = {}
     for lib, kern in (("flash_attention", "flash_wgmma"),
-                      ("sketch_select", "sketch_select_kernel")):
+                      ("sketch_select", "sketch_select_kernel"),
+                      ("parsa_scan", "parsa_scan_kernel"),
+                      ("refine_sweep", "refine_sweep_kernel")):
         entries, cur, notes = [], None, []
         if lib not in logs:  # built by an earlier process
             res = subprocess.run([tool, "--dump-resource-usage",
@@ -524,6 +679,19 @@ def kernel_resources(libs: dict) -> dict:
                 cur["static_smem"] = int(m.group(1)) if m else 0
         out[kern] = {"ptxas": entries, "notes": notes}
         log(f"ptxas {kern}: " + json.dumps(out[kern]))
+    # parsa_scan writes S during its launch: its S loads must be strong
+    # loads (LDG.E.STRONG.*), never the read-only path (LDG.E.CONSTANT,
+    # which the lists and the side channel may use)
+    scan_sass = subprocess.run([tool, "-sass", str(libs["parsa_scan"])],
+                               capture_output=True, text=True,
+                               check=True).stdout
+    loads = {}
+    for m in re.finditer(r"\b(LDG\.E[.A-Z0-9]*)", scan_sass):
+        loads[m.group(1)] = loads.get(m.group(1), 0) + 1
+    out["parsa_scan_sass_loads"] = loads
+    log(f"parsa_scan SASS global loads: {loads}")
+    check(any("STRONG" in op for op in loads),
+          f"parsa_scan reads S by no strong load: {loads}")
     sass = subprocess.run([tool, "-sass", str(libs["flash_attention"])],
                           capture_output=True, text=True, check=True).stdout
     counts = {op: len(re.findall(rf"\b{op}\b", sass))
@@ -564,16 +732,14 @@ def phase_main(dev) -> dict:
     log("main path timings (s): " + json.dumps(res.timings))
     n_blocks = -(-g.num_u // BLOCK)
     rounds = n_blocks * (1 + -(-(BLOCK - 1) // K))
-    n_chunks = -(-W // (cfg.refine_chunk // 32))
-    check(launches["parsa_select_tile"] == rounds
-          and launches["parsa_select_reduce"] == rounds,
-          f"select launches {launches} != {rounds} per stage")
-    check(launches["refine_sweep"] == n_chunks * cfg.sweeps,
-          f"refine_sweep launches {launches['refine_sweep']} != "
-          f"{n_chunks * cfg.sweeps}")
-    check(launches["parsa_cost"] == 0, "parsa_cost ran on the scan path")
-    check(launches["sketch_select"] == 0,
-          "sketch_select ran on the exact path")
+    want = {"parsa_scan": 1, "refine_sweep": 1}
+    check(launches == {n: want.get(n, 0) for n in launches},
+          f"main path launches {launches}, want one parsa_scan, one "
+          "refine_sweep and nothing else")
+    per_phase = {n: v for n, v in counts.launches.items() if v}
+    check(per_phase == {"partition_scan": {"parsa_scan": 1},
+                        "refine_scan": {"refine_sweep": 1}},
+          f"launches per phase {counts.launches}")
 
     sizes = np.bincount(res.parts_u, minlength=K)
     check(int(sizes.max() - sizes.min()) <= 1, f"unbalanced sizes {sizes}")
@@ -606,8 +772,76 @@ def phase_main(dev) -> dict:
         f"({time.perf_counter() - t0:.2f} s); launches {hbo_launches}; "
         f"timings (s) {json.dumps(hbo.timings)}")
     launches["parsa_cost"] = hbo_launches["parsa_cost"]
-    return {"graph": g, "result": res, "launches": launches,
-            "timings": res.timings, "rounds": rounds}
+    out = {"graph": g, "result": res, "launches": launches,
+           "timings": res.timings, "rounds": rounds,
+           "per_round": per_round_route(dev, g)}
+    return out
+
+
+def hold_to_oracles(g, res, k: int, what: str) -> None:
+    """A partition() result of ``g`` against the numpy oracles: balance,
+    S_i = N(U_i) packed, partition_v (2 sweeps) and evaluate."""
+    import numpy as np
+
+    from repro_torch.core.costs import evaluate, need_matrix
+    from repro_torch.core.partition_v import partition_v
+    from repro_torch.kernels.parsa_cost import pack_bitmask
+
+    sizes = np.bincount(res.parts_u, minlength=k)
+    check(int(sizes.max() - sizes.min()) <= 1,
+          f"{what}: unbalanced sizes {sizes}")
+    need = need_matrix(g, res.parts_u, k)
+    check(np.array_equal(res.s_masks, pack_bitmask(need, g.num_v)),
+          f"{what}: s_masks != packed N(U_i)")
+    check(np.array_equal(res.parts_v,
+                         partition_v(g, res.parts_u, k, sweeps=2, need=need)),
+          f"{what}: parts_v != numpy partition_v")
+    mh = evaluate(g, res.parts_u, res.parts_v, k)
+    for f in ("sizes", "footprint", "traffic", "worker_recv", "server_send"):
+        check(np.array_equal(getattr(mh, f), getattr(res.metrics, f)),
+              f"{what}: metrics.{f} != numpy evaluate")
+
+
+def per_round_route(dev, g) -> dict:
+    """The per-round route of the scan, for tiles past parsa_scan's shared
+    memory, chosen by shape: the main graph at B=1,024 through the facade,
+    (a) exact at k=64 (a 256 KiB tile: one parsa_select_tile and one
+    parsa_select_reduce a round), (b) the exact collapse of the sketch at
+    k=56 (a 224 KiB tile, within sketch_select's guard but not
+    parsa_scan's: one sketch_select a round); each path's launches counted
+    from 0 and held to the numpy oracles."""
+    from repro_torch.api import ParsaConfig, partition
+    from repro_torch.core.partition import _scan_route
+    from repro_torch.kernels.parsa_cost import ops
+
+    out = {}
+    for name, k, kw, kern in (
+            ("exact k=64", 64, {}, ("parsa_select_tile",
+                                    "parsa_select_reduce")),
+            ("sketch collapse k=56", 56,
+             dict(set_repr="sketch", sketch_hot_bits=SKETCH_BITS),
+             ("sketch_select",))):
+        check(_scan_route(dev, PER_ROUND_BLOCK, k) == "per_round",
+              f"per-round {name}: the shape rule picks parsa_scan")
+        cfg = ParsaConfig(k=k, backend="device_scan",
+                          block_size=PER_ROUND_BLOCK,
+                          refine_backend="device", sweeps=2, **kw)
+        t0 = time.perf_counter()
+        ops.reset_launch_counts()
+        res = partition(g, cfg, device=dev)
+        launches = dict(ops.LAUNCHES)
+        rounds = -(-g.num_u // PER_ROUND_BLOCK) * (
+            1 + -(-(PER_ROUND_BLOCK - 1) // k))
+        want = dict({n: rounds for n in kern}, refine_sweep=1)
+        check(launches == {n: want.get(n, 0) for n in launches},
+              f"per-round {name}: launches {launches}, want {want}")
+        hold_to_oracles(g, res, k, f"per-round {name}")
+        out[name] = {"launches": launches, "rounds": rounds,
+                     "timings": res.timings}
+        log(f"per-round route {name}, B={PER_ROUND_BLOCK}: launches "
+            f"{launches}; oracles agree; timings (s) "
+            f"{json.dumps(res.timings)} ({time.perf_counter() - t0:.2f} s)")
+    return out
 
 
 # ---------------------------------------------------------------- phase 4
@@ -691,17 +925,12 @@ def phase_sketch(dev, main: dict) -> dict:
         f"lists: {built}")
     log("sketch path timings (s): " + json.dumps(res.timings))
     rounds = rounds_of(g.num_u, SKETCH_BLOCK)
-    n_chunks = -(-sk.width_words // (cfg.refine_chunk // 32))
-    check(launches["sketch_select"] == rounds,
-          f"sketch_select launches {launches['sketch_select']} != {rounds}")
+    want = {"parsa_scan": 1, "refine_sweep": 1}
+    check(launches == {n: want.get(n, 0) for n in launches},
+          f"sketch path launches {launches}, want one parsa_scan, one "
+          "refine_sweep and nothing else")
     check(built == 0, f"{built} sketch_select calls built their own row "
-          "lists: the scan did not pass its lists")
-    check(launches["parsa_select_tile"] == 0
-          and launches["parsa_select_reduce"] == 0,
-          f"parsa_select ran on the sketch path: {launches}")
-    check(launches["refine_sweep"] == n_chunks * cfg.sweeps,
-          f"refine_sweep launches {launches['refine_sweep']} != "
-          f"{n_chunks * cfg.sweeps}")
+          "lists")
     check(dict(counts) == {"partition_scan": 1, "refine_scan": 1,
                            "metrics": 1}, f"dispatches {dict(counts)}")
     t0 = time.perf_counter()
@@ -739,18 +968,12 @@ def phase_sketch(dev, main: dict) -> dict:
                                      sketch_hot_bits=SKETCH_BITS),
                     device=dev)
     cl = dict(ops.LAUNCHES)
-    check(ops.ROWS_BUILT["sketch_select"] == 0,
-          "exact collapse: a sketch_select call built its own row lists")
     check(col.sketch.is_exact, "main graph sketch is not the exact collapse")
     same_result(col, exact, "exact collapse vs exact main path")
-    rounds_main = rounds_of(gm.num_u, BLOCK)
-    check(cl["sketch_select"] == rounds_main
-          and cl["parsa_select_tile"] == cl["parsa_select_reduce"] == 0,
-          f"exact collapse launches {cl} (want {rounds_main} sketch_select)")
-    out["collapse_launches"] = cl["sketch_select"]
+    check(cl == {n: want.get(n, 0) for n in cl},
+          f"exact collapse launches {cl}, want one parsa_scan")
     log(f"exact collapse on the main graph equals the exact run; launches "
-        f"{cl}, every sketch_select on the scan's row lists; timings (s) "
-        f"{json.dumps(col.timings)}")
+        f"{cl}; timings (s) {json.dumps(col.timings)}")
 
     # 3. the quality band, scored on the true graph (reported, not gated)
     t0 = time.perf_counter()
@@ -794,7 +1017,7 @@ def phase_sketch(dev, main: dict) -> dict:
                   f"sketched {backend}: sketch.{f} differs")
         check(np.array_equal(rc.sketch.hot_ids, rg.sketch.hot_ids),
               f"sketched {backend}: hot_ids differ")
-        kern = "sketch_select" if backend == "device_scan" else "parsa_cost"
+        kern = "parsa_scan" if backend == "device_scan" else "parsa_cost"
         check(ops.LAUNCHES[kern] > 0, f"sketched {backend} never launched "
               f"{kern}")
         log(f"reduced sketched graph {backend}: cpu == cuda (cpu "
@@ -841,17 +1064,14 @@ def phase_parallel(dev, main: dict) -> dict:
     n_real = -(-g.num_u // PAR["block_size"])
     rounds = rounds_of(n_tot, PAR["block_size"])
     merges = n_tot // PAR["workers"] // PAR["merge_every"]
-    n_chunks = -(-((g.num_v + 31) // 32) // (cfg.refine_chunk // 32))
-    want_launches = {"parsa_select_tile": rounds,
-                     "parsa_select_reduce": rounds,
-                     "packed_union_delta": merges,
-                     "refine_sweep": n_chunks * cfg.sweeps,
-                     "sketch_select": 0, "parsa_cost": 0}
+    want = {"parsa_scan": merges, "packed_union_delta": merges,
+            "refine_sweep": 1}
+    want_launches = {n: want.get(n, 0) for n in launches}
     check(launches == want_launches,
           f"parallel launches {launches} != {want_launches}")
-    log(f"parallel path: {n_tot} blocks ({n_tot - n_real} of them padding) "
-        f"x {rounds // n_tot} rounds = {rounds} select rounds, {merges} "
-        f"merges")
+    log(f"parallel path: {n_tot} blocks ({n_tot - n_real} of them padding, "
+        f"skipped on the card) x {rounds // n_tot} rounds = {rounds} rounds "
+        f"at most, in {merges} parsa_scan launches and {merges} merges")
     t0 = time.perf_counter()
     check(bool(((res.parts_u >= 0) & (res.parts_u < K)).all()),
           "parts_u outside [0, k)")
@@ -891,11 +1111,9 @@ def phase_parallel(dev, main: dict) -> dict:
     l1 = dict(ops.LAUNCHES)
     same_result(r1, exact, "parallel_device W=1 vs device_scan")
     n1 = padded_blocks(BLOCK, 1, PAR["merge_every"])
-    want1 = {"parsa_select_tile": rounds_of(n1, BLOCK),
-             "parsa_select_reduce": rounds_of(n1, BLOCK),
-             "packed_union_delta": n1 // PAR["merge_every"],
-             "refine_sweep": n_chunks * c1.sweeps,
-             "sketch_select": 0, "parsa_cost": 0}
+    want1 = {n: 0 for n in l1}
+    want1.update(parsa_scan=n1 // PAR["merge_every"],
+                 packed_union_delta=n1 // PAR["merge_every"], refine_sweep=1)
     check(l1 == want1, f"W=1 launches {l1} != {want1}")
     check(r1.traffic.stale_pushes_missed == 0, f"W=1 traffic {r1.traffic}")
     out["w1_merges"] = want1["packed_union_delta"]
@@ -1195,7 +1413,13 @@ def time_graph_ms(fn, inner: int, samples: int = 21) -> float:
 def profile_window(fn) -> dict:
     """One warm call of ``fn`` timed on the host clock, then one under
     ``torch.profiler``: the device kernels it launched, their summed device
-    time, and the device's idle share of the unprofiled wall time."""
+    time, and the device's idle share of the unprofiled wall time.  The
+    profiled call is also bracketed by CUDA events on the stream
+    (``event_span_s``: first event to last, every kernel and gap between);
+    where the profiler records no kernel (it recorded none in some windows
+    of one long launch on the H100), ``idle_share_events`` (1 - span /
+    wall, floored at 0, a lower bound of the idle share) stands in, and
+    busy_s says not measured."""
     import collections
 
     import torch
@@ -1208,20 +1432,27 @@ def profile_window(fn) -> dict:
     fn()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        a.record()
         fn()
+        b.record()
         torch.cuda.synchronize()
+    span = a.elapsed_time(b) / 1e3
     kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    out = {"wall_s": wall, "device_kernels": len(kern)}
+    out = {"wall_s": wall, "device_kernels": len(kern), "event_span_s": span}
     if not kern:
         out["busy_s"] = out["idle_share"] = "not measured"
+        out["idle_share_events"] = max(0.0, 1 - span / wall)
         return out
     busy = sum(e.time_range.elapsed_us() for e in kern) / 1e6
     ours = collections.defaultdict(list)
     for e in kern:
         for name in ("cost_tile_kernel", "select_reduce_kernel",
-                     "sketch_select_kernel", "refine_sweep_kernel",
+                     "sketch_select_kernel", "parsa_scan_kernel",
+                     "refine_sweep_kernel",
                      "union_delta_kernel", "flash_wgmma", "flash_fma"):
             if name in e.name:
                 ours[name].append(e.time_range.elapsed_us())
@@ -1238,19 +1469,44 @@ def bound_ms(nbytes: int, nops: int) -> tuple[float, str]:
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
-def head_rows(graph, rows):
-    """The subgraph of ``graph``'s U rows ``rows``, in that order."""
-    import numpy as np
+def scan_schedule(valid_counts, B: int, k: int) -> tuple[int, int]:
+    """The rounds ``parsa_scan`` runs over blocks with ``valid_counts``
+    real rows each, from equal sizes: a block's rounds stop once no
+    unretired row is left (a block of padding rows runs none), and a
+    round's enabled slots each pick a row while any is left.  Returns
+    (rounds run, unretired rows summed over those rounds)."""
+    sizes = [0] * k
+    rounds = rows = 0
+    for live in valid_counts:
+        for r in range(1 + -(-(B - 1) // k) if live else 0):
+            rounds += 1
+            rows += live
+            if r == 0:   # catch-up: the partitions at the minimum size
+                m = min(sizes)
+                picks = [i for i in range(k) if sizes[i] == m][:live]
+            else:
+                picks = list(range(min(k, live)))
+            for i in picks:
+                sizes[i] += 1
+            live -= len(picks)
+            if not live:
+                break
+    return rounds, rows
 
-    from repro_torch.core.bipartite import BipartiteGraph
 
-    lens = graph.u_indptr[rows + 1] - graph.u_indptr[rows]
-    indices = np.concatenate([graph.u_indices[graph.u_indptr[r]:
-                                              graph.u_indptr[r + 1]]
-                              for r in rows])
-    indptr = np.concatenate([[0], np.cumsum(lens)]).astype(np.int64)
-    return BipartiteGraph(len(rows), graph.num_v, indptr,
-                          indices.astype(np.int32))
+def time_once_ms(fn) -> float:
+    """One call of ``fn`` between CUDA events (a plain version too slow to
+    repeat)."""
+    import torch
+
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b)
 
 
 def phase_times(dev, main: dict) -> list[dict]:
@@ -1258,12 +1514,12 @@ def phase_times(dev, main: dict) -> list[dict]:
     import torch
 
     from repro_torch.core.partition import (
-        _pad_block_stack, _parallel_scan, _partition_scan, _rebuild_nbr,
-        _trunc_flags, pack_graph_blocks)
-    from repro_torch.core.refine import refine_v_device
+        _pad_block_stack, _parallel_scan, _trunc_flags,
+        pack_graph_blocks)
     from repro_torch.kernels.parsa_cost import (
-        merge_worker_sets_ref, ops, parsa_cost_ref, popcount32,
-        refine_sweep_ref, select_greedy_from_cost, sketch_select_rows_ref)
+        merge_worker_sets_ref, ops, parsa_cost_ref, parsa_scan_ref,
+        popcount32, rebuild_block, refine_sweep_ref, select_greedy_from_cost,
+        sketch_select_rows_ref)
 
     g, res = main["graph"], main["result"]
     order = np.random.default_rng(0).permutation(g.num_u)
@@ -1273,7 +1529,7 @@ def phase_times(dev, main: dict) -> list[dict]:
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
     def block0(pk, block):
-        return _rebuild_nbr(T(pk.widx[0]), T(pk.vals[0]), T(pk.tr_ids[0]),
+        return rebuild_block(T(pk.widx[0]), T(pk.vals[0]), T(pk.tr_ids[0]),
                             T(pk.tr_masks[0]))[:block]
 
     # block 0 of the main run against the final sets: the select's shapes
@@ -1312,39 +1568,132 @@ def phase_times(dev, main: dict) -> list[dict]:
             f"us by {t['bound_by']}); no single PyTorch call computes it, "
             f"so library_ms is null")
 
+    def row(name, launches, path, **extra):
+        return {"name": name, "route": "cuda", "source": KERNELS[name][1],
+                "replaces": KERNELS[name][0], "launches": launches,
+                "launches_path": path,
+                "max_abs_err": main["checks"][name]["max_abs_err"],
+                "cases": main["checks"][name]["cases"], **extra,
+                "library_ms": None}
+
     rows = []
+    launches = main["launches"]
+    per_round = main["per_round"]
+    pr_exact, pr_sketch = (per_round["exact k=64"],
+                           per_round["sketch collapse k=56"])
     specs = [
         ("parsa_cost", lambda: ops.parsa_cost(nbr, s),
-         lambda: parsa_cost_ref(nbr, s), 100, 5, tile_bytes, tile_ops),
+         lambda: parsa_cost_ref(nbr, s), 100, 5, tile_bytes, tile_ops,
+         launches["parsa_cost"], "host_blocked_oracle, main graph"),
         ("parsa_select_tile", lambda: ops.parsa_select_tile(nbr, s),
          lambda: parsa_cost_ref(nbr, s).T.contiguous(), 100, 5,
-         tile_bytes, tile_ops),
+         tile_bytes, tile_ops, pr_exact["launches"]["parsa_select_tile"],
+         f"per-round route, device_scan k=64 B={PER_ROUND_BLOCK}, main "
+         "graph"),
         ("parsa_select_reduce",
          lambda: ops.parsa_select_reduce(tile, retired, order_k, enabled),
          lambda: select_greedy_from_cost(tile.T, retired, order_k, enabled),
-         100, 2, 4 * K * B + B + 4 * K + K + 8 * K, 2 * K * B),
-        ("refine_sweep", lambda: ops.refine_sweep_chunk(words, prev, cost),
-         lambda: refine_sweep_ref(words, prev, cost), 20, 1,
-         4 * (K * cw + 2 * 32 * cw + 2 * K), 6 * 32 * cw * K),
+         100, 2, 4 * K * B + B + 4 * K + K + 8 * K, 2 * K * B,
+         pr_exact["launches"]["parsa_select_reduce"],
+         f"per-round route, device_scan k=64 B={PER_ROUND_BLOCK}, main "
+         "graph"),
     ]
-    launches = main["launches"]
-    for name, kern, plain, inner, plain_inner, nbytes, nops in specs:
+    for name, kern, plain, inner, plain_inner, nbytes, nops, n, path in specs:
         t = measure(kern, plain, inner, plain_inner, nbytes, nops)
-        rows.append({
-            "name": name, "route": "cuda", "source": KERNELS[name][1],
-            "replaces": KERNELS[name][0],
-            "launches": launches[name],
-            "launches_path": ("host_blocked_oracle" if name == "parsa_cost"
-                              else "device_scan") + ", main graph",
-            "max_abs_err": main["checks"][name]["max_abs_err"],
-            "cases": main["checks"][name]["cases"],
-            **t, "library_ms": None,
-        })
-        log_time(name, t)
-    per_round = rows[1]["ms"] + rows[2]["ms"]
-    busy = (main["rounds"] * per_round
-            + launches["refine_sweep"] * rows[3]["ms"]) / 1e3
+        rows.append(row(name, n, path, shape=f"B={B}, W={W}, k={K}", **t))
+        log_time(name, t, f" (B={B}, W={W}, k={K})")
+
+    # parsa_scan: the main path's whole scan, one launch, against its plain
+    # version once, on the same inputs.  The bound counts what the scan
+    # needs of these inputs: bytes of each row's nonzero pairs and the pair
+    # that ends its list, the valid flags, the side channel's ids and the
+    # truncated rows' words, S read and written, sizes and parts; the
+    # operations of every row's first cost (3 a nonzero pair and
+    # partition) and of each round's k slot minima over its unretired rows
+    # (2 a row and slot), for the rounds the scan runs (scan_schedule).
+    arrays = [T(x)[None] for x in (packed.widx, packed.vals, packed.tr_ids,
+                                   packed.tr_masks, packed.valid)]
+    nb_main = packed.valid.shape[0]
+    scan_s = torch.zeros((1, K, W), dtype=torch.int32, device=dev)
+    scan_sz = torch.zeros((1, K), dtype=torch.int32, device=dev)
+    scan_parts = torch.full((1, nb_main, B), -1, dtype=torch.int32,
+                            device=dev)
+
+    def scan_kernel():
+        scan_s.zero_()
+        scan_sz.zero_()
+        scan_parts.fill_(-1)
+        ops.parsa_scan(*arrays, scan_s, scan_sz, scan_parts)
+
+    saved = dict(ops.LAUNCHES)
+    scan_ms = time_ms(scan_kernel, 1, 5)
+    check(np.array_equal(scan_s[0].cpu().numpy(), res.s_masks),
+          "timed parsa_scan sets != the main path's")
+    plain_state = [torch.zeros_like(scan_s), torch.zeros_like(scan_sz),
+                   torch.full_like(scan_parts, -1)]
+    plain_ms = time_once_ms(lambda: parsa_scan_ref(*arrays, *plain_state))
+    check(all(torch.equal(a, b) for a, b in zip(
+        plain_state, (scan_s, scan_sz, scan_parts))),
+          "parsa_scan != parsa_scan_ref on the whole main scan")
+    ops.LAUNCHES.update(saved)
+    n_run, live_rows = scan_schedule(packed.valid.sum(1).tolist(), B, K)
+    vals_np = packed.vals
+    pairs = int((vals_np != 0).sum()) + int(packed.valid.sum())
+    n_tr = int(packed.trunc.sum())
+    nnz = int((vals_np[~packed.trunc] != 0).sum()) + int(
+        (packed.tr_masks != 0).sum())
+    scan_bytes = (8 * pairs + packed.valid.size + 4 * packed.tr_ids.size
+                  + 4 * W * n_tr + 2 * 4 * K * W + 8 * K
+                  + 4 * int(packed.valid.sum()))
+    scan_ops = 3 * K * nnz + 2 * K * live_rows
+    b_ms, b_by = bound_ms(scan_bytes, scan_ops)
+    rows.append(row(
+        "parsa_scan", launches["parsa_scan"],
+        f"device_scan, main graph (1 a scan; "
+        f"{main['sketch']['launches']['parsa_scan']} on the sketch path, "
+        f"{main['parallel']['launches']['parsa_scan']} on the parallel path)",
+        shape=f"the main scan: {nb_main} blocks, B={B}, W={W}, k={K}, "
+              f"{n_tr} truncated rows",
+        ms=scan_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+        bound_bytes=scan_bytes, bound_ops=scan_ops, rounds_run=n_run,
+        rounds_nominal=main["rounds"], per_round_us=scan_ms * 1e3 / n_run))
+    log(f"time parsa_scan (whole main scan, {n_run} rounds run of "
+        f"{main['rounds']}): {scan_ms:.3f} ms, {scan_ms * 1e3 / n_run:.2f} "
+        f"us a round; plain {plain_ms:.1f} ms; bound {b_ms * 1e3:.2f} us by "
+        f"{b_by} ({scan_bytes:,} bytes, {scan_ops:,} operations)")
+
+    # refine: one chunk and one sweep (as in earlier PRs), and the main
+    # path's whole refine, one launch: sweeps x chunks x 1,024 dependent
+    # steps
+    t = measure(lambda: ops.refine_sweep_chunk(words, prev, cost),
+                lambda: refine_sweep_ref(words, prev, cost), 20, 1,
+                4 * (K * cw + 2 * 32 * cw + 2 * K), 6 * 32 * cw * K)
+    n_ch = -(-W // cw)
+    need_pad = torch.nn.functional.pad(s, (0, n_ch * cw - W))
+    words_all = need_pad.view(K, n_ch, cw).transpose(0, 1).contiguous()
+    prev_all = torch.full((n_ch, 32 * cw), -1, dtype=torch.int32, device=dev)
+    saved = dict(ops.LAUNCHES)
+    whole_ms = time_ms(lambda: ops.refine_scan(words_all, prev_all, cost, 2),
+                       1, 11)
+    _, parts_all = ops.refine_scan(words_all, prev_all, cost, 2)
+    ops.LAUNCHES.update(saved)
+    check(np.array_equal(parts_all.view(-1)[: g.num_v].cpu().numpy(),
+                         res.parts_v), "timed refine parts != the main path's")
+    steps = 2 * n_ch * 32 * cw
+    wb_ms, wb_by = bound_ms(4 * (K * W + 2 * 32 * n_ch * cw + 2 * K),
+                            2 * 6 * 32 * n_ch * cw * K)
+    rows.append(row(
+        "refine_sweep", launches["refine_sweep"],
+        "device_scan, main graph: the whole refine, 2 sweeps x "
+        f"{n_ch} chunks", shape=f"one chunk, one sweep: k={K}, cw={cw}",
+        **t, whole_ms=whole_ms, whole_bound_ms=wb_ms, whole_bound_by=wb_by,
+        chain_steps=steps, ns_per_step=whole_ms * 1e6 / steps))
+    log_time("refine_sweep", t, f" (one chunk, one sweep, k={K}, cw={cw})")
+    log(f"time refine (whole, one launch, {steps:,} dependent steps): "
+        f"{whole_ms:.3f} ms, {whole_ms * 1e6 / steps:.1f} ns a step; bound "
+        f"{wb_ms * 1e3:.3f} us by {wb_by}")
     wall = main["timings"]["partition_u"] + main["timings"]["partition_v"]
+    busy = (scan_ms + whole_ms) / 1e3
     log(f"kernel time on the main path ~ {busy:.4f} s of {wall:.4f} s "
         f"scan+refine wall ({100 * busy / wall:.1f}%)")
 
@@ -1358,11 +1707,9 @@ def phase_times(dev, main: dict) -> list[dict]:
     # (k, Ws) sets).  The padded lists the kernel reads, (B, cap) pairs,
     # are logged beside them.
     sk = main["sketch"]
-    nb = PROFILE_BLOCKS
     sg = sk["graph"]
-    head = np.random.default_rng(0).permutation(sg.num_u)[
-        : nb * SKETCH_BLOCK]
-    packed_s = pack_graph_blocks(head_rows(sg, head), SKETCH_BLOCK)
+    packed_s = pack_graph_blocks(sg, SKETCH_BLOCK, order=np.random.default_rng(
+        0).permutation(sg.num_u))
     nbr_a = block0(packed_s, SKETCH_BLOCK)
     s_a = T(sk["result"].s_masks)
     ret_a = T(np.random.default_rng(1).random(SKETCH_BLOCK) < 0.5)
@@ -1376,13 +1723,13 @@ def phase_times(dev, main: dict) -> list[dict]:
         cap = rows_[0].shape[1]
         nzm = nb_ != 0
         nz, nz_cols = int(nzm.sum()), int(nzm.any(0).sum())
-        n_tr = int(rows_[2].sum())
+        n_trs = int(rows_[2].sum())
         live = ~rows_[2]
-        pairs = int(torch.clamp((rows_[1][live] != 0).sum(1) + 1,
-                                max=cap).sum())
+        pairs_s = int(torch.clamp((rows_[1][live] != 0).sum(1) + 1,
+                                  max=cap).sum())
         nops = 3 * nz * K + 2 * K * Bs
-        rest = Bs + 4 * Ws * n_tr + 4 * K * nz_cols + Bs + 8 * K
-        compact, padded = 8 * pairs + rest, 8 * Bs * cap + rest
+        rest = Bs + 4 * Ws * n_trs + 4 * K * nz_cols + Bs + 8 * K
+        compact, padded = 8 * pairs_s + rest, 8 * Bs * cap + rest
         dense = 4 * Bs * Ws + 4 * K * Ws + Bs + 8 * K
         t = measure(
             lambda: ops.sketch_cost_select(nb_, s_, r_, order=order_k,
@@ -1393,34 +1740,22 @@ def phase_times(dev, main: dict) -> list[dict]:
         d_ms, d_by = bound_ms(dense, nops)
         timed[shape] = dict(
             shape=f"B={Bs}, Ws={Ws}, k={K}, cap={cap}, {nz} nonzero words, "
-                  f"{n_tr} truncated rows", **t, bound_bytes=compact,
+                  f"{n_trs} truncated rows", **t, bound_bytes=compact,
             bound_bytes_padded=padded,
             bound_ms_dense=d_ms, bound_by_dense=d_by, bound_bytes_dense=dense,
             bound_of="the compact inputs of the list route")
         log_time("sketch_select", t, f" ({timed[shape]['shape']})")
         log(f"  sketch_select bounds: {compact:,} bytes of list pairs "
-            f"({pairs:,} of the {Bs * cap:,} padded slots) and gathered set "
-            f"words {t['bound_ms'] * 1e3:.3f} us (the row's); the padded "
+            f"({pairs_s:,} of the {Bs * cap:,} padded slots) and gathered "
+            f"set words {t['bound_ms'] * 1e3:.3f} us (the row's); the padded "
             f"lists the kernel reads {padded:,} bytes "
             f"{bound_ms(padded, nops)[0] * 1e3:.3f} us; the dense "
             f"contract's {dense:,} bytes {d_ms * 1e3:.3f} us")
-    main_t = dict(timed["main"], launches=sk["collapse_launches"],
-                  launches_path="device_scan set_repr=sketch, exact collapse "
-                                "on the main graph")
-    rows.append({
-        "name": "sketch_select", "route": "cuda",
-        "source": KERNELS["sketch_select"][1],
-        "replaces": KERNELS["sketch_select"][0],
-        "launches": sk["launches"]["sketch_select"],
-        "launches_path": "device_scan set_repr=sketch, acceptance graph",
-        "max_abs_err": main["checks"]["sketch_select"]["max_abs_err"],
-        "cases": main["checks"]["sketch_select"]["cases"],
-        **timed["acceptance"], "library_ms": None, "at_main_shape": main_t,
-    })
-    busy_s = sk["rounds"] * timed["acceptance"]["ms"] / 1e3
-    wall_s = sk["result"].timings["partition_u"]
-    log(f"sketch_select time on the sketch path ~ {busy_s:.4f} s of "
-        f"{wall_s:.4f} s scan wall ({100 * busy_s / wall_s:.1f}%)")
+    rows.append(row(
+        "sketch_select", pr_sketch["launches"]["sketch_select"],
+        f"per-round route, device_scan set_repr=sketch (exact collapse) "
+        f"k=56 B={PER_ROUND_BLOCK}, main graph; 0 on the scan paths",
+        **timed["acceptance"], at_main_shape=timed["main"]))
 
     # packed_union_delta at the parallel path's merge: n = 8 workers'
     # (k, W) sets against the pre-merge sets, with the pushed-word count
@@ -1433,68 +1768,95 @@ def phase_times(dev, main: dict) -> list[dict]:
     t = measure(lambda: ops.merge_worker_sets(local, s_old, pushed),
                 lambda: merge_worker_sets_ref(local, s_old), 100, 20,
                 4 * ((n + 1) * k_ * W_ + k_ * W_) + 8, 3 * n * k_ * W_)
-    rows.append({
-        "name": "packed_union_delta", "route": "cuda",
-        "source": KERNELS["packed_union_delta"][1],
-        "replaces": KERNELS["packed_union_delta"][0],
-        "launches": par["launches"]["packed_union_delta"],
-        "launches_path": "parallel_device W=8 B=128 merge_every=12, main "
-                         f"graph; {par['w1_merges']} at W=1 B=256",
-        "max_abs_err": main["checks"]["packed_union_delta"]["max_abs_err"],
-        "cases": main["checks"]["packed_union_delta"]["cases"],
-        "shape": f"n={n}, k={k_}, W={W_}", **t, "library_ms": None,
-    })
+    rows.append(row(
+        "packed_union_delta", par["launches"]["packed_union_delta"],
+        "parallel_device W=8 B=128 merge_every=12, main graph; "
+        f"{par['w1_merges']} at W=1 B=256",
+        shape=f"n={n}, k={k_}, W={W_}", **t))
     log_time("packed_union_delta", t, f" (merge, n={n}, k={k_}, W={W_})")
 
     if "lm" in main:
         rows.append(time_flash(dev, main["lm"], main["checks"]))
 
-    # where the time goes: the first PROFILE_BLOCKS blocks of the scan, of
-    # the sketched scan, and the whole refine, each under torch.profiler
-    blocks = [T(x[:nb]) for x in (packed.widx, packed.vals, packed.tr_ids,
-                                  packed.tr_masks, packed.valid)]
-    blocks_s = [T(x[:nb]) for x in (packed_s.widx, packed_s.vals,
-                                    packed_s.tr_ids, packed_s.tr_masks,
-                                    packed_s.valid)]
+    # where the time goes, under torch.profiler: the main path's whole scan
+    # (one launch), the sketch path's whole scan (one launch), the parallel
+    # path's whole scan (its blocks in the acceptance run's order: a launch
+    # and a merge a super-step) and the whole refine (one launch)
+    arrays_s = [T(x)[None] for x in (packed_s.widx, packed_s.vals,
+                                     packed_s.tr_ids, packed_s.tr_masks,
+                                     packed_s.valid)]
+    Ws_ = packed_s.tr_masks.shape[-1]
+    sk_state = [torch.zeros((1, K, Ws_), dtype=torch.int32, device=dev),
+                torch.zeros((1, K), dtype=torch.int32, device=dev),
+                torch.full(arrays_s[4].shape, -1, dtype=torch.int32,
+                           device=dev)]
 
-    def scan(bl, width, sketch):
-        _partition_scan(*bl, torch.zeros((K, width), dtype=torch.int32,
-                                         device=dev),
-                        torch.zeros(K, dtype=torch.int32, device=dev), sketch)
+    def sketch_scan():
+        sk_state[0].zero_()
+        sk_state[1].zero_()
+        sk_state[2].fill_(-1)
+        ops.parsa_scan(*arrays_s, *sk_state)
 
-    # one super-step of the parallel scan: every worker's first
-    # merge_every blocks, in the acceptance run's order, and one merge
     nw, m, bp = PAR["workers"], PAR["merge_every"], PAR["block_size"]
     pk_p = _pad_block_stack(pack_graph_blocks(g, bp, order=order),
                             par["blocks"])
     nb_per = par["blocks"] // nw
-    step_blocks = [T(x.reshape((nw, nb_per) + x.shape[1:])[:, :m])
-                   for x in (pk_p.widx, pk_p.vals, pk_p.tr_ids,
-                             pk_p.tr_masks, pk_p.valid)]
+    par_blocks = [T(x.reshape((nw, nb_per) + x.shape[1:]))
+                  for x in (pk_p.widx, pk_p.vals, pk_p.tr_ids,
+                            pk_p.tr_masks, pk_p.valid)]
 
-    def super_step():
-        _parallel_scan(*step_blocks, torch.zeros((K, W), dtype=torch.int32,
-                                                 device=dev),
+    def parallel_scan():
+        _parallel_scan(*par_blocks, torch.zeros((K, W), dtype=torch.int32,
+                                                device=dev),
                        torch.zeros(K, dtype=torch.int32, device=dev), m)
 
-    parts_u = T(res.parts_u)
+    n_sk, _ = scan_schedule(packed_s.valid.sum(1).tolist(), SKETCH_BLOCK, K)
+    # a worker's rounds, from equal sizes at every merge (an upper bound
+    # of the rounds its stale sizes let it run)
+    par_rounds = sum(scan_schedule(v, bp, K)[0] for v in
+                     par_blocks[4].sum(-1).tolist())
     saved = dict(ops.LAUNCHES)
-    for name, fn, steps in (
-            ("scan", lambda: scan(blocks, W, False),
-             nb * (1 + -(-(BLOCK - 1) // K))),
-            ("sketched scan", lambda: scan(blocks_s, nbr_a.shape[1], True),
-             nb * (1 + -(-(SKETCH_BLOCK - 1) // K))),
-            ("parallel super-step", super_step,
-             nw * m * (1 + -(-(bp - 1) // K))),
-            ("refine", lambda: refine_v_device(g, parts_u, K, sweeps=2,
-                                               need_words=s),
-             launches["refine_sweep"])):
+    profiles = {}
+    for name, fn, n_steps in (
+            ("scan", scan_kernel, n_run),
+            ("sketched scan", sketch_scan, n_sk),
+            ("parallel scan", parallel_scan, par_rounds),
+            ("refine", lambda: ops.refine_scan(words_all, prev_all, cost, 2),
+             steps)):
         prof = profile_window(fn)
         if isinstance(prof["busy_s"], float):
-            prof["device_kernels_per_step"] = prof["device_kernels"] / steps
-        log(f"profile {name} ({steps} rounds or chunk sweeps): "
+            prof["device_us_per_step"] = prof["busy_s"] * 1e6 / n_steps
+        profiles[name] = prof
+        log(f"profile {name} ({n_steps} rounds run, or dependent steps): "
             + json.dumps(prof))
+    check(np.array_equal(sk_state[0][0].cpu().numpy(), sk["result"].s_masks),
+          "the profiled sketched scan's sets != the sketch path's")
+    # the sketched scan's first SKETCH_REF_BLOCKS blocks (B=1,024, Ws=4,096:
+    # the cost pass at 8 lanes a row) against parsa_scan_ref, bit for bit,
+    # on the sketch path's own lists; the whole scan's plain version would
+    # take minutes
+    nb_ref = min(SKETCH_REF_BLOCKS, packed_s.valid.shape[0])
+    head = [x[:, :nb_ref].contiguous() for x in arrays_s]
+    ref_out = []
+    for fn in (ops.parsa_scan, parsa_scan_ref):
+        st = [torch.zeros_like(sk_state[0]), torch.zeros_like(sk_state[1]),
+              torch.full_like(head[4], -1, dtype=torch.int32)]
+        fn(*head, *st)
+        ref_out.append(st)
+    check(all(torch.equal(a, b) for a, b in zip(*ref_out)),
+          f"parsa_scan != parsa_scan_ref on the sketched scan's first "
+          f"{nb_ref} blocks")
+    log(f"parsa_scan == parsa_scan_ref on the sketched scan's first {nb_ref} "
+        f"blocks (B={SKETCH_BLOCK}, Ws={Ws_}, k={K})")
     ops.LAUNCHES.update(saved)
+    rows[3]["profile"] = profiles["scan"]
+    rows[3]["sketched_blocks_equal_plain"] = nb_ref
+    rows[3]["parallel_profile"] = profiles["parallel scan"]
+    psk = profiles["sketched scan"]
+    rows[3]["sketch_scan"] = {
+        "rounds_run": n_sk, "busy_s": psk["busy_s"],
+        "event_span_s": psk["event_span_s"], "wall_s": psk["wall_s"],
+        "per_round_us": psk["event_span_s"] * 1e6 / n_sk}
     return rows
 
 

@@ -2,7 +2,8 @@
 
 The port's own copy of ``repro.configs`` for the dense family (the port
 imports nothing of ``repro``).  The other families' configurations come
-with the slices that port their blocks (``ROADMAP.md`` Queue 1 item 10).
+with the slices that port their blocks (``ROADMAP.md`` Queue 1, the
+other model families).
 """
 from .base import REGISTRY, ModelConfig, get_config, list_configs, register  # noqa: F401
 

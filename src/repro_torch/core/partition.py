@@ -5,40 +5,36 @@ The counterpart of ``repro.core.jax_partition`` (its kernel path):
 1. *Packing* (host, numpy) — ``pack_graph_blocks`` packs the permuted U in
    one sorted pass into per-row compact word lists of at most ``cap``
    words, plus a dense side channel for the rare rows with more.  No dense
-   ``(n_blocks, B, W)`` stack exists: each block's (B, W) bitmask is
-   rebuilt on the card by a scatter-add (``_rebuild_nbr``).
-2. *The scan* — ``_partition_scan`` loops over blocks in Python and carries
-   ``(s_masks, sizes)`` on the card, updated in place.  Nothing returns to
-   the host until the scan ends: every branch of the JAX version is a
-   ``torch.where`` or index arithmetic, never ``.item()``.
+   ``(n_blocks, B, W)`` stack exists.
+2. *The scan* — ``_partition_scan`` hands the whole block stack to ONE
+   ``parsa_scan`` launch, which carries ``(s_masks, sizes)`` on the card,
+   updated in place, and returns only when every block is assigned.
 3. *Greedy rounds* — with sizes within one of each other, the next k picks
    visit each partition once: first the catch-up set (partitions at the
-   minimum size, in stable-argsort order), then full rounds in index order.
-   ``_assign_block_rounds`` runs 1 + ⌈(B−1)/k⌉ rounds (static); each round
-   launches one fused select and commits the picks with a few torch ops.
-   The select is ``parsa_cost_select`` (a cost-tile kernel, the tile
-   through L2, then a one-CTA greedy reduction: two launches) at exact
-   widths.  With ``sketch=True`` (``set_repr="sketch"``, where the packed
-   width is the sketch's few thousand words) it is ``sketch_cost_select``:
-   one ``sketch_select`` launch whose (B, k) tile stays in shared memory,
-   as the JAX scan switches to ``sketch_cost_select`` there.  That kernel
-   reads each row's compact word list (the block's ``widx``/``vals`` and a
-   truncation flag from ``tr_ids``), not the dense block.  A tile too
-   large for one CTA's shared memory takes ``parsa_cost_select`` inside
-   that wrapper; both give the same bits.  The block buffers carry one
-   extra *sink* row at index B: an inactive slot points there, so its
-   commit writes only the sink.
+   minimum size, in stable-argsort order), then full rounds in index order,
+   1 + ⌈(B−1)/k⌉ rounds a block.  Inside ``parsa_scan`` a cluster of 8
+   CTAs computes a round's (B, k) cost tile from the block's compact lists
+   into shared memory, selects the round's picks and commits them (S_i |=
+   N(u), sizes, parts, retirement) on the card; exact and sketched widths
+   take the same kernel.  A tile past its shared memory
+   (``parsa_scan_fits``) takes the per-round route ``_scan_per_round``,
+   chosen by shape before any launch: one ``parsa_cost_select`` a round
+   (``sketch_cost_select`` on the block's lists at sketched widths,
+   ``set_repr="sketch"``), the picks committed by tensor ops.  Both give
+   the bits of the JAX scan; on the CPU the scan runs ``parsa_scan_ref``,
+   the kernel's plain version.
 
 4. *Parallel workers* (Algorithm 4, the ``parallel_device`` backend) —
    ``parallel_blocked_partition_u_impl`` shards the same packed blocks
    over W workers.  On one card the workers are a leading axis of the
    carried state, ``s_local`` (W, k, Wwords) and ``sz_local`` (W, k):
    within a super-step each worker scans its ``merge_every`` blocks against
-   its own stale slice through ``_assign_block_rounds``, then one
-   ``merge_worker_sets`` launch OR-merges the sets and counts the pushed
-   words on the device, and the sizes merge as ``sz_global + Σ_w
-   (sz_local[w] − sz_global)``.  The JAX ``shard_map`` + ``all_gather``
-   image of the same protocol gives the same bits.
+   its own stale slice, all workers in ONE ``parsa_scan`` launch (a
+   cluster per worker), then one ``merge_worker_sets`` launch OR-merges
+   the sets and counts the pushed words on the device, and the sizes merge
+   as ``sz_global + Σ_w (sz_local[w] − sz_global)``.  The JAX
+   ``shard_map`` + ``all_gather`` image of the same protocol gives the
+   same bits.
 
 ``blocked_partition_u_hostloop_impl`` / ``_assign_block`` are the
 sequential per-vertex parity oracle (the ``host_blocked_oracle`` backend),
@@ -63,7 +59,11 @@ from ..kernels.parsa_cost import (
     pack_bitmask_csr_sparse,
     parsa_cost,
     parsa_cost_select,
+    parsa_scan,
+    parsa_scan_fits,
+    rebuild_block,
     sketch_cost_select,
+    truncated_lists,
 )
 from .bipartite import BipartiteGraph
 from .dispatch import phase
@@ -216,26 +216,6 @@ def _init_state(graph: BipartiteGraph, k: int, init_sets, device
     return s_masks, torch.zeros(k, dtype=torch.int32, device=device)
 
 
-def _rebuild_nbr(widx: torch.Tensor, vals: torch.Tensor,
-                 tr_ids: torch.Tensor, tr_masks: torch.Tensor) -> torch.Tensor:
-    """Densify a block's bitmask from its compact word lists into a
-    (B + 1, W) buffer whose last row is an all-zero sink.
-
-    A scatter-add: padding slots add 0 into word 0, and a row's real words
-    are distinct, so add equals OR.  Truncated rows are then overwritten
-    with their full masks; padding entries (``tr_ids == B``) land in the
-    sink, which is zeroed last.  The first B rows are a contiguous view.
-    """
-    B, cap = widx.shape
-    W = tr_masks.shape[-1]
-    nbr = torch.zeros((B + 1, W), dtype=torch.int32, device=widx.device)
-    rows = torch.arange(B, device=widx.device, dtype=torch.int64)[:, None] * W
-    nbr.view(-1).index_add_(0, (rows + widx).view(-1), vals.reshape(-1))
-    nbr[tr_ids.long()] = tr_masks
-    nbr[B] = 0
-    return nbr
-
-
 def _trunc_flags(tr_ids: torch.Tensor, B: int) -> torch.Tensor:
     """(B,) bool on the device: the block's rows truncated past ``cap``,
     from its side channel's ids (padding entries point at the sink row B).
@@ -245,21 +225,22 @@ def _trunc_flags(tr_ids: torch.Tensor, B: int) -> torch.Tensor:
     return flags[:B]
 
 
-def _select_round(nbr, retired, parts, s_masks, sizes, order, enabled,
-                  inv, rows=None) -> None:
+def _select_round(nbr, retired, parts, s_masks, sizes, order, enabled, inv,
+                  rows) -> None:
     """One greedy round over slots ``order``, committed in place: S_i |=
     N(u), sizes, parts, retirement.  ``inv`` maps partitions to slots
     (None for the identity order).  The block's compact ``rows`` (widx,
     vals, trunc) mark a sketched width: they pick ``sketch_cost_select``,
-    which reads them."""
+    which reads them.  Every step is a tensor op: nothing waits for the
+    host."""
     B = nbr.shape[0] - 1
-    if rows is not None:
+    if rows is None:
+        u_sel, c_sel = parsa_cost_select(nbr[:B], s_masks, retired[:B],
+                                         order=order, enabled=enabled)
+    else:
         u_sel, c_sel = sketch_cost_select(nbr[:B], s_masks, retired[:B],
                                           order=order, enabled=enabled,
                                           rows=rows)
-    else:
-        u_sel, c_sel = parsa_cost_select(nbr[:B], s_masks, retired[:B],
-                                         order=order, enabled=enabled)
     act = c_sel < BIG
     idx = torch.where(act, u_sel, B).long()   # inactive slots → sink row
     picked = nbr[idx]                          # (k, W); sink row is zero
@@ -270,32 +251,72 @@ def _select_round(nbr, retired, parts, s_masks, sizes, order, enabled,
         s_masks |= picked[inv]
         sizes += act[inv]
     parts[idx] = order                         # slot j's partition
-    retired[idx] = True
+    retired.index_fill_(0, idx, True)
 
 
-def _assign_block_rounds(
-    nbr: torch.Tensor,       # (B + 1, W) int32 from _rebuild_nbr
-    retired: torch.Tensor,   # (B + 1,) bool, padding rows and sink True
-    parts: torch.Tensor,     # (B + 1,) int32, -1 — written in place
-    s_masks: torch.Tensor,   # (k, W) int32 — updated in place
-    sizes: torch.Tensor,     # (k,) int32 — updated in place
-    iota_k: torch.Tensor,    # (k,) int32 0..k-1
-    en_all: torch.Tensor,    # (k,) bool, all True
-    rows: tuple | None = None,  # sketched width: the block's (widx, vals,
-                                # trunc) for the one-launch select
-) -> None:
-    """Greedy-assign a block in balanced rounds: the catch-up round (visit
-    order = stable argsort of sizes, only min-sized partitions enabled),
-    then ⌈(B−1)/k⌉ full rounds in index order (the catch-up may assign as
-    little as one row)."""
-    B, k = nbr.shape[0] - 1, iota_k.shape[0]
-    ord0 = torch.argsort(sizes, stable=True)
-    en0 = sizes[ord0] == sizes.min()
-    _select_round(nbr, retired, parts, s_masks, sizes,
-                  ord0.to(torch.int32), en0, torch.argsort(ord0), rows)
-    for _ in range(-(-(B - 1) // k)):
-        _select_round(nbr, retired, parts, s_masks, sizes, iota_k, en_all,
-                      None, rows)
+def _scan_per_round(widx, vals, tr_ids, tr_masks, valid, s_masks, sizes,
+                    parts, b0: int, nblk: int, sketch: bool) -> None:
+    """The per-round route of ``_scan``, for tiles past ``parsa_scan``'s
+    shared memory: the rounds of ``parsa_scan`` (JAX
+    ``_assign_block_rounds``: the catch-up round in the stable argsort of
+    the sizes, only min-sized partitions enabled, then ⌈(B−1)/k⌉ full
+    rounds in index order), each one select on the card
+    (``parsa_cost_select``, two launches; at sketched widths
+    ``sketch_cost_select`` on the block's lists, one ``sketch_select``
+    launch while its tile fits) and a few tensor ops that commit the
+    picks.  One host read of the valid flags skips the blocks of padding
+    rows; the layout and bits of ``parsa_scan``."""
+    nw, _, B = valid.shape
+    k = s_masks.shape[1]
+    dev = s_masks.device
+    iota_k = torch.arange(k, dtype=torch.int32, device=dev)
+    en_all = torch.ones(k, dtype=torch.bool, device=dev)
+    live = valid[:, b0:b0 + nblk].any(-1).tolist()
+    for w in range(nw):
+        s, sz = s_masks[w], sizes[w]
+        for b in range(b0, b0 + nblk):
+            if not live[w][b - b0]:
+                continue   # padding rows only: every round picks nothing
+            nbr = rebuild_block(widx[w, b], vals[w, b], tr_ids[w, b],
+                                tr_masks[w, b])
+            rows = ((widx[w, b], vals[w, b], _trunc_flags(tr_ids[w, b], B))
+                    if sketch else None)
+            retired = torch.ones(B + 1, dtype=torch.bool, device=dev)
+            retired[:B] = ~valid[w, b]
+            p = torch.full((B + 1,), -1, dtype=torch.int32, device=dev)
+            ord0 = torch.argsort(sz, stable=True)
+            _select_round(nbr, retired, p, s, sz, ord0.to(torch.int32),
+                          sz[ord0] == sz.min(), torch.argsort(ord0), rows)
+            for _ in range(-(-(B - 1) // k)):
+                _select_round(nbr, retired, p, s, sz, iota_k, en_all, None,
+                              rows)
+            parts[w, b] = p[:B]
+
+
+def _scan_route(device: torch.device, B: int, k: int) -> str:
+    """How ``_scan`` scans blocks of B rows at k partitions on ``device``:
+    ``"parsa_scan"`` (one launch on the card, its plain version on the
+    CPU) or, on the card for a tile past ``parsa_scan``'s shared memory,
+    ``"per_round"``.  A shape rule, decided before any launch."""
+    if device.type == "cuda" and not parsa_scan_fits(B, k):
+        return "per_round"
+    return "parsa_scan"
+
+
+def _scan(widx, vals, tr_ids, tr_masks, valid, s_masks, sizes, parts,
+          b0: int, nblk: int, sketch: bool, tr_lists=None) -> None:
+    """Blocks ``[b0, b0 + nblk)`` of every worker (the leading axis of
+    every argument), in place, by the route of ``_scan_route``.
+    ``sketch`` marks a sketched width, which only the per-round route
+    reads; ``tr_lists`` are ``parsa_scan``'s truncated-row lists, built
+    once by a caller that scans the stack in several calls."""
+    if _scan_route(s_masks.device, valid.shape[-1],
+                   s_masks.shape[1]) == "per_round":
+        _scan_per_round(widx, vals, tr_ids, tr_masks, valid, s_masks, sizes,
+                        parts, b0, nblk, sketch)
+    else:
+        parsa_scan(widx, vals, tr_ids, tr_masks, valid, s_masks, sizes,
+                   parts, b0=b0, nblk=nblk, tr_lists=tr_lists)
 
 
 def _partition_scan(
@@ -306,25 +327,17 @@ def _partition_scan(
     valid: torch.Tensor,     # (n_blocks, B) bool
     s_masks: torch.Tensor,   # (k, W) int32 — carried, updated in place
     sizes: torch.Tensor,     # (k,) int32 — carried, updated in place
-    sketch: bool = False,    # sketched width: the one-launch select
+    sketch: bool = False,    # sketched width (read by the per-round route)
 ) -> torch.Tensor:
-    """Scan the blocks in order, carrying (S, sizes) on the device.
-    Returns parts (n_blocks, B) int32 in packed row order."""
+    """Scan the blocks in order, carrying (S, sizes) on the device: one
+    ``parsa_scan`` launch on the card.  Returns parts (n_blocks, B) int32
+    in packed row order."""
     nb, B = valid.shape
-    k = s_masks.shape[0]
-    dev = s_masks.device
-    parts = torch.full((nb, B + 1), -1, dtype=torch.int32, device=dev)
-    retired = torch.ones((nb, B + 1), dtype=torch.bool, device=dev)
-    retired[:, :B] = ~valid
-    iota_k = torch.arange(k, dtype=torch.int32, device=dev)
-    en_all = torch.ones(k, dtype=torch.bool, device=dev)
-    for b in range(nb):
-        nbr = _rebuild_nbr(widx[b], vals[b], tr_ids[b], tr_masks[b])
-        rows = ((widx[b], vals[b], _trunc_flags(tr_ids[b], B)) if sketch
-                else None)
-        _assign_block_rounds(nbr, retired[b], parts[b], s_masks, sizes,
-                             iota_k, en_all, rows)
-    return parts[:, :B]
+    parts = torch.full((1, nb, B), -1, dtype=torch.int32,
+                       device=s_masks.device)
+    _scan(widx[None], vals[None], tr_ids[None], tr_masks[None], valid[None],
+          s_masks[None], sizes[None], parts, 0, nb, sketch)
+    return parts[0]
 
 
 def blocked_partition_u_impl(
@@ -347,8 +360,9 @@ def blocked_partition_u_impl(
     the compact lists to the device and scans the blocks there.
     ``init_sets`` may be dense (k, |V|) bool or packed (k, W) words.  A
     ``timings`` dict receives the host ``"pack"`` seconds.  ``sketch=True``
-    marks the packed width as a sketched domain: every round then selects
-    with ``sketch_cost_select``; nothing else changes.
+    marks the packed width as a sketched domain: only the per-round route
+    reads it (its rounds then select with ``sketch_cost_select``); the
+    bits do not change.
     """
     device = torch.device(device)
     t_pack = time.perf_counter()
@@ -443,19 +457,15 @@ def _parallel_scan(
     sketch: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Every worker's blocked scan with an OR-merge each ``merge_every``
-    blocks, all on the device.  Returns (parts (workers, n_super,
+    blocks, all on the device: per super-step one ``_scan`` over every
+    worker and one merge.  Returns (parts (workers, n_super,
     merge_every, B) int32 in sharded order, merged s_masks, merged sizes,
     pushed (1,) int64 changed words); ``s_masks`` and ``sizes`` themselves
     are left as they were."""
     nw, nb_per, B = valid.shape
-    k = s_masks.shape[0]
     dev = s_masks.device
     n_super = nb_per // merge_every
-    parts = torch.full((nw, nb_per, B + 1), -1, dtype=torch.int32, device=dev)
-    retired = torch.ones((nw, nb_per, B + 1), dtype=torch.bool, device=dev)
-    retired[..., :B] = ~valid
-    iota_k = torch.arange(k, dtype=torch.int32, device=dev)
-    en_all = torch.ones(k, dtype=torch.bool, device=dev)
+    parts = torch.full((nw, nb_per, B), -1, dtype=torch.int32, device=dev)
     s_global, sz_global = s_masks, sizes
     # each worker's stale copy plus its own picks, updated in place (a
     # fresh buffer: at nw == 1 ``contiguous()`` would alias s_masks)
@@ -463,16 +473,14 @@ def _parallel_scan(
     s_local = s_global.expand(nw, -1, -1).clone(memory_format=fresh)
     sz_local = sz_global.expand(nw, -1).clone(memory_format=fresh)
     pushed = torch.zeros(1, dtype=torch.int64, device=dev)
+    # parsa_scan's truncated-row lists, built once for every super-step
+    on_card = dev.type == "cuda" and parsa_scan_fits(B, s_masks.shape[0])
+    tr_lists = truncated_lists(tr_masks) if on_card else None
     for step in range(n_super):
-        for w in range(nw):
-            for b in range(step * merge_every, (step + 1) * merge_every):
-                nbr = _rebuild_nbr(widx[w, b], vals[w, b], tr_ids[w, b],
-                                   tr_masks[w, b])
-                rows = ((widx[w, b], vals[w, b],
-                         _trunc_flags(tr_ids[w, b], B)) if sketch else None)
-                _assign_block_rounds(nbr, retired[w, b], parts[w, b],
-                                     s_local[w], sz_local[w], iota_k, en_all,
-                                     rows)
+        # every worker's merge_every blocks against its own stale copy: one
+        # parsa_scan launch, a cluster per worker
+        _scan(widx, vals, tr_ids, tr_masks, valid, s_local, sz_local, parts,
+              step * merge_every, merge_every, sketch, tr_lists)
         # server union-push: OR-merge the sets (counting the pushed words)
         # and add every worker's size delta onto the pre-merge totals
         s_global = merge_worker_sets(s_local, s_global, pushed)
@@ -480,7 +488,7 @@ def _parallel_scan(
             dim=0, dtype=torch.int32)
         s_local.copy_(s_global.expand_as(s_local))
         sz_local.copy_(sz_global.expand_as(sz_local))
-    return (parts[..., :B].reshape(nw, n_super, merge_every, B), s_global,
+    return (parts.reshape(nw, n_super, merge_every, B), s_global,
             sz_global, pushed)
 
 

@@ -8,10 +8,9 @@ wire format:
     keep the first of each, scatter-add its bit (distinct bits, so add is
     OR).  No dense (k, |V|) matrix exists.
   * ``refine_v_device`` — Algorithm 2's sweeps over V in chunks of C
-    parameters.  Each chunk is one launch of the refine-sweep kernel
-    (``refine_sweep_chunk``), in order on one stream: chunks depend on each
-    other through the cost vector, and nothing syncs with the host between
-    them.
+    parameters: every sweep of every chunk, in order, in ONE launch of the
+    refine-sweep kernel (``refine_scan``), which carries the cost vector
+    across chunks and sweeps and writes the parts in place.
   * ``evaluate_device`` — objectives (4)/(6)/(7) as popcount reductions,
     through the (k, k) intersection matrix M[i, j] = |V_i ∩ N(U_j)|.
 
@@ -31,7 +30,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..kernels.parsa_cost import popcount32, refine_sweep_chunk
+from ..kernels.parsa_cost import popcount32, refine_scan
 from .bipartite import BipartiteGraph
 from .costs import PartitionMetrics
 from .dispatch import phase
@@ -107,12 +106,9 @@ def _refine_scan(
     parts: torch.Tensor,  # (n_chunks, C) int32 — -1 at entry, updated in place
     sweeps: int,
 ) -> torch.Tensor:
-    """All sweeps × chunks in order; returns the final cost vector."""
-    for _ in range(sweeps):
-        for c in range(words.shape[0]):
-            cost, p = refine_sweep_chunk(words[c], parts[c], cost)
-            parts[c] = p
-    return cost
+    """All sweeps × chunks in order (one launch on the card); returns the
+    final cost vector."""
+    return refine_scan(words, parts, cost, sweeps, out=parts)[0]
 
 
 def refine_v_device(

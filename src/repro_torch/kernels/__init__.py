@@ -1,8 +1,9 @@
 """Hand-written CUDA kernels for Hopper (sm_90a), one folder per family.
 
 parsa_cost/       — packed-bitmask popcount cost tile, the fused greedy
-                    select, the sketched select, the Algorithm 2 refine sweep
-                    and the Algorithm 4 merge
+                    select, the sketched select, the whole blocked scan in
+                    one persistent launch, the Algorithm 2 refine and the
+                    Algorithm 4 merge
 flash_attention/  — forward flash attention (causal and sliding-window
                     masks, GQA by head index), the attention of the LM
                     prefill

@@ -16,8 +16,8 @@ from ..nvcc import NVCC_FLAGS, KernelFamily
 __all__ = ["SOURCES", "NVCC_FLAGS", "FAMILY", "build_dir", "build_all", "load"]
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
-SOURCES = ("parsa_cost", "parsa_select", "sketch_select", "refine_sweep",
-           "union_delta")
+SOURCES = ("parsa_cost", "parsa_select", "sketch_select", "parsa_scan",
+           "refine_sweep", "union_delta")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -31,7 +31,11 @@ _ENTRIES = {
     "sketch_select": ("sketch_select",
                       (_P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I,
                        _P, _P, _P)),
-    "refine_sweep": ("refine_sweep", (_P, _P, _P, _I, _I, _P, _P, _P)),
+    "parsa_scan": ("parsa_scan",
+                   (_P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _I, _I,
+                    _I, _I, _I, _I, _I, _P)),
+    "refine_sweep": ("refine_sweep",
+                     (_P, _P, _P, _I, _I, _I, _I, _P, _P, _P)),
     "packed_union_delta": ("union_delta", (_P, _P, _I, _L, _P, _P, _P, _P)),
 }
 

@@ -17,76 +17,62 @@
 // over the dense row reads all Ws words to find them.
 //
 // Design on Hopper: one thread-block cluster of kCluster = 8 CTAs (the
-// portable cluster size).  CTA r computes the cost rows
-// [r * rpc, (r + 1) * rpc), rpc = ceil(B / 8).  A warp takes 32 / kLanes
-// rows at a time, kLanes lanes a row: the lanes load the row's flags and
-// pairs together (kEntries independent loads each, enough for cap <= 48
-// in one batch), then every nonzero pair gathers its k set words,
-// independent loads that hit L2, and a shuffle reduction over the row's
-// lanes gives each cost, which the row's lanes store a few columns each.
-// A retired row gathers nothing and stores BIG, as the epilogue reads it:
-// two dependent round trips a row.
-// A truncated row is walked by the whole warp over its dense words, in
-// batches of kBatch independent loads, the set words under a zero row word
-// never read.  Each cost is stored straight into the rank-0 CTA's shared
+// portable cluster size) runs the round body of select_round.cuh: CTA r
+// computes the cost rows [r * rpc, (r + 1) * rpc), rpc = ceil(B / 8), from
+// the lists, and stores each cost straight into the rank-0 CTA's shared
 // tile, transposed (k, B), through distributed shared memory.  After
 // cluster.sync() the rank-0 CTA runs the exact epilogue of
-// select_epilogue.cuh over the tile in its own shared memory
-// (select_epilogue_smem: the bits of parsa_select.cu's select_epilogue,
-// with one warp running the greedy slots instead of a block-wide reduction
-// a slot); the other CTAs exit.  Nothing of the tile reaches global memory.
+// select_epilogue.cuh over the tile in its own shared memory (greedy:
+// select_epilogue_cand, the epilogue of parsa_scan.cu; independent:
+// select_columns_smem; the bits of parsa_select.cu's select_epilogue); the
+// other CTAs exit.  Nothing of the tile reaches global memory.
+// parsa_scan.cu runs the same round body and greedy epilogue for every
+// round of a scan in one launch.
 //
-// Shared memory: every CTA of the cluster is launched with B * k * 4 bytes
-// of dynamic shared memory (only rank 0's holds the tile).  The caller
-// keeps that within the opt-in limit (232,448 bytes a CTA on the H100; the
-// wrapper's guard is ops.SKETCH_SELECT_MAX_TILE_BYTES) and B <= 32 * 1024
-// as parsa_select takes.
+// Shared memory: every CTA of the cluster is launched with the (k, B) int32
+// tile, the greedy slots' candidates (k min(k, 8) keys) and the epilogue's
+// taken flags (B bytes) (only rank 0's are used): ops.sketch_smem_bytes.
+// The caller keeps that within the opt-in limit (232,448 bytes a CTA on the
+// H100; the wrapper's guard is ops.SKETCH_SELECT_MAX_SMEM_BYTES) and
+// B <= 32 * 1024 as parsa_select takes.
 //
 // Bound on this card: bytes.  The lists (8 * B * cap bytes) and the set
 // words the nonzero pairs gather (4 * k each) read once: ~1.1 MB at B=1024,
 // cap=48, k=16 and ~10 pairs a row, against the 16.8 MB of the dense
 // (B, Ws) block and sets.  The cost pass is two dependent loads a row
-// group, so the kernel is latency-bound; the epilogue is k block-wide
-// reductions.  Words are read as unsigned: a word with bit 31 set is a
-// negative int32 and is never compared by value.
+// group, so the kernel is latency-bound; the greedy epilogue ranks each
+// slot's column a warp a slot, then resolves the slots in one warp.
 #include <cooperative_groups.h>
 
-#include "select_epilogue.cuh"
+#include "select_round.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kCluster = 8;      // CTAs per cluster (portable maximum)
-constexpr int kThreads = 1024;   // threads per CTA: 32 rows per epilogue thread
-constexpr int kCols = 16;        // partitions per pass, one accumulator each
-constexpr int kLanes = 8;        // lanes per listed row
-constexpr int kRowsPerWarp = 32 / kLanes;
-constexpr int kEntries = 6;      // pairs per lane in flight: cap <= 48 at once
-constexpr int kBatch = 4;        // dense row-word loads per lane in flight
+using parsa::kCluster;
+using parsa::kRoundThreads;
 
-__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
+__global__ void __cluster_dims__(kCluster, 1, 1)
+__launch_bounds__(kRoundThreads)
 sketch_select_kernel(const uint32_t* __restrict__ nbr,    // (B, W) dense
                      const int32_t* __restrict__ widx,    // (B, cap) indices
                      const uint32_t* __restrict__ vals,   // (B, cap) words
                      const uint8_t* __restrict__ trunc,   // (B,) bool
                      int cap,
-                     const uint32_t* __restrict__ s,      // (K, W)
+                     const uint32_t* s,                   // (K, W)
                      const uint8_t* __restrict__ retired,  // (B,) bool
                      const int32_t* __restrict__ order,    // (K,) or null
                      const uint8_t* __restrict__ enabled,  // (K,) or null
                      int B, int K, int W, int greedy,
                      int32_t* __restrict__ out_a,
                      int32_t* __restrict__ out_b) {
-  extern __shared__ int32_t tile_smem[];  // (K, B), used on rank 0 only
+  extern __shared__ __align__(16) int32_t tile_smem[];  // (K, B), rank 0
+  unsigned* cand = reinterpret_cast<unsigned*>(tile_smem + K * B);
+  uint8_t* taken = reinterpret_cast<uint8_t*>(cand + K * min(K, parsa::kCand));
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
   int32_t* tile = cluster.map_shared_rank(tile_smem, 0);
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  const int sub = lane % kLanes;   // this lane's place in its row's group
-  const int grp = lane / kLanes;   // which of the warp's rows
   const int rpc = (B + kCluster - 1) / kCluster;
   const int r_begin = rank * rpc;
   const int r_end = min(B, r_begin + rpc);
@@ -95,123 +81,43 @@ sketch_select_kernel(const uint32_t* __restrict__ nbr,    // (B, W) dense
   // would fence all of the GPU's memory first)
   asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
   asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
-  for (int i0 = 0; i0 < K; i0 += kCols) {
-    const int ncol = min(kCols, K - i0);
-    const uint32_t* sb = s + static_cast<int64_t>(i0) * W;
-    // warp-uniform loop: kRowsPerWarp rows a pass
-    for (int r0 = r_begin + warp * kRowsPerWarp; r0 < r_end;
-         r0 += nwarps * kRowsPerWarp) {
-      const int u = r0 + grp;
-      const bool in = u < r_end;
-      // the row's flags and its pairs, loaded together (kEntries each a lane)
-      int wi[kEntries];
-      uint32_t x[kEntries];
-      const int64_t row0 = static_cast<int64_t>(in ? u : r_begin) * cap;
-#pragma unroll
-      for (int j = 0; j < kEntries; ++j) {
-        const int e = sub + kLanes * j;
-        x[j] = in && e < cap ? __ldg(vals + row0 + e) : 0u;
-        wi[j] = in && e < cap ? __ldg(widx + row0 + e) : 0;
-      }
-      // a retired row's costs are never read: it stores BIG, which the
-      // epilogue reads as retired
-      const bool ret = in && retired[u] != 0;
-      const bool tr = in && trunc[u] != 0 && !ret;
-      int acc[kCols];
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) acc[c] = 0;
-      if (in && !ret && !tr) {
-        for (int e0 = sub; e0 < cap; e0 += kLanes * kEntries) {
-          if (e0 != sub) {  // pairs past the first kLanes * kEntries
-#pragma unroll
-            for (int j = 0; j < kEntries; ++j) {
-              const int e = e0 + kLanes * j;
-              x[j] = e < cap ? __ldg(vals + row0 + e) : 0u;
-              wi[j] = e < cap ? __ldg(widx + row0 + e) : 0;
-            }
-          }
-#pragma unroll
-          for (int j = 0; j < kEntries; ++j) {
-            if (x[j] == 0u) continue;  // padding (0, 0) counts nothing
-            const uint32_t* col = sb + wi[j];
-#pragma unroll
-            for (int c = 0; c < kCols; ++c) {
-              if (c < ncol) {
-                acc[c] += __popc(x[j] & ~__ldg(col + static_cast<int64_t>(c)
-                                                     * W));
-              }
-            }
-          }
-        }
-      }
-      // every lane of the row's group gets the sums; lane sub stores the
-      // columns c = sub (mod kLanes)
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) {
-#pragma unroll
-        for (int off = kLanes / 2; off > 0; off >>= 1)
-          acc[c] += __shfl_xor_sync(0xffffffffu, acc[c], off);
-      }
-      if (in && !tr) {
-#pragma unroll
-        for (int c = 0; c < kCols; ++c)
-          if (c % kLanes == sub && c < ncol)
-            tile[(i0 + c) * B + u] = ret ? parsa::kBig : acc[c];
-      }
-      // truncated rows of this pass: the whole warp walks each dense row
-      unsigned todo = __ballot_sync(0xffffffffu, tr && sub == 0);
-      while (todo != 0u) {
-        const int ut = r0 + (__ffs(todo) - 1) / kLanes;
-        todo &= todo - 1u;
-        const uint32_t* row = nbr + static_cast<int64_t>(ut) * W;
-#pragma unroll
-        for (int c = 0; c < kCols; ++c) acc[c] = 0;
-        for (int w0 = lane; w0 < W; w0 += 32 * kBatch) {
-          uint32_t n[kBatch];
-#pragma unroll
-          for (int b = 0; b < kBatch; ++b) {
-            const int w = w0 + 32 * b;
-            n[b] = w < W ? __ldg(row + w) : 0u;
-          }
-#pragma unroll
-          for (int b = 0; b < kBatch; ++b) {
-            if (n[b] == 0u) continue;
-            const int w = w0 + 32 * b;
-#pragma unroll
-            for (int c = 0; c < kCols; ++c) {
-              if (c < ncol) {
-                acc[c] += __popc(n[b] & ~__ldg(sb + static_cast<int64_t>(c) * W
-                                               + w));
-              }
-            }
-          }
-        }
-#pragma unroll
-        for (int c = 0; c < kCols; ++c) {
-          const int v = __reduce_add_sync(0xffffffffu, acc[c]);
-          if (lane == 0 && c < ncol) tile[(i0 + c) * B + ut] = v;
-        }
-      }
-    }
-  }
+  parsa::round_cost_pass<8>(
+      tile, widx, vals, cap, s, B, K, W, r_begin, r_end, [&](int u) {
+        return parsa::RowSrc{
+            retired[u] != 0,
+            trunc[u] != 0 ? nbr + static_cast<int64_t>(u) * W : nullptr};
+      });
   // the remote stores are complete and visible to rank 0
   cluster.sync();
   if (rank != 0) return;
-  parsa::select_epilogue_smem(tile_smem, order, enabled, B, K, greedy, out_a,
-                              out_b);
+  if (!greedy) {
+    parsa::select_columns_smem(tile_smem, B, K, out_a, out_b);
+    return;
+  }
+  // the rows not retired, and the epilogue's taken flags zeroed
+  int live = 0;
+  for (int i0 = 0; i0 < B; i0 += blockDim.x) {
+    const int i = i0 + threadIdx.x;
+    if (i < B) taken[i] = 0;
+    live += __syncthreads_count(i < B && retired[i] == 0);
+  }
+  parsa::select_epilogue_cand(tile_smem, order, enabled, B, K, live, cand,
+                              taken, out_a, out_b);
 }
 
 }  // namespace
 
 // The caller guarantees 1 <= B <= 32 * 1024, K >= 1, W >= 1, cap >= 1,
-// 0 <= widx < W, and that B * K * 4 bytes fit a CTA's opt-in shared memory.
+// 0 <= widx < W, and that ops.sketch_smem_bytes(B, K) fit a CTA's opt-in
+// shared memory.
 extern "C" int sketch_select(const void* nbr, const void* widx,
                              const void* vals, const void* trunc, int cap,
                              const void* s, const void* retired,
                              const void* order, const void* enabled, int B,
                              int K, int W, int greedy, void* out_a,
                              void* out_b, void* stream) {
-  const int smem = B * K * static_cast<int>(sizeof(int32_t));
+  const int T = K < parsa::kCand ? K : parsa::kCand;
+  const int smem = (4 * (K * B + K * T) + B + 15) / 16 * 16;
   static int opted_in = 48 * 1024;  // the default limit needs no opt-in
   if (smem > opted_in) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -220,7 +126,7 @@ extern "C" int sketch_select(const void* nbr, const void* widx,
     if (e != cudaSuccess) return static_cast<int>(e);
     opted_in = smem;
   }
-  sketch_select_kernel<<<kCluster, kThreads, smem,
+  sketch_select_kernel<<<kCluster, kRoundThreads, smem,
                          static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(nbr), static_cast<const int32_t*>(widx),
       static_cast<const uint32_t*>(vals), static_cast<const uint8_t*>(trunc),

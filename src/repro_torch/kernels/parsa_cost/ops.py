@@ -23,7 +23,8 @@ from .ref import (
     merge_worker_sets_ref,
     packed_union_delta_ref,
     parsa_cost_ref,
-    refine_sweep_ref,
+    parsa_scan_ref,
+    refine_scan_ref,
     select_from_cost,
     select_greedy_from_cost,
     sketch_select_ref,
@@ -32,20 +33,27 @@ from .ref import (
 
 __all__ = ["LAUNCHES", "reset_launch_counts", "parsa_cost",
            "parsa_select_tile", "parsa_select_reduce", "parsa_cost_select",
-           "sketch_cost_select", "sketch_select_fits", "refine_sweep_chunk",
-           "packed_union_delta", "merge_worker_sets", "SELECT_MAX_B",
-           "SELECT_MAX_K", "SKETCH_SELECT_MAX_TILE_BYTES", "REFINE_MAX_K",
-           "ROW_CAP", "ROWS_BUILT"]
+           "sketch_cost_select", "sketch_select_fits", "sketch_smem_bytes",
+           "parsa_scan", "parsa_scan_fits", "scan_smem_bytes",
+           "truncated_lists", "refine_scan", "refine_sweep_chunk",
+           "packed_union_delta", "merge_worker_sets",
+           "SELECT_MAX_B", "SELECT_MAX_K", "SKETCH_SELECT_MAX_SMEM_BYTES",
+           "SCAN_MAX_SMEM_BYTES", "REFINE_MAX_K", "ROW_CAP", "ROWS_BUILT"]
 
 # parsa_select_reduce keeps each thread's retired rows in one 32-bit mask
 # over at most 1024 threads; the slot loop itself takes any k, capped here
 # so an absurd k fails loudly instead of running for minutes.
 SELECT_MAX_B = 32 * 1024
 SELECT_MAX_K = 1024
-# sketch_select holds the whole (B, k) int32 tile in one CTA's shared
-# memory: the H100's opt-in limit of 227 KiB a CTA, less 1 KiB for the
-# epilogue's own shared words.  Larger tiles take parsa_cost_select.
-SKETCH_SELECT_MAX_TILE_BYTES = 227 * 1024 - 1024
+# sketch_select holds the whole (B, k) int32 tile and its greedy
+# epilogue's words in one CTA's shared memory (sketch_smem_bytes), at most
+# the H100's opt-in limit of 227 KiB a CTA.  Larger tiles take
+# parsa_cost_select.
+SKETCH_SELECT_MAX_SMEM_BYTES = 227 * 1024
+# parsa_scan gives each CTA the H100's opt-in maximum of dynamic shared
+# memory at most (232,448 bytes): rank 0 holds the (B, k) tile and the
+# scan's own words (scan_smem_bytes).  Larger shapes scan round by round.
+SCAN_MAX_SMEM_BYTES = 227 * 1024
 # refine_sweep holds k costs in 32 lanes × at most 32 registers
 REFINE_MAX_K = 1024
 # the list length sketch_cost_select gives a row when it builds the lists
@@ -54,7 +62,8 @@ ROW_CAP = 48
 
 LAUNCHES: dict[str, int] = {"parsa_cost": 0, "parsa_select_tile": 0,
                             "parsa_select_reduce": 0, "sketch_select": 0,
-                            "refine_sweep": 0, "packed_union_delta": 0}
+                            "parsa_scan": 0, "refine_sweep": 0,
+                            "packed_union_delta": 0}
 
 
 # sketch_cost_select calls on the card that were given only the dense
@@ -209,11 +218,25 @@ def parsa_cost_select(
                                retired, order, enabled)
 
 
+# candidates a greedy slot keeps in the shared-memory epilogue of
+# sketch_select and parsa_scan (csrc/select_epilogue.cuh kCand)
+SELECT_CANDIDATES = 8
+
+
+def sketch_smem_bytes(B: int, k: int) -> int:
+    """Dynamic shared memory of one ``sketch_select`` CTA, as
+    ``csrc/sketch_select.cu`` lays it out: the (k, B) int32 tile, the
+    greedy slots' candidates (k · min(k, 8) keys) and the taken flags (B
+    bytes), rounded up to 16."""
+    return -(-(4 * (k * B + k * min(k, SELECT_CANDIDATES)) + B) // 16) * 16
+
+
 def sketch_select_fits(B: int, k: int) -> bool:
     """Whether a (B, k) round runs in the one-launch ``sketch_select``
-    kernel: its int32 tile fits ``SKETCH_SELECT_MAX_TILE_BYTES`` and B the
-    epilogue's ``SELECT_MAX_B``.  A shape function only."""
-    return 4 * B * k <= SKETCH_SELECT_MAX_TILE_BYTES and B <= SELECT_MAX_B
+    kernel: its shared memory fits ``SKETCH_SELECT_MAX_SMEM_BYTES`` and B
+    the epilogue's ``SELECT_MAX_B``.  A shape function only."""
+    return (sketch_smem_bytes(B, k) <= SKETCH_SELECT_MAX_SMEM_BYTES
+            and B <= SELECT_MAX_B)
 
 
 def _check_rows(rows, B: int, device: torch.device
@@ -292,29 +315,185 @@ def sketch_cost_select(
     return out_a, out_b
 
 
+def scan_smem_bytes(B: int, k: int) -> int:
+    """Dynamic shared memory of one ``parsa_scan`` CTA, as
+    ``csrc/parsa_scan.cu`` lays it out: the (k, B) int32 tile, the row →
+    truncated-slot map (B int32), sizes, catch-up order, picks and costs
+    (4 · k int32), the slots' candidates (k · min(k, 8) keys), the
+    live-row count (4 int32), then the retired and taken flags (2 · B
+    bytes) and the catch-up gates (k bytes), rounded up to 16."""
+    t = min(k, SELECT_CANDIDATES)
+    return -(-(4 * (k * B + B + 4 * k + k * t + 4) + 2 * B + k) // 16) * 16
+
+
+def parsa_scan_fits(B: int, k: int) -> bool:
+    """Whether blocks of B rows at k partitions scan in the one-launch
+    ``parsa_scan`` kernel: its shared memory fits ``SCAN_MAX_SMEM_BYTES``
+    and B and k the epilogue's ``SELECT_MAX_B`` and ``SELECT_MAX_K``.  A
+    shape function only."""
+    return (1 <= B <= SELECT_MAX_B and 1 <= k <= SELECT_MAX_K
+            and scan_smem_bytes(B, k) <= SCAN_MAX_SMEM_BYTES)
+
+
+def truncated_lists(tr_masks: torch.Tensor
+                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The truncated rows' full masks (..., TB, W) int32 as lists of their
+    nonzero words, the form ``parsa_scan`` walks: (word indices, words),
+    each (..., TB, W) int32 with a row's nonzero words first in column
+    order (a stable sort), and their counts (..., TB) int32.  Tensor ops
+    on the mask's device; built once a scan."""
+    nz = tr_masks != 0
+    lw = torch.argsort((~nz).to(torch.uint8), dim=-1, stable=True)
+    return (lw.to(torch.int32), tr_masks.gather(-1, lw),
+            nz.sum(-1, dtype=torch.int32))
+
+
+def parsa_scan(
+    widx: torch.Tensor,      # (nw, nb, B, cap) int32 compact word indices
+    vals: torch.Tensor,      # (nw, nb, B, cap) int32 words at widx
+    tr_ids: torch.Tensor,    # (nw, nb, TB) int32 truncated rows, B = none
+    tr_masks: torch.Tensor,  # (nw, nb, TB, W) int32 their full masks
+    valid: torch.Tensor,     # (nw, nb, B) bool, False for padding rows
+    s_masks: torch.Tensor,   # (nw, k, W) int32 — updated in place
+    sizes: torch.Tensor,     # (nw, k) int32 — updated in place
+    parts: torch.Tensor,     # (nw, nb, B) int32 — written in place
+    *,
+    b0: int = 0,
+    nblk: int | None = None,
+    tr_lists: tuple[torch.Tensor, torch.Tensor, torch.Tensor] | None = None,
+) -> None:
+    """The blocked greedy scan (JAX ``_partition_scan``'s rounds, kernel 2
+    with kernel 4's round body): worker w scans its blocks ``[b0, b0 +
+    nblk)`` in order against ``s_masks[w]`` and ``sizes[w]``, each block in
+    1 + ⌈(B−1)/k⌉ greedy rounds, and writes each picked row's partition
+    into ``parts[w, b]``.  ``nw`` is 1 for ``device_scan``; Algorithm 4's
+    workers scan one super-step in one call.
+
+    On CUDA it is ONE ``parsa_scan`` launch, a cluster of 8 CTAs per
+    worker, which keeps the round's cost tile in shared memory and commits
+    every round's picks on the card.  It walks a truncated row as the list
+    of its nonzero words: ``tr_lists``, ``truncated_lists(tr_masks)``,
+    which a caller that scans the same stack in several calls builds once
+    and passes to each; without it the wrapper builds them before the
+    launch (a few tensor ops).  The shape must pass
+    ``parsa_scan_fits``: the scans route larger tiles, by shape and before
+    any launch, to the per-round route (``core.partition._scan_per_round``,
+    one ``parsa_cost_select`` a round); this wrapper raises for them.  A
+    CPU tensor runs ``parsa_scan_ref``.
+    """
+    dev = s_masks.device
+    _check("widx", widx, torch.int32, 4, dev)
+    _check("vals", vals, torch.int32, 4, dev)
+    _check("tr_ids", tr_ids, torch.int32, 3, dev)
+    _check("tr_masks", tr_masks, torch.int32, 4, dev)
+    _check("valid", valid, torch.bool, 3, dev)
+    _check("s_masks", s_masks, torch.int32, 3, dev)
+    _check("sizes", sizes, torch.int32, 2, dev)
+    _check("parts", parts, torch.int32, 3, dev)
+    nw, nb, B, cap = widx.shape
+    k, W = s_masks.shape[1:]
+    TB = tr_ids.shape[2]
+    if (vals.shape != widx.shape or valid.shape != (nw, nb, B)
+            or parts.shape != (nw, nb, B) or tr_ids.shape[:2] != (nw, nb)
+            or tr_masks.shape != (nw, nb, TB, W) or s_masks.shape[0] != nw
+            or sizes.shape != (nw, k) or cap < 1):
+        raise ValueError(
+            f"parsa_scan shapes disagree: widx {tuple(widx.shape)}, vals "
+            f"{tuple(vals.shape)}, tr_ids {tuple(tr_ids.shape)}, tr_masks "
+            f"{tuple(tr_masks.shape)}, valid {tuple(valid.shape)}, s_masks "
+            f"{tuple(s_masks.shape)}, sizes {tuple(sizes.shape)}, parts "
+            f"{tuple(parts.shape)}")
+    if nblk is None:
+        nblk = nb - b0
+    if b0 < 0 or nblk < 0 or b0 + nblk > nb:
+        raise ValueError(f"blocks [{b0}, {b0 + nblk}) outside [0, {nb})")
+    if tr_lists is not None:
+        for name, t, nd in zip(("tr_lw", "tr_lv", "tr_len"), tr_lists,
+                               (4, 4, 3)):
+            _check(name, t, torch.int32, nd, dev)
+        if (tr_lists[0].shape != tr_masks.shape
+                or tr_lists[1].shape != tr_masks.shape
+                or tr_lists[2].shape != tr_ids.shape):
+            raise ValueError(f"tr_lists must be shaped as tr_masks "
+                             f"{tuple(tr_masks.shape)} and tr_ids "
+                             f"{tuple(tr_ids.shape)}")
+    if not _on_cuda(dev):
+        parsa_scan_ref(widx, vals, tr_ids, tr_masks, valid, s_masks, sizes,
+                       parts, b0, nblk)
+        return
+    if not parsa_scan_fits(B, k):
+        raise ValueError(
+            f"parsa_scan takes B={B}, k={k} only within its shared memory "
+            f"({scan_smem_bytes(B, k)} > {SCAN_MAX_SMEM_BYTES} bytes) or "
+            f"B <= {SELECT_MAX_B}, k <= {SELECT_MAX_K}: scan it per round")
+    if nblk == 0 or nw == 0:
+        return
+    tr_lw, tr_lv, tr_len = (truncated_lists(tr_masks) if tr_lists is None
+                            else tr_lists)
+    _launch("parsa_scan", _ptr(widx), _ptr(vals), _ptr(tr_ids), _ptr(tr_lw),
+            _ptr(tr_lv), _ptr(tr_len), _ptr(valid), cap, TB, _ptr(s_masks),
+            _ptr(sizes), _ptr(parts), B, k, W, nb, b0, nblk, nw)
+
+
+def refine_scan(
+    words: torch.Tensor,  # (n_chunks, k, cw) int32 need words per chunk
+    prev: torch.Tensor,   # (n_chunks, C) int32 entering assignments
+    cost: torch.Tensor,   # (k,) int32 Alg 2 cost vector at entry
+    sweeps: int = 1,
+    *,
+    out: torch.Tensor | None = None,  # (n_chunks, C) int32; may be prev
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """All ``sweeps`` × chunks of Algorithm 2 → (cost' (k,), parts
+    (n_chunks, C)), int32, C == 32·cw.  Sweep s + 1 enters with the parts
+    sweep s wrote.  ``out`` receives the parts (it may be ``prev`` itself:
+    the sweep then runs in place).  ONE ``refine_sweep`` launch on CUDA;
+    a CPU tensor runs ``refine_scan_ref``."""
+    dev = words.device
+    _check("words", words, torch.int32, 3, dev)
+    _check("prev", prev, torch.int32, 2, dev)
+    _check("cost", cost, torch.int32, 1, dev)
+    n, k, cw = words.shape
+    if not 1 <= k <= REFINE_MAX_K or cw < 1 or sweeps < 1:
+        raise ValueError(f"refine_sweep takes 1 <= k <= {REFINE_MAX_K}, "
+                         f"cw >= 1 and sweeps >= 1, got k={k}, cw={cw}, "
+                         f"sweeps={sweeps}")
+    if prev.shape != (n, 32 * cw) or cost.shape[0] != k:
+        raise ValueError(f"prev must have {32 * cw} entries a chunk "
+                         f"({n} chunks) and cost {k}")
+    if out is None:
+        out = torch.empty_like(prev)
+    else:
+        _check("out", out, torch.int32, 2, dev)
+        if out.shape != prev.shape:
+            raise ValueError(f"out must have shape {tuple(prev.shape)}")
+    if not _on_cuda(dev):
+        cost_out, parts = refine_scan_ref(words, prev, cost, sweeps)
+        out.copy_(parts)
+        return cost_out, out
+    cost_out = torch.empty(k, dtype=torch.int32, device=dev)
+    if n:
+        _launch("refine_sweep", _ptr(words), _ptr(prev), _ptr(cost), k, cw,
+                n, sweeps, _ptr(out), _ptr(cost_out))
+    else:
+        cost_out.copy_(cost)
+    return cost_out, out
+
+
 def refine_sweep_chunk(
     tile_words: torch.Tensor,  # (k, cw) int32 packed need bits of one V chunk
     prev: torch.Tensor,        # (C,) int32 entering assignments, C == 32·cw
     cost: torch.Tensor,        # (k,) int32 Alg 2 cost vector
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """One Algorithm 2 chunk sweep → (cost' (k,), parts (C,)), int32."""
+    """One Algorithm 2 chunk sweep → (cost' (k,), parts (C,)), int32:
+    ``refine_scan`` over one chunk and one sweep (the same kernel)."""
     dev = tile_words.device
     _check("tile_words", tile_words, torch.int32, 2, dev)
     _check("prev", prev, torch.int32, 1, dev)
-    _check("cost", cost, torch.int32, 1, dev)
     k, cw = tile_words.shape
-    if not 1 <= k <= REFINE_MAX_K or cw < 1:
-        raise ValueError(f"refine_sweep takes 1 <= k <= {REFINE_MAX_K} and "
-                         f"cw >= 1, got k={k}, cw={cw}")
-    if prev.shape[0] != 32 * cw or cost.shape[0] != k:
+    if prev.shape[0] != 32 * cw:
         raise ValueError(f"prev must have {32 * cw} entries and cost {k}")
-    if not _on_cuda(dev):
-        return refine_sweep_ref(tile_words, prev, cost)
-    parts = torch.empty(32 * cw, dtype=torch.int32, device=dev)
-    cost_out = torch.empty(k, dtype=torch.int32, device=dev)
-    _launch("refine_sweep", _ptr(tile_words), _ptr(prev), _ptr(cost), k, cw,
-            _ptr(parts), _ptr(cost_out))
-    return cost_out, parts
+    cost_out, parts = refine_scan(tile_words[None], prev[None], cost, 1)
+    return cost_out, parts[0]
 
 
 def packed_union_delta(new: torch.Tensor, old: torch.Tensor

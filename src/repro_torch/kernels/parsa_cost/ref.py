@@ -1,7 +1,7 @@
 r"""Plain PyTorch versions of the parsa_cost / parsa_select / sketch_select /
-refine-sweep / union-delta kernels: the CPU path of every wrapper in
-``ops.py`` and the yardstick each CUDA kernel is held to, bit for bit, on
-the card.
+parsa_scan / refine-sweep / union-delta kernels: the CPU path of every
+wrapper in ``ops.py`` and the yardstick each CUDA kernel is held to, bit
+for bit, on the card.
 
     cost[u, i] = |N(u) \ S_i| = Σ_w popcount(nbr[u, w] & ~s[i, w])
 
@@ -22,8 +22,10 @@ import torch
 __all__ = ["BIG", "popcount32", "parsa_cost_ref", "select_from_cost",
            "select_greedy_from_cost", "parsa_select_ref",
            "parsa_select_greedy_ref", "sketch_select_ref",
-           "sketch_select_rows_ref", "compact_rows", "refine_sweep_ref",
-           "packed_union_delta_ref", "merge_worker_sets_ref", "unpack_bits"]
+           "sketch_select_rows_ref", "compact_rows", "rebuild_block",
+           "parsa_scan_ref",
+           "refine_sweep_ref", "refine_scan_ref", "packed_union_delta_ref",
+           "merge_worker_sets_ref", "unpack_bits"]
 
 BIG = 2**30  # sentinel cost for retired / padded vertices (fits int32)
 
@@ -167,6 +169,79 @@ def sketch_select_rows_ref(nbr_masks, widx, vals, trunc, s_masks, retired,
     return u[None, :], c[None, :]
 
 
+def rebuild_block(widx: torch.Tensor, vals: torch.Tensor,
+                  tr_ids: torch.Tensor, tr_masks: torch.Tensor) -> torch.Tensor:
+    """Densify a block's bitmask from its compact word lists into a
+    (B + 1, W) buffer whose last row is an all-zero sink.
+
+    A scatter-add: padding slots add 0 into word 0, and a row's real words
+    are distinct, so add equals OR.  Truncated rows are then overwritten
+    with their full masks; padding entries (``tr_ids == B``) land in the
+    sink, which is zeroed last.  The first B rows are a contiguous view.
+    """
+    B, cap = widx.shape
+    W = tr_masks.shape[-1]
+    nbr = torch.zeros((B + 1, W), dtype=torch.int32, device=widx.device)
+    rows = torch.arange(B, device=widx.device, dtype=torch.int64)[:, None] * W
+    nbr.view(-1).index_add_(0, (rows + widx).view(-1), vals.reshape(-1))
+    nbr[tr_ids.long()] = tr_masks
+    nbr[B] = 0
+    return nbr
+
+
+def parsa_scan_ref(
+    widx: torch.Tensor,      # (nw, nb, B, cap) int32 compact word indices
+    vals: torch.Tensor,      # (nw, nb, B, cap) int32 words at widx
+    tr_ids: torch.Tensor,    # (nw, nb, TB) int32 truncated rows, B = none
+    tr_masks: torch.Tensor,  # (nw, nb, TB, W) int32 their full masks
+    valid: torch.Tensor,     # (nw, nb, B) bool, False for padding rows
+    s_masks: torch.Tensor,   # (nw, k, W) int32 — updated in place
+    sizes: torch.Tensor,     # (nw, k) int32 — updated in place
+    parts: torch.Tensor,     # (nw, nb, B) int32 — written in place
+    b0: int = 0,
+    nblk: int | None = None,
+) -> None:
+    """The plain version of the ``parsa_scan`` kernel: worker w scans its
+    blocks ``[b0, b0 + nblk)`` in order against its own ``s_masks[w]``
+    and ``sizes[w]``, each block in 1 + ⌈(B−1)/k⌉ greedy rounds (JAX
+    ``_assign_block_rounds``): the catch-up round visits the partitions in
+    the stable argsort of the sizes, only those at the minimum size
+    enabled, slot j picking for partition ``order[j]``; then full rounds
+    in index order.  A round is the dense cost tile and the sequential
+    greedy select, and each active slot commits S |= N(u), sizes + 1,
+    ``parts[w, b, u]`` and u's retirement.  Rows the scan never picks keep
+    their value in ``parts``."""
+    nw, nb, B = valid.shape
+    k = s_masks.shape[1]
+    dev = s_masks.device
+    if nblk is None:
+        nblk = nb - b0
+    iota_k = torch.arange(k, dtype=torch.int32, device=dev)
+    en_all = torch.ones(k, dtype=torch.bool, device=dev)
+    for w in range(nw):
+        s, sz = s_masks[w], sizes[w]
+        for b in range(b0, b0 + nblk):
+            if not bool(valid[w, b].any()):
+                continue   # padding rows only: every round picks nothing
+            nbr = rebuild_block(widx[w, b], vals[w, b], tr_ids[w, b],
+                                tr_masks[w, b])[:B]
+            retired = ~valid[w, b]
+            for r in range(1 + -(-(B - 1) // k)):
+                if r == 0:
+                    order = torch.argsort(sz, stable=True).to(torch.int32)
+                    enabled = sz[order.long()] == sz.min()
+                else:
+                    order, enabled = iota_k, en_all
+                u, _ = select_greedy_from_cost(parsa_cost_ref(nbr, s),
+                                               retired, order, enabled)
+                act = u >= 0
+                rows, to = u[act].long(), order[act].long()
+                s[to] |= nbr[rows]     # the active slots' partitions differ
+                sz[to] += 1
+                parts[w, b, rows] = to.to(torch.int32)
+                retired[rows] = True
+
+
 def refine_sweep_ref(
     tile_words: torch.Tensor,  # (k, cw) int32 — packed need bits of one V chunk
     prev: torch.Tensor,        # (C,) int32 — assignments entering the sweep (C = 32·cw)
@@ -196,6 +271,22 @@ def refine_sweep_ref(
                      torch.where(act, nj - 2, 0).to(torch.int32))
         parts[j:j + 1] = torch.where(act, xi, -1)
     return c, parts
+
+
+def refine_scan_ref(
+    words: torch.Tensor,  # (n_chunks, k, cw) int32 need words per chunk
+    prev: torch.Tensor,   # (n_chunks, C) int32 entering assignments
+    cost: torch.Tensor,   # (k,) int32 Alg 2 cost vector at entry
+    sweeps: int = 1,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """All ``sweeps`` × chunks of Algorithm 2 in order, each chunk a
+    ``refine_sweep_ref``; sweep s + 1 enters with the parts sweep s wrote.
+    Returns (cost' (k,), parts (n_chunks, C)), int32."""
+    parts = prev.clone()
+    for _ in range(sweeps):
+        for c in range(words.shape[0]):
+            cost, parts[c] = refine_sweep_ref(words[c], parts[c], cost)
+    return cost, parts
 
 
 def packed_union_delta_ref(new: torch.Tensor, old: torch.Tensor

@@ -19,8 +19,8 @@ Attention routes:
     against a cache whose unwritten slots are pushed to position 2**30,
     stays on the plain routes, as it stays in XLA in the reference.
 Not ported yet: the SWA ring buffer cache, MLA and cross-attention
-(``ROADMAP.md`` Queue 1 item 10), and ``context_parallel`` (there is no
-mesh on one card).
+(``ROADMAP.md`` Queue 1, the other model families), and
+``context_parallel`` (there is no mesh on one card).
 """
 from __future__ import annotations
 

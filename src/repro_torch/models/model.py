@@ -13,7 +13,8 @@ Parameters are a dict: ``embed`` (V, D), ``final_norm``, ``lm_head`` (D, V)
 unless the embeddings are tied, and ``stack``, a list of per-layer dicts
 (``transformer.init_layer``).  Matrices live in the compute dtype on the
 model's device, vectors in float32.  ``loss_fn`` comes with training, and
-the other families with their slices (``ROADMAP.md`` Queue 1 item 10).
+the other families with their slices (``ROADMAP.md`` Queue 1, the other
+model families).
 """
 from __future__ import annotations
 
@@ -86,7 +87,7 @@ class Model:
     def init_cache(self, batch: int, cache_seq: int):
         """{"k", "v"}: (L, B, cache_seq, KV, dh) zeros in the compute dtype.
         The reference's SWA ring buffer (``ring=True``) is not ported yet
-        (``ROADMAP.md`` Queue 1 item 10)."""
+        (``ROADMAP.md`` Queue 1, the other model families)."""
         return TR.init_kv_caches(self.cfg, batch, cache_seq,
                                  torch.device(self.device),
                                  dtype=compute_dtype(self.cfg))
@@ -133,8 +134,8 @@ def build_model(cfg: ModelConfig, device="cuda") -> Model:
     if cfg.family != "dense":
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet; the port "
-            "builds the dense family (ROADMAP.md Queue 1 item 10 lists the "
-            "rest in order)")
+            "builds the dense family (ROADMAP.md Queue 1, the other model "
+            "families, lists the rest in order)")
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(

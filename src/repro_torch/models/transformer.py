@@ -6,7 +6,7 @@ loop over a list of per-layer parameter dicts takes the place of
 serves; training comes with a later slice).  Caches keep the reference's
 stacked layout, {"k", "v"}: (L, B, Smax, KV, dh), and each layer writes
 its slice in place.  MoE, MLA, cross-attention and the recurrent stacks
-are not ported yet (``ROADMAP.md`` Queue 1 item 10).
+are not ported yet (``ROADMAP.md`` Queue 1, the other model families).
 """
 from __future__ import annotations
 

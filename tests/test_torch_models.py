@@ -51,7 +51,8 @@ def test_port_registry_holds_the_dense_configs_field_for_field():
 def test_build_model_refuses_other_families():
     moe = dataclasses.replace(get_config("qwen3-14b").reduced(),
                               family="moe", num_experts=4)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+    with pytest.raises(NotImplementedError,
+                       match="Queue 1, the other model families"):
         build_model(moe, "cpu")
 
 

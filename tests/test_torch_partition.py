@@ -15,11 +15,11 @@ from repro.graphs import text_like as j_text_like
 from repro_torch.convert import graph_from_numpy
 from repro_torch.core.dispatch import dispatch_counter
 from repro_torch.core.partition import (
-    _rebuild_nbr,
     blocked_partition_u_hostloop_impl,
     blocked_partition_u_impl,
     pack_graph_blocks,
 )
+from repro_torch.kernels.parsa_cost import rebuild_block
 
 
 def _port(g):
@@ -116,7 +116,7 @@ def test_pack_graph_blocks_and_rebuild_match_jax():
     for b in range(want.valid.shape[0]):
         nbr_j = np.asarray(j_rebuild_nbr(*(jnp.asarray(x[b]) for x in (
             want.widx, want.vals, want.tr_ids, want.tr_masks))))
-        nbr_t = _rebuild_nbr(*(torch.from_numpy(x[b]) for x in (
+        nbr_t = rebuild_block(*(torch.from_numpy(x[b]) for x in (
             got.widx, got.vals, got.tr_ids, got.tr_masks)))
         assert np.array_equal(nbr_t[:256].numpy(), nbr_j)
         assert not nbr_t[256].any()   # the sink row stays zero

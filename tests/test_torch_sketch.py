@@ -200,16 +200,19 @@ def test_sketch_cost_select_matches_jax(B, k, greedy):
 
 def test_sketch_select_guard_is_a_shape_function():
     """The route past the guard depends on (B, k) alone: both geometries of
-    the sketched scan fit one CTA's shared memory, a 256 KiB tile does
-    not, and B stays within the epilogue's per-thread bitmask."""
-    assert ops.SKETCH_SELECT_MAX_TILE_BYTES == 227 * 1024 - 1024
-    assert ops.sketch_select_fits(256, 16)      # 16 KiB
-    assert ops.sketch_select_fits(1024, 16)     # 64 KiB
+    the sketched scan fit one CTA's shared memory (the tile, 8 candidates a
+    greedy slot and B taken flags), a 256 KiB tile does not, and B stays
+    within the epilogue's per-thread bitmask."""
+    assert ops.SKETCH_SELECT_MAX_SMEM_BYTES == 227 * 1024
+    assert ops.sketch_smem_bytes(256, 16) == 16 * 1024 + 512 + 256
+    assert ops.sketch_select_fits(256, 16)      # 16 KiB tile
+    assert ops.sketch_select_fits(1024, 16)     # 64 KiB tile
     assert ops.sketch_select_fits(256, 64)
-    assert not ops.sketch_select_fits(1024, 64)  # 256 KiB
-    rows = ops.SKETCH_SELECT_MAX_TILE_BYTES // (4 * 2)  # largest B at k=2
-    assert ops.sketch_select_fits(rows, 2)
-    assert not ops.sketch_select_fits(rows + 1, 2)
+    assert ops.sketch_select_fits(1024, 56)     # 224 KiB tile: 232,192 bytes
+    assert not ops.sketch_select_fits(1024, 64)  # 256 KiB tile
+    # largest B at k=2: 4 * (2 B + 4) + B bytes, rounded up to 16
+    assert ops.sketch_select_fits(25_825, 2)
+    assert not ops.sketch_select_fits(25_826, 2)
     assert not ops.sketch_select_fits(ops.SELECT_MAX_B + 8, 1)
 
 

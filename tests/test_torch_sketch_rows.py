@@ -4,7 +4,7 @@ rows truncated past ``cap`` read from the dense block.  Its plain version
 ``sketch_select_rows_ref`` and the wrapper's ``rows=`` path are held to
 the dense plain version ``sketch_select_ref`` and to the JAX
 ``sketch_cost_select``, bit for bit (tolerance 0: the program is
-integer); the scans pass their lists through, and the sketched
+integer); the scans pass their lists to ``parsa_scan``, and the sketched
 ``partition()`` still equals JAX."""
 import jax.numpy as jnp
 import numpy as np
@@ -164,27 +164,29 @@ def test_rows_are_checked():
 
 
 def _spy(monkeypatch):
-    """Record, for every select of the sketched scan, that it was given
-    the block's lists and that they give the dense route's bits."""
+    """Record, for every ``parsa_scan`` call of the sketched scans, that it
+    was given the packed block stack's compact lists (not a dense block)
+    and which blocks it scanned."""
     calls = []
-    real = tp.sketch_cost_select
+    real = tp.parsa_scan
 
-    def spy(nbr, s, retired, *, order=None, enabled=None, rows=None):
-        got = real(nbr, s, retired, order=order, enabled=enabled, rows=rows)
-        dense = real(nbr, s, retired, order=order, enabled=enabled)
-        calls.append(rows is not None and all(
-            torch.equal(a, b) for a, b in zip(got, dense)))
-        return got
+    def spy(widx, vals, tr_ids, tr_masks, valid, s, sizes, parts, *, b0=0,
+            nblk=None, tr_lists=None):
+        calls.append((widx.dim() == 4 and vals.shape == widx.shape
+                      and tr_masks.shape[-1] == s.shape[-1], b0, nblk))
+        return real(widx, vals, tr_ids, tr_masks, valid, s, sizes, parts,
+                    b0=b0, nblk=nblk, tr_lists=tr_lists)
 
-    monkeypatch.setattr(tp, "sketch_cost_select", spy)
+    monkeypatch.setattr(tp, "parsa_scan", spy)
     return calls
 
 
 @pytest.mark.parametrize("backend", ["device_scan", "parallel_device"])
 def test_sketched_scans_pass_their_lists_and_match_jax(monkeypatch, backend):
-    """Both scans hand every round its block's lists; the sketched
-    partition equals JAX's (one worker of parallel_device is device_scan
-    bit for bit)."""
+    """Both scans hand ``parsa_scan`` the block stack's lists: one call
+    over every block for device_scan, one a super-step for
+    parallel_device; the sketched partition equals JAX's (one worker of
+    parallel_device is device_scan bit for bit)."""
     g = j_ctr_like(num_impressions=900, num_features=5000, nnz_per_row=60,
                    seed=3)
     base = dict(k=8, block_size=128, refine_backend="device", sweeps=2,
@@ -198,8 +200,10 @@ def test_sketched_scans_pass_their_lists_and_match_jax(monkeypatch, backend):
                     ParsaConfig(backend=backend, **base, **extra),
                     device="cpu")
     n_blocks = -(-g.num_u // 128)
-    assert len(calls) == n_blocks * (1 + -(-(128 - 1) // 8))
-    assert all(calls)
+    if backend == "device_scan":
+        assert calls == [(True, 0, n_blocks)]
+    else:
+        assert calls == [(True, b, 2) for b in range(0, n_blocks, 2)]
     for f in ("parts_u", "s_masks", "parts_v"):
         assert np.array_equal(getattr(got, f), getattr(want, f)), f
 
