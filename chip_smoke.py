@@ -12,7 +12,12 @@ Phases, in order; any failure exits non-zero:
 
 1. the card (``nvidia-smi`` name and power limit) and the kernel build;
 2. each kernel against its plain version on the card, bit for bit, across
-   shape sweeps (tolerance: 0, the program is integer; sketch_select on
+   shape sweeps (tolerance: 0, the program is integer; the cost tile of
+   parsa_cost and parsa_select_tile at K of 1 to 1,024, W of 1 to 2,048, U
+   not a multiple of a CTA's rows, all-zero and all-ones rows, the K = 1
+   down-date against its almost all-ones complement mask; the merge of a
+   super-step at 1, 2, 4 and 8 workers with odd k * W, its union, count,
+   merged sizes and every worker's written-back copy; sketch_select on
    row lists it builds and on lists passed in; parsa_scan's parts, sets and
    sizes at 64, 2,048 and 4,096 words, B of 8, 40 and 128, k of 1, 3 and
    16, 1, 4 and 8 workers, with truncated rows, padding blocks, bit-31
@@ -22,7 +27,7 @@ Phases, in order; any failure exits non-zero:
    float tolerances (float32 3e-5 with TF32 off, bfloat16 2e-2), across
    dtypes, GQA and MHA, masks, Sq < Skv, ragged lengths, head dims, the
    tensor-core route's 128-row and 128-key tile edges and the prefill's
-   full-width shape; what ``-Xptxas -v`` says of the two kernels
+   full-width shape; what ``-Xptxas -v`` says of the kernels
    redesigned for Hopper (registers, shared memory, spills), and HGMMA and
    UTMALDG instructions in the flash library's SASS (``cuobjdump``), and
    parsa_scan's global loads (S only by strong loads);
@@ -61,20 +66,27 @@ Phases, in order; any failure exits non-zero:
    tokens) bit-identical to ``decode_loop``, teacher forcing, cpu against
    cuda on the reduced config, peak device memory and a profile window of
    one prefill and one decode step;
-8. each kernel timed at the main path's shapes (CUDA events, median of 21
-   samples after warm-up; ``ms`` from launches replayed in a CUDA graph,
-   ``eager_ms`` from launches made one by one from Python) beside its bound
-   and its plain version (``parsa_scan`` over the main path's whole scan,
+8. each kernel timed at the shapes its path launches (CUDA events, median
+   of 21 samples after warm-up; ``ms`` from launches replayed in a CUDA
+   graph, ``eager_ms`` from launches made one by one from Python) beside
+   its bound, its plain version and its launches on the path
+   (``parsa_cost`` at B=256, W=2,048 for K=1, host_blocked_oracle's
+   down-date against a real block's complement mask, 100,000 of its
+   100,391 launches, and for K=16, its block tile; ``parsa_select_tile``
+   at the per-round route's B=1,024, k=64 and at the main shape; the merge
+   of a super-step at the parallel path's 8 workers and at one worker;
+   ``parsa_scan`` over the main path's whole scan,
    one launch, its plain version once, and its time a round;
    ``refine_sweep`` at one chunk and sweep and over the main path's whole
    refine, with its chain of dependent steps; ``sketch_select`` on the
    scan's row lists at the sketch path's shape and at the main path's,
    beside the bound of those compact inputs and the dense contract's,
-   ``packed_union_delta`` at the parallel path's merge, ``flash_attention``
-   at the prefill's shape beside ``scaled_dot_product_attention``), then
-   the main, the sketched and the parallel scan and the whole refine under
-   ``torch.profiler``: device time per round and the device's idle share;
-   and the sketched scan's first blocks against ``parsa_scan_ref``.
+   ``flash_attention`` at the prefill's shape beside
+   ``scaled_dot_product_attention``), then the main, the sketched and the
+   parallel scan and the whole refine under ``torch.profiler``: device
+   time per round, the device's idle share, and a parallel super-step's
+   kernels (one parsa_scan and one merge, no PyTorch kernel); and the
+   sketched scan's first blocks against ``parsa_scan_ref``.
 
 ``--phases build,kernels,sketch``, ``--phases build,kernels,parallel`` and
 ``--phases build,kernels,lm`` are short checks of one path (they print no
@@ -328,13 +340,52 @@ def phase_kernels(dev) -> dict:
             out = got if out is None else out
         return out
 
-    for U in (7, 256, 1000):
-        for Kc in (3, 16, 64):
-            for W in (2, 33, 2048):
-                nbr, s = T(rand_words(rng, (U, W))), T(rand_words(rng, (Kc, W)))
-                got = ops.parsa_cost(nbr, s)
-                compare("parsa_cost", [got], [parsa_cost_ref(nbr, s)],
-                        (U, Kc, W))
+    # the cost tile: U of 7, 256, 259 and 1,001 (259 and 1,001 not a
+    # multiple of the 2, 4 or 8 rows a CTA takes), K of 1 to 1,024, and for
+    # parsa_cost 1,025 and 2,100 below (K of 1,024 and more only at small U:
+    # the plain version's (U, K, W) intermediate), W of 1 to 2,048 (16-byte
+    # loads at W % 4 == 0, 4-byte loads else); full-range words and sparse
+    # rows, each block with an all-zero and an all-ones row; the K = 1
+    # down-date of host_blocked_oracle against its complement mask ~(N(u) &
+    # ~S_i) (almost all ones); parsa_select_tile on the same inputs (the
+    # transposed store); and a block 4 bytes off 16-byte alignment
+    res["parsa_cost"]["down_dates"] = 0
+    for W in (1, 2, 33, 2047, 2048):
+        for U, Ks in ((7, (1, 3, 16, 17, 64, 1024)), (256, (1, 16, 17, 64)),
+                      (259, (1024,)), (1001, (1, 3, 17, 64))):
+            for kind in ("full", "sparse"):
+                nbr = (rand_words(rng, (U, W)) if kind == "full"
+                       else sparse_rows(rng, U, 32 * W,
+                                        max_len=min(60, 32 * W)))
+                nbr[0], nbr[-1] = 0, -1
+                nbr = T(nbr)
+                for Kc in Ks:
+                    s = T(rand_words(rng, (Kc, W), 0.3))
+                    want = parsa_cost_ref(nbr, s)
+                    compare("parsa_cost", [ops.parsa_cost(nbr, s)], [want],
+                            (U, Kc, W, kind))
+                    compare("parsa_select_tile",
+                            [ops.parsa_select_tile(nbr, s)],
+                            [want.T.contiguous()], (U, Kc, W, kind))
+                comp = ~(nbr[U // 2: U // 2 + 1] & ~s[:1])
+                compare("parsa_cost", [ops.parsa_cost(nbr, comp)],
+                        [parsa_cost_ref(nbr, comp)], (U, 1, W, kind, "down"))
+                res["parsa_cost"]["down_dates"] += 1
+    off = torch.empty(256 * 2048 + 1, dtype=torch.int32, device=dev)
+    shifted = off[1:].view(256, 2048)
+    shifted.copy_(nbr[:256, :2048])
+    compare("parsa_cost", [ops.parsa_cost(shifted, s)],
+            [parsa_cost_ref(shifted, s)], (256, s.shape[0], 2048, "offset"))
+    # K past 1,024 (parsa_cost only): the tile reads a row again for each
+    # further group of 1,024 partitions
+    for U, Kc, W, kind in ((7, 2100, 33, "full"), (131, 2100, 2048, "sparse"),
+                           (33, 1025, 2047, "full")):
+        nbr = (rand_words(rng, (U, W)) if kind == "full"
+               else sparse_rows(rng, U, 32 * W, max_len=60))
+        nbr[0], nbr[-1] = 0, -1
+        nbr, s = T(nbr), T(rand_words(rng, (Kc, W), 0.3))
+        compare("parsa_cost", [ops.parsa_cost(nbr, s)],
+                [parsa_cost_ref(nbr, s)], (U, Kc, W, kind, "groups"))
     torch.cuda.synchronize()
 
     W = 2048
@@ -524,16 +575,33 @@ def phase_kernels(dev) -> dict:
             n_t, o_t = T(new), T(old)
             compare("packed_union_delta", ops.packed_union_delta(n_t, o_t),
                     packed_union_delta_ref(n_t, o_t), (k, W))
-    for n in (1, 4, 8):
-        for k, W in ((1, 1), (3, 37), (16, 2048), (16, 2049), (8, 1000)):
+    # the merge of a super-step: union, count, merged sizes and every
+    # worker's written-back sets and sizes against merge_worker_sets_ref,
+    # at odd k * W (4-byte loads) and at the acceptance shape (n = 8, k =
+    # 16, W = 2,048), and once on copies 4 bytes off 16-byte alignment
+    for n in (1, 2, 4, 8):
+        for k, W, offset in ((1, 1, 0), (3, 37, 0), (5, 2047, 0),
+                             (16, 2048, 0), (16, 2049, 0), (8, 1000, 0),
+                             (16, 2048, 1)):
             old = rand_words(rng, (k, W), 0.3)
+            old[:, 0] |= np.int32(-2**31)
             local = old | rand_words(rng, (n, k, W), 0.02)
-            l_t, o_t = T(local), T(old)
+            sz_old = rng.integers(0, 2**31 - 64, k).astype(np.int32)
+            sz_loc = sz_old + rng.integers(0, 40, (n, k)).astype(np.int32)
+            l_t, o_t, z_t, zo_t = T(local), T(old), T(sz_loc), T(sz_old)
+            if offset:
+                buf = torch.empty(l_t.numel() + 1, dtype=torch.int32,
+                                  device=dev)
+                l_t = buf[1:].view(l_t.shape).copy_(l_t)
+            l_ref, z_ref = l_t.clone(), z_t.clone()
             pushed = torch.full((1,), 5, dtype=torch.int64, device=dev)
-            merged = ops.merge_worker_sets(l_t, o_t, pushed)
-            want, n_words = merge_worker_sets_ref(l_t, o_t)
-            compare("packed_union_delta", [merged, pushed - 5],
-                    [want, n_words.view(1)], ("merge", n, k, W))
+            merged, sizes = ops.merge_worker_sets(l_t, o_t, z_t, zo_t, pushed)
+            want, want_sz, n_words = merge_worker_sets_ref(l_ref, o_t, z_ref,
+                                                           zo_t)
+            compare("packed_union_delta",
+                    [merged, sizes, pushed - 5, l_t, z_t],
+                    [want, want_sz, n_words.view(1), l_ref, z_ref],
+                    ("merge", n, k, W, offset))
     torch.cuda.synchronize()
     res["flash_attention"] = check_flash(dev)
     return res
@@ -633,7 +701,8 @@ def kernel_resources(libs: dict) -> dict:
     loads parsa_scan's SASS holds, by ``cuobjdump -sass``.  The dynamic
     shared memory is the kernels' own: 160 KB + 1 KB a CTA for
     flash_wgmma at D=128, B * k * 4 bytes for sketch_select,
-    ``ops.scan_smem_bytes`` for parsa_scan."""
+    ``ops.scan_smem_bytes`` for parsa_scan, rows * ((k | 1) * 4 + 2,048)
+    bytes for cost_tile_kernel (2, 4 or 8 rows)."""
     import re
     import shutil
 
@@ -649,7 +718,9 @@ def kernel_resources(libs: dict) -> dict:
     for lib, kern in (("flash_attention", "flash_wgmma"),
                       ("sketch_select", "sketch_select_kernel"),
                       ("parsa_scan", "parsa_scan_kernel"),
-                      ("refine_sweep", "refine_sweep_kernel")):
+                      ("refine_sweep", "refine_sweep_kernel"),
+                      ("parsa_cost", "cost_tile_kernel"),
+                      ("union_delta", "union_delta_kernel")):
         entries, cur, notes = [], None, []
         if lib not in logs:  # built by an earlier process
             res = subprocess.run([tool, "--dump-resource-usage",
@@ -837,7 +908,7 @@ def per_round_route(dev, g) -> dict:
               f"per-round {name}: launches {launches}, want {want}")
         hold_to_oracles(g, res, k, f"per-round {name}")
         out[name] = {"launches": launches, "rounds": rounds,
-                     "timings": res.timings}
+                     "timings": res.timings, "s_masks": res.s_masks}
         log(f"per-round route {name}, B={PER_ROUND_BLOCK}: launches "
             f"{launches}; oracles agree; timings (s) "
             f"{json.dumps(res.timings)} ({time.perf_counter() - t0:.2f} s)")
@@ -1459,6 +1530,7 @@ def profile_window(fn) -> dict:
     out.update(busy_s=busy, idle_share=1 - busy / wall,
                port_kernels_mean_us={n: statistics.mean(v)
                                      for n, v in ours.items()},
+               port_kernels_count={n: len(v) for n, v in ours.items()},
                top=collections.Counter(e.name[:60] for e in kern)
                .most_common(8))
     return out
@@ -1546,10 +1618,13 @@ def phase_times(dev, main: dict) -> list[dict]:
     prev = T(res.parts_v[: 32 * cw].astype(np.int32))
     cost = popcount32(s).sum(dim=1, dtype=torch.int32)
 
-    nz_words = int((nbr != 0).sum())
-    nz_cols = int((nbr != 0).any(0).sum())
-    tile_bytes = 4 * (B * W + K * nz_cols + K * B)
-    tile_ops = 3 * nz_words * K
+    def tile_work(nb_, k):
+        """Bytes and operations of a (U, k) cost tile of ``nb_``: the block's
+        words, the partition words under its nonzero columns and the
+        output; 3 operations a (nonzero word, partition) pair."""
+        nzm = nb_ != 0
+        return (4 * (nb_.numel() + k * int(nzm.any(0).sum())
+                     + k * nb_.shape[0]), 3 * int(nzm.sum()) * k)
 
     def measure(kern, plain, inner, plain_inner, nbytes, nops) -> dict:
         saved = dict(ops.LAUNCHES)
@@ -1576,32 +1651,74 @@ def phase_times(dev, main: dict) -> list[dict]:
                 "cases": main["checks"][name]["cases"], **extra,
                 "library_ms": None}
 
+    def at_shapes(name, shapes) -> dict:
+        """Time ``name`` at each of its path's shapes: (label, launches on
+        the path, kernel call, plain call, inner, plain inner, bytes,
+        operations).  The first shape is the row's own."""
+        out = {}
+        for (label, n_path, kern, plain, inner, plain_inner, nbytes,
+             nops) in shapes:
+            t = measure(kern, plain, inner, plain_inner, nbytes, nops)
+            t.update(launches=n_path, bound_bytes=nbytes, bound_ops=nops)
+            log_time(name, t, f" ({label}; {n_path} launches on its path)")
+            out[label] = t
+        return out
+
+    def as_row(name, launches, path, shapes):
+        first = next(iter(shapes.values()))
+        top = {key: first[key] for key in ("ms", "eager_ms", "plain_ms",
+                                           "bound_ms", "bound_by")}
+        return row(name, launches, path, shape=next(iter(shapes)), **top,
+                   shapes=shapes)
+
     rows = []
     launches = main["launches"]
     per_round = main["per_round"]
     pr_exact, pr_sketch = (per_round["exact k=64"],
                            per_round["sketch collapse k=56"])
-    specs = [
-        ("parsa_cost", lambda: ops.parsa_cost(nbr, s),
-         lambda: parsa_cost_ref(nbr, s), 100, 5, tile_bytes, tile_ops,
-         launches["parsa_cost"], "host_blocked_oracle, main graph"),
-        ("parsa_select_tile", lambda: ops.parsa_select_tile(nbr, s),
-         lambda: parsa_cost_ref(nbr, s).T.contiguous(), 100, 5,
-         tile_bytes, tile_ops, pr_exact["launches"]["parsa_select_tile"],
-         f"per-round route, device_scan k=64 B={PER_ROUND_BLOCK}, main "
-         "graph"),
-        ("parsa_select_reduce",
-         lambda: ops.parsa_select_reduce(tile, retired, order_k, enabled),
-         lambda: select_greedy_from_cost(tile.T, retired, order_k, enabled),
-         100, 2, 4 * K * B + B + 4 * K + K + 8 * K, 2 * K * B,
-         pr_exact["launches"]["parsa_select_reduce"],
-         f"per-round route, device_scan k=64 B={PER_ROUND_BLOCK}, main "
-         "graph"),
-    ]
-    for name, kern, plain, inner, plain_inner, nbytes, nops, n, path in specs:
-        t = measure(kern, plain, inner, plain_inner, nbytes, nops)
-        rows.append(row(name, n, path, shape=f"B={B}, W={W}, k={K}", **t))
-        log_time(name, t, f" (B={B}, W={W}, k={K})")
+    n_blocks = -(-g.num_u // BLOCK)
+    # parsa_cost on host_blocked_oracle: one K = k tile a block and one
+    # K = 1 down-date a vertex (100,000 of its 100,391 launches), against
+    # the complement ~(N(u) & ~S_i) of row 0 and partition 0
+    comp = ~(nbr[:1] & ~s[:1])
+    rows.append(as_row(
+        "parsa_cost", launches["parsa_cost"],
+        "host_blocked_oracle, main graph", at_shapes("parsa_cost", [
+            (f"K=1 down-date, B={B}, W={W}", g.num_u,
+             lambda: ops.parsa_cost(nbr, comp),
+             lambda: parsa_cost_ref(nbr, comp), 100, 5, *tile_work(nbr, 1)),
+            (f"K={K} block tile, B={B}, W={W}", n_blocks,
+             lambda: ops.parsa_cost(nbr, s),
+             lambda: parsa_cost_ref(nbr, s), 100, 5, *tile_work(nbr, K))])))
+    # parsa_select_tile at the per-round route's shape (block 0 of the main
+    # graph packed at B = 1,024, against that route's final k = 64 sets)
+    # and at the main shape
+    nbr_pr = block0(pack_graph_blocks(g, PER_ROUND_BLOCK, order=order),
+                    PER_ROUND_BLOCK)
+    s_pr = T(pr_exact["s_masks"])
+    k_pr = s_pr.shape[0]
+    rows.append(as_row(
+        "parsa_select_tile", pr_exact["launches"]["parsa_select_tile"],
+        f"per-round route, device_scan k={k_pr} B={PER_ROUND_BLOCK}, main "
+        "graph", at_shapes("parsa_select_tile", [
+            (f"B={PER_ROUND_BLOCK}, W={W}, k={k_pr}",
+             pr_exact["launches"]["parsa_select_tile"],
+             lambda: ops.parsa_select_tile(nbr_pr, s_pr),
+             lambda: parsa_cost_ref(nbr_pr, s_pr).T.contiguous(), 50, 2,
+             *tile_work(nbr_pr, k_pr)),
+            (f"B={B}, W={W}, k={K}", 0,
+             lambda: ops.parsa_select_tile(nbr, s),
+             lambda: parsa_cost_ref(nbr, s).T.contiguous(), 100, 5,
+             *tile_work(nbr, K))])))
+    t = measure(
+        lambda: ops.parsa_select_reduce(tile, retired, order_k, enabled),
+        lambda: select_greedy_from_cost(tile.T, retired, order_k, enabled),
+        100, 2, 4 * K * B + B + 4 * K + K + 8 * K, 2 * K * B)
+    rows.append(row(
+        "parsa_select_reduce", pr_exact["launches"]["parsa_select_reduce"],
+        f"per-round route, device_scan k=64 B={PER_ROUND_BLOCK}, main "
+        "graph", shape=f"B={B}, W={W}, k={K}", **t))
+    log_time("parsa_select_reduce", t, f" (B={B}, W={W}, k={K})")
 
     # parsa_scan: the main path's whole scan, one launch, against its plain
     # version once, on the same inputs.  The bound counts what the scan
@@ -1757,23 +1874,41 @@ def phase_times(dev, main: dict) -> list[dict]:
         f"k=56 B={PER_ROUND_BLOCK}, main graph; 0 on the scan paths",
         **timed["acceptance"], at_main_shape=timed["main"]))
 
-    # packed_union_delta at the parallel path's merge: n = 8 workers'
-    # (k, W) sets against the pre-merge sets, with the pushed-word count
+    # the merge of a super-step at the parallel path's shape (n = 8 workers'
+    # (k, W) sets and sizes against the pre-merge ones) and at one worker's
+    # (n = 1, B = 256): the union, the pushed-word count, the sizes and the
+    # write-back into every worker's copy, which makes every call after the
+    # first see copies equal to the union (the same bytes).  The bound
+    # counts the n + 1 copies of the sets and sizes read and written, the
+    # union and the merged sizes written, and the count.
     par = main["parallel"]
     s_old = T(res.s_masks)
-    local = s_old | T(rand_words(np.random.default_rng(2), (PAR["workers"],)
-                                 + tuple(s_old.shape), 0.02))
-    pushed = torch.zeros(1, dtype=torch.int64, device=dev)
-    n, (k_, W_) = local.shape[0], s_old.shape
-    t = measure(lambda: ops.merge_worker_sets(local, s_old, pushed),
-                lambda: merge_worker_sets_ref(local, s_old), 100, 20,
-                4 * ((n + 1) * k_ * W_ + k_ * W_) + 8, 3 * n * k_ * W_)
-    rows.append(row(
+    sz_old = T(np.bincount(res.parts_u, minlength=K).astype(np.int32))
+    k_, W_ = s_old.shape
+    merge_shapes = []
+    for n, n_path, what in ((PAR["workers"], par["launches"][
+            "packed_union_delta"], "parallel_device W=8 B=128"),
+                            (1, par["w1_merges"],
+                             f"parallel_device W=1 B={BLOCK}")):
+        rng_m = np.random.default_rng(2 + n)
+        grow = T(rand_words(rng_m, (n, k_, W_), 0.02))
+        dsz = T(rng_m.integers(0, 20, (n, k_)).astype(np.int32))
+        def merge_this(local=s_old | grow, sz_loc=sz_old + dsz,
+                       pushed=torch.zeros(1, dtype=torch.int64, device=dev)):
+            return ops.merge_worker_sets(local, s_old, sz_loc, sz_old, pushed)
+
+        def merge_plain(local=s_old | grow, sz_loc=sz_old + dsz):
+            return merge_worker_sets_ref(local, s_old, sz_loc, sz_old)[:2]
+
+        nbytes = 4 * (2 * (n + 1) * k_ * W_ + 2 * (n + 1) * k_) + 8
+        merge_shapes.append((f"n={n}, k={k_}, W={W_} ({what})", n_path,
+                             merge_this, merge_plain, 100, 20, nbytes,
+                             3 * n * k_ * W_))
+    rows.append(as_row(
         "packed_union_delta", par["launches"]["packed_union_delta"],
         "parallel_device W=8 B=128 merge_every=12, main graph; "
-        f"{par['w1_merges']} at W=1 B=256",
-        shape=f"n={n}, k={k_}, W={W_}", **t))
-    log_time("packed_union_delta", t, f" (merge, n={n}, k={k_}, W={W_})")
+        f"{par['w1_merges']} at W=1 B={BLOCK}",
+        at_shapes("packed_union_delta", merge_shapes)))
 
     if "lm" in main:
         rows.append(time_flash(dev, main["lm"], main["checks"]))
@@ -1805,10 +1940,10 @@ def phase_times(dev, main: dict) -> list[dict]:
                   for x in (pk_p.widx, pk_p.vals, pk_p.tr_ids,
                             pk_p.tr_masks, pk_p.valid)]
 
-    def parallel_scan():
+    def parallel_scan(every=m):
         _parallel_scan(*par_blocks, torch.zeros((K, W), dtype=torch.int32,
                                                 device=dev),
-                       torch.zeros(K, dtype=torch.int32, device=dev), m)
+                       torch.zeros(K, dtype=torch.int32, device=dev), every)
 
     n_sk, _ = scan_schedule(packed_s.valid.sum(1).tolist(), SKETCH_BLOCK, K)
     # a worker's rounds, from equal sizes at every merge (an upper bound
@@ -1821,6 +1956,8 @@ def phase_times(dev, main: dict) -> list[dict]:
             ("scan", scan_kernel, n_run),
             ("sketched scan", sketch_scan, n_sk),
             ("parallel scan", parallel_scan, par_rounds),
+            ("parallel scan, one super-step",
+             lambda: parallel_scan(nb_per), par_rounds),
             ("refine", lambda: ops.refine_scan(words_all, prev_all, cost, 2),
              steps)):
         prof = profile_window(fn)
@@ -1829,6 +1966,26 @@ def phase_times(dev, main: dict) -> list[dict]:
         profiles[name] = prof
         log(f"profile {name} ({n_steps} rounds run, or dependent steps): "
             + json.dumps(prof))
+    # a super-step is one parsa_scan and one merge launch and no PyTorch
+    # kernel: the window of the scan's super-steps holds one of each a
+    # super-step, and fewer other device kernels than one a super-step
+    # beyond those of the same scan in one super-step (its set-up)
+    n_steps_par = nb_per // m
+    win, one = (profiles["parallel scan"],
+                profiles["parallel scan, one super-step"])
+    ours = win.get("port_kernels_count", {})
+    others = [p_["device_kernels"] - sum(p_.get("port_kernels_count",
+                                                {}).values())
+              for p_ in (win, one)]
+    check(ours == {"parsa_scan_kernel": n_steps_par,
+                   "union_delta_kernel": n_steps_par}
+          and others[0] - others[1] < n_steps_par - 1,
+          f"parallel scan window: port kernels {ours}, other device "
+          f"kernels {others[0]} ({n_steps_par} super-steps) vs {others[1]} "
+          f"(one): want {n_steps_par} parsa_scan and {n_steps_par} merges "
+          "and no PyTorch kernel a super-step")
+    log(f"parallel scan window: {ours}; other device kernels {others[0]} "
+        f"in {n_steps_par} super-steps, {others[1]} in one")
     check(np.array_equal(sk_state[0][0].cpu().numpy(), sk["result"].s_masks),
           "the profiled sketched scan's sets != the sketch path's")
     # the sketched scan's first SKETCH_REF_BLOCKS blocks (B=1,024, Ws=4,096:

@@ -30,9 +30,10 @@ The counterpart of ``repro.core.jax_partition`` (its kernel path):
    carried state, ``s_local`` (W, k, Wwords) and ``sz_local`` (W, k):
    within a super-step each worker scans its ``merge_every`` blocks against
    its own stale slice, all workers in ONE ``parsa_scan`` launch (a
-   cluster per worker), then one ``merge_worker_sets`` launch OR-merges
-   the sets and counts the pushed words on the device, and the sizes merge
-   as ``sz_global + Σ_w (sz_local[w] − sz_global)``.  The JAX
+   cluster per worker), then ONE ``merge_worker_sets`` launch OR-merges
+   the sets, counts the pushed words, merges the sizes as ``sz_global +
+   Σ_w (sz_local[w] − sz_global)`` and writes both back into every
+   worker's slice on the device.  The JAX
    ``shard_map`` + ``all_gather`` image of the same protocol gives the
    same bits.
 
@@ -481,13 +482,11 @@ def _parallel_scan(
         # parsa_scan launch, a cluster per worker
         _scan(widx, vals, tr_ids, tr_masks, valid, s_local, sz_local, parts,
               step * merge_every, merge_every, sketch, tr_lists)
-        # server union-push: OR-merge the sets (counting the pushed words)
-        # and add every worker's size delta onto the pre-merge totals
-        s_global = merge_worker_sets(s_local, s_global, pushed)
-        sz_global = sz_global + (sz_local - sz_global).sum(
-            dim=0, dtype=torch.int32)
-        s_local.copy_(s_global.expand_as(s_local))
-        sz_local.copy_(sz_global.expand_as(sz_local))
+        # server union-push, one launch: OR-merge the sets (counting the
+        # pushed words), add every worker's size delta onto the pre-merge
+        # totals, and write both back into every worker's copy
+        s_global, sz_global = merge_worker_sets(s_local, s_global, sz_local,
+                                                sz_global, pushed)
     return (parts.reshape(nw, n_super, merge_every, B), s_global,
             sz_global, pushed)
 

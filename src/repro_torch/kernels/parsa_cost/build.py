@@ -36,7 +36,8 @@ _ENTRIES = {
                     _I, _I, _I, _I, _I, _P)),
     "refine_sweep": ("refine_sweep",
                      (_P, _P, _P, _I, _I, _I, _I, _P, _P, _P)),
-    "packed_union_delta": ("union_delta", (_P, _P, _I, _L, _P, _P, _P, _P)),
+    "packed_union_delta": ("union_delta",
+                           (_P, _P, _I, _L, _P, _P, _P, _P, _P, _P, _I, _P)),
 }
 
 FAMILY = KernelFamily(CSRC, SOURCES, _ENTRIES)

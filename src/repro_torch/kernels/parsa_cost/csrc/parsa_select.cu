@@ -12,7 +12,10 @@
 //
 //   1. parsa_select_tile: a grid over rows writes the cost tile transposed,
 //      (k, B), to a scratch buffer that the wrapper allocates (4·B·k bytes,
-//      stays in the 50 MB L2).  Same tile code as parsa_cost.
+//      stays in the 50 MB L2).  Same tile code as parsa_cost
+//      (cost_tile.cuh): a warp a row, all k partitions in one gather pass,
+//      the CTA's 8 rows staged in shared memory and stored as runs of
+//      consecutive u.
 //   2. parsa_select_reduce: one CTA reduces it with the exact epilogue of
 //      select_epilogue.cuh (independent or greedy mode).
 //
@@ -39,7 +42,7 @@ __global__ void select_reduce_kernel(
 
 extern "C" int parsa_select_tile(const void* nbr, const void* s, int B,
                                  int K, int W, void* tile_t, void* stream) {
-  return parsa::launch_cost_tile(nbr, s, B, K, W, tile_t, 1, B, stream);
+  return parsa::launch_cost_tile(nbr, s, B, K, W, tile_t, 1, stream);
 }
 
 // The caller guarantees 1 <= B <= 32 * 1024.

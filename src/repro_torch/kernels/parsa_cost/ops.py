@@ -134,7 +134,9 @@ def _check_select(B: int, k: int, retired: torch.Tensor,
 
 
 def parsa_cost(nbr_masks: torch.Tensor, s_masks: torch.Tensor) -> torch.Tensor:
-    """cost[u, i] = |N(u) \\ S_i|: (U, W), (K, W) int32 words → (U, K) int32."""
+    """cost[u, i] = |N(u) \\ S_i|: (U, W), (K, W) int32 words → (U, K) int32,
+    for any K (past 1,024 partitions the kernel reads each row again for
+    every further 1,024)."""
     dev = nbr_masks.device
     _check("nbr_masks", nbr_masks, torch.int32, 2, dev)
     _check("s_masks", s_masks, torch.int32, 2, dev)
@@ -512,33 +514,48 @@ def packed_union_delta(new: torch.Tensor, old: torch.Tensor
     delta = torch.empty_like(new)
     if new.numel():
         _launch("packed_union_delta", _ptr(new), _ptr(old), 1, new.numel(),
-                _ptr(union), _ptr(delta), _ptr(None))
+                _ptr(union), _ptr(delta), _ptr(None), _ptr(None),
+                _ptr(None), _ptr(None), 0)
     return union, delta
 
 
 def merge_worker_sets(s_local: torch.Tensor, s_global: torch.Tensor,
-                      pushed: torch.Tensor) -> torch.Tensor:
-    """The server OR-merge of ``n`` workers: ``s_local`` (n, k, W) int32,
-    each worker's sets grown from ``s_global`` (k, W) int32, → the merged
-    (k, W) sets ``s_global | OR_w s_local[w]``.  Adds the number of
-    nonzero words of ``s_local[w] & ~s_global``, summed over w (the
+                      sz_local: torch.Tensor, sz_global: torch.Tensor,
+                      pushed: torch.Tensor
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The server merge of ``n`` workers at the end of a super-step:
+    ``s_local`` (n, k, W) and ``sz_local`` (n, k) int32, each worker's sets
+    and sizes grown from the pre-merge ``s_global`` (k, W) and ``sz_global``
+    (k,) int32, → (merged sets ``s_global | OR_w s_local[w]``, merged sizes
+    ``sz_global + Σ_w (sz_local[w] − sz_global)`` in int32), both new
+    tensors.  Writes them back into every worker's copy (``s_local[w]``,
+    ``sz_local[w]``) in place, and adds the number of nonzero words of
+    ``s_local[w] & ~s_global`` before the merge, summed over w (the
     delta-encoded push), into ``pushed``, a one-element int64 tensor on the
-    same device, in place.  One launch on CUDA; nothing reads back."""
+    same device.  ONE launch on CUDA; nothing reads back."""
     dev = s_global.device
     _check("s_local", s_local, torch.int32, 3, dev)
     _check("s_global", s_global, torch.int32, 2, dev)
+    _check("sz_local", sz_local, torch.int32, 2, dev)
+    _check("sz_global", sz_global, torch.int32, 1, dev)
     _check("pushed", pushed, torch.int64, 1, dev)
-    if s_local.shape[1:] != s_global.shape or pushed.shape != (1,):
+    n, k = s_local.shape[:2]
+    if (s_local.shape[1:] != s_global.shape or pushed.shape != (1,)
+            or sz_local.shape != (n, k) or sz_global.shape != (k,)):
         raise ValueError(f"s_local {tuple(s_local.shape)} must be (n, "
-                         f"*{tuple(s_global.shape)}) and pushed (1,), got "
-                         f"{tuple(pushed.shape)}")
+                         f"*{tuple(s_global.shape)}), sz_local "
+                         f"{tuple(sz_local.shape)} (n, k), sz_global "
+                         f"{tuple(sz_global.shape)} (k,) and pushed (1,), "
+                         f"got {tuple(pushed.shape)}")
     if not _on_cuda(dev):
-        merged, n_words = merge_worker_sets_ref(s_local, s_global)
+        merged, sizes, n_words = merge_worker_sets_ref(s_local, s_global,
+                                                       sz_local, sz_global)
         pushed += n_words
-        return merged
+        return merged, sizes
     merged = torch.empty_like(s_global)
-    if s_global.numel():
-        _launch("packed_union_delta", _ptr(s_local), _ptr(s_global),
-                s_local.shape[0], s_global.numel(), _ptr(merged), _ptr(None),
-                _ptr(pushed))
-    return merged
+    sizes = torch.empty_like(sz_global)
+    if k:
+        _launch("packed_union_delta", _ptr(s_local), _ptr(s_global), n,
+                s_global.numel(), _ptr(merged), _ptr(None), _ptr(pushed),
+                _ptr(sz_local), _ptr(sz_global), _ptr(sizes), k)
+    return merged, sizes

@@ -296,14 +296,21 @@ def packed_union_delta_ref(new: torch.Tensor, old: torch.Tensor
     return new | old, new & ~old
 
 
-def merge_worker_sets_ref(s_local: torch.Tensor, s_global: torch.Tensor
-                          ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The server OR-merge of ``n`` workers' sets: ``s_local`` (n, k, W)
-    against the pre-merge ``s_global`` (k, W) → (merged (k, W) =
-    s_global | OR_w s_local[w], pushed = Σ_w #nonzero words of
-    s_local[w] & ~s_global, an int64 scalar tensor)."""
+def merge_worker_sets_ref(s_local: torch.Tensor, s_global: torch.Tensor,
+                          sz_local: torch.Tensor, sz_global: torch.Tensor
+                          ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The server merge of ``n`` workers: ``s_local`` (n, k, W) and
+    ``sz_local`` (n, k), each worker's sets and sizes grown from the
+    pre-merge ``s_global`` (k, W) and ``sz_global`` (k,) → (merged (k, W) =
+    s_global | OR_w s_local[w], merged sizes (k,) = sz_global + Σ_w
+    (sz_local[w] − sz_global) in int32, pushed = Σ_w #nonzero words of
+    s_local[w] & ~s_global, an int64 scalar tensor).  Writes the merged
+    sets and sizes back into every worker's copy, in place."""
     merged = s_global.clone()
     for w in range(s_local.shape[0]):
         merged |= s_local[w]
     pushed = torch.count_nonzero(s_local & ~s_global).to(torch.int64)
-    return merged, pushed
+    sizes = sz_global + (sz_local - sz_global).sum(dim=0, dtype=torch.int32)
+    s_local.copy_(merged.expand_as(s_local))
+    sz_local.copy_(sizes.expand_as(sz_local))
+    return merged, sizes, pushed

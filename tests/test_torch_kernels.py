@@ -56,6 +56,64 @@ def test_parsa_cost_empty_sets():
     assert (ops.parsa_cost(nbr, s) == 10).all()
 
 
+
+@pytest.mark.parametrize("W", [1, 2, 33, 47])
+def test_parsa_cost_down_date_matches_jax(W):
+    """The host_blocked_oracle's K=1 down-date, ``parsa_cost(nbr, ~(mask_u
+    & ~s_i))``: an almost all-ones complement mask, at W not a multiple of
+    4, equals the JAX ``parsa_cost_ref`` and |N(v) ∩ (N(u) \\ S_i)|."""
+    rng = np.random.default_rng(W)
+    num_v = 32 * W
+    nbr = jk.pack_bitmask([rng.choice(num_v, size=rng.integers(0, min(40, num_v)),
+                                      replace=False) for _ in range(37)], num_v)
+    nbr[3] = -1                        # a dense row, every bit set
+    s_i = jk.pack_bitmask(rng.random((1, num_v)) < 0.3, num_v)
+    comp = ~(nbr[5:6] & ~s_i)
+    assert (comp != 0).mean() > 0.5
+    want = np.asarray(jk.parsa_cost_ref(jnp.asarray(nbr), jnp.asarray(comp)))
+    got = ops.parsa_cost(_t(nbr), _t(comp))
+    assert got.shape == (37, 1)
+    assert np.array_equal(got.numpy(), want)
+    direct = tk.popcount32(_t(nbr & nbr[5] & ~s_i)).sum(1)
+    assert torch.equal(got[:, 0], direct)
+
+
+@pytest.mark.parametrize("K", [1, 17, 64])
+def test_parsa_cost_zero_and_dense_rows_match_jax(K):
+    """All-zero rows, all-ones rows and full-range words beside sparse rows,
+    at K on either side of a warp's 32 lanes and W = 47."""
+    rng = np.random.default_rng(K)
+    W = 47
+    nbr = _full_range_words(rng, (11, W))
+    nbr[0] = 0
+    nbr[1] = -1
+    nbr[2] = jk.pack_bitmask([rng.choice(32 * W, size=5, replace=False)],
+                             32 * W)[0]
+    s = _full_range_words(rng, (K, W)) & _full_range_words(rng, (K, W))
+    want = np.asarray(jk.parsa_cost_ref(jnp.asarray(nbr), jnp.asarray(s)))
+    got = ops.parsa_cost(_t(nbr), _t(s))
+    assert np.array_equal(got.numpy(), want)
+    assert (got[0] == 0).all()
+    tile = ops.parsa_select_tile(_t(nbr), _t(s))
+    assert np.array_equal(tile.numpy(), want.T)
+
+
+def test_parsa_cost_past_select_max_k_matches_jax():
+    """parsa_cost takes any K, past the select's ``SELECT_MAX_K``; the
+    select tile does not."""
+    rng = np.random.default_rng(11)
+    K = ops.SELECT_MAX_K + 77
+    nbr = _full_range_words(rng, (9, 5))
+    nbr[0] = 0
+    s = _full_range_words(rng, (K, 5)) & _full_range_words(rng, (K, 5))
+    want = np.asarray(jk.parsa_cost_ref(jnp.asarray(nbr), jnp.asarray(s)))
+    got = ops.parsa_cost(_t(nbr), _t(s))
+    assert got.shape == (9, K)
+    assert np.array_equal(got.numpy(), want)
+    with pytest.raises(ValueError, match="k <="):
+        ops.parsa_select_tile(_t(nbr), _t(s))
+
+
 # ------------------------------------------------- fused cost + select
 @pytest.mark.parametrize("B", [256, 1024])
 @pytest.mark.parametrize("k", [8, 32, 64])
@@ -203,3 +261,65 @@ def test_cuda_kernels_equal_plain_versions(cuda_device):
     for got, want in zip(ops.refine_sweep_chunk(words, prev, cost),
                          tk.refine_sweep_ref(words, prev, cost)):
         assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [1, 2, 33, 2047, 2048])
+def test_cuda_cost_tile_equals_plain_version(cuda_device, W):
+    """The cost tile (parsa_cost and parsa_select_tile) against its plain
+    version: K of 1, 17, 64 and 1,024; U not a multiple of the rows a CTA
+    takes; all-zero, all-ones, full-range and sparse rows; the K=1
+    down-date against an almost all-ones complement mask; a row-major and a
+    misaligned (16-byte loads off) block."""
+    rng = np.random.default_rng(W)
+    num_v = 32 * W
+    U = 259
+    sparse = jk.pack_bitmask([rng.choice(num_v, size=rng.integers(0, min(40, num_v)),
+                                         replace=False) for _ in range(U)], num_v)
+    sparse[0] = 0
+    sparse[1] = -1
+    sparse[2] = _full_range_words(rng, (W,))
+    nbr = _t(sparse).to(cuda_device)
+    for K in (1, 17, 64, 1024):
+        s = _t(_full_range_words(rng, (K, W))
+               & _full_range_words(rng, (K, W))).to(cuda_device)
+        want = tk.parsa_cost_ref(nbr, s)
+        assert torch.equal(ops.parsa_cost(nbr, s), want)
+        assert torch.equal(ops.parsa_select_tile(nbr, s), want.T.contiguous())
+    comp = ~(nbr[5:6] & ~s[:1])
+    assert torch.equal(ops.parsa_cost(nbr, comp), tk.parsa_cost_ref(nbr, comp))
+    off = torch.empty(U * W + 1, dtype=torch.int32, device=cuda_device)
+    shifted = off[1:].view(U, W)
+    shifted.copy_(nbr)
+    assert torch.equal(ops.parsa_cost(shifted, s), tk.parsa_cost_ref(nbr, s))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("U,K,W", [(7, 2100, 33), (131, 2100, 2048),
+                                   (33, 1025, 2047)])
+def test_cuda_parsa_cost_past_1024_partitions(cuda_device, U, K, W):
+    """parsa_cost past 1,024 partitions, where the tile reads each row again
+    for every further group of 1,024, against its plain version."""
+    rng = np.random.default_rng(K + W)
+    nbr = _full_range_words(rng, (U, W))
+    nbr[0] = 0
+    nbr[-1] = -1
+    nbr = _t(nbr).to(cuda_device)
+    s = _t(_full_range_words(rng, (K, W))
+           & _full_range_words(rng, (K, W))).to(cuda_device)
+    assert torch.equal(ops.parsa_cost(nbr, s), tk.parsa_cost_ref(nbr, s))
+
+
+@pytest.mark.cuda
+def test_cuda_select_tile_at_per_round_shape(cuda_device):
+    """parsa_select_tile at the per-round route's shape, B=1,024, k=64,
+    W=2,048, on sparse rows."""
+    rng = np.random.default_rng(5)
+    num_v = 32 * 2048
+    nbr = _t(jk.pack_bitmask([rng.choice(num_v, size=rng.integers(0, 60),
+                                         replace=False) for _ in range(1024)],
+                             num_v)).to(cuda_device)
+    s = _t(jk.pack_bitmask(rng.random((64, num_v)) < 0.25, num_v)).to(
+        cuda_device)
+    assert torch.equal(ops.parsa_select_tile(nbr, s),
+                       tk.parsa_cost_ref(nbr, s).T.contiguous())

@@ -69,27 +69,44 @@ def test_packed_union_delta_matches_jax(k, W):
     assert np.array_equal(tk.packed_delta(new, old), jk.packed_delta(new, old))
 
 
-@pytest.mark.parametrize("n", [1, 4, 8])
+@pytest.mark.parametrize("n", [1, 2, 4, 8])
 def test_merge_worker_sets_matches_numpy(n):
-    """The OR-merge of n workers that grew their copies from ``old``, and
-    the changed words they push, against a numpy loop."""
+    """The server merge of n workers that grew their copies from ``old``:
+    the OR-merge, the changed words they push, the merged sizes and the
+    merged state written back into every worker's copy, against a numpy
+    loop; words with bit 31 set, sizes that wrap in int32."""
     rng = np.random.default_rng(n)
     k, W = 5, 77
     old = _full_range_words(rng, (k, W)) & _full_range_words(rng, (k, W))
+    old[:, 0] |= np.int32(-2**31)
     grow = [_full_range_words(rng, (k, W)) * (rng.random((k, W)) < 0.3)
             for _ in range(n)]
     local = np.stack([old | g.astype(np.int32) for g in grow])
+    sz_old = rng.integers(0, 1000, k).astype(np.int32)
+    sz_old[0] = 2**31 - 2                     # the sum wraps in int32
+    sz_loc = sz_old + rng.integers(0, 20, (n, k)).astype(np.int32)
     pushed = torch.full((1,), 7, dtype=torch.int64)
-    merged = ops.merge_worker_sets(_t(local), _t(old), pushed)
+    l_t, zl_t = _t(local.copy()), _t(sz_loc.copy())   # written back
+    merged, sizes = ops.merge_worker_sets(l_t, _t(old), zl_t, _t(sz_old),
+                                          pushed)
     want = old.copy()
     for w in range(n):
         want = jk.packed_union(want, local[w])
     n_words = sum(int(np.count_nonzero(jk.packed_delta(local[w], old)))
                   for w in range(n))
+    want_sz = (sz_old.astype(np.int64)
+               + (sz_loc.astype(np.int64) - sz_old).sum(0))
+    want_sz = ((want_sz + 2**31) % 2**32 - 2**31).astype(np.int32)
     assert np.array_equal(merged.numpy(), want)
+    assert np.array_equal(sizes.numpy(), want_sz)
     assert int(pushed) == 7 + n_words and n_words > 0
-    m2, c2 = tk.merge_worker_sets_ref(_t(local), _t(old))
-    assert torch.equal(m2, merged) and int(c2) == n_words
+    assert all(np.array_equal(l_t[w].numpy(), want) for w in range(n))
+    assert all(np.array_equal(zl_t[w].numpy(), want_sz) for w in range(n))
+    l2, zl2 = _t(local.copy()), _t(sz_loc.copy())
+    m2, s2, c2 = tk.merge_worker_sets_ref(l2, _t(old), zl2, _t(sz_old))
+    assert torch.equal(m2, merged) and torch.equal(s2, sizes)
+    assert int(c2) == n_words
+    assert torch.equal(l2, l_t) and torch.equal(zl2, zl_t)
 
 
 def test_union_delta_wrappers_check_inputs():
@@ -98,12 +115,19 @@ def test_union_delta_wrappers_check_inputs():
         ops.packed_union_delta(a, torch.zeros((2, 4), dtype=torch.int32))
     with pytest.raises(ValueError, match="must be a 2-D"):
         ops.packed_union_delta(a.long(), a.long())
+    sz = torch.zeros(2, dtype=torch.int32)
     with pytest.raises(ValueError, match="must be"):
-        ops.merge_worker_sets(a[None], a, torch.zeros(2, dtype=torch.int64))
+        ops.merge_worker_sets(a[None], a, sz[None], sz,
+                              torch.zeros(2, dtype=torch.int64))
     with pytest.raises(ValueError, match="int64"):
-        ops.merge_worker_sets(a[None], a, torch.zeros(1, dtype=torch.int32))
+        ops.merge_worker_sets(a[None], a, sz[None], sz,
+                              torch.zeros(1, dtype=torch.int32))
+    with pytest.raises(ValueError, match="sz_local"):
+        ops.merge_worker_sets(a[None], a, sz[None, :1], sz,
+                              torch.zeros(1, dtype=torch.int64))
     ops.reset_launch_counts()
-    ops.merge_worker_sets(a[None], a, torch.zeros(1, dtype=torch.int64))
+    ops.merge_worker_sets(a[None], a, sz[None].clone(), sz,
+                          torch.zeros(1, dtype=torch.int64))
     assert ops.LAUNCHES["packed_union_delta"] == 0   # the CPU launches none
 
 
@@ -322,10 +346,20 @@ def test_cuda_union_delta_equals_plain_version(cuda_device):
         for got, want in zip(ops.packed_union_delta(new, old),
                              tk.packed_union_delta_ref(new, old)):
             assert torch.equal(got, want)
-    for n in (1, 4, 8):
-        old = _t(_full_range_words(rng, (16, 2048))).to(cuda_device)
-        local = old | _t(_full_range_words(rng, (n, 16, 2048))).to(cuda_device)
-        pushed = torch.zeros(1, dtype=torch.int64, device=cuda_device)
-        merged = ops.merge_worker_sets(local, old, pushed)
-        want, n_words = tk.merge_worker_sets_ref(local, old)
-        assert torch.equal(merged, want) and int(pushed) == int(n_words)
+    for n in (1, 2, 4, 8):
+        for k, W in ((16, 2048), (3, 37)):
+            old = _t(_full_range_words(rng, (k, W))).to(cuda_device)
+            local = old | _t(_full_range_words(rng, (n, k, W))).to(
+                cuda_device)
+            sz_old = torch.arange(k, dtype=torch.int32, device=cuda_device)
+            sz_loc = sz_old + _t(rng.integers(0, 9, (n, k)).astype(
+                np.int32)).to(cuda_device)
+            pushed = torch.zeros(1, dtype=torch.int64, device=cuda_device)
+            l2, z2 = local.clone(), sz_loc.clone()
+            merged, sizes = ops.merge_worker_sets(local, old, sz_loc, sz_old,
+                                                  pushed)
+            want, want_sz, n_words = tk.merge_worker_sets_ref(l2, old, z2,
+                                                              sz_old)
+            assert torch.equal(merged, want) and torch.equal(sizes, want_sz)
+            assert int(pushed) == int(n_words)
+            assert torch.equal(local, l2) and torch.equal(sz_loc, z2)
