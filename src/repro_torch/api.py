@@ -20,6 +20,16 @@ entry point, one result type.
     res = partition(graph, cfg)
     res.traffic.pushed_bytes                # delta-encoded worker pushes
 
+    # the embedding layout (doc → data shard, vocab → model shard)
+    res = partition(graph, ParsaConfig(k=16, placement=True))
+    res.placement.vocab_perm, res.timings["placement"]
+
+    # online mode: the graph arrives in chunks (repro_torch.stream)
+    from repro_torch.api import ParsaStreamConfig, StreamSession
+    session = StreamSession(ParsaStreamConfig(base=ParsaConfig(k=16)),
+                            num_v=65_536)
+    upd = session.feed(chunk)               # one parsa_scan launch
+
 Backends (``available_backends()``): ``device_scan`` (the default, on the
 card), ``host_blocked_oracle``, ``parallel_device`` (on the card), and the
 host algorithms ``host`` and ``parallel_sim`` (numpy; their refine and
@@ -29,8 +39,11 @@ The device decides where everything runs: ``partition(..., device="cuda")``
 (the default) launches the hand-written kernels and raises when there is
 no card; ``device="cpu"`` runs their plain PyTorch versions.  The JAX
 ``ParsaConfig`` fields ``use_kernel`` and ``interpret`` are gone for that
-reason, and ``placement`` is not ported.  The default backend is
-``device_scan`` (JAX: ``host``), so that the default path runs on the card.
+reason.  The default backend is ``device_scan`` (JAX: ``host``), so that
+the default path runs on the card.  The stream (``ParsaStreamConfig``,
+``StreamSession``, ``StreamUpdate``, ``stream_partition``) and the
+observability surface (``Observability``, ``Tracer``, ``FlightRecorder``,
+the exporters) are exported here lazily, as in the JAX facade.
 """
 from __future__ import annotations
 
@@ -50,12 +63,43 @@ from .api_backends import (
 from .core.bipartite import BipartiteGraph
 from .core.costs import PartitionMetrics, evaluate
 from .core.partition_v import partition_v
+from .core.placement import Placement, placement_from_parts
 from .core.refine import evaluate_device, refine_v_device
 from .kernels.parsa_cost import pack_bitmask, unpack_bitmask
 from .sketch import SketchSpec, rank_hot_columns
 
-__all__ = ["ParsaConfig", "PartitionResult", "PartitionMetrics",
-           "TrafficCounters", "partition", "available_backends"]
+__all__ = [
+    "ParsaConfig", "PartitionResult", "PartitionMetrics", "TrafficCounters",
+    "partition", "available_backends",
+    # streaming surface (lazy — see __getattr__)
+    "ParsaStreamConfig", "StreamSession", "StreamUpdate", "stream_partition",
+    # observability surface (lazy — see __getattr__)
+    "Observability", "Tracer", "FlightRecorder", "Explanation",
+    "to_chrome_trace", "chrome_trace_json", "save_chrome_trace",
+    "prometheus_text",
+]
+
+# The stream (``repro_torch.stream``) and observability
+# (``repro_torch.obs``) surfaces, loaded on first use: the stream module
+# imports this one, so an eager import would be a cycle.
+_STREAM_EXPORTS = ("ParsaStreamConfig", "StreamSession", "StreamUpdate",
+                   "stream_partition")
+_OBS_EXPORTS = ("Observability", "Tracer", "FlightRecorder", "Explanation",
+                "to_chrome_trace", "chrome_trace_json", "save_chrome_trace",
+                "prometheus_text")
+
+
+def __getattr__(name: str):
+    if name in _STREAM_EXPORTS:
+        from . import stream
+
+        return getattr(stream, name)
+    if name in _OBS_EXPORTS:
+        from . import obs
+
+        return getattr(obs, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
 
 _SELECTS = ("size", "footprint")
 _REFINE_BACKENDS = ("host", "device")
@@ -99,6 +143,7 @@ class ParsaConfig:
     refine_backend: str = "host"   # "host" = numpy oracle; "device" = the
                                    #   packed-word refine + metrics on torch
     refine_chunk: int = 1024   # C: parameters swept per refine launch
+    placement: bool = False    # also derive an embedding Placement
 
     def __post_init__(self):
         if not isinstance(self.k, (int, np.integer)) or self.k <= 0:
@@ -156,6 +201,9 @@ class ParsaConfig:
             raise ValueError(
                 f"refine_chunk must be a positive multiple of 32 (the packed "
                 f"word width), got {self.refine_chunk}")
+        if self.placement and not self.refine_v:
+            raise ValueError("placement=True requires refine_v=True "
+                             "(the embedding layout needs parts_v)")
 
     def replace(self, **changes) -> "ParsaConfig":
         return dataclasses.replace(self, **changes)
@@ -180,6 +228,7 @@ class PartitionResult:
                                         #   extent ``sketch.num_v``; metrics
                                         #   are sketch-space estimates)
     traffic: TrafficCounters | None = None  # parallel_sim / parallel_device
+    placement: Placement | None = None  # config.placement only
 
     @property
     def neighbor_sets(self) -> np.ndarray:
@@ -208,6 +257,18 @@ class PartitionResult:
                          device=self.device if device is None else device)
 
 
+def resolve_device(device: str | torch.device, what: str = "partition"
+                   ) -> torch.device:
+    """``device`` as a ``torch.device``.  Naming the card with none there
+    raises: no entry point falls back to the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"{what}(device='cuda') needs a CUDA device and none is "
+            "available; pass device='cpu' to run the plain PyTorch path")
+    return device
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -228,10 +289,12 @@ def partition(
     """Run the Parsa pipeline described by ``config`` on ``graph``.
 
     Phases: optional sketch → backend partition_u → optional Alg 2
-    V-refinement → exact metrics.  ``timings`` gets ``sketch`` (the host
-    column map, ``set_repr="sketch"``), ``pack`` (host packing, device
+    V-refinement → exact metrics → optional embedding placement
+    (``config.placement``; refused for a compressing sketch, whose hashed
+    columns have no identity to place).  ``timings`` gets ``sketch`` (the
+    host column map, ``set_repr="sketch"``), ``pack`` (host packing, device
     backends), ``partition_u`` (the scan alone), ``partition_v``,
-    ``metrics`` and ``total``; each phase ends in a device synchronize so
+    ``metrics``, ``placement`` and ``total``; each phase ends in a device synchronize so
     no phase's queued work leaks into the next one's clock.
 
     With ``set_repr="sketch"`` the columns are compressed once on the host
@@ -250,11 +313,7 @@ def partition(
     ``neighbor_sets`` are packed for the result.  ``device="cuda"`` (the
     default) raises when there is no card: nothing falls back to the CPU.
     """
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "partition(device='cuda') needs a CUDA device and none is "
-            "available; pass device='cpu' to run the plain PyTorch path")
+    device = resolve_device(device)
     backend = get_backend(config.backend)
     timings: dict[str, float] = {}
     t_start = time.perf_counter()
@@ -272,6 +331,11 @@ def partition(
                 graph.num_v, config.sketch_hot_bits,
                 config.sketch_bucket_bits, seed=config.seed,
                 hot_ids=hot_ids)
+        if config.placement and not sketch.is_exact:
+            raise ValueError(
+                "placement=True needs exact parameter identities; a "
+                "compressing sketch co-locates hashed columns — raise "
+                "sketch_hot_bits to >= num_v or use set_repr='exact'")
         run_graph = sketch.sketch_graph(graph)
         if init_sets is not None and not sketch.is_exact \
                 and init_sets.shape[1] != sketch.width_words:
@@ -333,6 +397,13 @@ def partition(
         # the machine of its sketch slot (hot → its exact Alg 2 host,
         # bucketed tail → hash co-location)
         parts_v = sketch.expand_parts_v(parts_v)
+
+    placement = None
+    if config.placement:
+        t0 = time.perf_counter()
+        placement = placement_from_parts(_numpy(parts_u), parts_v,
+                                         run_graph.num_v, config.k)
+        timings["placement"] = time.perf_counter() - t0
     timings["total"] = time.perf_counter() - t_start
 
     return PartitionResult(
@@ -347,4 +418,5 @@ def partition(
         device=str(device),
         sketch=sketch,
         traffic=out.traffic,
+        placement=placement,
     )

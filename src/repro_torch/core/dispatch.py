@@ -2,9 +2,11 @@
 the CUDA kernel launches each phase really made.
 
 The counter API of ``repro.core.jax_partition`` (``DispatchEvent``,
-``DispatchLog``, ``dispatch_counter``, ``_count_dispatch``), without the
-tracer hook.  One counted dispatch per phase can hide thousands of kernel
-launches, so a phase run under ``phase(name)`` also records, in
+``DispatchLog``, ``dispatch_counter``, ``_count_dispatch``).  Every counted
+dispatch also emits a ``dispatch:<name>`` instant into the installed
+tracers (``obs.trace.dispatch_instant``), as the JAX counter does.  One
+counted dispatch per phase can hide thousands of kernel launches, so a
+phase run under ``phase(name)`` also records, in
 ``DispatchLog.launches[name]``, how far each kernel's launch counter moved
 while it ran (``{"parsa_select_tile": 6647, ...}``).
 """
@@ -14,6 +16,7 @@ import contextlib
 import dataclasses
 
 from ..kernels.parsa_cost.ops import LAUNCHES
+from ..obs.trace import dispatch_instant
 
 __all__ = ["DispatchEvent", "DispatchLog", "dispatch_counter", "phase"]
 
@@ -44,6 +47,7 @@ def _count_dispatch(name: str, nbytes: int = 0, **meta) -> None:
     for counts in _ACTIVE_COUNTERS:
         counts[name] = counts.get(name, 0) + 1
         counts.records.append(DispatchEvent(name, int(nbytes), dict(meta)))
+    dispatch_instant(name, nbytes=nbytes, meta=meta or None)
 
 
 @contextlib.contextmanager

@@ -501,6 +501,7 @@ def _run_parallel_packed_scan(
     merge_every: int,
     shuffle_rng: np.random.Generator | None = None,
     worker_weights: np.ndarray | None = None,
+    count_name: str = "parallel_partition_scan",
     sketch: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, dict, np.ndarray | None]:
     """Pad the block stack to whole per-worker merge groups, shard it over
@@ -512,7 +513,8 @@ def _run_parallel_packed_scan(
     distribution: real blocks are apportioned proportionally to weight
     (largest remainder) and the shortfall is filled with parity-safe
     padding blocks, so every shard keeps the same shape.  The merge cadence
-    is untouched.
+    is untouched.  The scan counts as one dispatch of ``count_name``
+    (the stream's parallel feeds count as ``stream_feed_scan``).
 
     Returns ``(parts_blocks, s_out, sizes_out, traffic, perm)`` where
     ``parts_blocks`` is the (workers, n_super, merge_every, B) output in
@@ -553,7 +555,7 @@ def _run_parallel_packed_scan(
         return torch.from_numpy(np.ascontiguousarray(
             x.reshape((workers, nb_per) + x.shape[1:]))).to(dev)
 
-    with phase("parallel_partition_scan",
+    with phase(count_name,
                nbytes=s_masks.nbytes + sizes.nbytes, k=k,
                workers=workers, blocks=nb_per * workers):
         parts_blocks, s_out, sizes_out, pushed = _parallel_scan(

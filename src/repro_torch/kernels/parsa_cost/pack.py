@@ -10,7 +10,7 @@ import numpy as np
 
 __all__ = ["pack_bitmask", "unpack_bitmask", "coerce_packed_sets",
            "coerce_dense_sets", "packed_union", "packed_delta",
-           "pack_bitmask_csr_sparse"]
+           "packed_intersect_counts", "pack_bitmask_csr_sparse"]
 
 
 def pack_bitmask(ids_per_row: list[np.ndarray] | np.ndarray, num_v: int) -> np.ndarray:
@@ -89,6 +89,30 @@ def packed_delta(new: np.ndarray, old: np.ndarray) -> np.ndarray:
     delta a worker pushes back to the server (Alg 4 worker line 9).
     ``packed_union(old, packed_delta(new, old)) == packed_union(old, new)``."""
     return new & ~old
+
+
+# per-byte popcount table: the numpy<2.0 fallback (np.bitwise_count is 2.0+)
+_POPCOUNT8 = np.unpackbits(
+    np.arange(256, dtype=np.uint8).reshape(-1, 1), axis=1).sum(
+        axis=1).astype(np.int64)
+
+
+def packed_intersect_counts(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """All-pairs intersection sizes of two packed bitmask stacks:
+    ``out[i, j] = |rows_a[i] ∩ rows_b[j]|`` for (ka, W) × (kb, W) int32
+    words → (ka, kb) int64 counts.  The stream's migration planner matches
+    old→new parts with it.  The (ka, kb, W) AND transient is materialized
+    in one go — fine for partition counts (k ≤ 1024)."""
+    a = np.ascontiguousarray(a).view(np.uint32)
+    b = np.ascontiguousarray(b).view(np.uint32)
+    if a.ndim != 2 or b.ndim != 2 or a.shape[1] != b.shape[1]:
+        raise ValueError(
+            f"packed stacks must share the word width, got {a.shape} "
+            f"vs {b.shape}")
+    inter = a[:, None, :] & b[None, :, :]
+    if hasattr(np, "bitwise_count"):
+        return np.bitwise_count(inter).sum(axis=-1, dtype=np.int64)
+    return _POPCOUNT8[inter.view(np.uint8)].sum(axis=-1)
 
 
 def _gather_row_cols(
