@@ -19,10 +19,11 @@ Phases, in order; any failure exits non-zero:
    super-step at 1, 2, 4 and 8 workers with odd k * W, its union, count,
    merged sizes and every worker's written-back copy; sketch_select on
    row lists it builds and on lists passed in; parsa_scan's parts, sets and
-   sizes at 64, 2,048 and 4,096 words, B of 8, 40 and 128, k of 1, 3 and
-   16, 1, 4 and 8 workers, with truncated rows, padding blocks, bit-31
-   words, entering sets and unequal sizes, and at the sketch path's B of
-   512 and 1,024 (more than 32 rows a CTA); the one-launch refine over
+   sizes at 64, 2,048 and 4,096 words, B of 8, 40 and 128, k of 1, 2, 3
+   and 16, 1, 4 and 8 workers, with truncated rows, padding blocks, bit-31
+   words, entering sets and unequal sizes, at the elastic grow's k = 2, B
+   = 256 and 1,536 words, and at the sketch path's B of 512 and 1,024
+   (more than 32 rows a CTA); the one-launch refine over
    chunks and sweeps, in place and not); flash attention within
    float tolerances (float32 3e-5 with TF32 off, bfloat16 2e-2), across
    dtypes, GQA and MHA, masks, Sq < Skv, ragged lengths, head dims, the
@@ -77,7 +78,25 @@ Phases, in order; any failure exits non-zero:
    graph in 8 chunks, sketched, and again with the JAX package's padded
    truncated-row width; cpu against cuda on reduced streams (drift repair,
    growing V, sketched, 4 workers), their trace exports byte-identical;
-8. the LM serving path (phase ``lm``): qwen3-14b at full width and depth
+8. elastic Parsa and the parameter server (phase ``elastic``,
+   ``repro_torch.elastic``, ``repro_torch.ml``): the chaos acceptance run
+   of ``benchmarks/bench_chaos.py`` (``text_like(60_000, 49_152,
+   mean_len=20, seed=0)`` in 12 chunks, k 8 -> 12 by four adds and two
+   seeded kills under ``ChaosSchedule(seed=0)``) replayed twice, bit for
+   bit, with one parsa_scan a feed, a grow and a warm repair and none a
+   shrink, held to the same replay on the plain route; warm repair
+   against a cold ``repartition()`` on clones of one snapshot (seconds and
+   ratio reported), a shrink and a ``ThresholdPolicy``-gated grow; the
+   final traffic_max within 5% of a one-shot partition at k=12; the same
+   script at 8 workers with the straggler bias (the straggled lane's EWMA
+   weight lowest until its recovery, one parsa_scan and one
+   packed_union_delta a super-step), held to the plain route; cpu against
+   cuda on a reduced replay and a reduced sketched session; the PS
+   cluster of the paper's Tables 3/4 (DBPG l1-LR, 45 iterations) on phase
+   3's partition against a random placement, two card runs identical,
+   its first 5 iterations held to the CPU's, and the chaos replay's final
+   placement pushed into a cluster over its graph (``sync_cluster``);
+9. the LM serving path (phase ``lm``): qwen3-14b at full width and depth
    with random bf16 weights drawn on the card, ``make_prefill_step`` at
    B=2, S=4,096 (one flash_attention launch per layer, against the plain
    route), layer 0's attention kernel against plain, greedy decode through
@@ -85,7 +104,7 @@ Phases, in order; any failure exits non-zero:
    tokens) bit-identical to ``decode_loop``, teacher forcing, cpu against
    cuda on the reduced config, peak device memory and a profile window of
    one prefill and one decode step;
-9. each kernel timed at the shapes its path launches (CUDA events, median
+10. each kernel timed at the shapes its path launches (CUDA events, median
    of 21 samples after warm-up; ``ms`` from launches replayed in a CUDA
    graph, ``eager_ms`` from launches made one by one from Python) beside
    its bound, its plain version and its launches on the path
@@ -108,8 +127,9 @@ Phases, in order; any failure exits non-zero:
    sketched scan's first blocks against ``parsa_scan_ref``.
 
 ``--phases build,kernels,sketch``, ``--phases build,kernels,parallel``,
-``--phases build,kernels,stream`` and ``--phases build,kernels,lm`` are
-short checks of one path (they print no result and exit 1).
+``--phases build,kernels,stream``, ``--phases build,kernels,elastic``
+and ``--phases build,kernels,lm`` are short checks of one path (they
+print no result and exit 1).
 
 The last lines are the card, one ``{"kernels": [...]}`` JSON line and
 ``{"ok": true, "device": {...}}``.
@@ -127,7 +147,7 @@ import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
 PHASES = ("build", "kernels", "main", "parity", "sketch", "parallel",
-          "stream", "lm", "times")
+          "stream", "elastic", "lm", "times")
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, and the non-tensor fp32
 # rate, the only CUDA-core rate in that sheet; int32 and popcount work is
@@ -189,6 +209,38 @@ DRIFT_STREAM = dict(num_docs=100_000, vocab=65_536, chunks=16, mean_len=20,
 SKETCH_STREAM_CHUNKS = 8
 STREAM_SMALL = dict(n=4_000, vocab=8_192, features=16_384,
                     sketch_features=200_000, chunks=4)
+
+# the elastic path: the chaos acceptance run of
+# benchmarks/bench_chaos.py:112-121 (text_like(60_000, 49_152, mean_len=20,
+# seed=0) in 12 np.linspace chunks, k0=8, B=256, device_scan,
+# repartition="never") under its disaster script (_EVENTS, :48-57) and
+# ChaosSchedule(seed=0): four adds and two seeded kills, k 8 -> 12; gated
+# at CHAOS_MAX_QUALITY_PCT (benchmarks/common.py:25) against a one-shot
+# partition at k=12; the warm repair's speed over a cold repartition
+# reported beside CHAOS_MIN_REPAIR_SPEEDUP (:24), not gated (host wall
+# clock, as run() leaves it off).  The same script at PAR with the
+# straggler bias on; for cpu against cuda, run(scale=0.1)'s geometry
+# (:102-109) and a reduced sketched session
+CHAOS = dict(num_docs=60_000, vocab=49_152, k0=8, chunks=12, block=256)
+CHAOS_EVENTS = ((2, "add", None, 4.0), (3, "add", None, 4.0),
+                (4, "straggle", 1, 4.0), (5, "kill", None, 4.0),
+                (6, "add", None, 4.0), (7, "add", None, 4.0),
+                (8, "recover", 1, 4.0), (9, "kill", None, 4.0))
+CHAOS_MAX_QUALITY_PCT = 5.0
+CHAOS_MIN_REPAIR_SPEEDUP = 3.0
+CHAOS_SMALL = dict(num_docs=1_200, vocab=1_638, chunks=12, block=128)
+ELASTIC_SKETCH = dict(n=4_000, features=200_000, chunks=4, bits=2048)
+# the PS cluster of the paper's Tables 3/4 (benchmarks/bench_table34_dbpg.py
+# :21-56): DBPG l1-LR on phase main's partition against a random placement
+# (random_parts seeds 0 and 1), PAPER.dbpg_passes iterations; the card's
+# first cpu_iters iterations held to the CPU's (meters within
+# PS_METER_REL, objectives within PS_OBJ_REL: the card sums the gradient
+# in another fixed order); the chaos replay's placement pushed into a
+# cluster over its graph for sync_steps steps
+PS = dict(lam=0.3, lr=0.005, max_delay=1, flops_rate=50e9, bandwidth=125e6,
+          seed=1, label_seed=5, cpu_iters=5, sync_steps=3)
+PS_METER_REL = 1e-3
+PS_OBJ_REL = 1e-4
 
 # which TPU kernel each CUDA kernel replaces (repro/ file:line of the
 # pallas_call wrapper), and its source in this repository
@@ -510,13 +562,16 @@ def phase_kernels(dev) -> dict:
              dict(init=True, unequal=True), dict(pad_block=True, init=True),
              dict(dup=True, unequal=True)]
     n_case = 0
-    # past the epilogue's 32 candidates a slot (k of 33 and 64) and k = 16
-    # with every row tied, beside the sweep; then the sketch path's shape,
+    # k = 2 is the elastic grow's split (at the chaos arena's 1,536 words
+    # and B of 256 too); past the epilogue's 32 candidates a slot (k of 33
+    # and 64) and k = 16 with every row tied, beside the sweep; then the
+    # sketch path's shape,
     # more than 32 rows a CTA (B of 512 and 1,024 at 4,096 words, k = 16:
     # the cost pass at 8 lanes a row), at 1 and 8 workers with truncated
     # rows
     shapes = ([(W, B, k, None) for W in (64, 2048, 4096)
-               for B in (8, 40, 128) for k in (1, 3, 16)]
+               for B in (8, 40, 128) for k in (1, 2, 3, 16)]
+              + [(1536, 256, 2, None)]
               + [(64, 40, 33, None), (64, 128, 64, None),
                  (2048, 128, 64, None)]
               + [(4096, B, 16, nw) for B in (512, 1024) for nw in (1, 8)])
@@ -1821,6 +1876,396 @@ def phase_stream(dev, main: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- elastic
+def elastic_op_fields(op) -> dict:
+    """Every ``ElasticOp`` field but the wall-clock ``seconds``."""
+    import dataclasses
+
+    d = {f.name: getattr(op, f.name) for f in dataclasses.fields(op)
+         if f.name != "seconds"}
+    d["traffic"] = dataclasses.astuple(d["traffic"])
+    return d
+
+
+def same_elastic(a, b, what: str) -> None:
+    """Two elastic sessions: live state, traffic and every op equal."""
+    check(a.k == b.k, f"{what}: k {a.k} != {b.k}")
+    same_stream(a.stream, b.stream, what)
+    check([elastic_op_fields(o) for o in a.ops]
+          == [elastic_op_fields(o) for o in b.ops], f"{what}: ops differ")
+
+
+def chaos_replay(dev, g, chunks, scfg, tally: dict | None = None,
+                 kernels: bool = True):
+    """One run of CHAOS_EVENTS (``ChaosSchedule(seed=0)``) over ``chunks``
+    through an ``ElasticSession`` on ``dev``.  Every feed is counted from 0:
+    one ``stream_feed_scan``, one ``elastic_grow_scan`` an add and one
+    ``elastic_repair_scan`` a kill, and with ``kernels`` exactly one
+    ``parsa_scan`` a sequential feed (one and one ``packed_union_delta`` a
+    parallel feed's super-step), grow and warm repair, attributed to
+    their phases (no launch at all on the plain route or the CPU).
+    Launches are added into ``tally``.  Returns (session, rows)."""
+    from repro_torch.api import (
+        ChaosEvent, ChaosSchedule, ElasticConfig, ElasticSession)
+    from repro_torch.core.dispatch import dispatch_counter
+    from repro_torch.kernels.parsa_cost import ops
+
+    chaos = ChaosSchedule([ChaosEvent(*e) for e in CHAOS_EVENTS], seed=0)
+    sess = ElasticSession(ElasticConfig(stream=scfg), num_v=g.num_v,
+                          chaos=chaos, device=dev)
+    workers = scfg.workers
+    rows = []
+    for i, c in enumerate(chunks):
+        due = [e[1] for e in CHAOS_EVENTS if e[0] == i]
+        adds, kills = due.count("add"), due.count("kill")
+        n_ops = len(sess.ops)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        with dispatch_counter() as counts:
+            upd = sess.feed(c)
+        feed_s = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)
+        check(counts.get("stream_feed_scan") == 1
+              and counts.get("elastic_grow_scan", 0) == adds
+              and counts.get("elastic_repair_scan", 0) == kills,
+              f"chaos feed {i}: dispatches {dict(counts)}")
+        n_super = upd.traffic.tasks // workers if workers > 1 else 0
+        want_phase = {}
+        if kernels:
+            want_phase["stream_feed_scan"] = (
+                {"parsa_scan": n_super, "packed_union_delta": n_super}
+                if n_super else {"parsa_scan": 1})
+            if adds:
+                want_phase["elastic_grow_scan"] = {"parsa_scan": adds}
+            if kills:
+                want_phase["elastic_repair_scan"] = {"parsa_scan": kills}
+        want = {}
+        for per in want_phase.values():
+            for n, v in per.items():
+                want[n] = want.get(n, 0) + v
+        check(launches == {n: want.get(n, 0) for n in launches},
+              f"chaos feed {i}: launches {launches}, want {want}")
+        check({n: v for n, v in counts.launches.items() if v} == want_phase,
+              f"chaos feed {i}: launches per phase {counts.launches}")
+        if tally is not None:
+            add_launches(tally, launches)
+        new_ops = sess.ops[n_ops:]
+        rows.append({"feed": i, "k": sess.k, "events": due,
+                     "feed_s": feed_s,
+                     "partition_u_s": upd.timings["partition_u"],
+                     "op_s": [o.seconds for o in new_ops],
+                     "weights": sess.ewma.weights().tolist()})
+    check(chaos.remaining == 0, "chaos events never delivered")
+    return sess, rows
+
+
+def phase_elastic(dev, main: dict) -> dict:
+    """Elastic Parsa and the DBPG parameter server on the card
+    (``repro_torch.elastic``, ``repro_torch.ml``): the chaos acceptance
+    replay of bench_chaos.py twice (bit-deterministic) and on the plain
+    route, its warm repair against a cold repartition on clones of one
+    snapshot, a shrink and a policy-gated grow, its quality against a
+    one-shot partition at the final k; the same script at 8 workers with
+    the straggler bias; cpu against cuda on a reduced replay and a
+    reduced sketched session; the PS cluster of the paper's Tables 3/4 on
+    the main graph's partition against a random placement, twice on the
+    card and its first iterations on the CPU, and the chaos replay's
+    final placement pushed into a cluster over its graph.
+
+    Returns, under ``launches``, each replay's kernel launches as counted
+    from 0 around its feeds, ops and result (the second replay and the
+    plain route's are not counted)."""
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.api import (
+        ElasticConfig, ElasticSession, ParsaConfig, ParsaStreamConfig,
+        StreamSession, partition)
+    from repro_torch.configs.parsa_paper import PAPER
+    from repro_torch.core.costs import need_matrix, random_parts
+    from repro_torch.graphs import ctr_like_stream, text_like
+    from repro_torch.ml import DBPGConfig, PSCluster, make_problem
+
+    launches = {s: {} for s in ("acceptance", "clones", "parallel",
+                                "reduced", "sketched")}
+    out = {"launches": launches}
+    t_phase = time.perf_counter()
+
+    # 1. the chaos acceptance replay, twice, and on the plain route
+    t0 = time.perf_counter()
+    g = text_like(CHAOS["num_docs"], CHAOS["vocab"], mean_len=20, seed=0)
+    chunks = stream_chunks(g, CHAOS["chunks"])
+    base = ParsaConfig(k=CHAOS["k0"], backend="device_scan",
+                       block_size=CHAOS["block"], refine_v=False, seed=0)
+    scfg = ParsaStreamConfig(base=base, repartition="never")
+    log(f"elastic: chaos graph |U|={g.num_u} |V|={g.num_v} "
+        f"|E|={g.num_edges} ({time.perf_counter() - t0:.2f} s)")
+    warm, _ = chaos_replay(dev, g, chunks, scfg)
+    t0 = time.perf_counter()
+    sess, rows = chaos_replay(dev, g, chunks, scfg, launches["acceptance"])
+    replay_s = time.perf_counter() - t0
+    check(np.array_equal(warm.parts, sess.parts)
+          and np.array_equal(warm.stream.arena.masks_np(),
+                             sess.stream.arena.masks_np()),
+          "chaos replay is not bit-deterministic")
+    same_elastic(warm, sess, "chaos replay: run 1 vs run 2")
+    adds = sum(e[1] == "add" for e in CHAOS_EVENTS)
+    check(sess.k == CHAOS["k0"] + adds, f"chaos replay ends at k={sess.k}")
+    t0 = time.perf_counter()
+    with plain_route():
+        plain, _ = chaos_replay(dev, g, chunks, scfg, kernels=False)
+    plain_s = time.perf_counter() - t0
+    same_elastic(plain, sess, "chaos replay: plain route vs kernels")
+    grow_s = [o.seconds for o in sess.ops if o.kind == "grow"]
+    repair_s = [o.seconds for o in sess.ops if o.kind == "repair"]
+    log(f"elastic: chaos replay k {CHAOS['k0']} -> {sess.k} "
+        f"({[(o.kind, o.machine) for o in sess.ops]}), bit-deterministic "
+        f"and equal to the plain route in parts, sets, sizes, traffic and "
+        f"every op ({plain_s:.2f} s plain); migration bytes "
+        f"{sess.traffic.migration_bytes}; replay {replay_s:.3f} s, feed "
+        f"seconds {json.dumps([r['feed_s'] for r in rows])}, grow op "
+        f"seconds {json.dumps(grow_s)}, repair op seconds "
+        f"{json.dumps(repair_s)}; launches {launches['acceptance']}")
+    out.update(replay_s=replay_s, feed_s=[r["feed_s"] for r in rows],
+               grow_s=grow_s, repair_s=repair_s, plain_replay_s=plain_s,
+               migration_bytes=sess.traffic.migration_bytes)
+
+    # 2. warm repair against cold repartition, on clones of one snapshot
+    tmp = tempfile.TemporaryDirectory()
+    snap = pathlib.Path(tmp.name) / "chaos.npz"
+    sess.stream.save(snap)
+    scfg_final = scfg.replace(base=base.replace(k=sess.k))
+
+    def clone():
+        es = ElasticSession(ElasticConfig(stream=scfg_final), num_v=g.num_v,
+                            device=dev)
+        es.stream = StreamSession.load(snap, scfg_final, device=dev)
+        return es
+
+    lost = int(np.argmax(np.bincount(sess.parts, minlength=sess.k)))
+    clone().repair(lost, mode="warm")                       # warm-up
+    es_w = clone()
+    warm_op = counted(lambda: es_w.repair(lost, mode="warm"),
+                      {"parsa_scan": 1}, "warm repair", launches["clones"])
+    es_p = clone()
+    with plain_route():
+        counted(lambda: es_p.repair(lost, mode="warm"), {},
+                "warm repair, plain route")
+    same_elastic(es_p, es_w, "warm repair: plain route vs kernels")
+    clone().stream.repartition()                            # warm-up
+    es_c = clone()
+    t0 = time.perf_counter()
+    counted(es_c.stream.repartition, {"parsa_scan": 1}, "cold repartition",
+            launches["clones"])
+    cold_s = time.perf_counter() - t0
+    speedup = cold_s / warm_op.seconds
+    log(f"elastic: repair of machine {lost} ({warm_op.moved_u} rows): warm "
+        f"{warm_op.seconds:.4f} s (one parsa_scan, equal to the plain "
+        f"route) vs cold repartition {cold_s:.4f} s = {speedup:.2f}x "
+        f"(bench_chaos.py's bar {CHAOS_MIN_REPAIR_SPEEDUP}x, reported)")
+    es_s, es_sp = clone(), clone()
+    counted(lambda: es_s.shrink_k(force=True), {}, "shrink")
+    with plain_route():
+        es_sp.shrink_k(force=True)
+    same_elastic(es_sp, es_s, "shrink: plain route vs kernels")
+    check(es_s.k == sess.k - 1, "shrink did not commit")
+    es_g = clone()
+    before = (es_g.parts.copy(), es_g.stream.arena.masks_np(logical=False),
+              es_g.traffic)
+    gop = counted(es_g.grow_k, {"parsa_scan": 1}, "gated grow",
+                  launches["clones"])
+    if gop.committed:
+        check(es_g.k == sess.k + 1, "a committed grow left k")
+    else:
+        check(es_g.k == sess.k and np.array_equal(es_g.parts, before[0])
+              and np.array_equal(es_g.stream.arena.masks_np(logical=False),
+                                 before[1]) and es_g.traffic == before[2],
+              "a vetoed grow touched the state")
+    log(f"elastic: shrink_k(force=True) {sess.k} -> {es_s.k}, no launch, "
+        f"equal to the plain route; ThresholdPolicy grow "
+        f"{'committed' if gop.committed else 'vetoed'} (migration "
+        f"{gop.traffic.migration_bytes} B against {gop.projected_savings} "
+        f"B a feed over 32 feeds)")
+    tmp.cleanup()
+    out.update(warm_repair_s=warm_op.seconds, cold_repartition_s=cold_s,
+               repair_speedup=speedup, gated_grow=gop.committed)
+
+    # 3. quality against a one-shot partition at the final k
+    t0 = time.perf_counter()
+    res = hold_stream_result(sess.stream, g, sess.k,
+                             need_matrix(g, sess.parts, sess.k),
+                             "chaos replay", launches["acceptance"])
+    oracle = partition(g, base.replace(k=sess.k, refine_v=True,
+                                       refine_backend="device"), device=dev)
+    pct = (res.metrics.traffic_max / oracle.metrics.traffic_max - 1) * 100
+    log(f"elastic: final traffic_max {res.metrics.traffic_max} vs one-shot "
+        f"device_scan at k={sess.k} {oracle.metrics.traffic_max} "
+        f"({pct:+.2f}%, gate {CHAOS_MAX_QUALITY_PCT}%) "
+        f"({time.perf_counter() - t0:.2f} s)")
+    check(pct <= CHAOS_MAX_QUALITY_PCT,
+          f"elastic quality {pct:+.2f}% past {CHAOS_MAX_QUALITY_PCT}%")
+    out["quality_pct"] = pct
+
+    # 4. the parallel chaos replay: 8 workers, straggler bias on
+    t0 = time.perf_counter()
+    pcfg = ParsaStreamConfig(base=base.replace(backend="parallel_device",
+                                               **PAR), repartition="never")
+    psess, prows = chaos_replay(dev, g, chunks, pcfg, launches["parallel"])
+    par_s = time.perf_counter() - t0
+    lane = next(e[2] for e in CHAOS_EVENTS if e[1] == "straggle")
+    back = next(e[0] for e in CHAOS_EVENTS if e[1] == "recover")
+    start = next(e[0] for e in CHAOS_EVENTS if e[1] == "straggle")
+    for r in prows:
+        w = np.asarray(r["weights"])
+        if r["feed"] < start:
+            check(np.all(w == 1.0), f"feed {r['feed']}: weights {w}")
+        elif r["feed"] < back:
+            check(int(np.argmin(w)) == lane
+                  and np.sum(w == w.min()) == 1,
+                  f"feed {r['feed']}: lane {lane} not the slowest, {w}")
+        else:
+            check(w[lane] > prows[r["feed"] - 1]["weights"][lane],
+                  f"feed {r['feed']}: lane {lane} did not recover, {w}")
+    t0 = time.perf_counter()
+    with plain_route():
+        pplain, _ = chaos_replay(dev, g, chunks, pcfg, kernels=False)
+    same_elastic(pplain, psess, "parallel chaos replay: plain vs kernels")
+    log(f"elastic: parallel chaos replay ({PAR}, straggler bias on) k "
+        f"{CHAOS['k0']} -> {psess.k}, equal to the plain route "
+        f"({time.perf_counter() - t0:.2f} s plain); lane {lane} weights by "
+        f"feed {json.dumps([round(r['weights'][lane], 4) for r in prows])}; "
+        f"feed seconds {json.dumps([r['feed_s'] for r in prows])}; "
+        f"launches {launches['parallel']} ({par_s:.2f} s)")
+    out.update(parallel_feed_s=[r["feed_s"] for r in prows],
+               straggler_weights=[r["weights"][lane] for r in prows])
+
+    # 5. cpu against cuda: the reduced replay and a reduced sketched session
+    t0 = time.perf_counter()
+    gs = text_like(CHAOS_SMALL["num_docs"], CHAOS_SMALL["vocab"],
+                   mean_len=20, seed=0)
+    scs = stream_chunks(gs, CHAOS_SMALL["chunks"])
+    sbase = base.replace(block_size=CHAOS_SMALL["block"])
+    small = ParsaStreamConfig(base=sbase, repartition="never")
+    rc, _ = chaos_replay("cpu", gs, scs, small, kernels=False)
+    rg, _ = chaos_replay(dev, gs, scs, small, launches["reduced"])
+    same_elastic(rc, rg, "reduced chaos replay: cpu vs cuda")
+    kb = sbase.replace(k=4, set_repr="sketch",
+                       sketch_hot_bits=ELASTIC_SKETCH["bits"],
+                       sketch_bucket_bits=ELASTIC_SKETCH["bits"])
+    kcfg = ElasticConfig(stream=ParsaStreamConfig(base=kb,
+                                                  repartition="never"))
+    kch = ctr_like_stream(ELASTIC_SKETCH["n"], ELASTIC_SKETCH["features"],
+                          chunks=ELASTIC_SKETCH["chunks"], nnz_per_row=25,
+                          seed=1)
+    ks = []
+    for device in ("cpu", dev):
+        es = ElasticSession(kcfg, num_v=kch[0].num_v, device=device)
+        one = {} if device == "cpu" else {"parsa_scan": 1}
+        tally = None if device == "cpu" else launches["sketched"]
+        for c in kch:
+            counted(lambda: es.feed(c), one, f"sketched feed on {device}",
+                    tally)
+        counted(lambda: es.grow_k(force=True), one,
+                f"sketched grow on {device}", tally)
+        counted(lambda: es.repair(1), one, f"sketched repair on {device}",
+                tally)
+        ks.append(es)
+    check(ks[1].stream.sketch is not None, "the session is not sketched")
+    same_elastic(ks[0], ks[1], "sketched elastic: cpu vs cuda")
+    log(f"elastic cpu == cuda: the reduced replay ({CHAOS_SMALL}, k "
+        f"{CHAOS['k0']} -> {rg.k}) and a sketched session "
+        f"({ELASTIC_SKETCH}, grow and repair one parsa_scan each): live "
+        f"state and ops equal ({time.perf_counter() - t0:.2f} s)")
+
+    # 6. the PS cluster: the paper's Tables 3/4 on the main partition
+    t0 = time.perf_counter()
+    gm = main["graph"] if "graph" in main else text_like(**MAIN_GRAPH)
+    rm = (main["result"] if "result" in main else partition(
+        gm, ParsaConfig(k=K, backend="device_scan", block_size=BLOCK,
+                        refine_backend="device", sweeps=2), device=dev))
+    _, labels = make_problem(gm, seed=PS["label_seed"])
+    dcfg = DBPGConfig(lam=PS["lam"], lr=PS["lr"], max_delay=PS["max_delay"])
+    kw = dict(flops_rate=PS["flops_rate"], bandwidth=PS["bandwidth"],
+              seed=PS["seed"])
+    iters = PAPER.dbpg_passes
+    log(f"elastic: PS labels and batches ready "
+        f"({time.perf_counter() - t0:.2f} s)")
+
+    def ps_run(pu, pv, device, n, every):
+        cl = PSCluster(gm, labels, pu, pv, K, dcfg, device=device, **kw)
+        _ = cl.batches, cl.full_batch          # built outside the timing
+        t1 = time.perf_counter()
+        r = cl.run(n, log_every=every)      # every step reads w back
+        return cl, r, (time.perf_counter() - t1) / n
+
+    c1, r1, step1 = ps_run(rm.parts_u, rm.parts_v, dev, iters, iters - 1)
+    c2, r2, step2 = ps_run(rm.parts_u, rm.parts_v, dev, iters, iters - 1)
+    check(r1 == r2 and np.array_equal(c1.w.cpu().numpy(), c2.w.cpu().numpy())
+          and np.array_equal(c1.meter.per_machine, c2.meter.per_machine),
+          "PS cluster: two runs on the card differ")
+    cr, rr, stepr = ps_run(random_parts(gm.num_u, K, 0),
+                           random_parts(gm.num_v, K, 1), dev, iters,
+                           iters - 1)
+    reduction = 100 * (1 - r1["inter_bytes"] / max(rr["inter_bytes"], 1))
+    n = PS["cpu_iters"]
+    cc5, rc5, stepc = ps_run(rm.parts_u, rm.parts_v, "cpu", n, 1)
+    cg5, rg5, _ = ps_run(rm.parts_u, rm.parts_v, dev, n, 1)
+    meter_rel = max(
+        abs(a - b) / max(abs(b), 1) for a, b in zip(
+            [rg5["inner_bytes"], rg5["inter_bytes"],
+             *cg5.meter.per_machine.tolist()],
+            [rc5["inner_bytes"], rc5["inter_bytes"],
+             *cc5.meter.per_machine.tolist()]))
+    check(meter_rel <= PS_METER_REL,
+          f"PS meters: cuda {rg5} vs cpu {rc5} ({meter_rel:.2e})")
+    obj_rel = max(abs(a - b) / abs(b) for a, b in zip(rg5["objective"],
+                                                     rc5["objective"]))
+    check(len(rg5["objective"]) == n and obj_rel <= PS_OBJ_REL,
+          f"PS objective: cuda {rg5['objective']} vs cpu "
+          f"{rc5['objective']}")
+    check(np.isfinite(r1["objective"] + rr["objective"]).all(),
+          f"PS objectives not finite: {r1['objective']}, {rr['objective']}")
+    for name, r, step in (("parsa", r1, step1), ("random", rr, stepr)):
+        log(f"elastic PS {name}: inner {r['inner_bytes'] / 1e6:.3f} MB, "
+            f"inter {r['inter_bytes'] / 1e6:.3f} MB, inner_fraction "
+            f"{r['inner_fraction']:.4f}, modeled {r['modeled_time_s']:.4f} s"
+            f", objective {r['objective'][0]:.3f} -> "
+            f"{r['objective'][-1]:.3f}, nnz_w {r['nnz_w']}, {step:.4f} s a "
+            f"step ({iters} steps, k={K})")
+    log(f"elastic PS: Parsa cuts inter-machine bytes {reduction:.2f}% "
+        f"against random (paper: >90%); two card runs identical; "
+        f"{n} steps on the CPU ({stepc:.3f} s a step): meters within "
+        f"{meter_rel:.2e} (limit {PS_METER_REL}), objective within "
+        f"{obj_rel:.2e} (limit {PS_OBJ_REL})")
+    out["ps"] = {"parsa": r1, "random": rr, "step_s": step1,
+                 "random_step_s": stepr, "cpu_step_s": stepc,
+                 "inter_reduction_pct": reduction, "meter_rel": meter_rel,
+                 "objective_rel": obj_rel}
+
+    # the chaos replay's final placement (k 8 -> 12) pushed into a cluster
+    # over its graph, then a few steps
+    t0 = time.perf_counter()
+    r8 = partition(g, base.replace(refine_v=True, refine_backend="device"),
+                   device=dev)
+    _, lc = make_problem(g, seed=PS["label_seed"])
+    ps = PSCluster.from_partition(g, lc, r8, dcfg, device=dev, **kw)
+    rep = sess.sync_cluster(ps)
+    check(ps.k == sess.k and np.array_equal(ps.parts_u, sess.parts)
+          and rep["reshard_bytes"] > 0, f"sync_cluster: {rep}")
+    rs = ps.run(PS["sync_steps"], log_every=1)
+    check(np.isfinite(rs["objective"]).all() and rs["inter_bytes"] > 0,
+          f"synced cluster run: {rs}")
+    log(f"elastic PS: sync_cluster k {CHAOS['k0']} -> {ps.k}: moved rows "
+        f"{rep['moved_rows']}, moved weights {rep['moved_weights']}, "
+        f"reshard {rep['reshard_bytes'] / 1e6:.3f} MB; then "
+        f"{PS['sync_steps']} steps, objective {rs['objective']} "
+        f"({time.perf_counter() - t0:.2f} s)")
+    out["sync"] = rep
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
 # ---------------------------------------------------------------- phase 7
 def rel_l2(a, b) -> float:
     a, b = a.float(), b.float()
@@ -2733,20 +3178,26 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         state["stream"] = phase_stream(dev, state)
         log(f"stream phase {time.perf_counter() - t0:.2f} s")
+    if "elastic" in phases:
+        t0 = time.perf_counter()
+        state["elastic"] = phase_elastic(dev, state)
+        log(f"elastic phase {time.perf_counter() - t0:.2f} s")
     if "lm" in phases:
         t0 = time.perf_counter()
         state["lm"] = phase_lm(dev)
         log(f"lm phase {time.perf_counter() - t0:.2f} s")
     if "times" in phases:
         rows = phase_times(dev, state)
-        streams = state.get("stream", {}).get("launches", {})
-        for r in rows:
-            # launches on the stream path, per stream of phase stream, as
-            # counted around its feeds, results and repairs
-            per = {s: c[r["name"]] for s, c in streams.items()
-                   if c.get(r["name"])}
-            if per:
-                r["launches_stream"] = per
+        for path in ("stream", "elastic"):
+            counts = state.get(path, {}).get("launches", {})
+            for r in rows:
+                # launches on the stream and elastic paths, per stream or
+                # replay of the phase, as counted around its feeds, ops,
+                # results and repairs
+                per = {s: c[r["name"]] for s, c in counts.items()
+                       if c.get(r["name"])}
+                if per:
+                    r[f"launches_{path}"] = per
         log(f"card: {card}")
         log(json.dumps({"kernels": rows}))
     if phases != set(PHASES):

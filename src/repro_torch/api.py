@@ -30,6 +30,13 @@ entry point, one result type.
                             num_v=65_536)
     upd = session.feed(chunk)               # one parsa_scan launch
 
+    # elastic mode: k changes mid-stream (repro_torch.elastic)
+    from repro_torch.api import ElasticConfig, ElasticSession
+    es = ElasticSession(ElasticConfig(stream=ParsaStreamConfig(
+        base=ParsaConfig(k=8))), num_v=65_536)
+    es.feed(chunk); es.grow_k(force=True)   # k 8 -> 9, one parsa_scan
+    es.repair(machine=3)                    # warm: one parsa_scan
+
 Backends (``available_backends()``): ``device_scan`` (the default, on the
 card), ``host_blocked_oracle``, ``parallel_device`` (on the card), and the
 host algorithms ``host`` and ``parallel_sim`` (numpy; their refine and
@@ -41,7 +48,9 @@ no card; ``device="cpu"`` runs their plain PyTorch versions.  The JAX
 ``ParsaConfig`` fields ``use_kernel`` and ``interpret`` are gone for that
 reason.  The default backend is ``device_scan`` (JAX: ``host``), so that
 the default path runs on the card.  The stream (``ParsaStreamConfig``,
-``StreamSession``, ``StreamUpdate``, ``stream_partition``) and the
+``StreamSession``, ``StreamUpdate``, ``stream_partition``), the elastic
+surface (``ChaosEvent``, ``ChaosSchedule``, ``ElasticConfig``,
+``ElasticPolicy``, ``ElasticSession``, ``ThresholdPolicy``) and the
 observability surface (``Observability``, ``Tracer``, ``FlightRecorder``,
 the exporters) are exported here lazily, as in the JAX facade.
 """
@@ -73,17 +82,22 @@ __all__ = [
     "partition", "available_backends",
     # streaming surface (lazy — see __getattr__)
     "ParsaStreamConfig", "StreamSession", "StreamUpdate", "stream_partition",
+    # elastic surface (lazy — see __getattr__)
+    "ChaosEvent", "ChaosSchedule", "ElasticConfig", "ElasticPolicy",
+    "ElasticSession", "ThresholdPolicy",
     # observability surface (lazy — see __getattr__)
     "Observability", "Tracer", "FlightRecorder", "Explanation",
     "to_chrome_trace", "chrome_trace_json", "save_chrome_trace",
     "prometheus_text",
 ]
 
-# The stream (``repro_torch.stream``) and observability
-# (``repro_torch.obs``) surfaces, loaded on first use: the stream module
-# imports this one, so an eager import would be a cycle.
+# The stream (``repro_torch.stream``), elastic (``repro_torch.elastic``)
+# and observability (``repro_torch.obs``) surfaces, loaded on first use:
+# the stream module imports this one, so an eager import would be a cycle.
 _STREAM_EXPORTS = ("ParsaStreamConfig", "StreamSession", "StreamUpdate",
                    "stream_partition")
+_ELASTIC_EXPORTS = ("ChaosEvent", "ChaosSchedule", "ElasticConfig",
+                    "ElasticPolicy", "ElasticSession", "ThresholdPolicy")
 _OBS_EXPORTS = ("Observability", "Tracer", "FlightRecorder", "Explanation",
                 "to_chrome_trace", "chrome_trace_json", "save_chrome_trace",
                 "prometheus_text")
@@ -94,6 +108,10 @@ def __getattr__(name: str):
         from . import stream
 
         return getattr(stream, name)
+    if name in _ELASTIC_EXPORTS:
+        from . import elastic
+
+        return getattr(elastic, name)
     if name in _OBS_EXPORTS:
         from . import obs
 

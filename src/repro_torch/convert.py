@@ -7,7 +7,9 @@ These helpers take plain numpy arrays (never JAX objects), so a result of
 whose ``.refine(g2)`` continues from the same sets.  A sketched result also
 carries its column map (``sketch_from_numpy``), so its refine continues in
 the same sketch space.  For the LM stack, ``model_params_from_numpy``
-carries a model's weights across.
+carries a model's weights across; for the parameter server,
+``ps_state_from_numpy`` carries a DBPG run's state into a port
+``PSCluster``, which then continues the run.
 """
 from __future__ import annotations
 
@@ -22,7 +24,12 @@ from .kernels.parsa_cost import coerce_packed_sets
 from .sketch import SketchSpec
 
 __all__ = ["graph_from_numpy", "result_from_numpy", "sketch_from_numpy",
-           "model_params_from_numpy"]
+           "model_params_from_numpy", "ps_state_from_numpy"]
+
+# the state a DBPG run carries between steps, beside the cluster's fixed
+# graph, labels, placement and configuration
+PS_STATE_KEYS = ("w", "pull_cache", "ef", "hist", "keys_sent", "inner_bytes",
+                 "inter_bytes", "per_machine", "rng_state")
 
 # the weight matrices of the dense family: stored in the compute dtype;
 # every other leaf (norm scales, biases) stays float32, cast where used
@@ -127,3 +134,37 @@ def model_params_from_numpy(cfg, params, *, device="cuda") -> dict:
         raise ValueError(f"{L} layers in the tree, the config has "
                          f"{cfg.num_layers}")
     return out
+
+
+def ps_state_from_numpy(cluster, state: dict):
+    """Load another run's DBPG state into the port ``PSCluster``
+    ``cluster`` (built on the same graph, labels, placement and
+    ``DBPGConfig``) and return it; its next ``step`` continues that run.
+
+    ``state`` holds plain numpy values under ``PS_STATE_KEYS``, as read
+    from a JAX ``PSCluster``: ``w`` (V,); ``pull_cache`` and ``ef``, one
+    (V,) array a machine; ``hist``, the list of past weight vectors;
+    ``keys_sent`` (k, k) bool; the meter's ``inner_bytes``,
+    ``inter_bytes`` and ``per_machine``; and ``rng_state``, the
+    ``rng.bit_generator.state`` dict of the τ draws."""
+    missing = [key for key in PS_STATE_KEYS if key not in state]
+    if missing:
+        raise ValueError(f"PS state lacks {missing}")
+    k = cluster.k
+    if len(state["pull_cache"]) != k or len(state["ef"]) != k:
+        raise ValueError(f"PS state is for {len(state['pull_cache'])} "
+                         f"machines, the cluster has {k}")
+
+    def vec(a):
+        return np.array(a, dtype=np.float32)
+
+    cluster.w = torch.tensor(vec(state["w"]), device=cluster.device)
+    cluster._pull_cache = [vec(a) for a in state["pull_cache"]]
+    cluster._ef = [vec(a) for a in state["ef"]]
+    cluster._hist = [vec(a) for a in state["hist"]]
+    cluster._keys_sent = np.array(state["keys_sent"], dtype=bool)
+    cluster.meter.inner_bytes = int(state["inner_bytes"])
+    cluster.meter.inter_bytes = int(state["inter_bytes"])
+    cluster.meter.per_machine = np.array(state["per_machine"], dtype=np.int64)
+    cluster.rng.bit_generator.state = state["rng_state"]
+    return cluster

@@ -5,8 +5,8 @@ Conventions: ``parts_u[i] ∈ [0,k)`` assigns example u_i to worker
 parameter v_j to server ``parts_v[j]``.  Machine m hosts worker m + server m.
 
 ``need_matrix`` / ``evaluate`` are the numpy parity oracles of the packed-word
-torch versions in ``repro_torch.core.refine``.  A copy of
-``repro.core.costs``, cut to what the port uses.
+torch versions in ``repro_torch.core.refine``; ``random_parts`` is the
+paper's baseline placement.  A copy of ``repro.core.costs``.
 """
 from __future__ import annotations
 
@@ -16,7 +16,8 @@ import numpy as np
 
 from .bipartite import BipartiteGraph
 
-__all__ = ["PartitionMetrics", "evaluate", "need_matrix"]
+__all__ = ["PartitionMetrics", "evaluate", "improvement", "need_matrix",
+           "random_parts"]
 
 
 @dataclasses.dataclass
@@ -93,3 +94,18 @@ def evaluate(
         worker[i] = footprint[i] - int(local_hits.sum())
         server[i] = int((nneed[mine] - need[i][mine].astype(np.int64)).sum())
     return PartitionMetrics(k, sizes, footprint, worker + server, worker, server)
+
+
+def random_parts(n: int, k: int, seed: int = 0) -> np.ndarray:
+    """Balanced random assignment — the paper's baseline."""
+    rng = np.random.default_rng(seed)
+    parts = np.arange(n, dtype=np.int32) % k
+    rng.shuffle(parts)
+    return parts
+
+
+def improvement(random_val: float, proposed_val: float) -> float:
+    """Paper §5.1: (random - proposed) / proposed × 100%."""
+    if proposed_val == 0:
+        return float("inf")
+    return (random_val - proposed_val) / proposed_val * 100.0

@@ -11,10 +11,12 @@ issued before request t is served.  Sources may add ``admit`` /
 ``note_shed`` (admission control), ``after_slot`` and ``observe_request``
 hooks, as in the reference.
 
-Not ported yet: the PS request source (``PSRequestSource``, the DBPG
-``_serve_step``, the PS cluster) and the obs tracer's request spans; they
-come with ``ROADMAP.md`` Queue 1 item 9.  A source that carries a tracer
-(``obs``) is refused.
+The PS cluster these requests are served from is ported
+(``repro_torch.ml.PSCluster``, with its non-blocking ``plan_pull`` /
+``pull_nowait`` / ``PullHandle.block``).  Not ported yet: the PS request
+source (``PSRequestSource``, the DBPG ``_serve_step``) and the obs
+tracer's request spans; they come with ``ROADMAP.md`` Queue 1 item 4.  A
+source that carries a tracer (``obs``) is refused.
 """
 from __future__ import annotations
 
@@ -70,7 +72,7 @@ class ServingEngine:
                 or getattr(src_cfg, "obs", None) is not None):
             raise NotImplementedError(
                 "request tracing (obs) is not ported yet (ROADMAP.md Queue 1 "
-                "item 9)")
+                "item 4)")
         self.prefetch = (src_cfg.prefetch if prefetch is None and src_cfg
                          else bool(prefetch))
         self.warmup = (src_cfg.warmup if warmup is None and src_cfg

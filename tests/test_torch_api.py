@@ -187,7 +187,9 @@ def test_import_leaves_no_jax_or_repro():
             "repro_torch.launch.serve, repro_torch.launch.steps, "
             "repro_torch.serving, repro_torch.configs, repro_torch.stream, "
             "repro_torch.obs, repro_torch.core.placement, "
-            "repro_torch.core.moe_placement, repro_torch.data;"
+            "repro_torch.core.moe_placement, repro_torch.data, "
+            "repro_torch.elastic, repro_torch.runtime, repro_torch.ml, "
+            "repro_torch.configs.parsa_paper;"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')];"
             "print(bad); sys.exit(1 if bad else 0)")

@@ -221,3 +221,59 @@ def test_stream_without_obs_emits_no_spans_of_its_own():
     assert sess.obs is None
     assert [sp.name for sp in tr.spans] == [
         "dispatch:stream_feed_scan", "dispatch:stream_metrics"] * 2
+
+
+def _traced_elastic(g, port: bool):
+    """``tests/test_obs.py``'s traced elastic session: two feeds, then a
+    warm repair of the largest part, with the tracer installed."""
+    k = 16
+    base = dict(k=k, backend="device_scan", refine_v=False, seed=0)
+    if port:
+        from repro_torch.api import ElasticConfig, ElasticSession
+
+        ob = Observability()
+        sess = ElasticSession(
+            ElasticConfig(stream=ParsaStreamConfig(base=ParsaConfig(**base)),
+                          min_k=2, max_k=k + 2),
+            num_v=g.num_v, obs=ob, device="cpu")
+        g = _port(g)
+    else:
+        from repro.elastic import ElasticConfig, ElasticSession
+
+        ob = jobs.Observability()
+        sess = ElasticSession(
+            ElasticConfig(stream=JStreamConfig(
+                base=JConfig(**base, use_kernel=False)),
+                min_k=2, max_k=k + 2),
+            num_v=g.num_v, obs=ob)
+    assert sess.stream.obs is ob          # one hook covers the stack
+    with ob.tracer.installed():
+        sess.feed(g.slice_u(0, 400))
+        sess.feed(g.slice_u(400, 800))
+        op = sess.repair(int(np.argmax(np.bincount(sess.parts, minlength=k))),
+                         mode="warm")
+    return sess, ob, op
+
+
+def test_elastic_op_spans_byte_identical():
+    from repro.graphs import text_like as j_text_like
+
+    g = j_text_like(800, 1024, mean_len=12, seed=0)
+    js, jo, jop = _traced_elastic(g, port=False)
+    ts, to, top = _traced_elastic(g, port=True)
+    assert top.committed and jop.committed
+    got = chrome_trace_json(to.tracer, include_wall=False)
+    assert got == jobs.chrome_trace_json(jo.tracer, include_wall=False)
+    feeds = [sp for sp in to.tracer.spans if sp.name == "feed"]
+    assert len(feeds) == 2
+    assert feeds[1].v_start == pytest.approx(feeds[0].v_start + 1.0)
+    ops = [sp for sp in to.tracer.spans if sp.name == "elastic_op"]
+    assert ops and ops[-1].attrs["kind"] == "repair"
+    assert ops[-1].wall_s is not None
+    kids = {sp.name for sp in to.tracer.spans
+            if sp.parent_id == ops[-1].span_id}
+    assert kids == {"plan", "scan", "migrate"}
+    assert "dispatch:elastic_repair_scan" in [sp.name
+                                              for sp in to.tracer.spans]
+    assert prometheus_text(traffic=ts.traffic) == \
+        jobs.prometheus_text(traffic=js.traffic)
