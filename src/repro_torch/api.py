@@ -37,6 +37,16 @@ entry point, one result type.
     es.feed(chunk); es.grow_k(force=True)   # k 8 -> 9, one parsa_scan
     es.repair(machine=3)                    # warm: one parsa_scan
 
+    # PS serving with the closed SLO loop (repro_torch.serving)
+    from repro_torch.api import (PSRequestSource, RequestMix, SLOAutoscaler,
+                                 SLOConfig, ServingConfig, ServingEngine,
+                                 ZipfWorkload)
+    asc = SLOAutoscaler(SLOConfig(slo_ms=30.0))
+    es = ElasticSession(ElasticConfig(stream=...), num_v=..., policy=asc)
+    src = PSRequestSource(cluster, RequestMix((ZipfWorkload("t"),)),
+                          ServingConfig(), elastic=es, autoscaler=asc)
+    ServingEngine(src).run(1024)            # grows, repairs, sheds
+
 Backends (``available_backends()``): ``device_scan`` (the default, on the
 card), ``host_blocked_oracle``, ``parallel_device`` (on the card), and the
 host algorithms ``host`` and ``parallel_sim`` (numpy; their refine and
@@ -50,8 +60,10 @@ reason.  The default backend is ``device_scan`` (JAX: ``host``), so that
 the default path runs on the card.  The stream (``ParsaStreamConfig``,
 ``StreamSession``, ``StreamUpdate``, ``stream_partition``), the elastic
 surface (``ChaosEvent``, ``ChaosSchedule``, ``ElasticConfig``,
-``ElasticPolicy``, ``ElasticSession``, ``ThresholdPolicy``) and the
-observability surface (``Observability``, ``Tracer``, ``FlightRecorder``,
+``ElasticPolicy``, ``ElasticSession``, ``SLOAutoscaler``, ``SLOConfig``,
+``ThresholdPolicy``), the serving surface (``PSRequestSource``,
+``RequestMix``, ``ServingConfig``, ``ServingEngine``, ``TelemetryBus``,
+``TelemetrySnapshot``, ``ZipfWorkload``) and the observability surface (``Observability``, ``Tracer``, ``FlightRecorder``,
 the exporters) are exported here lazily, as in the JAX facade.
 """
 from __future__ import annotations
@@ -68,6 +80,7 @@ from .api_backends import (
     TrafficCounters,
     available_backends,
     get_backend,
+    register_backend,
 )
 from .core.bipartite import BipartiteGraph
 from .core.costs import PartitionMetrics, evaluate
@@ -79,25 +92,33 @@ from .sketch import SketchSpec, rank_hot_columns
 
 __all__ = [
     "ParsaConfig", "PartitionResult", "PartitionMetrics", "TrafficCounters",
-    "partition", "available_backends",
+    "partition", "register_backend", "available_backends",
     # streaming surface (lazy — see __getattr__)
     "ParsaStreamConfig", "StreamSession", "StreamUpdate", "stream_partition",
     # elastic surface (lazy — see __getattr__)
     "ChaosEvent", "ChaosSchedule", "ElasticConfig", "ElasticPolicy",
-    "ElasticSession", "ThresholdPolicy",
+    "ElasticSession", "SLOAutoscaler", "SLOConfig", "ThresholdPolicy",
+    # serving surface (lazy — see __getattr__)
+    "PSRequestSource", "RequestMix", "ServingConfig", "ServingEngine",
+    "TelemetryBus", "TelemetrySnapshot", "ZipfWorkload",
     # observability surface (lazy — see __getattr__)
     "Observability", "Tracer", "FlightRecorder", "Explanation",
     "to_chrome_trace", "chrome_trace_json", "save_chrome_trace",
     "prometheus_text",
 ]
 
-# The stream (``repro_torch.stream``), elastic (``repro_torch.elastic``)
-# and observability (``repro_torch.obs``) surfaces, loaded on first use:
-# the stream module imports this one, so an eager import would be a cycle.
+# The stream (``repro_torch.stream``), elastic (``repro_torch.elastic``),
+# serving (``repro_torch.serving``) and observability (``repro_torch.obs``)
+# surfaces, loaded on first use: the stream module imports this one, so an
+# eager import would be a cycle.
 _STREAM_EXPORTS = ("ParsaStreamConfig", "StreamSession", "StreamUpdate",
                    "stream_partition")
 _ELASTIC_EXPORTS = ("ChaosEvent", "ChaosSchedule", "ElasticConfig",
-                    "ElasticPolicy", "ElasticSession", "ThresholdPolicy")
+                    "ElasticPolicy", "ElasticSession", "SLOAutoscaler",
+                    "SLOConfig", "ThresholdPolicy")
+_SERVING_EXPORTS = ("PSRequestSource", "RequestMix", "ServingConfig",
+                    "ServingEngine", "TelemetryBus", "TelemetrySnapshot",
+                    "ZipfWorkload")
 _OBS_EXPORTS = ("Observability", "Tracer", "FlightRecorder", "Explanation",
                 "to_chrome_trace", "chrome_trace_json", "save_chrome_trace",
                 "prometheus_text")
@@ -112,6 +133,10 @@ def __getattr__(name: str):
         from . import elastic
 
         return getattr(elastic, name)
+    if name in _SERVING_EXPORTS:
+        from . import serving
+
+        return getattr(serving, name)
     if name in _OBS_EXPORTS:
         from . import obs
 

@@ -2,7 +2,8 @@
 the CUDA kernel launches each phase really made.
 
 The counter API of ``repro.core.jax_partition`` (``DispatchEvent``,
-``DispatchLog``, ``dispatch_counter``, ``_count_dispatch``).  Every counted
+``DispatchLog``, ``dispatch_counter``, ``_count_dispatch``,
+``annotate_dispatch``).  Every counted
 dispatch also emits a ``dispatch:<name>`` instant into the installed
 tracers (``obs.trace.dispatch_instant``), as the JAX counter does.  One
 counted dispatch per phase can hide thousands of kernel launches, so a
@@ -16,9 +17,10 @@ import contextlib
 import dataclasses
 
 from ..kernels.parsa_cost.ops import LAUNCHES
-from ..obs.trace import dispatch_instant
+from ..obs.trace import annotate_last_instant, dispatch_instant
 
-__all__ = ["DispatchEvent", "DispatchLog", "dispatch_counter", "phase"]
+__all__ = ["DispatchEvent", "DispatchLog", "annotate_dispatch",
+           "dispatch_counter", "phase"]
 
 
 @dataclasses.dataclass
@@ -48,6 +50,18 @@ def _count_dispatch(name: str, nbytes: int = 0, **meta) -> None:
         counts[name] = counts.get(name, 0) + 1
         counts.records.append(DispatchEvent(name, int(nbytes), dict(meta)))
     dispatch_instant(name, nbytes=nbytes, meta=meta or None)
+
+
+def annotate_dispatch(**meta) -> None:
+    """Attach after-the-fact labels to the dispatch just counted: its
+    record in every active log and its instant in every installed
+    tracer.  Nothing in the port calls it: the JAX package's one caller
+    labels ``cache_miss`` from jit's cache, which the port has no
+    counterpart of.  It is kept so that the counter API matches JAX's."""
+    for counts in _ACTIVE_COUNTERS:
+        if counts.records:
+            counts.records[-1].meta.update(meta)
+    annotate_last_instant(**meta)
 
 
 @contextlib.contextmanager

@@ -27,7 +27,8 @@ import torch
 
 from ..core.bipartite import BipartiteGraph
 
-__all__ = ["SparseBatch", "lr_objective", "lr_grad", "make_problem"]
+__all__ = ["SparseBatch", "batch_columns", "lr_objective", "lr_grad",
+           "make_problem"]
 
 
 @dataclasses.dataclass
@@ -53,18 +54,14 @@ class SparseBatch:
         pad_to: int | None = None, device: str | torch.device = "cuda",
     ) -> "SparseBatch":
         rows = np.asarray(rows, np.int64)
-        indptr = np.asarray(graph.u_indptr, np.int64)
-        lens = (indptr[rows + 1] - indptr[rows]).astype(np.int64)
-        nnz = int(lens.sum())
+        lens, cols = batch_columns(graph, rows)
+        nnz = cols.shape[0]
         pad = pad_to if pad_to is not None else nnz
         row_ids = np.zeros(pad, np.int32)
         col_ids = np.zeros(pad, np.int32)
         vals = np.zeros(pad, np.float32)
         row_ids[:nnz] = np.repeat(np.arange(rows.size, dtype=np.int32), lens)
-        starts = np.repeat(indptr[rows], lens)
-        within = np.arange(nnz, dtype=np.int64) - np.repeat(
-            np.cumsum(lens) - lens, lens)
-        col_ids[:nnz] = np.asarray(graph.u_indices)[starts + within]
+        col_ids[:nnz] = cols
         vals[:nnz] = 1.0
         col_perm = np.argsort(col_ids[:nnz], kind="stable")
         col_lengths = np.bincount(col_ids[:nnz], minlength=graph.num_v)
@@ -77,6 +74,20 @@ class SparseBatch:
             dev(np.asarray(labels)[rows].astype(np.float32)), nnz=nnz,
             row_lengths=dev(lens), col_perm=dev(col_perm),
             col_lengths=dev(col_lengths.astype(np.int64)))
+
+
+def batch_columns(graph: BipartiteGraph,
+                  rows: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """Host CSR gather of ``rows``: their lengths and their column ids, row
+    after row in CSR order (a batch's ``col_ids[:nnz]``)."""
+    rows = np.asarray(rows, np.int64)
+    indptr = np.asarray(graph.u_indptr, np.int64)
+    lens = (indptr[rows + 1] - indptr[rows]).astype(np.int64)
+    nnz = int(lens.sum())
+    starts = np.repeat(indptr[rows], lens)
+    within = np.arange(nnz, dtype=np.int64) - np.repeat(
+        np.cumsum(lens) - lens, lens)
+    return lens, np.asarray(graph.u_indices)[starts + within]
 
 
 def _segment_sum(data: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
@@ -106,8 +117,12 @@ def lr_objective(batch: SparseBatch, w: torch.Tensor,
 def lr_grad(batch: SparseBatch, w: torch.Tensor) -> torch.Tensor:
     """∇ of the smooth part: Σ -y_i σ(-y_i x_i·w) x_i, as an ordered
     segment sum over the column permutation."""
+    return _grad_from_margins(batch, _margins(batch, w))
+
+
+def _grad_from_margins(batch: SparseBatch, m: torch.Tensor) -> torch.Tensor:
+    """``lr_grad`` from margins already computed."""
     n = batch.nnz
-    m = _margins(batch, w)
     coef = -batch.labels * torch.sigmoid(-m)  # (rows,)
     contrib = batch.values[:n] * coef[batch.row_ids[:n].long()]
     return _segment_sum(contrib[batch.col_perm], batch.col_lengths)

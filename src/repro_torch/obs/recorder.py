@@ -4,9 +4,10 @@ SLO outcome.
 Every layer records structured events keyed by the engine slot
 (``step``) and the virtual time (``v``), and ``explain(window_idx)``
 walks that single timeline to produce the causal chain behind a violated
-decision window.  The serving, elastic and autoscaler layers that emit
-these kinds are still to be ported (ROADMAP Queue 1 items 3–4); the
-recorder is ported first, as their common sink.
+decision window.  The emitters are the serving source
+(``repro_torch.serving.engine.PSRequestSource``: chaos, elastic ops,
+windows, sheds, breaker transitions) and the autoscaler
+(``repro_torch.elastic.autoscaler``: decisions).
 
 Event kinds:
 

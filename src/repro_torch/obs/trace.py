@@ -1,25 +1,29 @@
 """Virtual-clock tracing: nested spans over the deterministic timeline.
 
 Spans live on a *virtual clock*: every span's ``v_start``/``v_dur`` is a
-modeled quantity (a stream feed is one virtual unit, its phases fixed
-fractions of it; the JAX package's serving layer books wire seconds,
-retry penalties and queues the same way), never a wall-clock reading, so
-two replays of the same seeded schedule emit byte-identical trace
-streams.  Measured wall-clock durations (the host's ``perf_counter``
-around each phase) ride along in ``Span.wall_s`` as optional evidence
-and are *excluded* from the deterministic export by default
-(``export.chrome_trace_json(include_wall=False)``).
+modeled quantity (wire seconds, retry penalty, virtual queue and service
+time of a served request; a stream feed is one virtual unit, its phases
+fixed fractions of it), never a wall-clock reading, so two replays of the
+same seeded schedule emit byte-identical trace streams.  Measured
+wall-clock durations (the host's ``perf_counter`` around each phase, the
+engine's synchronize-closed compute) ride along in ``Span.wall_s`` as
+optional evidence and are *excluded* from the deterministic export by
+default (``export.chrome_trace_json(include_wall=False)``).
 
 Span trees emitted by the instrumented layers:
 
-  * ``feed → pack/scan/merge/metrics`` — ``StreamSession.feed``.
+  * ``request → pull(wire/retry/queue)/compute/push`` — built by
+    ``ServingEngine`` from the ``PullHandle``'s modeled breakdown;
+  * ``feed → pack/scan/merge/metrics`` — ``StreamSession.feed``;
+  * ``elastic_op → plan/scan/migrate`` — ``ElasticSession`` ops.
 
 Trace/span ids are plain ordinals (deterministic).  Context propagates
 two ways: explicitly (a ``SpanHandle`` adds children at offsets inside
 its parent) and implicitly through the *installed-tracer registry* —
-``Tracer.installed()`` registers the tracer for the duration of a run,
-and deep layers that hold no reference to it (the dispatch counter of
-``core.dispatch``) call the module-level ``trace_instant`` /
+``Tracer.installed()`` registers the tracer for the duration of an
+engine run, and deep layers that hold no reference to it
+(``PSCluster.plan_pull/pull_nowait``, ``Router.refresh``, the dispatch
+counter of ``core.dispatch``) call the module-level ``trace_instant`` /
 ``dispatch_instant``, which attach an instant event to the innermost
 open span of every installed tracer.  With no tracer installed those
 hooks are a truthiness test on an empty list.

@@ -1,12 +1,20 @@
 """Latency accounting for the serving engine.
 
-The port of ``LatencyWindow``, ``RequestRecord`` and ``LatencyRecorder``
-from ``repro/serving/latency.py`` (the bandwidth and link models of the PS
-cluster come with its slice).  ``LatencyRecorder`` accumulates one
-``RequestRecord`` per served request and reduces them to p50/p99 request
-latency, examples/s and tokens/s, the overlap split and the per-tenant
-shed counts.  With ``window_requests`` set it also keeps a lazily seeded
-ring of recent latencies (``windowed()``).
+The port of ``repro/serving/latency.py``.  ``BandwidthModel`` prices each
+pull against the wall-clock model ``PSCluster`` uses for training: a
+machine's NIC serializes its inter-machine bytes, so a pull's transfer time
+is the *sum* of the remote slices arriving at the home worker's ingress
+link, each inflated by its source's straggle factor.  ``LinkClock`` extends
+that to concurrent transfers: every transfer books the home NIC for its
+duration, so a push still draining delays the next pull on the same
+machine.  A pull's ``wire_s`` is the pure modeled transfer and ``queue_s``
+the extra delay spent waiting for the home NIC to drain earlier bookings —
+the overload signal the SLO autoscaler scales on.
+
+``LatencyRecorder`` accumulates one ``RequestRecord`` per served request
+and reduces them to p50/p99 request latency, examples/s and tokens/s, the
+overlap split and the per-tenant shed counts.  With ``window_requests`` set
+it also keeps a lazily seeded ring of recent latencies (``windowed()``).
 """
 from __future__ import annotations
 
@@ -14,7 +22,66 @@ import dataclasses
 
 import numpy as np
 
-__all__ = ["LatencyWindow", "RequestRecord", "LatencyRecorder"]
+__all__ = ["BandwidthModel", "LinkClock", "LatencyWindow", "RequestRecord",
+           "LatencyRecorder"]
+
+
+@dataclasses.dataclass(frozen=True)
+class BandwidthModel:
+    """Per-link transfer pricing: bytes / bandwidth × straggle factor."""
+
+    bandwidth: float = 125e6  # 1 GbE, matching PSCluster's default
+
+    def per_source(self, src_bytes: np.ndarray, home: int,
+                   straggle: np.ndarray | None = None) -> np.ndarray:
+        """Seconds each source machine needs to ship its slice to
+        ``home``.  The home machine's slice is local (0 s)."""
+        secs = np.asarray(src_bytes, np.float64) / self.bandwidth
+        if straggle is not None:
+            secs = secs * np.asarray(straggle, np.float64)[: secs.shape[0]]
+        if 0 <= home < secs.shape[0]:
+            secs[home] = 0.0
+        return secs
+
+    def ingress_seconds(self, src_bytes: np.ndarray, home: int,
+                        straggle: np.ndarray | None = None,
+                        exclude=()) -> float:
+        """Modeled pull transfer time: the remote slices serialize into
+        the home worker's ingress link."""
+        secs = self.per_source(src_bytes, home, straggle)
+        for j in exclude:
+            if 0 <= j < secs.shape[0]:
+                secs[j] = 0.0
+        return float(secs.sum())
+
+
+class LinkClock:
+    """Per-machine NIC availability: transfers book the link in issue
+    order, so a fire-and-forget push still drains real (modeled)
+    bandwidth and delays the machine's next transfer."""
+
+    def __init__(self, k: int):
+        self.free_at = np.zeros(k, np.float64)
+
+    def resize(self, k: int) -> None:
+        if k > self.free_at.shape[0]:
+            self.free_at = np.concatenate(
+                [self.free_at, np.zeros(k - self.free_at.shape[0])])
+        else:
+            self.free_at = self.free_at[:k]
+
+    def backlog(self, machine: int, now: float) -> float:
+        """Seconds of already-booked transfer still ahead of ``now`` on
+        the machine's link — the queueing delay a new transfer would
+        inherit (the admission controller's per-home queue depth)."""
+        return max(0.0, float(self.free_at[machine]) - now)
+
+    def acquire(self, machine: int, now: float, seconds: float) -> float:
+        """Book ``seconds`` of the machine's link starting no earlier than
+        ``now``; returns the completion time."""
+        start = max(now, float(self.free_at[machine]))
+        self.free_at[machine] = start + seconds
+        return start + seconds
 
 
 class LatencyWindow:

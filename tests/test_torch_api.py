@@ -179,6 +179,26 @@ def test_config_validation():
 
 
 # ------------------------------------------------------------ guards
+def test_public_names_match_jax_facade():
+    """``repro_torch.api`` exports every name of ``repro.api``
+    (``register_backend`` and the serving and autoscaler surface
+    included), and each resolves."""
+    import repro.api as japi
+
+    assert set(api.__all__) == set(japi.__all__)
+    for name in api.__all__:
+        assert getattr(api, name) is not None, name
+    assert api.register_backend is \
+        __import__("repro_torch.api_backends",
+                   fromlist=["register_backend"]).register_backend
+    from repro_torch import elastic, runtime, serving
+
+    assert api.SLOAutoscaler is elastic.SLOAutoscaler
+    assert api.ServingEngine is serving.ServingEngine
+    assert api.TelemetrySnapshot is serving.TelemetrySnapshot
+    assert runtime.CircuitBreaker.__module__ == "repro_torch.runtime.fault"
+
+
 def test_import_leaves_no_jax_or_repro():
     code = ("import sys, repro_torch, repro_torch.api, repro_torch.convert, "
             "repro_torch.core.refine, repro_torch.graphs, repro_torch.sketch, "
@@ -189,7 +209,10 @@ def test_import_leaves_no_jax_or_repro():
             "repro_torch.obs, repro_torch.core.placement, "
             "repro_torch.core.moe_placement, repro_torch.data, "
             "repro_torch.elastic, repro_torch.runtime, repro_torch.ml, "
-            "repro_torch.configs.parsa_paper;"
+            "repro_torch.configs.parsa_paper, repro_torch.serving.engine, "
+            "repro_torch.serving.router, repro_torch.serving.telemetry, "
+            "repro_torch.elastic.autoscaler, repro_torch.runtime.fault;"
+            "[getattr(repro_torch.api, n) for n in repro_torch.api.__all__];"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')];"
             "print(bad); sys.exit(1 if bad else 0)")
