@@ -118,7 +118,20 @@ Phases, in order; any failure exits non-zero:
    tokens) bit-identical to ``decode_loop``, teacher forcing, cpu against
    cuda on the reduced config, peak device memory and a profile window of
    one prefill and one decode step;
-11. each kernel timed at the shapes its path launches (CUDA events, median
+11. LM training (phase ``train``): qwen3-14b at full width cut to 4 layers
+   (float32 master parameters, remat "full", 2 microbatches), 8 steps at
+   batch 8 x sequence 1,024 of ``SyntheticLMData`` staged by
+   ``prefetch_batches``: the step time (median of steps 2-8), tokens/s,
+   peak device memory, the share of the dense bf16 peak and a profiled
+   step's idle share, no flash_attention launch (training attention is
+   the plain route); the same run through ``TrainLoop`` with a failure
+   injected at step 6, resumed from its step-6 checkpoint (34.5 GB, the
+   one checkpoint a chip machine's disk-write cap allows) and bitwise
+   equal to the uninterrupted run; the reduced config's 3 steps on the
+   card twice (bitwise) and against the CPU (relative L2 within 1e-5), and
+   its failure at step 6 with a checkpoint every 2 steps, resumed
+   bitwise;
+12. each kernel timed at the shapes its path launches (CUDA events, median
    of 21 samples after warm-up; ``ms`` from launches replayed in a CUDA
    graph, ``eager_ms`` from launches made one by one from Python) beside
    its bound, its plain version and its launches on the path
@@ -142,8 +155,8 @@ Phases, in order; any failure exits non-zero:
 
 ``--phases build,kernels,sketch``, ``--phases build,kernels,parallel``,
 ``--phases build,kernels,stream``, ``--phases build,kernels,elastic``,
-``--phases build,kernels,serving`` and ``--phases build,kernels,lm`` are
-short checks of one path (they
+``--phases build,kernels,serving``, ``--phases build,kernels,lm`` and
+``--phases build,kernels,train`` are short checks of one path (they
 print no result and exit 1).
 
 The last lines are the card, one ``{"kernels": [...]}`` JSON line and
@@ -163,7 +176,7 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parent
 PROFILE_DIAG = 0    # --profile-diag N
 PHASES = ("build", "kernels", "main", "parity", "sketch", "parallel",
-          "stream", "elastic", "serving", "lm", "times")
+          "stream", "elastic", "serving", "lm", "train", "times")
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, and the non-tensor fp32
 # rate, the only CUDA-core rate in that sheet; int32 and popcount work is
@@ -316,6 +329,24 @@ LM = dict(arch="qwen3-14b", num_layers=None, seed=0, prefill_batch=2,
           prefill_seq=4096, cache_seq=4128, serve_batch=4, prompt=64, gen=32)
 LM_MAX_REL_L2 = 5e-2        # kernel route against plain route, and teacher forcing
 FLASH_TOL = {"float32": 3e-5, "bfloat16": 2e-2}
+
+# LM training (phase train): qwen3-14b at full width (d_model 5,120, d_ff
+# 17,408, 40/8 x 128 heads, padded vocab 152,064, untied head), remat
+# "full", 2 microbatches, depth cut to 4 layers (2.878 B float32 master
+# parameters; parameter, gradient, m and v 46.1 GB).  8 steps at batch 8 x
+# sequence 1,024 of SyntheticLMData(seed 0), staged by prefetch_batches,
+# through TrainLoop with a failure injected at step 6, resumed and held
+# bitwise to an uninterrupted run.  A checkpoint of that state is 34.5 GB,
+# and a chip machine's disk takes at most 45 GiB of writes a call (freed
+# blocks included), so the full-width run checkpoints once, at step 6
+# (ckpt_every 6); the reduced config runs the same failure with a
+# checkpoint every 2 steps.  The reduced config's 3 steps on the card are
+# held to the CPU's within TRAIN_REL_L2 (float32, TF32 off, sums in
+# another order) and to a second card run bitwise.
+TRAIN = dict(arch="qwen3-14b", num_layers=4, batch=8, seq=1024, steps=8,
+             ckpt_every=6, fail_at=6, seed=0, lr=3e-4, reduced_steps=3,
+             reduced_ckpt_every=2, reduced_batch=4, reduced_seq=16)
+TRAIN_REL_L2 = 1e-5
 
 
 class SmokeFailure(RuntimeError):
@@ -2990,7 +3021,7 @@ def rel_l2(a, b) -> float:
 
 
 def phase_lm(dev, lm: dict = LM) -> dict:
-    """The LM serving path on the card; see the module docstring, item 7."""
+    """The LM serving path on the card; see the module docstring, item 10."""
     import dataclasses
 
     import numpy as np
@@ -3186,6 +3217,209 @@ def _tree_to(tree, dev):
     return [_tree_to(v, dev) for v in tree]
 
 
+def train_flops(cfg, B: int, S: int) -> float:
+    """The floating-point operations of one train step of the dense model:
+    2 a multiply-add; the products of every layer and the head forward,
+    twice that backward, the layers' forward once more under remat "full";
+    attention's QK^T and PV over the whole (S, S) score matrix the plain
+    route computes, at the same multiples."""
+    D, H, KV, hd, Fd = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+                        cfg.head_dim, cfg.d_ff)
+    T = B * S
+    layer = 2 * T * (D * (H + 2 * KV) * hd + H * hd * D + 3 * D * Fd)
+    layer += 2 * 2 * B * H * S * S * hd
+    head = 2 * T * D * cfg.padded_vocab
+    remat = 1 if cfg.remat == "full" else 0
+    return float(cfg.num_layers * layer * (3 + remat) + head * 3)
+
+
+def resume_bitwise(train_step, init_fn, batches, steps: int, fail_at: int,
+                   ckpt_every: int, ckpt_dir, ref) -> dict:
+    """``steps`` steps through ``TrainLoop`` from ``init_fn()``, checkpoints
+    every ``ckpt_every`` steps in ``ckpt_dir``, a failure injected at step
+    ``fail_at``, then a resume from the newest checkpoint to the end; the
+    final parameters must equal ``ref`` (the uninterrupted run's, on the
+    host) bit for bit.  The checkpoints are removed at the end."""
+    import shutil
+
+    import torch
+
+    from repro_torch.runtime import FaultConfig, SimulatedFailure, TrainLoop
+    from repro_torch.tree import tree_leaves
+
+    out = {}
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    try:
+        loop = TrainLoop(train_step, FaultConfig(
+            ckpt_dir=str(ckpt_dir), ckpt_every=ckpt_every,
+            fail_at_step=fail_at))
+        params, opt = init_fn()
+        t0 = time.perf_counter()
+        try:
+            loop.run(params, opt, batches(0, steps))
+            check(False, "train: the injected failure did not fire")
+        except SimulatedFailure:
+            pass
+        out["failed_run_s"] = time.perf_counter() - t0
+        out["checkpoints"] = sorted(p.name for p in ckpt_dir.iterdir())
+        del params, opt
+        torch.cuda.empty_cache()
+        loop = TrainLoop(train_step, FaultConfig(ckpt_dir=str(ckpt_dir),
+                                                 ckpt_every=ckpt_every))
+        t0 = time.perf_counter()
+        start, params, opt = loop.resume_or(init_fn)
+        torch.cuda.synchronize()
+        out["resume_s"] = time.perf_counter() - t0
+        check(start == fail_at, f"train resumed at step {start}")
+        t0 = time.perf_counter()
+        params, opt, _ = loop.run(params, opt, batches(start, steps),
+                                  start_step=start)
+        out["resumed_run_s"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    check(all(torch.equal(a.cpu(), b)
+              for a, b in zip(tree_leaves(params), ref)),
+          "train: the resumed run's parameters differ from the "
+          "uninterrupted run's")
+    return out
+
+
+def phase_train(dev, tr: dict = TRAIN) -> dict:
+    """LM training on the card; see the module docstring, item 11."""
+    import dataclasses
+    import functools
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch import train as T
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.serving import prefetch_batches, stage_batch
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg = dataclasses.replace(get_config(tr["arch"]),
+                              num_layers=tr["num_layers"])
+    check(cfg.remat == "full" and cfg.microbatches == 2
+          and not cfg.tie_embeddings, f"train config {cfg}")
+    B, S, steps = tr["batch"], tr["seq"], tr["steps"]
+    out: dict = {"arch": cfg.name, "num_layers": cfg.num_layers,
+                 "batch": B, "seq": S, "remat": cfg.remat,
+                 "microbatches": cfg.microbatches, "card": card_line()}
+    model, train_step, init_state = T.build(cfg, dev, lr=tr["lr"])
+    data = SyntheticLMData(cfg.vocab_size, B, S, seed=tr["seed"])
+
+    def batches(lo, hi):
+        return prefetch_batches((data.batch_at(t) for t in range(lo, hi)),
+                                functools.partial(stage_batch, device=dev),
+                                depth=2)
+
+    ckpt_dir = ROOT / "chip_smoke_ckpt"
+    FA.reset_launch_counts()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    # (a) the uninterrupted run, each step timed
+    params, opt = init_state(tr["seed"])
+    out["params"] = model.param_count(params)
+    state_bytes = sum(x.numel() * x.element_size()
+                      for x in tree_leaves((params, opt)))
+    out["state_gb"] = state_bytes / 1e9
+    free = shutil.disk_usage(ROOT).free
+    check(free > 1.1 * state_bytes,
+          f"train: {free / 1e9:.1f} GB free on disk, a checkpoint of "
+          f"{state_bytes / 1e9:.1f} GB needs more")
+    times, losses = [], []
+    for b in batches(0, steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, met = train_step(params, opt, b)
+        losses.append(float(met["loss"]))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    check(all(np.isfinite(losses)), f"train losses {losses}")
+    out["losses"] = losses
+    out["step_s"] = times
+    out["step_median_s"] = statistics.median(times[1:])
+    out["tokens_per_s"] = B * S / out["step_median_s"]
+    out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    out["flop_per_step"] = train_flops(cfg, B, S)
+    out["bf16_peak_share"] = (out["flop_per_step"] / out["step_median_s"]
+                              / TENSOR_BF16_FLOPS)
+    check(FA.LAUNCHES["flash_attention"] == 0,
+          "training launched the flash kernel (it runs the plain route)")
+    log(f"train {cfg.name} x{cfg.num_layers} layers, {out['params']:,} "
+        f"parameters, B={B} S={S}: step {out['step_median_s']:.3f} s "
+        f"(median of steps 2-{steps}), {out['tokens_per_s']:.1f} tokens/s, "
+        f"peak {out['peak_gb']:.2f} GB, {out['flop_per_step']:.3e} FLOP a "
+        f"step = {out['bf16_peak_share']:.3f} of the dense bf16 peak; "
+        f"loss {losses[0]:.4f} -> {losses[-1]:.4f}; card {out['card']}")
+    ref = [x.to("cpu", copy=True) for x in tree_leaves(params)]
+    prof_batch = stage_batch(data.batch_at(steps), dev)
+    out["profile_step"] = profile_window(
+        lambda: train_step(params, opt, prof_batch))
+    log(f"train profiled step: {json.dumps(out['profile_step'])}")
+    del params, opt, met, prof_batch
+    torch.cuda.empty_cache()
+
+    # (b) the same run through TrainLoop, failing at step 6, resumed
+    out["resume"] = resume_bitwise(train_step, lambda: init_state(tr["seed"]),
+                                   batches, steps, tr["fail_at"],
+                                   tr["ckpt_every"], ckpt_dir, ref)
+    log(f"train resume: {json.dumps(out['resume'])}; final parameters "
+        f"bitwise equal to the uninterrupted run's")
+    del ref
+    torch.cuda.empty_cache()
+
+    # (c) the reduced config: the card twice, bitwise, and against the CPU;
+    # the failure at step 6 with a checkpoint every 2 steps, resumed
+    rcfg = dataclasses.replace(get_config(tr["arch"]).reduced(),
+                               microbatches=2)
+    rdata = SyntheticLMData(rcfg.vocab_size, tr["reduced_batch"],
+                            tr["reduced_seq"], seed=1)
+    _, _, rinit, _ = make_train_step(rcfg, "cpu")
+    init = rinit(tr["seed"])
+
+    def rinit_on(device):
+        return tuple(tree_map(lambda x: x.to(device, copy=True), t)
+                     for t in init)
+
+    finals = []
+    for device in ("cpu", dev, dev):
+        _, rstep, _, _ = make_train_step(rcfg, device)
+        p, o = rinit_on(device)
+        for t in range(tr["reduced_steps"]):
+            p, o, _ = rstep(p, o, rdata.batch_at(t))
+        finals.append([x.cpu() for x in tree_leaves(p)])
+    check(all(torch.equal(a, b) for a, b in zip(finals[1], finals[2])),
+          "train reduced: two card runs differ")
+    num = sum(float((a.double() - b.double()).square().sum())
+              for a, b in zip(finals[1], finals[0]))
+    den = sum(float(b.double().square().sum()) for b in finals[0])
+    out["reduced_cpu_rel_l2"] = (num / den) ** 0.5
+    check(out["reduced_cpu_rel_l2"] <= TRAIN_REL_L2,
+          f"train reduced: card against cpu, relative L2 "
+          f"{out['reduced_cpu_rel_l2']:.3e} > {TRAIN_REL_L2}")
+    p, o = rinit_on(dev)
+    for t in range(steps):
+        p, o, _ = rstep(p, o, rdata.batch_at(t))
+    out["reduced_resume"] = resume_bitwise(
+        rstep, lambda: rinit_on(dev),
+        lambda lo, hi: (rdata.batch_at(t) for t in range(lo, hi)), steps,
+        tr["fail_at"], tr["reduced_ckpt_every"], ckpt_dir,
+        [x.cpu() for x in tree_leaves(p)])
+    log(f"train reduced {rcfg.name}: {tr['reduced_steps']} steps, two card "
+        f"runs equal, card against cpu relative L2 "
+        f"{out['reduced_cpu_rel_l2']:.3e}; the failure at step "
+        f"{tr['fail_at']} with a checkpoint every {tr['reduced_ckpt_every']} "
+        f"steps resumed bitwise ({json.dumps(out['reduced_resume'])})")
+    log("train: " + json.dumps(out))
+    return out
+
+
 # ---------------------------------------------------------------- phase 8
 def time_ms(fn, inner: int, samples: int = 21) -> float:
     """Median per-call time over ``samples`` CUDA-event windows of ``inner``
@@ -3288,6 +3522,7 @@ def profile_window(fn, warmup: bool = True, lead: bool = False) -> dict:
         return out
     busy = sum(e.time_range.elapsed_us() for e in kern) / 1e6
     ours = collections.defaultdict(list)
+    first_port = None   # the start of the window's first port kernel
     for e in kern:
         for name in ("cost_tile_kernel", "select_reduce_kernel",
                      "sketch_select_kernel", "parsa_scan_kernel",
@@ -3295,6 +3530,12 @@ def profile_window(fn, warmup: bool = True, lead: bool = False) -> dict:
                      "union_delta_kernel", "flash_wgmma", "flash_fma"):
             if name in e.name:
                 ours[name].append(e.time_range.elapsed_us())
+                if first_port is None or e.time_range.start < first_port:
+                    first_port = e.time_range.start
+    if first_port is not None:
+        out["other_kernels_from_port"] = sum(
+            e.time_range.start >= first_port for e in kern) - sum(
+            len(v) for v in ours.values())
     out.update(busy_s=busy, idle_share=1 - busy / wall,
                port_kernels_mean_us={n: statistics.mean(v)
                                      for n, v in ours.items()},
@@ -3776,23 +4017,31 @@ def phase_times(dev, main: dict) -> list[dict]:
             + json.dumps(prof))
     # a super-step is one parsa_scan and one merge launch and no PyTorch
     # kernel: the window of the scan's super-steps holds one of each a
-    # super-step, and fewer other device kernels than one a super-step
-    # beyond those of the same scan in one super-step (its set-up)
+    # super-step, and fewer other device kernels from its first port
+    # kernel on than one a super-step beyond those of the same scan in one
+    # super-step.  The set-up's kernels all start before the first port
+    # kernel, and they are not counted: the profiler drops a window's
+    # first device activities at times (12 of the 18 set-up kernels of the
+    # one-super-step window, in every try of two whole-script runs on the
+    # H100, while it kept the 9-super-step window's)
     win, one = (profiles["parallel scan"],
                 profiles["parallel scan, one super-step"])
     ours = win.get("port_kernels_count", {})
-    others = [p_["device_kernels"] - sum(p_.get("port_kernels_count",
-                                                {}).values())
-              for p_ in (win, one)]
+    others = [p_.get("other_kernels_from_port", 0) for p_ in (win, one)]
     check(ours == {"parsa_scan_kernel": n_steps_par,
                    "union_delta_kernel": n_steps_par}
+          and one.get("port_kernels_count") == {"parsa_scan_kernel": 1,
+                                                "union_delta_kernel": 1}
           and others[0] - others[1] < n_steps_par - 1,
           f"parallel scan window: port kernels {ours}, other device "
-          f"kernels {others[0]} ({n_steps_par} super-steps) vs {others[1]} "
-          f"(one): want {n_steps_par} parsa_scan and {n_steps_par} merges "
-          "and no PyTorch kernel a super-step")
-    log(f"parallel scan window: {ours}; other device kernels {others[0]} "
-        f"in {n_steps_par} super-steps, {others[1]} in one")
+          f"kernels from the first port kernel on {others[0]} "
+          f"({n_steps_par} super-steps) vs {others[1]} (one): want "
+          f"{n_steps_par} parsa_scan and {n_steps_par} merges and no "
+          "PyTorch kernel a super-step")
+    log(f"parallel scan window: {ours}; other device kernels from the "
+        f"first port kernel on {others[0]} in {n_steps_par} super-steps, "
+        f"{others[1]} in one; in all {win['device_kernels']} and "
+        f"{one['device_kernels']}")
     check(np.array_equal(sk_state[0][0].cpu().numpy(), sk["result"].s_masks),
           "the profiled sketched scan's sets != the sketch path's")
     # the sketched scan's first SKETCH_REF_BLOCKS blocks (B=1,024, Ws=4,096:
@@ -3965,6 +4214,10 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         state["lm"] = phase_lm(dev)
         log(f"lm phase {time.perf_counter() - t0:.2f} s")
+    if "train" in phases:
+        t0 = time.perf_counter()
+        state["train"] = phase_train(dev)
+        log(f"train phase {time.perf_counter() - t0:.2f} s")
     if "times" in phases:
         rows = phase_times(dev, state)
         for path in ("stream", "elastic", "serving"):

@@ -6,7 +6,9 @@ the numpy pieces it needs.  Entry points run on the card
 (``device="cuda"``) unless the caller passes ``device="cpu"``, which runs
 every kernel's plain PyTorch version.  The dense LM family is served by
 ``launch.steps`` / ``launch.serve`` (prefill through the hand-written
-flash attention kernel, greedy decode through ``serving.ServingEngine``).
+flash attention kernel, greedy decode through ``serving.ServingEngine``)
+and trained by ``launch.train`` (``runtime.TrainLoop`` with checkpoints,
+``optim`` AdamW).
 
     from repro_torch.api import ParsaConfig, partition
     from repro_torch.graphs import text_like

@@ -1,7 +1,8 @@
 """nemotron-4-340b [arXiv:2402.16819; unverified] — dense GQA, squared-ReLU MLP.
 
 The training fields (``fsdp``, ``opt_dtype``, ``microbatches``) are kept
-as the reference has them; the port's serving path does not read them."""
+as the reference has them; training reads ``opt_dtype`` (bf16 AdamW
+moments) and ``microbatches``, and ``fsdp`` has no meaning on one card."""
 from .base import ModelConfig, register
 
 CONFIG = register(ModelConfig(

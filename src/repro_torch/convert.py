@@ -7,7 +7,10 @@ These helpers take plain numpy arrays (never JAX objects), so a result of
 whose ``.refine(g2)`` continues from the same sets.  A sketched result also
 carries its column map (``sketch_from_numpy``), so its refine continues in
 the same sketch space.  For the LM stack, ``model_params_from_numpy``
-carries a model's weights across; for the parameter server,
+carries a model's weights across, and ``train_state_from_numpy`` /
+``train_state_from_jax_checkpoint`` a training run's state (from numpy
+trees, or from a checkpoint directory the JAX package wrote); for the
+parameter server,
 ``ps_state_from_numpy`` carries a DBPG run's state into a port
 ``PSCluster``, which then continues the run.
 """
@@ -24,7 +27,8 @@ from .kernels.parsa_cost import coerce_packed_sets
 from .sketch import SketchSpec
 
 __all__ = ["graph_from_numpy", "result_from_numpy", "sketch_from_numpy",
-           "model_params_from_numpy", "ps_state_from_numpy"]
+           "model_params_from_numpy", "train_state_from_numpy",
+           "train_state_from_jax_checkpoint", "ps_state_from_numpy"]
 
 # the state a DBPG run carries between steps, beside the cluster's fixed
 # graph, labels, placement and configuration
@@ -101,25 +105,34 @@ def result_from_numpy(parts_u, parts_v, s_masks, k: int, num_v: int,
     )
 
 
-def model_params_from_numpy(cfg, params, *, device="cuda") -> dict:
+def model_params_from_numpy(cfg, params, *, device="cuda",
+                            master: bool = False) -> dict:
     """The port's parameter dict (``models.model``) from the reference's
     parameter tree as numpy arrays: {"embed", "final_norm", "lm_head",
     "stack"}, with the stack's leaves stacked on a leading layer axis
     (L, ...).  Returns the stack as a list of per-layer dicts.
 
-    Weight matrices are stored in the config's compute dtype on
+    Serving: weight matrices are stored in the config's compute dtype on
     ``device``; the reference keeps float32 masters and casts them to the
     compute dtype at every product, so the stored cast gives the same
-    values.  Norm scales and biases stay float32, as the
-    reference casts them where it uses them."""
+    values.  ``master=True`` (training) keeps them float32, cast at every
+    product as the reference does.  Norm scales and biases stay float32,
+    as the reference casts them where it uses them."""
     dt = getattr(torch, cfg.dtype)
+    return _stack_tree(cfg, params, device, lambda name: (
+        dt if name in _MATRICES and not master else torch.float32))
+
+
+def _stack_tree(cfg, params, device, dtype_of) -> dict:
+    """A reference parameter-shaped numpy tree as the port's: the stacked
+    ``stack`` leaves split into a list of per-layer dicts, each leaf a
+    tensor of ``dtype_of(leaf name)`` on ``device``."""
     if cfg.family != "dense":
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
 
     def leaf(name, a):
         t = torch.from_numpy(np.array(a, dtype=np.float32))
-        return t.to(device=device, dtype=dt if name in _MATRICES
-                    else torch.float32)
+        return t.to(device=device, dtype=dtype_of(name))
 
     def tree(p, index=None):
         return {name: tree(a, index) if isinstance(a, dict)
@@ -134,6 +147,57 @@ def model_params_from_numpy(cfg, params, *, device="cuda") -> dict:
         raise ValueError(f"{L} layers in the tree, the config has "
                          f"{cfg.num_layers}")
     return out
+
+
+def train_state_from_numpy(cfg, params, opt, *, device="cuda"):
+    """The port's training state (``launch.steps.make_train_step``'s
+    ``(params, opt_state)``) from the reference's, as numpy trees:
+    ``params`` the parameter tree (float32 masters), ``opt`` {"m", "v",
+    "step"} and, when ``cfg.grad_compress`` is on, "comp": {"ef"}.  The
+    moments keep the config's moment dtype (``cfg.opt_dtype``), ``step``
+    is an int32 tensor and the error feedback float32."""
+    md = getattr(torch, cfg.opt_dtype)
+    state = {"m": _stack_tree(cfg, opt["m"], device, lambda name: md),
+             "v": _stack_tree(cfg, opt["v"], device, lambda name: md),
+             "step": torch.tensor(int(np.asarray(opt["step"])),
+                                  dtype=torch.int32, device=device)}
+    if cfg.grad_compress:
+        state["comp"] = {"ef": _stack_tree(cfg, opt["comp"]["ef"], device,
+                                           lambda name: torch.float32)}
+    return (model_params_from_numpy(cfg, params, device=device, master=True),
+            state)
+
+
+def train_state_from_jax_checkpoint(cfg, directory, step: int | None = None,
+                                    *, device="cuda"):
+    """(step, params, opt_state): the training state of a checkpoint
+    directory the JAX package's ``TrainLoop`` wrote (its newest step when
+    ``step`` is None), in the port's layout.  The manifest's keys are the
+    reference's tree paths joined with ``::``; its ``stack`` leaves are
+    stacked on a leading layer axis, which this maps to the port's list
+    of per-layer dicts (``params::stack::attn::wq`` (L, ...) becomes
+    ``params::stack::<l>::attn::wq``)."""
+    from .ckpt import latest_step
+    from .ckpt.checkpoint import read_arrays
+
+    if step is None:
+        step = latest_step(directory)
+        if step is None:
+            raise FileNotFoundError(f"no checkpoint in {directory}")
+    arrays, manifest = read_arrays(directory, step)
+    tree: dict = {}
+    for key, a in arrays.items():
+        if manifest[key]["dtype"] == "bfloat16":   # its 16-bit patterns
+            a = (np.ascontiguousarray(a).view(np.uint16).astype(np.uint32)
+                 << 16).view(np.float32)
+        node = tree
+        *parents, name = key.split("::")
+        for part in parents:
+            node = node.setdefault(part, {})
+        node[name] = a
+    params, opt = train_state_from_numpy(cfg, tree["params"], tree["opt"],
+                                         device=device)
+    return step, params, opt
 
 
 def ps_state_from_numpy(cluster, state: dict):

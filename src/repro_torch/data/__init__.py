@@ -1,2 +1,3 @@
-"""Data pipelines of the port: Parsa-aware document sharding."""
-from .pipeline import ParsaShardedData  # noqa: F401
+"""Data pipelines of the port: deterministic synthetic token streams and
+Parsa-aware document sharding."""
+from .pipeline import ParsaShardedData, SyntheticLMData  # noqa: F401

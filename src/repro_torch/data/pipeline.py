@@ -1,4 +1,9 @@
-"""Parsa-aware document sharding.
+"""Data pipeline: deterministic synthetic token streams and Parsa-aware
+document sharding.
+
+``SyntheticLMData`` — seeded Zipfian token batches (training and its
+tests).  Batch t is a pure function of (seed, t), so a restart from a
+checkpoint replays the exact stream.
 
 ``ParsaShardedData`` — documents assigned to data shards by a Parsa
 U-partition: each shard's batches draw from its own documents, shrinking
@@ -9,12 +14,42 @@ both packages give the same batches.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 
 from ..core.bipartite import BipartiteGraph
 from ..core.placement import Placement
 
-__all__ = ["ParsaShardedData"]
+__all__ = ["SyntheticLMData", "ParsaShardedData"]
+
+
+@dataclasses.dataclass
+class SyntheticLMData:
+    vocab_size: int
+    batch: int
+    seq: int
+    seed: int = 0
+    zipf_s: float = 1.1
+
+    def __post_init__(self):
+        w = 1.0 / np.arange(1, self.vocab_size + 1) ** self.zipf_s
+        self._p = w / w.sum()
+
+    def batch_at(self, step: int) -> dict:
+        rng = np.random.default_rng((self.seed, step))
+        toks = rng.choice(self.vocab_size, size=(self.batch, self.seq + 1),
+                          p=self._p)
+        return {
+            "tokens": toks[:, :-1].astype(np.int32),
+            "labels": toks[:, 1:].astype(np.int32),
+        }
+
+    def __iter__(self):
+        step = 0
+        while True:
+            yield self.batch_at(step)
+            step += 1
 
 
 class ParsaShardedData:

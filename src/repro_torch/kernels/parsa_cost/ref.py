@@ -14,12 +14,25 @@ the int32 sentinel of retired rows and empty slots.
 Ports of ``repro.kernels.parsa_cost.ref``.  The greedy select is the plain
 sequential k-slot loop (the JAX oracle's vectorized fast path with its
 collision fallback computes the same thing).
+
+On CPU tensors every function here runs under one intra-op thread
+(``cpu_one_thread``): the scans and sweeps run a few small ops a round on
+a tile of a few KiB, and such an op spends more time in its OpenMP
+barrier than in its work.  With several such processes on one host (a
+test run's workers) the barriers spin against each other's threads: a
+serving loop that takes 0.4 s alone took 140 s in each of six processes
+(``tests/measure_thread_collapse.py``).  The results are integers, the
+same bits at any thread count.
 """
 from __future__ import annotations
 
+import contextlib
+import functools
+
 import torch
 
-__all__ = ["BIG", "popcount32", "parsa_cost_ref", "select_from_cost",
+__all__ = ["BIG", "cpu_one_thread", "popcount32", "parsa_cost_ref",
+           "select_from_cost",
            "select_greedy_from_cost", "parsa_select_ref",
            "parsa_select_greedy_ref", "sketch_select_ref",
            "sketch_select_rows_ref", "compact_rows", "rebuild_block",
@@ -32,6 +45,34 @@ BIG = 2**30  # sentinel cost for retired / padded vertices (fits int32)
 _M32 = 0xFFFFFFFF
 
 
+@contextlib.contextmanager
+def cpu_one_thread(device):
+    """Run the body under one intra-op thread when ``device`` is the CPU,
+    restoring the caller's count on exit, an exception included.  Nested
+    scopes and other devices change nothing.  ``torch.set_num_threads`` is
+    process-wide: another thread of the process that runs tensor code
+    meanwhile runs it on one thread too."""
+    n = torch.get_num_threads()
+    if torch.device(device).type != "cpu" or n == 1:
+        yield
+        return
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
+def _one_thread(fn):
+    """``fn`` under ``cpu_one_thread`` of its first argument's device."""
+    @functools.wraps(fn)
+    def wrapped(first, *args, **kwargs):
+        with cpu_one_thread(first.device):
+            return fn(first, *args, **kwargs)
+    return wrapped
+
+
+@_one_thread
 def popcount32(x: torch.Tensor) -> torch.Tensor:
     """Per-element popcount of int32 words (as unsigned), int32 result."""
     x = x.to(torch.int64) & _M32
@@ -41,6 +82,7 @@ def popcount32(x: torch.Tensor) -> torch.Tensor:
     return ((x * 0x01010101) >> 24 & 0xFF).to(torch.int32)
 
 
+@_one_thread
 def unpack_bits(words: torch.Tensor) -> torch.Tensor:
     """(r, cw) int32 words → (r, 32·cw) int32 0/1 bits, little-endian."""
     shifts = torch.arange(32, device=words.device, dtype=torch.int64)
@@ -48,12 +90,14 @@ def unpack_bits(words: torch.Tensor) -> torch.Tensor:
     return bits.reshape(words.shape[0], -1).to(torch.int32)
 
 
+@_one_thread
 def parsa_cost_ref(nbr_masks: torch.Tensor, s_masks: torch.Tensor) -> torch.Tensor:
     """nbr_masks (U, W) int32 bit-packs, s_masks (K, W) int32 → (U, K) int32."""
     masked = nbr_masks[:, None, :] & ~s_masks[None, :, :]
     return popcount32(masked).sum(dim=-1, dtype=torch.int32)
 
 
+@_one_thread
 def select_from_cost(cost: torch.Tensor, retired: torch.Tensor
                      ) -> tuple[torch.Tensor, torch.Tensor]:
     """Independent per-column (min, argmin) of a (B, k) tile, retired→BIG.
@@ -63,6 +107,7 @@ def select_from_cost(cost: torch.Tensor, retired: torch.Tensor
             masked.argmin(dim=0).to(torch.int32))
 
 
+@_one_thread
 def select_greedy_from_cost(
     cost: torch.Tensor,           # (B, k) int32 — current cost tile
     retired: torch.Tensor,        # (B,) bool — already-assigned rows
@@ -93,17 +138,20 @@ def select_greedy_from_cost(
     return u_sel, c_sel
 
 
+@_one_thread
 def parsa_select_ref(nbr_masks, s_masks, retired):
     """Fused cost+select, independent mode → ((k,) mins, (k,) argmins)."""
     return select_from_cost(parsa_cost_ref(nbr_masks, s_masks), retired)
 
 
+@_one_thread
 def parsa_select_greedy_ref(nbr_masks, s_masks, retired, order, enabled):
     """Fused cost+select, greedy-round mode → ((k,) u_sel, (k,) c_sel)."""
     return select_greedy_from_cost(
         parsa_cost_ref(nbr_masks, s_masks), retired, order, enabled)
 
 
+@_one_thread
 def sketch_select_ref(nbr_masks, s_masks, retired, order=None, enabled=None,
                       *, greedy=False):
     """Fused cost+select at sketched widths, the plain version of the
@@ -122,6 +170,7 @@ def sketch_select_ref(nbr_masks, s_masks, retired, order=None, enabled=None,
     return u[None, :], c[None, :]
 
 
+@_one_thread
 def compact_rows(nbr_masks: torch.Tensor, cap: int
                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The compact form of a (B, W) int32 block, as the scan packs it:
@@ -145,6 +194,7 @@ def compact_rows(nbr_masks: torch.Tensor, cap: int
             nz.sum(dim=1) > cap)
 
 
+@_one_thread
 def sketch_select_rows_ref(nbr_masks, widx, vals, trunc, s_masks, retired,
                            order=None, enabled=None, *, greedy=False):
     """The plain version of the ``sketch_select`` kernel's list route: the
@@ -169,6 +219,7 @@ def sketch_select_rows_ref(nbr_masks, widx, vals, trunc, s_masks, retired,
     return u[None, :], c[None, :]
 
 
+@_one_thread
 def rebuild_block(widx: torch.Tensor, vals: torch.Tensor,
                   tr_ids: torch.Tensor, tr_masks: torch.Tensor) -> torch.Tensor:
     """Densify a block's bitmask from its compact word lists into a
@@ -189,6 +240,7 @@ def rebuild_block(widx: torch.Tensor, vals: torch.Tensor,
     return nbr
 
 
+@_one_thread
 def parsa_scan_ref(
     widx: torch.Tensor,      # (nw, nb, B, cap) int32 compact word indices
     vals: torch.Tensor,      # (nw, nb, B, cap) int32 words at widx
@@ -242,6 +294,7 @@ def parsa_scan_ref(
                 retired[rows] = True
 
 
+@_one_thread
 def refine_sweep_ref(
     tile_words: torch.Tensor,  # (k, cw) int32 — packed need bits of one V chunk
     prev: torch.Tensor,        # (C,) int32 — assignments entering the sweep (C = 32·cw)
@@ -273,6 +326,7 @@ def refine_sweep_ref(
     return c, parts
 
 
+@_one_thread
 def refine_scan_ref(
     words: torch.Tensor,  # (n_chunks, k, cw) int32 need words per chunk
     prev: torch.Tensor,   # (n_chunks, C) int32 entering assignments
@@ -289,6 +343,7 @@ def refine_scan_ref(
     return cost, parts
 
 
+@_one_thread
 def packed_union_delta_ref(new: torch.Tensor, old: torch.Tensor
                            ) -> tuple[torch.Tensor, torch.Tensor]:
     """Alg 4's wire ops on packed words: (union, delta) = (new | old,
@@ -296,6 +351,7 @@ def packed_union_delta_ref(new: torch.Tensor, old: torch.Tensor
     return new | old, new & ~old
 
 
+@_one_thread
 def merge_worker_sets_ref(s_local: torch.Tensor, s_global: torch.Tensor,
                           sz_local: torch.Tensor, sz_global: torch.Tensor
                           ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:

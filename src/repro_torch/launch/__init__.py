@@ -1,2 +1,3 @@
-"""Serving entry points of the port: step factories (``steps``) and the
-greedy decode loop through the serving engine (``serve``)."""
+"""Entry points of the port's LM stack: step factories (``steps``), the
+training driver (``train``) and the greedy decode loop through the serving
+engine (``serve``)."""

@@ -3,16 +3,20 @@ with a KV cache, MLPs.
 
 The port of ``repro/models/layers.py``.  Parameters are plain dicts of
 tensors (``init_*`` builds them, ``apply_*`` reads them).  Dtype policy as
-in the reference: matrices are used in the compute ``dtype``; the reference
-keeps float32 masters and casts them at every product, the port stores the
-cast once (``convert.model_params_from_numpy``, ``Model.init``), which
-gives the same values.  Vectors (norm scales, biases) stay float32 and are
-cast where the reference casts them.
+in the reference: matrices are used in the compute ``dtype``, cast at
+every product.  Training keeps float32 masters, as the reference does
+(``Model.init(master=True)``, ``convert.model_params_from_numpy(...,
+master=True)``); serving stores the cast once, so its casts are no-ops
+and give the same values.  Vectors (norm scales, biases) stay float32 and
+are cast where the reference casts them.
 
 Attention routes:
   * ``naive``   — the full (Sq, Skv) score matrix;
   * ``chunked`` — a loop over query chunks, bounding the live score tensor
-    to (B, KV, G, chunk, Skv);
+    to (B, KV, G, chunk, Skv); where autograd records it, each chunk is
+    recomputed in the backward pass (``torch.utils.checkpoint``, the
+    reference's per-chunk ``jax.checkpoint``) instead of keeping every
+    chunk's probabilities;
   * the flash kernel (``kernels/flash_attention``) — prefill from cache
     slot 0, where query and key positions are both ``arange``: the caller
     (``Model.prefill``) asks for it with ``flash=True``.  Decode, one query
@@ -30,6 +34,7 @@ import math
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels.flash_attention import flash_attention
 
@@ -167,11 +172,19 @@ def attention(q, k, v, *, q_positions, k_positions, causal=True,
         if chunk < 64:
             mask = _scores_mask(q_positions, k_positions, window, causal)
             return _sdpa(q, k, v, mask, dtype)
+
+    def one_chunk(qc, qp):
+        mask = _scores_mask(qp, k_positions, window, causal)
+        return _sdpa(qc, k, v, mask, dtype)
+
+    remat = torch.is_grad_enabled() and (
+        q.requires_grad or k.requires_grad or v.requires_grad)
     outs = []
     for c in range(Sq // chunk):
         sl = slice(c * chunk, (c + 1) * chunk)
-        mask = _scores_mask(q_positions[:, sl], k_positions, window, causal)
-        outs.append(_sdpa(q[:, sl], k, v, mask, dtype))
+        args = (q[:, sl], q_positions[:, sl])
+        outs.append(checkpoint(one_chunk, *args, use_reentrant=False)
+                    if remat else one_chunk(*args))
     return torch.cat(outs, dim=1)
 
 
@@ -180,9 +193,9 @@ def qkv_projection(p, x, cfg, positions, dtype=torch.bfloat16):
     projections, biases, qk-norm and rotary embedding."""
     B, S, D = x.shape
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    xq = (x @ p["wq"].reshape(D, H * hd)).view(B, S, H, hd)
-    xk = (x @ p["wk"].reshape(D, KV * hd)).view(B, S, KV, hd)
-    xv = (x @ p["wv"].reshape(D, KV * hd)).view(B, S, KV, hd)
+    xq = (x @ p["wq"].to(dtype).reshape(D, H * hd)).view(B, S, H, hd)
+    xk = (x @ p["wk"].to(dtype).reshape(D, KV * hd)).view(B, S, KV, hd)
+    xv = (x @ p["wv"].to(dtype).reshape(D, KV * hd)).view(B, S, KV, hd)
     if "bq" in p:
         xq = xq + p["bq"].to(dtype)
         xk = xk + p["bk"].to(dtype)
@@ -234,7 +247,7 @@ def attention_block(p, x, cfg, positions, *, kv_cache=None, cache_len=None,
                         k_positions=k_positions, causal=True,
                         window=cfg.swa_window, impl=cfg.attn_impl,
                         chunk=cfg.attn_chunk, dtype=dtype)
-    return out.reshape(B, S, H * hd) @ p["wo"].reshape(H * hd, D)
+    return out.reshape(B, S, H * hd) @ p["wo"].to(dtype).reshape(H * hd, D)
 
 
 # ----------------------------------------------------------------- MLPs
@@ -256,18 +269,18 @@ def init_mlp(gen, cfg, dtype, device):
 
 def apply_mlp(p, x, kind: str, dtype=torch.bfloat16):
     if kind == "swiglu":
-        g = x @ p["wg"]
-        u = x @ p["wu"]
+        g = x @ p["wg"].to(dtype)
+        u = x @ p["wu"].to(dtype)
         h = F.silu(g) * u
     else:
-        h = x @ p["wi"]
+        h = x @ p["wi"].to(dtype)
         if "bi" in p:
             h = h + p["bi"].to(dtype)
         if kind == "squared_relu":
             h = torch.square(F.relu(h))
         else:  # gelu (tanh approximation, as jax.nn.gelu's default)
             h = F.gelu(h, approximate="tanh")
-    out = h @ p["wd"]
+    out = h @ p["wd"].to(dtype)
     if "bd" in p:
         out = out + p["bd"].to(dtype)
     return out

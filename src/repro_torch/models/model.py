@@ -1,8 +1,9 @@
-"""Model facade of the dense family: build_model(cfg) -> init / prefill /
-decode_step.
+"""Model facade of the dense family: build_model(cfg) -> init / loss_fn /
+prefill / decode_step.
 
 The port of ``repro/models/model.py`` for ``family == "dense"``.  Batch
 formats as in the reference:
+  train   : {"tokens": (B, S) int, "labels": (B, S) int}
   prefill : {"tokens": (B, S) int, "cache_seq": int (default S)}
   decode  : {"token": (B, 1) int, "pos": int, "cache": {"k", "v"}}
 ``pos`` is a Python int here (the reference's is a traced scalar), so
@@ -11,10 +12,11 @@ place and returned.
 
 Parameters are a dict: ``embed`` (V, D), ``final_norm``, ``lm_head`` (D, V)
 unless the embeddings are tied, and ``stack``, a list of per-layer dicts
-(``transformer.init_layer``).  Matrices live in the compute dtype on the
-model's device, vectors in float32.  ``loss_fn`` comes with training, and
-the other families with their slices (``ROADMAP.md`` Queue 1, the other
-model families).
+(``transformer.init_layer``).  Vectors live in float32; matrices in the
+compute dtype for serving, or as float32 masters cast at every product for
+training (``init(master=True)``), as the reference keeps them.  The MoE
+auxiliary term of ``loss_fn`` and the other families come with their
+slices (``ROADMAP.md`` Queue 1, the other model families).
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ import torch
 from ..configs.base import ModelConfig
 from . import layers as LL
 from . import transformer as TR
+from .shardctx import bf16_grad_barrier
 
 __all__ = ["Model", "build_model", "compute_dtype"]
 
@@ -34,21 +37,47 @@ def compute_dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
+class _EmbeddingLookup(torch.autograd.Function):
+    """``table[tokens]`` whose backward sums each token's rows in a fixed
+    order: a stable sort of the positions by token, then one ordered
+    segment sum a table row (``torch.segment_reduce``).  The default
+    backward of an index accumulates with ``index_put_``, whose order on
+    the card is the library's to choose; a bitwise resume needs two runs
+    to give the same bits."""
+
+    @staticmethod
+    def forward(ctx, table, tokens):
+        ctx.save_for_backward(tokens)
+        ctx.rows = table.shape[0]
+        return table[tokens]
+
+    @staticmethod
+    def backward(ctx, g):
+        (tokens,) = ctx.saved_tensors
+        flat = tokens.reshape(-1).long()
+        order = torch.argsort(flat, stable=True)
+        lengths = torch.bincount(flat, minlength=ctx.rows)
+        rows = g.reshape(flat.numel(), -1)[order]
+        return torch.segment_reduce(rows, "sum", lengths=lengths,
+                                    axis=0), None
+
+
 @dataclasses.dataclass
 class Model:
     cfg: ModelConfig
     device: torch.device = torch.device("cuda")
 
     # ------------------------------------------------------------- params
-    def init(self, seed: int = 0) -> dict:
+    def init(self, seed: int = 0, *, master: bool = False) -> dict:
         """Random weights with the reference's scales, drawn on the device
         from ``torch.Generator(device).manual_seed(seed)`` one tensor at a
-        time in the compute dtype (a float32 copy of a 14.8 B-parameter
-        model would be 59 GB).  Other numbers than ``jax.random`` for the
-        same seed: to carry the reference's weights across, use
+        time, in the compute dtype (serving: a float32 copy of a
+        14.8 B-parameter model would be 59 GB), or as float32 masters with
+        ``master=True`` (training).  Other numbers than ``jax.random`` for
+        the same seed: to carry the reference's weights across, use
         ``convert.model_params_from_numpy``."""
         cfg, dev = self.cfg, torch.device(self.device)
-        dt = compute_dtype(cfg)
+        dt = torch.float32 if master else compute_dtype(cfg)
         gen = torch.Generator(device=dev).manual_seed(seed)
         D, V = cfg.d_model, cfg.padded_vocab
         params = {
@@ -74,14 +103,39 @@ class Model:
 
     # ------------------------------------------------------------- helpers
     def _embed(self, params, tokens):
-        return params["embed"][tokens].to(compute_dtype(self.cfg))
+        table = params["embed"]
+        if table.requires_grad and torch.is_grad_enabled():
+            x = _EmbeddingLookup.apply(table, tokens)
+        else:
+            x = table[tokens]
+        return x.to(compute_dtype(self.cfg))
 
     def _logits(self, params, x):
         cfg = self.cfg
-        # the reference's bf16_grad_barrier() is the identity in the forward
         x = LL.apply_norm(params["final_norm"], x, cfg.norm)
+        x = bf16_grad_barrier(x)
         head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
         return x @ head.to(compute_dtype(cfg))
+
+    # ------------------------------------------------------------- train
+    def loss_fn(self, params, batch):
+        """Mean next-token cross-entropy over labels >= 0, in float32:
+        (loss, {"loss", "tokens"}).  The MoE auxiliary term comes with
+        that family."""
+        tokens, labels = batch["tokens"], batch["labels"]
+        B, S = tokens.shape
+        x = self._embed(params, tokens)
+        positions = torch.arange(S, dtype=torch.int32,
+                                 device=x.device).expand(B, S)
+        x, _ = TR.apply_dense_stack(params["stack"], x, self.cfg, positions)
+        logits = self._logits(params, x).float()
+        mask = (labels >= 0).float()
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(-1, labels.clamp(min=0).long()[..., None])[..., 0]
+        nll = (logz - gold) * mask
+        tok = torch.sum(mask)
+        loss = torch.sum(nll) / torch.clamp(tok, min=1.0)
+        return loss, {"loss": loss, "tokens": tok}
 
     # ------------------------------------------------------------- serve
     def init_cache(self, batch: int, cache_seq: int):

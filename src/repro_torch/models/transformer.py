@@ -2,17 +2,31 @@
 
 The port of the dense part of ``repro/models/transformer.py``.  A Python
 loop over a list of per-layer parameter dicts takes the place of
-``lax.scan`` over stacked parameters, and there is no remat (the port
-serves; training comes with a later slice).  Caches keep the reference's
-stacked layout, {"k", "v"}: (L, B, Smax, KV, dh), and each layer writes
-its slice in place.  MoE, MLA, cross-attention and the recurrent stacks
-are not ported yet (``ROADMAP.md`` Queue 1, the other model families).
+``lax.scan`` over stacked parameters.  Where autograd records the stack
+(training), ``cfg.remat`` picks what a layer keeps for the backward pass,
+as the reference's ``jax.checkpoint`` policies do: ``none`` keeps
+everything, ``full`` recomputes the whole layer
+(``torch.utils.checkpoint``, non-reentrant), ``dots`` keeps the outputs of
+the matrix products without batch dimensions (``aten.mm``; the attention
+products are batched) and recomputes the rest.  Caches keep the
+reference's stacked layout, {"k", "v"}: (L, B, Smax, KV, dh), and each
+layer writes its slice in place.  MoE, MLA, cross-attention and the
+recurrent stacks are not ported yet (``ROADMAP.md`` Queue 1, the other
+model families).
 """
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from . import layers as LL
+from .shardctx import bf16_grad_barrier
 
 __all__ = ["init_layer", "apply_layer", "init_dense_stack",
            "apply_dense_stack", "init_kv_caches"]
@@ -30,11 +44,28 @@ def apply_layer(p, x, cfg, positions, *, cache=None, cache_len=None,
     h = LL.apply_norm(p["ln1"], x, cfg.norm)
     a = LL.attention_block(p["attn"], h, cfg, positions, kv_cache=cache,
                            cache_len=cache_len, dtype=dt, flash=flash)
-    # the reference's constrain() and bf16_grad_barrier() here are the
-    # identity without a mesh and in the forward pass
-    x = x + a
+    # the reference's constrain() here is the identity without a mesh
+    x = bf16_grad_barrier(x + a)
     h = LL.apply_norm(p["ln2"], x, cfg.norm)
-    return x + LL.apply_mlp(p["mlp"], h, cfg.mlp, dtype=dt)
+    return bf16_grad_barrier(x + LL.apply_mlp(p["mlp"], h, cfg.mlp, dtype=dt))
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op is torch.ops.aten.mm.default
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(fn, cfg):
+    """``fn`` under the checkpoint policy ``cfg.remat``."""
+    if cfg.remat == "none":
+        return fn
+    kw = {}
+    if cfg.remat == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_dots)
+    elif cfg.remat != "full":
+        raise ValueError(f"remat {cfg.remat!r} is not none, full or dots")
+    return functools.partial(checkpoint, fn, use_reentrant=False, **kw)
 
 
 def init_dense_stack(gen, cfg, dtype, device):
@@ -45,12 +76,16 @@ def init_dense_stack(gen, cfg, dtype, device):
 
 def apply_dense_stack(params_L, x, cfg, positions, *, caches=None,
                       cache_len=None, flash=False):
-    """A loop over the layers (and the layer slices of the caches)."""
+    """A loop over the layers (and the layer slices of the caches); each
+    layer under ``cfg.remat`` where autograd records it."""
+    layer = apply_layer
+    if torch.is_grad_enabled() and caches is None:
+        layer = _remat(apply_layer, cfg)
     for l, p in enumerate(params_L):
         cache_l = (None if caches is None
                    else {"k": caches["k"][l], "v": caches["v"][l]})
-        x = apply_layer(p, x, cfg, positions, cache=cache_l,
-                        cache_len=cache_len, flash=flash)
+        x = layer(p, x, cfg, positions, cache=cache_l, cache_len=cache_len,
+                  flash=flash)
     return x, caches
 
 

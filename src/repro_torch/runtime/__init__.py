@@ -1,10 +1,15 @@
-"""``repro_torch.runtime``: straggler mitigation (the bounded-delay
-accumulator and the per-worker EWMA the elastic stream routes blocks by)
-and the serving pull path's fault handling (``RetryPolicy``,
-``CircuitBreaker``).  Of ``repro.runtime.fault``, the checkpointed training
-loop (``TrainLoop``, with ``FaultConfig`` and ``SimulatedFailure``) is not
-ported yet (``ROADMAP.md`` Queue 1)."""
-from .fault import CircuitBreaker, RetryPolicy  # noqa: F401
+"""``repro_torch.runtime``: fault tolerance (the checkpointed training loop
+``TrainLoop`` with ``FaultConfig`` and ``SimulatedFailure``, and the
+serving pull path's ``RetryPolicy`` and ``CircuitBreaker``) and straggler
+mitigation (the bounded-delay accumulator and the per-worker EWMA the
+elastic stream routes blocks by)."""
+from .fault import (  # noqa: F401
+    CircuitBreaker,
+    FaultConfig,
+    RetryPolicy,
+    SimulatedFailure,
+    TrainLoop,
+)
 from .straggler import (  # noqa: F401
     BoundedDelayAccumulator,
     StragglerConfig,

@@ -1,6 +1,11 @@
-"""Per-link fault handling for the serving pull path: retry admission and a
-circuit breaker with half-open probes.
+"""Fault tolerance: checkpoint/restart with failure injection for
+training, and per-link fault handling for the serving pull path.
 
+  * ``TrainLoop`` — steps a train_step with a ``CheckpointManager``;
+    resume is exact (tested bitwise on the parameters); failure injection
+    raises ``SimulatedFailure`` at a chosen step; a restore may land on
+    another device than the save (``TrainLoop(device=...)``), because
+    checkpoints store logical arrays;
   * ``RetryPolicy`` — per-link retry/timeout admission: a source shard that
     cannot deliver within its (backed-off) deadlines is dropped for the
     step and the worker falls back to its stale buffer (§4.3 bounded
@@ -10,20 +15,37 @@ circuit breaker with half-open probes.
     one trial pull probes it; a failed probe re-opens it with a
     decorrelated-jitter cooldown drawn from a seeded generator.
 
-A port of ``RetryPolicy`` and ``CircuitBreaker`` from
-``repro.runtime.fault``: plain numpy on the host, with the breaker's draws
-made from ``np.random.default_rng(seed)`` in the reference's order, so a
-seeded replay opens and closes the same circuits at the same slots.
-``TrainLoop``, ``FaultConfig`` and ``SimulatedFailure`` (checkpointed
-training) are not ported.
+A port of ``repro.runtime.fault``.  The breaker is plain numpy on the
+host, with its draws made from ``np.random.default_rng(seed)`` in the
+reference's order, so a seeded replay opens and closes the same circuits
+at the same slots.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
+import tempfile
+from typing import Callable
 
 import numpy as np
 
-__all__ = ["RetryPolicy", "CircuitBreaker"]
+from ..ckpt import CheckpointManager, latest_step, restore_checkpoint
+
+__all__ = ["FaultConfig", "SimulatedFailure", "TrainLoop", "RetryPolicy",
+           "CircuitBreaker"]
+
+
+@dataclasses.dataclass
+class FaultConfig:
+    ckpt_dir: str = dataclasses.field(default_factory=lambda: os.path.join(
+        tempfile.gettempdir(), "repro_ckpt"))
+    ckpt_every: int = 50
+    keep: int = 3
+    fail_at_step: int | None = None      # failure injection (tests)
+
+
+class SimulatedFailure(RuntimeError):
+    pass
 
 
 @dataclasses.dataclass(frozen=True)
@@ -159,3 +181,53 @@ class CircuitBreaker:
         self._state[link] = _CB_CLOSED
         self._sleep[link] = self.cooldown_s
         self._until[link] = 0.0
+
+
+class TrainLoop:
+    """Steps ``train_step`` over a batch iterator, saving every
+    ``fault.ckpt_every`` steps (async, one save in flight; the tensors are
+    copied to the host first, so the next step may update them in place).
+    ``device`` picks where ``resume_or`` restores: None restores into the
+    tensors ``init_fn`` builds, in place; a device restores onto it."""
+
+    def __init__(self, train_step: Callable, fault: FaultConfig,
+                 device=None):
+        self.train_step = train_step
+        self.fault = fault
+        self.mgr = CheckpointManager(fault.ckpt_dir, fault.ckpt_every,
+                                     fault.keep)
+        self.device = device
+
+    def resume_or(self, init_fn: Callable):
+        """Restore the newest checkpoint into ``init_fn()``'s structure,
+        else initialize fresh: (start step, params, opt state)."""
+        step = latest_step(self.fault.ckpt_dir)
+        params, opt = init_fn()
+        if step is None:
+            return 0, params, opt
+        state = restore_checkpoint(
+            self.fault.ckpt_dir, step, {"params": params, "opt": opt},
+            device=self.device, inplace=self.device is None)
+        return step, state["params"], state["opt"]
+
+    def run(self, params, opt_state, batches, start_step: int = 0,
+            log_every: int = 0):
+        metrics_hist = []
+        step = start_step
+        for batch in batches:
+            if self.fault.fail_at_step is not None \
+                    and step == self.fault.fail_at_step:
+                self.mgr.wait()
+                raise SimulatedFailure(f"injected failure at step {step}")
+            params, opt_state, metrics = self.train_step(params, opt_state,
+                                                         batch)
+            step += 1
+            self.mgr.maybe_save(step, {"params": params, "opt": opt_state})
+            if log_every and step % log_every == 0:
+                m = {k: float(v) for k, v in metrics.items()}
+                m["step"] = step
+                metrics_hist.append(m)
+                print(f"step {step}: " + " ".join(
+                    f"{k}={v:.4g}" for k, v in m.items()))
+        self.mgr.wait()
+        return params, opt_state, metrics_hist

@@ -11,7 +11,7 @@ real fleet the same accumulator sits behind per-shard async collectives.
 This is the distributed-optimization analogue of DBPG's τ-delay [19].
 
 A copy of ``repro.runtime.straggler``: the accumulator runs over a tensor
-or a nested dict/list/tuple of tensors (``_tree_map``), and
+or a nested dict/list/tuple of tensors (``tree.tree_map``), and
 ``StragglerEWMA`` is the reference's numpy class unchanged.
 """
 from __future__ import annotations
@@ -21,19 +21,9 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..tree import tree_map
+
 __all__ = ["StragglerConfig", "BoundedDelayAccumulator", "StragglerEWMA"]
-
-
-def _tree_map(fn, tree, *rest):
-    """``fn`` over the tensor leaves of nested dicts, lists and tuples
-    (``rest`` are trees of the same structure)."""
-    if isinstance(tree, dict):
-        return {key: _tree_map(fn, v, *(r[key] for r in rest))
-                for key, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_tree_map(fn, v, *(r[i] for r in rest))
-                          for i, v in enumerate(tree))
-    return fn(tree, *rest)
 
 
 @dataclasses.dataclass
@@ -50,8 +40,8 @@ class BoundedDelayAccumulator:
 
     def __init__(self, cfg: StragglerConfig, grad_like):
         self.cfg = cfg
-        self.zero = _tree_map(torch.zeros_like, grad_like)
-        self.pending = _tree_map(torch.zeros_like, grad_like)
+        self.zero = tree_map(torch.zeros_like, grad_like)
+        self.pending = tree_map(torch.zeros_like, grad_like)
         self.last_seen = np.zeros(cfg.num_shards, dtype=np.int64)
         self.step = 0
 
@@ -60,7 +50,7 @@ class BoundedDelayAccumulator:
         if staleness > self.cfg.max_delay:
             staleness = self.cfg.max_delay  # hard-sync clamp
         w = self.cfg.stale_decay ** staleness
-        self.pending = _tree_map(lambda a, g: a + w * g, self.pending, grads)
+        self.pending = tree_map(lambda a, g: a + w * g, self.pending, grads)
         self.last_seen[shard] = self.step
 
     def ready(self, arrived: int) -> bool:
@@ -71,7 +61,7 @@ class BoundedDelayAccumulator:
 
     def take(self, arrived: int):
         scale = 1.0 / max(arrived, 1)
-        out = _tree_map(lambda a: a * scale, self.pending)
+        out = tree_map(lambda a: a * scale, self.pending)
         self.pending = self.zero
         self.step += 1
         return out

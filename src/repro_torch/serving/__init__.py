@@ -1,9 +1,9 @@
 """``repro_torch.serving``: the serving engine of the port — the PS request
 loop with async pull/compute overlap, admission control and the closed SLO
 loop (``engine``), its latency and bandwidth models (``latency``), request
-routing (``router``), windowed telemetry (``telemetry``) and handles
-(``prefetch``).  The LM decode loop (``launch/serve.py``) runs through the
-same engine."""
+routing (``router``), windowed telemetry (``telemetry``), handles and
+staged batch prefetching (``prefetch``).  The LM decode loop
+(``launch/serve.py``) runs through the same engine."""
 from .engine import (  # noqa: F401
     PSRequestSource,
     Request,
@@ -19,7 +19,12 @@ from .latency import (  # noqa: F401
     LinkClock,
     RequestRecord,
 )
-from .prefetch import OverlapMeter, ReadyHandle  # noqa: F401
+from .prefetch import (  # noqa: F401
+    OverlapMeter,
+    ReadyHandle,
+    prefetch_batches,
+    stage_batch,
+)
 from .router import Router  # noqa: F401
 from .telemetry import TelemetryBus, TelemetrySnapshot  # noqa: F401
 
@@ -40,4 +45,6 @@ __all__ = [
     "TelemetryBus",
     "TelemetrySnapshot",
     "ZipfWorkload",
+    "prefetch_batches",
+    "stage_batch",
 ]

@@ -1,19 +1,29 @@
-"""Pull/compute overlap accounting and the ready-payload handle.
+"""Pull/compute overlap accounting, the ready-payload handle and staged
+batch prefetching.
 
-The port of ``OverlapMeter`` and ``ReadyHandle`` from
-``repro/serving/prefetch.py``.  The engine meters ``blocked_s`` (wall time
-spent waiting on a handle) against the modeled wire time, with a device
-synchronize closing each compute; ``hidden_s`` is the communication the
-schedule removed from the critical path.  The LM decode source has no
-transfer to wait for, so its handles are ``ReadyHandle``s with zeroed
-metering fields.
+The port of ``OverlapMeter``, ``ReadyHandle`` and ``prefetch_batches``
+from ``repro/serving/prefetch.py``; ``stage_batch`` is the staging the
+training driver gives ``prefetch_batches``.  The engine meters
+``blocked_s`` (wall time spent waiting on a handle) against the modeled
+wire time, with a device synchronize closing each compute; ``hidden_s``
+is the communication the schedule removed from the critical path.  The
+LM decode source has no transfer to wait for, so its handles are
+``ReadyHandle``s with zeroed metering fields.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import time
+from typing import Callable, Iterable, Iterator, TypeVar
 
-__all__ = ["OverlapMeter", "ReadyHandle"]
+import numpy as np
+import torch
+
+__all__ = ["OverlapMeter", "ReadyHandle", "prefetch_batches", "stage_batch"]
+
+T = TypeVar("T")
+S = TypeVar("S")
 
 
 @dataclasses.dataclass
@@ -62,3 +72,51 @@ class ReadyHandle:
 
     def block(self):
         return self.payload
+
+
+def prefetch_batches(batches: Iterable[T],
+                     stage: Callable[[T], S] | None = None,
+                     depth: int = 2) -> Iterator[S]:
+    """Yield staged batches, keeping up to ``depth`` staged ahead.
+
+    ``stage`` typically moves a host batch to the device
+    (``stage_batch``); because its copies are asynchronous, the transfer of
+    batch t+1 overlaps the caller's compute on batch t.  ``depth=1``
+    degenerates to the unstaged loop."""
+    if depth < 1:
+        raise ValueError(f"depth must be >= 1, got {depth}")
+    if stage is None:
+        stage = lambda x: x  # noqa: E731
+    buf: collections.deque = collections.deque()
+    it = iter(batches)
+    try:
+        while len(buf) < depth:
+            buf.append(stage(next(it)))
+    except StopIteration:
+        pass
+    while buf:
+        out = buf.popleft()
+        try:
+            buf.append(stage(next(it)))
+        except StopIteration:
+            pass
+        yield out
+
+
+def stage_batch(batch: dict, device) -> dict:
+    """A host batch of numpy arrays as tensors on ``device``.  On the card
+    each array is copied into freshly pinned host memory and sent with
+    ``non_blocking=True`` on the current stream.  The pinned buffer is
+    never reused before its copy has finished: PyTorch's pinned-memory
+    allocator records the copy's stream event and holds a freed buffer
+    until that event completes."""
+    dev = torch.device(device)
+    out = {}
+    for key, a in batch.items():
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        if dev.type == "cuda":
+            t = t.pin_memory().to(dev, non_blocking=True)
+        else:
+            t = t.to(dev)
+        out[key] = t
+    return out
