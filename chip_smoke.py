@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port of Parsa on one NVIDIA GPU and hold every CUDA
 kernel to its plain PyTorch version: the partitioner's paths and the LM
-serving path (qwen3-14b at full width).
+serving paths (qwen3-14b, and mixtral-8x22b cut in depth, at full width).
 
     python3 chip_smoke.py                 # all phases, one card
 
@@ -118,7 +118,26 @@ Phases, in order; any failure exits non-zero:
    tokens) bit-identical to ``decode_loop``, teacher forcing, cpu against
    cuda on the reduced config, peak device memory and a profile window of
    one prefill and one decode step;
-11. LM training (phase ``train``): qwen3-14b at full width cut to 4 layers
+11. the MoE serving path (phase ``moe``): mixtral-8x22b at full width
+   cut to 8 of 56 layers (40.9 GB of random bf16 weights drawn on the card
+   after phase lm's are freed), phase lm's checks on it: the prefill at
+   B=2, S=8,192, twice the sliding window of 4,096 (8 windowed
+   flash_attention launches, against the plain route; the share of
+   (token, slot) expert choices the two routes agree on, the capacity
+   drops by layer), layer 0's windowed attention kernel against
+   ``flash_attention_ref``, ``decode_loop_engine`` bit-identical to
+   ``decode_loop``, teacher forcing against a prefill at capacity factor
+   E / top-k (no drop), cpu against cuda on the reduced config with a
+   window of 8; and its own: one ``apply_moe`` at decode's and at a prefill
+   slice's shape under ``torch.cuda.set_sync_debug_mode("error")`` (no
+   device-to-host sync), the SWA ring cache (the first 2 layers of the
+   same weights, the window cut to 256, 320 decode steps through
+   ``init_cache(1, 256, ring=True)`` against a 320-slot cache, every
+   step's logits within 5e-2, its ``kpos``), and layer 0's routing counts
+   over 32 groups of 512 prefill tokens placed by
+   ``build_expert_placement`` at k=4 (one parsa_scan and one
+   refine_sweep; the all-to-all crossing tokens reported);
+12. LM training (phase ``train``): qwen3-14b at full width cut to 4 layers
    (float32 master parameters, remat "full", 2 microbatches), 8 steps at
    batch 8 x sequence 1,024 of ``SyntheticLMData`` staged by
    ``prefetch_batches``: the step time (median of steps 2-8), tokens/s,
@@ -131,7 +150,7 @@ Phases, in order; any failure exits non-zero:
    card twice (bitwise) and against the CPU (relative L2 within 1e-5), and
    its failure at step 6 with a checkpoint every 2 steps, resumed
    bitwise;
-12. each kernel timed at the shapes its path launches (CUDA events, median
+13. each kernel timed at the shapes its path launches (CUDA events, median
    of 21 samples after warm-up; ``ms`` from launches replayed in a CUDA
    graph, ``eager_ms`` from launches made one by one from Python) beside
    its bound, its plain version and its launches on the path
@@ -147,7 +166,8 @@ Phases, in order; any failure exits non-zero:
    scan's row lists at the sketch path's shape and at the main path's,
    beside the bound of those compact inputs and the dense contract's,
    ``flash_attention`` at the prefill's shape beside
-   ``scaled_dot_product_attention``), then the main, the sketched and the
+   ``scaled_dot_product_attention``, and at phase moe's windowed shape
+   beside it with the window's mask), then the main, the sketched and the
    parallel scan and the whole refine under ``torch.profiler``: device
    time per round, the device's idle share, and a parallel super-step's
    kernels (one parsa_scan and one merge, no PyTorch kernel); and the
@@ -155,9 +175,9 @@ Phases, in order; any failure exits non-zero:
 
 ``--phases build,kernels,sketch``, ``--phases build,kernels,parallel``,
 ``--phases build,kernels,stream``, ``--phases build,kernels,elastic``,
-``--phases build,kernels,serving``, ``--phases build,kernels,lm`` and
-``--phases build,kernels,train`` are short checks of one path (they
-print no result and exit 1).
+``--phases build,kernels,serving``, ``--phases build,kernels,lm``,
+``--phases build,kernels,moe`` and ``--phases build,kernels,train`` are
+short checks of one path (they print no result and exit 1).
 
 The last lines are the card, one ``{"kernels": [...]}`` JSON line and
 ``{"ok": true, "device": {...}}``.
@@ -176,7 +196,7 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parent
 PROFILE_DIAG = 0    # --profile-diag N
 PHASES = ("build", "kernels", "main", "parity", "sketch", "parallel",
-          "stream", "elastic", "serving", "lm", "train", "times")
+          "stream", "elastic", "serving", "lm", "moe", "train", "times")
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, and the non-tensor fp32
 # rate, the only CUDA-core rate in that sheet; int32 and popcount work is
@@ -328,6 +348,28 @@ KERNELS = {
 LM = dict(arch="qwen3-14b", num_layers=None, seed=0, prefill_batch=2,
           prefill_seq=4096, cache_seq=4128, serve_batch=4, prompt=64, gen=32)
 LM_MAX_REL_L2 = 5e-2        # kernel route against plain route, and teacher forcing
+
+# the MoE serving path (phase moe): mixtral-8x22b at full width (d_model
+# 6,144, 48 query heads over 8 KV heads, head dim 128, d_ff 16,384, 8
+# experts, top-2, vocab 32,768, a sliding window of 4,096, rope theta 1e6),
+# depth cut to 8 of 56 layers (2,504,060,928 parameters a layer, 20.44 B in
+# all, 40.9 GB of random bf16 weights from SEED; 56 layers would be 281 GB
+# and 12 about 61 GB before the prefill's transients).  The prefill at
+# B=2, S=8,192 (twice the window) into an 8,224-slot cache, the decode
+# loop at batch 4, a 64-token prompt and 32 new tokens, as phase lm.  The
+# ring cache runs the first 2 layers of the same weights with the window
+# cut to 256 (the one cut of a width: 320 decode steps wrap the 256-slot
+# ring), against a 320-slot full cache, teacher-forced at batch 1.  Layer
+# 0's routing over 32 groups of 512 prefill tokens is placed by Parsa at
+# k=4 (device_scan, device refine).  The reduced config's window is 8.
+# Teacher forcing holds decode to a prefill at capacity factor 4 = E /
+# top-k, whose capacity is its token count: at the config's 1.25 the
+# prompt's 256-token prefill may drop assignments that decode keeps.
+MOE = dict(LM, arch="mixtral-8x22b", num_layers=8, prefill_seq=8192,
+           cache_seq=8224, phase="moe", reduced=dict(swa_window=8),
+           teacher_forcing=dict(moe_capacity_factor=4.0), ring_layers=2,
+           ring_window=256, ring_steps=320, groups=32, group_tokens=512,
+           placement_k=4)
 FLASH_TOL = {"float32": 3e-5, "bfloat16": 2e-2}
 
 # LM training (phase train): qwen3-14b at full width (d_model 5,120, d_ff
@@ -3020,8 +3062,67 @@ def rel_l2(a, b) -> float:
     return float((a - b).norm() / b.norm())
 
 
-def phase_lm(dev, lm: dict = LM) -> dict:
-    """The LM serving path on the card; see the module docstring, item 10."""
+@contextlib.contextmanager
+def moe_routes(seen: list, pinned=None, tally: dict | None = None):
+    """Record the expert ids (T, K) of every ``apply_moe`` call in
+    ``seen``.  With ``pinned`` (an iterable of (T, K) ids, one a call in
+    call order), route each call by the next pinned ids instead, weighted
+    as ``_route`` weights its own (the probabilities at those ids,
+    renormalised), and count in ``tally`` the (token, slot) choices where
+    the call's own ids differ ("flips").  A flip is discrete: one choice
+    that two routes round to different experts moves a token's output by
+    the difference of two experts, so logits are held to each other under
+    the same choices, and the flips are reported."""
+    import torch
+
+    from repro_torch.models import moe as M
+
+    route, it = M._route, None if pinned is None else iter(pinned)
+
+    def wrapped(p, xt, cfg):
+        probs, top_w, top_e = route(p, xt, cfg)
+        if it is not None:
+            ids = next(it)
+            tally["choices"] = tally.get("choices", 0) + ids.numel()
+            tally["flips"] = tally.get("flips", 0) + int((top_e != ids).sum())
+            top_w = probs.gather(1, ids)
+            top_w = top_w / torch.sum(top_w, dim=-1, keepdim=True)
+            top_e = ids
+        seen.append(top_e)
+        return probs, top_w, top_e
+
+    M._route = wrapped
+    try:
+        yield seen
+    finally:
+        M._route = route
+
+
+def attention_ref_by_head(q, k, v, window):
+    """``flash_attention_ref`` at q's shape, one call a (batch row, KV
+    head): the same arithmetic a head at a time, so that its float32
+    (Sq, Skv) scores fit beside the model's weights (48 heads at S = 8,192
+    would take 26 GB a tensor at once)."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as FA
+
+    B, _, H, _ = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    out = torch.empty_like(q)
+    for b in range(B):
+        for j in range(KV):
+            out[b:b + 1, :, j * G:(j + 1) * G] = FA.flash_attention_ref(
+                q[b:b + 1, :, j * G:(j + 1) * G], k[b:b + 1, :, j:j + 1],
+                v[b:b + 1, :, j:j + 1], causal=True, window=window)
+    return out
+
+
+def phase_lm(dev, lm: dict = LM, extra=None) -> dict:
+    """The LM serving path on the card; see the module docstring, item 10.
+    Phase moe runs it on ``MOE`` and adds its checks through ``extra``,
+    called with the weights before they are freed."""
     import dataclasses
 
     import numpy as np
@@ -3033,13 +3134,16 @@ def phase_lm(dev, lm: dict = LM) -> dict:
     from repro_torch.launch.steps import make_prefill_step, make_serve_step
     from repro_torch.models import layers as LL
 
+    tag = lm.get("phase", "lm")
     cfg = get_config(lm["arch"])
     if lm["num_layers"]:
         cfg = dataclasses.replace(cfg, num_layers=lm["num_layers"])
     out: dict = {"arch": cfg.name, "num_layers": cfg.num_layers,
                  "d_model": cfg.d_model, "d_ff": cfg.d_ff,
                  "heads": f"{cfg.num_heads}/{cfg.num_kv_heads}x{cfg.head_dim}",
-                 "vocab": f"{cfg.vocab_size} (padded {cfg.padded_vocab})"}
+                 "vocab": f"{cfg.vocab_size} (padded {cfg.padded_vocab})",
+                 "experts": f"{cfg.num_experts} top-{cfg.num_experts_per_tok}",
+                 "swa_window": cfg.swa_window}
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     model, prefill = make_prefill_step(cfg, dev)
@@ -3049,7 +3153,7 @@ def phase_lm(dev, lm: dict = LM) -> dict:
     out["init_s"] = time.perf_counter() - t0
     out["params"] = model.param_count(params)
     out["weights_gb"] = torch.cuda.memory_allocated(dev) / 1e9
-    log(f"lm: {cfg.name}, {cfg.num_layers} layers, {out['params']:,} "
+    log(f"{tag}: {cfg.name}, {cfg.num_layers} layers, {out['params']:,} "
         f"parameters ({out['weights_gb']:.2f} GB bf16) drawn in "
         f"{out['init_s']:.2f} s")
 
@@ -3088,24 +3192,26 @@ def phase_lm(dev, lm: dict = LM) -> dict:
     check(out["prefill_logits_rel_l2"] <= LM_MAX_REL_L2,
           f"prefill logits, kernel route against plain route: relative L2 "
           f"{out['prefill_logits_rel_l2']:.3e} > {LM_MAX_REL_L2}")
-    log(f"lm prefill B={B} S={S}: {out['prefill_s']:.3f} s with the kernel "
+    log(f"{tag} prefill B={B} S={S}: {out['prefill_s']:.3f} s with the kernel "
         f"({launches} launches), {out['prefill_plain_s']:.3f} s plain; "
         f"logits max abs err {out['prefill_logits_max_abs_err']:.3e}, "
         f"relative L2 {out['prefill_logits_rel_l2']:.3e}")
     del logits, cache, logits_p, cache_p
 
-    # layer 0's attention: kernel against plain on the same inputs
+    # layer 0's attention (windowed where the config has a window):
+    # kernel against plain on the same inputs
     p0, dt = params["stack"][0], getattr(torch, cfg.dtype)
     positions = torch.arange(S, dtype=torch.int32, device=dev).expand(B, S)
     with torch.no_grad():
         h = LL.apply_norm(p0["ln1"], model._embed(params, tokens), cfg.norm)
         xq, xk, xv = LL.qkv_projection(p0["attn"], h, cfg, positions, dt)
-        got = FA.flash_attention(xq, xk, xv, causal=True)
-        want = FA.flash_attention_ref(xq, xk, xv, causal=True)
+        got = FA.flash_attention(xq, xk, xv, causal=True,
+                                 window=cfg.swa_window)
+        want = attention_ref_by_head(xq, xk, xv, cfg.swa_window)
         chunked = LL.attention(xq, xk, xv, q_positions=positions,
                                k_positions=positions, causal=True,
-                               impl=cfg.attn_impl, chunk=cfg.attn_chunk,
-                               dtype=dt)
+                               window=cfg.swa_window, impl=cfg.attn_impl,
+                               chunk=cfg.attn_chunk, dtype=dt)
     tol = FLASH_TOL[cfg.dtype]
     for name, ref in (("plain", want), ("chunked", chunked)):
         d = (got.float() - ref.float()).abs()
@@ -3142,28 +3248,66 @@ def phase_lm(dev, lm: dict = LM) -> dict:
     out["engine"]["per_tenant"] = summary["per_tenant"]
     out["engine_s"] = wall
     out["generated_tok_s"] = Bs * G / wall
-    log(f"lm serve B={Bs} prompt={P} gen={G}: {summary['requests']} engine "
+    log(f"{tag} serve B={Bs} prompt={P} gen={G}: {summary['requests']} engine "
         f"requests in {wall:.3f} s, {out['generated_tok_s']:.1f} generated "
         f"tok/s, {summary['tokens_s']:.1f} token-steps/s, p50 "
         f"{summary['p50_ms']:.2f} ms, p99 {summary['p99_ms']:.2f} ms per "
         f"token step; tokens equal decode_loop's ({out['decode_loop_s']:.3f} s)")
 
     # (c) teacher forcing: prefill's last logits against the last prompt
-    # step of the decode (the padded columns are masked only in decode)
-    lp, _ = prefill(params, {"tokens": torch.from_numpy(prompt).to(dev),
-                             "cache_seq": P + G})
-    c = smodel.init_cache(Bs, P + G)
+    # step of the decode (the padded columns are masked only in decode).
+    # An MoE prefill of Bs * P tokens may drop assignments past its
+    # capacity that decode (Bs tokens, capacity >= Bs * top-k) keeps, so
+    # the held prefill runs at lm["teacher_forcing"]'s capacity factor,
+    # E / top-k (capacity = its token count: no drop), and the one at the
+    # config's factor is reported beside it
+    pbatch = {"tokens": torch.from_numpy(prompt).to(dev), "cache_seq": P + G}
     toks = torch.from_numpy(prompt).to(dev)
-    for t in range(P):
-        _, ls, c = step(params, {"token": toks[:, t:t + 1], "pos": t,
-                                 "cache": c})
+
+    def decode_prompt():
+        c = smodel.init_cache(Bs, P + G)
+        for t in range(P):
+            _, logits, c = step(params, {"token": toks[:, t:t + 1], "pos": t,
+                                         "cache": c})
+        return logits
+
+    lp, _ = prefill(params, pbatch)
+    ls = decode_prompt()
     V = cfg.vocab_size
-    out["teacher_forcing_rel_l2"] = rel_l2(ls[:, :V], lp[:, :V])
+    held = (ls, lp)
+    if lm.get("teacher_forcing"):
+        # the decode routed by the prefill's expert choices, token by
+        # token and layer by layer
+        seen: list = []
+        with moe_routes(seen):
+            lp_held, _ = make_prefill_step(dataclasses.replace(
+                cfg, **lm["teacher_forcing"]), dev)[1](params, pbatch)
+        K = cfg.num_experts_per_tok
+        pins = [e.view(Bs, P, K)[:, t] for t in range(P) for e in seen]
+        tally: dict = {}
+        with moe_routes([], pins, tally):
+            ls_pinned = decode_prompt()
+        held = (ls_pinned, lp_held)
+        out["teacher_forcing_over"] = dict(lm["teacher_forcing"])
+        out["teacher_forcing_route_flips"] = tally
+        out["teacher_forcing_rel_l2_own_routes"] = rel_l2(ls[:, :V],
+                                                          lp_held[:, :V])
+        out["teacher_forcing_rel_l2_config_capacity"] = rel_l2(
+            ls[:, :V], lp[:, :V])
+        log(f"{tag} teacher forcing at {lm['teacher_forcing']}: relative L2 "
+            f"{rel_l2(ls_pinned[:, :V], lp_held[:, :V]):.3e} with the "
+            f"prefill's expert choices ({tally['flips']} of "
+            f"{tally['choices']} (token, slot) choices of the decode's own "
+            f"differ), {out['teacher_forcing_rel_l2_own_routes']:.3e} on "
+            f"its own; {out['teacher_forcing_rel_l2_config_capacity']:.3e} "
+            f"against the prefill at the config's capacity (reported)")
+        del lp_held, ls_pinned, seen, pins
+    out["teacher_forcing_rel_l2"] = rel_l2(held[0][:, :V], held[1][:, :V])
     out["teacher_forcing_max_abs_err"] = float(
-        (ls[:, :V].float() - lp[:, :V].float()).abs().max())
+        (held[0][:, :V].float() - held[1][:, :V].float()).abs().max())
     check(out["teacher_forcing_rel_l2"] <= LM_MAX_REL_L2,
           f"teacher forcing: relative L2 {out['teacher_forcing_rel_l2']:.3e}")
-    del lp, c, ls
+    del lp, ls, held
 
     # where the time goes: one prefill and one decode step, profiled
     c = smodel.init_cache(Bs, P + G)
@@ -3171,12 +3315,16 @@ def phase_lm(dev, lm: dict = LM) -> dict:
     out["profile_prefill"] = profile_window(lambda: prefill(params, batch))
     out["profile_decode_step"] = profile_window(
         lambda: step(params, {"token": tok, "pos": 0, "cache": c}))
+    del c
+    if extra is not None:
+        out.update(extra(cfg, model, params, prefill, prefill_plain, batch,
+                         smodel, step))
     out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
-    del c, params, model, smodel
+    del params, model, smodel
     torch.cuda.empty_cache()
 
     # (d) cpu against cuda on the reduced config (float32, naive attention)
-    rcfg = get_config(lm["arch"]).reduced()
+    rcfg = get_config(lm["arch"]).reduced(**lm.get("reduced", {}))
     rm_c, pre_c = make_prefill_step(rcfg, "cpu")
     rm_g, pre_g = make_prefill_step(rcfg, dev)
     _, step_c = make_serve_step(rcfg, "cpu")
@@ -3200,11 +3348,184 @@ def phase_lm(dev, lm: dict = LM) -> dict:
     tc = decode_loop(rm_c, step_c, rp_c, rtoks, 6, 18)
     tg = decode_loop(rm_g, step_g, rp_g, rtoks, 6, 18)
     check(np.array_equal(tc, tg), "reduced decode: cpu tokens != cuda tokens")
-    log(f"lm reduced {rcfg.name}: cpu == cuda (prefill logits max abs err "
-        f"{out['reduced_prefill_max_abs_err']:.2e}, decode tokens equal)")
-    log("lm: " + json.dumps({k: v for k, v in out.items()
-                             if k != "layer0_qkv"}))
+    log(f"{tag} reduced {rcfg.name}: cpu == cuda (prefill logits max abs "
+        f"err {out['reduced_prefill_max_abs_err']:.2e}, decode tokens equal)")
+    log(f"{tag}: " + json.dumps({k: v for k, v in out.items()
+                                  if k != "layer0_qkv"}))
     return out
+
+
+def phase_moe(dev, moe: dict = MOE) -> dict:
+    """The MoE serving path on the card (phase lm's checks on ``MOE``, and
+    the MoE layer's, the ring cache's and the expert placement's); see the
+    module docstring, item 11."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core.moe_placement import (
+        alltoall_traffic, build_expert_placement)
+    from repro_torch.kernels.parsa_cost import ops as PC
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.models import layers as LL
+    from repro_torch.models import moe as MOE_
+
+    def checks(cfg, model, params, prefill, prefill_plain, batch, smodel,
+               step) -> dict:
+        out: dict = {}
+        L, E, K = cfg.num_layers, cfg.num_experts, cfg.num_experts_per_tok
+        B, S = batch["tokens"].shape
+        T = B * S
+        C = MOE_.capacity(cfg, T)
+        # (a) the routes of the kernel and the plain prefill, and the drops
+        with moe_routes([]) as kern:
+            prefill(params, batch)
+        with moe_routes([]) as plain:
+            prefill_plain(params, batch)
+        check(len(kern) == len(plain) == L, f"{len(kern)} MoE layers routed")
+        agree = [float((a == b).float().mean()) for a, b in zip(kern, plain)]
+        out["route_agreement"] = float(np.mean(agree))
+        out["route_agreement_by_layer"] = agree
+        counts = [torch.zeros(E, dtype=torch.int64, device=dev).scatter_add_(
+            0, e.reshape(-1), torch.ones(T * K, dtype=torch.int64,
+                                         device=dev)) for e in kern]
+        out["capacity"] = C
+        out["drops_by_layer"] = [int((c - C).clamp(min=0).sum())
+                                 for c in counts]
+        out["expert_counts_layer0"] = counts[0].tolist()
+        log(f"moe routes: kernel and plain prefill agree on "
+            f"{out['route_agreement']:.6f} of (token, slot) choices "
+            f"(by layer {[round(a, 6) for a in agree]}); C={C} at T={T}, "
+            f"drops by layer {out['drops_by_layer']} of {T * K}")
+
+        # expert placement from layer 0's routing over token groups
+        ng, gt = moe["groups"], moe["group_tokens"]
+        check(ng * gt == T, f"{ng} groups of {gt} tokens != T={T}")
+        e0 = kern[0].reshape(ng, gt * K).cpu().numpy()
+        rc = np.stack([np.bincount(g, minlength=E) for g in e0])
+        PC.reset_launch_counts()
+        t0 = time.perf_counter()
+        pl = build_expert_placement(rc, moe["placement_k"],
+                                    backend="device_scan", device=dev,
+                                    refine_backend="device")
+        secs = time.perf_counter() - t0
+        launches = {n: c for n, c in PC.LAUNCHES.items() if c}
+        check(launches == {"parsa_scan": 1, "refine_sweep": 1},
+              f"expert placement launches {launches}, want one parsa_scan "
+              "and one refine_sweep")
+        traffic = alltoall_traffic(rc, pl)
+        out["placement"] = {
+            "routing_counts_shape": list(rc.shape), "k": pl.k,
+            "expert_to_shard": pl.expert_to_shard.tolist(),
+            "launches": launches, "seconds": secs,
+            "crossing_tokens_roundrobin": traffic[
+                "crossing_tokens_roundrobin"],
+            "crossing_tokens_parsa": traffic["crossing_tokens_parsa"],
+            "reduction": traffic["reduction"]}
+        log(f"moe placement of layer 0's {rc.shape} routing counts at k="
+            f"{pl.k}: {launches} in {secs:.3f} s; all-to-all crossing "
+            f"tokens round-robin {traffic['crossing_tokens_roundrobin']}, "
+            f"Parsa {traffic['crossing_tokens_parsa']} (reduction "
+            f"{traffic['reduction'] * 100:.2f}%, reported, not gated)")
+        del kern, plain, counts
+
+        # (b) apply_moe makes no device-to-host sync, at decode's and at a
+        # prefill slice's shape
+        p0, dt = params["stack"][0], getattr(torch, cfg.dtype)
+        for shape in ((moe["serve_batch"], 1), (B, min(S, 512))):
+            with torch.no_grad():
+                tok = batch["tokens"].reshape(-1)[:shape[0] * shape[1]]
+                tok = tok.reshape(shape)
+                h = LL.apply_norm(p0["ln2"], model._embed(params, tok),
+                                  cfg.norm)
+                want, _ = MOE_.apply_moe(p0["moe"], h, cfg, dtype=dt,
+                                         return_aux=True)
+                torch.cuda.synchronize()
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    got, info = MOE_.apply_moe(p0["moe"], h, cfg, dtype=dt,
+                                               return_aux=True)
+                except RuntimeError as err:
+                    raise SmokeFailure(f"apply_moe at {shape} synchronised "
+                                       f"with the host: {err}") from err
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+            check(torch.equal(got, want), f"apply_moe at {shape}: two calls "
+                  "differ")
+            check(int(info["expert_counts"].sum()) == shape[0] * shape[1] * K,
+                  "expert counts do not sum to T * K")
+        out["apply_moe_host_syncs"] = 0
+        log("moe: apply_moe at decode's (4, 1) and a (2, 512) slice made no "
+            "device-to-host sync (set_sync_debug_mode error), two calls "
+            "bitwise equal")
+
+        # (c) the ring cache: the first layers of the same weights, the
+        # window cut, against a full cache
+        rcfg = dataclasses.replace(cfg, num_layers=moe["ring_layers"],
+                                   swa_window=moe["ring_window"])
+        rparams = dict(params, stack=params["stack"][:moe["ring_layers"]])
+        rmodel, rstep = make_serve_step(rcfg, dev)
+        W, n = moe["ring_window"], moe["ring_steps"]
+        toks = torch.from_numpy(np.random.default_rng(moe["seed"] + 1)
+                                .integers(0, cfg.vocab_size, (n, 1, 1))
+                                ).to(dev)
+
+        def decode(cache, pins=None, tally=None):
+            """n teacher-forced steps: (next tokens, logits, cache, the
+            expert ids of every layer and step)."""
+            nxt, logits = [], []
+            t0 = time.perf_counter()
+            with moe_routes([], pins, tally) as ids:
+                for t in range(n):
+                    nt, lt, cache = rstep(rparams, {"token": toks[t],
+                                                    "pos": t, "cache": cache})
+                    nxt.append(nt)
+                    logits.append(lt)
+            return nxt, logits, cache, ids, time.perf_counter() - t0
+
+        nf, lf, _, full_ids, full_s = decode(rmodel.init_cache(1, n))
+        nr, lr_, ring, _, ring_s = decode(rmodel.init_cache(1, W, ring=True))
+        tally: dict = {}
+        npin, lpin, ring_p, _, _ = decode(rmodel.init_cache(1, W, ring=True),
+                                          full_ids, tally)
+        for t in range(n):
+            check(bool(torch.isfinite(lr_[t]).all()), f"ring step {t}: not "
+                  "finite")
+        own = [rel_l2(a, b) for a, b in zip(lr_, lf)]
+        rel = [rel_l2(a, b) for a, b in zip(lpin, lf)]
+        # slot j holds the last position p < n with p % W == j
+        want_kpos = torch.tensor([j + W * ((n - 1 - j) // W)
+                                  for j in range(W)], dtype=torch.int32)
+        check(all(torch.equal(c["kpos"][l].cpu(), want_kpos)
+                  for c in (ring, ring_p) for l in range(rcfg.num_layers)),
+              f"ring kpos {ring['kpos'][0].tolist()[:8]}...")
+        out["ring"] = {
+            "layers": rcfg.num_layers, "window": W, "steps": n,
+            "max_rel_l2": max(rel), "mean_rel_l2": float(np.mean(rel)),
+            "argmax_agreement": sum(map(torch.equal, npin, nf)) / n,
+            "route_flips": tally,
+            "own_routes_max_rel_l2": max(own),
+            "own_routes_mean_rel_l2": float(np.mean(own)),
+            "own_routes_argmax_agreement": sum(map(torch.equal, nr, nf)) / n,
+            "full_s": full_s, "ring_s": ring_s}
+        check(max(rel) <= LM_MAX_REL_L2,
+              f"ring cache against full cache: relative L2 {max(rel):.3e} at "
+              f"step {int(np.argmax(rel))} > {LM_MAX_REL_L2}")
+        r = out["ring"]
+        log(f"moe ring: {n} steps through {W} ring slots ({rcfg.num_layers} "
+            f"layers, window {W}) against a {n}-slot cache, with the full "
+            f"cache's expert choices: logits relative L2 max {max(rel):.3e}, "
+            f"mean {r['mean_rel_l2']:.3e}, argmax equal on "
+            f"{r['argmax_agreement'] * n:.0f}/{n} steps; on its own routes "
+            f"({tally['flips']} of {tally['choices']} choices differ) max "
+            f"{max(own):.3e}, mean {r['own_routes_mean_rel_l2']:.3e}, argmax "
+            f"{r['own_routes_argmax_agreement'] * n:.0f}/{n}; {ring_s:.2f} s "
+            f"ring, {full_s:.2f} s full")
+        del ring, ring_p, rparams, lf, lr_, lpin, full_ids
+        return out
+
+    return phase_lm(dev, moe, extra=checks)
 
 
 def _tree_to(tree, dev):
@@ -3285,7 +3606,7 @@ def resume_bitwise(train_step, init_fn, batches, steps: int, fail_at: int,
 
 
 def phase_train(dev, tr: dict = TRAIN) -> dict:
-    """LM training on the card; see the module docstring, item 11."""
+    """LM training on the card; see the module docstring, item 12."""
     import dataclasses
     import functools
     import shutil
@@ -3945,7 +4266,8 @@ def phase_times(dev, main: dict) -> list[dict]:
         at_shapes("packed_union_delta", merge_shapes)))
 
     if "lm" in main:
-        rows.append(time_flash(dev, main["lm"], main["checks"]))
+        rows.append(time_flash(dev, main["lm"], main["checks"],
+                               main.get("moe")))
 
     # where the time goes, under torch.profiler: the main path's whole scan
     # (one launch), the sketch path's whole scan (one launch), the parallel
@@ -4073,12 +4395,69 @@ def phase_times(dev, main: dict) -> list[dict]:
     return rows
 
 
-def time_flash(dev, lm: dict, checks: dict) -> dict:
+def time_flash_windowed(dev, moe: dict) -> dict:
+    """flash_attention at the MoE prefill's windowed shape, on layer 0's q,
+    k, v of phase moe (B=2, S=8,192, 48/8 x 128, window 4,096): CUDA-graph
+    and eager times, its plain version (``attention_ref_by_head``), and
+    scaled_dot_product_attention with the window's boolean mask (K and V
+    expanded to the query heads outside the timed call) as the library
+    yardstick.  The bound counts the admissible (query, key) pairs."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as FA
+
+    q, k, v = moe["layer0_qkv"]
+    B, S, H, D = q.shape
+    KV, W = k.shape[2], moe["swa_window"]
+    saved = dict(FA.LAUNCHES)
+    ms = time_graph_ms(lambda: FA.flash_attention(q, k, v, window=W), 5, 11)
+    eager_ms = time_ms(lambda: FA.flash_attention(q, k, v, window=W), 5, 11)
+    plain_ms = time_ms(lambda: attention_ref_by_head(q, k, v, W), 1, 3)
+    FA.LAUNCHES.update(saved)   # timing launches are not path launches
+    mask = FA.admissible(S, S, causal=True, window=W, device=dev)
+    qt = q.transpose(1, 2)
+    kt, vt = (t.repeat_interleave(H // KV, dim=2).transpose(1, 2)
+              for t in (k, v))
+    library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask), 3, 7)
+    pairs = int(mask.sum())
+    flops = 4 * D * B * H * pairs
+    nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / TENSOR_BF16_FLOPS * 1e3
+    out = {"shape": f"B={B}, S={S}, H={H}, KV={KV}, D={D}, causal, window "
+                    f"{W}, {str(q.dtype).split('.')[-1]}",
+           "launches": moe["prefill_flash_launches"],
+           "launches_path": f"make_prefill_step {moe['arch']} B={B} S={S} "
+                            f"(one per layer of {moe['num_layers']})",
+           "max_abs_err": moe["layer0_attn_max_abs_err_plain"],
+           "ms": ms, "eager_ms": eager_ms, "plain_ms": plain_ms,
+           "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "flops": flops, "bytes": nbytes, "library_ms": library_ms,
+           "library": "torch.nn.functional.scaled_dot_product_attention("
+                      "attn_mask=the window's (S, S) bool mask; K, V "
+                      "expanded to the query heads)"}
+    out["prefill_kernel_ms"] = out["launches"] * ms
+    log(f"time flash_attention ({out['shape']}): {ms * 1e3:.1f} us in a "
+        f"CUDA graph, {eager_ms * 1e3:.1f} us eager, plain "
+        f"{plain_ms * 1e3:.1f} us, sdpa {library_ms * 1e3:.1f} us, bound "
+        f"{out['bound_ms'] * 1e3:.1f} us by {out['bound_by']} ({flops:.3e} "
+        f"FLOP, {nbytes:,} bytes); {out['launches']} launches a prefill ~ "
+        f"{out['prefill_kernel_ms']:.1f} ms of its "
+        f"{moe['prefill_s'] * 1e3:.1f} ms")
+    del kt, vt, mask
+    return out
+
+
+def time_flash(dev, lm: dict, checks: dict, moe: dict | None = None) -> dict:
     """flash_attention at the prefill's shape, on layer 0's q, k, v of the
     lm phase: CUDA-graph and eager times, its plain version, and
     scaled_dot_product_attention (top-left causal, GQA) as the library
     yardstick, which the port never calls.  The bound counts the FLOPs of
-    the admissible (query, key) pairs of this causal shape."""
+    the admissible (query, key) pairs of this causal shape.  With phase
+    moe's state, the same at its windowed shape (``windowed``)."""
     import torch
     import torch.nn.functional as F
 
@@ -4123,6 +4502,9 @@ def time_flash(dev, lm: dict, checks: dict) -> dict:
                    "(is_causal=True, enable_gqa=True)",
     }
     row["prefill_kernel_ms"] = row["launches"] * ms
+    if moe is not None:
+        row["windowed"] = time_flash_windowed(dev, moe)
+        row["launches_moe"] = moe["prefill_flash_launches"]
     log(f"time flash_attention ({row['shape']}): {ms * 1e3:.1f} us in a CUDA "
         f"graph, {eager_ms * 1e3:.1f} us eager, plain {plain_ms * 1e3:.1f} "
         f"us, sdpa {library_ms * 1e3:.1f} us, bound {row['bound_ms'] * 1e3:.1f}"
@@ -4214,6 +4596,10 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         state["lm"] = phase_lm(dev)
         log(f"lm phase {time.perf_counter() - t0:.2f} s")
+    if "moe" in phases:
+        t0 = time.perf_counter()
+        state["moe"] = phase_moe(dev)
+        log(f"moe phase {time.perf_counter() - t0:.2f} s")
     if "train" in phases:
         t0 = time.perf_counter()
         state["train"] = phase_train(dev)

@@ -1,8 +1,9 @@
-"""Architecture registry of the port: the dense configurations.
+"""Architecture registry of the port: the dense configurations and
+mixtral-8x22b (the MoE family without MLA).
 
-The port's own copy of ``repro.configs`` for the dense family (the port
-imports nothing of ``repro``).  The other families' configurations come
-with the slices that port their blocks (``ROADMAP.md`` Queue 1, the
+The port's own copy of ``repro.configs`` for the families it builds (the
+port imports nothing of ``repro``).  The other families' configurations
+come with the slices that port their blocks (``ROADMAP.md`` Queue 1, the
 other model families).
 """
 from .base import REGISTRY, ModelConfig, get_config, list_configs, register  # noqa: F401
@@ -18,6 +19,7 @@ def _load_all():
     from . import (  # noqa: F401
         codeqwen15_7b,
         command_r_35b,
+        mixtral_8x22b,
         nemotron_4_340b,
         qwen3_14b,
     )

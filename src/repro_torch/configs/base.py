@@ -3,8 +3,8 @@ architecture.
 
 Every field that differs across the pool is explicit; families select which
 block stack ``build_model`` emits (see models/model.py).  The port builds
-only the dense family so far; the other fields are kept so that a
-configuration reads the same in both packages.
+the dense family and the MoE family without MLA so far; the other fields
+are kept so that a configuration reads the same in both packages.
 """
 from __future__ import annotations
 

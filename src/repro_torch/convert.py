@@ -35,8 +35,10 @@ __all__ = ["graph_from_numpy", "result_from_numpy", "sketch_from_numpy",
 PS_STATE_KEYS = ("w", "pull_cache", "ef", "hist", "keys_sent", "inner_bytes",
                  "inter_bytes", "per_machine", "rng_state")
 
-# the weight matrices of the dense family: stored in the compute dtype;
-# every other leaf (norm scales, biases) stays float32, cast where used
+# the weight matrices of the dense and MoE families (an MoE layer's
+# experts and shared experts are wg, wu, wd too): stored in the compute
+# dtype; every other leaf (norm scales, biases, the MoE router) stays
+# float32, cast where used
 _MATRICES = frozenset({"embed", "lm_head", "wq", "wk", "wv", "wo", "wg", "wu",
                        "wd", "wi"})
 
@@ -110,14 +112,15 @@ def model_params_from_numpy(cfg, params, *, device="cuda",
     """The port's parameter dict (``models.model``) from the reference's
     parameter tree as numpy arrays: {"embed", "final_norm", "lm_head",
     "stack"}, with the stack's leaves stacked on a leading layer axis
-    (L, ...).  Returns the stack as a list of per-layer dicts.
+    (L, ...).  Returns the stack as a list of per-layer dicts (an MoE
+    layer's ``moe`` {router, wg, wu, wd[, shared]} carried across whole).
 
     Serving: weight matrices are stored in the config's compute dtype on
     ``device``; the reference keeps float32 masters and casts them to the
     compute dtype at every product, so the stored cast gives the same
     values.  ``master=True`` (training) keeps them float32, cast at every
-    product as the reference does.  Norm scales and biases stay float32,
-    as the reference casts them where it uses them."""
+    product as the reference does.  Norm scales, biases and the MoE router
+    stay float32, as the reference casts them where it uses them."""
     dt = getattr(torch, cfg.dtype)
     return _stack_tree(cfg, params, device, lambda name: (
         dt if name in _MATRICES and not master else torch.float32))
@@ -127,8 +130,10 @@ def _stack_tree(cfg, params, device, dtype_of) -> dict:
     """A reference parameter-shaped numpy tree as the port's: the stacked
     ``stack`` leaves split into a list of per-layer dicts, each leaf a
     tensor of ``dtype_of(leaf name)`` on ``device``."""
-    if cfg.family != "dense":
-        raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
+    if cfg.family not in ("dense", "moe") or cfg.mla:
+        raise NotImplementedError(
+            f"{'MLA' if cfg.mla else f'family {cfg.family!r}'} is not "
+            "ported yet")
 
     def leaf(name, a):
         t = torch.from_numpy(np.array(a, dtype=np.float32))

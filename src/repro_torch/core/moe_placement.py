@@ -10,7 +10,9 @@ EP sharding (experts are laid out contiguously per shard).
 
 A copy of ``repro.core.moe_placement``; ``build_expert_placement``
 partitions on ``device`` (the card unless the caller passes
-``device="cpu"``).
+``device="cpu"``), and takes the refine's backend (``refine_backend``,
+the reference's ``"host"`` by default; ``"device"`` runs it on the card
+too, with the same bits).
 """
 from __future__ import annotations
 
@@ -39,6 +41,7 @@ def build_expert_placement(
     seed: int = 0,
     backend: str = "host",
     device: str | torch.device = "cuda",
+    refine_backend: str = "host",
 ) -> ExpertPlacement:
     """Parsa-place experts via the ``repro_torch.api`` facade (one call:
     U + V) on ``device``."""
@@ -48,7 +51,8 @@ def build_expert_placement(
     gu, gv = np.nonzero(routing_counts)
     g = from_edges(groups, experts, gu, gv)
     res = partition(g, ParsaConfig(k=k, backend=backend, seed=seed,
-                                   refine_v=True, sweeps=2),
+                                   refine_v=True, sweeps=2,
+                                   refine_backend=refine_backend),
                     device=device)
     # the embedding layout's rule: unused experts round-robin over the
     # least-loaded shards, then each shard's experts contiguous

@@ -1,17 +1,20 @@
 """Serving entry point: batched greedy decoding with a persistent KV cache.
 
-The port of ``repro/launch/serve.py`` for the dense family.  Decoding runs
-through the serving engine: each token step is one engine request, prompt
-tokens are staged ahead as ``ReadyHandle`` payloads, and the engine's
-latency recorder supplies the tokens/s accounting.  ``decode_loop`` is the
-pre-engine reference loop, kept as the parity oracle (the engine's tokens
-are bit-identical to it).  As in the reference, the loop warms the cache
-by stepping ``decode_step`` over the prompt; ``launch.steps.
-make_prefill_step`` is the one-pass prefill (the flash kernel's path).
+The port of ``repro/launch/serve.py`` for the dense and MoE families.
+Decoding runs through the serving engine: each token step is one engine
+request, prompt tokens are staged ahead as ``ReadyHandle`` payloads, and
+the engine's latency recorder supplies the tokens/s accounting.
+``decode_loop`` is the pre-engine reference loop, kept as the parity
+oracle (the engine's tokens are bit-identical to it).  As in the
+reference, the loop warms the cache by stepping ``decode_step`` over the
+prompt; ``launch.steps.make_prefill_step`` is the one-pass prefill (the
+flash kernel's path).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-14b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-14b \\
         --reduce --device cpu --batch 4 --prompt-len 16 --gen 16
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x22b \\
+        --reduce --device cpu
 
 It runs on the card unless ``--device cpu`` is given; the weights are
 random (``Model.init(0)``).  The encoder-decoder's cross-attention cache
@@ -118,7 +121,7 @@ def decode_loop_engine(model, serve_step, params, prompt, gen: int,
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description="greedy decode through the "
-                                 "serving engine (dense family)")
+                                 "serving engine (dense and MoE families)")
     ap.add_argument("--arch", required=True)
     ap.add_argument("--reduce", action="store_true")
     ap.add_argument("--batch", type=int, default=4)

@@ -1,16 +1,17 @@
 """End-to-end training driver.
 
-The port of ``repro/launch/train.py`` for the dense family, on one card:
-config registry -> model -> AdamW -> synthetic data, staged ahead on the
-device -> TrainLoop (checkpoint/restart, failure injection).  The flags
-are the reference's, with the same meanings (``--width`` and ``--layers``
-act only under ``--reduce``).
+The port of ``repro/launch/train.py`` for the dense and MoE families, on
+one card: config registry -> model -> AdamW -> synthetic data, staged
+ahead on the device -> TrainLoop (checkpoint/restart, failure
+injection).  The flags are the reference's, with the same meanings
+(``--width`` and ``--layers`` act only under ``--reduce``).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-14b \\
         --reduce --steps 50 --batch 8 --seq 128
 
 It runs on the card; ``main(argv, device="cpu")`` runs the plain PyTorch
-path on the CPU.
+path on the CPU (MoE training, ``--arch mixtral-8x22b --reduce``, has been
+held to the reference on the CPU only).
 """
 from __future__ import annotations
 

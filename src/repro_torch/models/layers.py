@@ -1,5 +1,5 @@
-"""Transformer layers of the dense family: norms, rotary, GQA attention
-with a KV cache, MLPs.
+"""Transformer layers: norms, rotary, GQA attention with a KV cache (full
+or the SWA ring buffer), MLPs.
 
 The port of ``repro/models/layers.py``.  Parameters are plain dicts of
 tensors (``init_*`` builds them, ``apply_*`` reads them).  Dtype policy as
@@ -22,9 +22,13 @@ Attention routes:
     (``Model.prefill``) asks for it with ``flash=True``.  Decode, one query
     against a cache whose unwritten slots are pushed to position 2**30,
     stays on the plain routes, as it stays in XLA in the reference.
-Not ported yet: the SWA ring buffer cache, MLA and cross-attention
-(``ROADMAP.md`` Queue 1, the other model families), and
-``context_parallel`` (there is no mesh on one card).
+The SWA ring buffer (a cache with ``kpos``, ``Model.init_cache(...,
+ring=True)``) holds the last Smax keys at slot ``pos % Smax`` and their
+positions in ``kpos``; it takes one token a call (decode), as the
+reference only ever calls it.
+Not ported yet: MLA and cross-attention (``ROADMAP.md`` Queue 1, the
+other model families), and ``context_parallel`` (there is no mesh on one
+card).
 """
 from __future__ import annotations
 
@@ -216,14 +220,31 @@ def attention_block(p, x, cfg, positions, *, kv_cache=None, cache_len=None,
 
     kv_cache: optional dict {"k","v"} (B, Smax, KV, dh), written IN PLACE
     at ``cache_len`` (a Python int; the reference returns a new cache, the
-    port saves the copy).  ``flash=True`` routes the attention to the flash
-    kernel; the caller sets it only where positions are ``arange`` from 0
-    and the cache is written from slot 0 (prefill).
+    port saves the copy).  With ``"kpos"`` (Smax,) int32 it is the SWA
+    ring buffer: the token at position ``cache_len`` goes to slot
+    ``cache_len % Smax``, its position to ``kpos``, and the keys' positions
+    are read from ``kpos`` (empty slots hold -2**30, outside every
+    window).  A ring takes S == 1 only: the reference's
+    ``dynamic_update_slice`` would clamp a longer write's slot.
+    ``flash=True`` routes the attention to the flash kernel; the caller
+    sets it only where positions are ``arange`` from 0 and the cache is
+    written from slot 0 (prefill).
     """
     B, S, D = x.shape
     H, hd = cfg.num_heads, cfg.head_dim
+    ring = kv_cache is not None and "kpos" in kv_cache
+    if ring and (S != 1 or flash):
+        raise ValueError(f"the SWA ring cache takes one token a call "
+                         f"(decode), not S={S}" + (" on the flash route"
+                                                    if flash else ""))
     xq, xk, xv = qkv_projection(p, x, cfg, positions, dtype)
-    if kv_cache is not None:
+    if ring:
+        Smax = kv_cache["k"].shape[1]
+        slot = cache_len % Smax
+        kv_cache["k"][:, slot] = xk[:, 0].to(kv_cache["k"].dtype)
+        kv_cache["v"][:, slot] = xv[:, 0].to(kv_cache["v"].dtype)
+        kv_cache["kpos"][slot] = cache_len
+    elif kv_cache is not None:
         kv_cache["k"][:, cache_len:cache_len + S] = xk.to(kv_cache["k"].dtype)
         kv_cache["v"][:, cache_len:cache_len + S] = xv.to(kv_cache["v"].dtype)
     if flash:
@@ -234,7 +255,10 @@ def attention_block(p, x, cfg, positions, *, kv_cache=None, cache_len=None,
         # the fresh keys and values are all it needs
         out = flash_attention(xq, xk, xv, causal=True, window=cfg.swa_window)
     else:
-        if kv_cache is not None:
+        if ring:
+            k_positions = kv_cache["kpos"].expand(B, Smax)
+            xk, xv = kv_cache["k"].to(dtype), kv_cache["v"].to(dtype)
+        elif kv_cache is not None:
             Smax = kv_cache["k"].shape[1]
             k_positions = torch.arange(Smax, device=x.device).expand(B, Smax)
             # mask out unwritten cache slots by pushing their positions past q

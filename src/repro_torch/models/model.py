@@ -1,22 +1,25 @@
-"""Model facade of the dense family: build_model(cfg) -> init / loss_fn /
-prefill / decode_step.
+"""Model facade of the dense and MoE families: build_model(cfg) -> init /
+loss_fn / prefill / decode_step.
 
-The port of ``repro/models/model.py`` for ``family == "dense"``.  Batch
-formats as in the reference:
+The port of ``repro/models/model.py`` for ``family == "dense"`` and for
+``family == "moe"`` without MLA (mixtral-8x22b).  Batch formats as in the
+reference:
   train   : {"tokens": (B, S) int, "labels": (B, S) int}
   prefill : {"tokens": (B, S) int, "cache_seq": int (default S)}
-  decode  : {"token": (B, 1) int, "pos": int, "cache": {"k", "v"}}
+  decode  : {"token": (B, 1) int, "pos": int, "cache": {"k", "v"[, "kpos"]}}
 ``pos`` is a Python int here (the reference's is a traced scalar), so
 that a decode step needs no read from the device.  Caches are updated in
-place and returned.
+place and returned; ``init_cache(..., ring=True)`` gives the SWA ring
+buffer.
 
 Parameters are a dict: ``embed`` (V, D), ``final_norm``, ``lm_head`` (D, V)
 unless the embeddings are tied, and ``stack``, a list of per-layer dicts
-(``transformer.init_layer``).  Vectors live in float32; matrices in the
+(``transformer.init_layer``; an MoE layer holds ``moe`` in place of
+``mlp``).  Vectors and the MoE router live in float32; matrices in the
 compute dtype for serving, or as float32 masters cast at every product for
-training (``init(master=True)``), as the reference keeps them.  The MoE
-auxiliary term of ``loss_fn`` and the other families come with their
-slices (``ROADMAP.md`` Queue 1, the other model families).
+training (``init(master=True)``), as the reference keeps them.  MLA and
+the other families come with their slices (``ROADMAP.md`` Queue 1, the
+other model families).
 """
 from __future__ import annotations
 
@@ -119,15 +122,16 @@ class Model:
 
     # ------------------------------------------------------------- train
     def loss_fn(self, params, batch):
-        """Mean next-token cross-entropy over labels >= 0, in float32:
-        (loss, {"loss", "tokens"}).  The MoE auxiliary term comes with
-        that family."""
+        """Mean next-token cross-entropy over labels >= 0, in float32, plus
+        ``0.01 * aux / num_layers`` for the MoE family (aux the layers'
+        load-balancing losses): (loss, {"loss", "tokens"})."""
+        cfg = self.cfg
         tokens, labels = batch["tokens"], batch["labels"]
         B, S = tokens.shape
         x = self._embed(params, tokens)
         positions = torch.arange(S, dtype=torch.int32,
                                  device=x.device).expand(B, S)
-        x, _ = TR.apply_dense_stack(params["stack"], x, self.cfg, positions)
+        x, _, aux = TR.apply_dense_stack(params["stack"], x, cfg, positions)
         logits = self._logits(params, x).float()
         mask = (labels >= 0).float()
         logz = torch.logsumexp(logits, dim=-1)
@@ -135,27 +139,37 @@ class Model:
         nll = (logz - gold) * mask
         tok = torch.sum(mask)
         loss = torch.sum(nll) / torch.clamp(tok, min=1.0)
+        if cfg.num_experts:
+            loss = loss + 0.01 * aux / torch.full(
+                (), float(max(cfg.num_layers, 1)), device=aux.device)
         return loss, {"loss": loss, "tokens": tok}
 
     # ------------------------------------------------------------- serve
-    def init_cache(self, batch: int, cache_seq: int):
+    def init_cache(self, batch: int, cache_seq: int, ring: bool = False):
         """{"k", "v"}: (L, B, cache_seq, KV, dh) zeros in the compute dtype.
-        The reference's SWA ring buffer (``ring=True``) is not ported yet
-        (``ROADMAP.md`` Queue 1, the other model families)."""
-        return TR.init_kv_caches(self.cfg, batch, cache_seq,
-                                 torch.device(self.device),
-                                 dtype=compute_dtype(self.cfg))
+        ``ring=True`` adds ``kpos`` (L, cache_seq) int32, filled with
+        -2**30: the SWA ring buffer, whose slots ``decode_step`` reuses
+        (slot ``pos % cache_seq``)."""
+        dev = torch.device(self.device)
+        c = TR.init_kv_caches(self.cfg, batch, cache_seq, dev,
+                              dtype=compute_dtype(self.cfg))
+        if ring:
+            c["kpos"] = torch.full((self.cfg.num_layers, cache_seq), -(2**30),
+                                   dtype=torch.int32, device=dev)
+        return c
 
     def decode_step(self, params, batch):
-        """One token against a populated cache: (logits (B, V), cache).
-        Attention stays on the plain route (one query against the cache)."""
+        """One token against a populated cache, full or ring: (logits
+        (B, V), cache).  Attention stays on the plain route (one query
+        against the cache)."""
         cfg = self.cfg
         token, pos, cache = batch["token"], int(batch["pos"]), batch["cache"]
         B = token.shape[0]
         x = self._embed(params, token)
         positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
-        x, cache = TR.apply_dense_stack(params["stack"], x, cfg, positions,
-                                        caches=cache, cache_len=pos)
+        x, cache, _ = TR.apply_dense_stack(params["stack"], x, cfg,
+                                           positions, caches=cache,
+                                           cache_len=pos)
         logits = self._logits(params, x)
         if cfg.padded_vocab != cfg.vocab_size:
             # never sample a padding row
@@ -175,21 +189,23 @@ class Model:
         positions = torch.arange(S, dtype=torch.int32,
                                  device=x.device).expand(B, S)
         caches = self.init_cache(B, cache_seq)
-        x, cache = TR.apply_dense_stack(params["stack"], x, self.cfg,
-                                        positions, caches=caches, cache_len=0,
-                                        flash=flash)
+        x, cache, _ = TR.apply_dense_stack(params["stack"], x, self.cfg,
+                                           positions, caches=caches,
+                                           cache_len=0, flash=flash)
         logits = self._logits(params, x[:, -1:])
         return logits[:, 0], cache
 
 
 def build_model(cfg: ModelConfig, device="cuda") -> Model:
-    """The dense family's model on ``device`` (default: the card).  Other
-    families raise: their blocks are not ported yet."""
-    if cfg.family != "dense":
+    """The model of a dense or MoE configuration on ``device`` (default:
+    the card).  MLA and the other families raise: their blocks are not
+    ported yet."""
+    if cfg.family not in ("dense", "moe") or cfg.mla:
+        what = "MLA attention" if cfg.mla else f"family {cfg.family!r}"
         raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet; the port "
-            "builds the dense family (ROADMAP.md Queue 1, the other model "
-            "families, lists the rest in order)")
+            f"{cfg.name}: {what} is not ported yet; the port builds the "
+            "dense family and the MoE family without MLA (ROADMAP.md Queue "
+            "1, the other model families, lists the rest in order)")
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(

@@ -204,6 +204,7 @@ def test_import_leaves_no_jax_or_repro():
             "repro_torch.core.refine, repro_torch.graphs, repro_torch.sketch, "
             "repro_torch.kernels.parsa_cost.ops, "
             "repro_torch.kernels.flash_attention, repro_torch.models.model, "
+            "repro_torch.models.moe, "
             "repro_torch.launch.serve, repro_torch.launch.steps, "
             "repro_torch.serving, repro_torch.configs, repro_torch.stream, "
             "repro_torch.obs, repro_torch.core.placement, "

@@ -20,11 +20,13 @@ from repro.configs import get_config as jax_config
 from repro.models import layers as JL
 from repro.models.model import build_model as jax_build
 from repro_torch.configs import get_config, list_configs
+from repro_torch.configs.base import ModelConfig
 from repro_torch.convert import model_params_from_numpy
 from repro_torch.models import layers as TL
 from repro_torch.models.model import build_model
 
-ARCHS = ["qwen3-14b", "codeqwen1.5-7b", "command-r-35b", "nemotron-4-340b"]
+ARCHS = ["qwen3-14b", "codeqwen1.5-7b", "command-r-35b", "nemotron-4-340b",
+         "mixtral-8x22b"]
 TOL = 1e-5
 
 
@@ -48,12 +50,28 @@ def test_port_registry_holds_the_dense_configs_field_for_field():
     assert get_config("qwen3-14b").padded_vocab == 152064
 
 
-def test_build_model_refuses_other_families():
-    moe = dataclasses.replace(get_config("qwen3-14b").reduced(),
-                              family="moe", num_experts=4)
-    with pytest.raises(NotImplementedError,
-                       match="Queue 1, the other model families"):
-        build_model(moe, "cpu")
+@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "whisper-medium",
+                                  "internvl2-76b", "xlstm-350m",
+                                  "zamba2-2.7b"])
+def test_build_model_refuses_other_families(arch):
+    """MLA (deepseek-v2, family "moe") and the encdec, vlm, xlstm and
+    hybrid families are not ported: their configurations, made from the
+    JAX package's fields, are refused on both devices."""
+    cfg = ModelConfig(**dataclasses.asdict(jax_config(arch)))
+    for dev in ("cpu", "cuda"):
+        with pytest.raises(NotImplementedError,
+                           match="Queue 1, the other model families"):
+            build_model(cfg, dev)
+    with pytest.raises(NotImplementedError, match="MLA" if cfg.mla
+                       else f"family {cfg.family!r}"):
+        build_model(cfg.reduced(), "cpu")
+
+
+def test_build_model_builds_mixtral():
+    cfg = get_config("mixtral-8x22b")
+    model = build_model(cfg, "cpu")
+    assert model.cfg is cfg and model.device == torch.device("cpu")
+    assert cfg.family == "moe" and not cfg.mla
 
 
 def test_default_device_is_the_card(monkeypatch):

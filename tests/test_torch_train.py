@@ -48,6 +48,8 @@ from repro_torch.serving import prefetch_batches, stage_batch
 from repro_torch.tree import tree_leaves, tree_map
 
 ARCHS = ["qwen3-14b", "codeqwen1.5-7b", "command-r-35b", "nemotron-4-340b"]
+# the MoE family: its loss carries the auxiliary term (``grads_pair``)
+MOE_ARCHS = ["mixtral-8x22b"]
 TOL = 1e-5
 BF16_TOL = 2e-2
 
@@ -123,7 +125,7 @@ def _port_grads(model, params, batch):
     return loss.detach(), metrics, grads
 
 
-@pytest.fixture(scope="module", params=ARCHS)
+@pytest.fixture(scope="module", params=ARCHS + MOE_ARCHS)
 def grads_pair(request):
     """The loss, metrics and gradients of one reduced config and batch in
     both packages."""
@@ -191,6 +193,40 @@ def test_params_after_3_train_steps(arch, mb):
             lambda a: np.asarray(a, np.float32), jo[key])) <= mtol
     assert int(to["step"]) == int(jo["step"]) == 3
     assert to["step"].dtype == torch.int32
+
+
+@pytest.mark.parametrize("mb", [1, 2])
+def test_moe_params_after_3_train_steps(mb):
+    """mixtral-8x22b (the MoE auxiliary term in the loss): 3 ``train_step``s
+    at ``microbatches`` 1 and 2, every step's loss and grad_norm, then the
+    parameters over the tree, as for the dense configs.  The moments are
+    held one step at a time, against JAX's step from the port's own state:
+    the two runs' moments drift apart by more than their parameters (1.8e-5
+    relative L2 at microbatches 2), because the MoE loss's gradient is
+    steep there, in both packages alike (from step 0's two states, 3.6e-7
+    apart, each package's step-1 gradient moves by 4.3e-5, while the two
+    packages agree within 4e-7 at either state)."""
+    jc, jstep, jp, jo, tc, tstep, tp, to = _state("mixtral-8x22b",
+                                                  microbatches=mb)
+    for s in range(3):
+        b = _batch(tc, seed=10 + s)
+        jb = {k: jnp.asarray(v) for k, v in b.items()}
+        # copies: _np's arrays share the port's buffers, which tstep updates
+        # in place while JAX may still be reading them
+        state = jax.tree.map(np.array, (_np(tp), {
+            "m": _np(to["m"]), "v": _np(to["v"]), "step": to["step"].numpy()}))
+        want_p, want_o, _ = jstep(*state, jb)
+        jp, jo, jm = jstep(jp, jo, jb)
+        tp, to, tm = tstep(tp, to, b)
+        assert _rel(tm["loss"], jm["loss"]) <= TOL
+        assert _rel(tm["grad_norm"], jm["grad_norm"]) <= TOL
+        assert float(tm["tokens"]) == float(jm["tokens"])
+        assert _rel_l2(_np(tp), jax.tree.map(np.asarray, want_p)) <= TOL
+        for key in ("m", "v"):
+            assert _rel_l2(_np(to[key]), jax.tree.map(
+                np.asarray, want_o[key])) <= TOL
+    assert _rel_l2(_np(tp), jax.tree.map(np.asarray, jp)) <= TOL
+    assert int(to["step"]) == int(jo["step"]) == 3
 
 
 @pytest.mark.parametrize("moment_dtype", ["float32", "bfloat16"])
