@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port of Parsa on one NVIDIA GPU and hold every CUDA
 kernel to its plain PyTorch version: the partitioner's paths and the LM
-serving paths (qwen3-14b, and mixtral-8x22b cut in depth, at full width).
+serving paths (qwen3-14b, and mixtral-8x22b and deepseek-v2-236b cut in
+depth, at full width).
 
     python3 chip_smoke.py                 # all phases, one card
 
@@ -137,7 +138,23 @@ Phases, in order; any failure exits non-zero:
    over 32 groups of 512 prefill tokens placed by
    ``build_expert_placement`` at k=4 (one parsa_scan and one
    refine_sweep; the all-to-all crossing tokens reported);
-12. LM training (phase ``train``): qwen3-14b at full width cut to 4 layers
+12. the MLA serving path (phase ``mla``): deepseek-v2-236b at full width
+   (128 heads, q/k head dim 128 + 64 rotary, v 128, kv_lora 512, q_lora
+   1,536, 160 experts top-6 with 2 shared) cut to 6 of 60 layers (49.8 GB
+   of random bf16 weights drawn on the card after phase moe's are freed),
+   phase lm's checks on it through ``phase_lm(dev, MLA, extra=...)``: the
+   prefill at B=2, S=4,096 (6 flash_attention launches at (Dqk, Dv) =
+   (192, 128) on the tensor-core route, against the plain route's absorbed
+   attention over query chunks), layer 0's kernel against
+   ``flash_attention_ref``, ``decode_loop_engine`` bit-identical to
+   ``decode_loop``, teacher forcing at capacity factor 27 (>= E / top-k:
+   no drop) under shared expert choices, cpu against cuda on the reduced
+   config; phase moe's route agreement, drops and layer 0's expert
+   placement (32 groups of 256 tokens at k=8, one parsa_scan and one
+   refine_sweep); the latent cache's bytes, measured; one decode step's
+   ``mla_block`` under ``set_sync_debug_mode("error")``; and the serving
+   CLI (``launch.serve.main``, ``--layers 6``) on the card;
+13. LM training (phase ``train``): qwen3-14b at full width cut to 4 layers
    (float32 master parameters, remat "full", 2 microbatches), 8 steps at
    batch 8 x sequence 1,024 of ``SyntheticLMData`` staged by
    ``prefetch_batches``: the step time (median of steps 2-8), tokens/s,
@@ -150,7 +167,7 @@ Phases, in order; any failure exits non-zero:
    card twice (bitwise) and against the CPU (relative L2 within 1e-5), and
    its failure at step 6 with a checkpoint every 2 steps, resumed
    bitwise;
-13. each kernel timed at the shapes its path launches (CUDA events, median
+14. each kernel timed at the shapes its path launches (CUDA events, median
    of 21 samples after warm-up; ``ms`` from launches replayed in a CUDA
    graph, ``eager_ms`` from launches made one by one from Python) beside
    its bound, its plain version and its launches on the path
@@ -167,7 +184,9 @@ Phases, in order; any failure exits non-zero:
    beside the bound of those compact inputs and the dense contract's,
    ``flash_attention`` at the prefill's shape beside
    ``scaled_dot_product_attention``, and at phase moe's windowed shape
-   beside it with the window's mask), then the main, the sketched and the
+   beside it with the window's mask, and at phase mla's (Dqk, Dv) = (192,
+   128) shape beside ``scaled_dot_product_attention`` on the same q, k and
+   v, naming the backend it picked), then the main, the sketched and the
    parallel scan and the whole refine under ``torch.profiler``: device
    time per round, the device's idle share, and a parallel super-step's
    kernels (one parsa_scan and one merge, no PyTorch kernel); and the
@@ -176,7 +195,8 @@ Phases, in order; any failure exits non-zero:
 ``--phases build,kernels,sketch``, ``--phases build,kernels,parallel``,
 ``--phases build,kernels,stream``, ``--phases build,kernels,elastic``,
 ``--phases build,kernels,serving``, ``--phases build,kernels,lm``,
-``--phases build,kernels,moe`` and ``--phases build,kernels,train`` are
+``--phases build,kernels,moe``, ``--phases build,kernels,mla`` and
+``--phases build,kernels,train`` are
 short checks of one path (they print no result and exit 1).
 
 The last lines are the card, one ``{"kernels": [...]}`` JSON line and
@@ -196,7 +216,8 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parent
 PROFILE_DIAG = 0    # --profile-diag N
 PHASES = ("build", "kernels", "main", "parity", "sketch", "parallel",
-          "stream", "elastic", "serving", "lm", "moe", "train", "times")
+          "stream", "elastic", "serving", "lm", "moe", "mla", "train",
+          "times")
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, and the non-tensor fp32
 # rate, the only CUDA-core rate in that sheet; int32 and popcount work is
@@ -370,6 +391,23 @@ MOE = dict(LM, arch="mixtral-8x22b", num_layers=8, prefill_seq=8192,
            teacher_forcing=dict(moe_capacity_factor=4.0), ring_layers=2,
            ring_window=256, ring_steps=320, groups=32, group_tokens=512,
            placement_k=4)
+
+# the MLA serving path (phase mla): deepseek-v2-236b at full width (d_model
+# 5,120, 128 heads, q_lora 1,536, kv_lora 512, q/k head dim 128 + 64 rotary,
+# v 128, 160 experts top-6 of d_ff 1,536 with 2 shared, vocab 102,400,
+# rope theta 1e4), depth cut to 6 of 60 layers (3,972,116,480 parameters a
+# layer: 149.2 M MLA, 3,774.9 M routed experts, 47.2 M shared, 0.8 M
+# router; the embedding and the untied head 1,048.6 M; 24.88 B in all,
+# 49.8 GB of random bf16 weights from SEED; 60 layers would be 239.4 B
+# (479 GB), 8 about 65.7 GB before the prefill's transients).  The prefill
+# at B=2, S=4,096 into a 4,128-slot cache (C = 384 at T = 8,192), decode as
+# phase lm's.  Teacher forcing holds decode to a prefill at capacity factor
+# 27 >= E / top-k = 26.7 (C >= T: no drop).  Layer 0's routing over 32
+# groups of 256 prefill tokens is placed by Parsa at k=8.
+MLA = dict(LM, arch="deepseek-v2-236b", num_layers=6, phase="mla",
+           teacher_forcing=dict(moe_capacity_factor=27.0), groups=32,
+           group_tokens=256, placement_k=8, cli=dict(batch=4, prompt=16,
+                                                     gen=8))
 FLASH_TOL = {"float32": 3e-5, "bfloat16": 2e-2}
 
 # LM training (phase train): qwen3-14b at full width (d_model 5,120, d_ff
@@ -821,13 +859,15 @@ def check_flash(dev, full=(2, 4096, 40, 8, 128)) -> dict:
     K and V as strided views of a longer cache; the prefill's full-width
     shape; the tensor-core route's tile edges (Sq of 127, 129, 255, a
     window of 100 across 128-key tiles, Sq < Skv, strided views, D of 64
-    and 128).  Both kernel routes (TMA + wgmma for bf16 at D in {64, 128},
-    FMA otherwise) are run, every bf16 case at D in {64, 128} on the
-    first."""
+    and 128); v at its own head dim Dv < Dqk (MLA's (192, 128) on both
+    routes at a ragged S of 300, causal and not; (24, 16), the reduced
+    config's, on the FMA route).  Both kernel routes (TMA + wgmma for bf16
+    at (Dqk, Dv) in ``WGMMA_DIMS``, FMA otherwise) are run, every bf16 case
+    at those head dims on the first."""
     import torch
 
     from repro_torch.kernels.flash_attention import (
-        flash_attention, flash_attention_ref, uses_tensor_cores)
+        WGMMA_DIMS, flash_attention, flash_attention_ref, uses_tensor_cores)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -856,12 +896,17 @@ def check_flash(dev, full=(2, 4096, 40, 8, 128)) -> dict:
                 (1, 300, 300, 4, 2, 64, True, 100),
                 (2, 100, 260, 4, 2, 128, True, None),    # Sq < Skv
                 (1, 129, 333, 4, 2, 64, False, None)):
-            cases.append((dt, B, Sq, Skv, H, KV, D, causal, window, False))
-        cases.append((dt, 2, 200, 200, 8, 2, 128, True, None, True))  # strided
-        cases.append((dt, 2, 255, 255, 4, 2, 64, False, None, True))
+            cases.append((dt, B, Sq, Skv, H, KV, D, causal, window, False, D))
+        cases.append((dt, 2, 200, 200, 8, 2, 128, True, None, True, 128))
+        cases.append((dt, 2, 255, 255, 4, 2, 64, False, None, True, 64))
+        # MLA: v at its own head dim
+        for causal in (True, False):
+            cases.append((dt, 2, 300, 300, 4, 4, 192, causal, None, False,
+                          128))
+        cases.append((dt, 2, 100, 100, 4, 2, 24, True, None, False, 16))
     fb, fs, fh, fkv, fd = full     # the prefill's shape
-    cases.append(("bfloat16", fb, fs, fs, fh, fkv, fd, True, None, False))
-    for dt, B, Sq, Skv, H, KV, D, causal, window, strided in cases:
+    cases.append(("bfloat16", fb, fs, fs, fh, fkv, fd, True, None, False, fd))
+    for dt, B, Sq, Skv, H, KV, D, causal, window, strided, Dv in cases:
         dtype = getattr(torch, dt)
 
         def rnd(*shape):
@@ -870,25 +915,29 @@ def check_flash(dev, full=(2, 4096, 40, 8, 128)) -> dict:
         q = rnd(B, Sq, H, D)
         if strided:  # views of a longer cache, as the prefill hands them
             k = rnd(B, Skv + 56, KV, D)[:, :Skv]
-            v = rnd(B, Skv + 56, KV, D)[:, :Skv]
+            v = rnd(B, Skv + 56, KV, Dv)[:, :Skv]
         else:
-            k, v = rnd(B, Skv, KV, D), rnd(B, Skv, KV, D)
+            k, v = rnd(B, Skv, KV, D), rnd(B, Skv, KV, Dv)
         got = flash_attention(q, k, v, causal=causal, window=window)
         torch.cuda.synchronize()
         want = flash_attention_ref(q, k, v, causal=causal, window=window)
         tol = FLASH_TOL[dt]
         diff = (got.float() - want.float()).abs()
         err = float(diff.max())
-        case = (dt, B, Sq, Skv, H, KV, D, causal, window, strided)
+        case = (dt, B, Sq, Skv, H, KV, D, causal, window, strided, Dv)
         check(bool(torch.isfinite(got.float()).all()), f"flash {case}: not finite")
         check(bool((diff <= tol + tol * want.float().abs()).all()),
               f"flash_attention {case}: max abs err {err} past tolerance {tol}")
         out["cases"] += 1
         out["max_abs_err"] = max(out["max_abs_err"], err)
         wgmma = uses_tensor_cores(q, k, v)
-        check(wgmma == (dt == "bfloat16" and D in (64, 128)),
+        check(wgmma == (dt == "bfloat16" and (D, Dv) in WGMMA_DIMS),
               f"flash_attention {case}: tensor-core route {wgmma}")
         out["wgmma_cases" if wgmma else "fma_cases"] += 1
+        if Dv != D:
+            route = "wgmma" if wgmma else "fma"
+            key = f"max_abs_err_dv_{route}_{dt}"
+            out[key] = max(out.get(key, 0.0), err)
         if (B, Sq, H, KV, D) == full:
             out["max_abs_err_full_shape"] = err
         del q, k, v, got, want, diff
@@ -905,7 +954,7 @@ def kernel_resources(libs: dict) -> dict:
     HGMMA (wgmma) and UTMALDG (TMA load) instructions, and which global
     loads parsa_scan's SASS holds, by ``cuobjdump -sass``.  The dynamic
     shared memory is the kernels' own: 160 KB + 1 KB a CTA for
-    flash_wgmma at D=128, B * k * 4 bytes for sketch_select,
+    flash_wgmma at D=128 and 208 KB + 1 KB at (Dqk, Dv) = (192, 128), B * k * 4 bytes for sketch_select,
     ``ops.scan_smem_bytes`` for parsa_scan, rows * ((k | 1) * 4 + 2,048)
     bytes for cost_tile_kernel (2, 4 or 8 rows)."""
     import re
@@ -3110,7 +3159,7 @@ def attention_ref_by_head(q, k, v, window):
     B, _, H, _ = q.shape
     KV = k.shape[2]
     G = H // KV
-    out = torch.empty_like(q)
+    out = q.new_empty(q.shape[:3] + v.shape[3:])   # v's head dim
     for b in range(B):
         for j in range(KV):
             out[b:b + 1, :, j * G:(j + 1) * G] = FA.flash_attention_ref(
@@ -3121,8 +3170,8 @@ def attention_ref_by_head(q, k, v, window):
 
 def phase_lm(dev, lm: dict = LM, extra=None) -> dict:
     """The LM serving path on the card; see the module docstring, item 10.
-    Phase moe runs it on ``MOE`` and adds its checks through ``extra``,
-    called with the weights before they are freed."""
+    Phases moe and mla run it on ``MOE`` and ``MLA`` and add their checks
+    through ``extra``, called with the weights before they are freed."""
     import dataclasses
 
     import numpy as np
@@ -3138,9 +3187,13 @@ def phase_lm(dev, lm: dict = LM, extra=None) -> dict:
     cfg = get_config(lm["arch"])
     if lm["num_layers"]:
         cfg = dataclasses.replace(cfg, num_layers=lm["num_layers"])
+    heads = (f"{cfg.num_heads} MLA, q/k {cfg.head_dim}+{cfg.rope_head_dim}, "
+             f"v {cfg.v_head_dim}, kv_lora {cfg.kv_lora_rank}, q_lora "
+             f"{cfg.q_lora_rank}" if cfg.mla else
+             f"{cfg.num_heads}/{cfg.num_kv_heads}x{cfg.head_dim}")
+    ck = "c_kv" if cfg.mla else "k"     # the cache leaf compared
     out: dict = {"arch": cfg.name, "num_layers": cfg.num_layers,
-                 "d_model": cfg.d_model, "d_ff": cfg.d_ff,
-                 "heads": f"{cfg.num_heads}/{cfg.num_kv_heads}x{cfg.head_dim}",
+                 "d_model": cfg.d_model, "d_ff": cfg.d_ff, "heads": heads,
                  "vocab": f"{cfg.vocab_size} (padded {cfg.padded_vocab})",
                  "experts": f"{cfg.num_experts} top-{cfg.num_experts_per_tok}",
                  "swa_window": cfg.swa_window}
@@ -3187,8 +3240,8 @@ def phase_lm(dev, lm: dict = LM, extra=None) -> dict:
     out["prefill_logits_max_abs_err"] = float(
         (logits.float() - logits_p.float()).abs().max())
     out["prefill_logits_rel_l2"] = rel_l2(logits, logits_p)
-    out["prefill_last_layer_k_rel_l2"] = rel_l2(cache["k"][-1, :, :S],
-                                                cache_p["k"][-1, :, :S])
+    out[f"prefill_last_layer_{ck}_rel_l2"] = rel_l2(cache[ck][-1, :, :S],
+                                                    cache_p[ck][-1, :, :S])
     check(out["prefill_logits_rel_l2"] <= LM_MAX_REL_L2,
           f"prefill logits, kernel route against plain route: relative L2 "
           f"{out['prefill_logits_rel_l2']:.3e} > {LM_MAX_REL_L2}")
@@ -3204,7 +3257,15 @@ def phase_lm(dev, lm: dict = LM, extra=None) -> dict:
     positions = torch.arange(S, dtype=torch.int32, device=dev).expand(B, S)
     with torch.no_grad():
         h = LL.apply_norm(p0["ln1"], model._embed(params, tokens), cfg.norm)
-        xq, xk, xv = LL.qkv_projection(p0["attn"], h, cfg, positions, dt)
+        if cfg.mla:   # the per-head q, k (dn + dr) and v (dv) of the prefill
+            xq, xk, xv = LL.mla_qkv(p0["attn"], *LL.mla_projection(
+                p0["attn"], h, cfg, positions, dt), dt)
+        else:
+            xq, xk, xv = LL.qkv_projection(p0["attn"], h, cfg, positions, dt)
+        out["layer0_tensor_cores"] = FA.uses_tensor_cores(xq, xk, xv)
+        check(out["layer0_tensor_cores"], f"layer 0's attention at "
+              f"{tuple(xq.shape)}, v {tuple(xv.shape)} is off the "
+              "tensor-core route")
         got = FA.flash_attention(xq, xk, xv, causal=True,
                                  window=cfg.swa_window)
         want = attention_ref_by_head(xq, xk, xv, cfg.swa_window)
@@ -3219,8 +3280,9 @@ def phase_lm(dev, lm: dict = LM, extra=None) -> dict:
         check(bool((d <= tol + tol * ref.float().abs()).all()),
               f"layer 0 attention, kernel against {name}: max abs err "
               f"{float(d.max()):.3e} past {tol}")
-    out["layer0_qkv"] = (xq, xk, xv)
-    del got, want, chunked, h
+    # kept on the host for phase times (MLA's are 1.07 GB)
+    out["layer0_qkv"] = tuple(t.cpu() for t in (xq, xk, xv))
+    del got, want, chunked, h, xq, xk, xv
 
     # (b) greedy decode through the serving engine, against decode_loop
     smodel, step = make_serve_step(cfg, dev)
@@ -3341,9 +3403,9 @@ def phase_lm(dev, lm: dict = LM, extra=None) -> dict:
           f"{FA.LAUNCHES['flash_attention']} != {rcfg.num_layers}")
     out["reduced_prefill_max_abs_err"] = float((lg.cpu() - lc).abs().max())
     out["reduced_cache_max_abs_err"] = float(
-        (cg["k"].cpu() - cc["k"]).abs().max())
+        (cg[ck].cpu() - cc[ck]).abs().max())
     check(torch.allclose(lg.cpu(), lc, atol=1e-4, rtol=1e-4)
-          and torch.allclose(cg["k"].cpu(), cc["k"], atol=1e-4, rtol=1e-4),
+          and torch.allclose(cg[ck].cpu(), cc[ck], atol=1e-4, rtol=1e-4),
           f"reduced prefill: cpu against cuda {out['reduced_prefill_max_abs_err']}")
     tc = decode_loop(rm_c, step_c, rp_c, rtoks, 6, 18)
     tg = decode_loop(rm_g, step_g, rp_g, rtoks, 6, 18)
@@ -3352,6 +3414,82 @@ def phase_lm(dev, lm: dict = LM, extra=None) -> dict:
         f"err {out['reduced_prefill_max_abs_err']:.2e}, decode tokens equal)")
     log(f"{tag}: " + json.dumps({k: v for k, v in out.items()
                                   if k != "layer0_qkv"}))
+    return out
+
+
+def route_checks(dev, cfg, params, prefill, prefill_plain, batch,
+                 lm: dict) -> dict:
+    """Of an MoE prefill (phases moe and mla): the expert choices of the
+    kernel and the plain route (the share of (token, slot) choices they
+    agree on), the capacity drops by layer, and layer 0's routing counts
+    over ``lm["groups"]`` groups of ``lm["group_tokens"]`` tokens placed by
+    ``build_expert_placement`` at ``lm["placement_k"]`` (device_scan, device
+    refine: one parsa_scan and one refine_sweep; the all-to-all crossing
+    tokens reported, not gated)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.moe_placement import (
+        alltoall_traffic, build_expert_placement)
+    from repro_torch.kernels.parsa_cost import ops as PC
+    from repro_torch.models import moe as MOE_
+
+    tag = lm["phase"]
+    out: dict = {}
+    L, E, K = cfg.num_layers, cfg.num_experts, cfg.num_experts_per_tok
+    B, S = batch["tokens"].shape
+    T = B * S
+    C = MOE_.capacity(cfg, T)
+    # (a) the routes of the kernel and the plain prefill, and the drops
+    with moe_routes([]) as kern:
+        prefill(params, batch)
+    with moe_routes([]) as plain:
+        prefill_plain(params, batch)
+    check(len(kern) == len(plain) == L, f"{len(kern)} MoE layers routed")
+    agree = [float((a == b).float().mean()) for a, b in zip(kern, plain)]
+    out["route_agreement"] = float(np.mean(agree))
+    out["route_agreement_by_layer"] = agree
+    counts = [torch.zeros(E, dtype=torch.int64, device=dev).scatter_add_(
+        0, e.reshape(-1), torch.ones(T * K, dtype=torch.int64,
+                                     device=dev)) for e in kern]
+    out["capacity"] = C
+    out["drops_by_layer"] = [int((c - C).clamp(min=0).sum())
+                             for c in counts]
+    out["expert_counts_layer0"] = counts[0].tolist()
+    log(f"{tag} routes: kernel and plain prefill agree on "
+        f"{out['route_agreement']:.6f} of (token, slot) choices "
+        f"(by layer {[round(a, 6) for a in agree]}); C={C} at T={T}, "
+        f"drops by layer {out['drops_by_layer']} of {T * K}")
+
+    # expert placement from layer 0's routing over token groups
+    ng, gt = lm["groups"], lm["group_tokens"]
+    check(ng * gt == T, f"{ng} groups of {gt} tokens != T={T}")
+    e0 = kern[0].reshape(ng, gt * K).cpu().numpy()
+    rc = np.stack([np.bincount(g, minlength=E) for g in e0])
+    PC.reset_launch_counts()
+    t0 = time.perf_counter()
+    pl = build_expert_placement(rc, lm["placement_k"],
+                                backend="device_scan", device=dev,
+                                refine_backend="device")
+    secs = time.perf_counter() - t0
+    launches = {n: c for n, c in PC.LAUNCHES.items() if c}
+    check(launches == {"parsa_scan": 1, "refine_sweep": 1},
+          f"expert placement launches {launches}, want one parsa_scan "
+          "and one refine_sweep")
+    traffic = alltoall_traffic(rc, pl)
+    out["placement"] = {
+        "routing_counts_shape": list(rc.shape), "k": pl.k,
+        "expert_to_shard": pl.expert_to_shard.tolist(),
+        "launches": launches, "seconds": secs,
+        "crossing_tokens_roundrobin": traffic[
+            "crossing_tokens_roundrobin"],
+        "crossing_tokens_parsa": traffic["crossing_tokens_parsa"],
+        "reduction": traffic["reduction"]}
+    log(f"{tag} placement of layer 0's {rc.shape} routing counts at k="
+        f"{pl.k}: {launches} in {secs:.3f} s; all-to-all crossing "
+        f"tokens round-robin {traffic['crossing_tokens_roundrobin']}, "
+        f"Parsa {traffic['crossing_tokens_parsa']} (reduction "
+        f"{traffic['reduction'] * 100:.2f}%, reported, not gated)")
     return out
 
 
@@ -3364,71 +3502,16 @@ def phase_moe(dev, moe: dict = MOE) -> dict:
     import numpy as np
     import torch
 
-    from repro_torch.core.moe_placement import (
-        alltoall_traffic, build_expert_placement)
-    from repro_torch.kernels.parsa_cost import ops as PC
     from repro_torch.launch.steps import make_serve_step
     from repro_torch.models import layers as LL
     from repro_torch.models import moe as MOE_
 
     def checks(cfg, model, params, prefill, prefill_plain, batch, smodel,
                step) -> dict:
-        out: dict = {}
-        L, E, K = cfg.num_layers, cfg.num_experts, cfg.num_experts_per_tok
+        out = route_checks(dev, cfg, params, prefill, prefill_plain, batch,
+                           moe)
+        K = cfg.num_experts_per_tok
         B, S = batch["tokens"].shape
-        T = B * S
-        C = MOE_.capacity(cfg, T)
-        # (a) the routes of the kernel and the plain prefill, and the drops
-        with moe_routes([]) as kern:
-            prefill(params, batch)
-        with moe_routes([]) as plain:
-            prefill_plain(params, batch)
-        check(len(kern) == len(plain) == L, f"{len(kern)} MoE layers routed")
-        agree = [float((a == b).float().mean()) for a, b in zip(kern, plain)]
-        out["route_agreement"] = float(np.mean(agree))
-        out["route_agreement_by_layer"] = agree
-        counts = [torch.zeros(E, dtype=torch.int64, device=dev).scatter_add_(
-            0, e.reshape(-1), torch.ones(T * K, dtype=torch.int64,
-                                         device=dev)) for e in kern]
-        out["capacity"] = C
-        out["drops_by_layer"] = [int((c - C).clamp(min=0).sum())
-                                 for c in counts]
-        out["expert_counts_layer0"] = counts[0].tolist()
-        log(f"moe routes: kernel and plain prefill agree on "
-            f"{out['route_agreement']:.6f} of (token, slot) choices "
-            f"(by layer {[round(a, 6) for a in agree]}); C={C} at T={T}, "
-            f"drops by layer {out['drops_by_layer']} of {T * K}")
-
-        # expert placement from layer 0's routing over token groups
-        ng, gt = moe["groups"], moe["group_tokens"]
-        check(ng * gt == T, f"{ng} groups of {gt} tokens != T={T}")
-        e0 = kern[0].reshape(ng, gt * K).cpu().numpy()
-        rc = np.stack([np.bincount(g, minlength=E) for g in e0])
-        PC.reset_launch_counts()
-        t0 = time.perf_counter()
-        pl = build_expert_placement(rc, moe["placement_k"],
-                                    backend="device_scan", device=dev,
-                                    refine_backend="device")
-        secs = time.perf_counter() - t0
-        launches = {n: c for n, c in PC.LAUNCHES.items() if c}
-        check(launches == {"parsa_scan": 1, "refine_sweep": 1},
-              f"expert placement launches {launches}, want one parsa_scan "
-              "and one refine_sweep")
-        traffic = alltoall_traffic(rc, pl)
-        out["placement"] = {
-            "routing_counts_shape": list(rc.shape), "k": pl.k,
-            "expert_to_shard": pl.expert_to_shard.tolist(),
-            "launches": launches, "seconds": secs,
-            "crossing_tokens_roundrobin": traffic[
-                "crossing_tokens_roundrobin"],
-            "crossing_tokens_parsa": traffic["crossing_tokens_parsa"],
-            "reduction": traffic["reduction"]}
-        log(f"moe placement of layer 0's {rc.shape} routing counts at k="
-            f"{pl.k}: {launches} in {secs:.3f} s; all-to-all crossing "
-            f"tokens round-robin {traffic['crossing_tokens_roundrobin']}, "
-            f"Parsa {traffic['crossing_tokens_parsa']} (reduction "
-            f"{traffic['reduction'] * 100:.2f}%, reported, not gated)")
-        del kern, plain, counts
 
         # (b) apply_moe makes no device-to-host sync, at decode's and at a
         # prefill slice's shape
@@ -3526,6 +3609,91 @@ def phase_moe(dev, moe: dict = MOE) -> dict:
         return out
 
     return phase_lm(dev, moe, extra=checks)
+
+
+def phase_mla(dev, mla: dict = MLA) -> dict:
+    """The MLA serving path on the card (phase lm's checks on ``MLA``, phase
+    moe's route checks and expert placement, the latent cache's bytes, an
+    MLA decode step without a host sync, the serving CLI); see the module
+    docstring, item 12."""
+    import torch
+
+    from repro_torch.launch import serve
+    from repro_torch.models import layers as LL
+
+    def checks(cfg, model, params, prefill, prefill_plain, batch, smodel,
+               step) -> dict:
+        out = route_checks(dev, cfg, params, prefill, prefill_plain, batch,
+                           mla)
+        # the latent cache: its bytes on the device against a per-head
+        # cache of the same shape (k at dn + dr, v at dv)
+        B, cache_seq = batch["tokens"].shape[0], mla["cache_seq"]
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated(dev)
+        cache = model.init_cache(B, cache_seq)
+        torch.cuda.synchronize()
+        measured = torch.cuda.memory_allocated(dev) - before
+        nbytes = sum(t.numel() * t.element_size() for t in cache.values())
+        per_head = (cfg.num_layers * B * cache_seq * cfg.num_heads * 2 *
+                    (cfg.head_dim + cfg.rope_head_dim + cfg.v_head_dim))
+        check(sorted(cache) == ["c_kv", "k_rope"] and measured >= nbytes,
+              f"latent cache {sorted(cache)}: {measured:,} bytes allocated "
+              f"for {nbytes:,}")
+        out["latent_cache"] = {
+            "shapes": {n: list(t.shape) for n, t in cache.items()},
+            "bytes": nbytes, "bytes_allocated": measured,
+            "per_head_cache_bytes": per_head}
+        log(f"mla latent cache (L={cfg.num_layers}, B={B}, {cache_seq} "
+            f"slots): {measured:,} bytes allocated ({nbytes:,} in its "
+            f"tensors); a per-head cache would take {per_head:,}")
+        del cache
+
+        # one decode step's MLA block makes no device-to-host sync
+        Bs, P = mla["serve_batch"], mla["prompt"]
+        p0, dt = params["stack"][0]["attn"], getattr(torch, cfg.dtype)
+        c = smodel.init_cache(Bs, P + mla["gen"])
+        layer = {n: t[0] for n, t in c.items()}
+        gen = torch.Generator(device=dev).manual_seed(mla["seed"])
+        h = torch.randn((Bs, 1, cfg.d_model), generator=gen, device=dev,
+                        dtype=dt)
+        pos = torch.full((Bs, 1), P, dtype=torch.int32, device=dev)
+        with torch.no_grad():
+            want = LL.mla_block(p0, h, cfg, pos, cache=layer, cache_len=P,
+                                dtype=dt)
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                got = LL.mla_block(p0, h, cfg, pos, cache=layer, cache_len=P,
+                                   dtype=dt)
+            except RuntimeError as err:
+                raise SmokeFailure("mla_block at decode's shape synchronised "
+                                   f"with the host: {err}") from err
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        check(torch.equal(got, want), "mla_block at decode: two calls differ")
+        out["mla_block_host_syncs"] = 0
+        log(f"mla: one decode step's mla_block at ({Bs}, 1) against a "
+            f"{P + mla['gen']}-slot latent cache made no device-to-host sync "
+            "(set_sync_debug_mode error), two calls bitwise equal")
+        del c, layer
+        return out
+
+    out = phase_lm(dev, mla, extra=checks)
+    # the serving CLI on the card at full width, cut to the phase's depth
+    cli = mla["cli"]
+    t0 = time.perf_counter()
+    toks = serve.main(["--arch", mla["arch"], "--layers",
+                       str(mla["num_layers"]), "--batch", str(cli["batch"]),
+                       "--prompt-len", str(cli["prompt"]), "--gen",
+                       str(cli["gen"]), "--device", str(dev)])
+    out["cli_s"] = time.perf_counter() - t0
+    check(toks.shape == (cli["batch"], cli["gen"]),
+          f"serve CLI gave tokens {toks.shape}")
+    torch.cuda.empty_cache()
+    log(f"mla serve CLI ({mla['arch']} --layers {mla['num_layers']}, batch "
+        f"{cli['batch']}, prompt {cli['prompt']}, gen {cli['gen']}) on the "
+        f"card in {out['cli_s']:.2f} s, weights drawn included")
+    return out
 
 
 def _tree_to(tree, dev):
@@ -4267,7 +4435,7 @@ def phase_times(dev, main: dict) -> list[dict]:
 
     if "lm" in main:
         rows.append(time_flash(dev, main["lm"], main["checks"],
-                               main.get("moe")))
+                               main.get("moe"), main.get("mla")))
 
     # where the time goes, under torch.profiler: the main path's whole scan
     # (one launch), the sketch path's whole scan (one launch), the parallel
@@ -4407,7 +4575,7 @@ def time_flash_windowed(dev, moe: dict) -> dict:
 
     from repro_torch.kernels import flash_attention as FA
 
-    q, k, v = moe["layer0_qkv"]
+    q, k, v = (t.to(dev) for t in moe["layer0_qkv"])
     B, S, H, D = q.shape
     KV, W = k.shape[2], moe["swa_window"]
     saved = dict(FA.LAUNCHES)
@@ -4451,19 +4619,83 @@ def time_flash_windowed(dev, moe: dict) -> dict:
     return out
 
 
-def time_flash(dev, lm: dict, checks: dict, moe: dict | None = None) -> dict:
-    """flash_attention at the prefill's shape, on layer 0's q, k, v of the
-    lm phase: CUDA-graph and eager times, its plain version, and
-    scaled_dot_product_attention (top-left causal, GQA) as the library
-    yardstick, which the port never calls.  The bound counts the FLOPs of
-    the admissible (query, key) pairs of this causal shape.  With phase
-    moe's state, the same at its windowed shape (``windowed``)."""
+def time_flash_mla(dev, mla: dict) -> dict:
+    """flash_attention at the MLA prefill's shape, on layer 0's q, k, v of
+    phase mla (B=2, S=4,096, 128 heads, q/k 192, v 128, causal): CUDA-graph
+    and eager times, its plain version (``attention_ref_by_head``), and
+    scaled_dot_product_attention on the same q, k and v (the backend it
+    picked named, or "no backend takes it").  The bound counts the
+    admissible (query, key) pairs: B H S (S + 1) (Dqk + Dv) FLOP."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as FA
 
-    q, k, v = lm["layer0_qkv"]
+    q, k, v = (t.to(dev) for t in mla["layer0_qkv"])
+    B, S, H, Dqk = q.shape
+    Dv = v.shape[3]
+    saved = dict(FA.LAUNCHES)
+    ms = time_graph_ms(lambda: FA.flash_attention(q, k, v), 5, 11)
+    eager_ms = time_ms(lambda: FA.flash_attention(q, k, v), 5, 11)
+    plain_ms = time_ms(lambda: attention_ref_by_head(q, k, v, None), 1, 3)
+    FA.LAUNCHES.update(saved)   # timing launches are not path launches
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    try:
+        from torch.nn.attention import SDPBackend
+        backend = SDPBackend(torch._fused_sdp_choice(
+            qt, kt, vt, None, 0.0, True)).name
+    except Exception as err:   # a private query; the time stands without it
+        backend = f"not named ({type(err).__name__})"
+    try:
+        library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True), 5, 11)
+    except RuntimeError as err:
+        library_ms, backend = None, f"no backend takes it ({err})"[:200]
+    pairs = S * (S + 1) // 2
+    flops = 2 * (Dqk + Dv) * B * H * pairs
+    nbytes = q.element_size() * (q.numel() + k.numel() + 2 * v.numel())
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / TENSOR_BF16_FLOPS * 1e3
+    out = {"shape": f"B={B}, S={S}, H={H}, KV={k.shape[2]}, Dqk={Dqk}, "
+                    f"Dv={Dv}, causal, {str(q.dtype).split('.')[-1]}",
+           "tensor_cores": FA.uses_tensor_cores(q, k, v),
+           "launches": mla["prefill_flash_launches"],
+           "launches_path": f"make_prefill_step {mla['arch']} B={B} S={S} "
+                            f"(one per layer of {mla['num_layers']})",
+           "max_abs_err": mla["layer0_attn_max_abs_err_plain"],
+           "ms": ms, "eager_ms": eager_ms, "plain_ms": plain_ms,
+           "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "flops": flops, "bytes": nbytes, "library_ms": library_ms,
+           "library": "torch.nn.functional.scaled_dot_product_attention("
+                      f"is_causal=True), backend {backend}"}
+    out["prefill_kernel_ms"] = out["launches"] * ms
+    log(f"time flash_attention ({out['shape']}): {ms * 1e3:.1f} us in a "
+        f"CUDA graph, {eager_ms * 1e3:.1f} us eager, plain "
+        f"{plain_ms * 1e3:.1f} us, sdpa ({backend}) "
+        f"{'-' if library_ms is None else f'{library_ms * 1e3:.1f}'} us, "
+        f"bound {out['bound_ms'] * 1e3:.1f} us by {out['bound_by']} "
+        f"({flops:.3e} FLOP, {nbytes:,} bytes); {out['launches']} launches "
+        f"a prefill ~ {out['prefill_kernel_ms']:.1f} ms of its "
+        f"{mla['prefill_s'] * 1e3:.1f} ms")
+    return out
+
+
+def time_flash(dev, lm: dict, checks: dict, moe: dict | None = None,
+               mla: dict | None = None) -> dict:
+    """flash_attention at the prefill's shape, on layer 0's q, k, v of the
+    lm phase: CUDA-graph and eager times, its plain version, and
+    scaled_dot_product_attention (top-left causal, GQA) as the library
+    yardstick, which the port never calls.  The bound counts the FLOPs of
+    the admissible (query, key) pairs of this causal shape.  With phase
+    moe's state, the same at its windowed shape (``windowed``); with phase
+    mla's, at its (Dqk, Dv) = (192, 128) shape (``mla``)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as FA
+
+    q, k, v = (t.to(dev) for t in lm["layer0_qkv"])
     B, S, H, D = q.shape
     KV = k.shape[2]
     saved = dict(FA.LAUNCHES)
@@ -4505,6 +4737,9 @@ def time_flash(dev, lm: dict, checks: dict, moe: dict | None = None) -> dict:
     if moe is not None:
         row["windowed"] = time_flash_windowed(dev, moe)
         row["launches_moe"] = moe["prefill_flash_launches"]
+    if mla is not None:
+        row["mla"] = time_flash_mla(dev, mla)
+        row["launches_mla"] = mla["prefill_flash_launches"]
     log(f"time flash_attention ({row['shape']}): {ms * 1e3:.1f} us in a CUDA "
         f"graph, {eager_ms * 1e3:.1f} us eager, plain {plain_ms * 1e3:.1f} "
         f"us, sdpa {library_ms * 1e3:.1f} us, bound {row['bound_ms'] * 1e3:.1f}"
@@ -4600,6 +4835,10 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         state["moe"] = phase_moe(dev)
         log(f"moe phase {time.perf_counter() - t0:.2f} s")
+    if "mla" in phases:
+        t0 = time.perf_counter()
+        state["mla"] = phase_mla(dev)
+        log(f"mla phase {time.perf_counter() - t0:.2f} s")
     if "train" in phases:
         t0 = time.perf_counter()
         state["train"] = phase_train(dev)

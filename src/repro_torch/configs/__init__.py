@@ -1,5 +1,5 @@
-"""Architecture registry of the port: the dense configurations and
-mixtral-8x22b (the MoE family without MLA).
+"""Architecture registry of the port: the dense configurations,
+mixtral-8x22b and deepseek-v2-236b (the MoE family, the latter with MLA).
 
 The port's own copy of ``repro.configs`` for the families it builds (the
 port imports nothing of ``repro``).  The other families' configurations
@@ -19,6 +19,7 @@ def _load_all():
     from . import (  # noqa: F401
         codeqwen15_7b,
         command_r_35b,
+        deepseek_v2_236b,
         mixtral_8x22b,
         nemotron_4_340b,
         qwen3_14b,

@@ -36,11 +36,12 @@ PS_STATE_KEYS = ("w", "pull_cache", "ef", "hist", "keys_sent", "inner_bytes",
                  "inter_bytes", "per_machine", "rng_state")
 
 # the weight matrices of the dense and MoE families (an MoE layer's
-# experts and shared experts are wg, wu, wd too): stored in the compute
-# dtype; every other leaf (norm scales, biases, the MoE router) stays
-# float32, cast where used
+# experts and shared experts are wg, wu, wd too; MLA's projections are
+# wq_a, wq_b, wkv_a, wk_b, wv_b and wo): stored in the compute dtype; every
+# other leaf (norm scales, MLA's q_a_norm and kv_a_norm among them, biases,
+# the MoE router) stays float32, cast where used
 _MATRICES = frozenset({"embed", "lm_head", "wq", "wk", "wv", "wo", "wg", "wu",
-                       "wd", "wi"})
+                       "wd", "wi", "wq_a", "wq_b", "wkv_a", "wk_b", "wv_b"})
 
 
 def graph_from_numpy(num_u: int, num_v: int, u_indptr, u_indices
@@ -130,10 +131,9 @@ def _stack_tree(cfg, params, device, dtype_of) -> dict:
     """A reference parameter-shaped numpy tree as the port's: the stacked
     ``stack`` leaves split into a list of per-layer dicts, each leaf a
     tensor of ``dtype_of(leaf name)`` on ``device``."""
-    if cfg.family not in ("dense", "moe") or cfg.mla:
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
-            f"{'MLA' if cfg.mla else f'family {cfg.family!r}'} is not "
-            "ported yet")
+            f"family {cfg.family!r} is not ported yet")
 
     def leaf(name, a):
         t = torch.from_numpy(np.array(a, dtype=np.float32))

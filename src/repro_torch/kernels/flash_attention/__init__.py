@@ -4,6 +4,7 @@ versions (``ref``)."""
 from .ops import (  # noqa: F401
     LAUNCHES,
     MAX_D,
+    WGMMA_DIMS,
     flash_attention,
     reset_launch_counts,
     uses_tensor_cores,

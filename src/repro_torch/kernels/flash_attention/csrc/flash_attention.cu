@@ -8,7 +8,7 @@
 //     at position j (q_pos = q_start + iota in the TPU kernel), so a prompt
 //     attends to a cache filled from slot 0 and slots past it are masked by
 //     causality;
-//   * scores q.k * 1/sqrt(D) in float32; masked scores take the finite
+//   * scores q.k * 1/sqrt(Dqk) in float32; masked scores take the finite
 //     NEG_INF = -1e30 (a row whose first visited tile is fully masked gets
 //     p = exp(0) there; the next admissible score clears it with
 //     alpha = exp(-1e30 - m) = 0, where -inf would give NaN);
@@ -19,12 +19,16 @@
 // Keys past Skv (the ragged tail of the last tile) are excluded outright
 // (score -inf, p = 0), so no length need be a multiple of the tile.
 //
-// Layout: q (B, Sq, H, D), k/v (B, Skv, KV, D) read through their strides
-// (last dimension contiguous), query head h reads KV head h / (H / KV): no
-// repeated or transposed copy is made.  o is a contiguous (B, Sq, H, D).
+// Layout: q (B, Sq, H, Dqk), k (B, Skv, KV, Dqk), v (B, Skv, KV, Dv) with
+// Dv <= Dqk, read through their strides (last dimension contiguous), query
+// head h reads KV head h / (H / KV): no repeated or transposed copy is made.
+// o is a contiguous (B, Sq, H, Dv).  Dv < Dqk is multi-head latent
+// attention's prefill (DeepSeek-V2: q and k of 128 + 64 rotary columns, v
+// of 128).
 //
 // Two routes, chosen by the wrapper from dtype and shape:
-//   flash_wgmma<D>  bf16, D in {64, 128}: the Hopper route (TMA + wgmma,
+//   flash_wgmma<DQK, DV>  bf16, (Dqk, Dv) in {(64, 64), (128, 128),
+//                 (192, 128)}: the Hopper route (TMA + wgmma,
 //                 warp-specialised).  384 threads: a producer warpgroup
 //                 whose one elected thread keeps TMA loads of 128-key K and
 //                 V tiles in flight through a two-stage ring of mbarriers,
@@ -35,8 +39,9 @@
 //                 product, as FlashAttention-2/3 do; the TPU kernel keeps
 //                 it f32.  The tensor maps are 4-D over the strided
 //                 (B, S, heads, D) views, encoded on the host for each call.
-//   flash_fma<T, DP>  float32 or bf16, any D <= 256: 256 threads, a 64 x 64
-//                 score tile of FMAs on CUDA cores, everything f32.
+//   flash_fma<T, DP>  float32 or bf16, any Dv <= Dqk <= DP <= 256: 256
+//                 threads, a 64 x 64 score tile of FMAs on CUDA cores,
+//                 everything f32.
 // The path's shape (B=2, S=4096, H=40, KV=8, D=128, causal, bf16) does
 // 2*B*H*S*(S+1)*D = 3.44e11 FLOP against about 201 MB of HBM traffic: it
 // is bound by the tensor cores (347 us at 989 TFLOP/s), and only wgmma
@@ -45,7 +50,11 @@
 // registers of the consumers; the ring lets the next tile land while this
 // one is computed, with no block-wide barrier; setmaxnreg gives the
 // consumers 240 registers for the S and O accumulators, and each CTA
-// holds 160 KB of shared memory at D = 128 (one CTA an SM).
+// holds 160 KB of shared memory at D = 128 (one CTA an SM).  At (Dqk, Dv)
+// = (192, 128) the score and output accumulators stay at 64 registers each,
+// as at 128; QK^T takes 12 k-steps in place of 8, and a CTA holds 208 KB of
+// tiles (48 KB of Q, two stages of 48 KB of K and 32 KB of V), where a V
+// padded to 192 would need 240 KB of the 227 KB a block may have.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -64,7 +73,7 @@ struct Params {
   const void* k;
   const void* v;
   void* o;
-  int B, Sq, Skv, H, KV, D, G;
+  int B, Sq, Skv, H, KV, D, Dv, G;  // D: the q/k head dim, Dv: v's
   long long qb, qs, qh, kb, ks, kh, vb, vs, vh;  // element strides
   int causal, window;                          // window <= 0: none
   float scale;
@@ -114,13 +123,13 @@ __global__ void __launch_bounds__(256) flash_fma(Params p) {
   extern __shared__ float smem[];
   float* Qs = smem;                    // [BQ][DP + 1]
   float* Ks = Qs + BQ * (DP + 1);      // [BK][DP + 1]
-  float* Vs = Ks + BK * (DP + 1);      // [BK][DP]
+  float* Vs = Ks + BK * (DP + 1);      // [BK][DP], columns past Dv zero
   float* Ps = Vs + BK * DP;            // [BQ][BK + 1]
 
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
   const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // long tiles first
   const int h = blockIdx.y, b = blockIdx.z, hk = h / p.G;
-  const int D = p.D;
+  const int D = p.D, Dv = p.Dv;
   const T* qg = static_cast<const T*>(p.q) + b * p.qb + h * p.qh;
   const T* kg = static_cast<const T*>(p.k) + b * p.kb + hk * p.kh;
   const T* vg = static_cast<const T*>(p.v) + b * p.vb + hk * p.vh;
@@ -148,9 +157,9 @@ __global__ void __launch_bounds__(256) flash_fma(Params p) {
     __syncthreads();  // the previous tile's Ks, Vs, Ps are consumed
     for (int i = tid; i < BK * DP; i += 256) {
       int r = i / DP, d = i % DP, key = k0 + r;
-      bool in = key < p.Skv && d < D;
-      Ks[r * (DP + 1) + d] = in ? to_f(kg[key * p.ks + d]) : 0.f;
-      Vs[r * DP + d] = in ? to_f(vg[key * p.vs + d]) : 0.f;
+      bool in = key < p.Skv;
+      Ks[r * (DP + 1) + d] = in && d < D ? to_f(kg[key * p.ks + d]) : 0.f;
+      Vs[r * DP + d] = in && d < Dv ? to_f(vg[key * p.vs + d]) : 0.f;
     }
     __syncthreads();
 
@@ -223,11 +232,11 @@ __global__ void __launch_bounds__(256) flash_fma(Params p) {
     const int row = q0 + ty * 4 + i;
     if (row >= p.Sq) continue;
     const float inv = 1.f / fmaxf(l[i], 1e-30f);
-    T* orow = og + ((static_cast<long long>(b) * p.Sq + row) * p.H + h) * D;
+    T* orow = og + ((static_cast<long long>(b) * p.Sq + row) * p.H + h) * Dv;
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
       int d = tx + 16 * c;
-      if (d < D) orow[d] = from_f<T>(acc[i][c] * inv);
+      if (d < Dv) orow[d] = from_f<T>(acc[i][c] * inv);
     }
   }
 }
@@ -402,21 +411,29 @@ constexpr int WG_THREADS = 384;
 constexpr int WG_PRODUCER_REGS = 24;
 constexpr int WG_CONSUMER_REGS = 240;  // 128 * 24 + 256 * 240 <= 65,536
 
-// Shared memory of flash_wgmma<D>, from a 1024-byte aligned base: the Q
-// tile, then WG_STAGES stages of a K and a V tile, then the barriers.  A
-// tile is D / 64 panels of (rows x 64) bf16, 128-byte rows in the 128-byte
-// swizzle TMA writes and wgmma reads; a row of D = 128 spans two panels.
-template <int D>
+// Shared memory of flash_wgmma<DQK, DV>, from a 1024-byte aligned base: the
+// Q tile, then WG_STAGES stages of a K and a V tile, then the barriers.  A
+// tile is (its head dim) / 64 panels of (rows x 64) bf16, 128-byte rows in
+// the 128-byte swizzle TMA writes and wgmma reads; a row of 128 spans two
+// panels, of 192 three.
+template <int DQK, int DV>
 struct WgLayout {
-  static constexpr int kPanels = D / 64;
+  static_assert(DQK % 64 == 0 && DV % 64 == 0 && DV <= DQK && DV <= 128,
+                "head dims of whole panels, Dv <= Dqk, Dv <= 128");
+  static constexpr int kQKPanels = DQK / 64;
+  static constexpr int kVPanels = DV / 64;
   static constexpr int kQPanel = WG_BM * 128;
   static constexpr int kKVPanel = WG_BN * 128;
-  static constexpr int kQBytes = kPanels * kQPanel;
-  static constexpr int kKVBytes = kPanels * kKVPanel;  // one K or V tile
-  static constexpr int kBarOffset = kQBytes + WG_STAGES * 2 * kKVBytes;
+  static constexpr int kQBytes = kQKPanels * kQPanel;
+  static constexpr int kKBytes = kQKPanels * kKVPanel;  // one K tile
+  static constexpr int kVBytes = kVPanels * kKVPanel;   // one V tile
+  static constexpr int kStageBytes = kKBytes + kVBytes;
+  static constexpr int kBarOffset = kQBytes + WG_STAGES * kStageBytes;
   // Q; then per stage full_k, full_v, empty_k, empty_v
   static constexpr int kBars = 1 + 4 * WG_STAGES;
   static constexpr int kSmem = 1024 + kBarOffset + 8 * kBars;
+  // the most dynamic shared memory a block may have on sm_90
+  static_assert(kSmem <= 232448, "flash_wgmma tiles exceed 227 KB");
 };
 
 // named barriers 1 and 2: the two consumer warpgroups' turns at the wgmma
@@ -450,12 +467,12 @@ __device__ __forceinline__ void named_arrive(int id) {
 // extents are Skv and Sq); the mask gives such keys p = 0.  Only tiles that
 // straddle the causal diagonal, the window's edge or Skv are masked
 // element by element.
-template <int D>
+template <int DQK, int DV>
 __global__ void __launch_bounds__(WG_THREADS, 1)
     flash_wgmma(const __grid_constant__ CUtensorMap tq,
                 const __grid_constant__ CUtensorMap tk,
                 const __grid_constant__ CUtensorMap tv, Params p) {
-  using L = WgLayout<D>;
+  using L = WgLayout<DQK, DV>;
   extern __shared__ uint8_t wg_smem[];
   const uint32_t base = (smem_addr(wg_smem) + 1023) & ~1023u;
   const uint32_t sq = base;
@@ -464,7 +481,7 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
     return bars + 8 * (1 + kind * WG_STAGES + s);
   };
   enum { FULL_K = 0, FULL_V = 1, EMPTY_K = 2, EMPTY_V = 3 };
-  auto k_tile = [&](int s) { return base + L::kQBytes + s * 2 * L::kKVBytes; };
+  auto k_tile = [&](int s) { return base + L::kQBytes + s * L::kStageBytes; };
 
   const int tid = threadIdx.x;
   const int q0 = (gridDim.x - 1 - blockIdx.x) * WG_BM;  // long tiles first
@@ -491,20 +508,20 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
         WG_PRODUCER_REGS));
     if (tid == 0) {
       mbar_expect_tx(bars, L::kQBytes);
-      for (int c = 0; c < L::kPanels; ++c)
+      for (int c = 0; c < L::kQKPanels; ++c)
         tma_load_4d(sq + c * L::kQPanel, &tq, bars, c * 64, h, q0, b);
       for (int n = 0; n < n_tiles; ++n) {
         const int s = n % WG_STAGES, k0 = (first + n) * WG_BN;
         const int use = n / WG_STAGES;  // this slot's use number
-        const uint32_t ks = k_tile(s), vs = ks + L::kKVBytes;
+        const uint32_t ks = k_tile(s), vs = ks + L::kKBytes;
         if (use > 0) mbar_wait(bar(EMPTY_K, s), (use - 1) & 1);
-        mbar_expect_tx(bar(FULL_K, s), L::kKVBytes);
-        for (int c = 0; c < L::kPanels; ++c)
+        mbar_expect_tx(bar(FULL_K, s), L::kKBytes);
+        for (int c = 0; c < L::kQKPanels; ++c)
           tma_load_4d(ks + c * L::kKVPanel, &tk, bar(FULL_K, s), c * 64, hk,
                       k0, b);
         if (use > 0) mbar_wait(bar(EMPTY_V, s), (use - 1) & 1);
-        mbar_expect_tx(bar(FULL_V, s), L::kKVBytes);
-        for (int c = 0; c < L::kPanels; ++c)
+        mbar_expect_tx(bar(FULL_V, s), L::kVBytes);
+        for (int c = 0; c < L::kVPanels; ++c)
           tma_load_4d(vs + c * L::kKVPanel, &tv, bar(FULL_V, s), c * 64, hk,
                       k0, b);
       }
@@ -522,20 +539,20 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
     const uint32_t qa = sq + cw * 64 * 128;
     const int my_turn = 1 + cw, other_turn = 2 - cw;
 
-    float o[D / 2];
+    float o[DV / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    for (int i = 0; i < DV / 2; ++i) o[i] = 0.f;
     float sc[WG_BN / 2];
     uint32_t pa[WG_BN / 16][4];
     float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;  // l: partial
     float a0 = 1.f, a1 = 1.f;  // the last softmax's rescale of O
 
-    // S = Q K^T over D / 16 steps of 16; step kk reads 32 bytes into the
+    // S = Q K^T over DQK / 16 steps of 16; step kk reads 32 bytes into the
     // 128-byte rows of panel kk / 4
     auto mma_s = [&](int s) {
       const uint32_t ks = k_tile(s);
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
+      for (int kk = 0; kk < DQK / 16; ++kk) {
         const uint32_t off = (kk & 3) * 32;
         wgmma_ss_n128(sc,
                       sw128_desc(qa + (kk >> 2) * L::kQPanel + off, 16, 1024),
@@ -547,10 +564,10 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
     // O += P V over WG_BN / 16 steps of 16 keys; step kk starts 16 rows
     // (2,048 bytes) into each V panel, the panels kKVPanel bytes apart
     auto mma_pv = [&](int s) {
-      const uint32_t vs = k_tile(s) + L::kKVBytes;
+      const uint32_t vs = k_tile(s) + L::kKBytes;
 #pragma unroll
       for (int kk = 0; kk < WG_BN / 16; ++kk)
-        WgmmaPV<D>::run(o, pa[kk],
+        WgmmaPV<DV>::run(o, pa[kk],
                         sw128_desc(vs + kk * 16 * 128, L::kKVPanel, 1024));
       wgmma_commit();
     };
@@ -611,7 +628,7 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
     // keys 16kk + 2t, +1 (rows g, g + 8), then 16kk + 8 + 2t, +1
     auto rescale_and_pack = [&]() {
 #pragma unroll
-      for (int i = 0; i < D / 8; ++i) {
+      for (int i = 0; i < DV / 8; ++i) {
         o[4 * i + 0] *= a0;
         o[4 * i + 1] *= a0;
         o[4 * i + 2] *= a1;
@@ -690,15 +707,15 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
     __nv_bfloat16* og = static_cast<__nv_bfloat16*>(p.o);
     const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
 #pragma unroll
-    for (int i = 0; i < D / 8; ++i) {
+    for (int i = 0; i < DV / 8; ++i) {
       const int c = 8 * i + 2 * t;
       if (r0 < p.Sq)
         *reinterpret_cast<__nv_bfloat162*>(
-            og + ((static_cast<long long>(b) * p.Sq + r0) * p.H + h) * D + c) =
+            og + ((static_cast<long long>(b) * p.Sq + r0) * p.H + h) * DV + c) =
             __floats2bfloat162_rn(o[4 * i + 0] * inv0, o[4 * i + 1] * inv0);
       if (r1 < p.Sq)
         *reinterpret_cast<__nv_bfloat162*>(
-            og + ((static_cast<long long>(b) * p.Sq + r1) * p.H + h) * D + c) =
+            og + ((static_cast<long long>(b) * p.Sq + r1) * p.H + h) * DV + c) =
             __floats2bfloat162_rn(o[4 * i + 2] * inv1, o[4 * i + 3] * inv1);
     }
   }
@@ -757,21 +774,22 @@ CUresult encode_map(CUtensorMap* map, const void* ptr, int B, int S,
 // a failed encode returns kEncodeError + its CUresult
 constexpr int kEncodeError = 100000;
 
-template <int D>
+template <int DQK, int DV>
 int launch_wgmma(const Params& p, cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
-  CUresult r = encode_map(&tq, p.q, p.B, p.Sq, p.H, D, p.qb, p.qs, p.qh, WG_BM);
+  CUresult r =
+      encode_map(&tq, p.q, p.B, p.Sq, p.H, DQK, p.qb, p.qs, p.qh, WG_BM);
   if (r == CUDA_SUCCESS)
-    r = encode_map(&tk, p.k, p.B, p.Skv, p.KV, D, p.kb, p.ks, p.kh, WG_BN);
+    r = encode_map(&tk, p.k, p.B, p.Skv, p.KV, DQK, p.kb, p.ks, p.kh, WG_BN);
   if (r == CUDA_SUCCESS)
-    r = encode_map(&tv, p.v, p.B, p.Skv, p.KV, D, p.vb, p.vs, p.vh, WG_BN);
+    r = encode_map(&tv, p.v, p.B, p.Skv, p.KV, DV, p.vb, p.vs, p.vh, WG_BN);
   if (r != CUDA_SUCCESS) return kEncodeError + static_cast<int>(r);
-  constexpr int smem = WgLayout<D>::kSmem;
+  constexpr int smem = WgLayout<DQK, DV>::kSmem;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      flash_wgmma<DQK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid((p.Sq + WG_BM - 1) / WG_BM, p.H, p.B);
-  flash_wgmma<D><<<grid, WG_THREADS, smem, stream>>>(tq, tk, tv, p);
+  flash_wgmma<DQK, DV><<<grid, WG_THREADS, smem, stream>>>(tq, tk, tv, p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -797,28 +815,30 @@ cudaError_t launch_fma_d(const Params& p, dim3 grid, cudaStream_t stream) {
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16.  use_wgmma: the tensor-core route (bf16,
-// D in {64, 128}, 16-byte aligned bases, strides multiples of 8 elements,
-// as TMA requires).  Strides are in elements.  Returns the CUDA error of the
-// launch (0 on success), or kEncodeError + the CUresult of a tensor map
-// that could not be encoded.
+// dtype: 0 float32, 1 bfloat16.  D is q's and k's head dim, Dv v's (Dv <=
+// D).  use_wgmma: the tensor-core route (bf16, (D, Dv) in {(64, 64),
+// (128, 128), (192, 128)}, 16-byte aligned bases, strides multiples of 8
+// elements, as TMA requires).  Strides are in elements.  Returns the CUDA
+// error of the launch (0 on success), or kEncodeError + the CUresult of a
+// tensor map that could not be encoded.
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, int dtype, int B,
-    int Sq, int Skv, int H, int KV, int D, long long qb, long long qs,
+    int Sq, int Skv, int H, int KV, int D, int Dv, long long qb, long long qs,
     long long qh, long long kb, long long ks, long long kh, long long vb,
     long long vs, long long vh, int causal, int window, int use_wgmma,
     void* stream) {
   if (B <= 0 || Sq <= 0 || Skv <= 0 || KV <= 0 || H % KV != 0 || D <= 0 ||
-      D > 256 || (dtype != 0 && dtype != 1))
+      D > 256 || Dv <= 0 || Dv > D || (dtype != 0 && dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
-  Params p{q,  k,  v,  o,  B,  Sq, Skv, H,  KV,     D,      H / KV,
-           qb, qs, qh, kb, ks, kh, vb,  vs, vh, causal, window,
+  Params p{q,  k,  v,  o,  B,  Sq, Skv, H,      KV,     D, Dv, H / KV,
+           qb, qs, qh, kb, ks, kh,  vb, vs, vh, causal, window,
            static_cast<float>(1.0 / sqrt(static_cast<double>(D)))};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (use_wgmma) {
     if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
-    if (D == 64) return launch_wgmma<64>(p, st);
-    if (D == 128) return launch_wgmma<128>(p, st);
+    if (D == 64 && Dv == 64) return launch_wgmma<64, 64>(p, st);
+    if (D == 128 && Dv == 128) return launch_wgmma<128, 128>(p, st);
+    if (D == 192 && Dv == 128) return launch_wgmma<192, 128>(p, st);
     return static_cast<int>(cudaErrorInvalidValue);
   }
   dim3 grid((Sq + BQ - 1) / BQ, H, B);

@@ -1,16 +1,19 @@
 """Wrapper of the hand-written flash attention kernel in ``csrc/``.
 
 ``flash_attention(q, k, v, causal=, window=)`` takes the model's layout,
-q (B, Sq, H, D) and k/v (B, Skv, KV, D) with KV | H, in float32 or
-bfloat16 with D <= 256, and returns (B, Sq, H, D) in q's dtype.  Query
-positions are left-aligned (row i at position i; see ``ref.py``).  The
+q (B, Sq, H, Dqk), k (B, Skv, KV, Dqk) and v (B, Skv, KV, Dv) with KV | H
+and Dv <= Dqk <= 256, in float32 or bfloat16, and returns (B, Sq, H, Dv)
+in q's dtype (Dv < Dqk: multi-head latent attention's prefill, q/k 192
+and v 128).  Query positions are left-aligned (row i at position i; see
+``ref.py``).  The
 device of the tensors decides: a CUDA tensor launches the kernel (or
 raises), a CPU tensor runs ``ref.flash_attention_ref``.  There is no
 fallback from one to the other.
 
 On the card the wrapper picks the kernel's route from dtype and shape: the
-Hopper tensor-core route (TMA + wgmma) for bfloat16 with D in {64, 128},
-16-byte aligned data and strides that are multiples of 8 elements, which
+Hopper tensor-core route (TMA + wgmma) for bfloat16 with (Dqk, Dv) in
+``WGMMA_DIMS``, 16-byte aligned data and strides that are multiples of 8
+elements, which
 TMA requires; the FMA route otherwise.  It
 reads q, k and v through their strides (the last dimension must be
 contiguous), so a view of a cache or of a projection needs no copy.
@@ -28,9 +31,11 @@ from . import build
 from .ref import flash_attention_ref
 
 __all__ = ["LAUNCHES", "reset_launch_counts", "flash_attention", "MAX_D",
-           "uses_tensor_cores"]
+           "WGMMA_DIMS", "uses_tensor_cores"]
 
 MAX_D = 256
+# the (q/k, v) head dims the tensor-core route is built for
+WGMMA_DIMS = ((64, 64), (128, 128), (192, 128))
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # flash_attention_fwd returns this plus the CUresult of a tensor map that
 # could not be encoded (csrc/flash_attention.cu, kEncodeError)
@@ -50,9 +55,11 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("q, k, v must be 4-D (B, S, heads, D), got "
                          f"{q.dim()}-D, {k.dim()}-D, {v.dim()}-D")
     B, _, H, D = q.shape
-    if k.shape != v.shape or k.shape[0] != B or k.shape[3] != D:
+    if (k.shape[:3] != v.shape[:3] or k.shape[0] != B or k.shape[3] != D
+            or not 0 < v.shape[3] <= D):
         raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} do not "
-                         f"match q {tuple(q.shape)}")
+                         f"match q {tuple(q.shape)} (v's head dim at most "
+                         "q's)")
     KV = k.shape[2]
     if KV == 0 or H % KV:
         raise ValueError(f"{H} query heads do not group over {KV} KV heads")
@@ -73,7 +80,8 @@ def uses_tensor_cores(q: torch.Tensor, k: torch.Tensor,
                       v: torch.Tensor) -> bool:
     """True when the kernel takes its tensor-core route (TMA + wgmma) for
     these tensors."""
-    return (q.dtype == torch.bfloat16 and q.shape[3] in (64, 128)
+    return (q.dtype == torch.bfloat16
+            and (q.shape[3], v.shape[3]) in WGMMA_DIMS
             and all(t.data_ptr() % 16 == 0
                     and all(s % 8 == 0 for s in t.stride()[:3])
                     for t in (q, k, v)))
@@ -92,13 +100,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
         raise ValueError("the head dimension of q, k, v must be contiguous")
     B, Sq, H, D = q.shape
-    Skv, KV = k.shape[1], k.shape[2]
-    out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
+    Skv, KV, Dv = k.shape[1], k.shape[2], v.shape[3]
+    out = torch.empty((B, Sq, H, Dv), dtype=q.dtype, device=q.device)
     stream = ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream)
     with torch.cuda.device(q.device):
         rc = build.load("flash_attention_fwd")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            _DTYPES[q.dtype], B, Sq, Skv, H, KV, D,
+            _DTYPES[q.dtype], B, Sq, Skv, H, KV, D, Dv,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             int(causal), int(window or 0), int(uses_tensor_cores(q, k, v)),
             stream)

@@ -46,13 +46,15 @@ def admissible(sq: int, skv: int, *, causal: bool, window: int | None,
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True,
                         window: int | None = None) -> torch.Tensor:
-    """q (B, Sq, H, D), k/v (B, Skv, KV, D) with KV | H; query head h reads
-    KV head h // (H / KV).  Scores, softmax and the PV product in float32
-    (probabilities are not rounded to q's dtype), scale 1/sqrt(D), masked
-    scores NEG_INF, output in q's dtype.  A row with no admissible key is
-    not defined (the TPU kernel's answer for it depends on its blocks)."""
+    """q (B, Sq, H, D), k (B, Skv, KV, D), v (B, Skv, KV, Dv) with KV | H;
+    query head h reads KV head h // (H / KV).  Scores, softmax and the PV
+    product in float32 (probabilities are not rounded to q's dtype), scale
+    1/sqrt(D) (q's and k's head dim: MLA's 1/sqrt(dn + dr)), masked scores
+    NEG_INF, output (B, Sq, H, Dv) in q's dtype.  A row with no admissible
+    key is not defined (the TPU kernel's answer for it depends on its
+    blocks)."""
     B, Sq, H, D = q.shape
-    Skv, KV = k.shape[1], k.shape[2]
+    Skv, KV, Dv = k.shape[1], k.shape[2], v.shape[3]
     G = H // KV
     qg = q.float().reshape(B, Sq, KV, G, D).permute(0, 2, 3, 1, 4)
     kf = k.float().permute(0, 2, 1, 3)[:, :, None]          # (B, KV, 1, Skv, D)
@@ -61,8 +63,8 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ok = admissible(Sq, Skv, causal=causal, window=window, device=q.device)
     s = torch.where(ok, s, torch.full((), NEG_INF, device=q.device))
     p = torch.softmax(s, dim=-1)
-    out = torch.matmul(p, vf)                                # (B, KV, G, Sq, D)
-    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D).to(q.dtype)
+    out = torch.matmul(p, vf)                                # (B, KV, G, Sq, Dv)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, Dv).to(q.dtype)
 
 
 def attention_ref(q, k, v, *, causal: bool = True, window: int | None = None):

@@ -1,6 +1,7 @@
 """Serving entry point: batched greedy decoding with a persistent KV cache.
 
-The port of ``repro/launch/serve.py`` for the dense and MoE families.
+The port of ``repro/launch/serve.py`` for the dense and MoE families (GQA
+with a full or SWA ring cache, and MLA with its latent cache).
 Decoding runs through the serving engine: each token step is one engine
 request, prompt tokens are staged ahead as ``ReadyHandle`` payloads, and
 the engine's latency recorder supplies the tokens/s accounting.
@@ -15,14 +16,22 @@ flash kernel's path).
         --reduce --device cpu --batch 4 --prompt-len 16 --gen 16
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x22b \\
         --reduce --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch deepseek-v2-236b --reduce --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch deepseek-v2-236b --layers 6
 
 It runs on the card unless ``--device cpu`` is given; the weights are
-random (``Model.init(0)``).  The encoder-decoder's cross-attention cache
+random (``Model.init(0)``).  The full mixtral-8x22b (281 GB of bf16
+weights) and deepseek-v2-236b (479 GB) fit no card: ``--layers N`` cuts a
+configuration to N layers at full width (``--arch deepseek-v2-236b
+--layers 6``: 49.8 GB).  The encoder-decoder's cross-attention cache
 of the reference's ``_init_cache`` comes with that family's slice.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import numpy as np
@@ -128,11 +137,15 @@ def main(argv=None):
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the configuration to its first N layers")
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)
     if args.reduce:
         cfg = cfg.reduced()
+    if args.layers:
+        cfg = dataclasses.replace(cfg, num_layers=args.layers)
     model, serve_step = make_serve_step(cfg, args.device)
     params = model.init(0)
     rng = np.random.default_rng(0)

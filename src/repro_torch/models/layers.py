@@ -1,5 +1,6 @@
 """Transformer layers: norms, rotary, GQA attention with a KV cache (full
-or the SWA ring buffer), MLPs.
+or the SWA ring buffer), multi-head latent attention (MLA) with its latent
+cache, MLPs.
 
 The port of ``repro/models/layers.py``.  Parameters are plain dicts of
 tensors (``init_*`` builds them, ``apply_*`` reads them).  Dtype policy as
@@ -26,9 +27,19 @@ The SWA ring buffer (a cache with ``kpos``, ``Model.init_cache(...,
 ring=True)``) holds the last Smax keys at slot ``pos % Smax`` and their
 positions in ``kpos``; it takes one token a call (decode), as the
 reference only ever calls it.
-Not ported yet: MLA and cross-attention (``ROADMAP.md`` Queue 1, the
-other model families), and ``context_parallel`` (there is no mesh on one
-card).
+MLA (DeepSeek-V2, ``mla_block``) caches the normalised latent ``c_kv``
+(B, Smax, r_kv) and the rotary key ``k_rope`` (B, Smax, dr) in place of
+per-head keys and values.  With a cache it takes the reference's absorbed
+form (queries projected by W_uk and scored against the latent; the
+context projected by W_uv), over query chunks of ``attn_chunk`` on a
+chunked config; without one (training) it rebuilds per-head k (dn + dr
+wide) and v (dv wide) and calls ``attention``.  ``flash=True`` (prefill
+from slot 0) writes the latent cache, rebuilds k and v and launches the
+flash kernel once at (Dqk, Dv) = (dn + dr, dv): the same function in
+another order of rounding, where the reference's prefill takes the
+absorbed form.
+Not ported yet: cross-attention (``ROADMAP.md`` Queue 1, the other model
+families), and ``context_parallel`` (there is no mesh on one card).
 """
 from __future__ import annotations
 
@@ -44,7 +55,9 @@ from ..kernels.flash_attention import flash_attention
 
 __all__ = ["NEG_INF", "apply_norm", "rms_head_norm", "rope_freqs",
            "apply_rope", "init_norm", "init_attention", "attention",
-           "qkv_projection", "attention_block", "init_mlp", "apply_mlp"]
+           "qkv_projection", "attention_block", "init_mla",
+           "mla_projection", "mla_qkv", "mla_block", "init_mlp",
+           "apply_mlp"]
 
 NEG_INF = -1e30
 
@@ -272,6 +285,129 @@ def attention_block(p, x, cfg, positions, *, kv_cache=None, cache_len=None,
                         window=cfg.swa_window, impl=cfg.attn_impl,
                         chunk=cfg.attn_chunk, dtype=dtype)
     return out.reshape(B, S, H * hd) @ p["wo"].to(dtype).reshape(H * hd, D)
+
+
+# ----------------------------------------------------------------- MLA
+def init_mla(gen, cfg, dtype, device):
+    """The low-rank query path (wq_a, q_a_norm, wq_b), the latent kv path
+    (wkv_a, kv_a_norm) and the up-projections of the latent to per-head
+    keys (wk_b) and values (wv_b), and wo, at the reference's scales; the
+    norm scales float32."""
+    D, H = cfg.d_model, cfg.num_heads
+    r_kv, r_q = cfg.kv_lora_rank, cfg.q_lora_rank
+    dn, dr, dv = cfg.head_dim, cfg.rope_head_dim, cfg.v_head_dim
+    f32 = dict(dtype=torch.float32, device=device)
+    return {
+        "wq_a": _dense_init(gen, (D, r_q), 0, dtype, device),
+        "q_a_norm": torch.ones(r_q, **f32),
+        "wq_b": _dense_init(gen, (r_q, H, dn + dr), 0, dtype, device),
+        "wkv_a": _dense_init(gen, (D, r_kv + dr), 0, dtype, device),
+        "kv_a_norm": torch.ones(r_kv, **f32),
+        "wk_b": _dense_init(gen, (r_kv, H, dn), 0, dtype, device),
+        "wv_b": _dense_init(gen, (r_kv, H, dv), 0, dtype, device),
+        "wo": _dense_init(gen, (H, dv, D), (0, 1), dtype, device),
+    }
+
+
+def mla_projection(p, x, cfg, positions, dtype=torch.bfloat16):
+    """q_nope (B,S,H,dn), q_rope (B,S,H,dr) with rotary, the normalised
+    latent c_kv (B,S,r_kv) and the rotary key k_rope (B,S,dr)."""
+    B, S, D = x.shape
+    H, r_q, r_kv = cfg.num_heads, cfg.q_lora_rank, cfg.kv_lora_rank
+    dn, dr = cfg.head_dim, cfg.rope_head_dim
+    q_lat = apply_norm({"scale": p["q_a_norm"]}, x @ p["wq_a"].to(dtype),
+                       "rmsnorm")
+    q = (q_lat @ p["wq_b"].to(dtype).reshape(r_q, H * (dn + dr))).view(
+        B, S, H, dn + dr)
+    q_nope = q[..., :dn]
+    q_rope = apply_rope(q[..., dn:], positions, cfg.rope_theta)
+    kv_a = x @ p["wkv_a"].to(dtype)
+    c_kv = apply_norm({"scale": p["kv_a_norm"]}, kv_a[..., :r_kv], "rmsnorm")
+    k_rope = apply_rope(kv_a[:, :, None, r_kv:], positions,
+                        cfg.rope_theta)[:, :, 0]
+    return q_nope, q_rope, c_kv, k_rope
+
+
+def mla_qkv(p, q_nope, q_rope, c_kv, k_rope, dtype=torch.bfloat16):
+    """The per-head q, k (B,S,H,dn+dr) and v (B,S,H,dv) rebuilt from the
+    latent, contiguous: k's rotary part is k_rope written out for every
+    head (the flash kernel's TMA takes no zero stride)."""
+    B, S, r_kv = c_kv.shape
+    H, dn = q_nope.shape[2], q_nope.shape[3]
+    dv = p["wv_b"].shape[2]
+    k_nope = (c_kv @ p["wk_b"].to(dtype).reshape(r_kv, H * dn)).view(
+        B, S, H, dn)
+    v = (c_kv @ p["wv_b"].to(dtype).reshape(r_kv, H * dv)).view(B, S, H, dv)
+    k = torch.cat([k_nope, k_rope[:, :, None].expand(B, S, H, -1)], dim=-1)
+    return torch.cat([q_nope, q_rope], dim=-1), k, v
+
+
+def _mla_absorbed(p, q_nope, q_rope, c_all, kr_all, q_pos, valid, scale,
+                  dtype):
+    """The reference's absorbed attention of queries (B,Sq,H,.) against the
+    latent cache (B,Smax,.): scores (q_nope W_uk) c + q_rope k_rope, each
+    product in ``dtype`` and summed in float32, the mask ``valid`` &
+    causal, softmax in float32, probabilities in ``dtype``, the context
+    through W_uv -> (B,Sq,H,dv)."""
+    Smax = c_all.shape[1]
+    k_pos = torch.arange(Smax, device=c_all.device)
+    ok = valid[None, None, :] & (k_pos[None, None, :] <= q_pos[:, :, None])
+    mask = torch.where(ok, 0.0, NEG_INF)
+    q_abs = torch.einsum("bshk,rhk->bshr", q_nope, p["wk_b"].to(dtype))
+    scores = torch.einsum("bshr,btr->bhst", q_abs, c_all).float()
+    scores += torch.einsum("bshk,btk->bhst", q_rope, kr_all)
+    # in place: a full-width chunk's float32 scores are 4.3 GB
+    scores.div_(scale).add_(mask[:, None])
+    probs = torch.softmax(scores, dim=-1).to(dtype)
+    del scores
+    ctx = torch.einsum("bhst,btr->bshr", probs, c_all)
+    return torch.einsum("bshr,rhv->bshv", ctx, p["wv_b"].to(dtype))
+
+
+def mla_block(p, x, cfg, positions, *, cache=None, cache_len=None,
+              dtype=torch.bfloat16, flash=False):
+    """DeepSeek-V2 multi-head latent attention.
+
+    cache: optional dict {"c_kv" (B,Smax,r_kv), "k_rope" (B,Smax,dr)},
+    written IN PLACE at ``cache_len`` (a Python int), then attended in the
+    absorbed form, over query chunks of ``cfg.attn_chunk`` when
+    ``cfg.attn_impl == "chunked"`` (each element's value is the unchunked
+    one; at full width the unchunked float32 scores would take 17 GB).
+    Without a cache (training): per-head k and v rebuilt and ``attention``.
+    ``flash=True`` (the caller sets it only where positions are ``arange``
+    from 0 and the cache is written from slot 0): the cache written, k and
+    v rebuilt, one flash kernel launch at (dn + dr, dv)."""
+    B, S, D = x.shape
+    H, dn, dr, dv = (cfg.num_heads, cfg.head_dim, cfg.rope_head_dim,
+                     cfg.v_head_dim)
+    if flash and cache is not None and cache_len != 0:
+        raise ValueError("flash=True needs cache_len == 0 (prefill)")
+    q_nope, q_rope, c_kv, k_rope = mla_projection(p, x, cfg, positions,
+                                                  dtype)
+    if cache is not None:
+        cache["c_kv"][:, cache_len:cache_len + S] = c_kv.to(
+            cache["c_kv"].dtype)
+        cache["k_rope"][:, cache_len:cache_len + S] = k_rope.to(
+            cache["k_rope"].dtype)
+    if flash:
+        q, k, v = mla_qkv(p, q_nope, q_rope, c_kv, k_rope, dtype)
+        out = flash_attention(q, k, v, causal=True)
+    elif cache is not None:
+        c_all, kr_all = cache["c_kv"].to(dtype), cache["k_rope"].to(dtype)
+        valid = torch.arange(c_all.shape[1], device=x.device) < cache_len + S
+        chunk = cfg.attn_chunk if cfg.attn_impl == "chunked" else S
+        scale = math.sqrt(dn + dr)
+        out = torch.cat([
+            _mla_absorbed(p, q_nope[:, c:c + chunk], q_rope[:, c:c + chunk],
+                          c_all, kr_all, positions[:, c:c + chunk], valid,
+                          scale, dtype)
+            for c in range(0, S, chunk)], dim=1)
+    else:
+        q, k, v = mla_qkv(p, q_nope, q_rope, c_kv, k_rope, dtype)
+        out = attention(q, k, v, q_positions=positions, k_positions=positions,
+                        causal=True, impl=cfg.attn_impl, chunk=cfg.attn_chunk,
+                        dtype=dtype)
+    return out.reshape(B, S, H * dv) @ p["wo"].to(dtype).reshape(H * dv, D)
 
 
 # ----------------------------------------------------------------- MLPs

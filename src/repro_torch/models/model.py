@@ -2,11 +2,12 @@
 loss_fn / prefill / decode_step.
 
 The port of ``repro/models/model.py`` for ``family == "dense"`` and for
-``family == "moe"`` without MLA (mixtral-8x22b).  Batch formats as in the
-reference:
+``family == "moe"`` (mixtral-8x22b, and deepseek-v2-236b with MLA).  Batch
+formats as in the reference:
   train   : {"tokens": (B, S) int, "labels": (B, S) int}
   prefill : {"tokens": (B, S) int, "cache_seq": int (default S)}
-  decode  : {"token": (B, 1) int, "pos": int, "cache": {"k", "v"[, "kpos"]}}
+  decode  : {"token": (B, 1) int, "pos": int,
+             "cache": {"k", "v"[, "kpos"]} or MLA's {"c_kv", "k_rope"}}
 ``pos`` is a Python int here (the reference's is a traced scalar), so
 that a decode step needs no read from the device.  Caches are updated in
 place and returned; ``init_cache(..., ring=True)`` gives the SWA ring
@@ -15,11 +16,11 @@ buffer.
 Parameters are a dict: ``embed`` (V, D), ``final_norm``, ``lm_head`` (D, V)
 unless the embeddings are tied, and ``stack``, a list of per-layer dicts
 (``transformer.init_layer``; an MoE layer holds ``moe`` in place of
-``mlp``).  Vectors and the MoE router live in float32; matrices in the
-compute dtype for serving, or as float32 masters cast at every product for
-training (``init(master=True)``), as the reference keeps them.  MLA and
-the other families come with their slices (``ROADMAP.md`` Queue 1, the
-other model families).
+``mlp``; an MLA layer's ``attn`` holds ``layers.init_mla``'s leaves).
+Vectors and the MoE router live in float32; matrices in the compute dtype
+for serving, or as float32 masters cast at every product for training
+(``init(master=True)``), as the reference keeps them.  The other families
+come with their slices (``ROADMAP.md`` Queue 1, the other model families).
 """
 from __future__ import annotations
 
@@ -146,14 +147,16 @@ class Model:
 
     # ------------------------------------------------------------- serve
     def init_cache(self, batch: int, cache_seq: int, ring: bool = False):
-        """{"k", "v"}: (L, B, cache_seq, KV, dh) zeros in the compute dtype.
+        """{"k", "v"}: (L, B, cache_seq, KV, dh) zeros in the compute dtype
+        (MLA: {"c_kv", "k_rope"}, ``transformer.init_kv_caches``).
         ``ring=True`` adds ``kpos`` (L, cache_seq) int32, filled with
         -2**30: the SWA ring buffer, whose slots ``decode_step`` reuses
-        (slot ``pos % cache_seq``)."""
+        (slot ``pos % cache_seq``).  An MLA cache has no ring, as in the
+        reference: there ``ring`` adds nothing."""
         dev = torch.device(self.device)
         c = TR.init_kv_caches(self.cfg, batch, cache_seq, dev,
                               dtype=compute_dtype(self.cfg))
-        if ring:
+        if ring and not self.cfg.mla:
             c["kpos"] = torch.full((self.cfg.num_layers, cache_seq), -(2**30),
                                    dtype=torch.int32, device=dev)
         return c
@@ -197,14 +200,13 @@ class Model:
 
 
 def build_model(cfg: ModelConfig, device="cuda") -> Model:
-    """The model of a dense or MoE configuration on ``device`` (default:
-    the card).  MLA and the other families raise: their blocks are not
+    """The model of a dense or MoE (GQA or MLA) configuration on ``device``
+    (default: the card).  The other families raise: their blocks are not
     ported yet."""
-    if cfg.family not in ("dense", "moe") or cfg.mla:
-        what = "MLA attention" if cfg.mla else f"family {cfg.family!r}"
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
-            f"{cfg.name}: {what} is not ported yet; the port builds the "
-            "dense family and the MoE family without MLA (ROADMAP.md Queue "
+            f"{cfg.name}: family {cfg.family!r} is not ported yet; the port "
+            "builds the dense family and the MoE family (ROADMAP.md Queue "
             "1, the other model families, lists the rest in order)")
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():

@@ -1,6 +1,6 @@
 """The block stacks of the dense and MoE families:
   dense — [ln -> attn(GQA/SWA/qk-norm) -> ln -> mlp] x L
-  moe   — [ln -> attn(GQA/SWA) -> ln -> moe] x L
+  moe   — [ln -> attn(GQA/SWA, or MLA) -> ln -> moe] x L
 
 The port of the dense/moe part of ``repro/models/transformer.py``.  A
 Python loop over a list of per-layer parameter dicts takes the place of
@@ -13,9 +13,10 @@ policies do: ``none`` keeps everything, ``full`` recomputes the whole layer
 the matrix products without batch dimensions (``aten.mm``; the attention
 and expert products are batched) and recomputes the rest.  Caches keep the
 reference's stacked layout, {"k", "v"}: (L, B, Smax, KV, dh), plus
-``kpos`` (L, Smax) for the SWA ring buffer, and each layer writes its
-slice in place.  MLA, cross-attention and the recurrent stacks are not
-ported yet (``ROADMAP.md`` Queue 1, the other model families).
+``kpos`` (L, Smax) for the SWA ring buffer, or MLA's latent cache
+{"c_kv": (L, B, Smax, r_kv), "k_rope": (L, B, Smax, dr)}, and each layer
+writes its slice in place.  Cross-attention and the recurrent stacks are
+not ported yet (``ROADMAP.md`` Queue 1, the other model families).
 """
 from __future__ import annotations
 
@@ -38,7 +39,8 @@ __all__ = ["init_layer", "apply_layer", "init_dense_stack",
 
 def init_layer(gen, cfg, dtype, device):
     p = {"ln1": LL.init_norm(cfg, device), "ln2": LL.init_norm(cfg, device),
-         "attn": LL.init_attention(gen, cfg, dtype, device)}
+         "attn": (LL.init_mla if cfg.mla else LL.init_attention)(
+             gen, cfg, dtype, device)}
     if cfg.num_experts:
         p["moe"] = MOE.init_moe(gen, cfg, dtype, device)
     else:
@@ -52,8 +54,12 @@ def apply_layer(p, x, cfg, positions, *, cache=None, cache_len=None,
     None for a dense layer (the reference's 0: nothing to add)."""
     dt = getattr(torch, cfg.dtype)
     h = LL.apply_norm(p["ln1"], x, cfg.norm)
-    a = LL.attention_block(p["attn"], h, cfg, positions, kv_cache=cache,
-                           cache_len=cache_len, dtype=dt, flash=flash)
+    if cfg.mla:
+        a = LL.mla_block(p["attn"], h, cfg, positions, cache=cache,
+                         cache_len=cache_len, dtype=dt, flash=flash)
+    else:
+        a = LL.attention_block(p["attn"], h, cfg, positions, kv_cache=cache,
+                               cache_len=cache_len, dtype=dt, flash=flash)
     # the reference's constrain() here is the identity without a mesh
     x = bf16_grad_barrier(x + a)
     h = LL.apply_norm(p["ln2"], x, cfg.norm)
@@ -111,6 +117,13 @@ def apply_dense_stack(params_L, x, cfg, positions, *, caches=None,
 
 
 def init_kv_caches(cfg, batch, cache_seq, device, dtype=torch.bfloat16):
-    shape = (cfg.num_layers, batch, cache_seq, cfg.num_kv_heads, cfg.head_dim)
+    L = cfg.num_layers
+    if cfg.mla:
+        return {"c_kv": torch.zeros((L, batch, cache_seq, cfg.kv_lora_rank),
+                                    dtype=dtype, device=device),
+                "k_rope": torch.zeros((L, batch, cache_seq,
+                                       cfg.rope_head_dim),
+                                      dtype=dtype, device=device)}
+    shape = (L, batch, cache_seq, cfg.num_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}

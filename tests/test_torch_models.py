@@ -26,7 +26,7 @@ from repro_torch.models import layers as TL
 from repro_torch.models.model import build_model
 
 ARCHS = ["qwen3-14b", "codeqwen1.5-7b", "command-r-35b", "nemotron-4-340b",
-         "mixtral-8x22b"]
+         "mixtral-8x22b", "deepseek-v2-236b"]
 TOL = 1e-5
 
 
@@ -50,20 +50,18 @@ def test_port_registry_holds_the_dense_configs_field_for_field():
     assert get_config("qwen3-14b").padded_vocab == 152064
 
 
-@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "whisper-medium",
-                                  "internvl2-76b", "xlstm-350m",
-                                  "zamba2-2.7b"])
+@pytest.mark.parametrize("arch", ["whisper-medium", "internvl2-76b",
+                                  "xlstm-350m", "zamba2-2.7b"])
 def test_build_model_refuses_other_families(arch):
-    """MLA (deepseek-v2, family "moe") and the encdec, vlm, xlstm and
-    hybrid families are not ported: their configurations, made from the
-    JAX package's fields, are refused on both devices."""
+    """The encdec, vlm, xlstm and hybrid families are not ported: their
+    configurations, made from the JAX package's fields, are refused on
+    both devices."""
     cfg = ModelConfig(**dataclasses.asdict(jax_config(arch)))
     for dev in ("cpu", "cuda"):
         with pytest.raises(NotImplementedError,
                            match="Queue 1, the other model families"):
             build_model(cfg, dev)
-    with pytest.raises(NotImplementedError, match="MLA" if cfg.mla
-                       else f"family {cfg.family!r}"):
+    with pytest.raises(NotImplementedError, match=f"family {cfg.family!r}"):
         build_model(cfg.reduced(), "cpu")
 
 
@@ -179,9 +177,10 @@ def test_convert_keeps_every_leaf(pair):
     n_jax = sum(int(np.prod(x.shape))
                 for x in jax.tree_util.tree_leaves(jp))
     assert tm.param_count(tp) == n_jax
+    wq = "wq_a" if tm.cfg.mla else "wq"
     np.testing.assert_array_equal(
-        tp["stack"][L - 1]["attn"]["wq"].numpy(),
-        np.asarray(jp["stack"]["attn"]["wq"][L - 1]))
+        tp["stack"][L - 1]["attn"][wq].numpy(),
+        np.asarray(jp["stack"]["attn"][wq][L - 1]))
     assert tp["stack"][0]["ln1"]["scale"].dtype == torch.float32
 
 

@@ -48,8 +48,10 @@ from repro_torch.serving import prefetch_batches, stage_batch
 from repro_torch.tree import tree_leaves, tree_map
 
 ARCHS = ["qwen3-14b", "codeqwen1.5-7b", "command-r-35b", "nemotron-4-340b"]
-# the MoE family: its loss carries the auxiliary term (``grads_pair``)
-MOE_ARCHS = ["mixtral-8x22b"]
+# the MoE family: its loss carries the auxiliary term (``grads_pair``);
+# deepseek-v2-236b's attention is MLA (the no-cache route: per-head k and v
+# rebuilt from the latent)
+MOE_ARCHS = ["mixtral-8x22b", "deepseek-v2-236b"]
 TOL = 1e-5
 BF16_TOL = 2e-2
 
@@ -195,19 +197,25 @@ def test_params_after_3_train_steps(arch, mb):
     assert to["step"].dtype == torch.int32
 
 
-@pytest.mark.parametrize("mb", [1, 2])
-def test_moe_params_after_3_train_steps(mb):
-    """mixtral-8x22b (the MoE auxiliary term in the loss): 3 ``train_step``s
-    at ``microbatches`` 1 and 2, every step's loss and grad_norm, then the
-    parameters over the tree, as for the dense configs.  The moments are
-    held one step at a time, against JAX's step from the port's own state:
+@pytest.mark.parametrize("arch,mb", [
+    ("mixtral-8x22b", 1), ("mixtral-8x22b", 2),
+    ("deepseek-v2-236b", 1), ("deepseek-v2-236b", 2)],
+    ids=["1", "2", "deepseek-v2-236b-1", "deepseek-v2-236b-2"])
+def test_moe_params_after_3_train_steps(arch, mb):
+    """mixtral-8x22b and deepseek-v2-236b (MLA; bf16 moments, the config's
+    ``opt_dtype``) with the MoE auxiliary term in the loss: 3
+    ``train_step``s at ``microbatches`` 1 and 2, every step's loss and
+    grad_norm, then the parameters over the tree, as for the dense configs.
+    The moments are held one step at a time, against JAX's step from the
+    port's own state (bf16 moments within one bf16 step, 2**-8 relative
+    L2, as for the dense configs):
     the two runs' moments drift apart by more than their parameters (1.8e-5
     relative L2 at microbatches 2), because the MoE loss's gradient is
     steep there, in both packages alike (from step 0's two states, 3.6e-7
     apart, each package's step-1 gradient moves by 4.3e-5, while the two
     packages agree within 4e-7 at either state)."""
-    jc, jstep, jp, jo, tc, tstep, tp, to = _state("mixtral-8x22b",
-                                                  microbatches=mb)
+    jc, jstep, jp, jo, tc, tstep, tp, to = _state(arch, microbatches=mb)
+    mtol = TOL if tc.opt_dtype == "float32" else 2 ** -8
     for s in range(3):
         b = _batch(tc, seed=10 + s)
         jb = {k: jnp.asarray(v) for k, v in b.items()}
@@ -224,7 +232,7 @@ def test_moe_params_after_3_train_steps(mb):
         assert _rel_l2(_np(tp), jax.tree.map(np.asarray, want_p)) <= TOL
         for key in ("m", "v"):
             assert _rel_l2(_np(to[key]), jax.tree.map(
-                np.asarray, want_o[key])) <= TOL
+                lambda a: np.asarray(a, np.float32), want_o[key])) <= mtol
     assert _rel_l2(_np(tp), jax.tree.map(np.asarray, jp)) <= TOL
     assert int(to["step"]) == int(jo["step"]) == 3
 
