@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port of Parsa on one NVIDIA GPU and hold every CUDA
 kernel to its plain PyTorch version: the partitioner's paths and the LM
-serving paths (qwen3-14b, and mixtral-8x22b and deepseek-v2-236b cut in
-depth, at full width).
+serving paths (qwen3-14b and whisper-medium, and mixtral-8x22b and
+deepseek-v2-236b cut in depth, at full width).
 
     python3 chip_smoke.py                 # all phases, one card
 
@@ -154,7 +154,28 @@ Phases, in order; any failure exits non-zero:
    refine_sweep); the latent cache's bytes, measured; one decode step's
    ``mla_block`` under ``set_sync_debug_mode("error")``; and the serving
    CLI (``launch.serve.main``, ``--layers 6``) on the card;
-13. LM training (phase ``train``): qwen3-14b at full width cut to 4 layers
+13. the encoder-decoder serving path (phase ``encdec``): whisper-medium at
+   full width and depth (24 encoder and 24 decoder layers, 16/16 x 64
+   heads, 811,790,336 parameters, 1.62 GB of random bf16 weights), frames
+   (8, 1,500, 1,024) ``normal(0, 0.1)`` from the stub front end, phase
+   lm's checks on it through ``phase_lm(dev, ENCDEC, extra=...)``: the
+   prefill of a 224-token prompt at B=8 into a 448-slot self cache (72
+   flash_attention launches: 24 non-causal at the encoder, 24 causal at
+   the decoder's self-attention, 24 non-causal at the cross-attention,
+   against the plain route, logits and both caches within 5e-2), layer 0's
+   causal kernel against plain, ``decode_loop_engine`` bit-identical to
+   ``decode_loop`` (the zero cross cache of the reference's serving CLI),
+   teacher forcing (the prompt's second half decoded from a prefill of its
+   first), cpu against cuda on the reduced config; and its own: the
+   prefill's bf16 bound and its flash launches by role in a profile, the
+   kernel at the encoder's (8, 1,500, 16, 64) and the cross's (8, 224)
+   against (8, 1,500) non-causal shapes on the tensor-core route (the
+   cross k/v views of the stacked cross cache) against its plain version,
+   timed beside its bound and SDPA, greedy decode of 64 tokens at B=8
+   from the prefill's cache (p50 and p99 a step, no host sync in a step,
+   a profiled step), and the serving CLI on the card, its engine tokens
+   equal to ``decode_loop``'s;
+14. LM training (phase ``train``): qwen3-14b at full width cut to 4 layers
    (float32 master parameters, remat "full", 2 microbatches), 8 steps at
    batch 8 x sequence 1,024 of ``SyntheticLMData`` staged by
    ``prefetch_batches``: the step time (median of steps 2-8), tokens/s,
@@ -167,7 +188,7 @@ Phases, in order; any failure exits non-zero:
    card twice (bitwise) and against the CPU (relative L2 within 1e-5), and
    its failure at step 6 with a checkpoint every 2 steps, resumed
    bitwise;
-14. each kernel timed at the shapes its path launches (CUDA events, median
+15. each kernel timed at the shapes its path launches (CUDA events, median
    of 21 samples after warm-up; ``ms`` from launches replayed in a CUDA
    graph, ``eager_ms`` from launches made one by one from Python) beside
    its bound, its plain version and its launches on the path
@@ -186,7 +207,8 @@ Phases, in order; any failure exits non-zero:
    ``scaled_dot_product_attention``, and at phase moe's windowed shape
    beside it with the window's mask, and at phase mla's (Dqk, Dv) = (192,
    128) shape beside ``scaled_dot_product_attention`` on the same q, k and
-   v, naming the backend it picked), then the main, the sketched and the
+   v, naming the backend it picked, and phase encdec's non-causal times
+   at (64, 64)), then the main, the sketched and the
    parallel scan and the whole refine under ``torch.profiler``: device
    time per round, the device's idle share, and a parallel super-step's
    kernels (one parsa_scan and one merge, no PyTorch kernel); and the
@@ -195,8 +217,8 @@ Phases, in order; any failure exits non-zero:
 ``--phases build,kernels,sketch``, ``--phases build,kernels,parallel``,
 ``--phases build,kernels,stream``, ``--phases build,kernels,elastic``,
 ``--phases build,kernels,serving``, ``--phases build,kernels,lm``,
-``--phases build,kernels,moe``, ``--phases build,kernels,mla`` and
-``--phases build,kernels,train`` are
+``--phases build,kernels,moe``, ``--phases build,kernels,mla``,
+``--phases build,kernels,encdec`` and ``--phases build,kernels,train`` are
 short checks of one path (they print no result and exit 1).
 
 The last lines are the card, one ``{"kernels": [...]}`` JSON line and
@@ -215,9 +237,12 @@ import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
 PROFILE_DIAG = 0    # --profile-diag N
+# the spin ahead of a profile window's recorded call (profile_window):
+# about 50 ms at the H100's 1.98 GHz boost clock
+LEAD_SPIN_CYCLES = 100_000_000
 PHASES = ("build", "kernels", "main", "parity", "sketch", "parallel",
-          "stream", "elastic", "serving", "lm", "moe", "mla", "train",
-          "times")
+          "stream", "elastic", "serving", "lm", "moe", "mla", "encdec",
+          "train", "times")
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, and the non-tensor fp32
 # rate, the only CUDA-core rate in that sheet; int32 and popcount work is
@@ -408,6 +433,22 @@ MLA = dict(LM, arch="deepseek-v2-236b", num_layers=6, phase="mla",
            teacher_forcing=dict(moe_capacity_factor=27.0), groups=32,
            group_tokens=256, placement_k=8, cli=dict(batch=4, prompt=16,
                                                      gen=8))
+# the encoder-decoder serving path (phase encdec): whisper-medium at full
+# width and depth (24 encoder and 24 decoder layers, d_model 1,024, 16/16 x
+# 64 heads, d_ff 4,096, GELU, LayerNorm and biases, vocab 51,865 padded to
+# 51,968, untied head: 811,790,336 parameters, 1.62 GB of random bf16
+# weights from SEED), nothing cut.  The stub front end's frames (B, 1,500,
+# 1,024) normal(0, 0.1) from default_rng(SEED); the prefill at B=8 of a
+# 224-token decoder prompt (Whisper's previous-text prompt limit, half its
+# 448-token decoder context) into a 448-slot self cache, the cross cache
+# (24, 8, 1,500, 16, 64) twice (1.18 GB); greedy decode of 64 tokens at
+# B=8 from the prefill's cache; phase lm's decode loop at batch 4 (its
+# zero cross cache, as the reference's serving CLI) and teacher forcing
+# (the prompt's second half decoded from a prefill of its first); the
+# serving CLI on the card.
+ENCDEC = dict(LM, arch="whisper-medium", phase="encdec", prefill_batch=8,
+              prefill_seq=224, cache_seq=448, decode_gen=64,
+              cli=dict(batch=4, prompt=16, gen=8))
 FLASH_TOL = {"float32": 3e-5, "bfloat16": 2e-2}
 
 # LM training (phase train): qwen3-14b at full width (d_model 5,120, d_ff
@@ -3168,10 +3209,44 @@ def attention_ref_by_head(q, k, v, window):
     return out
 
 
+def prefill_launches(cfg) -> int:
+    """flash_attention launches of one prefill: one per layer; the
+    encoder-decoder's encoder layers, decoder self-attention and
+    cross-attention one each."""
+    if cfg.family == "encdec":
+        return cfg.encoder_layers + 2 * cfg.num_layers
+    return cfg.num_layers
+
+
+def cache_leaves(cfg, cache) -> dict:
+    """The cache leaves a prefill's routes are compared on, layer-major:
+    MLA's latent, the per-head keys, or the encoder-decoder's self keys
+    and cross keys."""
+    if cfg.family == "encdec":
+        return {"self_k": cache["self"]["k"], "cross_k": cache["cross"][0]}
+    ck = "c_kv" if cfg.mla else "k"
+    return {ck: cache[ck]}
+
+
+def encdec_frames(cfg, B: int, seed: int):
+    """The stub front end's input, (B, encoder_seq, d_model) float32 frame
+    embeddings ``normal(0, 0.1)`` from ``default_rng(seed)``, as
+    tests/test_models.py:24-25 makes them."""
+    import numpy as np
+    import torch
+
+    return torch.from_numpy(np.random.default_rng(seed).normal(
+        0, 0.1, (B, cfg.encoder_seq, cfg.d_model)).astype(np.float32))
+
+
 def phase_lm(dev, lm: dict = LM, extra=None) -> dict:
     """The LM serving path on the card; see the module docstring, item 10.
-    Phases moe and mla run it on ``MOE`` and ``MLA`` and add their checks
-    through ``extra``, called with the weights before they are freed."""
+    Phases moe, mla and encdec run it on ``MOE``, ``MLA`` and ``ENCDEC``
+    and add their checks through ``extra``, called with the weights before
+    they are freed.  The encoder-decoder's prefill batches carry frames
+    (``encdec_frames``), and its teacher forcing decodes the prompt's
+    second half from a prefill of its first (the cross cache the
+    prefill's)."""
     import dataclasses
 
     import numpy as np
@@ -3179,7 +3254,8 @@ def phase_lm(dev, lm: dict = LM, extra=None) -> dict:
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as FA
-    from repro_torch.launch.serve import decode_loop, decode_loop_engine
+    from repro_torch.launch.serve import (_init_cache, decode_loop,
+                                          decode_loop_engine)
     from repro_torch.launch.steps import make_prefill_step, make_serve_step
     from repro_torch.models import layers as LL
 
@@ -3191,7 +3267,8 @@ def phase_lm(dev, lm: dict = LM, extra=None) -> dict:
              f"v {cfg.v_head_dim}, kv_lora {cfg.kv_lora_rank}, q_lora "
              f"{cfg.q_lora_rank}" if cfg.mla else
              f"{cfg.num_heads}/{cfg.num_kv_heads}x{cfg.head_dim}")
-    ck = "c_kv" if cfg.mla else "k"     # the cache leaf compared
+    encdec = cfg.family == "encdec"
+    want_launches = prefill_launches(cfg)
     out: dict = {"arch": cfg.name, "num_layers": cfg.num_layers,
                  "d_model": cfg.d_model, "d_ff": cfg.d_ff, "heads": heads,
                  "vocab": f"{cfg.vocab_size} (padded {cfg.padded_vocab})",
@@ -3215,6 +3292,8 @@ def phase_lm(dev, lm: dict = LM, extra=None) -> dict:
     B, S = lm["prefill_batch"], lm["prefill_seq"]
     tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S))).to(dev)
     batch = {"tokens": tokens, "cache_seq": lm["cache_seq"]}
+    if encdec:
+        batch["frames"] = encdec_frames(cfg, B, lm["seed"]).to(dev)
     logits, cache = prefill(params, batch)           # warm-up
     del logits, cache
     torch.cuda.synchronize()
@@ -3225,9 +3304,21 @@ def phase_lm(dev, lm: dict = LM, extra=None) -> dict:
     out["prefill_s"] = time.perf_counter() - t0
     launches = FA.LAUNCHES["flash_attention"]
     out["prefill_flash_launches"] = launches
-    check(launches == cfg.num_layers,
+    check(launches == want_launches,
           f"prefill made {launches} flash_attention launches, want "
-          f"{cfg.num_layers} (one per layer)")
+          f"{want_launches} (one per layer" +
+          (", encoder, self and cross)" if encdec else ")"))
+    if encdec:   # the same launches by role, told apart by (causal, Sq, Skv)
+        Se = cfg.encoder_seq
+        by_role = {r: FA.LAUNCH_SHAPES.get(key, 0) for r, key in (
+            ("encoder", (False, Se, Se)), ("decoder_self", (True, S, S)),
+            ("cross", (False, S, Se)))}
+        out["prefill_flash_launches_by_role"] = by_role
+        check(by_role == {"encoder": cfg.encoder_layers,
+                          "decoder_self": cfg.num_layers,
+                          "cross": cfg.num_layers},
+              f"prefill flash launches by role {by_role}, by (causal, Sq, "
+              f"Skv) {FA.LAUNCH_SHAPES}: want one a layer in each role")
     check(tuple(logits.shape) == (B, cfg.padded_vocab)
           and bool(torch.isfinite(logits).all()), "prefill logits not finite")
     out["prefill_peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
@@ -3240,8 +3331,16 @@ def phase_lm(dev, lm: dict = LM, extra=None) -> dict:
     out["prefill_logits_max_abs_err"] = float(
         (logits.float() - logits_p.float()).abs().max())
     out["prefill_logits_rel_l2"] = rel_l2(logits, logits_p)
-    out[f"prefill_last_layer_{ck}_rel_l2"] = rel_l2(cache[ck][-1, :, :S],
-                                                    cache_p[ck][-1, :, :S])
+    plain_leaves = cache_leaves(cfg, cache_p)
+    for name, leaf in cache_leaves(cfg, cache).items():
+        key = f"prefill_last_layer_{name}_rel_l2"
+        # the last layer's written slots (every slot of the cross cache)
+        sl = (-1,) if name == "cross_k" else (-1, slice(None), slice(0, S))
+        out[key] = rel_l2(leaf[sl], plain_leaves[name][sl])
+        # the encoder-decoder's caches are held as its logits are
+        check(not encdec or out[key] <= LM_MAX_REL_L2,
+              f"prefill {name} cache, kernel route against plain route: "
+              f"relative L2 {out[key]:.3e} > {LM_MAX_REL_L2}")
     check(out["prefill_logits_rel_l2"] <= LM_MAX_REL_L2,
           f"prefill logits, kernel route against plain route: relative L2 "
           f"{out['prefill_logits_rel_l2']:.3e} > {LM_MAX_REL_L2}")
@@ -3256,7 +3355,10 @@ def phase_lm(dev, lm: dict = LM, extra=None) -> dict:
     p0, dt = params["stack"][0], getattr(torch, cfg.dtype)
     positions = torch.arange(S, dtype=torch.int32, device=dev).expand(B, S)
     with torch.no_grad():
-        h = LL.apply_norm(p0["ln1"], model._embed(params, tokens), cfg.norm)
+        x0 = model._embed(params, tokens)
+        if encdec:   # the decoder's input: tokens and sinusoidal positions
+            x0 = model._positions_added(x0)
+        h = LL.apply_norm(p0["ln1"], x0, cfg.norm)
         if cfg.mla:   # the per-head q, k (dn + dr) and v (dv) of the prefill
             xq, xk, xv = LL.mla_qkv(p0["attn"], *LL.mla_projection(
                 p0["attn"], h, cfg, positions, dt), dt)
@@ -3282,7 +3384,7 @@ def phase_lm(dev, lm: dict = LM, extra=None) -> dict:
               f"{float(d.max()):.3e} past {tol}")
     # kept on the host for phase times (MLA's are 1.07 GB)
     out["layer0_qkv"] = tuple(t.cpu() for t in (xq, xk, xv))
-    del got, want, chunked, h, xq, xk, xv
+    del got, want, chunked, h, x0, xq, xk, xv
 
     # (b) greedy decode through the serving engine, against decode_loop
     smodel, step = make_serve_step(cfg, dev)
@@ -3325,10 +3427,18 @@ def phase_lm(dev, lm: dict = LM, extra=None) -> dict:
     # config's factor is reported beside it
     pbatch = {"tokens": torch.from_numpy(prompt).to(dev), "cache_seq": P + G}
     toks = torch.from_numpy(prompt).to(dev)
+    # the encoder-decoder decodes the prompt's second half from a prefill
+    # of its first: its cross cache is the prefill's
+    start = P // 2 if encdec else 0
+    if encdec:
+        pbatch["frames"] = batch["frames"][:Bs]
 
     def decode_prompt():
-        c = smodel.init_cache(Bs, P + G)
-        for t in range(P):
+        if start:
+            c = prefill(params, dict(pbatch, tokens=toks[:, :start]))[1]
+        else:
+            c = smodel.init_cache(Bs, P + G)
+        for t in range(start, P):
             _, logits, c = step(params, {"token": toks[:, t:t + 1], "pos": t,
                                          "cache": c})
         return logits
@@ -3372,7 +3482,7 @@ def phase_lm(dev, lm: dict = LM, extra=None) -> dict:
     del lp, ls, held
 
     # where the time goes: one prefill and one decode step, profiled
-    c = smodel.init_cache(Bs, P + G)
+    c = _init_cache(smodel, Bs, P + G)
     tok = toks[:, :1]
     out["profile_prefill"] = profile_window(lambda: prefill(params, batch))
     out["profile_decode_step"] = profile_window(
@@ -3394,18 +3504,23 @@ def phase_lm(dev, lm: dict = LM, extra=None) -> dict:
     rp_c = rm_c.init(lm["seed"])
     rp_g = _tree_to(rp_c, dev)
     rtoks = np.random.default_rng(1).integers(0, rcfg.vocab_size, (2, 12))
+    rbatch = {"tokens": torch.from_numpy(rtoks), "cache_seq": 16}
+    if encdec:
+        rbatch["frames"] = encdec_frames(rcfg, 2, 1)
     FA.reset_launch_counts()
-    lc, cc = pre_c(rp_c, {"tokens": torch.from_numpy(rtoks), "cache_seq": 16})
-    lg, cg = pre_g(rp_g, {"tokens": torch.from_numpy(rtoks).to(dev),
-                          "cache_seq": 16})
-    check(FA.LAUNCHES["flash_attention"] == rcfg.num_layers,
+    lc, cc = pre_c(rp_c, rbatch)
+    lg, cg = pre_g(rp_g, rbatch)
+    check(FA.LAUNCHES["flash_attention"] == prefill_launches(rcfg),
           "reduced prefill on cuda: flash launches "
-          f"{FA.LAUNCHES['flash_attention']} != {rcfg.num_layers}")
+          f"{FA.LAUNCHES['flash_attention']} != {prefill_launches(rcfg)}")
     out["reduced_prefill_max_abs_err"] = float((lg.cpu() - lc).abs().max())
-    out["reduced_cache_max_abs_err"] = float(
-        (cg[ck].cpu() - cc[ck]).abs().max())
+    pairs = [(cache_leaves(rcfg, cg)[n].cpu(), t)
+             for n, t in cache_leaves(rcfg, cc).items()]
+    out["reduced_cache_max_abs_err"] = max(float((g - c).abs().max())
+                                           for g, c in pairs)
     check(torch.allclose(lg.cpu(), lc, atol=1e-4, rtol=1e-4)
-          and torch.allclose(cg[ck].cpu(), cc[ck], atol=1e-4, rtol=1e-4),
+          and all(torch.allclose(g, c, atol=1e-4, rtol=1e-4)
+                  for g, c in pairs),
           f"reduced prefill: cpu against cuda {out['reduced_prefill_max_abs_err']}")
     tc = decode_loop(rm_c, step_c, rp_c, rtoks, 6, 18)
     tg = decode_loop(rm_g, step_g, rp_g, rtoks, 6, 18)
@@ -3696,6 +3811,248 @@ def phase_mla(dev, mla: dict = MLA) -> dict:
     return out
 
 
+def encdec_prefill_flops(cfg, B: int, S: int) -> float:
+    """The floating-point operations of one encoder-decoder prefill, 2 a
+    multiply-add: the encoder over B x encoder_seq frames (projections,
+    MLP, bidirectional attention), every decoder layer's cross k/v over
+    those frames, the decoder over B x S tokens (self projections, cross
+    q and o, MLP, causal attention over S (S + 1) / 2 pairs, cross
+    attention over S x encoder_seq pairs), and the last position's
+    logits."""
+    D, F, H, hd = cfg.d_model, cfg.d_ff, cfg.num_heads, cfg.head_dim
+    KV, Se = cfg.num_kv_heads, cfg.encoder_seq
+    qo, kv = 2 * D * H * hd * 2, 2 * D * KV * hd * 2
+    Te, T = B * Se, B * S
+    enc = (qo + kv + 2 * 2 * D * F) * Te + 4 * B * H * hd * Se * Se
+    dec = ((qo + kv + qo + 2 * 2 * D * F) * T + kv * Te
+           + 4 * B * H * hd * S * (S + 1) // 2 + 4 * B * H * hd * S * Se)
+    return float(cfg.encoder_layers * enc + cfg.num_layers * dec
+                 + 2 * B * D * cfg.padded_vocab)
+
+
+def time_flash_noncausal(dev, q, k, v) -> dict:
+    """flash_attention non-causal on these q, k, v: CUDA-graph and eager
+    times, its plain version, and scaled_dot_product_attention on the same
+    tensors (non-causal, K and V at the query heads) as the library
+    yardstick.  The bound: 4 B H Sq Skv D FLOP at the bf16 tensor-core
+    rate against q, k, v read and the output written once."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as FA
+
+    B, Sq, H, D = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    saved = dict(FA.LAUNCHES)
+
+    def kern():
+        return FA.flash_attention(q, k, v, causal=False)
+
+    ms = time_graph_ms(kern, 5, 11)
+    eager_ms = time_ms(kern, 5, 11)
+    plain_ms = time_ms(lambda: FA.flash_attention_ref(q, k, v, causal=False),
+                       1, 3)
+    FA.LAUNCHES.update(saved)   # timing launches are not path launches
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, enable_gqa=KV != H), 5, 11)
+    flops = 4 * B * H * Sq * Skv * D
+    nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / TENSOR_BF16_FLOPS * 1e3
+    return {"shape": f"q (B={B}, Sq={Sq}, H={H}, D={D}), k/v (Skv={Skv}, "
+                     f"KV={KV}), non-causal, {str(q.dtype).split('.')[-1]}",
+            "tensor_cores": FA.uses_tensor_cores(q, k, v),
+            "ms": ms, "eager_ms": eager_ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "flops": flops, "bytes": nbytes, "library_ms": library_ms,
+            "library": "torch.nn.functional.scaled_dot_product_attention"
+                       "(non-causal)"}
+
+
+def phase_encdec(dev, encdec: dict = ENCDEC) -> dict:
+    """The encoder-decoder serving path on the card (phase lm's checks on
+    ``ENCDEC``, with frames, 72 flash launches a prefill, its caches held
+    to the plain route's, teacher forcing from a prefill's cross cache, the
+    reduced config against the CPU; then its own): (a) the prefill's bf16
+    bound and a profiled prefill's flash_wgmma launches by role (encoder,
+    decoder self-attention, cross-attention); (b) the kernel at the
+    encoder's (8, 1,500, 16, 64) and the cross-attention's (8, 224) x
+    (8, 1,500) shapes against its plain version on the tensor-core route,
+    the cross k/v views of the stacked cross cache, timed beside its bound
+    and SDPA; (d) greedy decode of 64 tokens at batch 8 from the prefill's
+    cache (a step's device time from CUDA events, p50 and p99; no host
+    sync in a step; a profiled step); (e) the serving CLI on the card, its
+    engine tokens equal to decode_loop's."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch import serve
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.models import layers as LL
+
+    def checks(cfg, model, params, prefill, prefill_plain, batch, smodel,
+               step) -> dict:
+        out: dict = {}
+        B, S = batch["tokens"].shape
+        Le, L = cfg.encoder_layers, cfg.num_layers
+        # (a) the prefill's bound, and its flash launches by role
+        flops = encdec_prefill_flops(cfg, B, S)
+        out["prefill_flops"] = flops
+        out["prefill_bound_s"] = flops / TENSOR_BF16_FLOPS
+        prof = profile_window(lambda: prefill(params, batch), order=True)
+        times = prof.get("port_kernels_us", {}).get("flash_wgmma", [])
+        if len(times) == Le + 2 * L:
+            roles = {"encoder": times[:Le], "decoder_self": times[Le::2],
+                     "cross": times[Le + 1::2]}
+            out["prefill_flash_us_by_role"] = {
+                r: {"mean": statistics.mean(v), "max": max(v), "n": len(v)}
+                for r, v in roles.items()}
+        else:   # the profiler dropped some: no split by role
+            out["prefill_flash_us_by_role"] = (
+                f"not measured ({len(times)} of {Le + 2 * L} recorded)")
+        prof.pop("port_kernels_us", None)
+        out["profile_prefill_by_role"] = prof
+        log(f"encdec prefill B={B} S={S}: {flops:.4e} FLOP, bf16 bound "
+            f"{out['prefill_bound_s'] * 1e3:.2f} ms; flash_wgmma by role "
+            f"{out['prefill_flash_us_by_role']}")
+
+        # (b) the kernel at the two non-causal shapes, on the path's inputs
+        dt = getattr(torch, cfg.dtype)
+        _, cache = prefill(params, batch)
+        with torch.no_grad():
+            x = model._positions_added(batch["frames"].to(dt))
+            pos = torch.arange(cfg.encoder_seq, dtype=torch.int32,
+                               device=dev).expand(B, cfg.encoder_seq)
+            h = LL.apply_norm(params["enc"][0]["ln1"], x, cfg.norm)
+            enc_qkv = LL.qkv_projection(params["enc"][0]["attn"], h, cfg,
+                                        pos, dt)
+            # layer 0's cross query: its input after the self-attention
+            # and its residual, as apply_layer makes it
+            p0 = params["stack"][0]
+            x0 = model._positions_added(model._embed(params,
+                                                     batch["tokens"]))
+            dpos = torch.arange(S, dtype=torch.int32,
+                                device=dev).expand(B, S)
+            x0 = x0 + LL.attention_block(
+                p0["attn"], LL.apply_norm(p0["ln1"], x0, cfg.norm), cfg,
+                dpos, dtype=dt)
+            hx = LL.apply_norm(p0["ln_x"], x0, cfg.norm)
+            cross_qkv = (LL.q_projection(p0["xattn"], hx, cfg, dt),
+                         cache["cross"][0][0], cache["cross"][1][0])
+        tol = FLASH_TOL[cfg.dtype]
+        flash_times = {}
+        for role, (q, k, v) in (("encoder", enc_qkv),
+                                ("cross", cross_qkv)):
+            tc = FA.uses_tensor_cores(q, k, v)
+            check(tc, f"encdec {role} attention at q {tuple(q.shape)}, k "
+                  f"{tuple(k.shape)} strides {k.stride()} is off the "
+                  "tensor-core route")
+            saved = dict(FA.LAUNCHES)
+            with torch.no_grad():
+                got = FA.flash_attention(q, k, v, causal=False)
+                want = FA.flash_attention_ref(q, k, v, causal=False)
+            FA.LAUNCHES.update(saved)
+            d = (got.float() - want.float()).abs()
+            err = float(d.max())
+            check(bool(torch.isfinite(got.float()).all()) and bool(
+                (d <= tol + tol * want.float().abs()).all()),
+                f"encdec {role} attention, kernel against plain: max abs "
+                f"err {err:.3e} past {tol}")
+            row = time_flash_noncausal(dev, q, k, v)
+            row["max_abs_err"] = err
+            flash_times[role] = row
+            log(f"encdec flash {role} ({row['shape']}): max abs err "
+                f"{err:.3e}; {row['ms'] * 1e3:.1f} us in a CUDA graph, "
+                f"{row['eager_ms'] * 1e3:.1f} us eager, plain "
+                f"{row['plain_ms'] * 1e3:.1f} us, sdpa "
+                f"{row['library_ms'] * 1e3:.1f} us, bound "
+                f"{row['bound_ms'] * 1e3:.1f} us by {row['bound_by']} "
+                f"({row['flops']:.4e} FLOP)")
+            del got, want, d
+        out["flash_times"] = flash_times
+        del enc_qkv, cross_qkv, h, hx, x, x0
+
+        # (d) greedy decode from the prefill's cache at the prefill's batch
+        n = encdec["decode_gen"]
+        tok = torch.argmax(prefill(params, batch)[0], dim=-1).to(
+            torch.int32)[:, None]
+        starts = [torch.cuda.Event(enable_timing=True) for _ in range(n)]
+        ends = [torch.cuda.Event(enable_timing=True) for _ in range(n)]
+        gen_tokens = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(n):
+            starts[i].record()
+            nxt, _, cache = step(params, {"token": tok, "pos": S + i,
+                                          "cache": cache})
+            ends[i].record()
+            tok = nxt[:, None]
+            gen_tokens.append(tok)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        step_ms = [a.elapsed_time(b) for a, b in zip(starts, ends)]
+        gen = torch.cat(gen_tokens, dim=1).cpu().numpy()
+        check(gen.shape == (B, n) and bool(((gen >= 0) & (
+            gen < cfg.vocab_size)).all()), f"greedy decode gave {gen.shape}")
+        out["decode"] = {
+            "batch": B, "steps": n, "wall_s": wall,
+            "generated_tok_s": B * n / wall,
+            "step_ms_p50": float(np.percentile(step_ms, 50)),
+            "step_ms_p99": float(np.percentile(step_ms, 99)),
+            "step_ms_mean": statistics.mean(step_ms)}
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            step(params, {"token": tok, "pos": S + n, "cache": cache})
+        except RuntimeError as err:
+            raise SmokeFailure("an encdec decode step synchronised with the "
+                               f"host: {err}") from err
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        out["decode_step_host_syncs"] = 0
+        out["profile_decode_step_b8"] = profile_window(
+            lambda: step(params, {"token": tok, "pos": S + n,
+                                  "cache": cache}))
+        d_ = out["decode"]
+        log(f"encdec greedy decode B={B}, {n} tokens from the prefill's "
+            f"cache: {wall:.3f} s, {d_['generated_tok_s']:.1f} tok/s, a step "
+            f"p50 {d_['step_ms_p50']:.2f} ms p99 {d_['step_ms_p99']:.2f} ms "
+            f"(CUDA events); no host sync in a step; profiled step "
+            f"{out['profile_decode_step_b8'].get('device_kernels')} kernels, "
+            f"busy {out['profile_decode_step_b8'].get('busy_s')} s, idle "
+            f"{out['profile_decode_step_b8'].get('idle_share')}")
+        del cache
+        return out
+
+    out = phase_lm(dev, encdec, extra=checks)
+    for role, row in out["flash_times"].items():   # counted in phase lm
+        row["launches"] = out["prefill_flash_launches_by_role"][role]
+    # (e) the serving CLI on the card (its zero cross cache), then
+    # decode_loop on the same weights and prompt
+    cli = encdec["cli"]
+    t0 = time.perf_counter()
+    toks = serve.main(["--arch", encdec["arch"], "--batch",
+                       str(cli["batch"]), "--prompt-len", str(cli["prompt"]),
+                       "--gen", str(cli["gen"]), "--device", str(dev)])
+    out["cli_s"] = time.perf_counter() - t0
+    model, step = make_serve_step(serve.get_config(encdec["arch"]), dev)
+    prompt = np.random.default_rng(0).integers(
+        0, model.cfg.vocab_size, size=(cli["batch"], cli["prompt"]))
+    ref = serve.decode_loop(model, step, model.init(0), prompt, cli["gen"],
+                            cli["prompt"] + cli["gen"])
+    check(np.array_equal(toks, ref), "serve CLI: engine tokens differ from "
+          "decode_loop's")
+    del model, step
+    torch.cuda.empty_cache()
+    log(f"encdec serve CLI ({encdec['arch']}, batch {cli['batch']}, prompt "
+        f"{cli['prompt']}, gen {cli['gen']}) on the card in "
+        f"{out['cli_s']:.2f} s, weights drawn included; engine tokens equal "
+        "decode_loop's")
+    return out
+
+
 def _tree_to(tree, dev):
     import torch
 
@@ -3774,7 +4131,7 @@ def resume_bitwise(train_step, init_fn, batches, steps: int, fail_at: int,
 
 
 def phase_train(dev, tr: dict = TRAIN) -> dict:
-    """LM training on the card; see the module docstring, item 12."""
+    """LM training on the card; see the module docstring, item 14."""
     import dataclasses
     import functools
     import shutil
@@ -3949,7 +4306,8 @@ def time_graph_ms(fn, inner: int, samples: int = 21) -> float:
     return time_ms(graph.replay, 1, samples) / inner
 
 
-def profile_window(fn, warmup: bool = True, lead: bool = False) -> dict:
+def profile_window(fn, warmup: bool = True, lead: bool = True,
+                   order: bool = False) -> dict:
     """One warm call of ``fn`` timed on the host clock, then one under
     ``torch.profiler``: the device kernels it launched, their summed device
     time, and the device's idle share of the unprofiled wall time.  The
@@ -3963,10 +4321,18 @@ def profile_window(fn, warmup: bool = True, lead: bool = False) -> dict:
     H100 a first step lost its first 3 device activities in every window
     that ``--profile-diag 8`` took without it (24 of 24).  Whole windows
     are still lost at times (see ``phase_times``).  ``warmup=False``
-    records the first step; ``lead``
-    launches a short ``torch.cuda._sleep`` (``spin_kernel``) ahead of the
-    recorded call, counted apart as ``lead_kernels`` (both only for
-    ``--profile-diag``)."""
+    records the first step (only for ``--profile-diag``).  ``lead`` (the
+    default) launches a ``torch.cuda._sleep`` of ``LEAD_SPIN_CYCLES``
+    (``spin_kernel``, about 50 ms) ahead of the recorded call, counted
+    apart as ``lead_kernels`` and left out of every other count: late in a
+    long run the profiler drops the device activities that start within
+    some milliseconds of its window's start (in a whole-script run on the
+    H100, every try of phase times' one-super-step window lost its
+    set-up kernels and its 10 ms parsa_scan and kept the merge after it,
+    and the scan window lost its one 72 ms launch), and the spin moves the
+    recorded call's kernels past that stretch.  ``order`` adds each port
+    kernel's launch times in the order they started
+    (``port_kernels_us``)."""
     import collections
 
     import torch
@@ -3989,7 +4355,7 @@ def profile_window(fn, warmup: bool = True, lead: bool = False) -> dict:
             torch.cuda.synchronize()
             prof.step()
         if lead:
-            torch.cuda._sleep(1000)
+            torch.cuda._sleep(LEAD_SPIN_CYCLES)
         a.record()
         fn()
         b.record()
@@ -4012,7 +4378,7 @@ def profile_window(fn, warmup: bool = True, lead: bool = False) -> dict:
     busy = sum(e.time_range.elapsed_us() for e in kern) / 1e6
     ours = collections.defaultdict(list)
     first_port = None   # the start of the window's first port kernel
-    for e in kern:
+    for e in sorted(kern, key=lambda e: e.time_range.start):
         for name in ("cost_tile_kernel", "select_reduce_kernel",
                      "sketch_select_kernel", "parsa_scan_kernel",
                      "refine_sweep_kernel",
@@ -4029,6 +4395,7 @@ def profile_window(fn, warmup: bool = True, lead: bool = False) -> dict:
                port_kernels_mean_us={n: statistics.mean(v)
                                      for n, v in ours.items()},
                port_kernels_count={n: len(v) for n, v in ours.items()},
+               **({"port_kernels_us": dict(ours)} if order else {}),
                top=collections.Counter(e.name[:60] for e in kern)
                .most_common(8))
     return out
@@ -4039,8 +4406,8 @@ def profile_diag(windows, runs: int) -> None:
     window launched, with and without its warm-up profiler step and with a
     lead kernel ahead of the recorded call: ``runs`` windows of each kind,
     the modes interleaved.  Logged only (``--profile-diag N``)."""
-    modes = {"no warm-up": dict(warmup=False),
-             "warm-up": dict(warmup=True),
+    modes = {"no warm-up": dict(warmup=False, lead=False),
+             "warm-up": dict(warmup=True, lead=False),
              "warm-up, lead kernel": dict(warmup=True, lead=True)}
     for name, fn, _, want in windows:
         if name == "sketched scan":
@@ -4435,7 +4802,8 @@ def phase_times(dev, main: dict) -> list[dict]:
 
     if "lm" in main:
         rows.append(time_flash(dev, main["lm"], main["checks"],
-                               main.get("moe"), main.get("mla")))
+                               main.get("moe"), main.get("mla"),
+                               main.get("encdec")))
 
     # where the time goes, under torch.profiler: the main path's whole scan
     # (one launch), the sketch path's whole scan (one launch), the parallel
@@ -4682,14 +5050,16 @@ def time_flash_mla(dev, mla: dict) -> dict:
 
 
 def time_flash(dev, lm: dict, checks: dict, moe: dict | None = None,
-               mla: dict | None = None) -> dict:
+               mla: dict | None = None, encdec: dict | None = None) -> dict:
     """flash_attention at the prefill's shape, on layer 0's q, k, v of the
     lm phase: CUDA-graph and eager times, its plain version, and
     scaled_dot_product_attention (top-left causal, GQA) as the library
     yardstick, which the port never calls.  The bound counts the FLOPs of
     the admissible (query, key) pairs of this causal shape.  With phase
     moe's state, the same at its windowed shape (``windowed``); with phase
-    mla's, at its (Dqk, Dv) = (192, 128) shape (``mla``)."""
+    mla's, at its (Dqk, Dv) = (192, 128) shape (``mla``); with phase
+    encdec's, its times at the encoder's and the cross-attention's
+    non-causal shapes (``encdec``, measured in that phase)."""
     import torch
     import torch.nn.functional as F
 
@@ -4740,6 +5110,9 @@ def time_flash(dev, lm: dict, checks: dict, moe: dict | None = None,
     if mla is not None:
         row["mla"] = time_flash_mla(dev, mla)
         row["launches_mla"] = mla["prefill_flash_launches"]
+    if encdec is not None:
+        row["encdec"] = encdec["flash_times"]
+        row["launches_encdec"] = encdec["prefill_flash_launches"]
     log(f"time flash_attention ({row['shape']}): {ms * 1e3:.1f} us in a CUDA "
         f"graph, {eager_ms * 1e3:.1f} us eager, plain {plain_ms * 1e3:.1f} "
         f"us, sdpa {library_ms * 1e3:.1f} us, bound {row['bound_ms'] * 1e3:.1f}"
@@ -4839,6 +5212,10 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         state["mla"] = phase_mla(dev)
         log(f"mla phase {time.perf_counter() - t0:.2f} s")
+    if "encdec" in phases:
+        t0 = time.perf_counter()
+        state["encdec"] = phase_encdec(dev)
+        log(f"encdec phase {time.perf_counter() - t0:.2f} s")
     if "train" in phases:
         t0 = time.perf_counter()
         state["train"] = phase_train(dev)

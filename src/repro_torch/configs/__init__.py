@@ -1,5 +1,6 @@
 """Architecture registry of the port: the dense configurations,
-mixtral-8x22b and deepseek-v2-236b (the MoE family, the latter with MLA).
+mixtral-8x22b and deepseek-v2-236b (the MoE family, the latter with MLA)
+and whisper-medium (the encoder-decoder family).
 
 The port's own copy of ``repro.configs`` for the families it builds (the
 port imports nothing of ``repro``).  The other families' configurations
@@ -23,4 +24,5 @@ def _load_all():
         mixtral_8x22b,
         nemotron_4_340b,
         qwen3_14b,
+        whisper_medium,
     )

@@ -35,11 +35,13 @@ __all__ = ["graph_from_numpy", "result_from_numpy", "sketch_from_numpy",
 PS_STATE_KEYS = ("w", "pull_cache", "ef", "hist", "keys_sent", "inner_bytes",
                  "inter_bytes", "per_machine", "rng_state")
 
-# the weight matrices of the dense and MoE families (an MoE layer's
-# experts and shared experts are wg, wu, wd too; MLA's projections are
-# wq_a, wq_b, wkv_a, wk_b, wv_b and wo): stored in the compute dtype; every
-# other leaf (norm scales, MLA's q_a_norm and kv_a_norm among them, biases,
-# the MoE router) stays float32, cast where used
+# the weight matrices of the dense, MoE and encoder-decoder families (an
+# MoE layer's experts and shared experts are wg, wu, wd too; MLA's
+# projections are wq_a, wq_b, wkv_a, wk_b, wv_b and wo; cross-attention's
+# ``xattn`` holds wq, wk, wv, wo): stored in the compute dtype; every other
+# leaf (norm scales, MLA's q_a_norm and kv_a_norm and the encoder's
+# enc_norm among them, biases, the MoE router) stays float32, cast where
+# used
 _MATRICES = frozenset({"embed", "lm_head", "wq", "wk", "wv", "wo", "wg", "wu",
                        "wd", "wi", "wq_a", "wq_b", "wkv_a", "wk_b", "wv_b"})
 
@@ -112,9 +114,11 @@ def model_params_from_numpy(cfg, params, *, device="cuda",
                             master: bool = False) -> dict:
     """The port's parameter dict (``models.model``) from the reference's
     parameter tree as numpy arrays: {"embed", "final_norm", "lm_head",
-    "stack"}, with the stack's leaves stacked on a leading layer axis
-    (L, ...).  Returns the stack as a list of per-layer dicts (an MoE
-    layer's ``moe`` {router, wg, wu, wd[, shared]} carried across whole).
+    "stack"} (and the encoder-decoder's "enc", "enc_norm"), with the
+    stack's leaves stacked on a leading layer axis (L, ...).  Returns the
+    stack (and ``enc``, of ``encoder_layers``) as a list of per-layer
+    dicts (an MoE layer's ``moe`` {router, wg, wu, wd[, shared]} carried
+    across whole).
 
     Serving: weight matrices are stored in the config's compute dtype on
     ``device``; the reference keeps float32 masters and casts them to the
@@ -129,9 +133,10 @@ def model_params_from_numpy(cfg, params, *, device="cuda",
 
 def _stack_tree(cfg, params, device, dtype_of) -> dict:
     """A reference parameter-shaped numpy tree as the port's: the stacked
-    ``stack`` leaves split into a list of per-layer dicts, each leaf a
-    tensor of ``dtype_of(leaf name)`` on ``device``."""
-    if cfg.family not in ("dense", "moe"):
+    ``stack`` leaves (and the encoder-decoder's ``enc``) split into lists
+    of per-layer dicts, each leaf a tensor of ``dtype_of(leaf name)`` on
+    ``device``."""
+    if cfg.family not in ("dense", "moe", "encdec"):
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet")
 
@@ -144,13 +149,19 @@ def _stack_tree(cfg, params, device, dtype_of) -> dict:
                 else leaf(name, a if index is None else np.asarray(a)[index])
                 for name, a in p.items()}
 
-    out = {name: tree(p) if isinstance(p, dict) else leaf(name, p)
-           for name, p in params.items() if name != "stack"}
-    L = len(np.asarray(params["stack"]["ln1"]["scale"]))
-    out["stack"] = [tree(params["stack"], l) for l in range(L)]
-    if L != cfg.num_layers:
-        raise ValueError(f"{L} layers in the tree, the config has "
-                         f"{cfg.num_layers}")
+    stacked = {"stack": cfg.num_layers}
+    if cfg.family == "encdec":
+        stacked["enc"] = cfg.encoder_layers
+    out = {}
+    for name, p in params.items():
+        if name not in stacked:
+            out[name] = tree(p) if isinstance(p, dict) else leaf(name, p)
+            continue
+        L = len(np.asarray(p["ln1"]["scale"]))
+        if L != stacked[name]:
+            raise ValueError(f"{L} layers in the tree's {name!r}, the "
+                             f"config has {stacked[name]}")
+        out[name] = [tree(p, l) for l in range(L)]
     return out
 
 

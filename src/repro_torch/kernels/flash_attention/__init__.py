@@ -2,6 +2,7 @@
 (``csrc/flash_attention.cu``), its wrapper (``ops``) and the plain PyTorch
 versions (``ref``)."""
 from .ops import (  # noqa: F401
+    LAUNCH_SHAPES,
     LAUNCHES,
     MAX_D,
     WGMMA_DIMS,

@@ -19,7 +19,8 @@ reads q, k and v through their strides (the last dimension must be
 contiguous), so a view of a cache or of a projection needs no copy.
 
 ``LAUNCHES["flash_attention"]`` counts kernel launches, bumped only where
-the kernel is launched; ``reset_launch_counts`` zeroes it.
+the kernel is launched, and ``LAUNCH_SHAPES`` counts the same launches by
+(causal, Sq, Skv); ``reset_launch_counts`` zeroes both.
 """
 from __future__ import annotations
 
@@ -30,7 +31,7 @@ import torch
 from . import build
 from .ref import flash_attention_ref
 
-__all__ = ["LAUNCHES", "reset_launch_counts", "flash_attention", "MAX_D",
+__all__ = ["LAUNCHES", "LAUNCH_SHAPES", "reset_launch_counts", "flash_attention", "MAX_D",
            "WGMMA_DIMS", "uses_tensor_cores"]
 
 MAX_D = 256
@@ -42,11 +43,13 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ENCODE_ERROR = 100000
 
 LAUNCHES: dict[str, int] = {"flash_attention": 0}
+LAUNCH_SHAPES: dict[tuple[bool, int, int], int] = {}
 
 
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    LAUNCH_SHAPES.clear()
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -117,4 +120,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise RuntimeError(
             f"flash_attention_fwd: kernel launch failed with CUDA error {rc}")
     LAUNCHES["flash_attention"] += 1
+    key = (bool(causal), Sq, Skv)
+    LAUNCH_SHAPES[key] = LAUNCH_SHAPES.get(key, 0) + 1
     return out

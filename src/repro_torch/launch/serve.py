@@ -1,7 +1,8 @@
 """Serving entry point: batched greedy decoding with a persistent KV cache.
 
-The port of ``repro/launch/serve.py`` for the dense and MoE families (GQA
-with a full or SWA ring cache, and MLA with its latent cache).
+The port of ``repro/launch/serve.py`` for the dense, MoE and
+encoder-decoder families (GQA with a full or SWA ring cache, MLA with its
+latent cache, and whisper's self cache beside its cross cache).
 Decoding runs through the serving engine: each token step is one engine
 request, prompt tokens are staged ahead as ``ReadyHandle`` payloads, and
 the engine's latency recorder supplies the tokens/s accounting.
@@ -20,13 +21,15 @@ flash kernel's path).
         --arch deepseek-v2-236b --reduce --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch deepseek-v2-236b --layers 6
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-medium
 
 It runs on the card unless ``--device cpu`` is given; the weights are
 random (``Model.init(0)``).  The full mixtral-8x22b (281 GB of bf16
 weights) and deepseek-v2-236b (479 GB) fit no card: ``--layers N`` cuts a
 configuration to N layers at full width (``--arch deepseek-v2-236b
---layers 6``: 49.8 GB).  The encoder-decoder's cross-attention cache
-of the reference's ``_init_cache`` comes with that family's slice.
+--layers 6``: 49.8 GB).  As in the reference, the loop decodes the
+encoder-decoder without frames: ``_init_cache`` gives it a zero cross
+cache of ``encoder_seq`` slots (a prefill with frames fills a real one).
 """
 from __future__ import annotations
 
@@ -38,10 +41,25 @@ import numpy as np
 import torch
 
 from ..configs import get_config
+from ..models import transformer as TR
+from ..models.model import compute_dtype
 from ..serving import ReadyHandle, Request, ServingEngine
 from .steps import make_serve_step
 
 __all__ = ["decode_loop", "DecodeSource", "decode_loop_engine", "main"]
+
+
+def _init_cache(model, B: int, cache_seq: int):
+    """``model.init_cache(B, cache_seq)``; the encoder-decoder's ``cross``
+    is a zero (k, v) of ``encoder_seq`` slots, as the reference's."""
+    cfg = model.cfg
+    cache = model.init_cache(B, cache_seq)
+    if cfg.family == "encdec":
+        kv = TR.init_kv_caches(cfg, B, cfg.encoder_seq,
+                               torch.device(model.device),
+                               dtype=compute_dtype(cfg))
+        cache["cross"] = (kv["k"], kv["v"])
+    return cache
 
 
 def decode_loop(model, serve_step, params, prompt, gen: int, cache_seq: int):
@@ -49,7 +67,7 @@ def decode_loop(model, serve_step, params, prompt, gen: int, cache_seq: int):
     Returns the generated tokens, (B, gen) numpy int32."""
     prompt = torch.as_tensor(prompt, dtype=torch.int32, device=model.device)
     B, S = prompt.shape
-    cache = model.init_cache(B, cache_seq)
+    cache = _init_cache(model, B, cache_seq)
     out_tokens = []
     # warm the cache on the prompt
     for t in range(S - 1):
@@ -82,7 +100,7 @@ class DecodeSource:
         self.warm_steps = S - 1
         self.num_steps = S - 1 + gen
         self.batch = B
-        self.cache = model.init_cache(B, cache_seq)
+        self.cache = _init_cache(model, B, cache_seq)
         self.tok = self.prompt[:, -1:]
         self.out_tokens: list[np.ndarray] = []
         self._pos = 0
@@ -130,7 +148,8 @@ def decode_loop_engine(model, serve_step, params, prompt, gen: int,
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description="greedy decode through the "
-                                 "serving engine (dense and MoE families)")
+                                 "serving engine (dense, MoE and "
+                                 "encoder-decoder families)")
     ap.add_argument("--arch", required=True)
     ap.add_argument("--reduce", action="store_true")
     ap.add_argument("--batch", type=int, default=4)

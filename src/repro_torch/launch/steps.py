@@ -125,12 +125,16 @@ def make_eval_step(cfg: ModelConfig, device="cuda"):
 def make_prefill_step(cfg: ModelConfig, device="cuda", *, flash: bool = True):
     """Inference prefill: forward + KV-cache population (no gradients).
     ``flash`` routes every layer's attention to the flash kernel (see
-    ``Model.prefill``)."""
+    ``Model.prefill``).  The batch's arrays (``tokens``, and the
+    encoder-decoder's ``frames``) are moved to the model's device;
+    ``cache_seq`` stays an int."""
     model = build_model(cfg, device)
 
     @torch.no_grad()
     def prefill_step(params, batch):
-        return model.prefill(params, batch, flash=flash)
+        arrays = _on({k: v for k, v in batch.items() if k != "cache_seq"},
+                     model.device)
+        return model.prefill(params, dict(batch, **arrays), flash=flash)
 
     return model, prefill_step
 

@@ -38,8 +38,16 @@ from slot 0) writes the latent cache, rebuilds k and v and launches the
 flash kernel once at (Dqk, Dv) = (dn + dr, dv): the same function in
 another order of rounding, where the reference's prefill takes the
 absorbed form.
-Not ported yet: cross-attention (``ROADMAP.md`` Queue 1, the other model
-families), and ``context_parallel`` (there is no mesh on one card).
+Cross-attention (the encoder-decoder, ``attention_block(...,
+cross_kv=(k, v))``) takes the encoder's keys and values as given, biases
+added (``Model._cross_kv``), projects only the queries, writes no cache
+and attends over every key (``causal=False``); ``causal=False`` without
+``cross_kv`` is the encoder's bidirectional self-attention.  Both take
+the flash kernel at prefill (non-causal: the kernel's left-aligned query
+positions then mask nothing), and cross-attention stays on the plain
+route in decode.  Positions of that family are absolute and sinusoidal
+(``sinusoidal_positions``), added to the inputs.
+Not ported: ``context_parallel`` (there is no mesh on one card).
 """
 from __future__ import annotations
 
@@ -54,7 +62,8 @@ from torch.utils.checkpoint import checkpoint
 from ..kernels.flash_attention import flash_attention
 
 __all__ = ["NEG_INF", "apply_norm", "rms_head_norm", "rope_freqs",
-           "apply_rope", "init_norm", "init_attention", "attention",
+           "apply_rope", "sinusoidal_positions", "sinusoidal_on",
+           "init_norm", "init_attention", "attention", "q_projection",
            "qkv_projection", "attention_block", "init_mla",
            "mla_projection", "mla_qkv", "mla_block", "init_mlp",
            "apply_mlp"]
@@ -127,6 +136,36 @@ def apply_rope(x, positions, theta: float):
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_positions(seq: int, d_model: int) -> torch.Tensor:
+    """(seq, d_model) float32 absolute positions (sin on even columns, cos
+    on odd), on the host: the reference's numpy table, bit for bit."""
+    pos = np.arange(seq)[:, None]
+    dim = np.arange(0, d_model, 2)[None, :]
+    ang = pos / (10000 ** (dim / d_model))
+    out = np.zeros((seq, d_model), np.float32)
+    out[:, 0::2] = np.sin(ang)
+    out[:, 1::2] = np.cos(ang)
+    return torch.from_numpy(out)
+
+
+_SINUSOIDAL_ON: dict[tuple[int, torch.device], torch.Tensor] = {}
+
+
+def sinusoidal_on(seq: int, d_model: int, device: torch.device):
+    """The first ``seq`` rows of ``sinusoidal_positions`` on ``device``: a
+    view of one table per (d_model, device), made again, at least twice as
+    long, only when a longer one is asked for (a row does not depend on
+    the table's length).  A copy from host memory at every decode step
+    would block the host until the device drains."""
+    key = (d_model, torch.device(device))
+    table = _SINUSOIDAL_ON.get(key)
+    if table is None or table.shape[0] < seq:
+        n = seq if table is None else max(seq, 2 * table.shape[0])
+        table = _SINUSOIDAL_ON[key] = sinusoidal_positions(
+            n, d_model).to(device)
+    return table[:seq]
 
 
 # ----------------------------------------------------------------- attention
@@ -205,20 +244,31 @@ def attention(q, k, v, *, q_positions, k_positions, causal=True,
     return torch.cat(outs, dim=1)
 
 
+def q_projection(p, x, cfg, dtype=torch.bfloat16):
+    """q (B,S,H,dh) of an attention sub-block before any rotary embedding:
+    the projection, its bias and qk-norm (cross-attention's whole query)."""
+    B, S, D = x.shape
+    H, hd = cfg.num_heads, cfg.head_dim
+    xq = (x @ p["wq"].to(dtype).reshape(D, H * hd)).view(B, S, H, hd)
+    if "bq" in p:
+        xq = xq + p["bq"].to(dtype)
+    if cfg.qk_norm:
+        xq = rms_head_norm(p["q_norm"], xq)
+    return xq
+
+
 def qkv_projection(p, x, cfg, positions, dtype=torch.bfloat16):
     """q (B,S,H,dh), k and v (B,S,KV,dh) of an attention sub-block: the
     projections, biases, qk-norm and rotary embedding."""
     B, S, D = x.shape
-    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    xq = (x @ p["wq"].to(dtype).reshape(D, H * hd)).view(B, S, H, hd)
+    KV, hd = cfg.num_kv_heads, cfg.head_dim
+    xq = q_projection(p, x, cfg, dtype)
     xk = (x @ p["wk"].to(dtype).reshape(D, KV * hd)).view(B, S, KV, hd)
     xv = (x @ p["wv"].to(dtype).reshape(D, KV * hd)).view(B, S, KV, hd)
-    if "bq" in p:
-        xq = xq + p["bq"].to(dtype)
+    if "bk" in p:
         xk = xk + p["bk"].to(dtype)
         xv = xv + p["bv"].to(dtype)
     if cfg.qk_norm:
-        xq = rms_head_norm(p["q_norm"], xq)
         xk = rms_head_norm(p["k_norm"], xk)
     if cfg.rope_theta:
         xq = apply_rope(xq, positions, cfg.rope_theta)
@@ -227,9 +277,10 @@ def qkv_projection(p, x, cfg, positions, dtype=torch.bfloat16):
 
 
 def attention_block(p, x, cfg, positions, *, kv_cache=None, cache_len=None,
-                    dtype=torch.bfloat16, flash=False):
-    """Causal self-attention sub-block: qkv proj -> rope -> (cache) ->
-    attention -> out proj.
+                    cross_kv=None, causal=True, dtype=torch.bfloat16,
+                    flash=False):
+    """Attention sub-block: qkv proj -> rope -> (cache) -> attention -> out
+    proj; causal self-attention unless told otherwise.
 
     kv_cache: optional dict {"k","v"} (B, Smax, KV, dh), written IN PLACE
     at ``cache_len`` (a Python int; the reference returns a new cache, the
@@ -239,12 +290,34 @@ def attention_block(p, x, cfg, positions, *, kv_cache=None, cache_len=None,
     are read from ``kpos`` (empty slots hold -2**30, outside every
     window).  A ring takes S == 1 only: the reference's
     ``dynamic_update_slice`` would clamp a longer write's slot.
+    cross_kv: precomputed (k, v), (B, Se, KV, dh) with their biases
+    (cross-attention): only q is projected (no rotary), no cache is
+    written, and every one of the Se keys is attended (non-causal).
+    causal=False without ``cross_kv``: bidirectional self-attention (the
+    encoder's).
     ``flash=True`` routes the attention to the flash kernel; the caller
     sets it only where positions are ``arange`` from 0 and the cache is
     written from slot 0 (prefill).
     """
     B, S, D = x.shape
     H, hd = cfg.num_heads, cfg.head_dim
+    if cross_kv is not None:
+        xq = q_projection(p, x, cfg, dtype)
+        xk, xv = cross_kv
+        if flash:
+            # non-causal: the kernel's left-aligned query positions mask
+            # nothing, so Sq < Se attends every key
+            out = flash_attention(xq, xk, xv, causal=False,
+                                  window=cfg.swa_window)
+        else:
+            Se = xk.shape[1]
+            out = attention(xq, xk, xv, q_positions=positions,
+                            k_positions=torch.arange(
+                                Se, device=x.device).expand(B, Se),
+                            causal=False, window=cfg.swa_window,
+                            impl=cfg.attn_impl, chunk=cfg.attn_chunk,
+                            dtype=dtype)
+        return out.reshape(B, S, H * hd) @ p["wo"].to(dtype).reshape(H * hd, D)
     ring = kv_cache is not None and "kpos" in kv_cache
     if ring and (S != 1 or flash):
         raise ValueError(f"the SWA ring cache takes one token a call "
@@ -266,7 +339,7 @@ def attention_block(p, x, cfg, positions, *, kv_cache=None, cache_len=None,
         # q and k positions are both 0..S-1: the kernel's left-aligned
         # contract; the cache slots past S would be masked by causality, so
         # the fresh keys and values are all it needs
-        out = flash_attention(xq, xk, xv, causal=True, window=cfg.swa_window)
+        out = flash_attention(xq, xk, xv, causal=causal, window=cfg.swa_window)
     else:
         if ring:
             k_positions = kv_cache["kpos"].expand(B, Smax)
@@ -281,7 +354,7 @@ def attention_block(p, x, cfg, positions, *, kv_cache=None, cache_len=None,
         else:
             k_positions = positions
         out = attention(xq, xk, xv, q_positions=positions,
-                        k_positions=k_positions, causal=True,
+                        k_positions=k_positions, causal=causal,
                         window=cfg.swa_window, impl=cfg.attn_impl,
                         chunk=cfg.attn_chunk, dtype=dtype)
     return out.reshape(B, S, H * hd) @ p["wo"].to(dtype).reshape(H * hd, D)

@@ -1,22 +1,34 @@
-"""Model facade of the dense and MoE families: build_model(cfg) -> init /
-loss_fn / prefill / decode_step.
+"""Model facade of the dense, MoE and encoder-decoder families:
+build_model(cfg) -> init / loss_fn / prefill / decode_step.
 
-The port of ``repro/models/model.py`` for ``family == "dense"`` and for
-``family == "moe"`` (mixtral-8x22b, and deepseek-v2-236b with MLA).  Batch
-formats as in the reference:
+The port of ``repro/models/model.py`` for ``family == "dense"``, for
+``family == "moe"`` (mixtral-8x22b, and deepseek-v2-236b with MLA) and for
+``family == "encdec"`` (whisper-medium).  Batch formats as in the
+reference:
   train   : {"tokens": (B, S) int, "labels": (B, S) int}
+            (+ "frames" (B, Se, D) for encdec)
   prefill : {"tokens": (B, S) int, "cache_seq": int (default S)}
+            (+ "frames" for encdec)
   decode  : {"token": (B, 1) int, "pos": int,
-             "cache": {"k", "v"[, "kpos"]} or MLA's {"c_kv", "k_rope"}}
+             "cache": {"k", "v"[, "kpos"]} or MLA's {"c_kv", "k_rope"},
+             or encdec's {"self": {"k", "v"}, "cross": (k, v)}}
 ``pos`` is a Python int here (the reference's is a traced scalar), so
 that a decode step needs no read from the device.  Caches are updated in
 place and returned; ``init_cache(..., ring=True)`` gives the SWA ring
-buffer.
+buffer.  The encoder-decoder runs a stub front end, as the reference does:
+``frames`` are precomputed frame embeddings (B, encoder_seq, d_model).
+Its encoder adds sinusoidal positions and runs a bidirectional stack; its
+decoder adds sinusoidal positions to the token embeddings; prefill
+projects the encoder's output to every decoder layer's cross (k, v), the
+cache's ``cross``, which decode reads.
 
 Parameters are a dict: ``embed`` (V, D), ``final_norm``, ``lm_head`` (D, V)
 unless the embeddings are tied, and ``stack``, a list of per-layer dicts
 (``transformer.init_layer``; an MoE layer holds ``moe`` in place of
-``mlp``; an MLA layer's ``attn`` holds ``layers.init_mla``'s leaves).
+``mlp``; an MLA layer's ``attn`` holds ``layers.init_mla``'s leaves; an
+encoder-decoder's decoder layer adds ``ln_x`` and ``xattn``); the
+encoder-decoder adds ``enc`` (a list of ``encoder_layers`` dicts) and
+``enc_norm``.
 Vectors and the MoE router live in float32; matrices in the compute dtype
 for serving, or as float32 masters cast at every product for training
 (``init(master=True)``), as the reference keeps them.  The other families
@@ -93,7 +105,12 @@ class Model:
             params["lm_head"] = torch.randn(
                 (D, V), generator=gen, dtype=dt, device=dev).mul_(
                     0.02 / math.sqrt(D))
-        params["stack"] = TR.init_dense_stack(gen, cfg, dt, dev)
+        if cfg.family == "encdec":
+            params["enc"] = TR.init_dense_stack(gen, cfg, dt, dev,
+                                                n_layers=cfg.encoder_layers)
+            params["enc_norm"] = LL.init_norm(cfg, dev)
+        params["stack"] = TR.init_dense_stack(
+            gen, cfg, dt, dev, cross=cfg.family == "encdec")
         return params
 
     @staticmethod
@@ -121,18 +138,66 @@ class Model:
         head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
         return x @ head.to(compute_dtype(cfg))
 
+    @staticmethod
+    def _positions_added(x):
+        """x (B, S, D) plus the sinusoidal rows 0..S-1 (the
+        encoder-decoder's absolute positions), in x's dtype."""
+        return x + LL.sinusoidal_on(x.shape[1], x.shape[2],
+                                    x.device).to(x.dtype)
+
+    def _encode(self, params, frames, flash: bool = False):
+        """The encoder over precomputed frame embeddings (the stub front
+        end): sinusoidal positions, a bidirectional stack, ``enc_norm``.
+        ``flash=True`` routes its attention to the flash kernel,
+        non-causal (one launch a layer on a CUDA tensor)."""
+        cfg = self.cfg
+        B, Se, _ = frames.shape
+        x = self._positions_added(frames.to(compute_dtype(cfg)))
+        pos = torch.arange(Se, dtype=torch.int32,
+                           device=x.device).expand(B, Se)
+        x, _, _ = TR.apply_dense_stack(params["enc"], x, cfg, pos,
+                                       causal=False, flash=flash)
+        return LL.apply_norm(params["enc_norm"], x, cfg.norm)
+
+    def _cross_kv(self, params, enc_out):
+        """Every decoder layer's cross-attention (k, v) of the encoder's
+        output, biases added: a pair of (L, B, Se, KV, dh) tensors, the
+        reference's layout."""
+        cfg, dt = self.cfg, compute_dtype(self.cfg)
+        B, Se, D = enc_out.shape
+        KV, hd = cfg.num_kv_heads, cfg.head_dim
+        # each layer's projection is written into its slice: the pair is
+        # never held twice (1.18 GB at whisper-medium's B = 8)
+        shape = (len(params["stack"]), B, Se, KV, hd)
+        k = torch.empty(shape, dtype=dt, device=enc_out.device)
+        v = torch.empty(shape, dtype=dt, device=enc_out.device)
+        for l, p in enumerate(params["stack"]):
+            p = p["xattn"]
+            for out, w, b in ((k, "wk", "bk"), (v, "wv", "bv")):
+                t = (enc_out @ p[w].to(dt).reshape(D, KV * hd)).view(
+                    B, Se, KV, hd)
+                out[l] = t + p[b].to(dt) if b in p else t
+        return k, v
+
     # ------------------------------------------------------------- train
     def loss_fn(self, params, batch):
         """Mean next-token cross-entropy over labels >= 0, in float32, plus
         ``0.01 * aux / num_layers`` for the MoE family (aux the layers'
-        load-balancing losses): (loss, {"loss", "tokens"})."""
+        load-balancing losses): (loss, {"loss", "tokens"}).  The
+        encoder-decoder's batch carries ``frames``."""
         cfg = self.cfg
         tokens, labels = batch["tokens"], batch["labels"]
         B, S = tokens.shape
         x = self._embed(params, tokens)
         positions = torch.arange(S, dtype=torch.int32,
                                  device=x.device).expand(B, S)
-        x, _, aux = TR.apply_dense_stack(params["stack"], x, cfg, positions)
+        cross_kv = None
+        if cfg.family == "encdec":
+            cross_kv = self._cross_kv(params, self._encode(params,
+                                                           batch["frames"]))
+            x = self._positions_added(x)
+        x, _, aux = TR.apply_dense_stack(params["stack"], x, cfg, positions,
+                                         cross_kv=cross_kv)
         logits = self._logits(params, x).float()
         mask = (labels >= 0).float()
         logz = torch.logsumexp(logits, dim=-1)
@@ -152,10 +217,15 @@ class Model:
         ``ring=True`` adds ``kpos`` (L, cache_seq) int32, filled with
         -2**30: the SWA ring buffer, whose slots ``decode_step`` reuses
         (slot ``pos % cache_seq``).  An MLA cache has no ring, as in the
-        reference: there ``ring`` adds nothing."""
+        reference: there ``ring`` adds nothing.  The encoder-decoder's is
+        {"self": {"k", "v"}, "cross": None}, ``cross`` filled by prefill
+        (or by ``launch.serve._init_cache``); it takes no ring either, as
+        in the reference."""
         dev = torch.device(self.device)
         c = TR.init_kv_caches(self.cfg, batch, cache_seq, dev,
                               dtype=compute_dtype(self.cfg))
+        if self.cfg.family == "encdec":
+            return {"self": c, "cross": None}
         if ring and not self.cfg.mla:
             c["kpos"] = torch.full((self.cfg.num_layers, cache_seq), -(2**30),
                                    dtype=torch.int32, device=dev)
@@ -164,15 +234,25 @@ class Model:
     def decode_step(self, params, batch):
         """One token against a populated cache, full or ring: (logits
         (B, V), cache).  Attention stays on the plain route (one query
-        against the cache)."""
+        against the cache).  The encoder-decoder adds the sinusoidal row
+        at ``pos`` of a table of the self cache's length, writes the self
+        cache and reads ``cache["cross"]``."""
         cfg = self.cfg
         token, pos, cache = batch["token"], int(batch["pos"]), batch["cache"]
         B = token.shape[0]
         x = self._embed(params, token)
         positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
-        x, cache, _ = TR.apply_dense_stack(params["stack"], x, cfg,
-                                           positions, caches=cache,
-                                           cache_len=pos)
+        if cfg.family == "encdec":
+            table = LL.sinusoidal_on(cache["self"]["k"].shape[2],
+                                     cfg.d_model, x.device)
+            x = x + table[pos:pos + 1].to(x.dtype)
+            x, _, _ = TR.apply_dense_stack(
+                params["stack"], x, cfg, positions, caches=cache["self"],
+                cache_len=pos, cross_kv=cache["cross"])
+        else:
+            x, cache, _ = TR.apply_dense_stack(params["stack"], x, cfg,
+                                               positions, caches=cache,
+                                               cache_len=pos)
         logits = self._logits(params, x)
         if cfg.padded_vocab != cfg.vocab_size:
             # never sample a padding row
@@ -184,7 +264,11 @@ class Model:
         cache).  ``flash=True`` routes every layer's attention to the flash
         kernel (one launch per layer on a CUDA tensor; its plain version
         on the CPU); ``flash=False`` takes the reference's
-        ``cfg.attn_impl`` route."""
+        ``cfg.attn_impl`` route.  The encoder-decoder runs the encoder on
+        ``batch["frames"]`` and projects its cross (k, v) first; with
+        ``flash=True`` its encoder layers, decoder self-attention and
+        cross-attention each launch the kernel (Le + 2 Ld launches).  Its
+        cache is {"self": {"k", "v"}, "cross": (k, v)}."""
         tokens = batch["tokens"]
         B, S = tokens.shape
         cache_seq = batch.get("cache_seq", S)
@@ -192,22 +276,33 @@ class Model:
         positions = torch.arange(S, dtype=torch.int32,
                                  device=x.device).expand(B, S)
         caches = self.init_cache(B, cache_seq)
-        x, cache, _ = TR.apply_dense_stack(params["stack"], x, self.cfg,
-                                           positions, caches=caches,
-                                           cache_len=0, flash=flash)
+        if self.cfg.family == "encdec":
+            cross = self._cross_kv(params, self._encode(
+                params, batch["frames"], flash=flash))
+            x, _, _ = TR.apply_dense_stack(
+                params["stack"], self._positions_added(x), self.cfg,
+                positions, caches=caches["self"], cache_len=0,
+                cross_kv=cross, flash=flash)
+            caches["cross"] = cross
+            cache = caches
+        else:
+            x, cache, _ = TR.apply_dense_stack(params["stack"], x, self.cfg,
+                                               positions, caches=caches,
+                                               cache_len=0, flash=flash)
         logits = self._logits(params, x[:, -1:])
         return logits[:, 0], cache
 
 
 def build_model(cfg: ModelConfig, device="cuda") -> Model:
-    """The model of a dense or MoE (GQA or MLA) configuration on ``device``
-    (default: the card).  The other families raise: their blocks are not
-    ported yet."""
-    if cfg.family not in ("dense", "moe"):
+    """The model of a dense, MoE (GQA or MLA) or encoder-decoder
+    configuration on ``device`` (default: the card).  The other families
+    raise: their blocks are not ported yet."""
+    if cfg.family not in ("dense", "moe", "encdec"):
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet; the port "
-            "builds the dense family and the MoE family (ROADMAP.md Queue "
-            "1, the other model families, lists the rest in order)")
+            "builds the dense, MoE and encoder-decoder families (ROADMAP.md "
+            "Queue 1, the other model families, lists the rest in order "
+            "from item 6.4)")
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(

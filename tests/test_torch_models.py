@@ -41,8 +41,8 @@ def _close(got, want, tol=TOL):
 
 
 def test_port_registry_holds_the_dense_configs_field_for_field():
-    assert list_configs() == sorted(ARCHS)
-    for name in ARCHS:
+    assert list_configs() == sorted(ARCHS + ["whisper-medium"])
+    for name in ARCHS + ["whisper-medium"]:
         assert dataclasses.asdict(get_config(name)) == \
             dataclasses.asdict(jax_config(name))
         assert dataclasses.asdict(get_config(name).reduced()) == \
@@ -50,10 +50,10 @@ def test_port_registry_holds_the_dense_configs_field_for_field():
     assert get_config("qwen3-14b").padded_vocab == 152064
 
 
-@pytest.mark.parametrize("arch", ["whisper-medium", "internvl2-76b",
-                                  "xlstm-350m", "zamba2-2.7b"])
+@pytest.mark.parametrize("arch", ["internvl2-76b", "xlstm-350m",
+                                  "zamba2-2.7b"])
 def test_build_model_refuses_other_families(arch):
-    """The encdec, vlm, xlstm and hybrid families are not ported: their
+    """The vlm, xlstm and hybrid families are not ported: their
     configurations, made from the JAX package's fields, are refused on
     both devices."""
     cfg = ModelConfig(**dataclasses.asdict(jax_config(arch)))
