@@ -1,11 +1,10 @@
 """Architecture registry of the port: the dense configurations,
-mixtral-8x22b and deepseek-v2-236b (the MoE family, the latter with MLA)
-and whisper-medium (the encoder-decoder family).
+mixtral-8x22b and deepseek-v2-236b (the MoE family, the latter with MLA),
+whisper-medium (the encoder-decoder family), internvl2-76b (the VLM),
+xlstm-350m (xLSTM) and zamba2-2.7b (the Mamba2 hybrid).
 
-The port's own copy of ``repro.configs`` for the families it builds (the
-port imports nothing of ``repro``).  The other families' configurations
-come with the slices that port their blocks (``ROADMAP.md`` Queue 1, the
-other model families).
+The port's own copy of ``repro.configs``' model configurations (the port
+imports nothing of ``repro``).
 """
 from .base import REGISTRY, ModelConfig, get_config, list_configs, register  # noqa: F401
 
@@ -21,8 +20,11 @@ def _load_all():
         codeqwen15_7b,
         command_r_35b,
         deepseek_v2_236b,
+        internvl2_76b,
         mixtral_8x22b,
         nemotron_4_340b,
         qwen3_14b,
         whisper_medium,
+        xlstm_350m,
+        zamba2_2p7b,
     )

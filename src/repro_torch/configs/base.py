@@ -3,9 +3,8 @@ architecture.
 
 Every field that differs across the pool is explicit; families select which
 block stack ``build_model`` emits (see models/model.py).  The port builds
-the dense family, the MoE family (with MLA) and the encoder-decoder
-family so far; the other fields
-are kept so that a configuration reads the same in both packages.
+every family; the distribution fields (``fsdp``, ``scan_layers``) are kept
+so that a configuration reads the same in both packages.
 """
 from __future__ import annotations
 

@@ -35,15 +35,19 @@ __all__ = ["graph_from_numpy", "result_from_numpy", "sketch_from_numpy",
 PS_STATE_KEYS = ("w", "pull_cache", "ef", "hist", "keys_sent", "inner_bytes",
                  "inter_bytes", "per_machine", "rng_state")
 
-# the weight matrices of the dense, MoE and encoder-decoder families (an
-# MoE layer's experts and shared experts are wg, wu, wd too; MLA's
-# projections are wq_a, wq_b, wkv_a, wk_b, wv_b and wo; cross-attention's
-# ``xattn`` holds wq, wk, wv, wo): stored in the compute dtype; every other
-# leaf (norm scales, MLA's q_a_norm and kv_a_norm and the encoder's
-# enc_norm among them, biases, the MoE router) stays float32, cast where
-# used
+# the weight matrices every family uses in the compute dtype (an MoE
+# layer's experts and shared experts are wg, wu, wd too; MLA's projections
+# are wq_a, wq_b, wkv_a, wk_b, wv_b and wo; cross-attention's ``xattn``
+# holds wq, wk, wv, wo; an mLSTM cell's wq, wk, wv, wz, wo and an sLSTM
+# cell's wo; a Mamba2 cell's wz, wx, wB, wC, wo and its conv weights):
+# stored in the compute dtype; every other leaf stays float32, cast where
+# used: norm scales (MLA's q_a_norm and kv_a_norm, the encoder's enc_norm,
+# the recurrent cells' out_norm), biases, the MoE router, the mLSTM's
+# gates w_i and w_f, the sLSTM's input projections w_{i,f,z,o} and
+# recurrent r_*, and the Mamba2's w_dt, dt_bias, A_log and D_skip
 _MATRICES = frozenset({"embed", "lm_head", "wq", "wk", "wv", "wo", "wg", "wu",
-                       "wd", "wi", "wq_a", "wq_b", "wkv_a", "wk_b", "wv_b"})
+                       "wd", "wi", "wq_a", "wq_b", "wkv_a", "wk_b", "wv_b",
+                       "wz", "wx", "wB", "wC", "conv_x", "conv_B", "conv_C"})
 
 
 def graph_from_numpy(num_u: int, num_v: int, u_indptr, u_indices
@@ -118,7 +122,11 @@ def model_params_from_numpy(cfg, params, *, device="cuda",
     stack's leaves stacked on a leading layer axis (L, ...).  Returns the
     stack (and ``enc``, of ``encoder_layers``) as a list of per-layer
     dicts (an MoE layer's ``moe`` {router, wg, wu, wd[, shared]} carried
-    across whole).
+    across whole).  The recurrent families' stacks are stacked by group:
+    xLSTM's {"mlstm": (G, n_m, ...), "slstm": (G, ...)} becomes {"mlstm":
+    G lists of n_m block dicts, "slstm": G block dicts}, the hybrid's
+    {"mamba": (G, n_m, ...), "shared_attn": one layer} becomes {"mamba": G
+    lists of n_m block dicts, "shared_attn": the layer's dict}.
 
     Serving: weight matrices are stored in the config's compute dtype on
     ``device``; the reference keeps float32 masters and casts them to the
@@ -134,12 +142,8 @@ def model_params_from_numpy(cfg, params, *, device="cuda",
 def _stack_tree(cfg, params, device, dtype_of) -> dict:
     """A reference parameter-shaped numpy tree as the port's: the stacked
     ``stack`` leaves (and the encoder-decoder's ``enc``) split into lists
-    of per-layer dicts, each leaf a tensor of ``dtype_of(leaf name)`` on
-    ``device``."""
-    if cfg.family not in ("dense", "moe", "encdec"):
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet")
-
+    of per-layer dicts (of per-group lists for the recurrent families),
+    each leaf a tensor of ``dtype_of(leaf name)`` on ``device``."""
     def leaf(name, a):
         t = torch.from_numpy(np.array(a, dtype=np.float32))
         return t.to(device=device, dtype=dtype_of(name))
@@ -149,6 +153,16 @@ def _stack_tree(cfg, params, device, dtype_of) -> dict:
                 else leaf(name, a if index is None else np.asarray(a)[index])
                 for name, a in p.items()}
 
+    def lead(p, want, name):
+        """``p``'s blocks (the leading axes of its first norm scale),
+        checked against the config's ``want``."""
+        got = np.asarray(p["ln"]["scale"] if "ln" in p
+                         else p["ln1"]["scale"]).shape[:len(want)]
+        if got != want:
+            raise ValueError(f"{got} blocks in the tree's {name!r}, the "
+                             f"config has {want}")
+        return want
+
     stacked = {"stack": cfg.num_layers}
     if cfg.family == "encdec":
         stacked["enc"] = cfg.encoder_layers
@@ -156,12 +170,22 @@ def _stack_tree(cfg, params, device, dtype_of) -> dict:
     for name, p in params.items():
         if name not in stacked:
             out[name] = tree(p) if isinstance(p, dict) else leaf(name, p)
-            continue
-        L = len(np.asarray(p["ln1"]["scale"]))
-        if L != stacked[name]:
-            raise ValueError(f"{L} layers in the tree's {name!r}, the "
-                             f"config has {stacked[name]}")
-        out[name] = [tree(p, l) for l in range(L)]
+        elif cfg.family in ("xlstm", "hybrid"):
+            group = (cfg.xlstm_group if cfg.family == "xlstm"
+                     else cfg.hybrid_group)
+            G, n_m = cfg.num_layers // group, group - 1
+            cell = "mlstm" if cfg.family == "xlstm" else "mamba"
+            lead(p[cell], (G, n_m), f"{name}::{cell}")
+            out[name] = {cell: [[tree(p[cell], (g, i)) for i in range(n_m)]
+                                for g in range(G)]}
+            if cfg.family == "xlstm":
+                lead(p["slstm"], (G,), f"{name}::slstm")
+                out[name]["slstm"] = [tree(p["slstm"], g) for g in range(G)]
+            else:
+                out[name]["shared_attn"] = tree(p["shared_attn"])
+        else:
+            (L,) = lead(p, (stacked[name],), name)
+            out[name] = [tree(p, l) for l in range(L)]
     return out
 
 

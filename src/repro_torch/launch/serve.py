@@ -1,8 +1,10 @@
 """Serving entry point: batched greedy decoding with a persistent KV cache.
 
-The port of ``repro/launch/serve.py`` for the dense, MoE and
-encoder-decoder families (GQA with a full or SWA ring cache, MLA with its
-latent cache, and whisper's self cache beside its cross cache).
+The port of ``repro/launch/serve.py`` for every family (GQA with a full
+or SWA ring cache, MLA with its latent cache, whisper's self cache beside
+its cross cache, the VLM's text cache, and the recurrent states of xLSTM
+and of the Mamba2 hybrid, whose shared attention keeps a KV cache a
+group).
 Decoding runs through the serving engine: each token step is one engine
 request, prompt tokens are staged ahead as ``ReadyHandle`` payloads, and
 the engine's latency recorder supplies the tokens/s accounting.
@@ -10,7 +12,8 @@ the engine's latency recorder supplies the tokens/s accounting.
 oracle (the engine's tokens are bit-identical to it).  As in the
 reference, the loop warms the cache by stepping ``decode_step`` over the
 prompt; ``launch.steps.make_prefill_step`` is the one-pass prefill (the
-flash kernel's path).
+flash kernel's path; the recurrent families have none, and the loop is
+how their states are warmed).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-14b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-14b \\
@@ -22,12 +25,18 @@ flash kernel's path).
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch deepseek-v2-236b --layers 6
     PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-medium
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-350m
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch internvl2-76b --layers 24
 
 It runs on the card unless ``--device cpu`` is given; the weights are
 random (``Model.init(0)``).  The full mixtral-8x22b (281 GB of bf16
-weights) and deepseek-v2-236b (479 GB) fit no card: ``--layers N`` cuts a
-configuration to N layers at full width (``--arch deepseek-v2-236b
---layers 6``: 49.8 GB).  As in the reference, the loop decodes the
+weights), deepseek-v2-236b (479 GB) and internvl2-76b (141 GB) fit no
+card: ``--layers N`` cuts a configuration to N layers at full width
+(``--arch deepseek-v2-236b --layers 6``: 49.8 GB; ``--arch internvl2-76b
+--layers 24``: 45.3 GB).  The VLM is served on text, as in the
+reference (no patches).  As in the reference, the loop decodes the
 encoder-decoder without frames: ``_init_cache`` gives it a zero cross
 cache of ``encoder_seq`` slots (a prefill with frames fills a real one).
 """
@@ -148,8 +157,9 @@ def decode_loop_engine(model, serve_step, params, prompt, gen: int,
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description="greedy decode through the "
-                                 "serving engine (dense, MoE and "
-                                 "encoder-decoder families)")
+                                 "serving engine (every family: dense, "
+                                 "MoE, encoder-decoder, VLM, xLSTM, "
+                                 "hybrid)")
     ap.add_argument("--arch", required=True)
     ap.add_argument("--reduce", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
@@ -157,7 +167,8 @@ def main(argv=None):
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--layers", type=int, default=None,
-                    help="cut the configuration to its first N layers")
+                    help="cut the configuration to its first N layers "
+                    "(a recurrent family's, to a multiple of its group)")
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)

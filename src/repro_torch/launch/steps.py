@@ -127,13 +127,18 @@ def make_prefill_step(cfg: ModelConfig, device="cuda", *, flash: bool = True):
     ``flash`` routes every layer's attention to the flash kernel (see
     ``Model.prefill``).  The batch's arrays (``tokens``, and the
     encoder-decoder's ``frames``) are moved to the model's device;
-    ``cache_seq`` stays an int."""
+    ``cache_seq`` stays an int.  The recurrent families (xlstm, hybrid)
+    run the parallel forward pass and return its loss (their batch
+    carries ``labels``), as the reference does: their states are warmed
+    by the serving loop."""
     model = build_model(cfg, device)
 
     @torch.no_grad()
     def prefill_step(params, batch):
         arrays = _on({k: v for k, v in batch.items() if k != "cache_seq"},
                      model.device)
+        if cfg.family in ("xlstm", "hybrid"):
+            return model.loss_fn(params, arrays)[1]["loss"]
         return model.prefill(params, dict(batch, **arrays), flash=flash)
 
     return model, prefill_step

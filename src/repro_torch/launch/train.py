@@ -1,13 +1,20 @@
 """End-to-end training driver.
 
-The port of ``repro/launch/train.py`` for the dense and MoE families, on
-one card: config registry -> model -> AdamW -> synthetic data, staged
-ahead on the device -> TrainLoop (checkpoint/restart, failure
-injection).  The flags are the reference's, with the same meanings
-(``--width`` and ``--layers`` act only under ``--reduce``).
+The port of ``repro/launch/train.py`` on one card, for every family:
+config registry -> model -> AdamW -> synthetic data, staged ahead on the
+device -> TrainLoop (checkpoint/restart, failure injection).  The flags
+are the reference's, with the same meanings (``--width`` and ``--layers``
+act only under ``--reduce``).  As in the reference, the VLM's batches
+carry zero ``patches`` (the stub front end's input).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-14b \\
         --reduce --steps 50 --batch 8 --seq 128
+    PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm-350m \\
+        --steps 4 --batch 8 --seq 1024
+    PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-2.7b \\
+        --reduce --steps 50
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch internvl2-76b --reduce --steps 50
 
 It runs on the card; ``main(argv, device="cpu")`` runs the plain PyTorch
 path on the CPU (MoE training, ``--arch mixtral-8x22b --reduce``, has been
@@ -20,6 +27,8 @@ import functools
 import os
 import tempfile
 import time
+
+import numpy as np
 
 from ..configs import get_config
 from ..data import SyntheticLMData
@@ -74,7 +83,11 @@ def main(argv=None, *, device="cuda"):
 
     def host_batches():
         for t in range(start, args.steps):
-            yield data.batch_at(t)
+            b = data.batch_at(t)
+            if cfg.family == "vlm":
+                b["patches"] = np.zeros(
+                    (args.batch, cfg.num_patches, cfg.d_model), np.float32)
+            yield b
 
     def batches():
         # double-buffered staging: batch t+1's host-to-device copy is in

@@ -115,6 +115,31 @@ def rms_head_norm(scale, x, eps: float = 1e-6):
     return (xf * torch.rsqrt(var + eps) * scale).to(x.dtype)
 
 
+class _StepwiseSilu(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return x * (1 + torch.exp(-x)).reciprocal()
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        xf = x.float()
+        s = torch.sigmoid(xf)
+        return (g.float() * s * (1 + xf * (1 - s))).to(g.dtype)
+
+
+def silu_stepwise(x):
+    """silu(x) = x * sigmoid(x) with the sigmoid as the reference computes
+    it: ``jax.nn.sigmoid`` is ``lax.logistic``, which XLA expands to
+    1 / (1 + exp(-x)) with each operation rounded to x.dtype.  In bfloat16
+    ``F.silu`` (one rounding) parts from it by an ulp in about 40% of
+    entries, which the recurrent blocks' per-head RMS norms amplify; the
+    recurrent families use this form.  The backward is silu's derivative
+    in float32 (the chain's own would give 0 * inf where exp overflows)."""
+    return _StepwiseSilu.apply(x)
+
+
 # --------------------------------------------------------------------- rope
 def rope_freqs(head_dim: int, theta: float):
     return 1.0 / (theta ** (np.arange(0, head_dim, 2) / head_dim))

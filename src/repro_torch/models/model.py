@@ -1,17 +1,19 @@
-"""Model facade of the dense, MoE and encoder-decoder families:
-build_model(cfg) -> init / loss_fn / prefill / decode_step.
+"""Model facade of every family: build_model(cfg) -> init / loss_fn /
+prefill / decode_step.
 
-The port of ``repro/models/model.py`` for ``family == "dense"``, for
-``family == "moe"`` (mixtral-8x22b, and deepseek-v2-236b with MLA) and for
-``family == "encdec"`` (whisper-medium).  Batch formats as in the
-reference:
+The port of ``repro/models/model.py``: ``family == "dense"``, ``"moe"``
+(mixtral-8x22b, and deepseek-v2-236b with MLA), ``"encdec"``
+(whisper-medium), ``"vlm"`` (internvl2-76b), ``"xlstm"`` (xlstm-350m) and
+``"hybrid"`` (zamba2-2.7b).  Batch formats as in the reference:
   train   : {"tokens": (B, S) int, "labels": (B, S) int}
-            (+ "frames" (B, Se, D) for encdec)
+            (+ "frames" (B, Se, D) for encdec, "patches" (B, P, D) for vlm)
   prefill : {"tokens": (B, S) int, "cache_seq": int (default S)}
             (+ "frames" for encdec)
   decode  : {"token": (B, 1) int, "pos": int,
              "cache": {"k", "v"[, "kpos"]} or MLA's {"c_kv", "k_rope"},
-             or encdec's {"self": {"k", "v"}, "cross": (k, v)}}
+             or encdec's {"self": {"k", "v"}, "cross": (k, v)}, or the
+             recurrent families' states (``transformer.init_xlstm_states``,
+             ``init_hybrid_states``)}
 ``pos`` is a Python int here (the reference's is a traced scalar), so
 that a decode step needs no read from the device.  Caches are updated in
 place and returned; ``init_cache(..., ring=True)`` gives the SWA ring
@@ -21,6 +23,14 @@ Its encoder adds sinusoidal positions and runs a bidirectional stack; its
 decoder adds sinusoidal positions to the token embeddings; prefill
 projects the encoder's output to every decoder layer's cross (k, v), the
 cache's ``cross``, which decode reads.
+The VLM is the dense stack; its loss puts the stub front end's
+``patches`` ahead of the token embeddings (positions 0..P+S-1, the patch
+positions unlabelled).  Its prefill and decode read no patches: the
+reference's never do (its module docstring says they are folded into the
+cache at prefill time; its code does not), and the port computes what the
+code computes.  The recurrent families (xlstm, hybrid) have no prefill:
+``prefill`` raises, as the reference's does, and the serving loop warms
+their states by stepping ``decode_step`` over the prompt.
 
 Parameters are a dict: ``embed`` (V, D), ``final_norm``, ``lm_head`` (D, V)
 unless the embeddings are tied, and ``stack``, a list of per-layer dicts
@@ -28,11 +38,12 @@ unless the embeddings are tied, and ``stack``, a list of per-layer dicts
 ``mlp``; an MLA layer's ``attn`` holds ``layers.init_mla``'s leaves; an
 encoder-decoder's decoder layer adds ``ln_x`` and ``xattn``); the
 encoder-decoder adds ``enc`` (a list of ``encoder_layers`` dicts) and
-``enc_norm``.
-Vectors and the MoE router live in float32; matrices in the compute dtype
-for serving, or as float32 masters cast at every product for training
-(``init(master=True)``), as the reference keeps them.  The other families
-come with their slices (``ROADMAP.md`` Queue 1, the other model families).
+``enc_norm``; the recurrent families' ``stack`` is a dict of lists
+(``transformer``'s docstring).
+Vectors, the MoE router and the recurrent cells' gate projections live in
+float32; matrices in the compute dtype for serving, or as float32 masters
+cast at every product for training (``init(master=True)``), as the
+reference keeps them.
 """
 from __future__ import annotations
 
@@ -105,12 +116,18 @@ class Model:
             params["lm_head"] = torch.randn(
                 (D, V), generator=gen, dtype=dt, device=dev).mul_(
                     0.02 / math.sqrt(D))
-        if cfg.family == "encdec":
+        fam = cfg.family
+        if fam == "encdec":
             params["enc"] = TR.init_dense_stack(gen, cfg, dt, dev,
                                                 n_layers=cfg.encoder_layers)
             params["enc_norm"] = LL.init_norm(cfg, dev)
-        params["stack"] = TR.init_dense_stack(
-            gen, cfg, dt, dev, cross=cfg.family == "encdec")
+        if fam == "xlstm":
+            params["stack"] = TR.init_xlstm_stack(gen, cfg, dt, dev)
+        elif fam == "hybrid":
+            params["stack"] = TR.init_hybrid_stack(gen, cfg, dt, dev)
+        else:
+            params["stack"] = TR.init_dense_stack(gen, cfg, dt, dev,
+                                                  cross=fam == "encdec")
         return params
 
     @staticmethod
@@ -179,12 +196,33 @@ class Model:
                 out[l] = t + p[b].to(dt) if b in p else t
         return k, v
 
+    def _backbone(self, params, x, positions, *, caches=None,
+                  cache_len=None, cross_kv=None):
+        """The family's stack: (x, caches or states, aux), aux the MoE
+        layers' auxiliary loss summed in float32 (zero for the recurrent
+        families)."""
+        cfg = self.cfg
+        if cfg.family == "xlstm":
+            x, st = TR.apply_xlstm_stack(params["stack"], x, cfg,
+                                         states=caches)
+        elif cfg.family == "hybrid":
+            x, st = TR.apply_hybrid_stack(params["stack"], x, cfg,
+                                          positions, states=caches,
+                                          cache_len=cache_len)
+        else:
+            return TR.apply_dense_stack(params["stack"], x, cfg, positions,
+                                        caches=caches, cache_len=cache_len,
+                                        cross_kv=cross_kv)
+        return x, st, torch.zeros((), dtype=torch.float32, device=x.device)
+
     # ------------------------------------------------------------- train
     def loss_fn(self, params, batch):
         """Mean next-token cross-entropy over labels >= 0, in float32, plus
         ``0.01 * aux / num_layers`` for the MoE family (aux the layers'
         load-balancing losses): (loss, {"loss", "tokens"}).  The
-        encoder-decoder's batch carries ``frames``."""
+        encoder-decoder's batch carries ``frames``; the VLM's carries
+        ``patches`` (B, P, D), put ahead of the tokens in the compute dtype
+        with P unlabelled positions, so ``tokens`` counts text only."""
         cfg = self.cfg
         tokens, labels = batch["tokens"], batch["labels"]
         B, S = tokens.shape
@@ -196,8 +234,16 @@ class Model:
             cross_kv = self._cross_kv(params, self._encode(params,
                                                            batch["frames"]))
             x = self._positions_added(x)
-        x, _, aux = TR.apply_dense_stack(params["stack"], x, cfg, positions,
-                                         cross_kv=cross_kv)
+        if cfg.family == "vlm":
+            patches = batch["patches"].to(x.dtype)
+            P = patches.shape[1]
+            x = torch.cat([patches, x], dim=1)
+            positions = torch.arange(S + P, dtype=torch.int32,
+                                     device=x.device).expand(B, S + P)
+            labels = torch.cat([torch.full((B, P), -1, dtype=labels.dtype,
+                                           device=labels.device), labels],
+                               dim=1)
+        x, _, aux = self._backbone(params, x, positions, cross_kv=cross_kv)
         logits = self._logits(params, x).float()
         mask = (labels >= 0).float()
         logz = torch.logsumexp(logits, dim=-1)
@@ -220,8 +266,16 @@ class Model:
         reference: there ``ring`` adds nothing.  The encoder-decoder's is
         {"self": {"k", "v"}, "cross": None}, ``cross`` filled by prefill
         (or by ``launch.serve._init_cache``); it takes no ring either, as
-        in the reference."""
-        dev = torch.device(self.device)
+        in the reference.  The recurrent families' are their states:
+        xLSTM's float32 (``transformer.init_xlstm_states``), the
+        hybrid's in the compute dtype with a KV cache of ``cache_seq``
+        slots a group (``init_hybrid_states``); neither takes a ring."""
+        cfg, dev = self.cfg, torch.device(self.device)
+        if cfg.family == "xlstm":
+            return TR.init_xlstm_states(cfg, batch, dev)
+        if cfg.family == "hybrid":
+            return TR.init_hybrid_states(cfg, batch, cache_seq, dev,
+                                         dtype=compute_dtype(cfg))
         c = TR.init_kv_caches(self.cfg, batch, cache_seq, dev,
                               dtype=compute_dtype(self.cfg))
         if self.cfg.family == "encdec":
@@ -232,8 +286,9 @@ class Model:
         return c
 
     def decode_step(self, params, batch):
-        """One token against a populated cache, full or ring: (logits
-        (B, V), cache).  Attention stays on the plain route (one query
+        """One token against a populated cache, full or ring, or the
+        recurrent families' states: (logits (B, V), cache), the cache
+        written in place.  Attention stays on the plain route (one query
         against the cache).  The encoder-decoder adds the sinusoidal row
         at ``pos`` of a table of the self cache's length, writes the self
         cache and reads ``cache["cross"]``."""
@@ -250,9 +305,8 @@ class Model:
                 params["stack"], x, cfg, positions, caches=cache["self"],
                 cache_len=pos, cross_kv=cache["cross"])
         else:
-            x, cache, _ = TR.apply_dense_stack(params["stack"], x, cfg,
-                                               positions, caches=cache,
-                                               cache_len=pos)
+            x, cache, _ = self._backbone(params, x, positions, caches=cache,
+                                         cache_len=pos)
         logits = self._logits(params, x)
         if cfg.padded_vocab != cfg.vocab_size:
             # never sample a padding row
@@ -268,7 +322,14 @@ class Model:
         ``batch["frames"]`` and projects its cross (k, v) first; with
         ``flash=True`` its encoder layers, decoder self-attention and
         cross-attention each launch the kernel (Le + 2 Ld launches).  Its
-        cache is {"self": {"k", "v"}, "cross": (k, v)}."""
+        cache is {"self": {"k", "v"}, "cross": (k, v)}.  The VLM's is the
+        dense prefill of the text (no patches, as in the reference).  The
+        recurrent families raise, as the reference does: their parallel
+        form does not carry final states out, and the serving loop warms
+        them by stepping ``decode_step`` over the prompt."""
+        if self.cfg.family in ("xlstm", "hybrid"):
+            raise NotImplementedError(
+                "prefill for recurrent families goes through launch/serve.py")
         tokens = batch["tokens"]
         B, S = tokens.shape
         cache_seq = batch.get("cache_seq", S)
@@ -293,16 +354,14 @@ class Model:
         return logits[:, 0], cache
 
 
+_FAMILIES = ("dense", "moe", "encdec", "vlm", "xlstm", "hybrid")
+
+
 def build_model(cfg: ModelConfig, device="cuda") -> Model:
-    """The model of a dense, MoE (GQA or MLA) or encoder-decoder
-    configuration on ``device`` (default: the card).  The other families
-    raise: their blocks are not ported yet."""
-    if cfg.family not in ("dense", "moe", "encdec"):
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet; the port "
-            "builds the dense, MoE and encoder-decoder families (ROADMAP.md "
-            "Queue 1, the other model families, lists the rest in order "
-            "from item 6.4)")
+    """The model of a configuration of any family on ``device`` (default:
+    the card)."""
+    if cfg.family not in _FAMILIES:
+        raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}")
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(

@@ -1,10 +1,13 @@
-"""The block stacks of the dense, MoE and encoder-decoder families:
-  dense  — [ln -> attn(GQA/SWA/qk-norm) -> ln -> mlp] x L
+"""The block stacks of every family:
+  dense / vlm — [ln -> attn(GQA/SWA/qk-norm) -> ln -> mlp] x L
   moe    — [ln -> attn(GQA/SWA, or MLA) -> ln -> moe] x L
   encdec — encoder [ln -> attn(bidirectional) -> ln -> mlp] x Le, then
            decoder [ln -> self-attn -> ln -> cross-attn -> ln -> mlp] x Ld
+  xlstm  — G groups of (xlstm_group - 1) mLSTM blocks and one sLSTM block
+  hybrid — G groups of (hybrid_group - 1) Mamba2 blocks, each group
+           followed by one weight-tied shared attention layer
 
-The port of the dense/moe/encdec part of ``repro/models/transformer.py``.  A
+The port of ``repro/models/transformer.py``.  A
 Python loop over a list of per-layer parameter dicts takes the place of
 ``lax.scan`` over stacked parameters.  Each layer returns its MoE
 auxiliary loss (0 for a dense layer), summed in float32 in layer order.
@@ -19,8 +22,19 @@ reference's stacked layout, {"k", "v"}: (L, B, Smax, KV, dh), plus
 {"c_kv": (L, B, Smax, r_kv), "k_rope": (L, B, Smax, dr)}, and each layer
 writes its slice in place.  A decoder layer's cross-attention reads its
 layer's slice of the encoder's keys and values, (L, B, Se, KV, dh) each.
-The recurrent stacks are not ported yet (``ROADMAP.md`` Queue 1, the
-other model families).
+
+The recurrent stacks keep their parameters as lists: xLSTM's {"mlstm": G
+lists of n_m block dicts, "slstm": G block dicts}, the hybrid's {"mamba":
+G lists of n_m block dicts, "shared_attn": one ``init_layer`` dict}, each
+block dict {"ln", "cell"} (a pre-norm and a residual around the cell).
+Their states keep the reference's stacked layout, written in place:
+xLSTM's {"m": (C, n, m) at (G, n_m, B, H, dh, dh), (G, n_m, B, H, dh),
+(G, n_m, B, H) and "s": (c, n, h, m), each (G, B, H, dh)}, all float32;
+the hybrid's {"ssm": (G, n_m, B, H, P, N), "conv": {"x", "B", "C"} at
+(G, n_m, B, ks, .), "attn": {"k", "v"} (G, B, Smax, KV, dh)}, in the
+compute dtype: each group's shared attention writes its own slice of the
+KV cache, although the weights are one.  ``cfg.remat`` wraps a whole
+group, as the reference's ``_remat`` does.
 """
 from __future__ import annotations
 
@@ -35,10 +49,14 @@ from torch.utils.checkpoint import (
 
 from . import layers as LL
 from . import moe as MOE
+from . import ssm as SSM
+from . import xlstm as XL
 from .shardctx import bf16_grad_barrier
 
 __all__ = ["init_layer", "apply_layer", "init_dense_stack",
-           "apply_dense_stack", "init_kv_caches"]
+           "apply_dense_stack", "init_kv_caches", "init_xlstm_stack",
+           "apply_xlstm_stack", "init_xlstm_states", "init_hybrid_stack",
+           "apply_hybrid_stack", "init_hybrid_states"]
 
 
 def init_layer(gen, cfg, dtype, device, cross=False):
@@ -154,3 +172,139 @@ def init_kv_caches(cfg, batch, cache_seq, device, dtype=torch.bfloat16):
     shape = (L, batch, cache_seq, cfg.num_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+# ---------------------------------------------------------------- xlstm
+def _groups(cfg, group: int) -> tuple[int, int]:
+    """(G groups, n_m recurrent blocks a group)."""
+    return cfg.num_layers // group, group - 1
+
+
+def init_xlstm_stack(gen, cfg, dtype, device):
+    G, n_m = _groups(cfg, cfg.xlstm_group)
+
+    def block(init):
+        return {"ln": LL.init_norm(cfg, device),
+                "cell": init(gen, cfg, dtype, device)}
+
+    return {"mlstm": [[block(XL.init_mlstm) for _ in range(n_m)]
+                      for _ in range(G)],
+            "slstm": [block(XL.init_slstm) for _ in range(G)]}
+
+
+def _xlstm_group(mlstm, slstm, x, cfg, g=None, states=None):
+    """One group: its mLSTM blocks, then its sLSTM block.  With ``states``
+    (decode) each block steps from its slice of them, written in place."""
+    dt = getattr(torch, cfg.dtype)
+    for i, p in enumerate(mlstm):
+        h = LL.apply_norm(p["ln"], x, cfg.norm)
+        if states is None:
+            h, _ = XL.mlstm_block(p["cell"], h, cfg, chunk=cfg.attn_chunk,
+                                  dtype=dt)
+        else:
+            st = tuple(s[g, i] for s in states["m"])
+            h, new = XL.mlstm_block(p["cell"], h, cfg, state=st, dtype=dt)
+            for s, n in zip(st, new):
+                s.copy_(n)
+        x = x + h
+    h = LL.apply_norm(slstm["ln"], x, cfg.norm)
+    st = None if states is None else tuple(s[g] for s in states["s"])
+    h, new = XL.slstm_block(slstm["cell"], h, cfg, state=st, dtype=dt)
+    if st is not None:
+        for s, n in zip(st, new):
+            s.copy_(n)
+    return x + h
+
+
+def apply_xlstm_stack(params, x, cfg, *, states=None):
+    """(x, states): the groups in order, each under ``cfg.remat`` where
+    autograd records the stack; ``states`` (``init_xlstm_states``) are
+    stepped in place (decode, one token)."""
+    group = _xlstm_group
+    if torch.is_grad_enabled() and states is None:
+        group = _remat(_xlstm_group, cfg)
+    for g, (mlstm, slstm) in enumerate(zip(params["mlstm"],
+                                           params["slstm"])):
+        x = group(mlstm, slstm, x, cfg, g, states)
+    return x, states
+
+
+def init_xlstm_states(cfg, batch, device):
+    G, n_m = _groups(cfg, cfg.xlstm_group)
+    H, dh = cfg.num_heads, cfg.head_dim
+    f32 = dict(dtype=torch.float32, device=device)
+    return {
+        "m": (torch.zeros((G, n_m, batch, H, dh, dh), **f32),
+              torch.zeros((G, n_m, batch, H, dh), **f32),
+              torch.zeros((G, n_m, batch, H), **f32)),
+        "s": (torch.zeros((G, batch, H, dh), **f32),
+              torch.ones((G, batch, H, dh), **f32),
+              torch.zeros((G, batch, H, dh), **f32),
+              torch.zeros((G, batch, H, dh), **f32)),
+    }
+
+
+# ---------------------------------------------------------------- hybrid
+def init_hybrid_stack(gen, cfg, dtype, device):
+    G, n_m = _groups(cfg, cfg.hybrid_group)
+    return {"mamba": [[{"ln": LL.init_norm(cfg, device),
+                        "cell": SSM.init_mamba2(gen, cfg, dtype, device)}
+                       for _ in range(n_m)] for _ in range(G)],
+            "shared_attn": init_layer(gen, cfg, dtype, device)}
+
+
+def _hybrid_group(mamba, shared, x, cfg, positions, g=None, states=None,
+                  cache_len=None):
+    """One group: its Mamba2 blocks, then the shared attention layer.  With
+    ``states`` (decode) each block steps from its SSM state and conv
+    window and the attention writes the group's KV slice, all in place."""
+    dt = getattr(torch, cfg.dtype)
+    for i, p in enumerate(mamba):
+        h = LL.apply_norm(p["ln"], x, cfg.norm)
+        if states is None:
+            h, _, _ = SSM.mamba2_block(p["cell"], h, cfg,
+                                       chunk=min(cfg.attn_chunk, 256),
+                                       dtype=dt)
+        else:
+            conv = {k: c[g, i] for k, c in states["conv"].items()}
+            h, st, new_conv = SSM.mamba2_block(
+                p["cell"], h, cfg, state=states["ssm"][g, i],
+                conv_cache=conv, dtype=dt)
+            states["ssm"][g, i].copy_(st)
+            for k, c in conv.items():
+                c.copy_(new_conv[k])
+        x = x + h
+    cache = (None if states is None
+             else {k: c[g] for k, c in states["attn"].items()})
+    x, _ = apply_layer(shared, x, cfg, positions, cache=cache,
+                       cache_len=cache_len)
+    return x
+
+
+def apply_hybrid_stack(params, x, cfg, positions, *, states=None,
+                       cache_len=None):
+    """(x, states): the groups in order, each under ``cfg.remat`` where
+    autograd records the stack; ``states`` (``init_hybrid_states``) are
+    stepped in place (decode, one token at ``cache_len``)."""
+    group = _hybrid_group
+    if torch.is_grad_enabled() and states is None:
+        group = _remat(_hybrid_group, cfg)
+    for g, mamba in enumerate(params["mamba"]):
+        x = group(mamba, params["shared_attn"], x, cfg, positions, g,
+                  states, cache_len)
+    return x, states
+
+
+def init_hybrid_states(cfg, batch, cache_seq, device, dtype=torch.bfloat16):
+    G, n_m = _groups(cfg, cfg.hybrid_group)
+    _, H, P, N = SSM.ssm_dims(cfg)
+    conv = SSM.init_conv_cache(cfg, batch, device, dtype)
+    kv = (G, batch, cache_seq, cfg.num_kv_heads, cfg.head_dim)
+    return {
+        "ssm": torch.zeros((G, n_m, batch, H, P, N), dtype=dtype,
+                           device=device),
+        "conv": {k: torch.zeros((G, n_m) + tuple(v.shape), dtype=dtype,
+                                device=device) for k, v in conv.items()},
+        "attn": {"k": torch.zeros(kv, dtype=dtype, device=device),
+                 "v": torch.zeros(kv, dtype=dtype, device=device)},
+    }

@@ -41,8 +41,9 @@ def _close(got, want, tol=TOL):
 
 
 def test_port_registry_holds_the_dense_configs_field_for_field():
-    assert list_configs() == sorted(ARCHS + ["whisper-medium"])
-    for name in ARCHS + ["whisper-medium"]:
+    others = ["whisper-medium", "internvl2-76b", "xlstm-350m", "zamba2-2.7b"]
+    assert list_configs() == sorted(ARCHS + others)
+    for name in ARCHS + others:
         assert dataclasses.asdict(get_config(name)) == \
             dataclasses.asdict(jax_config(name))
         assert dataclasses.asdict(get_config(name).reduced()) == \
@@ -50,19 +51,18 @@ def test_port_registry_holds_the_dense_configs_field_for_field():
     assert get_config("qwen3-14b").padded_vocab == 152064
 
 
-@pytest.mark.parametrize("arch", ["internvl2-76b", "xlstm-350m",
-                                  "zamba2-2.7b"])
-def test_build_model_refuses_other_families(arch):
-    """The vlm, xlstm and hybrid families are not ported: their
-    configurations, made from the JAX package's fields, are refused on
-    both devices."""
+@pytest.mark.parametrize("arch", list_configs())
+def test_build_model_builds_every_registered_family(arch, monkeypatch):
+    """Every registered configuration, of every family, made from the JAX
+    package's fields, builds on the CPU (full and reduced), and asks for
+    the card by default: without one, "cuda" is refused."""
     cfg = ModelConfig(**dataclasses.asdict(jax_config(arch)))
-    for dev in ("cpu", "cuda"):
-        with pytest.raises(NotImplementedError,
-                           match="Queue 1, the other model families"):
-            build_model(cfg, dev)
-    with pytest.raises(NotImplementedError, match=f"family {cfg.family!r}"):
-        build_model(cfg.reduced(), "cpu")
+    for c in (cfg, cfg.reduced()):
+        model = build_model(c, "cpu")
+        assert model.cfg is c and model.device == torch.device("cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="needs a CUDA device"):
+        build_model(cfg, "cuda")
 
 
 def test_build_model_builds_mixtral():
