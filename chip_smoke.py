@@ -33,7 +33,15 @@ Phases, in order; any failure exits non-zero:
    full-width shape; what ``-Xptxas -v`` says of the kernels
    redesigned for Hopper (registers, shared memory, spills), and HGMMA and
    UTMALDG instructions in the flash library's SASS (``cuobjdump``), and
-   parsa_scan's global loads (S only by strong loads);
+   parsa_scan's global loads (S only by strong loads); silu_stepwise and
+   gelu_stepwise (the port's elementwise kernel, every operation rounded
+   to the dtype as ``jax.nn.silu`` and ``jax.nn.gelu`` round it) bit for
+   bit against their plain chains of ATen ops on 64 M bfloat16 and 16 M
+   float32 values, the special values (±0, ±inf, NaN, ±88, ±90,
+   subnormals) ahead, on a view off 16-byte alignment with an odd tail
+   and on a transposed view (its layout kept);
+   the MoE dispatch's ordered backward (``moe._SlotGather``) at
+   mixtral-8x22b's width run twice, bit for bit;
 3. the main path at full size: ``text_like(100_000, 65_536, mean_len=20,
    seed=0)`` through ``partition(..., ParsaConfig(k=16,
    backend="device_scan", refine_backend="device", sweeps=2))`` on cuda,
@@ -226,6 +234,19 @@ Phases, in order; any failure exits non-zero:
    card twice (bitwise) and against the CPU (relative L2 within 1e-5), and
    its failure at step 6 with a checkpoint every 2 steps, resumed
    bitwise;
+17b. MoE training (phase ``train_moe``): mixtral-8x22b at full width cut
+   to 1 layer (2.91 B float32 master parameters; parameters, gradients, m
+   and v 46.5 GB), its own remat "full" and 8 microbatches, 3 steps at
+   batch 8 x 1,024 of ``SyntheticLMData`` twice from the same
+   ``init_state(seed)``: the parameters, m and v of the two runs bit for
+   bit equal (the first run's copied to the host), the losses finite, the
+   step time (median of steps 2-3), tokens/s, peak memory, the route's
+   capacity drops and the share of the dense bf16 peak from
+   ``launch.roofline.model_flops`` and ``count_params``; the reduced
+   mixtral's 3 steps on the card twice (bitwise) and against the CPU
+   (within 1e-5), and its failure at step 6 with a checkpoint every 2
+   steps, resumed bitwise (a full-width checkpoint, 34.9 GB, would not fit
+   the disk writes a call has left after phase train's);
 18. each kernel timed at the shapes its path launches (CUDA events, median
    of 21 samples after warm-up; ``ms`` from launches replayed in a CUDA
    graph, ``eager_ms`` from launches made one by one from Python) beside
@@ -246,7 +267,12 @@ Phases, in order; any failure exits non-zero:
    beside it with the window's mask, and at phase mla's (Dqk, Dv) = (192,
    128) shape beside ``scaled_dot_product_attention`` on the same q, k and
    v, naming the backend it picked, phase encdec's non-causal times at
-   (64, 64), and at phase vlm's 64/8-head causal shape beside it), then
+   (64, 64), and at phase vlm's 64/8-head causal shape beside it;
+   ``silu_stepwise`` at a qwen3-14b decode step's (4, 1, 17,408) and its
+   prefill's (2, 4,096, 17,408) bfloat16 shapes, ``gelu_stepwise`` at
+   whisper-medium's decoder step (8, 1, 4,096) and encoder (8, 1,500,
+   4,096), each beside its plain chain and the one-rounding ``F.silu`` or
+   ``F.gelu``), then
    the main, the sketched and the
    parallel scan and the whole refine under ``torch.profiler``: device
    time per round, the device's idle share, and a parallel super-step's
@@ -258,8 +284,8 @@ Phases, in order; any failure exits non-zero:
 ``--phases build,kernels,serving``, ``--phases build,kernels,lm``,
 ``--phases build,kernels,moe``, ``--phases build,kernels,mla``,
 ``--phases build,kernels,encdec``, ``--phases build,kernels,vlm``,
-``--phases build,kernels,xlstm``, ``--phases build,kernels,hybrid`` and
-``--phases build,kernels,train`` are
+``--phases build,kernels,xlstm``, ``--phases build,kernels,hybrid``,
+``--phases build,kernels,train`` and ``--phases build,kernels,train_moe`` are
 short checks of one path (they print no result and exit 1).
 
 The last lines are the card, one ``{"kernels": [...]}`` JSON line and
@@ -283,7 +309,7 @@ PROFILE_DIAG = 0    # --profile-diag N
 LEAD_SPIN_CYCLES = 100_000_000
 PHASES = ("build", "kernels", "main", "parity", "sketch", "parallel",
           "stream", "elastic", "serving", "lm", "moe", "mla", "encdec",
-          "vlm", "xlstm", "hybrid", "train", "times")
+          "vlm", "xlstm", "hybrid", "train", "train_moe", "times")
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, and the non-tensor fp32
 # rate, the only CUDA-core rate in that sheet; int32 and popcount work is
@@ -425,6 +451,17 @@ KERNELS = {
     "flash_attention": ("src/repro/kernels/flash_attention/flash_attention.py:86",
                         "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"),
 }
+# the port's own kernels, which replace no TPU kernel: the reference's
+# activations as XLA rounds them (no pallas_call; the call sites named are
+# the JAX package's MLP)
+PORT_KERNELS = {
+    "silu_stepwise": ("no TPU kernel: jax.nn.silu as XLA rounds it, "
+                      "models/layers.py:356 of the JAX package",
+                      "src/repro_torch/kernels/elementwise/csrc/silu_stepwise.cu"),
+    "gelu_stepwise": ("no TPU kernel: jax.nn.gelu as XLA rounds it, "
+                      "models/layers.py:364 of the JAX package",
+                      "src/repro_torch/kernels/elementwise/csrc/silu_stepwise.cu"),
+}
 
 # the LM serving path: qwen3-14b at full width and depth (40 layers,
 # d_model 5,120, 40 query heads over 8 KV heads, head dim 128, d_ff 17,408,
@@ -545,6 +582,30 @@ TRAIN = dict(arch="qwen3-14b", num_layers=2, batch=8, seq=1024, steps=8,
              ckpt_every=6, fail_at=6, seed=0, lr=3e-4, reduced_steps=3,
              reduced_ckpt_every=2, reduced_batch=4, reduced_seq=16)
 TRAIN_REL_L2 = 1e-5
+# MoE training (phase train_moe): mixtral-8x22b at full width (phase moe's
+# widths), depth cut to 1 layer: 2,504,060,928 parameters in the layer and
+# 402,653,184 in the embedding and untied head, 2.91 B float32 masters, so
+# parameters, gradients, m and v take 46.5 GB; its own remat "full" and 8
+# microbatches; 3 steps at batch 8 x sequence 1,024 of
+# SyntheticLMData(seed 0), run twice from init_state(seed).  Its checkpoint
+# would be 34.9 GB, more than a call's disk writes leave after phase
+# train's 26.6 GB, so the resume is held on the reduced config.
+TRAIN_MOE = dict(arch="mixtral-8x22b", num_layers=1, batch=8, seq=1024,
+                 steps=3, seed=0, lr=3e-4, fail_at=6, reduced_steps=3,
+                 reduced_ckpt_every=2, reduced_batch=4, reduced_seq=16,
+                 reduced_resume_steps=8)
+# the elementwise kernels' checks and times (phases kernels and times)
+ELEMENTWISE_N = {"bfloat16": 64 << 20, "float32": 16 << 20}
+ELEMENTWISE_SHAPES = {
+    "silu_stepwise": (("qwen3-14b decode step", (4, 1, 17408)),
+                      ("qwen3-14b prefill", (2, 4096, 17408))),
+    "gelu_stepwise": (("whisper-medium decoder step", (8, 1, 4096)),
+                      ("whisper-medium encoder", (8, 1500, 4096))),
+}
+# arithmetic operations an element, each counted once against the CUDA
+# cores' rate: silu's negation, exp, add, reciprocal and product; gelu's
+# square, cube, two products, add, product, tanh, add, half and product
+ELEMENTWISE_OPS = {"silu_stepwise": 5, "gelu_stepwise": 10}
 
 
 class SmokeFailure(RuntimeError):
@@ -965,7 +1026,123 @@ def phase_kernels(dev) -> dict:
                     ("merge", n, k, W, offset))
     torch.cuda.synchronize()
     res["flash_attention"] = check_flash(dev)
+    res.update(check_elementwise(dev))
+    res["moe_slot_gather"] = check_slot_gather(dev)
     return res
+
+
+def same_bits(got, want) -> tuple[bool, bool]:
+    """(NaN where NaN and every other bit equal, every bit equal with the
+    NaNs' payloads too) of two float tensors of one dtype."""
+    import torch
+
+    bits = torch.int16 if got.dtype == torch.bfloat16 else torch.int32
+    nan = torch.isnan(want)
+    same = bool(torch.equal(torch.isnan(got), nan)) and bool(torch.equal(
+        got.view(bits)[~nan], want.view(bits)[~nan]))
+    return same, bool(torch.equal(got.view(bits), want.view(bits)))
+
+
+def check_elementwise(dev) -> dict:
+    """silu_stepwise and gelu_stepwise against their plain chains on the
+    card, bit for bit (tolerance 0; NaN payloads reported): ELEMENTWISE_N
+    values of normal(0, 4) in bfloat16 and float32 with the special values
+    ahead, whole, as a view one element past the start (off 16-byte
+    alignment: the kernel's one-element loop) with an odd length (the
+    tail), and transposed (a dense layout, kept without a copy); one
+    launch a call."""
+    import torch
+
+    from repro_torch.kernels import elementwise as EW
+
+    specials = [0.0, -0.0, float("inf"), float("-inf"), float("nan"), -90.0,
+                90.0, -88.0, 88.0, 1e-30, -1e-30, 5e-39, -5e-39, 3.0e38]
+    gen = torch.Generator(device=dev).manual_seed(5)
+    out = {}
+    for name, kern, plain in (
+            ("silu_stepwise", EW.silu_stepwise, EW.silu_stepwise_ref),
+            ("gelu_stepwise", EW.gelu_stepwise, EW.gelu_stepwise_ref)):
+        res = {"cases": 0, "max_abs_err": 0.0, "nan_payloads_equal": True,
+               "elements": {}}
+        for dtype, n in ELEMENTWISE_N.items():
+            dt = getattr(torch, dtype)
+            x = torch.randn(n, generator=gen, device=dev).mul_(4).to(dt)
+            x[:len(specials)] = torch.tensor(specials, device=dev).to(dt)
+            for case, v in (("whole", x), ("offset, odd length",
+                                           x[1:n - 2]),
+                             ("transposed", x.view(4, -1).t())):
+                EW.reset_launch_counts()
+                got = kern(v)
+                check(EW.LAUNCHES[name] == 1,
+                      f"{name} {dtype} {case}: {EW.LAUNCHES} launches")
+                want = plain(v)
+                check(got.stride() == v.stride(),
+                      f"{name} {dtype} {case}: strides {got.stride()}, the "
+                      f"input's {v.stride()}")
+                same, payloads = same_bits(got, want)
+                fin = torch.isfinite(want)
+                err = float((got.float() - want.float())[fin].abs().max())
+                check(same, f"{name} {dtype} {case}: differs from the plain "
+                      f"chain (max abs err {err:.3e})")
+                res["max_abs_err"] = max(res["max_abs_err"], err)
+                res["nan_payloads_equal"] &= payloads
+                res["cases"] += 1
+            res["elements"][dtype] = n
+            del x, got, want
+        log(f"{name}: bit for bit equal to its plain chain on "
+            f"{res['elements']} elements ({res['cases']} cases; NaN payloads "
+            f"equal: {res['nan_payloads_equal']})")
+        out[name] = res
+    EW.reset_launch_counts()
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_slot_gather(dev) -> dict:
+    """The MoE dispatch's gather (``moe._gather_slots``) at
+    mixtral-8x22b's width, T = 8,192 tokens top-2 over 8 experts in bf16:
+    its ordered backward twice, bit for bit, and within bf16 rounding of
+    the default index backward (reported)."""
+    import torch
+
+    from repro_torch.models import moe as M
+
+    T, D, E, K = 8192, 6144, 8, 2
+    gen = torch.Generator(device=dev).manual_seed(6)
+    top_e = torch.rand((T, E), generator=gen, device=dev).argsort(
+        dim=1)[:, :K]
+    order = torch.argsort(top_e.reshape(-1), stable=True)
+    st = (torch.arange(T * K, device=dev) // K)[order]
+    x = torch.randn((T, D), generator=gen, device=dev).to(torch.bfloat16)
+    g = torch.randn((T * K, D), generator=gen, device=dev).to(torch.bfloat16)
+    grads = []
+    for gather in (M._gather_slots, M._gather_slots,
+                   lambda a, i, k: a[i]):
+        a = x.clone().requires_grad_()
+        gather(a, st, K).backward(g)
+        grads.append(a.grad)
+    check(torch.equal(grads[0], grads[1]),
+          "the MoE slot gather's ordered backward differs between two runs")
+    out = {"shape": [T, D, K], "bitwise_twice": True,
+           "max_abs_err_index_backward": float(
+               (grads[0].float() - grads[2].float()).abs().max())}
+    log(f"moe slot gather backward: two runs bit for bit equal at T={T}, "
+        f"D={D}, K={K} bf16; against the index backward max abs err "
+        f"{out['max_abs_err_index_backward']:.3e}")
+    return out
+
+
+def elementwise_launches(fn) -> dict:
+    """The elementwise kernels' launches of one call of ``fn``, counted
+    from 0 (the counts are left at them)."""
+    import torch
+
+    from repro_torch.kernels import elementwise as EW
+
+    EW.reset_launch_counts()
+    fn()
+    torch.cuda.synchronize()
+    return dict(EW.LAUNCHES)
 
 
 def check_flash(dev, full=(2, 4096, 40, 8, 128),
@@ -1084,10 +1261,12 @@ def kernel_resources(libs: dict) -> dict:
     import shutil
 
     from repro_torch.kernels import nvcc
+    from repro_torch.kernels.elementwise import build as ew_build
     from repro_torch.kernels.flash_attention import build as fa_build
     from repro_torch.kernels.parsa_cost import build as pc_build
 
-    logs = {**pc_build.FAMILY.logs, **fa_build.FAMILY.logs}
+    logs = {**pc_build.FAMILY.logs, **fa_build.FAMILY.logs,
+            **ew_build.FAMILY.logs}
     tool = pathlib.Path(nvcc._nvcc()).parent / "cuobjdump"
     tool = str(tool) if tool.exists() else shutil.which("cuobjdump")
     check(tool is not None, "cuobjdump not found: the SASS is not checked")
@@ -1097,7 +1276,8 @@ def kernel_resources(libs: dict) -> dict:
                       ("parsa_scan", "parsa_scan_kernel"),
                       ("refine_sweep", "refine_sweep_kernel"),
                       ("parsa_cost", "cost_tile_kernel"),
-                      ("union_delta", "union_delta_kernel")):
+                      ("union_delta", "union_delta_kernel"),
+                      ("silu_stepwise", "elementwise_kernel")):
         entries, cur, notes = [], None, []
         if lib not in logs:  # built by an earlier process
             res = subprocess.run([tool, "--dump-resource-usage",
@@ -3335,6 +3515,7 @@ def phase_lm(dev, lm: dict = LM, extra=None) -> dict:
     import torch
 
     from repro_torch.configs import get_config
+    from repro_torch.kernels import elementwise as EW
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.launch.serve import (_init_cache, decode_loop,
                                           decode_loop_engine)
@@ -3380,12 +3561,16 @@ def phase_lm(dev, lm: dict = LM, extra=None) -> dict:
     del logits, cache
     torch.cuda.synchronize()
     FA.reset_launch_counts()
+    EW.reset_launch_counts()
     t0 = time.perf_counter()
     logits, cache = prefill(params, batch)
     torch.cuda.synchronize()
     out["prefill_s"] = time.perf_counter() - t0
     launches = FA.LAUNCHES["flash_attention"]
     out["prefill_flash_launches"] = launches
+    act = "gelu_stepwise" if cfg.mlp == "gelu" else "silu_stepwise"
+    out["prefill_elementwise_launches"] = dict(EW.LAUNCHES)
+    check(EW.LAUNCHES[act] > 0, f"prefill made no {act} launch")
     check(launches == want_launches,
           f"prefill made {launches} flash_attention launches, want "
           f"{want_launches} (one per layer" +
@@ -3476,12 +3661,15 @@ def phase_lm(dev, lm: dict = LM, extra=None) -> dict:
     ref_tokens = decode_loop(smodel, step, params, prompt, G, P + G)
     out["decode_loop_s"] = time.perf_counter() - t0
     FA.reset_launch_counts()
+    EW.reset_launch_counts()
     t0 = time.perf_counter()
     tokens_e, summary = decode_loop_engine(smodel, step, params, prompt, G,
                                            P + G, prefetch=True)
     wall = time.perf_counter() - t0
     check(FA.LAUNCHES["flash_attention"] == 0,
           "decode launched the flash kernel (it stays on the plain route)")
+    out["engine_elementwise_launches"] = dict(EW.LAUNCHES)
+    check(EW.LAUNCHES[act] > 0, f"the engine's decode made no {act} launch")
     check(np.array_equal(tokens_e, ref_tokens),
           "engine tokens differ from decode_loop's")
     check(bool(((tokens_e >= 0) & (tokens_e < cfg.vocab_size)).all()),
@@ -3569,6 +3757,12 @@ def phase_lm(dev, lm: dict = LM, extra=None) -> dict:
     out["profile_prefill"] = profile_window(lambda: prefill(params, batch))
     out["profile_decode_step"] = profile_window(
         lambda: step(params, {"token": tok, "pos": 0, "cache": c}))
+    out["decode_step_elementwise_launches"] = elementwise_launches(
+        lambda: step(params, {"token": tok, "pos": 0, "cache": c}))
+    log(f"{tag} decode step: {out['profile_decode_step'].get('device_kernels')}"
+        f" kernels, {out['decode_step_elementwise_launches'][act]} of them "
+        f"{act}; busy {out['profile_decode_step'].get('busy_s')} s, idle "
+        f"{out['profile_decode_step'].get('idle_share')}")
     del c
     if extra is not None:
         out.update(extra(cfg, model, params, prefill, prefill_plain, batch,
@@ -4250,6 +4444,7 @@ def recurrent_serve(dev, cfg, params, rc: dict, tag: str) -> dict:
     import numpy as np
     import torch
 
+    from repro_torch.kernels import elementwise as EW
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.launch.serve import (_init_cache, decode_loop,
                                           decode_loop_engine)
@@ -4264,12 +4459,16 @@ def recurrent_serve(dev, cfg, params, rc: dict, tag: str) -> dict:
     t0 = time.perf_counter()
     ref_tokens = decode_loop(smodel, step, params, prompt, G, P + G)
     out["decode_loop_s"] = time.perf_counter() - t0
+    EW.reset_launch_counts()
     t0 = time.perf_counter()
     tokens_e, summary = decode_loop_engine(smodel, step, params, prompt, G,
                                            P + G, prefetch=True)
     wall = time.perf_counter() - t0
     check(FA.LAUNCHES["flash_attention"] == 0,
           f"{tag} decode launched the flash kernel")
+    out["engine_elementwise_launches"] = dict(EW.LAUNCHES)
+    check(EW.LAUNCHES["silu_stepwise"] > 0,
+          f"{tag}: the engine's decode made no silu_stepwise launch")
     check(np.array_equal(tokens_e, ref_tokens),
           f"{tag}: engine tokens differ from decode_loop's")
     check(bool(((tokens_e >= 0) & (tokens_e < cfg.vocab_size)).all()),
@@ -4291,13 +4490,17 @@ def recurrent_serve(dev, cfg, params, rc: dict, tag: str) -> dict:
     tok = torch.from_numpy(prompt[:, :1]).to(dev)
     out["profile_decode_step"] = profile_window(
         lambda: step(params, {"token": tok, "pos": 0, "cache": c}))
+    out["decode_step_elementwise_launches"] = elementwise_launches(
+        lambda: step(params, {"token": tok, "pos": 0, "cache": c}))
     nbytes = decode_weight_bytes(cfg, params, Bs)
     state_bytes = weight_bytes(c)
     out["decode_step_bytes"] = nbytes + 2 * state_bytes
     out["decode_step_bound_ms"] = (nbytes + 2 * state_bytes) \
         / HBM_BYTES_PER_S * 1e3
     prof = out["profile_decode_step"]
-    log(f"{tag} decode step profiled: {prof.get('device_kernels')} kernels, "
+    log(f"{tag} decode step profiled: {prof.get('device_kernels')} kernels "
+        f"({out['decode_step_elementwise_launches']['silu_stepwise']} of "
+        f"them silu_stepwise), "
         f"busy {prof.get('busy_s')} s of {prof['wall_s']:.4f} s wall, idle "
         f"{prof.get('idle_share')}; it reads {nbytes / 1e9:.3f} GB of "
         f"weights and its {state_bytes / 1e6:.1f} MB of states twice, "
@@ -4724,6 +4927,66 @@ def resume_bitwise(train_step, init_fn, batches, steps: int, fail_at: int,
     return out
 
 
+def reduced_train(dev, tr: dict, ckpt_dir, steps: int, tag: str) -> dict:
+    """The reduced config of ``tr["arch"]`` at 2 microbatches:
+    ``reduced_steps`` steps on the CPU and twice on the card, the card runs
+    bitwise equal and within TRAIN_REL_L2 of the CPU's; then ``steps``
+    steps through ``TrainLoop`` with a failure at ``fail_at`` and a
+    checkpoint every ``reduced_ckpt_every`` steps, resumed and held bitwise
+    to the uninterrupted run on the card."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.tree import tree_leaves, tree_map
+
+    out = {}
+    rcfg = dataclasses.replace(get_config(tr["arch"]).reduced(),
+                               microbatches=2)
+    rdata = SyntheticLMData(rcfg.vocab_size, tr["reduced_batch"],
+                            tr["reduced_seq"], seed=1)
+    _, _, rinit, _ = make_train_step(rcfg, "cpu")
+    init = rinit(tr["seed"])
+
+    def rinit_on(device):
+        return tuple(tree_map(lambda x: x.to(device, copy=True), t)
+                     for t in init)
+
+    finals = []
+    for device in ("cpu", dev, dev):
+        _, rstep, _, _ = make_train_step(rcfg, device)
+        p, o = rinit_on(device)
+        for t in range(tr["reduced_steps"]):
+            p, o, _ = rstep(p, o, rdata.batch_at(t))
+        finals.append([x.cpu() for x in tree_leaves(p)])
+    check(all(torch.equal(a, b) for a, b in zip(finals[1], finals[2])),
+          f"{tag} reduced: two card runs differ")
+    num = sum(float((a.double() - b.double()).square().sum())
+              for a, b in zip(finals[1], finals[0]))
+    den = sum(float(b.double().square().sum()) for b in finals[0])
+    out["reduced_cpu_rel_l2"] = (num / den) ** 0.5
+    check(out["reduced_cpu_rel_l2"] <= TRAIN_REL_L2,
+          f"{tag} reduced: card against cpu, relative L2 "
+          f"{out['reduced_cpu_rel_l2']:.3e} > {TRAIN_REL_L2}")
+    p, o = rinit_on(dev)
+    for t in range(steps):
+        p, o, _ = rstep(p, o, rdata.batch_at(t))
+    out["reduced_resume"] = resume_bitwise(
+        rstep, lambda: rinit_on(dev),
+        lambda lo, hi: (rdata.batch_at(t) for t in range(lo, hi)), steps,
+        tr["fail_at"], tr["reduced_ckpt_every"], ckpt_dir,
+        [x.cpu() for x in tree_leaves(p)])
+    log(f"{tag} reduced {rcfg.name}: {tr['reduced_steps']} steps, two card "
+        f"runs equal, card against cpu relative L2 "
+        f"{out['reduced_cpu_rel_l2']:.3e}; the failure at step "
+        f"{tr['fail_at']} with a checkpoint every {tr['reduced_ckpt_every']} "
+        f"steps resumed bitwise ({json.dumps(out['reduced_resume'])})")
+    return out
+
+
 def phase_train(dev, tr: dict = TRAIN) -> dict:
     """LM training on the card; see the module docstring, item 17."""
     import dataclasses
@@ -4735,11 +4998,11 @@ def phase_train(dev, tr: dict = TRAIN) -> dict:
 
     from repro_torch.configs import get_config
     from repro_torch.data import SyntheticLMData
+    from repro_torch.kernels import elementwise as EW
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.launch import train as T
-    from repro_torch.launch.steps import make_train_step
     from repro_torch.serving import prefetch_batches, stage_batch
-    from repro_torch.tree import tree_leaves, tree_map
+    from repro_torch.tree import tree_leaves
 
     cfg = dataclasses.replace(get_config(tr["arch"]),
                               num_layers=tr["num_layers"])
@@ -4773,6 +5036,7 @@ def phase_train(dev, tr: dict = TRAIN) -> dict:
           f"train: {free / 1e9:.1f} GB free on disk, a checkpoint of "
           f"{state_bytes / 1e9:.1f} GB needs more")
     times, losses = [], []
+    EW.reset_launch_counts()
     for b in batches(0, steps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -4781,6 +5045,10 @@ def phase_train(dev, tr: dict = TRAIN) -> dict:
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     check(all(np.isfinite(losses)), f"train losses {losses}")
+    out["silu_stepwise_launches_per_step"] = \
+        EW.LAUNCHES["silu_stepwise"] / steps
+    check(EW.LAUNCHES["silu_stepwise"] > 0,
+          "training made no silu_stepwise launch")
     out["losses"] = losses
     out["step_s"] = times
     out["step_median_s"] = statistics.median(times[1:])
@@ -4816,47 +5084,148 @@ def phase_train(dev, tr: dict = TRAIN) -> dict:
 
     # (c) the reduced config: the card twice, bitwise, and against the CPU;
     # the failure at step 6 with a checkpoint every 2 steps, resumed
-    rcfg = dataclasses.replace(get_config(tr["arch"]).reduced(),
-                               microbatches=2)
-    rdata = SyntheticLMData(rcfg.vocab_size, tr["reduced_batch"],
-                            tr["reduced_seq"], seed=1)
-    _, _, rinit, _ = make_train_step(rcfg, "cpu")
-    init = rinit(tr["seed"])
-
-    def rinit_on(device):
-        return tuple(tree_map(lambda x: x.to(device, copy=True), t)
-                     for t in init)
-
-    finals = []
-    for device in ("cpu", dev, dev):
-        _, rstep, _, _ = make_train_step(rcfg, device)
-        p, o = rinit_on(device)
-        for t in range(tr["reduced_steps"]):
-            p, o, _ = rstep(p, o, rdata.batch_at(t))
-        finals.append([x.cpu() for x in tree_leaves(p)])
-    check(all(torch.equal(a, b) for a, b in zip(finals[1], finals[2])),
-          "train reduced: two card runs differ")
-    num = sum(float((a.double() - b.double()).square().sum())
-              for a, b in zip(finals[1], finals[0]))
-    den = sum(float(b.double().square().sum()) for b in finals[0])
-    out["reduced_cpu_rel_l2"] = (num / den) ** 0.5
-    check(out["reduced_cpu_rel_l2"] <= TRAIN_REL_L2,
-          f"train reduced: card against cpu, relative L2 "
-          f"{out['reduced_cpu_rel_l2']:.3e} > {TRAIN_REL_L2}")
-    p, o = rinit_on(dev)
-    for t in range(steps):
-        p, o, _ = rstep(p, o, rdata.batch_at(t))
-    out["reduced_resume"] = resume_bitwise(
-        rstep, lambda: rinit_on(dev),
-        lambda lo, hi: (rdata.batch_at(t) for t in range(lo, hi)), steps,
-        tr["fail_at"], tr["reduced_ckpt_every"], ckpt_dir,
-        [x.cpu() for x in tree_leaves(p)])
-    log(f"train reduced {rcfg.name}: {tr['reduced_steps']} steps, two card "
-        f"runs equal, card against cpu relative L2 "
-        f"{out['reduced_cpu_rel_l2']:.3e}; the failure at step "
-        f"{tr['fail_at']} with a checkpoint every {tr['reduced_ckpt_every']} "
-        f"steps resumed bitwise ({json.dumps(out['reduced_resume'])})")
+    out.update(reduced_train(dev, tr, ckpt_dir, steps, "train"))
     log("train: " + json.dumps(out))
+    return out
+
+
+def moe_drops(cfg, seen: list) -> dict:
+    """Capacity drops of the routes ``moe_routes`` recorded: assignments
+    past their expert's ``capacity(cfg, T)`` of each call's T tokens."""
+    import torch
+
+    from repro_torch.models.moe import capacity
+
+    dropped = total = 0
+    for top_e in seen:
+        T = top_e.shape[0]
+        counts = torch.zeros(cfg.num_experts, dtype=torch.int64,
+                             device=top_e.device).scatter_add_(
+            0, top_e.reshape(-1), torch.ones_like(top_e.reshape(-1)))
+        dropped += int((counts - capacity(cfg, T)).clamp(min=0).sum())
+        total += top_e.numel()
+    return {"calls": len(seen), "assignments": total, "dropped": dropped,
+            "share": dropped / max(total, 1)}
+
+
+def phase_train_moe(dev, tr: dict = TRAIN_MOE) -> dict:
+    """MoE training on the card; see the module docstring, item 17b."""
+    import dataclasses
+    import functools
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.kernels import elementwise as EW
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch import roofline as RL
+    from repro_torch.launch import train as T
+    from repro_torch.serving import prefetch_batches, stage_batch
+    from repro_torch.tree import tree_leaves
+
+    cfg = dataclasses.replace(get_config(tr["arch"]),
+                              num_layers=tr["num_layers"])
+    check(cfg.remat == "full" and cfg.microbatches == 8
+          and cfg.num_experts == 8 and cfg.num_experts_per_tok == 2,
+          f"train_moe config {cfg}")
+    B, S, steps = tr["batch"], tr["seq"], tr["steps"]
+    out: dict = {"arch": cfg.name, "num_layers": cfg.num_layers,
+                 "batch": B, "seq": S, "remat": cfg.remat,
+                 "microbatches": cfg.microbatches, "card": card_line()}
+    model, train_step, init_state = T.build(cfg, dev, lr=tr["lr"])
+    data = SyntheticLMData(cfg.vocab_size, B, S, seed=tr["seed"])
+
+    def batches():
+        return prefetch_batches((data.batch_at(t) for t in range(steps)),
+                                functools.partial(stage_batch, device=dev),
+                                depth=2)
+
+    def run(record: bool):
+        """``steps`` steps from ``init_state(seed)``: (params, opt, step
+        seconds, losses, the first step's routes)."""
+        t0 = time.perf_counter()
+        params, opt = init_state(tr["seed"])
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        times, losses, seen = [], [], []
+        for t, b in enumerate(batches()):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with moe_routes(seen) if record and t == 0 else \
+                    contextlib.nullcontext():
+                params, opt, met = train_step(params, opt, b)
+            losses.append(float(met["loss"]))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        return params, opt, times, losses, seen, init_s
+
+    FA.reset_launch_counts()
+    EW.reset_launch_counts()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    params, opt, times, losses, seen, out["init_s"] = run(True)
+    out["silu_stepwise_launches_per_step"] = \
+        EW.LAUNCHES["silu_stepwise"] / steps
+    check(EW.LAUNCHES["silu_stepwise"] > 0,
+          "train_moe made no silu_stepwise launch")
+    check(FA.LAUNCHES["flash_attention"] == 0,
+          "training launched the flash kernel (it runs the plain route)")
+    check(all(np.isfinite(losses)), f"train_moe losses {losses}")
+    out["params"] = model.param_count(params)
+    out["state_gb"] = sum(x.numel() * x.element_size()
+                          for x in tree_leaves((params, opt))) / 1e9
+    out["losses"] = losses
+    out["step_s"] = times
+    out["step_median_s"] = statistics.median(times[1:])
+    out["tokens_per_s"] = B * S / out["step_median_s"]
+    out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    out["drops"] = moe_drops(cfg, seen)
+    n_total, n_active = RL.count_params(cfg)
+    out["count_params"] = [n_total, n_active]
+    out["model_flops"] = RL.model_flops(
+        cfg, dict(kind="train", batch=B, seq=S), n_total, n_active)
+    out["bf16_peak_share"] = (out["model_flops"] / out["step_median_s"]
+                              / RL.HW["peak_flops_bf16"])
+    log(f"train_moe {cfg.name} x{cfg.num_layers} layer, {out['params']:,} "
+        f"parameters ({out['state_gb']:.2f} GB of parameters, m and v; drawn "
+        f"in {out['init_s']:.2f} s), B={B} S={S}, {cfg.microbatches} "
+        f"microbatches, remat {cfg.remat}: step {out['step_median_s']:.3f} s "
+        f"(median of steps 2-{steps}), {out['tokens_per_s']:.1f} tokens/s, "
+        f"peak {out['peak_gb']:.2f} GB, {out['model_flops']:.3e} model FLOP "
+        f"a step (6 x {n_active:.4e} active x {B * S} tokens) = "
+        f"{out['bf16_peak_share']:.3f} of the dense bf16 peak; drops "
+        f"{out['drops']['dropped']} of {out['drops']['assignments']} "
+        f"assignments in {out['drops']['calls']} routings; loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}; card {out['card']}")
+
+    # the same steps again from the same seed: bit for bit
+    t0 = time.perf_counter()
+    ref = [x.to("cpu", copy=True) for x in tree_leaves((params, opt))]
+    out["host_copy_s"] = time.perf_counter() - t0
+    del params, opt
+    torch.cuda.empty_cache()
+    params, opt, times2, losses2, _, _ = run(False)
+    out["step_s_run2"] = times2
+    check(losses2 == losses, f"train_moe: two runs' losses {losses} and "
+          f"{losses2} differ")
+    leaves = tree_leaves((params, opt))
+    check(len(leaves) == len(ref) and all(
+        torch.equal(a, b.to(dev)) for a, b in zip(leaves, ref)),
+          "train_moe: two runs from the same seed end in different "
+          "parameters, m or v")
+    log(f"train_moe: two runs of {steps} steps from seed {tr['seed']} end "
+        f"bit for bit equal ({len(leaves)} leaves: parameters, m, v; the "
+        f"first copied to the host in {out['host_copy_s']:.1f} s)")
+    del params, opt, leaves, ref
+    torch.cuda.empty_cache()
+
+    # the reduced config: the card twice, bitwise, and against the CPU;
+    # the failure at step 6 with a checkpoint every 2 steps, resumed
+    out.update(reduced_train(dev, tr, ROOT / "chip_smoke_ckpt",
+                             tr["reduced_resume_steps"], "train_moe"))
+    log("train_moe: " + json.dumps(out))
     return out
 
 
@@ -5398,6 +5767,7 @@ def phase_times(dev, main: dict) -> list[dict]:
         rows.append(time_flash(dev, main["lm"], main["checks"],
                                main.get("moe"), main.get("mla"),
                                main.get("encdec"), main.get("vlm")))
+        rows.extend(time_elementwise(dev, main))
 
     # where the time goes, under torch.profiler: the main path's whole scan
     # (one launch), the sketch path's whole scan (one launch), the parallel
@@ -5696,6 +6066,83 @@ def time_flash_causal(dev, state: dict, plain, plain_samples: int) -> dict:
     return out
 
 
+def time_elementwise(dev, state: dict) -> list[dict]:
+    """The elementwise kernels' rows of the kernels line: each timed at its
+    ELEMENTWISE_SHAPES in bfloat16 (a CUDA graph and eager launches)
+    beside its plain chain, the one-rounding PyTorch call (``F.silu``,
+    ``F.gelu(approximate="tanh")``: the library's, rounding once, so not
+    the same bits) and its bound (4 bytes an element moved; the operations
+    of ELEMENTWISE_OPS against the CUDA cores); ``launches`` is phase lm's
+    prefill's for silu (qwen3-14b) and phase encdec's for gelu
+    (whisper-medium), beside the launches a decode step and a training
+    step that the phases counted."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import elementwise as EW
+
+    fns = {"silu_stepwise": (EW.silu_stepwise, EW.silu_stepwise_ref, F.silu),
+           "gelu_stepwise": (EW.gelu_stepwise, EW.gelu_stepwise_ref,
+                             lambda x: F.gelu(x, approximate="tanh"))}
+    path = {"silu_stepwise": ("lm", "prefill, qwen3-14b B=2 S=4,096"),
+            "gelu_stepwise": ("encdec", "prefill, whisper-medium B=8 S=224, "
+                              "1,500 frames")}
+    gen = torch.Generator(device=dev).manual_seed(7)
+    rows = []
+    for name, shapes in ELEMENTWISE_SHAPES.items():
+        kern, plain, lib = fns[name]
+        times = {}
+        for label, shape in shapes:
+            x = torch.randn(shape, generator=gen, device=dev).mul_(3).to(
+                torch.bfloat16)
+            n = x.numel()
+            saved = dict(EW.LAUNCHES)
+            t = {"ms": time_graph_ms(lambda: kern(x), 20),
+                 "eager_ms": time_ms(lambda: kern(x), 20),
+                 "plain_ms": time_ms(lambda: plain(x), 5),
+                 "library_ms": time_ms(lambda: lib(x), 20)}
+            EW.LAUNCHES.update(saved)  # timing launches are not path launches
+            t["bound_ms"], t["bound_by"] = bound_ms(
+                4 * n, ELEMENTWISE_OPS[name] * n)
+            t.update(elements=n, bound_bytes=4 * n,
+                     bound_ops=ELEMENTWISE_OPS[name] * n)
+            log(f"time {name} ({label}, {tuple(shape)} bf16): "
+                f"{t['ms'] * 1e3:.2f} us in a CUDA graph, "
+                f"{t['eager_ms'] * 1e3:.2f} us eager, plain chain "
+                f"{t['plain_ms'] * 1e3:.1f} us, one-rounding library call "
+                f"{t['library_ms'] * 1e3:.2f} us, bound "
+                f"{t['bound_ms'] * 1e3:.3f} us by {t['bound_by']}")
+            times[label] = t
+            del x
+        phase, what = path[name]
+        first = next(iter(times.values()))
+        row = {"name": name, "route": "cuda",
+               "source": PORT_KERNELS[name][1],
+               "replaces": PORT_KERNELS[name][0],
+               "launches": state.get(phase, {}).get(
+                   "prefill_elementwise_launches", {}).get(name),
+               "launches_path": what,
+               "max_abs_err": state["checks"][name]["max_abs_err"],
+               "cases": state["checks"][name]["cases"],
+               "shape": next(iter(times)),
+               **{k: first[k] for k in ("ms", "eager_ms", "plain_ms",
+                                        "bound_ms", "bound_by",
+                                        "library_ms")},
+               "shapes": times}
+        per_step = {}
+        for ph in ("lm", "moe", "mla", "encdec", "vlm", "xlstm", "hybrid"):
+            got = state.get(ph, {}).get("decode_step_elementwise_launches")
+            if got and got.get(name):
+                per_step[state[ph].get("arch", ph)] = got[name]
+        row["launches_decode_step"] = per_step
+        if name == "silu_stepwise":
+            row["launches_train_step"] = {
+                state[ph]["arch"]: state[ph]["silu_stepwise_launches_per_step"]
+                for ph in ("train", "train_moe") if ph in state}
+        rows.append(row)
+    return rows
+
+
 def time_flash(dev, lm: dict, checks: dict, moe: dict | None = None,
                mla: dict | None = None, encdec: dict | None = None,
                vlm: dict | None = None) -> dict:
@@ -5846,6 +6293,10 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         state["train"] = phase_train(dev)
         log(f"train phase {time.perf_counter() - t0:.2f} s")
+    if "train_moe" in phases:
+        t0 = time.perf_counter()
+        state["train_moe"] = phase_train_moe(dev)
+        log(f"train_moe phase {time.perf_counter() - t0:.2f} s")
     if "times" in phases:
         rows = phase_times(dev, state)
         for path in ("stream", "elastic", "serving"):

@@ -20,7 +20,7 @@ from ..kernels.parsa_cost.ops import LAUNCHES
 from ..obs.trace import annotate_last_instant, dispatch_instant
 
 __all__ = ["DispatchEvent", "DispatchLog", "annotate_dispatch",
-           "dispatch_counter", "phase"]
+           "dispatch_counter", "phase", "reset_dispatch_counts"]
 
 
 @dataclasses.dataclass
@@ -40,6 +40,13 @@ class DispatchLog(dict):
         super().__init__(*args, **kwargs)
         self.records: list[DispatchEvent] = []
         self.launches: dict[str, dict[str, int]] = {}
+
+    def bytes_by_phase(self) -> dict[str, int]:
+        """The carry bytes of the counted dispatches, summed by phase."""
+        out: dict[str, int] = {}
+        for r in self.records:
+            out[r.phase] = out.get(r.phase, 0) + r.nbytes
+        return out
 
 
 _ACTIVE_COUNTERS: list[DispatchLog] = []
@@ -96,3 +103,13 @@ def dispatch_counter():
             if c is counts:
                 del _ACTIVE_COUNTERS[i]
                 break
+
+
+def reset_dispatch_counts() -> None:
+    """Zero every active counter: its counts, its records and its kernel
+    launches by phase (a test-isolation helper)."""
+    for counts in _ACTIVE_COUNTERS:
+        for key in counts:
+            counts[key] = 0
+        counts.records.clear()
+        counts.launches.clear()

@@ -75,6 +75,7 @@ __all__ = [
     "blocked_partition_u_impl",
     "blocked_partition_u_hostloop_impl",
     "parallel_blocked_partition_u_impl",
+    "shard_parsa_step",
 ]
 
 
@@ -149,27 +150,43 @@ def _assign_block(
     nbr: torch.Tensor,      # (B, W) int32 packed N(u)
     s_masks: torch.Tensor,  # (k, W) int32 packed S_i — updated in place
     sizes: torch.Tensor,    # (k,) int32 |U_i| — updated in place
+    valid: torch.Tensor | None = None,  # (B,) bool — padding rows, if any
 ) -> torch.Tensor:
     """Greedy-assign every row of the block, one vertex at a time: B steps,
     each picking the smallest partition (first on ties), its cheapest row,
     and down-dating that partition's column of the (B, k) cost tile.
     Returns parts (B,) int32.  The down-date popcount(nbr & delta) is the
-    ``parsa_cost`` kernel against the complement ~delta."""
+    ``parsa_cost`` kernel against the complement ~delta.  ``valid`` marks
+    padding rows: they start retired and never enter S or the sizes, and a
+    step whose cheapest row is retired assigns nothing (JAX's
+    ``_assign_block(valid=)``).  Nothing reads back to the host."""
     B = nbr.shape[0]
     cost = parsa_cost(nbr, s_masks)
+    if valid is not None:
+        cost = torch.where(valid[:, None], cost, BIG)
     parts = torch.full((B,), -1, dtype=torch.int32, device=nbr.device)
     one = torch.ones(1, dtype=torch.int32, device=nbr.device)
     for _ in range(B):
         i = sizes.argmin().view(1)                  # partition to grow
         u = cost.index_select(1, i).argmin().view(1)  # cheapest row for it
         mask_u = nbr.index_select(0, u)             # (1, W)
+        pick = i.to(torch.int32)
+        if valid is None:
+            grow = one
+        else:
+            # once only retired or padding rows remain their cost sits near
+            # BIG (down-dates drift it a little): stop assigning then
+            active = cost[u, i] < BIG // 2
+            grow = active.to(torch.int32)
+            mask_u = mask_u * grow
+            pick = torch.where(active, pick, parts.index_select(0, u))
         s_i = s_masks.index_select(0, i)
         dec = parsa_cost(nbr, ~(mask_u & ~s_i))     # (B, 1) = |N(v) ∩ delta|
         cost.index_add_(1, i, -dec)                 # cost never increases
         cost.index_fill_(0, u, BIG)                 # retire u from the block
         s_masks.index_copy_(0, i, s_i | mask_u)
-        sizes.index_add_(0, i, one)
-        parts.index_copy_(0, u, i.to(torch.int32))
+        sizes.index_add_(0, i, grow)
+        parts.index_copy_(0, u, pick)
     return parts
 
 
@@ -626,3 +643,65 @@ def parallel_blocked_partition_u_impl(
     parts[torch.from_numpy(order).to(device)] = \
         parts_blocks.reshape(-1)[: graph.num_u]
     return parts, s_out, traffic
+
+
+def shard_parsa_step(k: int, select: str = "rounds"):
+    """Return the body of one Algorithm 4 round over a leading worker axis:
+    (per-worker packed block stacks, S, sizes) → (parts, merged S, sizes).
+
+    The counterpart of JAX's ``shard_parsa_step``, whose body runs on each
+    device of a ``shard_map``: here the W workers are the leading axis of
+    every argument on one device.  ``valid`` (W, nb, B), ``widx`` and
+    ``vals`` (W, nb, B, cap), ``trunc`` (W, nb, B), ``tr_ids`` (W, nb, TB)
+    and ``tr_masks`` (W, nb, TB, Wwords) are each worker's stack from
+    ``pack_graph_blocks`` on its U-shard; ``s_masks`` (k, Wwords) and
+    ``sizes`` (k,) int32 are every worker's copy, or (W, k, Wwords) and
+    (W, k) for a copy of its own.  Each worker scans its stack against its
+    copy; then the sets OR-merge across workers and the sizes add up (JAX's
+    ``all_gather`` + OR and ``psum``): one round with τ = nb − 1.  Returns
+    (parts (W, nb, B) int32, -1 on padding rows; merged S (k, Wwords);
+    sizes (k,) int32); the arguments are left as they were.
+
+    ``select="rounds"`` runs the balanced rounds (on the card one
+    ``parsa_scan`` launch for every worker, its plain version on the
+    CPU); ``select="seq"`` the sequential per-vertex loop
+    (``_assign_block``, a ``parsa_cost`` launch a step on the card).
+    Padding rows start retired, so they never enter S or the sizes.  The
+    merge is one ``merge_worker_sets`` launch (``union_delta.cu``).
+    ``trunc`` is implied by ``tr_ids`` (the port's scan reads the
+    truncated rows' ids) and is taken only to keep JAX's signature.
+    """
+    if select not in ("rounds", "seq"):
+        raise ValueError(f"select must be 'rounds' or 'seq', got {select!r}")
+
+    def body(valid, widx, vals, trunc, tr_ids, tr_masks, s_masks, sizes):
+        nw, nb, B = valid.shape
+        dev = valid.device
+        if s_masks.shape[-2] != k or sizes.shape[-1] != k:
+            raise ValueError(f"S {tuple(s_masks.shape)} and sizes "
+                             f"{tuple(sizes.shape)} do not hold k={k}")
+        # each worker's copy, updated in place (a fresh buffer)
+        fresh = torch.contiguous_format
+        s_local = s_masks.expand(nw, *s_masks.shape[-2:]).clone(
+            memory_format=fresh)
+        sz_local = sizes.expand(nw, k).clone(memory_format=fresh)
+        parts = torch.full((nw, nb, B), -1, dtype=torch.int32, device=dev)
+        if select == "rounds":
+            _scan(widx, vals, tr_ids, tr_masks, valid, s_local, sz_local,
+                  parts, 0, nb, False)
+        else:
+            for w in range(nw):
+                for b in range(nb):
+                    nbr = rebuild_block(widx[w, b], vals[w, b], tr_ids[w, b],
+                                        tr_masks[w, b])[:B]
+                    parts[w, b] = _assign_block(nbr, s_local[w], sz_local[w],
+                                                valid[w, b])
+        # the server union-push against empty sets: the OR of the workers'
+        # sets and the sum of their sizes
+        merged, sizes_out = merge_worker_sets(
+            s_local, torch.zeros_like(s_local[0]), sz_local,
+            torch.zeros_like(sz_local[0]),
+            torch.zeros(1, dtype=torch.int64, device=dev))
+        return parts, merged, sizes_out
+
+    return body

@@ -7,6 +7,8 @@ parsa_cost/       — packed-bitmask popcount cost tile, the fused greedy
 flash_attention/  — forward flash attention (causal and sliding-window
                     masks, GQA by head index), the attention of the LM
                     prefill
+elementwise/      — silu and tanh-gelu with every operation rounded to
+                    the dtype, as the reference's activations round
 
 Each family ships ``csrc/*.cu`` (the kernels), ``build.py`` (nvcc + ctypes,
 at first use, through ``nvcc.KernelFamily``), ``ops.py`` (checked wrappers
@@ -21,7 +23,9 @@ def build_all(verbose: bool = False):
     """Compile every kernel library of every family, one ``nvcc`` per
     source, all started together; return ``{library: path}``."""
     from . import nvcc
+    from .elementwise import build as ew_build
     from .flash_attention import build as fa_build
     from .parsa_cost import build as pc_build
 
-    return nvcc.build_all((pc_build.FAMILY, fa_build.FAMILY), verbose)
+    return nvcc.build_all((pc_build.FAMILY, fa_build.FAMILY, ew_build.FAMILY),
+                          verbose)

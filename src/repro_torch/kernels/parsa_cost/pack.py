@@ -10,7 +10,9 @@ import numpy as np
 
 __all__ = ["pack_bitmask", "unpack_bitmask", "coerce_packed_sets",
            "coerce_dense_sets", "packed_union", "packed_delta",
-           "packed_intersect_counts", "pack_bitmask_csr_sparse"]
+           "packed_intersect_counts", "pack_bitmask_csr",
+           "pack_bitmask_csr_sparse", "pack_bitmask_csr_compact",
+           "compact_row_words"]
 
 
 def pack_bitmask(ids_per_row: list[np.ndarray] | np.ndarray, num_v: int) -> np.ndarray:
@@ -140,6 +142,28 @@ def _gather_row_cols(
     return n, lens, row_ids, cols
 
 
+def pack_bitmask_csr(
+    indptr: np.ndarray,
+    indices: np.ndarray,
+    num_v: int,
+    rows: np.ndarray | None = None,
+) -> np.ndarray:
+    """Vectorized CSR → (rows, ceil(num_v/32)) int32 bitmask packing:
+    ``pack_bitmask([indices[indptr[r]:indptr[r+1]] for r in rows], num_v)``
+    with no per-row Python work (one gather over the edge array, one
+    ``bitwise_or.at`` scatter).  ``rows`` selects or permutes rows; None
+    packs all rows in CSR order."""
+    n, _, row_ids, cols = _gather_row_cols(indptr, indices, rows)
+    W = (num_v + 31) // 32
+    out = np.zeros(n * W, dtype=np.uint32)
+    np.bitwise_or.at(
+        out,
+        row_ids * W + (cols >> 5),
+        (np.int64(1) << (cols & 31)).astype(np.uint32),
+    )
+    return out.reshape(n, W).view(np.int32)
+
+
 def pack_bitmask_csr_sparse(
     indptr: np.ndarray,
     indices: np.ndarray,
@@ -182,3 +206,43 @@ def pack_bitmask_csr_sparse(
     vals.reshape(-1)[flat] = acc[keep]
     return (uniq, acc.view(np.int32), widx, vals.view(np.int32),
             counts > cap, n, W)
+
+
+def pack_bitmask_csr_compact(
+    indptr: np.ndarray,
+    indices: np.ndarray,
+    num_v: int,
+    rows: np.ndarray | None = None,
+    cap: int = 48,
+) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """``pack_bitmask_csr`` and ``compact_row_words`` in one sorted pass.
+    Returns (masks (n, W) int32, widx (n, cap) int32, vals (n, cap) int32,
+    truncated (n,) bool), the two-step result exactly."""
+    uniq, wordvals, widx, vals, trunc, n, W = pack_bitmask_csr_sparse(
+        indptr, indices, num_v, rows=rows, cap=cap)
+    masks = np.zeros(n * W, dtype=np.int32)
+    masks[uniq] = wordvals
+    return masks.reshape(n, W), widx, vals, trunc
+
+
+def compact_row_words(
+    masks: np.ndarray, cap: int
+) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Per-row compact word lists of a packed (N, W) bitmask: (widx (N,
+    cap) int32, vals (N, cap) int32, truncated (N,) bool).  A row with at
+    most ``cap`` nonzero words is exact: for any mask X, Σ_d
+    popcount(vals[r, d] & X[widx[r, d]]) == popcount(masks[r] & X).  A
+    longer row keeps its first ``cap`` words and is flagged truncated.
+    Padding slots point at word 0 with value 0."""
+    n = masks.shape[0]
+    r, c = np.nonzero(masks)
+    counts = np.bincount(r, minlength=n)
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    pos = np.arange(r.size, dtype=np.int64) - starts[r]
+    keep = pos < cap
+    widx = np.zeros((n, cap), dtype=np.int32)
+    vals = np.zeros((n, cap), dtype=np.int32)
+    flat = r[keep] * cap + pos[keep]
+    widx.reshape(-1)[flat] = c[keep]
+    vals.reshape(-1)[flat] = masks[r[keep], c[keep]]
+    return widx, vals, counts > cap

@@ -1,3 +1,3 @@
 """Entry points of the port's LM stack: step factories (``steps``), the
-training driver (``train``) and the greedy decode loop through the serving
-engine (``serve``)."""
+training driver (``train``), the greedy decode loop through the serving
+engine (``serve``) and the roofline arithmetic of a cell (``roofline``)."""

@@ -59,6 +59,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..kernels import elementwise as EW
 from ..kernels.flash_attention import flash_attention
 
 __all__ = ["NEG_INF", "apply_norm", "rms_head_norm", "rope_freqs",
@@ -66,7 +67,7 @@ __all__ = ["NEG_INF", "apply_norm", "rms_head_norm", "rope_freqs",
            "init_norm", "init_attention", "attention", "q_projection",
            "qkv_projection", "attention_block", "init_mla",
            "mla_projection", "mla_qkv", "mla_block", "init_mlp",
-           "apply_mlp"]
+           "apply_mlp", "silu_stepwise", "gelu_stepwise"]
 
 NEG_INF = -1e30
 
@@ -119,7 +120,7 @@ class _StepwiseSilu(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x):
         ctx.save_for_backward(x)
-        return x * (1 + torch.exp(-x)).reciprocal()
+        return EW.silu_stepwise(x)
 
     @staticmethod
     def backward(ctx, g):
@@ -129,15 +130,43 @@ class _StepwiseSilu(torch.autograd.Function):
         return (g.float() * s * (1 + xf * (1 - s))).to(g.dtype)
 
 
+class _StepwiseGelu(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return EW.gelu_stepwise(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return torch.ops.aten.gelu_backward(
+            g.float(), x.float(), approximate="tanh").to(g.dtype)
+
+
 def silu_stepwise(x):
     """silu(x) = x * sigmoid(x) with the sigmoid as the reference computes
     it: ``jax.nn.sigmoid`` is ``lax.logistic``, which XLA expands to
     1 / (1 + exp(-x)) with each operation rounded to x.dtype.  In bfloat16
     ``F.silu`` (one rounding) parts from it by an ulp in about 40% of
-    entries, which the recurrent blocks' per-head RMS norms amplify; the
-    recurrent families use this form.  The backward is silu's derivative
-    in float32 (the chain's own would give 0 * inf where exp overflows)."""
+    entries, which the recurrent blocks' per-head RMS norms amplify.  On
+    the card it is one launch of the ``elementwise`` kernel
+    (``kernels.elementwise.silu_stepwise``), on the CPU that kernel's plain
+    version, the chain of ATen ops.  The backward is silu's derivative in
+    float32 (the chain's own would give 0 * inf where exp overflows)."""
+    if not (torch.is_grad_enabled() and x.requires_grad):
+        return EW.silu_stepwise(x)
     return _StepwiseSilu.apply(x)
+
+
+def gelu_stepwise(x):
+    """``jax.nn.gelu(x)`` (the tanh form, its default) with each operation
+    rounded to x.dtype, as XLA computes it; ``F.gelu(approximate="tanh")``
+    rounds once and parts from it in about 40% of bfloat16 entries.  One
+    launch of the ``elementwise`` kernel on the card, its plain version on
+    the CPU; the backward is the tanh form's derivative in float32."""
+    if not (torch.is_grad_enabled() and x.requires_grad):
+        return EW.gelu_stepwise(x)
+    return _StepwiseGelu.apply(x)
 
 
 # --------------------------------------------------------------------- rope
@@ -529,7 +558,7 @@ def apply_mlp(p, x, kind: str, dtype=torch.bfloat16):
     if kind == "swiglu":
         g = x @ p["wg"].to(dtype)
         u = x @ p["wu"].to(dtype)
-        h = F.silu(g) * u
+        h = silu_stepwise(g) * u
     else:
         h = x @ p["wi"].to(dtype)
         if "bi" in p:
@@ -537,7 +566,7 @@ def apply_mlp(p, x, kind: str, dtype=torch.bfloat16):
         if kind == "squared_relu":
             h = torch.square(F.relu(h))
         else:  # gelu (tanh approximation, as jax.nn.gelu's default)
-            h = F.gelu(h, approximate="tanh")
+            h = gelu_stepwise(h)
     out = h @ p["wd"].to(dtype)
     if "bd" in p:
         out = out + p["bd"].to(dtype)

@@ -57,7 +57,8 @@ from . import layers as LL
 from . import transformer as TR
 from .shardctx import bf16_grad_barrier
 
-__all__ = ["Model", "build_model", "compute_dtype"]
+__all__ = ["Model", "build_model", "compute_dtype", "SHAPES",
+           "shape_applicable", "input_specs"]
 
 
 def compute_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -369,3 +370,61 @@ def build_model(cfg: ModelConfig, device="cuda") -> Model:
             "none is available; pass device='cpu' to run the plain PyTorch "
             "path")
     return Model(cfg, device)
+
+
+# ---------------------------------------------------------------- input specs
+# the reference's workload shapes (repro/models/model.py)
+SHAPES = {
+    "train_4k": dict(kind="train", seq=4096, batch=256),
+    "prefill_32k": dict(kind="prefill", seq=32768, batch=32),
+    "decode_32k": dict(kind="decode", seq=32768, batch=128),
+    "long_500k": dict(kind="decode", seq=524288, batch=1),
+}
+
+
+def shape_applicable(cfg: ModelConfig, shape: str) -> tuple[bool, str]:
+    """Whether a configuration runs at a shape, and why not: full attention
+    skips ``long_500k`` (quadratic, an unbounded KV cache); the recurrent
+    families and a sliding window run it."""
+    SHAPES[shape]   # an unknown shape raises KeyError, as in the reference
+    if shape == "long_500k" and cfg.family not in ("xlstm", "hybrid") \
+            and not cfg.swa_window:
+        return False, ("full attention is quadratic/unbounded-KV at 500k "
+                       "(skip per assignment)")
+    return True, ""
+
+
+def input_specs(cfg: ModelConfig, shape: str) -> dict:
+    """Stand-ins for every model input of a (configuration, shape) cell:
+    tensors on ``torch.device("meta")``, shapes and dtypes only, nothing
+    allocated.  Train and prefill: ``tokens`` and ``labels`` (B, S) int32,
+    with ``frames`` (B, encoder_seq, D) for the encoder-decoder and
+    ``patches`` (B, num_patches, D) for the VLM, in the compute dtype.
+    Decode: ``token`` (B, 1) int32, ``pos`` a 0-d int32 tensor and
+    ``cache``, ``Model.init_cache`` at the shape's sequence length: the SWA
+    ring of ``swa_window`` slots at ``long_500k`` where the configuration
+    has a window, and the encoder-decoder's cross cache, a (k, v) pair of
+    (L, B, encoder_seq, KV, head_dim).  (The reference's ``dp_devices``,
+    which it never reads, is left out.)"""
+    info = SHAPES[shape]
+    B, S = info["batch"], info["seq"]
+    meta = torch.device("meta")
+    f = compute_dtype(cfg)
+
+    def sd(shape_, dtype=torch.int32):
+        return torch.empty(shape_, dtype=dtype, device=meta)
+
+    if info["kind"] in ("train", "prefill"):
+        batch = {"tokens": sd((B, S)), "labels": sd((B, S))}
+        if cfg.family == "encdec":
+            batch["frames"] = sd((B, cfg.encoder_seq, cfg.d_model), f)
+        if cfg.family == "vlm":
+            batch["patches"] = sd((B, cfg.num_patches, cfg.d_model), f)
+        return batch
+    ring = bool(cfg.swa_window) and shape == "long_500k"
+    cache_seq = min(S, cfg.swa_window) if ring else S
+    cache = Model(cfg, meta).init_cache(B, cache_seq, ring=ring)
+    if cfg.family == "encdec":
+        kv = TR.init_kv_caches(cfg, B, cfg.encoder_seq, meta, dtype=f)
+        cache["cross"] = (kv["k"], kv["v"])
+    return {"token": sd((B, 1)), "pos": sd(()), "cache": cache}

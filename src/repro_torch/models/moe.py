@@ -12,7 +12,9 @@ Determinism.  The dispatch writes each kept assignment to its own buffer
 row (dropped ones to a spare row that is sliced off), and the combine sums
 each token's K slots in the order of the sorted assignments, as the
 reference's ``segment_sum`` adds them: no float atomics, so two runs on the
-card give the same bits.  The expert counts are an integer ``scatter_add_``
+card give the same bits.  The backward keeps that: the dispatch's gather
+sums each token's K slot gradients in a fixed order (``_SlotGather``), so
+two training runs give the same bits too.  The expert counts are an integer ``scatter_add_``
 (exact).  On a CUDA tensor nothing here reads a value back to the host
 (no ``bincount``, ``nonzero``, boolean-mask index or ``.item()``).
 """
@@ -20,9 +22,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
-from .layers import _dense_init
+from .layers import _dense_init, silu_stepwise
 
 __all__ = ["init_moe", "capacity", "apply_moe"]
 
@@ -64,6 +65,38 @@ def _expert_counts(flat_e, E: int, dtype=torch.int64):
                               device=flat_e.device))
 
 
+class _SlotGather(torch.autograd.Function):
+    """``xt[st]``, the dispatch's gather of each assignment's token row,
+    whose backward sums each token's K slot gradients in a fixed order: a
+    stable sort of the slots by token, then one ordered segment sum a
+    token (``torch.segment_reduce``), as ``model._EmbeddingLookup`` does.
+    The default backward of an index accumulates with ``index_put_``, in
+    an order the library chooses on the card.  ``st`` holds every token
+    exactly K times (a permutation of ``arange(T).repeat_interleave(K)``),
+    so every segment is K long and nothing is read back to the host."""
+
+    @staticmethod
+    def forward(ctx, xt, st, K: int):
+        ctx.save_for_backward(st)
+        ctx.K = K
+        return xt[st]
+
+    @staticmethod
+    def backward(ctx, g):
+        (st,) = ctx.saved_tensors
+        T = st.numel() // ctx.K
+        order = torch.argsort(st, stable=True)
+        lengths = torch.full((T,), ctx.K, dtype=torch.int64, device=g.device)
+        return torch.segment_reduce(g[order], "sum", lengths=lengths,
+                                    axis=0), None, None
+
+
+def _gather_slots(xt, st, K: int):
+    if torch.is_grad_enabled() and xt.requires_grad:
+        return _SlotGather.apply(xt, st, K)
+    return xt[st]
+
+
 def _route(p, xt, cfg):
     """float32 router -> (probs (T, E), weights (T, K), ids (T, K)), the
     weights renormalised.  ``jax.lax.top_k`` puts the lower expert first
@@ -98,12 +131,17 @@ def _pack_compute_combine(xt, top_e, top_w, wg, wu, wd, cfg, *, e_lo, e_num,
     spare = e_num * C                  # dropped assignments land here
     dest = torch.where(mine, (se - e_lo) * C + pos, spare)
 
-    rows = xt[st].to(dtype)
+    # The backward of every index op here sums in a fixed order: the
+    # gather of the token rows through _SlotGather; ``flat_w[order]`` and
+    # ``picked[by_token[:, k]]`` repeat no index; the buffer write's
+    # backward is a gather; ``y[dest.clamp(...)]`` repeats an index only
+    # for dropped slots, whose gradient ``torch.where`` makes 0.
+    rows = _gather_slots(xt, st, K).to(dtype)
     buf = rows.new_zeros((spare + 1, D)).index_put((dest,), rows)
     buf = buf[:spare].view(e_num, C, D)
     g = torch.bmm(buf, wg.to(dtype))
     u = torch.bmm(buf, wu.to(dtype))
-    h = F.silu(g) * u
+    h = silu_stepwise(g) * u
     del g, u
     y = torch.bmm(h, wd.to(dtype)).view(spare, D)
     picked = torch.where(mine[:, None], y[dest.clamp(max=spare - 1)], 0.0)
@@ -138,7 +176,7 @@ def apply_moe(p, x, cfg, dtype=torch.bfloat16, return_aux=False):
         xs = xt.to(dtype)
         g = xs @ sh["wg"].to(dtype)
         u = xs @ sh["wu"].to(dtype)
-        out = out + (F.silu(g) * u) @ sh["wd"].to(dtype)
+        out = out + (silu_stepwise(g) * u) @ sh["wd"].to(dtype)
     out = out.reshape(B, S, D).to(dtype)
     if return_aux:
         K = cfg.num_experts_per_tok

@@ -228,6 +228,11 @@ def _facade_cases():
 SCAN_CASES = {"shuffle": (None, 7), "weights": ([1.0, 2.0, 0.5, 3.0], None),
               "weights_shuffle": ([1.0, 2.0, 0.5, 3.0], 7)}
 
+# shard_parsa_step at 4 workers on the same graph, 20 blocks of 64 (the
+# last 1.25 padding): (select, warm S and sizes)
+SHARD_CASES = {"shard_rounds": ("rounds", False), "shard_seq": ("seq", False),
+               "shard_rounds_warm": ("rounds", True)}
+
 _JAX_SCRIPT = r"""
 import json, sys
 import jax, jax.numpy as jnp, numpy as np
@@ -236,7 +241,7 @@ from repro.api import ParsaConfig, partition
 from repro.core import jax_partition as jp
 from repro.graphs import ctr_like, text_like
 
-facade, scans, out_path = json.loads(sys.argv[1])
+facade, scans, shard, out_path = json.loads(sys.argv[1])
 gen = {"text": text_like, "ctr": ctr_like}
 out = {}
 for name, ((kind, gkw), ckw) in facade.items():
@@ -266,6 +271,30 @@ for name, (weights, shuffle) in scans.items():
     out[name + "/perm"] = perm
     for f, v in traffic.items():
         out[name + "/t_" + f] = v
+# shard_parsa_step's body under shard_map at 4 workers: the blocks
+# sharded over "data", S and sizes replicated (zero, or warm)
+from jax.sharding import Mesh, PartitionSpec as P
+from repro.compat import shard_map
+mesh = Mesh(np.array(jax.devices()[:4]), ("data",))
+stack = jp._pad_block_stack(packed, 20)
+for name, (select, warm) in shard.items():
+    body = jp.shard_parsa_step(8, axis="data", use_kernel=False,
+                               select=select)
+    fn = shard_map(body, mesh=mesh, in_specs=(P("data"),) * 6 + (P(), P()),
+                   out_specs=(P("data"), P(), P()), check_vma=False)
+    rng = np.random.default_rng(5)
+    s0 = (rng.integers(0, 2**31, (8, W)) * (rng.random((8, W)) < 0.05)
+          if warm else np.zeros((8, W))).astype(np.int32)
+    z0 = (rng.integers(0, 5, 8) if warm else np.zeros(8)).astype(np.int32)
+    parts, merged, sizes = fn(
+        *(jnp.asarray(getattr(stack, f)) for f in
+          ("valid", "widx", "vals", "trunc", "tr_ids", "tr_masks")),
+        jnp.asarray(s0), jnp.asarray(z0))
+    out[name + "/parts"] = np.asarray(parts)
+    out[name + "/merged"] = np.asarray(merged)
+    out[name + "/sizes"] = np.asarray(sizes)
+    out[name + "/s0"] = s0
+    out[name + "/z0"] = z0
 np.savez(out_path, **out)
 print("JAX_PARALLEL_DONE")
 """
@@ -278,7 +307,7 @@ def jax_parallel(tmp_path_factory):
     path = tmp_path_factory.mktemp("jax_parallel") / "out.npz"
     env = dict(os.environ, XLA_FLAGS="--xla_force_host_platform_device_count=8",
                JAX_PLATFORMS="cpu", PYTHONPATH=str(ROOT / "src"))
-    arg = json.dumps([_facade_cases(), SCAN_CASES, str(path)])
+    arg = json.dumps([_facade_cases(), SCAN_CASES, SHARD_CASES, str(path)])
     out = subprocess.run([sys.executable, "-c", _JAX_SCRIPT, arg], env=env,
                          capture_output=True, text=True, timeout=900)
     assert "JAX_PARALLEL_DONE" in out.stdout, out.stdout + out.stderr
@@ -327,6 +356,32 @@ def test_run_parallel_packed_scan_matches_jax(jax_parallel, name):
     # stack order: every real row assigned exactly once
     flat = parts.reshape(-1, 64).numpy()[np.argsort(perm)]
     assert (flat.reshape(-1)[: g.num_u] >= 0).all()
+
+
+@pytest.mark.parametrize("name", list(SHARD_CASES))
+def test_shard_parsa_step_matches_jax_at_4_workers(jax_parallel, name):
+    """The port's ``shard_parsa_step`` body with the 4 workers as a
+    leading axis against JAX's under ``shard_map`` on 4 host devices: the
+    same blocks a worker, ``parts``, ``merged`` and ``sizes`` bit for bit
+    (the sizes are JAX's ``psum`` of every worker's copy, so warm sizes
+    count 4 times)."""
+    select, warm = SHARD_CASES[name]
+    g = _port(j_text_like(1200, 2000, mean_len=15, seed=4))
+    order = np.random.default_rng(0).permutation(g.num_u)
+    stack = tp._pad_block_stack(tp.pack_graph_blocks(g, 64, order=order), 20)
+    body = tp.shard_parsa_step(8, select=select)
+    args = [_t(getattr(stack, f)).reshape((4, 5) + getattr(stack, f).shape[1:])
+            for f in ("valid", "widx", "vals", "trunc", "tr_ids", "tr_masks")]
+    s0, z0 = (_t(jax_parallel[f"{name}/{f}"]) for f in ("s0", "z0"))
+    parts, merged, sizes = body(*args, s0, z0)
+    assert np.array_equal(parts.reshape(20, 64).numpy(),
+                          jax_parallel[name + "/parts"])
+    assert np.array_equal(merged.numpy(), jax_parallel[name + "/merged"])
+    assert np.array_equal(sizes.numpy(), jax_parallel[name + "/sizes"])
+    real = parts.reshape(-1).numpy()[: g.num_u]
+    assert (real >= 0).all()
+    assert int(sizes.sum()) == g.num_u + 4 * int(z0.sum())
+    assert bool((merged | s0 == merged).all())   # S only grows
 
 
 # ------------------------------------------------- the card (skipped here)

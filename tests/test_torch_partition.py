@@ -139,3 +139,137 @@ def test_dispatch_counter_one_scan_per_call():
     assert outer.records[0].meta == {"k": 4, "blocks": 5}
     # the CPU path launches no kernel; the phase is still recorded
     assert outer.launches == {"partition_scan": {}}
+
+
+# ------------------------------------------------- dispatch bytes, resets
+def test_bytes_by_phase_matches_jax():
+    """``DispatchLog.bytes_by_phase`` of the facade's device_scan with the
+    device refine, phase by phase, against JAX's on the same graph."""
+    from repro.core.jax_partition import dispatch_counter as j_counter
+    from repro_torch.api import ParsaConfig, partition
+
+    g = j_text_like(700, 900, mean_len=14, seed=5)
+    kw = dict(k=8, backend="device_scan", refine_backend="device",
+              block_size=128)
+    with j_counter() as want:
+        j_partition(g, JConfig(**kw))
+    with dispatch_counter() as got:
+        partition(_port(g), ParsaConfig(**kw), device="cpu")
+    assert dict(got) == dict(want)
+    assert got.bytes_by_phase() == want.bytes_by_phase()
+    assert got.bytes_by_phase()["partition_scan"] == 4 * (8 * 29 + 8)
+
+
+def test_reset_dispatch_counts_zeroes_every_log():
+    from repro_torch.core.dispatch import reset_dispatch_counts
+
+    g = _port(j_text_like(300, 300, mean_len=10, seed=0))
+    with dispatch_counter() as outer:
+        with dispatch_counter() as inner:
+            blocked_partition_u_impl(g, 4, 64, device="cpu")
+            reset_dispatch_counts()
+            assert inner == outer == {"partition_scan": 0}
+            assert not inner.records and not outer.records
+            assert inner.launches == outer.launches == {}
+            assert inner.bytes_by_phase() == {}
+            blocked_partition_u_impl(g, 4, 64, device="cpu")
+    assert inner == outer == {"partition_scan": 1}
+    assert len(outer.records) == 1
+    reset_dispatch_counts()   # no log active: nothing to do
+    assert outer == {"partition_scan": 1}
+
+
+# ------------------------------------------------------------ the packers
+@pytest.mark.parametrize("seed", range(6))
+def test_packers_match_jax(seed):
+    """``pack_bitmask_csr``, ``pack_bitmask_csr_compact`` and
+    ``compact_row_words`` on the inputs of JAX's own packing tests
+    (``tests/test_jax_partition.py``): bit-equal arrays."""
+    from repro.kernels.parsa_cost import ops as jops
+    from repro_torch.kernels import parsa_cost as tk
+
+    g = _random_graph(seed)
+    rng = np.random.default_rng(seed + 100)
+    args = (g.u_indptr, g.u_indices, g.num_v)
+    perm = rng.permutation(g.num_u)
+    for rows in (None, perm):
+        got = tk.pack_bitmask_csr(*args, rows=rows)
+        assert got.dtype == np.int32
+        assert np.array_equal(got, jops.pack_bitmask_csr(*args, rows=rows))
+    cap = int(rng.integers(2, 12))
+    got = tk.pack_bitmask_csr_compact(*args, rows=perm, cap=cap)
+    want = jops.pack_bitmask_csr_compact(*args, rows=perm, cap=cap)
+    masks = jops.pack_bitmask_csr(*args, rows=perm)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and np.array_equal(a, b)
+    for a, b in zip(tk.compact_row_words(masks, cap),
+                    jops.compact_row_words(masks, cap)):
+        assert a.dtype == b.dtype and np.array_equal(a, b)
+    g2 = j_text_like(200, 600, mean_len=25, seed=2)
+    m2 = jops.pack_bitmask_csr(g2.u_indptr, g2.u_indices, g2.num_v)
+    for a, b in zip(tk.compact_row_words(m2, 8), jops.compact_row_words(m2, 8)):
+        assert np.array_equal(a, b)
+
+
+# ------------------------------------------------------- shard_parsa_step
+def _jax_shard_step(packed, k, W, select):
+    """JAX's body through ``shard_map`` on a 1-wide data axis (one host
+    device), as ``tests/test_jax_partition.py`` runs it."""
+    import jax
+    from jax.sharding import Mesh
+    from jax.sharding import PartitionSpec as P
+
+    from repro.compat import shard_map
+    from repro.core.jax_partition import shard_parsa_step as j_step
+
+    body = j_step(k, axis="data", use_kernel=False, select=select)
+    mesh = Mesh(np.array(jax.devices()[:1]), ("data",))
+    fn = shard_map(body, mesh=mesh, in_specs=(P(),) * 8,
+                   out_specs=(P(), P(), P()), check_vma=False)
+    out = fn(*(jnp.asarray(getattr(packed, f)) for f in
+               ("valid", "widx", "vals", "trunc", "tr_ids", "tr_masks")),
+             jnp.zeros((k, W), jnp.int32), jnp.zeros((k,), jnp.int32))
+    return [np.asarray(a) for a in out]
+
+
+def _port_shard_step(packed, k, W, select, workers=1):
+    from repro_torch.core.partition import shard_parsa_step
+
+    def stack(a):
+        return torch.from_numpy(np.ascontiguousarray(a))[None]
+
+    body = shard_parsa_step(k, select=select)
+    args = [stack(getattr(packed, f)) for f in
+            ("valid", "widx", "vals", "trunc", "tr_ids", "tr_masks")]
+    s0 = torch.zeros((k, W), dtype=torch.int32)
+    z0 = torch.zeros(k, dtype=torch.int32)
+    parts, merged, sizes = body(*args, s0, z0)
+    assert not s0.any() and not z0.any()   # the arguments are left alone
+    return parts[0].numpy(), merged.numpy(), sizes.numpy()
+
+
+@pytest.mark.parametrize("select", ["rounds", "seq"])
+@pytest.mark.parametrize("case", ["full", "padded"])
+def test_shard_parsa_step_matches_jax(case, select):
+    """One worker, bit for bit against JAX's body on the graphs of JAX's
+    own tests (``tests/test_jax_partition.py``): 256 rows in blocks of 64,
+    and 150 rows (the last block padded: padding never enters S or the
+    sizes).  ``parts``, ``merged`` and ``sizes``."""
+    g = (j_text_like(256, 400, mean_len=12, seed=8) if case == "full"
+         else j_text_like(150, 300, mean_len=10, seed=3))
+    k, W = 4, (g.num_v + 31) // 32
+    packed = j_pack(g, 64)
+    want = _jax_shard_step(packed, k, W, select)
+    got = _port_shard_step(pack_graph_blocks(_port(g), 64), k, W, select)
+    for name, a, b in zip(("parts", "merged", "sizes"), got, want):
+        assert np.array_equal(a, b), name
+    parts = got[0].reshape(-1)
+    assert (parts[: g.num_u] >= 0).all() and (parts[g.num_u:] == -1).all()
+    assert np.array_equal(got[2], np.bincount(parts[: g.num_u], minlength=k))
+
+
+def test_shard_parsa_step_refuses_a_bad_select():
+    from repro_torch.core.partition import shard_parsa_step
+
+    with pytest.raises(ValueError, match="select"):
+        shard_parsa_step(4, select="greedy")
