@@ -71,7 +71,16 @@ Phases, in order; any failure exits non-zero:
    phase 3 in every output; its quality against phase 3, gated at 5%;
    the host simulation ``parallel_sim`` at full size (reported); cpu
    against cuda on the reduced graph at 4 and 8 workers, with global
-   initialization and sketched;
+   initialization and sketched; then Algorithm 4 across processes (phase
+   ``dist``, one worker a rank of a torch.distributed group, B=128, an
+   OR-merge every 12 blocks): a real NCCL group of one rank in this
+   process, equal to the ungrouped route and to device_scan in every
+   output, with a parsa_scan and a merge a super-step; 4 gloo ranks
+   started with spawn on this one card, each equal to the in-process
+   route at 4 workers (17 parsa_scan and 17 packed_union_delta launches a
+   rank) and one grouped stream feed equal to the in-process feed; NCCL
+   at 4 ranks, one card each, where 4 cards are visible; each rank's scan
+   time a super-step and gather time a merge;
 7. the online stream (phase ``stream``, ``repro_torch.stream``): the main
    graph fed as one chunk, equal to phase 3; the acceptance stream of
    ``benchmarks/bench_stream.py`` (the main graph in 16 chunks, k=16,
@@ -280,7 +289,8 @@ Phases, in order; any failure exits non-zero:
    sketched scan's first blocks against ``parsa_scan_ref``.
 
 ``--phases build,kernels,sketch``, ``--phases build,kernels,parallel``,
-``--phases build,kernels,stream``, ``--phases build,kernels,elastic``,
+``--phases build,dist``, ``--phases build,kernels,stream``,
+``--phases build,kernels,elastic``,
 ``--phases build,kernels,serving``, ``--phases build,kernels,lm``,
 ``--phases build,kernels,moe``, ``--phases build,kernels,mla``,
 ``--phases build,kernels,encdec``, ``--phases build,kernels,vlm``,
@@ -308,7 +318,7 @@ PROFILE_DIAG = 0    # --profile-diag N
 # about 50 ms at the H100's 1.98 GHz boost clock
 LEAD_SPIN_CYCLES = 100_000_000
 PHASES = ("build", "kernels", "main", "parity", "sketch", "parallel",
-          "stream", "elastic", "serving", "lm", "moe", "mla", "encdec",
+          "dist", "stream", "elastic", "serving", "lm", "moe", "mla", "encdec",
           "vlm", "xlstm", "hybrid", "train", "train_moe", "times")
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, and the non-tensor fp32
@@ -357,6 +367,14 @@ SKETCH_MAX_QUALITY_PCT = 5.0
 PAR = dict(workers=8, block_size=128, merge_every=12)
 PAR_MAX_QUALITY_PCT = 5.0
 SIM = dict(workers=8, blocks=64, tau=None)
+# Algorithm 4 across processes (phase dist): one worker a rank of a
+# torch.distributed group, the main graph at B=128, an OR-merge every 12
+# blocks; ranks are started with spawn and joined by a deadline, each group
+# made with a timeout
+DIST = dict(block_size=128, merge_every=12)
+DIST_WORKERS = 4
+DIST_GROUP_TIMEOUT_S = 60
+DIST_DEADLINE_S = 240
 
 # the stream path: the acceptance stream of benchmarks/bench_stream.py:54-65
 # (the main graph in 16 np.linspace chunks, k=16, B=256,
@@ -1835,6 +1853,325 @@ def phase_parallel(dev, main: dict) -> dict:
               f"{name}: no packed_union_delta launch on the card")
         log(f"reduced graph parallel_device {name}: cpu == cuda (cpu "
             f"{t1 - t0:.2f} s, cuda {t2 - t1:.2f} s)")
+    return out
+
+
+# ---------------------------------------------------------------- dist
+@contextlib.contextmanager
+def group_timers():
+    """CUDA events around every ``_scan`` (one a super-step) and every
+    ``_gather_flat`` of the group route, on the current stream (an NCCL
+    gather is ordered on it both ways, a gloo one blocks the host).
+    Yields a dict that holds, once the ``with`` block ends, ``scan_ms``
+    (a super-step each) and ``merge_gather_ms`` (the sets' and the
+    sizes' gathers of a merge together, a merge each: the route gathers
+    the plan's digest first, then sets and sizes a merge, the parts
+    last)."""
+    import torch
+
+    from repro_torch.core import partition as tp
+
+    scans, gathers, out = [], [], {}
+    scan, gather = tp._scan, tp._gather_flat
+
+    def timed(fn, into):
+        def run(*args):
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+            fn(*args)
+            b.record()
+            into.append((a, b))
+        return run
+
+    tp._scan, tp._gather_flat = timed(scan, scans), timed(gather, gathers)
+    try:
+        yield out
+    finally:
+        tp._scan, tp._gather_flat = scan, gather
+    torch.cuda.synchronize()
+    out["scan_ms"] = [a.elapsed_time(b) for a, b in scans]
+    per = [a.elapsed_time(b) for a, b in gathers][1:-1]
+    out["merge_gather_ms"] = [x + y for x, y in zip(per[0::2], per[1::2])]
+
+
+def spread(xs) -> str:
+    """n, median, min, max and sum of a list of milliseconds, short."""
+    if not xs:
+        return "n=0"
+    return (f"n={len(xs)} median {statistics.median(xs) * 1e3:.1f} us, min "
+            f"{min(xs) * 1e3:.1f}, max {max(xs) * 1e3:.1f}, sum "
+            f"{sum(xs):.2f} ms")
+
+
+def dist_result_arrays(res) -> dict:
+    out = {f: getattr(res, f) for f in ("parts_u", "s_masks", "parts_v")}
+    for f in ("sizes", "footprint", "traffic", "worker_recv", "server_send"):
+        out["m_" + f] = getattr(res.metrics, f)
+    for f in ("pushed_bytes", "pulled_bytes", "tasks", "stale_pushes_missed",
+              "migration_bytes"):
+        out["t_" + f] = getattr(res.traffic, f)
+    return out
+
+
+def dist_same(got: dict, want: dict, what: str) -> None:
+    import numpy as np
+
+    for f, v in want.items():
+        check(np.array_equal(got[f], v), f"{what}: {f} differs")
+
+
+def dist_stream_feed(g, dev, group=None):
+    """One parallel StreamSession feed at DIST_WORKERS workers (shuffled
+    blocks) of the main graph's first sixteenth; its parts, live sets and
+    sizes, traffic and launches."""
+    import numpy as np
+
+    from repro_torch.api import ParsaConfig
+    from repro_torch.kernels.parsa_cost import ops
+    from repro_torch.stream import ParsaStreamConfig, StreamSession
+
+    cfg = ParsaStreamConfig(base=ParsaConfig(
+        k=K, backend="parallel_device", workers=DIST_WORKERS, **DIST),
+        repartition="never")
+    sess = StreamSession(cfg, g.num_v, device=dev, group=group)
+    ops.reset_launch_counts()
+    upd = sess.feed(stream_chunks(g, STREAM_CHUNKS)[0])
+    launches = dict(ops.LAUNCHES)
+    return {"parts": upd.parts, "s_masks": sess.arena.masks_np(),
+            "sizes": sess.arena.sizes.cpu().numpy(),
+            "traffic": np.asarray([upd.traffic.pushed_bytes,
+                                   upd.traffic.pulled_bytes,
+                                   upd.traffic.tasks,
+                                   upd.traffic.stale_pushes_missed])}, launches
+
+
+def dist_rank(rank: int, world: int, backend: str, store: str, out_dir: str,
+              device: str) -> None:
+    """One rank of phase dist (started with spawn): a warm-up partition of
+    the reduced graph over the group, then the main graph's
+    ``parallel_device`` at ``world`` workers with its launches, scan and
+    gather times, then one parallel stream feed; everything it returns
+    goes to ``rank<r>.npz`` in ``out_dir``."""
+    import datetime
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.api import ParsaConfig, partition
+    from repro_torch.core.dispatch import dispatch_counter
+    from repro_torch.graphs import text_like
+    from repro_torch.kernels.parsa_cost import ops
+
+    dev = torch.device(device)
+    torch.cuda.set_device(dev)
+    dist.init_process_group(backend, init_method=store, rank=rank,
+                            world_size=world, timeout=datetime.timedelta(
+                                seconds=DIST_GROUP_TIMEOUT_S),
+                            **({"device_id": dev} if backend == "nccl"
+                               else {}))
+    group = dist.group.WORLD
+    cfg = ParsaConfig(k=K, backend="parallel_device", refine_backend="device",
+                      sweeps=2, workers=world, **DIST)
+    partition(text_like(**SMALL_GRAPH), cfg, device=dev, group=group)
+    g = text_like(**MAIN_GRAPH)
+    ops.reset_launch_counts()
+    with dispatch_counter() as counts, group_timers() as times:
+        res = partition(g, cfg, device=dev, group=group)
+    launches = dict(ops.LAUNCHES)
+    out = {"r/" + k: v for k, v in dist_result_arrays(res).items()}
+    feed, feed_launches = dist_stream_feed(g, dev, group)
+    out.update({"feed/" + k: v for k, v in feed.items()})
+    dist.barrier()
+    dist.destroy_process_group()
+    out["launches"] = np.asarray(json.dumps(launches))
+    out["feed_launches"] = np.asarray(json.dumps(feed_launches))
+    out["gather_bytes"] = np.int64(
+        counts.bytes_by_phase()["parallel_merge_gather"])
+    out["partition_u_s"] = np.float64(res.timings["partition_u"])
+    out["scan_ms"] = np.asarray(times["scan_ms"])
+    out["merge_gather_ms"] = np.asarray(times["merge_gather_ms"])
+    np.savez(pathlib.Path(out_dir) / f"rank{rank}.npz", **out)
+
+
+def run_dist_ranks(world: int, backend: str, tmp: str,
+                   device_of) -> list[dict]:
+    """Start ``world`` ranks of ``dist_rank`` with spawn (CUDA is live in
+    this process), join them by ``DIST_DEADLINE_S``, kill any still
+    running, and fail unless every rank exited 0."""
+    import multiprocessing
+
+    import numpy as np
+
+    ctx = multiprocessing.get_context("spawn")
+    out_dir = pathlib.Path(tmp) / f"{backend}{world}"
+    out_dir.mkdir()
+    store = f"file://{out_dir / 'store'}"
+    procs = [ctx.Process(target=dist_rank, args=(
+        r, world, backend, store, str(out_dir), device_of(r)))
+        for r in range(world)]
+    for p in procs:
+        p.start()
+    end = time.monotonic() + DIST_DEADLINE_S
+    for p in procs:
+        p.join(max(0.0, end - time.monotonic()))
+    hung = [r for r, p in enumerate(procs) if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    check(not hung, f"dist {backend} x{world}: ranks {hung} still ran after "
+          f"{DIST_DEADLINE_S} s (killed)")
+    codes = [p.exitcode for p in procs]
+    check(not any(codes), f"dist {backend} x{world}: rank exit codes {codes}")
+    return [dict(np.load(out_dir / f"rank{r}.npz")) for r in range(world)]
+
+
+def hold_dist_ranks(ranks: list[dict], want: dict, want_feed: dict,
+                    want_launches: dict, want_feed_launches: dict,
+                    what: str) -> None:
+    """Every rank's result and stream feed against the in-process route's,
+    and its launches against the super-step count; logs each rank's
+    times on short lines."""
+    for r, got in enumerate(ranks):
+        dist_same({k[2:]: v for k, v in got.items() if k.startswith("r/")},
+                  want, f"{what} rank {r} vs in process")
+        dist_same({k[5:]: v for k, v in got.items()
+                   if k.startswith("feed/")}, want_feed,
+                  f"{what} rank {r} stream feed vs in process")
+        launches = json.loads(str(got["launches"]))
+        check(launches == {n: want_launches.get(n, 0) for n in launches},
+              f"{what} rank {r}: launches {launches}, want {want_launches}")
+        fl = json.loads(str(got["feed_launches"]))
+        check(fl == {n: want_feed_launches.get(n, 0) for n in fl},
+              f"{what} rank {r}: feed launches {fl}, want "
+              f"{want_feed_launches}")
+        log(f"{what} rank {r}: partition_u {float(got['partition_u_s']):.3f}"
+            f" s; gathered {int(got['gather_bytes']):,} bytes")
+        log(f"{what} rank {r}: scan a super-step "
+            f"{spread(list(got['scan_ms']))}")
+        log(f"{what} rank {r}: gather a merge "
+            f"{spread(list(got['merge_gather_ms']))}")
+
+
+def phase_dist(dev, main: dict) -> dict:
+    """Algorithm 4 with one worker a rank of a torch.distributed group:
+    (a) a real NCCL group of one rank in this process, against the
+    ungrouped route and device_scan; (b) DIST_WORKERS ranks on this one
+    card over gloo (NCCL refuses two ranks on one card), against the
+    in-process route at as many workers; (c) DIST_WORKERS NCCL ranks, one
+    card each, where that many cards are visible."""
+    import datetime
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.api import ParsaConfig, partition
+    from repro_torch.core.dispatch import dispatch_counter
+    from repro_torch.graphs import text_like
+    from repro_torch.kernels.parsa_cost import ops
+
+    check(dist.is_available() and dist.is_nccl_available(),
+          "torch.distributed with NCCL is not available")
+    g = main["graph"] if "graph" in main else text_like(**MAIN_GRAPH)
+    base = ParsaConfig(k=K, backend="parallel_device", refine_backend="device",
+                       sweeps=2, **DIST)
+    nb = -(-g.num_u // DIST["block_size"])
+
+    def merges_at(workers):
+        nb_per = -(-nb // workers)
+        return -(-nb_per // DIST["merge_every"])
+
+    out = {}
+    tmp = tempfile.TemporaryDirectory()
+    # (a) NCCL at world size 1, in this process
+    dist.init_process_group(
+        "nccl", init_method=f"file://{tmp.name}/store_nccl1", rank=0,
+        world_size=1, timeout=datetime.timedelta(seconds=DIST_GROUP_TIMEOUT_S),
+        device_id=dev)
+    try:
+        one = base.replace(workers=1)
+        group = dist.group.WORLD
+        partition(text_like(**SMALL_GRAPH), one, device=dev, group=group)
+        ops.reset_launch_counts()
+        with dispatch_counter() as counts, group_timers() as times:
+            r1 = partition(g, one, device=dev, group=group)
+        l1 = dict(ops.LAUNCHES)
+    finally:
+        dist.destroy_process_group()
+    m1 = merges_at(1)
+    want1 = {"parsa_scan": m1, "packed_union_delta": m1, "refine_sweep": 1}
+    check(l1 == {n: want1.get(n, 0) for n in l1},
+          f"dist nccl x1 launches {l1} != {want1}")
+    check(counts.get("parallel_merge_gather") == 1,
+          f"dist nccl x1: dispatches {dict(counts)}")
+    ungrouped = partition(g, one, device=dev)
+    scan = partition(g, base.replace(backend="device_scan"), device=dev)
+    same_result(r1, ungrouped, "dist nccl x1 vs ungrouped parallel_device")
+    check(r1.traffic == ungrouped.traffic,
+          f"dist nccl x1 traffic {r1.traffic} != {ungrouped.traffic}")
+    same_result(r1, scan, "dist nccl x1 vs device_scan B=128")
+    out["nccl1"] = {"launches": l1, "merges": m1,
+                    "partition_u_s": r1.timings["partition_u"],
+                    "ungrouped_partition_u_s":
+                        ungrouped.timings["partition_u"],
+                    "scan_ms": times["scan_ms"],
+                    "merge_gather_ms": times["merge_gather_ms"],
+                    "gather_bytes":
+                        counts.bytes_by_phase()["parallel_merge_gather"]}
+    log(f"dist nccl x1: equal to the ungrouped route and to device_scan "
+        f"B=128 in every output; launches {l1}; partition_u "
+        f"{r1.timings['partition_u']:.3f} s (ungrouped "
+        f"{ungrouped.timings['partition_u']:.3f} s)")
+    log(f"dist nccl x1: scan a super-step {spread(times['scan_ms'])}")
+    log(f"dist nccl x1: gather a merge {spread(times['merge_gather_ms'])}")
+
+    # the in-process route at DIST_WORKERS workers: what the ranks must equal
+    cw = base.replace(workers=DIST_WORKERS)
+    ref = partition(g, cw, device=dev)
+    want = dist_result_arrays(ref)
+    want_feed, want_feed_launches = dist_stream_feed(g, dev)
+    mw = merges_at(DIST_WORKERS)
+    want_w = {"parsa_scan": mw, "packed_union_delta": mw, "refine_sweep": 1}
+    out["in_process_partition_u_s"] = ref.timings["partition_u"]
+    log(f"dist: in-process parallel_device x{DIST_WORKERS}: partition_u "
+        f"{ref.timings['partition_u']:.3f} s, {mw} merges; its stream feed "
+        f"launches {want_feed_launches}")
+
+    # (b) DIST_WORKERS ranks on this card, over gloo
+    t0 = time.perf_counter()
+    ranks = run_dist_ranks(DIST_WORKERS, "gloo", tmp.name,
+                           lambda r: str(dev))
+    hold_dist_ranks(ranks, want, want_feed, want_w, want_feed_launches,
+                    f"dist gloo x{DIST_WORKERS}")
+    out[f"gloo{DIST_WORKERS}"] = {
+        "launches": json.loads(str(ranks[0]["launches"])), "merges": mw,
+        "partition_u_s": [float(x["partition_u_s"]) for x in ranks],
+        "scan_ms": [list(map(float, x["scan_ms"])) for x in ranks],
+        "merge_gather_ms": [list(map(float, x["merge_gather_ms"]))
+                            for x in ranks],
+        "seconds": time.perf_counter() - t0}
+    log(f"dist gloo x{DIST_WORKERS} on one card: every rank equals the "
+        f"in-process route and its stream feed, {mw} parsa_scan and {mw} "
+        f"packed_union_delta launches a rank "
+        f"({time.perf_counter() - t0:.2f} s with the ranks' start)")
+
+    # (c) DIST_WORKERS NCCL ranks, one card each
+    n_cards = torch.cuda.device_count()
+    if n_cards >= DIST_WORKERS:
+        t0 = time.perf_counter()
+        ranks = run_dist_ranks(DIST_WORKERS, "nccl", tmp.name,
+                               lambda r: f"cuda:{r}")
+        hold_dist_ranks(ranks, want, want_feed, want_w, want_feed_launches,
+                        f"dist nccl x{DIST_WORKERS}")
+        out[f"nccl{DIST_WORKERS}"] = {
+            "partition_u_s": [float(x["partition_u_s"]) for x in ranks],
+            "seconds": time.perf_counter() - t0}
+    else:
+        log(f"dist nccl x{DIST_WORKERS}: not run ({n_cards} card(s) "
+            f"visible)")
+    tmp.cleanup()
     return out
 
 
@@ -6249,6 +6586,10 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         state["parallel"] = phase_parallel(dev, state)
         log(f"parallel phase {time.perf_counter() - t0:.2f} s")
+    if "dist" in phases:
+        t0 = time.perf_counter()
+        state["dist"] = phase_dist(dev, state)
+        log(f"dist phase {time.perf_counter() - t0:.2f} s")
     if "stream" in phases:
         t0 = time.perf_counter()
         state["stream"] = phase_stream(dev, state)
@@ -6309,6 +6650,14 @@ def main(argv=None) -> int:
                        if c.get(r["name"])}
                 if per:
                     r[f"launches_{path}"] = per
+        for r in rows:
+            # a rank's launches on the group route (phase dist)
+            per = {f"{tag} (a rank)": state["dist"][tag]["launches"][r["name"]]
+                   for tag in ("nccl1", f"gloo{DIST_WORKERS}")
+                   if "dist" in state
+                   and state["dist"][tag]["launches"].get(r["name"])}
+            if per:
+                r["launches_dist"] = per
         log(f"card: {card}")
         log(json.dumps({"kernels": rows}))
     if phases != set(PHASES):

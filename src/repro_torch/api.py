@@ -20,6 +20,15 @@ entry point, one result type.
     res = partition(graph, cfg)
     res.traffic.pushed_bytes                # delta-encoded worker pushes
 
+    # Algorithm 4 across processes: one worker a rank (torchrun starts 4
+    # processes; each calls this with its own card, every rank gets the
+    # same result)
+    torch.cuda.set_device(rank)
+    torch.distributed.init_process_group("nccl")
+    res = partition(graph, cfg.replace(workers=4),
+                    group=torch.distributed.group.WORLD,
+                    device=f"cuda:{rank}")
+
     # the embedding layout (doc → data shard, vocab → model shard)
     res = partition(graph, ParsaConfig(k=16, placement=True))
     res.placement.vocab_perm, res.timings["placement"]
@@ -79,11 +88,13 @@ from .api_backends import (
     BackendOutput,
     TrafficCounters,
     available_backends,
+    config_workers,
     get_backend,
     register_backend,
 )
 from .core.bipartite import BipartiteGraph
 from .core.costs import PartitionMetrics, evaluate
+from .core.partition import resolve_worker_group
 from .core.partition_v import partition_v
 from .core.placement import Placement, placement_from_parts
 from .core.refine import evaluate_device, refine_v_device
@@ -328,6 +339,7 @@ def partition(
     init_sets: np.ndarray | torch.Tensor | None = None,
     sketch_spec: SketchSpec | None = None,
     device: str | torch.device = "cuda",
+    group=None,
 ) -> PartitionResult:
     """Run the Parsa pipeline described by ``config`` on ``graph``.
 
@@ -355,9 +367,25 @@ def partition(
     and the need matrix is packed from ``parts_u``.  A host backend's dense
     ``neighbor_sets`` are packed for the result.  ``device="cuda"`` (the
     default) raises when there is no card: nothing falls back to the CPU.
+
+    ``group``, a ``torch.distributed`` process group that the caller
+    created, runs ``parallel_device`` with one worker a rank: every rank
+    calls ``partition`` with the same graph and config, its own
+    ``device``, and a group of exactly ``devices or workers`` ranks
+    (checked first, before any host work); the scan's merges gather over
+    the group, refinement and metrics run on every rank, and every rank
+    returns the same result.  Any other backend refuses a group.
     """
     device = resolve_device(device)
     backend = get_backend(config.backend)
+    backend_kw = {}
+    if group is not None:
+        if config.backend != "parallel_device":
+            raise ValueError(
+                f"group= runs Algorithm 4 across processes and needs "
+                f"backend='parallel_device', got {config.backend!r}")
+        resolve_worker_group(config_workers(config), group)
+        backend_kw["group"] = group
     timings: dict[str, float] = {}
     t_start = time.perf_counter()
 
@@ -390,7 +418,7 @@ def partition(
 
     t0 = time.perf_counter()
     out: BackendOutput = backend(run_graph, config, init_sets=init_sets,
-                                 device=device)
+                                 device=device, **backend_kw)
     _sync(device)
     elapsed = time.perf_counter() - t0
     pack_s = (out.timings or {}).get("pack")

@@ -18,7 +18,8 @@ Every strategy is one registered function with the signature
     scans as an axis of the carried state, OR-merged by the
     ``packed_union_delta`` kernel every ``merge_every`` blocks
     (``parallel_blocked_partition_u_impl``); fills ``traffic`` in the same
-    word-byte units.
+    word-byte units.  It alone also takes ``group=``, a
+    ``torch.distributed`` process group of W ranks, one worker a rank.
 
 The host backends take ``device`` only to agree with the signature: they
 return numpy arrays, which the facade moves where it needs them.
@@ -197,23 +198,31 @@ def parallel_sim_backend(graph: BipartiteGraph, config, init_sets=None,
     return BackendOutput(report.parts_u, s_masks=s_masks, traffic=traffic)
 
 
+def config_workers(config) -> int:
+    """The Alg 4 worker count of a config: ``devices`` when set, else
+    ``workers``, as the JAX package reads it."""
+    return config.devices if config.devices is not None else config.workers
+
+
 @register_backend("parallel_device")
 def parallel_device_backend(graph: BipartiteGraph, config, init_sets=None,
-                            device="cuda") -> BackendOutput:
+                            device="cuda", group=None) -> BackendOutput:
     """Alg 4 on the device: ``config.workers`` shards of U scanned against
     stale copies of the packed sets, OR-merged every ``config.merge_every``
     blocks by one ``packed_union_delta`` launch.  ``config.devices``, when
-    set, overrides ``workers``, as in the JAX package; on one card it is a
-    worker count, not a mesh.  With one worker the output is bit-identical
-    to ``device_scan``.  Supports §4.4 global initialization via
-    ``global_init_frac`` like ``parallel_sim``."""
+    set, overrides ``workers``, as in the JAX package; without a ``group``
+    it is a worker count on one card, not a mesh.  With a
+    ``torch.distributed`` ``group`` of that many ranks, each rank scans its
+    own shard on its own ``device`` and the merges gather over the group;
+    every rank returns the same output.  With one worker the output is
+    bit-identical to ``device_scan``.  Supports §4.4 global initialization
+    via ``global_init_frac`` like ``parallel_sim``."""
     init_sets = _global_init(graph, config, init_sets)
-    workers = config.devices if config.devices is not None else config.workers
     timings: dict = {}
     parts_u, s_masks, traffic = parallel_blocked_partition_u_impl(
-        graph, config.k, workers=workers, block=config.block_size,
-        merge_every=config.merge_every, init_sets=init_sets,
-        seed=config.seed, cap=config.cap, device=device, timings=timings,
-        sketch=config.set_repr == "sketch")
+        graph, config.k, workers=config_workers(config),
+        block=config.block_size, merge_every=config.merge_every,
+        init_sets=init_sets, seed=config.seed, cap=config.cap, device=device,
+        timings=timings, sketch=config.set_repr == "sketch", group=group)
     return BackendOutput(parts_u, s_masks=s_masks,
                          traffic=TrafficCounters(**traffic), timings=timings)

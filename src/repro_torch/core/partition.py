@@ -35,7 +35,12 @@ The counterpart of ``repro.core.jax_partition`` (its kernel path):
    Σ_w (sz_local[w] − sz_global)`` and writes both back into every
    worker's slice on the device.  The JAX
    ``shard_map`` + ``all_gather`` image of the same protocol gives the
-   same bits.
+   same bits.  Given a ``torch.distributed`` group of W ranks, rank r is
+   worker r instead (``_parallel_scan_group``): it holds only shard r on
+   its device, scans it in one ``parsa_scan`` launch a super-step,
+   all-gathers every rank's (k, Wwords) sets and (k,) sizes and merges the
+   gathered stack in the same ``merge_worker_sets`` launch, so every rank
+   ends with the bits of the one-card route.
 
 ``blocked_partition_u_hostloop_impl`` / ``_assign_block`` are the
 sequential per-vertex parity oracle (the ``host_blocked_oracle`` backend),
@@ -46,6 +51,7 @@ realisation of the same integer program and is not ported.
 """
 from __future__ import annotations
 
+import hashlib
 import time
 from typing import NamedTuple
 
@@ -67,7 +73,7 @@ from ..kernels.parsa_cost import (
     truncated_lists,
 )
 from .bipartite import BipartiteGraph
-from .dispatch import phase
+from .dispatch import _count_dispatch, phase
 
 __all__ = [
     "PackedBlocks",
@@ -75,6 +81,7 @@ __all__ = [
     "blocked_partition_u_impl",
     "blocked_partition_u_hostloop_impl",
     "parallel_blocked_partition_u_impl",
+    "resolve_worker_group",
     "shard_parsa_step",
 ]
 
@@ -508,6 +515,117 @@ def _parallel_scan(
             sz_global, pushed)
 
 
+# --------------------------------------------------------------------------
+# Parallel workers (Algorithm 4) across processes: rank r is worker r.
+# --------------------------------------------------------------------------
+def resolve_worker_group(workers: int, group) -> None:
+    """Fail fast unless ``group`` (a ``torch.distributed`` process group)
+    holds exactly ``workers`` ranks — cheap, so callers run it before any
+    O(edges) host packing.  JAX's ``resolve_worker_devices`` takes the
+    first ``workers`` devices of a larger list; a larger group raises here,
+    since its other ranks would sit idle while they wait on the gathers."""
+    n = group.size()
+    if n != workers:
+        raise ValueError(
+            f"the process group has {n} ranks but the scan has {workers} "
+            f"workers; Algorithm 4 over a group runs one worker a rank "
+            f"(set workers, or devices, to the group's size)")
+
+
+def _gather_flat(out: torch.Tensor, inp: torch.Tensor, group) -> None:
+    """All-gather ``inp`` from every rank of ``group`` into ``out``, rank
+    r's copy at rows ``[r·m, (r+1)·m)`` (``out`` is flat along dim 0:
+    gloo refuses a stacked output).  On NCCL the gather runs on the card,
+    ordered after the work queued on the current stream, with no host
+    sync.  A gloo group gathers host tensors: card tensors are copied
+    through host memory, explicitly, here — the transport of a gloo group
+    the caller chose, never a stand-in for a failed NCCL one."""
+    import torch.distributed as dist
+
+    gather = (getattr(dist, "all_gather_single", None)
+              or dist.all_gather_into_tensor)
+    if out.device.type != "cpu" and dist.get_backend(group) == "gloo":
+        host = torch.empty(out.shape, dtype=out.dtype)
+        gather(host, inp.cpu(), group=group)
+        out.copy_(host)
+    else:
+        gather(out, inp, group=group)
+
+
+def _check_ranks_agree(group, device: torch.device, *parts) -> None:
+    """Gather a digest of ``parts`` (arrays, ints or None) from every rank
+    of ``group`` and raise ``ValueError`` on every rank unless all agree:
+    the scans must never start on different block→worker plans."""
+    h = hashlib.blake2b(digest_size=8)
+    for p in parts:
+        h.update(b"none" if p is None else
+                 np.ascontiguousarray(p).tobytes() if isinstance(p, np.ndarray)
+                 else repr(p).encode())
+        h.update(b"|")
+    mine = torch.tensor([int.from_bytes(h.digest(), "little", signed=True)],
+                        dtype=torch.int64, device=device)
+    every = torch.empty(group.size(), dtype=torch.int64, device=device)
+    _gather_flat(every, mine, group)
+    if not bool((every == every[0]).all()):
+        raise ValueError(
+            "the ranks of the group hold different block→worker plans "
+            "(permutation, block targets or shapes): every rank must pack "
+            "the same graph and draw the same permutation")
+
+
+def _parallel_scan_group(
+    widx: torch.Tensor,      # (1, nb_per, B, cap) int32 — this rank's shard
+    vals: torch.Tensor,      # (1, nb_per, B, cap) int32
+    tr_ids: torch.Tensor,    # (1, nb_per, TB) int32
+    tr_masks: torch.Tensor,  # (1, nb_per, TB, W) int32
+    valid: torch.Tensor,     # (1, nb_per, B) bool
+    s_masks: torch.Tensor,   # (k, W) int32 — the shared sets at entry
+    sizes: torch.Tensor,     # (k,) int32 — the shared sizes at entry
+    merge_every: int,
+    sketch: bool,
+    group,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, int]:
+    """``_parallel_scan`` with one worker a rank of ``group``: this rank
+    scans only its own shard, ``merge_every`` blocks a super-step against
+    its stale copy (one ``parsa_scan`` launch), gathers every rank's sets
+    and sizes, and merges the gathered (n, k, W) stack with the one-card
+    route's ``merge_worker_sets`` launch.  OR and int32 addition do not
+    depend on order, so every rank holds the same merged state and the
+    same ``pushed`` count.  The parts are gathered once, at the end.
+    Returns ``_parallel_scan``'s four outputs, the same on every rank, and
+    the bytes this rank received by the gathers."""
+    n = group.size()
+    _, nb_per, B = valid.shape
+    k, W = s_masks.shape
+    dev = s_masks.device
+    n_super = nb_per // merge_every
+    parts = torch.full((1, nb_per, B), -1, dtype=torch.int32, device=dev)
+    s_global, sz_global = s_masks, sizes
+    s_local = s_global[None].clone(memory_format=torch.contiguous_format)
+    sz_local = sz_global[None].clone(memory_format=torch.contiguous_format)
+    s_all = torch.empty((n * k, W), dtype=torch.int32, device=dev)
+    sz_all = torch.empty((n * k,), dtype=torch.int32, device=dev)
+    pushed = torch.zeros(1, dtype=torch.int64, device=dev)
+    on_card = dev.type == "cuda" and parsa_scan_fits(B, k)
+    tr_lists = truncated_lists(tr_masks) if on_card else None
+    for step in range(n_super):
+        _scan(widx, vals, tr_ids, tr_masks, valid, s_local, sz_local, parts,
+              step * merge_every, merge_every, sketch, tr_lists)
+        _gather_flat(s_all, s_local[0], group)
+        _gather_flat(sz_all, sz_local[0], group)
+        # the server union-push over every rank's copy, on each rank
+        s_global, sz_global = merge_worker_sets(
+            s_all.view(n, k, W), s_global, sz_all.view(n, k), sz_global,
+            pushed)
+        s_local[0].copy_(s_global)
+        sz_local[0].copy_(sz_global)
+    parts_all = torch.empty((n * nb_per, B), dtype=torch.int32, device=dev)
+    _gather_flat(parts_all, parts[0], group)
+    nbytes = 4 * n * (n_super * (k * W + k) + nb_per * B)
+    return (parts_all.reshape(n, n_super, merge_every, B), s_global,
+            sz_global, pushed, nbytes)
+
+
 def _run_parallel_packed_scan(
     packed: PackedBlocks,
     s_masks: torch.Tensor,
@@ -520,11 +638,21 @@ def _run_parallel_packed_scan(
     worker_weights: np.ndarray | None = None,
     count_name: str = "parallel_partition_scan",
     sketch: bool = False,
+    group=None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, dict, np.ndarray | None]:
     """Pad the block stack to whole per-worker merge groups, shard it over
     the worker axis (optionally in a randomized block→worker order drawn
     from ``shuffle_rng``) and run every worker's scan with its merges on
     the device of ``s_masks``.
+
+    With a ``torch.distributed`` ``group`` of ``workers`` ranks, rank r is
+    worker r (``_parallel_scan_group``): every rank passes the same
+    ``packed``, state and seeded draws, moves only its own shard to its
+    device and returns the same outputs as every other rank and as the
+    one-card route.  The ranks first gather a digest of the permutation,
+    the block targets and the shapes, and all raise ``ValueError`` if any
+    differ.  The bytes a rank receives by the gathers count as one
+    ``parallel_merge_gather`` dispatch.
 
     ``worker_weights`` (workers-long, nonnegative) biases the block
     distribution: real blocks are apportioned proportionally to weight
@@ -541,7 +669,10 @@ def _run_parallel_packed_scan(
     dict in bitmask-word bytes, with the formulas of the JAX package.
     Nothing reads back to the host until the scan has ended.
     """
+    if group is not None:
+        resolve_worker_group(workers, group)
     nb = packed.valid.shape[0]
+    targets = None
     if worker_weights is not None and workers > 1:
         w = np.asarray(worker_weights, np.float64)
         if w.shape != (workers,):
@@ -565,22 +696,38 @@ def _run_parallel_packed_scan(
         perm = (shuffle_rng.permutation(total) if shuffle_rng is not None
                 else None)
     dev = s_masks.device
+    W = packed.tr_masks.shape[-1]
+    n_super = nb_per // merge_every
+    if group is None:
+        def shard(x):
+            if perm is not None:
+                x = x[perm]
+            return torch.from_numpy(np.ascontiguousarray(
+                x.reshape((workers, nb_per) + x.shape[1:]))).to(dev)
+    else:
+        _check_ranks_agree(group, dev, perm, targets, nb, nb_per, workers,
+                           merge_every, k, W, packed.valid.shape[1])
+        r = group.rank()
+        rows = (np.arange(r * nb_per, (r + 1) * nb_per) if perm is None
+                else perm[r * nb_per:(r + 1) * nb_per])
 
-    def shard(x):
-        if perm is not None:
-            x = x[perm]
-        return torch.from_numpy(np.ascontiguousarray(
-            x.reshape((workers, nb_per) + x.shape[1:]))).to(dev)
+        def shard(x):   # this rank's blocks only
+            return torch.from_numpy(x[rows][None]).to(dev)
 
     with phase(count_name,
                nbytes=s_masks.nbytes + sizes.nbytes, k=k,
                workers=workers, blocks=nb_per * workers):
-        parts_blocks, s_out, sizes_out, pushed = _parallel_scan(
-            shard(packed.widx), shard(packed.vals), shard(packed.tr_ids),
-            shard(packed.tr_masks), shard(packed.valid), s_masks, sizes,
-            merge_every, sketch)
-    W = packed.tr_masks.shape[-1]
-    n_super = nb_per // merge_every
+        args = (shard(packed.widx), shard(packed.vals), shard(packed.tr_ids),
+                shard(packed.tr_masks), shard(packed.valid), s_masks, sizes,
+                merge_every, sketch)
+        if group is None:
+            parts_blocks, s_out, sizes_out, pushed = _parallel_scan(*args)
+        else:
+            parts_blocks, s_out, sizes_out, pushed, gathered = \
+                _parallel_scan_group(*args, group)
+    if group is not None:
+        _count_dispatch("parallel_merge_gather", gathered, workers=workers,
+                        merges=n_super)
     traffic = {
         "pushed_bytes": 4 * int(pushed.item()),
         "pulled_bytes": 4 * workers * n_super * k * W,
@@ -602,8 +749,10 @@ def parallel_blocked_partition_u_impl(
     device: str | torch.device = "cuda",
     timings: dict | None = None,
     sketch: bool = False,
+    group=None,
 ) -> tuple[torch.Tensor, torch.Tensor, dict]:
-    """Algorithm 4 with ``workers`` workers on one device.
+    """Algorithm 4 with ``workers`` workers on one device, or one worker a
+    rank of a ``torch.distributed`` ``group``.
 
     The permuted U is packed once (the permutation of ``device_scan``) and
     split into ``workers`` contiguous shards of whole blocks; each worker
@@ -621,14 +770,21 @@ def parallel_blocked_partition_u_impl(
     Returns (parts_u (|U|,) int32, final packed s_masks (k, W) int32), both
     on ``device``, and the traffic dict: each worker pulls the full packed
     (k, W) set at every merge and pushes only its changed words;
-    ``stale_pushes_missed`` counts W−1 peers per worker per merge.  Unlike
-    the JAX package, the worker count is not limited by a device count:
-    the workers are an axis of one card's state.
+    ``stale_pushes_missed`` counts W−1 peers per worker per merge.
+
+    Without a ``group`` the workers are an axis of one card's state, so,
+    unlike the JAX package, their count is not limited by a device count.
+    With one, the group must hold exactly ``workers`` ranks (checked before
+    packing: ``resolve_worker_group``); each rank passes the same graph and
+    arguments, ``device`` is its own, and every rank returns the same
+    outputs, those of the one-card route.  The caller creates the group.
     """
     if workers < 1:
         raise ValueError(f"workers must be >= 1, got {workers}")
     if merge_every < 1:
         raise ValueError(f"merge_every must be >= 1, got {merge_every}")
+    if group is not None:
+        resolve_worker_group(workers, group)   # before the pack
     device = torch.device(device)
     t_pack = time.perf_counter()
     s_masks, sizes = _init_state(graph, k, init_sets, device)
@@ -638,7 +794,7 @@ def parallel_blocked_partition_u_impl(
         timings["pack"] = time.perf_counter() - t_pack
     parts_blocks, s_out, _, traffic, _ = _run_parallel_packed_scan(
         packed, s_masks, sizes, k=k, workers=workers,
-        merge_every=merge_every, sketch=sketch)
+        merge_every=merge_every, sketch=sketch, group=group)
     parts = torch.empty(graph.num_u, dtype=torch.int32, device=device)
     parts[torch.from_numpy(order).to(device)] = \
         parts_blocks.reshape(-1)[: graph.num_u]

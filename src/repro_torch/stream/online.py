@@ -22,7 +22,10 @@ over the worker axis of the Algorithm 4 scan (one ``parsa_scan`` and one
 ``packed_union_delta`` merge a super-step), with *randomized* block→worker
 assignment (arXiv:1502.02606) and OR-merges every ``merge_every`` blocks.
 On one card the workers are an axis of the carried state, so any worker
-count is accepted.  A feed's truncated-row width comes from its own data:
+count is accepted; a session given a ``torch.distributed`` group
+(``group=``, ``base.backend="parallel_device"``) runs one worker a rank
+instead, each rank feeding the same chunks and holding the same state.
+A feed's truncated-row width comes from its own data:
 the JAX package pads it to a power of two so that its jit cache holds, and
 nothing here is compiled per shape.
 
@@ -61,6 +64,7 @@ from ..core.partition import (
     blocked_partition_u_impl,
     pack_graph_blocks,
     parallel_blocked_partition_u_impl,
+    resolve_worker_group,
 )
 from ..core.refine import evaluate_device, refine_v_device
 from ..kernels.parsa_cost import coerce_packed_sets, popcount32
@@ -147,11 +151,24 @@ class StreamSession:
     snapshots, repartitions, and exact metrics.  ``parts`` holds the
     current assignment of every fed U vertex (relabeled in place when a
     drift repair lands).
+
+    ``group``, a ``torch.distributed`` process group of ``config.workers``
+    ranks (checked here, at construction), makes every parallel feed and
+    repartition run one worker a rank; each rank constructs its session
+    with the same config, feeds the same chunks and holds the same state.
     """
 
     def __init__(self, config: ParsaStreamConfig, num_v: int, obs=None,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda", *, group=None):
         self.device = resolve_device(device, "StreamSession")
+        if group is not None:
+            # fail at construction, not mid-stream
+            if config.base.backend != "parallel_device":
+                raise ValueError(
+                    f"group= needs base.backend='parallel_device', got "
+                    f"{config.base.backend!r}")
+            resolve_worker_group(config.workers, group)
+        self.group = group
         self.obs = obs   # repro_torch.obs.Observability hook; None = off
         self.config = config
         self.k = config.base.k
@@ -230,7 +247,7 @@ class StreamSession:
 
             t0 = time.perf_counter()
             traffic = None
-            if self.config.workers == 1:
+            if self.config.workers == 1 and self.group is None:
                 flat = self._feed_scan(packed, n)
             else:
                 flat, traffic = self._feed_parallel(packed, n,
@@ -328,7 +345,7 @@ class StreamSession:
                 workers=workers, merge_every=base.merge_every,
                 shuffle_rng=shuffle, worker_weights=worker_weights,
                 count_name="stream_feed_scan",
-                sketch=self.sketch is not None)
+                sketch=self.sketch is not None, group=self.group)
         self.arena.s_masks, self.arena.sizes = s_out, sz_out
         B = packed.valid.shape[1]
         by_block = parts_blocks.cpu().numpy().reshape(-1, B)
@@ -403,13 +420,14 @@ class StreamSession:
             self._need_exact = False
         g_cap = BipartiteGraph(g.num_u, self.arena.capacity_v,
                                g.u_indptr, g.u_indices)
-        if self.config.workers > 1:
+        if self.config.workers > 1 or self.group is not None:
             new_parts, new_masks, scan_traffic = \
                 parallel_blocked_partition_u_impl(
                     g_cap, self.k, workers=self.config.workers,
                     block=base.block_size, merge_every=base.merge_every,
                     init_sets=init_sets, seed=base.seed, cap=base.cap,
-                    device=self.device, sketch=self.sketch is not None)
+                    device=self.device, sketch=self.sketch is not None,
+                    group=self.group)
             # the repair's own Alg 4 push/pull rides on the session total,
             # same units as the per-feed counters
             self._accumulate(TrafficCounters(**scan_traffic))

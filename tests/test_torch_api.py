@@ -206,6 +206,7 @@ def test_import_leaves_no_jax_or_repro():
             "repro_torch.kernels.flash_attention, repro_torch.models.model, "
             "repro_torch.models.moe, "
             "repro_torch.launch.serve, repro_torch.launch.steps, "
+            "repro_torch.launch.mesh, "
             "repro_torch.serving, repro_torch.configs, repro_torch.stream, "
             "repro_torch.obs, repro_torch.core.placement, "
             "repro_torch.core.moe_placement, repro_torch.data, "

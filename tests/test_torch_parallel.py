@@ -5,10 +5,6 @@ and at 4 and 8 workers against JAX ``parallel_device`` run on 8 forced host
 devices in a subprocess.  Every comparison is bit for bit (tolerance 0:
 the program is integer)."""
 import json
-import os
-import pathlib
-import subprocess
-import sys
 
 import jax.numpy as jnp
 import numpy as np
@@ -27,8 +23,8 @@ from repro_torch.core import partition as tp
 from repro_torch.core.dispatch import dispatch_counter
 from repro_torch.kernels import parsa_cost as tk
 from repro_torch.kernels.parsa_cost import ops
+from torch_dist_ranks import run_jax
 
-ROOT = pathlib.Path(__file__).resolve().parents[1]
 METRIC_FIELDS = ("sizes", "footprint", "traffic", "worker_recv",
                  "server_send")
 TRAFFIC_FIELDS = ("pushed_bytes", "pulled_bytes", "tasks",
@@ -305,12 +301,8 @@ def jax_parallel(tmp_path_factory):
     """JAX ``parallel_device`` results on 8 forced host devices, computed
     once in a subprocess (the device count is fixed when JAX starts)."""
     path = tmp_path_factory.mktemp("jax_parallel") / "out.npz"
-    env = dict(os.environ, XLA_FLAGS="--xla_force_host_platform_device_count=8",
-               JAX_PLATFORMS="cpu", PYTHONPATH=str(ROOT / "src"))
     arg = json.dumps([_facade_cases(), SCAN_CASES, SHARD_CASES, str(path)])
-    out = subprocess.run([sys.executable, "-c", _JAX_SCRIPT, arg], env=env,
-                         capture_output=True, text=True, timeout=900)
-    assert "JAX_PARALLEL_DONE" in out.stdout, out.stdout + out.stderr
+    run_jax(_JAX_SCRIPT, arg, "JAX_PARALLEL_DONE")
     return dict(np.load(path, allow_pickle=True))
 
 
