@@ -80,7 +80,14 @@ Phases, in order; any failure exits non-zero:
    route at 4 workers (17 parsa_scan and 17 packed_union_delta launches a
    rank) and one grouped stream feed equal to the in-process feed; NCCL
    at 4 ranks, one card each, where 4 cards are visible; each rank's scan
-   time a super-step and gather time a merge;
+   time a super-step and gather time a merge; and elastic Parsa over the
+   group (part (d)): phase elastic's chaos script (12 feeds, k 8 -> 12)
+   at ``parallel_device``, B=256, the straggler bias on, in the same
+   ranks at 4 workers, each rank equal to the in-process session bit for
+   bit (every feed's state, the ops, the final state and traffic,
+   ``result()``, its launches by dispatch phase), within 5% of the
+   one-shot scan; at one worker over the NCCL group of one rank, equal to
+   the ungrouped session (no block shuffle);
 7. the online stream (phase ``stream``, ``repro_torch.stream``): the main
    graph fed as one chunk, equal to phase 3; the acceptance stream of
    ``benchmarks/bench_stream.py`` (the main graph in 16 chunks, k=16,
@@ -103,13 +110,15 @@ Phases, in order; any failure exits non-zero:
    mean_len=20, seed=0)`` in 12 chunks, k 8 -> 12 by four adds and two
    seeded kills under ``ChaosSchedule(seed=0)``) replayed twice, bit for
    bit, with one parsa_scan a feed, a grow and a warm repair and none a
-   shrink, held to the same replay on the plain route; warm repair
+   shrink, its first 6 feeds held to the same feeds on the plain route;
+   warm repair
    against a cold ``repartition()`` on clones of one snapshot (seconds and
    ratio reported), a shrink and a ``ThresholdPolicy``-gated grow; the
    final traffic_max within 5% of a one-shot partition at k=12; the same
    script at 8 workers with the straggler bias (the straggled lane's EWMA
    weight lowest until its recovery, one parsa_scan and one
-   packed_union_delta a super-step), held to the plain route; cpu against
+   packed_union_delta a super-step), its first 6 feeds held to the plain
+   route; cpu against
    cuda on a reduced replay and a reduced sketched session; the PS
    cluster of the paper's Tables 3/4 (DBPG l1-LR, 45 iterations) on phase
    3's partition against a random placement, two card runs identical,
@@ -156,6 +165,22 @@ Phases, in order; any failure exits non-zero:
    over 32 groups of 512 prefill tokens placed by
    ``build_expert_placement`` at k=4 (one parsa_scan and one
    refine_sweep; the all-to-all crossing tokens reported);
+11b. the MoE family over a (data x model) mesh (phase ``moe_ep``):
+   mixtral-8x22b at full width cut to 1 layer (5.81 GB of random bf16
+   weights), ``fsdp``, through ``make_prefill_step`` and
+   ``make_serve_step`` with ``mesh=``: (a) a real NCCL group of one rank,
+   mesh (1, 1), equal to the no-mesh route bit for bit; (b) 4 gloo ranks
+   on this card, mesh (2, 2) (4 experts a model rank, F split over data;
+   each rank's expert blocks cut by ``launch.sharding.shard_params``): a
+   prefill at B=2, S=4,096 (the token path), one at B=2, S=32,768 (the
+   weight path) and 8 greedy decode steps at batch 4 (the token path),
+   each rank's logits, cache digests and tokens bit for bit equal to its
+   place of the in-process emulation (``launch.mesh.emulate_mesh``), the
+   ranks' tokens equal, the logits at capacity factor 4 (no drop) within
+   5e-2 relative L2 of the no-mesh route (at the config's 1.25
+   reported); the branch and gathered bytes of every MoE call, prefill
+   seconds, gather and sum milliseconds, decode p50, peak memory and
+   launches a rank; (c) NCCL at 4 ranks where 4 cards are visible;
 12. the MLA serving path (phase ``mla``): deepseek-v2-236b at full width
    (128 heads, q/k head dim 128 + 64 rotary, v 128, kv_lora 512, q_lora
    1,536, 160 experts top-6 with 2 shared) cut to 6 of 60 layers (49.8 GB
@@ -217,7 +242,7 @@ Phases, in order; any failure exits non-zero:
    float32 model's within relative L2 5e-2; layer
    0's mLSTM at 2,048 tokens (two chunks of 1,024) against its
    recurrence, cpu against cuda on the reduced config, and
-   ``launch.train --arch xlstm-350m`` at batch 8 x 1,024 for 4 steps (2
+   ``launch.train --arch xlstm-350m`` at batch 8 x 1,024 for 2 steps (2
    microbatches, remat "full": the sLSTM's backward loop on the card),
    its losses and grad norms finite, step time, tokens/s, peak memory;
 16. the hybrid path (phase ``hybrid``): zamba2-2.7b at full width and depth
@@ -289,7 +314,8 @@ Phases, in order; any failure exits non-zero:
    sketched scan's first blocks against ``parsa_scan_ref``.
 
 ``--phases build,kernels,sketch``, ``--phases build,kernels,parallel``,
-``--phases build,dist``, ``--phases build,kernels,stream``,
+``--phases build,dist``, ``--phases build,moe_ep``,
+``--phases build,kernels,stream``,
 ``--phases build,kernels,elastic``,
 ``--phases build,kernels,serving``, ``--phases build,kernels,lm``,
 ``--phases build,kernels,moe``, ``--phases build,kernels,mla``,
@@ -310,6 +336,7 @@ import pathlib
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -318,8 +345,8 @@ PROFILE_DIAG = 0    # --profile-diag N
 # about 50 ms at the H100's 1.98 GHz boost clock
 LEAD_SPIN_CYCLES = 100_000_000
 PHASES = ("build", "kernels", "main", "parity", "sketch", "parallel",
-          "dist", "stream", "elastic", "serving", "lm", "moe", "mla", "encdec",
-          "vlm", "xlstm", "hybrid", "train", "train_moe", "times")
+          "dist", "stream", "elastic", "serving", "lm", "moe", "moe_ep", "mla",
+          "encdec", "vlm", "xlstm", "hybrid", "train", "train_moe", "times")
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, and the non-tensor fp32
 # rate, the only CUDA-core rate in that sheet; int32 and popcount work is
@@ -408,6 +435,11 @@ CHAOS_EVENTS = ((2, "add", None, 4.0), (3, "add", None, 4.0),
                 (8, "recover", 1, 4.0), (9, "kill", None, 4.0))
 CHAOS_MAX_QUALITY_PCT = 5.0
 CHAOS_MIN_REPAIR_SPEEDUP = 3.0
+# the plain route replays the chaos script's first 6 of 12 feeds (two
+# adds, the straggle and the first kill), against the kernels over the
+# same feeds: the depth cut for the script's time limit (the two plain
+# replays of all 12 feeds take most of phase elastic)
+CHAOS_PLAIN_FEEDS = 6
 CHAOS_SMALL = dict(num_docs=1_200, vocab=1_638, chunks=12, block=128)
 ELASTIC_SKETCH = dict(n=4_000, features=200_000, chunks=4, bits=2048)
 # the PS serving path (phase serving).  (a) The closed-loop SLO acceptance
@@ -563,11 +595,12 @@ VLM = dict(LM, arch="internvl2-76b", num_layers=24, phase="vlm",
 # batch 4 (prompt 64 warmed step by step, 32 new tokens); teacher forcing
 # over 128 tokens at batch 2, bf16 (reported) and float32 (another draw of
 # weights, gated); layer 0's mLSTM at 2,048 tokens (two chunks
-# of 1,024) against its recurrence; launch.train at batch 8 x 1,024, 4
-# steps, the config's 2 microbatches and remat "full" (float32 masters).
+# of 1,024) against its recurrence; launch.train at batch 8 x 1,024, 2
+# steps (a depth cut for the script's time limit), the config's 2
+# microbatches and remat "full" (float32 masters).
 XLSTM = dict(arch="xlstm-350m", seed=0, serve_batch=4, prompt=64, gen=32,
              tf_batch=2, tf_tokens=128, block_tokens=2048,
-             train=dict(batch=8, seq=1024, steps=4))
+             train=dict(batch=8, seq=1024, steps=2))
 # the hybrid path (phase hybrid): zamba2-2.7b at full width and depth (54
 # layers = 9 groups of 5 Mamba2 blocks and the one weight-tied attention
 # layer; d_model 2,560, 80 SSM heads of 64, state 64, conv 4; attention 32
@@ -612,6 +645,20 @@ TRAIN_MOE = dict(arch="mixtral-8x22b", num_layers=1, batch=8, seq=1024,
                  steps=3, seed=0, lr=3e-4, fail_at=6, reduced_steps=3,
                  reduced_ckpt_every=2, reduced_batch=4, reduced_seq=16,
                  reduced_resume_steps=8)
+# the MoE family over a (data x model) mesh (phase moe_ep): mixtral-8x22b
+# at full width (phase moe's widths) cut to 1 layer, fsdp (the config's
+# own), bf16, random weights from SEED, on mesh (2, 2): 4 experts a model
+# rank, F sharded 2 ways over data.  The reference's token-path rule puts
+# T_loc < 16,384 on the token path: a prefill at B=2, S=4,096 (T_loc
+# 4,096) and decode take it, a prefill at B=2, S=32,768 (T_loc 32,768)
+# the weight path.  Decode: a 64-token prompt at batch 4, 8 greedy steps.
+# The ranks are held to the in-process emulation of the mesh bit for bit,
+# and at capacity factor 4 = E / top-k (no drop) to the no-mesh route
+# within LM_MAX_REL_L2.
+MOE_EP = dict(arch="mixtral-8x22b", num_layers=1, seed=0, mesh=(2, 2),
+              token=(2, 4096), weight=(2, 32768), decode=(4, 64, 8),
+              no_drop=4.0)
+MOE_EP_DEADLINE_S = 300
 # the elementwise kernels' checks and times (phases kernels and times)
 ELEMENTWISE_N = {"bfloat16": 64 << 20, "float32": 16 << 20}
 ELEMENTWISE_SHAPES = {
@@ -1945,6 +1992,54 @@ def dist_stream_feed(g, dev, group=None):
                                    upd.traffic.stale_pushes_missed])}, launches
 
 
+def dist_elastic(dev, group=None, workers: int = DIST_WORKERS,
+                 shuffle: bool = True) -> dict:
+    """Phase dist (d): the CHAOS script (phase elastic's acceptance replay)
+    through an ``ElasticSession`` at ``parallel_device`` with ``workers``
+    workers, B = CHAOS["block"] and the straggler bias on, over ``group``
+    where one is given (one worker a rank), then ``result(refine_v=True)``;
+    the final state, every op, the result and a digest of every feed's
+    state as arrays, with the launches by dispatch phase and the seconds."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.api import ParsaConfig
+    from repro_torch.graphs import text_like
+    from repro_torch.kernels.parsa_cost import ops
+    from repro_torch.stream import ParsaStreamConfig
+
+    g = text_like(CHAOS["num_docs"], CHAOS["vocab"], mean_len=20, seed=0)
+    chunks = stream_chunks(g, CHAOS["chunks"])
+    scfg = ParsaStreamConfig(base=ParsaConfig(
+        k=CHAOS["k0"], backend="parallel_device", workers=workers,
+        block_size=CHAOS["block"], refine_v=False, seed=0),
+        repartition="never", shuffle_blocks=shuffle)
+    by_phase: dict = {}
+    t0 = time.perf_counter()
+    sess, rows = chaos_replay(dev, g, chunks, scfg, group=group,
+                              by_phase=by_phase)
+    replay_s = time.perf_counter() - t0
+    ops.reset_launch_counts()
+    res = sess.result(refine_v=True)
+    by_phase["result"] = {n: v for n, v in ops.LAUNCHES.items() if v}
+    out = {f"result/{f}": v for f, v in dist_result_arrays(res).items()
+           if not f.startswith("t_")}
+    out.update(parts=sess.parts.copy(),
+        sizes=sess.stream.arena.sizes.cpu().numpy().copy(),
+        masks=sess.stream.arena.masks_np(logical=False),
+        traffic=np.asarray(dataclasses.astuple(sess.traffic)),
+        ops=np.asarray(json.dumps([elastic_op_fields(o) for o in sess.ops])),
+        feeds=np.asarray(json.dumps([r["digest"] for r in rows])),
+        feed_traffic=np.asarray([r["traffic"] for r in rows]),
+        k=np.int64(sess.k),
+        by_phase=np.asarray(json.dumps(by_phase)),
+        replay_s=np.float64(replay_s),
+        feed_s=np.asarray([r["feed_s"] for r in rows]),
+        traffic_max=np.int64(res.metrics.traffic_max))
+    return out
+
+
 def dist_rank(rank: int, world: int, backend: str, store: str, out_dir: str,
               device: str) -> None:
     """One rank of phase dist (started with spawn): a warm-up partition of
@@ -1982,6 +2077,7 @@ def dist_rank(rank: int, world: int, backend: str, store: str, out_dir: str,
     out = {"r/" + k: v for k, v in dist_result_arrays(res).items()}
     feed, feed_launches = dist_stream_feed(g, dev, group)
     out.update({"feed/" + k: v for k, v in feed.items()})
+    out.update({"el/" + k: v for k, v in dist_elastic(dev, group).items()})
     dist.barrier()
     dist.destroy_process_group()
     out["launches"] = np.asarray(json.dumps(launches))
@@ -2054,6 +2150,58 @@ def hold_dist_ranks(ranks: list[dict], want: dict, want_feed: dict,
             f"{spread(list(got['merge_gather_ms']))}")
 
 
+def chaos_oracle_tmax(dev) -> int:
+    """traffic_max of a one-shot device_scan partition of the chaos graph
+    at the chaos replay's final k (phase elastic's quality oracle)."""
+    from repro_torch.api import ParsaConfig, partition
+    from repro_torch.graphs import text_like
+
+    adds = sum(e[1] == "add" for e in CHAOS_EVENTS)
+    g = text_like(CHAOS["num_docs"], CHAOS["vocab"], mean_len=20, seed=0)
+    res = partition(g, ParsaConfig(
+        k=CHAOS["k0"] + adds, backend="device_scan",
+        block_size=CHAOS["block"], refine_v=True, refine_backend="device",
+        seed=0), device=dev)
+    return int(res.metrics.traffic_max)
+
+
+def hold_dist_elastic(ranks: list[dict], want: dict, oracle_tmax: int,
+                      what: str) -> dict:
+    """Phase dist (d): every rank's chaos replay against the in-process
+    session's, bit for bit (each feed's state, the final state and
+    traffic, every op, ``result()``, the launches by dispatch phase); the
+    op count of the one-card run; the quality gate against the one-shot
+    oracle.  Logs each rank's replay and feed seconds on short lines."""
+    skip = ("replay_s", "feed_s")
+    adds = sum(e[1] == "add" for e in CHAOS_EVENTS)
+    kills = sum(e[1] == "kill" for e in CHAOS_EVENTS)
+    for r, got in enumerate(ranks):
+        el = {k[3:]: v for k, v in got.items() if k.startswith("el/")}
+        dist_same({k: v for k, v in el.items() if k not in skip},
+                  {k: v for k, v in want.items() if k not in skip},
+                  f"{what} rank {r} elastic vs in process")
+        fs = [float(x) for x in el["feed_s"]]
+        log(f"{what} rank {r}: chaos replay {float(el['replay_s']):.2f} s, "
+            f"a feed median {statistics.median(fs):.3f} s, max "
+            f"{max(fs):.3f} s")
+    n_ops = len(json.loads(str(want["ops"])))
+    check(n_ops == adds + kills and int(want["k"]) == CHAOS["k0"] + adds,
+          f"{what}: {n_ops} ops, k {int(want['k'])}")
+    pct = (int(want["traffic_max"]) / oracle_tmax - 1) * 100
+    check(pct <= CHAOS_MAX_QUALITY_PCT,
+          f"{what}: quality {pct:+.2f}% past {CHAOS_MAX_QUALITY_PCT}%")
+    by_phase = json.loads(str(want["by_phase"]))
+    log(f"{what}: every rank equals the in-process session at "
+        f"{DIST_WORKERS} workers (k {CHAOS['k0']} -> {int(want['k'])}, "
+        f"{n_ops} ops, each feed's state, result()); traffic_max "
+        f"{int(want['traffic_max'])} vs one-shot {oracle_tmax} ({pct:+.2f}%,"
+        f" gate {CHAOS_MAX_QUALITY_PCT}%); a rank's launches by phase "
+        f"{json.dumps(by_phase)}")
+    return {"by_phase": by_phase, "quality_pct": pct,
+            "replay_s": [float(x["el/replay_s"]) for x in ranks],
+            "in_process_replay_s": float(want["replay_s"])}
+
+
 def phase_dist(dev, main: dict) -> dict:
     """Algorithm 4 with one worker a rank of a torch.distributed group:
     (a) a real NCCL group of one rank in this process, against the
@@ -2098,6 +2246,8 @@ def phase_dist(dev, main: dict) -> dict:
         with dispatch_counter() as counts, group_timers() as times:
             r1 = partition(g, one, device=dev, group=group)
         l1 = dict(ops.LAUNCHES)
+        # (d) the chaos script at one worker over the NCCL group
+        el1 = dist_elastic(dev, group, workers=1, shuffle=False)
     finally:
         dist.destroy_process_group()
     m1 = merges_at(1)
@@ -2127,11 +2277,32 @@ def phase_dist(dev, main: dict) -> dict:
     log(f"dist nccl x1: scan a super-step {spread(times['scan_ms'])}")
     log(f"dist nccl x1: gather a merge {spread(times['merge_gather_ms'])}")
 
+    # (d) against the ungrouped one-worker session (no block shuffle: the
+    # group route draws a block permutation even at one worker, the
+    # one-worker feed does not); the steady-state traffic differs (the
+    # group route meters Algorithm 4's merges), and so do the launches
+    # (a merge a super-step)
+    el1_ref = dist_elastic(dev, None, workers=1, shuffle=False)
+    skip = ("traffic", "feed_traffic", "by_phase", "replay_s", "feed_s")
+    dist_same({k: v for k, v in el1.items() if k not in skip},
+              {k: v for k, v in el1_ref.items() if k not in skip},
+              "dist (d) nccl x1 elastic vs the ungrouped session")
+    out["elastic_nccl1"] = {"replay_s": float(el1["replay_s"]),
+                            "ungrouped_replay_s": float(el1_ref["replay_s"]),
+                            "by_phase": json.loads(str(el1["by_phase"]))}
+    log(f"dist (d) nccl x1: the chaos replay at one worker (k "
+        f"{CHAOS['k0']} -> {int(el1['k'])}, {len(json.loads(str(el1['ops'])))}"
+        f" ops) equals the ungrouped session: every feed's state, the ops "
+        f"and result(); replay {float(el1['replay_s']):.2f} s (ungrouped "
+        f"{float(el1_ref['replay_s']):.2f} s)")
+
     # the in-process route at DIST_WORKERS workers: what the ranks must equal
     cw = base.replace(workers=DIST_WORKERS)
     ref = partition(g, cw, device=dev)
     want = dist_result_arrays(ref)
     want_feed, want_feed_launches = dist_stream_feed(g, dev)
+    want_el = dist_elastic(dev)
+    oracle_tmax = chaos_oracle_tmax(dev)
     mw = merges_at(DIST_WORKERS)
     want_w = {"parsa_scan": mw, "packed_union_delta": mw, "refine_sweep": 1}
     out["in_process_partition_u_s"] = ref.timings["partition_u"]
@@ -2145,6 +2316,8 @@ def phase_dist(dev, main: dict) -> dict:
                            lambda r: str(dev))
     hold_dist_ranks(ranks, want, want_feed, want_w, want_feed_launches,
                     f"dist gloo x{DIST_WORKERS}")
+    out["elastic_gloo"] = hold_dist_elastic(ranks, want_el, oracle_tmax,
+                                            f"dist (d) gloo x{DIST_WORKERS}")
     out[f"gloo{DIST_WORKERS}"] = {
         "launches": json.loads(str(ranks[0]["launches"])), "merges": mw,
         "partition_u_s": [float(x["partition_u_s"]) for x in ranks],
@@ -2165,6 +2338,8 @@ def phase_dist(dev, main: dict) -> dict:
                                lambda r: f"cuda:{r}")
         hold_dist_ranks(ranks, want, want_feed, want_w, want_feed_launches,
                         f"dist nccl x{DIST_WORKERS}")
+        hold_dist_elastic(ranks, want_el, oracle_tmax,
+                          f"dist (d) nccl x{DIST_WORKERS}")
         out[f"nccl{DIST_WORKERS}"] = {
             "partition_u_s": [float(x["partition_u_s"]) for x in ranks],
             "seconds": time.perf_counter() - t0}
@@ -2703,16 +2878,36 @@ def same_elastic(a, b, what: str) -> None:
           == [elastic_op_fields(o) for o in b.ops], f"{what}: ops differ")
 
 
+def elastic_digest(sess) -> str:
+    """A digest of an elastic session's live state: k, parts, sets, sizes
+    and the straggler weights."""
+    import hashlib
+
+    import numpy as np
+
+    h = hashlib.blake2b(digest_size=8)
+    for a in (np.int64(sess.k), sess.parts,
+              sess.stream.arena.masks_np(logical=False),
+              sess.stream.arena.sizes.cpu().numpy(), sess.ewma.weights()):
+        h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()
+
+
 def chaos_replay(dev, g, chunks, scfg, tally: dict | None = None,
-                 kernels: bool = True):
+                 kernels: bool = True, group=None,
+                 by_phase: dict | None = None):
     """One run of CHAOS_EVENTS (``ChaosSchedule(seed=0)``) over ``chunks``
-    through an ``ElasticSession`` on ``dev``.  Every feed is counted from 0:
+    through an ``ElasticSession`` on ``dev`` (over ``group`` where one is
+    given: one worker a rank).  Every feed is counted from 0:
     one ``stream_feed_scan``, one ``elastic_grow_scan`` an add and one
     ``elastic_repair_scan`` a kill, and with ``kernels`` exactly one
     ``parsa_scan`` a sequential feed (one and one ``packed_union_delta`` a
     parallel feed's super-step), grow and warm repair, attributed to
     their phases (no launch at all on the plain route or the CPU).
-    Launches are added into ``tally``.  Returns (session, rows)."""
+    Launches are added into ``tally``, and by dispatch phase into
+    ``by_phase``.  Returns (session, rows)."""
+    import dataclasses
+
     from repro_torch.api import (
         ChaosEvent, ChaosSchedule, ElasticConfig, ElasticSession)
     from repro_torch.core.dispatch import dispatch_counter
@@ -2720,7 +2915,7 @@ def chaos_replay(dev, g, chunks, scfg, tally: dict | None = None,
 
     chaos = ChaosSchedule([ChaosEvent(*e) for e in CHAOS_EVENTS], seed=0)
     sess = ElasticSession(ElasticConfig(stream=scfg), num_v=g.num_v,
-                          chaos=chaos, device=dev)
+                          chaos=chaos, device=dev, group=group)
     workers = scfg.workers
     rows = []
     for i, c in enumerate(chunks):
@@ -2737,7 +2932,8 @@ def chaos_replay(dev, g, chunks, scfg, tally: dict | None = None,
               and counts.get("elastic_grow_scan", 0) == adds
               and counts.get("elastic_repair_scan", 0) == kills,
               f"chaos feed {i}: dispatches {dict(counts)}")
-        n_super = upd.traffic.tasks // workers if workers > 1 else 0
+        n_super = (upd.traffic.tasks // workers
+                   if workers > 1 or group is not None else 0)
         want_phase = {}
         if kernels:
             want_phase["stream_feed_scan"] = (
@@ -2757,13 +2953,19 @@ def chaos_replay(dev, g, chunks, scfg, tally: dict | None = None,
               f"chaos feed {i}: launches per phase {counts.launches}")
         if tally is not None:
             add_launches(tally, launches)
+        if by_phase is not None:
+            for ph, per in counts.launches.items():
+                add_launches(by_phase.setdefault(ph, {}), per)
         new_ops = sess.ops[n_ops:]
         rows.append({"feed": i, "k": sess.k, "events": due,
+                     "digest": elastic_digest(sess),
+                     "traffic": dataclasses.astuple(sess.traffic),
                      "feed_s": feed_s,
                      "partition_u_s": upd.timings["partition_u"],
                      "op_s": [o.seconds for o in new_ops],
                      "weights": sess.ewma.weights().tolist()})
-    check(chaos.remaining == 0, "chaos events never delivered")
+    later = sum(e[0] >= len(chunks) for e in CHAOS_EVENTS)
+    check(chaos.remaining == later, "chaos events never delivered")
     return sess, rows
 
 
@@ -2820,17 +3022,22 @@ def phase_elastic(dev, main: dict) -> dict:
     same_elastic(warm, sess, "chaos replay: run 1 vs run 2")
     adds = sum(e[1] == "add" for e in CHAOS_EVENTS)
     check(sess.k == CHAOS["k0"] + adds, f"chaos replay ends at k={sess.k}")
+    # the plain route over the first CHAOS_PLAIN_FEEDS feeds, against the
+    # kernels over the same feeds
+    head, _ = chaos_replay(dev, g, chunks[:CHAOS_PLAIN_FEEDS], scfg)
     t0 = time.perf_counter()
     with plain_route():
-        plain, _ = chaos_replay(dev, g, chunks, scfg, kernels=False)
+        plain, _ = chaos_replay(dev, g, chunks[:CHAOS_PLAIN_FEEDS], scfg,
+                                kernels=False)
     plain_s = time.perf_counter() - t0
-    same_elastic(plain, sess, "chaos replay: plain route vs kernels")
+    same_elastic(plain, head, "chaos replay: plain route vs kernels")
     grow_s = [o.seconds for o in sess.ops if o.kind == "grow"]
     repair_s = [o.seconds for o in sess.ops if o.kind == "repair"]
     log(f"elastic: chaos replay k {CHAOS['k0']} -> {sess.k} "
         f"({[(o.kind, o.machine) for o in sess.ops]}), bit-deterministic "
         f"and equal to the plain route in parts, sets, sizes, traffic and "
-        f"every op ({plain_s:.2f} s plain); migration bytes "
+        f"every op over its first {CHAOS_PLAIN_FEEDS} feeds ({plain_s:.2f} "
+        f"s plain); migration bytes "
         f"{sess.traffic.migration_bytes}; replay {replay_s:.3f} s, feed "
         f"seconds {json.dumps([r['feed_s'] for r in rows])}, grow op "
         f"seconds {json.dumps(grow_s)}, repair op seconds "
@@ -2935,12 +3142,15 @@ def phase_elastic(dev, main: dict) -> dict:
         else:
             check(w[lane] > prows[r["feed"] - 1]["weights"][lane],
                   f"feed {r['feed']}: lane {lane} did not recover, {w}")
+    phead, _ = chaos_replay(dev, g, chunks[:CHAOS_PLAIN_FEEDS], pcfg)
     t0 = time.perf_counter()
     with plain_route():
-        pplain, _ = chaos_replay(dev, g, chunks, pcfg, kernels=False)
-    same_elastic(pplain, psess, "parallel chaos replay: plain vs kernels")
+        pplain, _ = chaos_replay(dev, g, chunks[:CHAOS_PLAIN_FEEDS], pcfg,
+                                 kernels=False)
+    same_elastic(pplain, phead, "parallel chaos replay: plain vs kernels")
     log(f"elastic: parallel chaos replay ({PAR}, straggler bias on) k "
-        f"{CHAOS['k0']} -> {psess.k}, equal to the plain route "
+        f"{CHAOS['k0']} -> {psess.k}, equal to the plain route over its "
+        f"first {CHAOS_PLAIN_FEEDS} feeds "
         f"({time.perf_counter() - t0:.2f} s plain); lane {lane} weights by "
         f"feed {json.dumps([round(r['weights'][lane], 4) for r in prows])}; "
         f"feed seconds {json.dumps([r['feed_s'] for r in prows])}; "
@@ -4337,6 +4547,390 @@ def phase_moe(dev, moe: dict = MOE) -> dict:
         return out
 
     return phase_lm(dev, moe, extra=checks)
+
+
+# ---------------------------------------------------------------- moe_ep
+MOE_EP_CALLS = threading.local()
+
+
+@contextlib.contextmanager
+def moe_call_spy():
+    """Keep the branch and gathered bytes of every sharded MoE call in the
+    calling thread's ``MOE_EP_CALLS.calls`` (the emulation's places are
+    threads of one process)."""
+    from repro_torch.models import moe as MOE_
+
+    orig = MOE_._routed_sharded
+
+    def spy(*a, info=None, **kw):
+        d = {}
+        y = orig(*a, info=d, **kw)
+        MOE_EP_CALLS.calls.append(d)
+        return y
+
+    MOE_._routed_sharded = spy
+    try:
+        yield
+    finally:
+        MOE_._routed_sharded = orig
+
+
+def moe_ep_program(dev, mesh, full=None, timers: dict | None = None) -> dict:
+    """Phase moe_ep's work on one place of ``mesh`` (a rank, or a place of
+    ``emulate_mesh``): mixtral-8x22b x 1 layer from SEED (``full``, the
+    whole parameter tree, or drawn here), its expert blocks kept
+    (``shard_params``); the token-path and the weight-path prefills at the
+    config's capacity factor, the token-path prefill again at MOE_EP's
+    no-drop factor, and decode.  Returns the place's rows: logits, a digest
+    of each cache, the global tokens, the branch and gathered bytes of
+    every MoE call (under ``moe_call_spy``), the flash and silu launches,
+    the seconds."""
+    import dataclasses
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import elementwise as EW
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch.mesh import axis_group, gather_stack
+    from repro_torch.launch.sharding import activation_rules, shard_params
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models.model import build_model
+    from repro_torch.tree import tree_leaves
+
+    cfg = dataclasses.replace(get_config(MOE_EP["arch"]),
+                              num_layers=MOE_EP["num_layers"])
+    if full is None:
+        full = build_model(cfg, dev).init(MOE_EP["seed"])
+    params = shard_params(cfg, full, mesh)
+    del full
+    rng = np.random.default_rng(MOE_EP["seed"])
+    out = {}
+    calls = MOE_EP_CALLS.calls = []
+
+    def digest(tree) -> str:
+        h = hashlib.blake2b(digest_size=16)
+        for t in tree_leaves(tree):
+            h.update(t.contiguous().view(-1).view(torch.uint8).cpu()
+                     .numpy().tobytes())
+        return h.hexdigest()
+
+    def sync_s(t0):
+        torch.cuda.synchronize(dev)
+        return time.perf_counter() - t0
+
+    FA.reset_launch_counts()
+    EW.reset_launch_counts()
+    # the token path's prompt is the one phase_moe_ep's no-mesh runs
+    # take (the first draw), at both capacity factors
+    prompts = {n: rng.integers(0, cfg.vocab_size, MOE_EP[n],
+                               dtype=np.int32) for n in ("token", "weight")}
+    for name in ("token", "weight", "no_drop"):
+        tokens = prompts["weight" if name == "weight" else "token"]
+        B, S = tokens.shape
+        c = (cfg if name != "no_drop" else dataclasses.replace(
+            cfg, moe_capacity_factor=MOE_EP["no_drop"]))
+        _, prefill = make_prefill_step(c, dev, mesh=mesh)
+        n0 = len(calls)
+        t0 = time.perf_counter()
+        logits, cache = prefill(params, {"tokens": tokens,
+                                         "cache_seq": S})
+        out[f"{name}/prefill_s"] = np.float64(sync_s(t0))
+        out[f"{name}/logits"] = logits.float().cpu().numpy()
+        out[f"{name}/cache"] = np.asarray(digest(cache))
+        out[f"{name}/calls"] = np.asarray(json.dumps(calls[n0:]))
+        del logits, cache
+        torch.cuda.empty_cache()
+    B, P, steps = MOE_EP["decode"]
+    tokens = rng.integers(0, cfg.vocab_size, (B, P), dtype=np.int32)
+    _, prefill = make_prefill_step(cfg, dev, mesh=mesh)
+    _, serve = make_serve_step(cfg, dev, mesh=mesh)
+    n0 = len(calls)
+    logits, cache = prefill(params, {"tokens": tokens,
+                                     "cache_seq": P + steps})
+    ax = activation_rules(cfg, mesh, B)["batch"]
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    tok = gather_stack(tok, axis_group(mesh, ax)).reshape(-1)
+    toks, step_s, step_logits = [tok.cpu().numpy()], [], []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        tok, lg, cache = serve(params, {"token": tok[:, None],
+                                        "pos": P + i, "cache": cache})
+        step_s.append(sync_s(t0))
+        toks.append(tok.cpu().numpy())
+        step_logits.append(lg.float().cpu().numpy())
+    out["decode/tokens"] = np.stack(toks)
+    out["decode/logits"] = np.stack(step_logits)
+    out["decode/cache"] = np.asarray(digest(cache))
+    out["decode/calls"] = np.asarray(json.dumps(calls[n0:]))
+    out["decode/step_s"] = np.asarray(step_s)
+    out["launches"] = np.asarray(json.dumps(
+        {**dict(FA.LAUNCHES), **dict(EW.LAUNCHES)}))
+    if timers is not None:
+        out["gather_ms"] = np.asarray(timers.get("gather_ms", []))
+        out["sum_ms"] = np.asarray(timers.get("sum_ms", []))
+    return out
+
+
+def moe_ep_rank(rank: int, world: int, backend: str, store: str,
+                out_dir: str, device: str) -> None:
+    """One rank of phase moe_ep (started with spawn): a group over
+    ``store``, a (2, 2) ``DeviceMesh`` (device type cpu on gloo: the mesh
+    only holds the groups, and a gloo group copies card tensors through
+    host memory), ``moe_ep_program`` with its gathers and sums timed; its
+    arrays and peak memory go to ``rank<r>.npz``."""
+    import datetime
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.launch import mesh as M
+
+    dev = torch.device(device)
+    torch.cuda.set_device(dev)
+    dist.init_process_group(backend, init_method=store, rank=rank,
+                            world_size=world, timeout=datetime.timedelta(
+                                seconds=DIST_GROUP_TIMEOUT_S),
+                            **({"device_id": dev} if backend == "nccl"
+                               else {}))
+    mesh = init_device_mesh("cuda" if backend == "nccl" else "cpu",
+                            MOE_EP["mesh"], mesh_dim_names=("data", "model"))
+    timers = {"gather_ms": [], "sum_ms": []}
+    gather, osum = M.gather_stack, M.ordered_sum
+
+    def timed(fn, into):
+        def run(*a):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            y = fn(*a)
+            torch.cuda.synchronize(dev)
+            into.append((time.perf_counter() - t0) * 1e3)
+            return y
+        return run
+
+    M.gather_stack = timed(gather, timers["gather_ms"])
+    M.ordered_sum = timed(osum, timers["sum_ms"])
+    try:
+        with moe_call_spy():
+            out = moe_ep_program(dev, mesh, timers=timers)
+        dist.barrier()
+    finally:
+        M.gather_stack, M.ordered_sum = gather, osum
+        dist.destroy_process_group()
+    out["peak_gb"] = np.float64(torch.cuda.max_memory_allocated(dev) / 1e9)
+    np.savez(pathlib.Path(out_dir) / f"rank{rank}.npz", **out)
+
+
+def run_moe_ep_ranks(backend: str, tmp: str, device_of) -> list[dict]:
+    """Start the 4 ranks of ``moe_ep_rank`` with spawn, join them by
+    MOE_EP_DEADLINE_S, kill any still running, and fail unless every rank
+    exited 0."""
+    import multiprocessing
+
+    import numpy as np
+
+    world = MOE_EP["mesh"][0] * MOE_EP["mesh"][1]
+    ctx = multiprocessing.get_context("spawn")
+    out_dir = pathlib.Path(tmp) / f"moe_ep_{backend}{world}"
+    out_dir.mkdir()
+    store = f"file://{out_dir / 'store'}"
+    procs = [ctx.Process(target=moe_ep_rank, args=(
+        r, world, backend, store, str(out_dir), device_of(r)))
+        for r in range(world)]
+    for p in procs:
+        p.start()
+    end = time.monotonic() + MOE_EP_DEADLINE_S
+    for p in procs:
+        p.join(max(0.0, end - time.monotonic()))
+    hung = [r for r, p in enumerate(procs) if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    check(not hung, f"moe_ep {backend} x{world}: ranks {hung} still ran "
+          f"after {MOE_EP_DEADLINE_S} s (killed)")
+    codes = [p.exitcode for p in procs]
+    check(not any(codes), f"moe_ep {backend} x{world}: exit codes {codes}")
+    return [dict(np.load(out_dir / f"rank{r}.npz")) for r in range(world)]
+
+
+def hold_moe_ep_ranks(ranks: list[dict], emu: list[dict], what: str) -> None:
+    """Every rank against its place of the emulation, bit for bit (logits,
+    cache digests, tokens, branches and bytes, launches); the ranks'
+    tokens against each other."""
+    import numpy as np
+
+    # launches are not compared: the emulation's places share the counts
+    skip = ("prefill_s", "step_s", "gather_ms", "sum_ms", "peak_gb",
+            "launches")
+    for r, (got, want) in enumerate(zip(ranks, emu)):
+        for k, v in want.items():
+            if k.endswith(skip):
+                continue
+            check(np.array_equal(got[k], v),
+                  f"{what} rank {r}: {k} differs from the emulation")
+        check(np.array_equal(got["decode/tokens"], ranks[0]["decode/tokens"]),
+              f"{what}: rank {r}'s tokens differ from rank 0's")
+
+
+def phase_moe_ep(dev, ep: dict = MOE_EP) -> dict:
+    """The MoE family over a (data x model) mesh (``models.moe``'s sharded
+    route, ``launch.sharding``, ``launch.steps`` with ``mesh=``): (a) a
+    real NCCL group of one rank in this process, mesh (1, 1), equal to the
+    no-mesh route; (b) 4 gloo ranks on this card, mesh (2, 2), each equal
+    to its place of the in-process emulation (``launch.mesh.emulate_mesh``)
+    bit for bit, the no-drop prefill within LM_MAX_REL_L2 of the no-mesh
+    route; (c) 4 NCCL ranks, one card each, where 4 cards are visible."""
+    import dataclasses
+    import datetime
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import emulate_mesh
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models.model import build_model
+
+    out = {}
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_config(ep["arch"]),
+                              num_layers=ep["num_layers"])
+    torch.cuda.reset_peak_memory_stats(dev)
+    full = build_model(cfg, dev).init(ep["seed"])
+    B, S = ep["token"]
+    tokens = np.random.default_rng(ep["seed"]).integers(
+        0, cfg.vocab_size, (B, S), dtype=np.int32)
+
+    def no_mesh(c):
+        _, prefill = make_prefill_step(c, dev)
+        return prefill(full, {"tokens": tokens, "cache_seq": S})
+
+    # (a) NCCL at world size 1, mesh (1, 1): tp = 1, the local route
+    tmp = tempfile.TemporaryDirectory()
+    t0 = time.perf_counter()
+    dist.init_process_group(
+        "nccl", init_method=f"file://{tmp.name}/store_moe1", rank=0,
+        world_size=1, timeout=datetime.timedelta(seconds=DIST_GROUP_TIMEOUT_S),
+        device_id=dev)
+    try:
+        mesh1 = init_device_mesh("cuda", (1, 1),
+                                 mesh_dim_names=("data", "model"))
+        _, prefill1 = make_prefill_step(cfg, dev, mesh=mesh1)
+        l1, c1 = prefill1(full, {"tokens": tokens, "cache_seq": S})
+    finally:
+        dist.destroy_process_group()
+    l0, c0 = no_mesh(cfg)
+    check(torch.equal(l1, l0) and all(torch.equal(c1[k], c0[k]) for k in c0),
+          "moe_ep nccl x1: the (1, 1) mesh differs from the no-mesh route")
+    base_logits = l0.float()
+    del l1, c1, c0, l0
+    ln, _ = no_mesh(dataclasses.replace(cfg, moe_capacity_factor=ep["no_drop"]))
+    nodrop_logits = ln.float()
+    del ln
+    torch.cuda.empty_cache()
+    log(f"moe_ep nccl x1: mesh (1, 1) prefill B={B} S={S} equals the "
+        f"no-mesh route bit for bit (logits, k, v) "
+        f"({time.perf_counter() - t0:.2f} s with the no-mesh runs)")
+
+    # (b) 4 gloo ranks on this card, mesh (2, 2)
+    t0 = time.perf_counter()
+    ranks = run_moe_ep_ranks("gloo", tmp.name, lambda r: str(dev))
+    ranks_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sizes = dict(zip(("data", "model"), ep["mesh"]))
+    with moe_call_spy():
+        emu = emulate_mesh(sizes, lambda m: moe_ep_program(dev, m, full))
+    emu_s = time.perf_counter() - t0
+    hold_moe_ep_ranks(ranks, emu, "moe_ep gloo x4")
+    del emu
+    torch.cuda.empty_cache()
+    # the rows of each batch block against the no-mesh route, at the no-drop
+    # factor (gated) and the config's (reported)
+    m = ep["mesh"][1]
+    dist_l2 = {}
+    for name, ref in (("no_drop", nodrop_logits), ("token", base_logits)):
+        got = np.concatenate([ranks[r][f"{name}/logits"]
+                              for r in range(0, len(ranks), m)])
+        dist_l2[name] = rel_l2(torch.from_numpy(got), ref.cpu())
+    check(dist_l2["no_drop"] <= LM_MAX_REL_L2,
+          f"moe_ep: no-drop logits {dist_l2['no_drop']:.3e} from the "
+          f"no-mesh route, past {LM_MAX_REL_L2}")
+    branches = {n: sorted({c["branch"] for c in json.loads(
+        str(ranks[0][f"{n}/calls"]))}) for n in ("token", "weight", "decode")}
+    check(branches == {"token": ["expert/token"],
+                       "weight": ["expert/weight"],
+                       "decode": ["expert/token"]},
+          f"moe_ep: branches {branches}")
+    per_rank = []
+    for r, got in enumerate(ranks):
+        gathered = {n: sum(c["gathered_bytes"] for c in json.loads(
+            str(got[f"{n}/calls"]))) for n in ("token", "weight", "decode")}
+        row = {"peak_gb": float(got["peak_gb"]),
+               "prefill_s": {n: float(got[f"{n}/prefill_s"])
+                             for n in ("token", "weight", "no_drop")},
+               "decode_p50_ms": statistics.median(
+                   got["decode/step_s"].tolist()) * 1e3,
+               "gathered_bytes": gathered,
+               "gather_ms": [float(x) for x in got["gather_ms"]],
+               "sum_ms": [float(x) for x in got["sum_ms"]],
+               "launches": json.loads(str(got["launches"]))}
+        per_rank.append(row)
+        log(f"moe_ep gloo x4 rank {r}: prefill token "
+            f"{row['prefill_s']['token']:.2f} s, weight "
+            f"{row['prefill_s']['weight']:.2f} s; decode p50 "
+            f"{row['decode_p50_ms']:.1f} ms; peak {row['peak_gb']:.1f} GB")
+        log(f"moe_ep gloo x4 rank {r}: gathered {json.dumps(gathered)} B")
+        log(f"moe_ep gloo x4 rank {r}: gather {spread(row['gather_ms'])}")
+        log(f"moe_ep gloo x4 rank {r}: sum {spread(row['sum_ms'])}")
+        log(f"moe_ep gloo x4 rank {r}: launches {json.dumps(row['launches'])}")
+    for r, row in enumerate(per_rank):
+        check(row["launches"].get("flash_attention", 0) > 0
+              and row["launches"].get("silu_stepwise", 0) > 0,
+              f"moe_ep: rank {r}'s launches {row['launches']}")
+    out["gloo4"] = {"per_rank": per_rank, "branches": branches,
+                    "rel_l2_no_drop": dist_l2["no_drop"],
+                    "rel_l2_config_capacity": dist_l2["token"],
+                    "ranks_s": ranks_s, "emulation_s": emu_s}
+    out["launches"] = per_rank[0]["launches"]
+    log(f"moe_ep gloo x4 on one card: mesh {ep['mesh']}, every rank equals "
+        f"its place of the emulation bit for bit (prefill logits and caches "
+        f"at B={B} S={S} on the token path and B={ep['weight'][0]} "
+        f"S={ep['weight'][1]} on the weight path, {ep['decode'][2]} decode "
+        f"steps at batch {ep['decode'][0]}, tokens equal on every rank); "
+        f"branches {json.dumps(branches)}; no-drop logits rel L2 "
+        f"{dist_l2['no_drop']:.3e} from the no-mesh route (gate "
+        f"{LM_MAX_REL_L2}), at capacity factor {cfg.moe_capacity_factor} "
+        f"{dist_l2['token']:.3e} (reported); ranks {ranks_s:.2f} s, "
+        f"emulation {emu_s:.2f} s")
+
+    # (c) 4 NCCL ranks, one card each
+    n_cards = torch.cuda.device_count()
+    world = ep["mesh"][0] * ep["mesh"][1]
+    if n_cards >= world:
+        t0 = time.perf_counter()
+        nranks = run_moe_ep_ranks("nccl", tmp.name, lambda r: f"cuda:{r}")
+        for r, got in enumerate(nranks):
+            for k in ("token/logits", "weight/logits", "decode/tokens",
+                      "token/cache", "weight/cache", "decode/cache"):
+                check(np.array_equal(got[k], ranks[r][k]),
+                      f"moe_ep nccl x{world} rank {r}: {k} differs from gloo")
+        out[f"nccl{world}"] = {"seconds": time.perf_counter() - t0}
+    else:
+        log(f"moe_ep nccl x{world}: not run ({n_cards} card(s) visible)")
+    del full
+    torch.cuda.empty_cache()
+    tmp.cleanup()
+    out["peak_gb_parent"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
 
 
 def phase_mla(dev, mla: dict = MLA) -> dict:
@@ -6610,6 +7204,10 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         state["moe"] = phase_moe(dev)
         log(f"moe phase {time.perf_counter() - t0:.2f} s")
+    if "moe_ep" in phases:
+        t0 = time.perf_counter()
+        state["moe_ep"] = phase_moe_ep(dev)
+        log(f"moe_ep phase {time.perf_counter() - t0:.2f} s")
     if "mla" in phases:
         t0 = time.perf_counter()
         state["mla"] = phase_mla(dev)
@@ -6656,8 +7254,18 @@ def main(argv=None) -> int:
                    for tag in ("nccl1", f"gloo{DIST_WORKERS}")
                    if "dist" in state
                    and state["dist"][tag]["launches"].get(r["name"])}
+            for tag in ("elastic_nccl1", "elastic_gloo"):
+                by = state.get("dist", {}).get(tag, {}).get("by_phase", {})
+                got = {ph: c[r["name"]] for ph, c in by.items()
+                       if c.get(r["name"])}
+                if got:
+                    per[f"{tag} (a rank, by phase)"] = got
             if per:
                 r["launches_dist"] = per
+            # a rank's launches on the mesh (phase moe_ep)
+            got = state.get("moe_ep", {}).get("launches", {}).get(r["name"])
+            if got:
+                r["launches_moe_ep"] = {"gloo4 (a rank)": got}
         log(f"card: {card}")
         log(json.dumps({"kernels": rows}))
     if phases != set(PHASES):

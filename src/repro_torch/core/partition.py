@@ -552,10 +552,17 @@ def _gather_flat(out: torch.Tensor, inp: torch.Tensor, group) -> None:
         gather(out, inp, group=group)
 
 
-def _check_ranks_agree(group, device: torch.device, *parts) -> None:
+_PLAN_DISAGREES = ("the ranks of the group hold different block→worker "
+                   "plans (permutation, block targets or shapes): every "
+                   "rank must pack the same graph and draw the same "
+                   "permutation")
+
+
+def _check_ranks_agree(group, device: torch.device, *parts,
+                       what: str = _PLAN_DISAGREES) -> None:
     """Gather a digest of ``parts`` (arrays, ints or None) from every rank
-    of ``group`` and raise ``ValueError`` on every rank unless all agree:
-    the scans must never start on different block→worker plans."""
+    of ``group`` and raise ``ValueError(what)`` on every rank unless all
+    agree: the scans must never start on different block→worker plans."""
     h = hashlib.blake2b(digest_size=8)
     for p in parts:
         h.update(b"none" if p is None else
@@ -567,10 +574,7 @@ def _check_ranks_agree(group, device: torch.device, *parts) -> None:
     every = torch.empty(group.size(), dtype=torch.int64, device=device)
     _gather_flat(every, mine, group)
     if not bool((every == every[0]).all()):
-        raise ValueError(
-            "the ranks of the group hold different block→worker plans "
-            "(permutation, block targets or shapes): every rank must pack "
-            "the same graph and draw the same permutation")
+        raise ValueError(what)
 
 
 def _parallel_scan_group(

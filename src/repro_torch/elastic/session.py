@@ -33,6 +33,20 @@ ops give the same parts, sets, sizes, traffic, ``ElasticOp`` records,
 dispatch records and trace spans.  The scans update their carried sets
 in place (the JAX package donates them and gets new arrays back), so
 every set a meter reads after a scan is a host copy taken before it.
+
+Over a ``torch.distributed`` group (``group=``, a ``parallel_device``
+stream of ``workers`` ranks): every rank constructs the session with the
+same config, feeds the same chunks and runs the same ops.  Each feed's
+scan runs one worker a rank (``StreamSession(group=)``); a grow's and a
+warm repair's one scan runs on every rank's own device from the same
+inputs and seed (the reference runs it on one device), and a cold repair
+is the grouped ``repartition()``, so every rank holds the same ``k``,
+parts, sets and traffic.  After each committed op the ranks compare a
+digest of (k, parts, sets) and all raise if they differ.  With
+``observe_wallclock`` the ranks' measured scan walls differ; the group
+feeds the EWMA the largest of them (the reference's one observation is
+the wall of the whole fused dispatch, which its slowest worker sets), so
+every rank keeps the same weights and the same block→worker plan.
 """
 from __future__ import annotations
 
@@ -121,14 +135,17 @@ class ElasticSession:
     """Elastic control over one ``StreamSession`` on ``device`` (the card
     unless the caller passes ``device="cpu"``) — policy decides, the
     session executes and meters.  See the module docstring for the op
-    semantics; ``ops`` records every action (including policy vetoes)."""
+    semantics and ``group=``; ``ops`` records every action (including
+    policy vetoes)."""
 
     def __init__(self, config: ElasticConfig, num_v: int,
                  policy: ElasticPolicy | None = None,
                  chaos: ChaosSchedule | None = None, obs=None,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda", *, group=None):
         self.config = config
-        self.stream = StreamSession(config.stream, num_v, device=device)
+        self.group = group
+        self.stream = StreamSession(config.stream, num_v, device=device,
+                                    group=group)
         self.policy = policy if policy is not None else ThresholdPolicy(
             min_k=config.min_k, max_k=config.max_k,
             budget_feeds=config.budget_feeds,
@@ -167,6 +184,16 @@ class ElasticSession:
         no modeled duration, and fixed fractions keep seeded replays
         byte-identical; the measured seconds ride in ``wall_s``."""
         self.ops.append(op)
+        if op.committed and self.group is not None:
+            from ..core.partition import _check_ranks_agree
+
+            _check_ranks_agree(
+                self.group, self.device, self.k, self.parts,
+                self.stream.arena.masks_np(logical=False),
+                what=f"the ranks of the group hold different elastic states "
+                     f"(k, parts, sets) after {op.kind} op {len(self.ops)}: "
+                     f"every rank must feed the same chunks and run the "
+                     f"same ops")
         if self._obs is not None:
             tr = self._obs.tracer
             sp = tr.begin("elastic_op", v_start=tr.now, v_dur=1.0,
@@ -222,12 +249,24 @@ class ElasticSession:
                 # straggle multiply; injected chaos straggles are invisible
                 # here by design, only actual slowness registers
                 wall = upd.timings.get("partition_u", float("nan"))
+                if self.group is not None:
+                    wall = self._slowest(wall)
                 self.ewma.update(np.full(workers, wall))
             else:
                 # synthetic mode (default): the injected straggle factors
                 # ARE the per-worker time model — bit-deterministic
                 self.ewma.update(1.0 * self._straggle)
         return upd
+
+    def _slowest(self, wall: float) -> float:
+        """The largest of the group's measured walls, on every rank."""
+        from ..core.partition import _gather_flat
+
+        n = self.group.size()
+        every = torch.empty(n, dtype=torch.float64, device=self.device)
+        _gather_flat(every, torch.tensor([wall], dtype=torch.float64,
+                                         device=self.device), self.group)
+        return float(every.max())
 
     def _apply_event(self, ev: ChaosEvent) -> None:
         workers = self.config.stream.workers

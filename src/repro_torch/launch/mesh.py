@@ -15,6 +15,15 @@ mesh has places; the mesh lies on the card unless the caller passes
 ``device_type="cpu"``.  Functions, not module constants: importing this
 module touches no process group.  The JAX module's ``HW`` figures (TPU
 chips) are not carried over; ``launch.roofline`` holds the H100's.
+
+What the MoE layer's sharded route needs of a mesh, in place of
+``shard_map``'s ``axis_index``, ``all_gather`` and ``psum``: a rank's
+coordinate along an axis (``DeviceMesh.get_local_rank``), the group of
+one axis or of several together (``axis_group``), every member's tensor stacked in rank
+order (``gather_stack``) and their sum in rank order (``ordered_sum``).
+``emulate_mesh`` runs every place of a mesh in one process, one thread a
+place, their gathers meeting in memory: the reference the ranks are held
+to bit for bit.
 """
 from __future__ import annotations
 
@@ -22,7 +31,9 @@ import math
 import os
 
 __all__ = ["make_production_mesh", "make_host_mesh", "mesh_name", "dp_axes",
-           "tp_axis", "dp_size", "mesh_shape"]
+           "tp_axis", "dp_size", "mesh_shape", "axis_sizes", "axis_group",
+           "gather_stack", "ordered_sum", "PlaceMesh",
+           "emulate_mesh"]
 
 AXES = ("pod", "data", "model")
 
@@ -69,3 +80,200 @@ def tp_axis(mesh) -> str:
 def dp_size(mesh) -> int:
     names = mesh.mesh_dim_names
     return math.prod(mesh.size(names.index(a)) for a in dp_axes(mesh))
+
+
+# ------------------------------------------------------------ axis groups
+def axis_sizes(mesh) -> dict:
+    """{axis name: extent} of a ``DeviceMesh``, or of a stand-in with the
+    JAX mesh's ``shape`` mapping and ``axis_names`` (the spec functions
+    of ``launch.sharding`` need no ranks)."""
+    if hasattr(mesh, "mesh_dim_names"):
+        return {a: mesh.size(i) for i, a in enumerate(mesh.mesh_dim_names)}
+    return {a: int(mesh.shape[a]) for a in mesh.axis_names}
+
+
+def axis_group(mesh, names):
+    """The process group of the calling rank's ranks along the axes
+    ``names`` (one name, or a tuple of names taken together, as JAX's
+    ``psum(x, (tp, fsdp))``), its ranks in ascending order, which is the
+    mesh's row-major order.  One axis is the mesh's own group
+    (``DeviceMesh.get_group``); several are created at first use with
+    ``new_subgroups_by_enumeration``, a collective every rank of the mesh
+    reaches in the same order (every rank runs the same layers), and kept
+    on the mesh."""
+    if isinstance(mesh, PlaceMesh):
+        return mesh.group(names)
+    if isinstance(names, str):
+        return mesh.get_group(names)
+    names = tuple(names)
+    if len(names) == 1:
+        return mesh.get_group(names[0])
+    cache = mesh.__dict__.setdefault("_repro_axis_groups", {})
+    key = tuple(sorted(names))
+    if key not in cache:
+        import torch.distributed as dist
+
+        dims = [mesh.mesh_dim_names.index(a) for a in key]
+        rest = [d for d in range(mesh.ndim) if d not in dims]
+        ranks = mesh.mesh.permute(*rest, *dims).reshape(
+            -1, math.prod(mesh.size(d) for d in dims))
+        cache[key], _ = dist.new_subgroups_by_enumeration(
+            [sorted(r) for r in ranks.tolist()])
+    return cache[key]
+
+
+def gather_stack(x, group):
+    """Every rank's ``x`` of ``group``, stacked in the group's rank order:
+    (n, *x.shape), the bits copied as bytes (so a gloo group gathers any
+    dtype, bfloat16 included; card tensors go through host memory there,
+    as ``core.partition._gather_flat`` says)."""
+    import torch
+
+    from ..core.partition import _gather_flat
+
+    if isinstance(group, _PlaceGroup):
+        return group.gather(x)
+    n = group.size()
+    x = x.contiguous()
+    if n == 1:
+        return x[None]
+    flat = x.view(-1).view(torch.uint8)
+    out = torch.empty((n * flat.numel(),), dtype=torch.uint8,
+                      device=x.device)
+    _gather_flat(out, flat, group)
+    return out.view(x.dtype).view((n,) + tuple(x.shape))
+
+
+def ordered_sum(x, group):
+    """The sum of every rank's ``x`` over ``group``, added one rank after
+    another in rank order: the same bits on every rank, backend and run
+    (an all-reduce sums in an order of its own).  A floating ``x`` of
+    fewer than 32 bits is accumulated in float32 and rounded once, as
+    XLA's CPU all-reduce does with bfloat16: bfloat16 adds part from
+    JAX's ``psum`` in the last bit of many outputs
+    (``tests/test_torch_dist_moe.py`` holds at most 1% of them an ulp
+    off)."""
+    parts = gather_stack(x, group)
+    widen = x.is_floating_point() and x.element_size() < 4
+    out = parts[0].float() if widen else parts[0].clone()
+    for i in range(1, parts.shape[0]):
+        out = out + parts[i]
+    return out.to(x.dtype) if widen else out
+
+
+# ------------------------------------------------ a mesh in one process
+class _Hub:
+    """What the places of one emulated mesh share: a barrier and the
+    gathered slots of each group."""
+
+    def __init__(self, timeout_s: float):
+        import threading
+
+        self.lock = threading.Lock()
+        self.timeout_s = timeout_s
+        self.groups: dict = {}
+        self.barriers: list = []
+
+    def group(self, key, n: int):
+        import threading
+
+        with self.lock:
+            if key not in self.groups:
+                b = threading.Barrier(n, timeout=self.timeout_s)
+                self.barriers.append(b)
+                self.groups[key] = (b, [None] * n)
+            return self.groups[key]
+
+    def abort(self) -> None:
+        with self.lock:
+            for b in self.barriers:
+                b.abort()
+
+
+class _PlaceGroup:
+    """One place's handle on a group of an emulated mesh: ``size()`` and
+    ``gather(x)``, every member's ``x`` stacked in rank order."""
+
+    def __init__(self, hub: _Hub, key, n: int, rank: int):
+        self._barrier, self._slots = hub.group(key, n)
+        self._n, self.rank = n, rank
+
+    def size(self) -> int:
+        return self._n
+
+    def gather(self, x):
+        import torch
+
+        if self._n == 1:
+            return x.contiguous()[None]
+        self._slots[self.rank] = x
+        self._barrier.wait()
+        out = torch.stack(self._slots)
+        self._barrier.wait()    # every member has read the slots
+        return out
+
+
+class PlaceMesh:
+    """One place of a mesh emulated in one process (``emulate_mesh``): the
+    ``DeviceMesh`` calls the port makes (``mesh_dim_names``, ``ndim``,
+    ``size``, ``get_local_rank``) and its groups (``axis_group``), whose
+    gathers meet the other places' threads in memory."""
+
+    def __init__(self, sizes: dict, coords: dict, hub: _Hub):
+        self.mesh_dim_names = tuple(sizes)
+        self.ndim = len(sizes)
+        self._sizes, self._coords, self._hub = dict(sizes), coords, hub
+
+    def size(self, dim: int | None = None) -> int:
+        if dim is None:
+            return math.prod(self._sizes.values())
+        return self._sizes[self.mesh_dim_names[dim]]
+
+    def get_local_rank(self, name: str) -> int:
+        return self._coords[name]
+
+    def group(self, names) -> _PlaceGroup:
+        names = (names,) if isinstance(names, str) else tuple(names)
+        rest = tuple((a, self._coords[a]) for a in self.mesh_dim_names
+                     if a not in names)
+        mine = [a for a in self.mesh_dim_names if a in names]
+        n, rank = 1, 0
+        for a in mine:      # row-major over the group's axes
+            n, rank = n * self._sizes[a], rank * self._sizes[a] + \
+                self._coords[a]
+        return _PlaceGroup(self._hub, (tuple(sorted(names)), rest), n, rank)
+
+
+def emulate_mesh(sizes: dict, fn, timeout_s: float = 900.0) -> list:
+    """Run ``fn(place_mesh)`` for every place of a mesh of ``sizes`` ({axis
+    name: extent}) in one process, one thread a place, the places'
+    gathers meeting in memory; returns the results in row-major place
+    order (a ``DeviceMesh``'s rank order).  A place that raises aborts the
+    others' gathers, and the first error is raised.  The in-process
+    reference of the ranks' sharded routes."""
+    import itertools
+    import threading
+
+    hub = _Hub(timeout_s)
+    names = tuple(sizes)
+    places = [dict(zip(names, c)) for c in
+              itertools.product(*(range(sizes[a]) for a in names))]
+    results: list = [None] * len(places)
+    errors: list = []
+
+    def run(i, coords):
+        try:
+            results[i] = fn(PlaceMesh(sizes, coords, hub))
+        except BaseException as e:     # noqa: BLE001 — re-raised below
+            errors.append(e)
+            hub.abort()
+
+    threads = [threading.Thread(target=run, args=(i, c))
+               for i, c in enumerate(places)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    return results

@@ -1,0 +1,350 @@
+"""Sharding rules: logical placement for every param / batch / cache leaf.
+
+The port of ``repro/launch/sharding.py``.  Axis roles
+  model ("tp")        — tensor parallel: attention heads, FFN hidden, expert
+                        dim (EP) or vocab rows; chosen per-leaf with
+                        divisibility guards (GQA kv=8 < tp=16 ⇒ replicate
+                        heads, shard head_dim instead where legal).
+  data  ("fsdp"/dp)   — batch, plus ZeRO-3 weight sharding when cfg.fsdp.
+  pod   (dp only)     — pure data parallelism across pods: batch and
+                        gradient all-reduce, never weight storage.
+
+A spec is a tuple with one entry a dim (a mesh-axis name, a tuple of
+names, or None), equal element by element to the reference's
+``PartitionSpec``.  The port's parameter trees hold a list of per-layer
+dicts where the reference stacks the layers: the reference's leading scan
+dims (``_leading_scan_dims``) are the list levels here, so a parameter's
+spec covers its per-layer dims only.  Caches keep the reference's stacked
+layout and their specs are the reference's.  ``mesh`` is a
+``DeviceMesh``, or any stand-in with the mesh's ``shape`` mapping and
+``axis_names``: the production shapes (16, 16) and (2, 16, 16) need no
+ranks here.
+
+In place of the reference's ``to_named``, ``shard_tree`` cuts full
+tensors to the blocks the calling rank holds, by its mesh coordinates;
+``shard_params`` is the placement the serving steps over a mesh take
+(``launch.steps``): the expert weights cut, every other leaf whole.
+"""
+from __future__ import annotations
+
+import math
+import re
+from typing import Any
+
+import torch
+
+from ..configs.base import ModelConfig
+from ..tree import tree_map_with_path
+from .mesh import axis_sizes
+
+__all__ = ["activation_rules", "param_pspecs", "opt_pspecs", "batch_specs",
+           "cache_specs", "shard_tree", "shard_params", "mesh_coords",
+           "batch_rows"]
+
+
+def _axsize(mesh, name) -> int:
+    return axis_sizes(mesh).get(name, 1)
+
+
+def _div(dim: int, mesh, axis: str):
+    """axis if it divides dim, else None (replicate)."""
+    n = _axsize(mesh, axis)
+    return axis if dim % max(n, 1) == 0 and n > 1 else None
+
+
+def _dp_axes(mesh) -> tuple:
+    return tuple(a for a in axis_sizes(mesh) if a in ("pod", "data"))
+
+
+def _dp(mesh, dim: int):
+    axes = _dp_axes(mesh)
+    if not axes:
+        return None
+    if dim % math.prod(_axsize(mesh, a) for a in axes) == 0:
+        return axes if len(axes) > 1 else axes[0]
+    # try data-only (e.g. batch 16 on a 2x16 dp grid)
+    if "data" in axes and dim % _axsize(mesh, "data") == 0:
+        return "data"
+    return None
+
+
+def activation_rules(cfg: ModelConfig, mesh, batch: int) -> dict:
+    """Logical-name -> mesh-axes map for ``models.shardctx``."""
+    return {
+        "batch": _dp(mesh, batch),
+        "vocab": _div(cfg.padded_vocab, mesh, "model"),
+        "expert": _div(cfg.num_experts, mesh, "model") if cfg.num_experts else None,
+        "tp": "model",
+        "fsdp": "data" if (cfg.fsdp and _axsize(mesh, "data") > 1) else None,
+    }
+
+
+# --------------------------------------------------------------------- params
+def _param_spec(path: str, shape: tuple, cfg: ModelConfig, mesh) -> tuple:
+    """Spec for a parameter's per-layer dims.  ``path`` is the '/'-joined
+    key path without list indices (the reference's path)."""
+    fsdp = "data" if (cfg.fsdp and _axsize(mesh, "data") > 1) else None
+    tp = "model"
+    name = path.split("/")[-1]
+    nd = len(shape)
+
+    def fs(dim_idx):
+        return fsdp if fsdp and shape[dim_idx] % _axsize(mesh, "data") == 0 else None
+
+    # embeddings / head
+    if name == "embed":
+        return (_div(shape[0], mesh, tp), fs(1))
+    if name == "lm_head":
+        return (fs(0), _div(shape[1], mesh, tp))
+
+    # MoE experts: (E, D, F) / (E, F, D) — EP over tp when E divides, else
+    # hidden-sharded; with cfg.fsdp the FFN dim (EP) or the d_model dim
+    # (hidden-sharded) also shards over data (models/moe.py gathers it, or
+    # moves the tokens instead)
+    if re.search(r"moe/(wg|wu|wd)$", path):
+        ep = _div(shape[0], mesh, tp)
+        if ep:
+            if name in ("wg", "wu"):
+                return (ep, None, fs(2))
+            return (ep, fs(1), None)
+        if name in ("wg", "wu"):
+            return (None, fs(1), _div(shape[2], mesh, tp))
+        return (None, _div(shape[1], mesh, tp), fs(2))
+    if name == "router":
+        return (fs(0), None)
+
+    # xlstm mLSTM: shard the value/output dim (state output axis)
+    if "/mlstm/" in path or "/slstm/" in path:
+        if name in ("wv", "wz"):
+            return (fs(0), None, _div(shape[2], mesh, tp))
+        if name in ("wq", "wk"):
+            return (fs(0), None, None)
+        if name == "wo":
+            return (None, _div(shape[1], mesh, tp), fs(2))
+        if name == "out_norm":
+            return (None, _div(shape[1], mesh, tp))
+        return (None,) * nd
+
+    # mamba2: shard SSM heads
+    if "/mamba/" in path or "cell/" in path and name in (
+        "wz", "wx", "wB", "wC", "w_dt", "dt_bias", "A_log", "D_skip",
+        "conv_x", "conv_B", "conv_C", "out_norm",
+    ):
+        if name in ("wz", "wx"):
+            return (fs(0), _div(shape[1], mesh, tp), None)
+        if name in ("wB", "wC"):
+            return (fs(0), None)
+        if name == "w_dt":
+            return (fs(0), _div(shape[1], mesh, tp))
+        if name in ("dt_bias", "A_log", "D_skip"):
+            return (_div(shape[0], mesh, tp),)
+        if name == "conv_x":
+            return (None, _div(shape[1], mesh, tp), None)
+        if name in ("conv_B", "conv_C"):
+            return (None, None)
+        if name == "out_norm":
+            return (_div(shape[0], mesh, tp), None)
+
+    # attention
+    if name in ("wq", "wk", "wv"):          # (D, H, hd)
+        h_ax = _div(shape[1], mesh, tp)
+        hd_ax = _div(shape[2], mesh, tp) if h_ax is None else None
+        return (fs(0), h_ax, hd_ax)
+    if name == "wo" and nd == 3:             # (H, hd, D)
+        h_ax = _div(shape[0], mesh, tp)
+        hd_ax = _div(shape[1], mesh, tp) if h_ax is None else None
+        return (h_ax, hd_ax, fs(2))
+    if name in ("bq", "bk", "bv"):            # (H, hd)
+        return (_div(shape[0], mesh, tp), None)
+    # MLA
+    if name in ("wq_a", "wkv_a"):             # (D, r)
+        return (fs(0), None)
+    if name in ("wq_b", "wk_b", "wv_b"):      # (r, H, d)
+        return (fs(0), _div(shape[1], mesh, tp), None)
+
+    # dense MLPs (incl. shared experts): (D, F) / (F, D)
+    if name in ("wg", "wu", "wi"):
+        return (fs(0), _div(shape[1], mesh, tp))
+    if name == "wd":
+        return (_div(shape[0], mesh, tp), fs(1))
+    if name in ("bi",):
+        return (_div(shape[0], mesh, tp),)
+    if name in ("bd",):
+        return (None,)
+
+    # norms, biases, gates — replicate
+    return (None,) * nd
+
+
+def _path_str(path, keep_index: bool = True) -> str:
+    """'/'-joined keys of a ``tree`` path; a parameter path drops its
+    list indices (the layer lists stand where the reference's scan dims
+    do)."""
+    return "/".join(str(k) for k in path
+                    if keep_index or not isinstance(k, int))
+
+
+def param_pspecs(cfg: ModelConfig, params, mesh):
+    """A tree of specs matching a parameter tree (tensors, or anything
+    with ``shape``, such as meta tensors)."""
+
+    def one(path, leaf):
+        return _param_spec(_path_str(path, keep_index=False),
+                           tuple(leaf.shape), cfg, mesh)
+
+    return tree_map_with_path(one, params)
+
+
+def opt_pspecs(cfg: ModelConfig, params, mesh):
+    ps = param_pspecs(cfg, params, mesh)
+    return {"m": ps, "v": ps, "step": ()}
+
+
+# --------------------------------------------------------------------- batch
+def batch_specs(cfg: ModelConfig, batch_shapes: dict, mesh) -> dict:
+    out: dict[str, Any] = {}
+    for k, v in batch_shapes.items():
+        if k == "cache":
+            out[k] = cache_specs(cfg, v, mesh)
+            continue
+        if k == "pos" or not hasattr(v, "shape"):
+            out[k] = ()
+            continue
+        b = v.shape[0] if v.ndim else 1
+        dp = _dp(mesh, b)
+        if k in ("frames", "patches"):
+            out[k] = (dp, None, None)
+        else:
+            out[k] = (dp,) + (None,) * (v.ndim - 1)
+    return out
+
+
+def cache_specs(cfg: ModelConfig, cache_shapes, mesh):
+    """Decode caches: batch over dp, heads (or head_dim / latent dim) over
+    tp.  A None leaf (the encoder-decoder's unfilled ``cross``) gets
+    None."""
+
+    def one(path_t, leaf):
+        if leaf is None:
+            return None
+        path = _path_str(path_t)
+        name = path.split("/")[-1]
+        nd = leaf.ndim
+        if name == "kpos":
+            return (None,) * nd
+        if name in ("c_kv", "k_rope"):     # (L, B, S, r)
+            return (None, _dp(mesh, leaf.shape[1]), None,
+                    _div(leaf.shape[3], mesh, "model"))
+        if name in ("k", "v") or "cross" in path:
+            # (L_or_G, B, S, KV, hd) or the cross (k, v) (L, B, Se, KV, hd)
+            if nd == 5:
+                kv_ax = _div(leaf.shape[3], mesh, "model")
+                hd_ax = _div(leaf.shape[4], mesh, "model") if kv_ax is None else None
+                return (None, _dp(mesh, leaf.shape[1]), None, kv_ax, hd_ax)
+        if "ssm" in path and nd == 6:       # (G, n_m, B, H, P, N)
+            return (None, None, _dp(mesh, leaf.shape[2]),
+                    _div(leaf.shape[3], mesh, "model"), None, None)
+        if "conv" in path and nd == 5:      # (G, n_m, B, ks, C)
+            return (None, None, _dp(mesh, leaf.shape[2]), None,
+                    _div(leaf.shape[4], mesh, "model"))
+        # xlstm states: shard batch over dp; value dim over tp when present
+        if nd == 6:                          # mLSTM C (G, n_m, B, H, dv, dk)
+            return (None, None, _dp(mesh, leaf.shape[2]),
+                    None, _div(leaf.shape[4], mesh, "model"), None)
+        if nd == 5:                          # mLSTM n (G, n_m, B, H, d)
+            return (None, None, _dp(mesh, leaf.shape[2]), None, None)
+        if nd == 4:                          # sLSTM states (G, B, H, dh) / mLSTM m
+            return (None, _dp(mesh, leaf.shape[1]), None, None)
+        if nd == 3:
+            return (None, _dp(mesh, leaf.shape[1]), None)
+        return (None,) * nd
+
+    return tree_map_with_path(one, cache_shapes)
+
+
+# --------------------------------------------------------------- placement
+def mesh_coords(mesh) -> dict:
+    """{axis name: the calling rank's coordinate} on a ``DeviceMesh``."""
+    return {a: mesh.get_local_rank(a) for a in mesh.mesh_dim_names}
+
+
+def _block(t: torch.Tensor, spec, sizes: dict, coords: dict) -> torch.Tensor:
+    """The block of the full tensor ``t`` that the place at ``coords``
+    holds under ``spec``: a dim cut over several axes takes their
+    row-major index, the first axis major, as a ``NamedSharding`` does.
+    A copy, so that the full tensor can be freed."""
+    cut = False
+    for d, ax in enumerate(spec):
+        if ax is None:
+            continue
+        axes = ax if isinstance(ax, tuple) else (ax,)
+        n, idx = 1, 0
+        for a in axes:
+            n, idx = n * sizes[a], idx * sizes[a] + coords[a]
+        if t.shape[d] % n:
+            raise ValueError(f"dim {d} of {tuple(t.shape)} does not split "
+                             f"{n} ways over {axes}")
+        m = t.shape[d] // n
+        t = t.narrow(d, idx * m, m)
+        cut = cut or n > 1
+    return t.clone(memory_format=torch.contiguous_format) if cut else t
+
+
+def batch_rows(mesh, rules: dict, batch: int,
+               coords: dict | None = None) -> slice:
+    """The rows of a global batch of ``batch`` that the place at
+    ``coords`` (default: the calling rank's) holds under ``rules``
+    (``activation_rules``): all of them when the batch is not split."""
+    ax = rules.get("batch")
+    if ax is None:
+        return slice(0, batch)
+    sizes = axis_sizes(mesh)
+    coords = mesh_coords(mesh) if coords is None else coords
+    n, idx = 1, 0
+    for a in (ax if isinstance(ax, tuple) else (ax,)):
+        n, idx = n * sizes[a], idx * sizes[a] + coords[a]
+    b = batch // n
+    return slice(idx * b, (idx + 1) * b)
+
+
+def shard_tree(tree, specs, mesh, coords: dict | None = None):
+    """``tree`` with each tensor cut to the block that the place at
+    ``coords`` (default: the calling rank's) holds under its spec in
+    ``specs`` (a tree of the same structure; None and ``()`` keep a leaf
+    whole).  Every rank builds the whole tree from one seed, or converts
+    it from the reference's arrays, and keeps its blocks."""
+    sizes = axis_sizes(mesh)
+    coords = mesh_coords(mesh) if coords is None else coords
+
+    def at(path):
+        s = specs
+        for k in path:
+            s = s[k]
+        return s
+
+    def one(path, leaf):
+        spec = at(path)
+        if not isinstance(leaf, torch.Tensor) or not spec:
+            return leaf
+        return _block(leaf, spec, sizes, coords)
+
+    return tree_map_with_path(one, tree)
+
+
+def shard_params(cfg: ModelConfig, params, mesh, coords: dict | None = None):
+    """The parameters a rank holds for the serving steps over a mesh: the
+    experts' ``wg``, ``wu`` and ``wd`` cut by their ``param_pspecs`` spec
+    (the MoE layer's sharded route reads its blocks), every other leaf
+    whole (the dense weights are replicated: dense tensor parallelism is
+    not ported)."""
+    sizes = axis_sizes(mesh)
+    coords = mesh_coords(mesh) if coords is None else coords
+
+    def one(path, leaf):
+        key = _path_str(path, keep_index=False)
+        if not re.search(r"moe/(wg|wu|wd)$", key):
+            return leaf
+        return _block(leaf, _param_spec(key, tuple(leaf.shape), cfg, mesh),
+                      sizes, coords)
+
+    return tree_map_with_path(one, params)

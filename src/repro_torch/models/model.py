@@ -106,7 +106,10 @@ class Model:
         ``convert.model_params_from_numpy``."""
         cfg, dev = self.cfg, torch.device(self.device)
         dt = torch.float32 if master else compute_dtype(cfg)
-        gen = torch.Generator(device=dev).manual_seed(seed)
+        # on the meta device (shapes only: launch.sharding's specs of a
+        # full-size model) nothing is drawn
+        gen = (None if dev.type == "meta" else
+               torch.Generator(device=dev).manual_seed(seed))
         D, V = cfg.d_model, cfg.padded_vocab
         params = {
             "embed": torch.randn((V, D), generator=gen, dtype=dt,

@@ -1,12 +1,33 @@
 """Mixture-of-experts layer: top-k routing, capacity-based dispatch and
-shared experts.
+shared experts, on one card or over a (data x model) mesh.
 
-The port of the local path of ``repro/models/moe.py`` (one device, no
-mesh): the float32 router, a stable sort of the assignments by expert, a
-capacity buffer of ``capacity(cfg, T)`` rows an expert, the expert MLPs as
-batched products, and the weighted combine back to (T, D).  The
-reference's expert-parallel ``_routed_shard_map`` needs a mesh and is not
-ported (``ROADMAP.md`` Queue 1 item 7, the multi-card pieces).
+The port of ``repro/models/moe.py``: the float32 router, a stable sort of
+the assignments by expert, a capacity buffer of ``capacity(cfg, T)`` rows
+an expert, the expert MLPs as batched products, and the weighted combine
+back to (T, D).  Two routes, as in the reference:
+
+  * LOCAL (no rules, or a model axis of one place): the whole dispatch on
+    the rank's tokens.
+  * SHARDED (``shardctx.logical_axis_rules`` active, a model axis larger
+    than one): ``_routed_sharded``, the reference's ``_routed_shard_map``
+    run by each rank on its own blocks.  The rank holds its batch rows and
+    its expert blocks (``launch.sharding.shard_params``): E % tp == 0 is
+    expert-parallel (the rank packs only the assignments of its E/tp
+    experts), else hidden-sharded (every expert on the rank's FFN slice).
+    With ``cfg.fsdp`` and a data axis the weights' other dim is sharded
+    over data too, and the rank either all-gathers its weights (the weight
+    path) or, where that moves fewer bytes (the reference's rule, decode),
+    all-gathers the tokens of its data peers instead (the token path).
+    The partial (T, D) outputs are gathered over the model axis (the
+    token path: model and data together) and added in rank order, in the
+    compute dtype, where the reference has one ``psum``: every rank,
+    backend and run gives the same bits.  Capacity is that of the tokens
+    the rank's body holds, as in the reference, so drops differ from the
+    local route's.  ``aux_loss`` and ``expert_counts`` are the global
+    batch's: their sums are gathered over the batch axes first.
+    ``_routed_sharded_plain`` runs every place of a mesh in one process
+    (``launch.mesh.emulate_mesh``): the reference the ranks are held to on
+    the card.
 
 Determinism.  The dispatch writes each kept assignment to its own buffer
 row (dropped ones to a spare row that is sliced off), and the combine sums
@@ -24,6 +45,7 @@ import numpy as np
 import torch
 
 from .layers import _dense_init, silu_stepwise
+from .shardctx import current_rules
 
 __all__ = ["init_moe", "capacity", "apply_moe"]
 
@@ -161,16 +183,172 @@ def _routed_local(p, xt, top_e, top_w, cfg, dtype):
                                  dtype=dtype)
 
 
-def apply_moe(p, x, cfg, dtype=torch.bfloat16, return_aux=False):
+class _Plan:
+    """The reference's branch of ``_routed_shard_map`` for one rank's
+    body: expert-parallel or hidden-sharded, ZeRO-sharded weights or not,
+    the weight path or the token path."""
+
+    def __init__(self, cfg, mesh, rules, T_loc: int, w_numel: int):
+        from ..launch.mesh import axis_sizes
+
+        sizes = axis_sizes(mesh)
+        self.tp_ax, self.fsdp_ax = rules.get("tp"), rules.get("fsdp")
+        E = cfg.num_experts
+        self.tp = sizes[self.tp_ax] if self.tp_ax else 1
+        self.ep = E % self.tp == 0
+        self.nd = sizes[self.fsdp_ax] if self.fsdp_ax else 1
+        self.fsdp = (self.fsdp_ax is not None and cfg.fsdp
+                     and cfg.d_model % self.nd == 0)
+        self.token_path = False
+        if self.fsdp and self.ep:
+            nd = self.nd
+            gather_bytes = w_numel * 2 * (nd - 1)
+            token_bytes = 3 * T_loc * cfg.d_model * 2 * (nd - 1) * nd
+            # decode: tokens are tiny — move tokens to the F-sliced weights
+            # instead of re-gathering GBs of expert weights per step
+            self.token_path = token_bytes < gather_bytes
+        self.e_num = E // self.tp if self.ep else E
+
+    @property
+    def branch(self) -> str:
+        return (("expert" if self.ep else "hidden") + "/"
+                + ("token" if self.token_path else
+                   "weight" if self.fsdp else "local-weights"))
+
+
+def _check_blocks(p, cfg, plan):
+    """The expert weights must be the rank's blocks (``shard_params``),
+    never the full tensors: a full tensor here would compute the wrong
+    experts without a word."""
+    E, D, Fd = cfg.num_experts, cfg.d_model, cfg.d_ff
+    tp, nd = plan.tp, plan.nd if plan.fsdp else 1
+    if plan.ep:
+        want = {"wg": (E // tp, D, Fd // nd), "wd": (E // tp, Fd // nd, D)}
+    else:
+        want = {"wg": (E, D // nd, Fd // tp), "wd": (E, Fd // tp, D // nd)}
+    want["wu"] = want["wg"]
+    for name, shape in want.items():
+        if tuple(p[name].shape) != shape:
+            raise ValueError(
+                f"the sharded MoE route needs this rank's block of "
+                f"{name}, {shape}, got {tuple(p[name].shape)}: cut the "
+                f"parameters with launch.sharding.shard_params")
+
+
+def _routed_sharded(p, x, top_w, top_e, cfg, dtype, info=None):
+    """The reference's ``_routed_shard_map`` body on this rank (see the
+    module docstring): x (B_loc, S, D), the rank's routing (T_loc, K),
+    the rank's expert blocks in ``p``.  Returns (T_loc, D).  ``info``, a
+    dict, receives the branch and the bytes this rank gathered."""
+    from ..launch.mesh import axis_group, gather_stack, ordered_sum
+
+    mesh, rules = current_rules()
+    B_loc, S, D = x.shape
+    T_loc = B_loc * S
+    wg, wu, wd = p["wg"], p["wu"], p["wd"]
+    plan = _Plan(cfg, mesh, rules, T_loc,
+                 wg.numel() + wu.numel() + wd.numel())
+    _check_blocks(p, cfg, plan)
+    xt = x.reshape(T_loc, D)
+    te2 = top_e.reshape(T_loc, -1)
+    tw2 = top_w.reshape(T_loc, -1)
+    gathered = 0
+    if plan.fsdp:
+        fgroup = axis_group(mesh, plan.fsdp_ax)
+    if plan.fsdp and not plan.token_path:
+        # ZeRO-3: re-materialize full weights in the compute dtype
+        ax_g = 2 if plan.ep else 1
+        ws = []
+        for w, ax in ((wg, ax_g), (wu, ax_g), (wd, 1 if plan.ep else 2)):
+            stack = gather_stack(w.to(dtype), fgroup)
+            gathered += stack.numel() * stack.element_size()
+            ws.append(torch.cat(stack.unbind(0), dim=ax))
+            del stack
+        wg, wu, wd = ws
+    if plan.token_path:
+        tok = []
+        for t in (xt, te2, tw2):
+            stack = gather_stack(t, fgroup)
+            gathered += stack.numel() * stack.element_size()
+            tok.append(stack.reshape((-1,) + tuple(t.shape[1:])))
+        xt, te2, tw2 = tok
+    e_lo = mesh.get_local_rank(plan.tp_ax) * plan.e_num if plan.ep else 0
+    out = _pack_compute_combine(xt, te2, tw2, wg, wu, wd, cfg, e_lo=e_lo,
+                                e_num=plan.e_num, dtype=dtype)
+    group = axis_group(mesh, (plan.tp_ax, plan.fsdp_ax) if plan.token_path
+                       else plan.tp_ax)
+    gathered += out.numel() * out.element_size() * group.size()
+    out = ordered_sum(out, group)
+    if plan.token_path:
+        didx = mesh.get_local_rank(plan.fsdp_ax)
+        out = out[didx * T_loc:(didx + 1) * T_loc]
+    if info is not None:
+        info["branch"] = plan.branch
+        info["gathered_bytes"] = gathered
+    return out
+
+
+def _batch_sum(x, mesh, rules):
+    """``x`` summed over the ranks that hold the other batch rows (the
+    batch axes' group, in rank order); ``x`` itself without a split
+    batch."""
+    from ..launch.mesh import axis_group, ordered_sum
+
+    ax = rules.get("batch")
+    return x if ax is None else ordered_sum(x, axis_group(mesh, ax))
+
+
+def _uses_sharded_route(rules_ctx) -> bool:
+    if rules_ctx is None:
+        return False
+    from ..launch.mesh import axis_sizes
+
+    mesh, rules = rules_ctx
+    tp_ax = rules.get("tp")
+    return bool(tp_ax) and axis_sizes(mesh)[tp_ax] > 1
+
+
+def _split_batch(rules_ctx) -> bool:
+    """Whether the rules cut the batch over more than one place."""
+    if rules_ctx is None:
+        return False
+    from ..launch.mesh import axis_sizes
+
+    mesh, rules = rules_ctx
+    ax = rules.get("batch")
+    if ax is None:
+        return False
+    sizes = axis_sizes(mesh)
+    n = 1
+    for a in (ax if isinstance(ax, tuple) else (ax,)):
+        n *= sizes[a]
+    return n > 1
+
+
+def apply_moe(p, x, cfg, dtype=torch.bfloat16, return_aux=False, info=None):
     """x: (B, S, D) -> (B, S, D).  Router in float32 for stability.  With
     ``return_aux``: (out, {"aux_loss": the load-balancing term (float32),
-    "expert_counts": (E,) int32 assignments an expert})."""
+    "expert_counts": (E,) int32 assignments an expert}).  Under rules with
+    a model axis larger than one, x is the rank's batch rows, ``p`` holds
+    the rank's expert blocks, and the sharded route runs; ``aux_loss``
+    and ``expert_counts`` are then the global batch's.  ``info`` (a dict)
+    receives the sharded route's branch and gathered bytes."""
     B, S, D = x.shape
     E = cfg.num_experts
     T = B * S
     xt = x.reshape(T, D)
     probs, top_w, top_e = _route(p, xt, cfg)
-    out = _routed_local(p, xt, top_e, top_w, cfg, dtype)
+    ctx = current_rules()
+    if _uses_sharded_route(ctx):
+        out = _routed_sharded(p, x, top_w, top_e, cfg, dtype, info=info)
+    elif _split_batch(ctx):
+        raise NotImplementedError(
+            "the local MoE route over a batch split across ranks (a model "
+            "axis of one place): the reference dispatches the global "
+            "batch, the port only the rank's rows (ROADMAP.md Queue 1, "
+            "the multi-card slices)")
+    else:
+        out = _routed_local(p, xt, top_e, top_w, cfg, dtype)
     if "shared" in p:
         sh = p["shared"]
         xs = xt.to(dtype)
@@ -181,8 +359,54 @@ def apply_moe(p, x, cfg, dtype=torch.bfloat16, return_aux=False):
     if return_aux:
         K = cfg.num_experts_per_tok
         counts = _expert_counts(top_e.reshape(-1), E, torch.int32)
-        me = counts.float() / (T * K)   # mean of one_hot(top_e) over (T, K)
-        ce = torch.mean(probs, dim=0)
+        if _split_batch(ctx):
+            # GSPMD's means run over every token: the sums of the other
+            # batch rows are gathered and added in rank order
+            from ..launch.mesh import axis_sizes
+
+            mesh, rules = ctx
+            counts = _batch_sum(counts, mesh, rules)
+            psum = _batch_sum(torch.sum(probs, dim=0), mesh, rules)
+            sizes, ax = axis_sizes(mesh), rules["batch"]
+            T_all = T
+            for a in (ax if isinstance(ax, tuple) else (ax,)):
+                T_all *= sizes[a]
+            me = counts.float() / (T_all * K)
+            ce = psum / T_all
+        else:
+            me = counts.float() / (T * K)   # mean of one_hot(top_e) over (T, K)
+            ce = torch.mean(probs, dim=0)
         aux = E * torch.sum(me * ce)
         return out, {"aux_loss": aux, "expert_counts": counts}
     return out
+
+
+def _routed_sharded_plain(p, x, cfg, mesh_shape, dtype=torch.bfloat16,
+                          return_aux=False):
+    """The in-process emulation of ``apply_moe`` over a mesh: every place
+    of ``mesh_shape`` (a dict {axis name: extent}, row-major in its order)
+    runs in one process (``launch.mesh.emulate_mesh``) on its batch rows
+    of ``x`` (B, S, D) and its blocks of the full parameters ``p``, and
+    adds the gathered partials in rank order, as the ranks do.  Returns
+    the (B, S, D) output assembled from the places' rows (and the aux of
+    place 0 with ``return_aux``).  The reference the ranks are held to on
+    the card; nothing on the main path calls it."""
+    from ..launch.mesh import emulate_mesh
+    from ..launch.sharding import activation_rules, batch_rows, shard_params
+    from .shardctx import logical_axis_rules
+
+    B = x.shape[0]
+
+    def place(mesh):
+        rules = activation_rules(cfg, mesh, B)
+        p_loc = shard_params(cfg, {"moe": p}, mesh)["moe"]
+        rows = batch_rows(mesh, rules, B)
+        with logical_axis_rules(mesh, rules):
+            return rows, apply_moe(p_loc, x[rows], cfg, dtype=dtype,
+                                   return_aux=return_aux)
+
+    results = emulate_mesh(mesh_shape, place)
+    out = torch.empty(x.shape, dtype=dtype, device=x.device)
+    for rows, res in results:
+        out[rows] = res[0] if return_aux else res
+    return (out, results[0][1][1]) if return_aux else out

@@ -1,0 +1,349 @@
+"""Rank programs of ``tests/test_torch_dist_elastic.py`` and
+``tests/test_torch_dist_moe.py``, started by ``torch_dist_ranks.run_ranks``
+(``spawn``, a ``file://`` store, one intra-op thread a rank).  pytest does
+not collect this module.  A spawned rank imports it by name, so it imports
+neither ``jax`` nor ``repro`` at the top; the chaos replay takes the
+package's modules as arguments, and the JAX subprocess runs the same
+function with the JAX package's."""
+from __future__ import annotations
+
+import dataclasses
+import json
+
+import numpy as np
+
+# ------------------------------------------------------------ elastic
+# benchmarks/bench_chaos.py's disaster script at run(scale=0.1)'s graph,
+# at parallel_device with 4 workers and the straggler bias on, and a cold
+# repair of machine 3 after feed COLD_AT
+CHAOS_GRAPH = dict(num_docs=1200, vocab=1638, mean_len=20, seed=0)
+CHAOS_CHUNKS = 12
+CHAOS_EVENTS = ((2, "add", None, 4.0), (3, "add", None, 4.0),
+                (4, "straggle", 1, 4.0), (5, "kill", None, 4.0),
+                (6, "add", None, 4.0), (7, "add", None, 4.0),
+                (8, "recover", 1, 4.0), (9, "kill", None, 4.0))
+COLD_AT, COLD_MACHINE = 10, 3
+ELASTIC_BASE = dict(k=8, backend="parallel_device", workers=4,
+                    block_size=32, merge_every=1, refine_v=False, seed=0)
+WALL_FEEDS = 4
+METRICS = ("sizes", "footprint", "traffic", "worker_recv", "server_send")
+
+
+def op_fields(op) -> list:
+    """An ``ElasticOp``'s compared fields (not its wall-clock seconds)."""
+    return [op.kind, op.committed, op.k_before, op.k_after, op.machine,
+            list(dataclasses.astuple(op.traffic)), op.projected_savings,
+            op.moved_u, op.mode, op.partner]
+
+
+def chaos_replay(api, elastic, graphs, *, base_extra=None,
+                 stream_extra=None, observe_wallclock=False, feeds=None,
+                 **session_kw) -> dict:
+    """The chaos script through one package's ``ElasticSession`` (``api``,
+    ``elastic``, ``graphs``: its modules); every feed's state, the ops,
+    and ``result(refine_v=True)``, as arrays.  ``session_kw`` goes to
+    the session (the port's ``device`` and ``group``)."""
+    g = graphs.text_like(**CHAOS_GRAPH)
+    bounds = np.linspace(0, g.num_u, CHAOS_CHUNKS + 1).astype(int)
+    chunks = [g.slice_u(int(bounds[i]), int(bounds[i + 1]))
+              for i in range(CHAOS_CHUNKS)][:feeds]
+    base = api.ParsaConfig(**dict(ELASTIC_BASE, **(base_extra or {})))
+    cfg = elastic.ElasticConfig(
+        stream=api.ParsaStreamConfig(base=base, repartition="never",
+                                     **(stream_extra or {})),
+        observe_wallclock=observe_wallclock)
+    chaos = None if observe_wallclock else elastic.ChaosSchedule(
+        [elastic.ChaosEvent(*e) for e in CHAOS_EVENTS], seed=0)
+    sess = elastic.ElasticSession(cfg, g.num_v, chaos=chaos, **session_kw)
+    out = {}
+    for i, c in enumerate(chunks):
+        u = sess.feed(c)
+        p = f"feed{i}/"
+        out[p + "parts"] = sess.parts.copy()
+        out[p + "masks"] = sess.stream.arena.masks_np(logical=False)
+        out[p + "sizes"] = np.array(sess.stream.arena.sizes)  # a copy
+        out[p + "traffic"] = np.asarray(dataclasses.astuple(sess.traffic))
+        out[p + "weights"] = sess.ewma.weights()
+        out[p + "k"] = np.int64(sess.k)
+        out[p + "dispatches"] = np.asarray(json.dumps(u.dispatches,
+                                                      sort_keys=True))
+        if i == COLD_AT and not observe_wallclock:
+            sess.repair(COLD_MACHINE, mode="cold")
+            out[p + "cold_parts"] = sess.parts.copy()
+            out[p + "cold_masks"] = sess.stream.arena.masks_np(logical=False)
+    out["ops"] = np.asarray(json.dumps([op_fields(o) for o in sess.ops]))
+    res = sess.result(refine_v=True)
+    for f in ("parts_u", "parts_v", "s_masks"):
+        out[f"result/{f}"] = np.asarray(getattr(res, f))
+    for f in METRICS:
+        out[f"result/m_{f}"] = np.asarray(getattr(res.metrics, f))
+    return out
+
+
+def _raises(fn, exc=ValueError) -> str:
+    try:
+        fn()
+    except exc as e:
+        return str(e)
+    return ""
+
+
+def elastic_cases(rank: int, world: int, group) -> dict:
+    """Every case of ``tests/test_torch_dist_elastic.py`` on this rank."""
+    from repro_torch import api, elastic, graphs
+    from repro_torch.core.dispatch import dispatch_counter
+
+    out = {}
+    with dispatch_counter() as counts:
+        out.update({f"chaos/{k}": v for k, v in chaos_replay(
+            api, elastic, graphs, device="cpu", group=group).items()})
+    out["chaos_gathers"] = np.int64(counts.get("parallel_merge_gather", 0))
+    out.update({f"wall/{k}": v for k, v in chaos_replay(
+        api, elastic, graphs, observe_wallclock=True, feeds=WALL_FEEDS,
+        device="cpu", group=group).items()})
+    # a group of one rank at one worker, against the ungrouped session
+    # (no block shuffle: the grouped route draws a block permutation from
+    # the stream's generator even at one worker, the ungrouped one-worker
+    # feed does not)
+    import datetime
+
+    import torch.distributed as dist
+
+    solo = [dist.new_group([r], backend="gloo", timeout=datetime.timedelta(
+        seconds=60)) for r in range(world)]
+    one = dict(base_extra={"workers": 1},
+               stream_extra={"shuffle_blocks": False}, device="cpu")
+    out.update({f"w1/{k}": v for k, v in chaos_replay(
+        api, elastic, graphs, group=solo[rank], **one).items()})
+    out.update({f"w1_ungrouped/{k}": v for k, v in chaos_replay(
+        api, elastic, graphs, **one).items()})
+    g = graphs.text_like(**CHAOS_GRAPH)
+
+    def session(**over):
+        base = api.ParsaConfig(**dict(ELASTIC_BASE, **over))
+        return elastic.ElasticSession(elastic.ElasticConfig(
+            stream=api.ParsaStreamConfig(base=base, repartition="never")),
+            g.num_v, device="cpu", group=group)
+
+    out["err/size"] = np.asarray(_raises(lambda: session(workers=2)))
+    out["err/backend"] = np.asarray(_raises(
+        lambda: session(backend="device_scan", workers=1)))
+    # a rank that runs an op the others do not: every rank refuses at the
+    # digest after the op
+    sess = session()
+    sess.feed(g.slice_u(0, 400))
+    out["err/diverged"] = np.asarray(_raises(
+        lambda: sess.grow_k(force=True) if rank else sess.shrink_k(
+            force=True)))
+    return out
+
+
+# ------------------------------------------------------------ MoE
+# name -> the reduced config's overrides, the (data, model) mesh, the
+# prompt (B, S), the cache length and the greedy decode steps after it
+STEP_CASES = {
+    # T_loc = 80 >= 64: the weight path; decode at B_loc = 1, the token path
+    "mix_weight": dict(arch="mixtral-8x22b", over={"fsdp": True},
+                       mesh=(2, 2), B=2, S=80, cache=84, steps=3),
+    # T_loc = 16 < 64: the token path, in prefill and decode
+    "mix_token": dict(arch="mixtral-8x22b", over={"fsdp": True},
+                      mesh=(2, 2), B=4, S=8, cache=16, steps=6),
+    "ds_weight": dict(arch="deepseek-v2-236b", over={"fsdp": True},
+                      mesh=(2, 2), B=2, S=80, cache=84, steps=3),
+    "ds_token": dict(arch="deepseek-v2-236b", over={"fsdp": True},
+                     mesh=(2, 2), B=4, S=8, cache=16, steps=6),
+    # 2 experts on 4 model ranks: hidden-sharded, four partials a sum
+    "mix_hidden": dict(arch="mixtral-8x22b",
+                       over={"fsdp": True, "num_experts": 2},
+                       mesh=(1, 4), B=2, S=16, cache=24, steps=4),
+    # a dense family on a model axis of one place: its rows split 4 ways
+    "dense_dp": dict(arch="qwen3-14b", over={}, mesh=(4, 1), B=4, S=8,
+                     cache=16, steps=4),
+}
+# name -> (arch, overrides, mesh, x shape, dtype): apply_moe with aux
+APPLY_CASES = {
+    "weight": ("mixtral-8x22b", {"fsdp": True}, (2, 2), (2, 80), "float32"),
+    "token": ("mixtral-8x22b", {"fsdp": True}, (2, 2), (2, 16), "float32"),
+    "hidden": ("mixtral-8x22b", {"fsdp": True, "num_experts": 2}, (1, 4),
+               (2, 16), "float32"),
+    "shared": ("deepseek-v2-236b", {"fsdp": True}, (2, 2), (2, 16),
+               "float32"),
+    "token_bf16": ("mixtral-8x22b", {"fsdp": True}, (2, 2), (2, 16),
+                   "bfloat16"),
+    "hidden_bf16": ("mixtral-8x22b", {"fsdp": True, "num_experts": 2},
+                    (1, 4), (2, 16), "bfloat16"),
+}
+MESH_AXES = ("data", "model")
+
+
+def _device_mesh(shape):
+    from torch.distributed.device_mesh import init_device_mesh
+
+    return init_device_mesh("cpu", tuple(shape), mesh_dim_names=MESH_AXES)
+
+
+def branch_spy():
+    """Wrap ``models.moe._routed_sharded`` so that each call's branch and
+    gathered bytes are kept: returns (the list they go to, undo)."""
+    from repro_torch.models import moe
+
+    seen, orig = [], moe._routed_sharded
+
+    def spy(*a, info=None, **kw):
+        d = {}
+        out = orig(*a, info=d, **kw)
+        seen.append(d)
+        return out
+
+    moe._routed_sharded = spy
+    return seen, lambda: setattr(moe, "_routed_sharded", orig)
+
+
+def run_steps(case: dict, params: dict, tokens: np.ndarray, mesh) -> dict:
+    """A prefill and ``steps`` greedy decode steps of the port over
+    ``mesh``: this place's rows of the logits and caches, the global
+    tokens."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.convert import model_params_from_numpy
+    from repro_torch.launch.mesh import axis_group, gather_stack
+    from repro_torch.launch.sharding import activation_rules, shard_params
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.tree import tree_leaves_with_path
+
+    cfg = get_config(case["arch"]).reduced(**case["over"])
+    full = model_params_from_numpy(cfg, params, device="cpu")
+    mine = shard_params(cfg, full, mesh)
+    _, prefill = make_prefill_step(cfg, "cpu", mesh=mesh)
+    _, serve = make_serve_step(cfg, "cpu", mesh=mesh)
+    logits, cache = prefill(mine, {"tokens": tokens,
+                                   "cache_seq": case["cache"]})
+    out = {"prefill/logits": logits.float().numpy()}
+    batch_ax = activation_rules(cfg, mesh, case["B"])["batch"]
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    if batch_ax is not None:
+        tok = gather_stack(tok, axis_group(mesh, batch_ax)).reshape(-1)
+    toks = [tok.numpy()]
+    for i in range(case["steps"]):
+        tok, lg, cache = serve(mine, {"token": tok[:, None],
+                                      "pos": case["S"] + i, "cache": cache})
+        out[f"step{i}/logits"] = lg.float().numpy()
+        toks.append(tok.numpy())
+    out["tokens"] = np.stack(toks)
+    for path, leaf in tree_leaves_with_path(cache):
+        out["cache/" + "/".join(map(str, path))] = leaf.float().numpy()
+    return out
+
+
+def run_apply(case, p: dict, x: np.ndarray, mesh) -> dict:
+    """``apply_moe`` with its aux on this place's rows under the rules."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.sharding import (
+        activation_rules,
+        batch_rows,
+        shard_params,
+    )
+    from repro_torch.models import moe
+    from repro_torch.models.shardctx import logical_axis_rules
+
+    arch, over, _, _, dt = case
+    cfg = get_config(arch).reduced(**over)
+    tdt = getattr(torch, dt)
+    pt = moe_params(p, tdt)
+    mine = shard_params(cfg, {"moe": pt}, mesh)["moe"]
+    rules = activation_rules(cfg, mesh, x.shape[0])
+    rows = batch_rows(mesh, rules, x.shape[0])
+    info = {}
+    with logical_axis_rules(mesh, rules):
+        y, aux = moe.apply_moe(mine, torch.from_numpy(x[rows]).to(tdt), cfg,
+                               dtype=tdt, return_aux=True, info=info)
+    return {"out": y.float().numpy(), "aux": aux["aux_loss"].numpy(),
+            "counts": aux["expert_counts"].numpy(),
+            "branch": np.asarray(info["branch"]),
+            "gathered": np.int64(info["gathered_bytes"])}
+
+
+def moe_params(p: dict, dtype) -> dict:
+    """An MoE layer's parameters from the reference's (numpy): matrices in
+    ``dtype``, the router float32."""
+    import torch
+
+    out = {}
+    for name, a in p.items():
+        if isinstance(a, dict):
+            out[name] = moe_params(a, dtype)
+        else:
+            out[name] = torch.from_numpy(np.asarray(a, np.float32)).to(
+                torch.float32 if name == "router" else dtype)
+    return out
+
+
+def moe_cases(rank: int, world: int, group, data_path: str) -> dict:
+    """Every case of ``tests/test_torch_dist_moe.py`` on this rank: each
+    over a ``DeviceMesh`` of the 4 ranks, and on rank 0 the in-process
+    emulation of every place (``launch.mesh.emulate_mesh``)."""
+    import pickle
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import emulate_mesh
+    from repro_torch.launch.steps import (
+        make_prefill_step,
+        make_serve_step,
+        make_train_step,
+    )
+    from repro_torch.models import moe
+
+    with open(data_path, "rb") as f:
+        data = pickle.load(f)
+    out = {}
+    seen, undo = branch_spy()
+    meshes = {}
+    for name, case in STEP_CASES.items():
+        shape = case["mesh"]
+        if shape not in meshes:
+            meshes[shape] = _device_mesh(shape)
+        seen.clear()
+        got = run_steps(case, data["params"][name], data["tokens"][name],
+                        meshes[shape])
+        out.update({f"{name}/{k}": v for k, v in got.items()})
+        out[f"{name}/branches"] = np.asarray(
+            json.dumps([d["branch"] for d in seen]))
+        if rank == 0:
+            sizes = dict(zip(MESH_AXES, shape))
+            emu = emulate_mesh(sizes, lambda m, c=case, n=name: run_steps(
+                c, data["params"][n], data["tokens"][n], m))
+            for r, e in enumerate(emu):
+                out.update({f"emu{r}/{name}/{k}": v for k, v in e.items()})
+    undo()
+    for name, case in APPLY_CASES.items():
+        shape = case[2]
+        got = run_apply(case, data["moe"][name], data["x"][name],
+                        meshes.get(shape) or _device_mesh(shape))
+        out.update({f"apply/{name}/{k}": v for k, v in got.items()})
+        if rank == 0:
+            arch, over, _, _, dt = case
+            cfg = get_config(arch).reduced(**over)
+            tdt = getattr(torch, dt)
+            y, aux = moe._routed_sharded_plain(
+                moe_params(data["moe"][name], tdt),
+                torch.from_numpy(data["x"][name]).to(tdt), cfg,
+                dict(zip(MESH_AXES, shape)), dtype=tdt, return_aux=True)
+            out[f"apply_emu/{name}/out"] = y.float().numpy()
+            out[f"apply_emu/{name}/aux"] = aux["aux_loss"].numpy()
+    # refusals: a dense family on a model axis of 2, a train step on a mesh
+    mesh = meshes[(2, 2)]
+    out["err/dense_tp"] = np.asarray(_raises(
+        lambda: make_prefill_step(get_config("qwen3-14b").reduced(), "cpu",
+                                  mesh=mesh), NotImplementedError))
+    out["err/serve_tp"] = np.asarray(_raises(
+        lambda: make_serve_step(get_config("qwen3-14b").reduced(), "cpu",
+                                mesh=mesh), NotImplementedError))
+    out["err/train"] = np.asarray(_raises(
+        lambda: make_train_step(get_config("mixtral-8x22b").reduced(),
+                                "cpu", mesh=mesh), NotImplementedError))
+    return out
