@@ -54,6 +54,9 @@ Phases, in order; any failure exits non-zero:
    the same graph at B=1,024, k=64 exact and k=56 sketched, held to the
    numpy oracles;
 4. cpu against cuda on a reduced graph, both backends, every output equal;
+   flash attention with a query offset against its plain version on both
+   routes, and context parallel's row slices at their offsets bit for bit
+   the whole prompt's rows (phase ``parity``);
 5. the sketch path (``set_repr="sketch"``): the acceptance geometry of
    ``benchmarks/bench_sketch.py`` (``ctr_like(1_000_000, 100_000_000,
    nnz_per_row=10, seed=11)``, k=16, B=1024, 65,536 hot and 65,536 bucket
@@ -171,7 +174,8 @@ Phases, in order; any failure exits non-zero:
    ``make_serve_step`` with ``mesh=``: (a) a real NCCL group of one rank,
    mesh (1, 1), equal to the no-mesh route bit for bit; (b) 4 gloo ranks
    on this card, mesh (2, 2) (4 experts a model rank, F split over data;
-   each rank's expert blocks cut by ``launch.sharding.shard_params``): a
+   each rank's expert blocks, and since phase tp its 24/4 attention heads
+   and 16,384 vocab rows, cut by ``launch.sharding.shard_params``): a
    prefill at B=2, S=4,096 (the token path), one at B=2, S=32,768 (the
    weight path) and 8 greedy decode steps at batch 4 (the token path),
    each rank's logits, cache digests and tokens bit for bit equal to its
@@ -181,6 +185,23 @@ Phases, in order; any failure exits non-zero:
    reported); the branch and gathered bytes of every MoE call, prefill
    seconds, gather and sum milliseconds, decode p50, peak memory and
    launches a rank; (c) NCCL at 4 ranks where 4 cards are visible;
+11c. dense tensor parallelism over a (data x model) mesh (phase ``tp``):
+   (a) qwen3-14b at full width cut to 4 layers on mesh (1, 4) over 4 gloo
+   ranks on this card (a rank's 10 of 40 q heads, 2 of 8 kv heads, 4,352
+   of 17,408 MLP columns, 38,016 of 152,064 vocab rows, cut by
+   ``launch.sharding.shard_params``): the prefill at B=2, S=4,096 (a flash
+   launch a layer at the rank's 10/2 heads) and 8 greedy decode steps at
+   batch 4 after a 64-token prompt; (b) the same model on mesh (1, 1)
+   over one NCCL rank, its prefill and a decode step bit for bit the
+   no-mesh route's; (c) context parallel: qwen3-14b x 2 on mesh (1, 3)
+   over 3 gloo ranks, the prefill at B=2, S=3,072 (40 heads do not divide
+   3), rank r's flash launch on its 1,024 query rows at q_offset r x 1,024
+   against all 3,072 keys.  (a) and (c): each rank's logits, cache
+   digests, tokens and flash shapes bit for bit its place of the
+   in-process emulation, the tokens equal on every rank, the prefill
+   logits within 5e-2 relative L2 of the no-mesh route; the bytes a rank
+   gathers a call, prefill seconds, decode p50 / p99, peak memory, gather
+   times and flash launches by shape, logged;
 12. the MLA serving path (phase ``mla``): deepseek-v2-236b at full width
    (128 heads, q/k head dim 128 + 64 rotary, v 128, kv_lora 512, q_lora
    1,536, 160 experts top-6 with 2 shared) cut to 6 of 60 layers (49.8 GB
@@ -242,7 +263,7 @@ Phases, in order; any failure exits non-zero:
    float32 model's within relative L2 5e-2; layer
    0's mLSTM at 2,048 tokens (two chunks of 1,024) against its
    recurrence, cpu against cuda on the reduced config, and
-   ``launch.train --arch xlstm-350m`` at batch 8 x 1,024 for 2 steps (2
+   ``launch.train --arch xlstm-350m`` at batch 8 x 1,024 for one step (2
    microbatches, remat "full": the sLSTM's backward loop on the card),
    its losses and grad norms finite, step time, tokens/s, peak memory;
 16. the hybrid path (phase ``hybrid``): zamba2-2.7b at full width and depth
@@ -261,13 +282,12 @@ Phases, in order; any failure exits non-zero:
    ``prefetch_batches``: the step time (median of steps 2-8), tokens/s,
    peak device memory, the share of the dense bf16 peak and a profiled
    step's idle share, no flash_attention launch (training attention is
-   the plain route); the same run through ``TrainLoop`` with a failure
-   injected at step 6, resumed from its step-6 checkpoint (26.6 GB, the
-   one checkpoint a chip machine's disk-write cap allows) and bitwise
-   equal to the uninterrupted run; the reduced config's 3 steps on the
-   card twice (bitwise) and against the CPU (relative L2 within 1e-5), and
-   its failure at step 6 with a checkpoint every 2 steps, resumed
-   bitwise;
+   the plain route); the reduced config's 3 steps on the card twice
+   (bitwise) and against the CPU (relative L2 within 1e-5), and its run
+   through ``TrainLoop`` with a failure at step 6 and a checkpoint every 2
+   steps, resumed bitwise (the full-width resume, a 26.6 GB checkpoint,
+   is cut for the script's time, as phase ``train_moe`` holds its resume
+   on the reduced config);
 17b. MoE training (phase ``train_moe``): mixtral-8x22b at full width cut
    to 1 layer (2.91 B float32 master parameters; parameters, gradients, m
    and v 46.5 GB), its own remat "full" and 8 microbatches, 3 steps at
@@ -301,7 +321,11 @@ Phases, in order; any failure exits non-zero:
    beside it with the window's mask, and at phase mla's (Dqk, Dv) = (192,
    128) shape beside ``scaled_dot_product_attention`` on the same q, k and
    v, naming the backend it picked, phase encdec's non-causal times at
-   (64, 64), and at phase vlm's 64/8-head causal shape beside it;
+   (64, 64), and at phase vlm's 64/8-head causal shape beside it, and at
+   phase tp's rank shape (B=2, S=4,096, 10/2 x 128) and its
+   context-parallel shape (1,024 query rows against 3,072 keys, 40/8 x
+   128, q_offset 2,048) beside ``scaled_dot_product_attention`` (with the
+   explicit mask at the offset);
    ``silu_stepwise`` at a qwen3-14b decode step's (4, 1, 17,408) and its
    prefill's (2, 4,096, 17,408) bfloat16 shapes, ``gelu_stepwise`` at
    whisper-medium's decoder step (8, 1, 4,096) and encoder (8, 1,500,
@@ -314,7 +338,7 @@ Phases, in order; any failure exits non-zero:
    sketched scan's first blocks against ``parsa_scan_ref``.
 
 ``--phases build,kernels,sketch``, ``--phases build,kernels,parallel``,
-``--phases build,dist``, ``--phases build,moe_ep``,
+``--phases build,dist``, ``--phases build,moe_ep``, ``--phases build,tp``,
 ``--phases build,kernels,stream``,
 ``--phases build,kernels,elastic``,
 ``--phases build,kernels,serving``, ``--phases build,kernels,lm``,
@@ -345,8 +369,9 @@ PROFILE_DIAG = 0    # --profile-diag N
 # about 50 ms at the H100's 1.98 GHz boost clock
 LEAD_SPIN_CYCLES = 100_000_000
 PHASES = ("build", "kernels", "main", "parity", "sketch", "parallel",
-          "dist", "stream", "elastic", "serving", "lm", "moe", "moe_ep", "mla",
-          "encdec", "vlm", "xlstm", "hybrid", "train", "train_moe", "times")
+          "dist", "stream", "elastic", "serving", "lm", "moe", "moe_ep", "tp",
+          "mla", "encdec", "vlm", "xlstm", "hybrid", "train", "train_moe",
+          "times")
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, and the non-tensor fp32
 # rate, the only CUDA-core rate in that sheet; int32 and popcount work is
@@ -407,11 +432,13 @@ DIST_DEADLINE_S = 240
 # (the main graph in 16 np.linspace chunks, k=16, B=256,
 # repartition="never"), gated at its max_quality_pct of 5% traffic_max
 # against the one-shot scan; its parallel feeds at PAR; a drifting stream
-# at the main graph's size with drift repair at the defaults; the sketch
-# graph in 8 chunks; and reduced streams for cpu against cuda
+# at half the main graph's documents (its vocabulary whole; 100,000 until
+# phase tp needed the time: the explicit repartition's plain-route scan
+# took 36-40 s of it) with drift repair at the defaults; the sketch graph
+# in 8 chunks; and reduced streams for cpu against cuda
 STREAM_CHUNKS = 16
 STREAM_MAX_QUALITY_PCT = 5.0
-DRIFT_STREAM = dict(num_docs=100_000, vocab=65_536, chunks=16, mean_len=20,
+DRIFT_STREAM = dict(num_docs=50_000, vocab=65_536, chunks=16, mean_len=20,
                     drift=0.5, seed=0)
 SKETCH_STREAM_CHUNKS = 8
 STREAM_SMALL = dict(n=4_000, vocab=8_192, features=16_384,
@@ -595,12 +622,13 @@ VLM = dict(LM, arch="internvl2-76b", num_layers=24, phase="vlm",
 # batch 4 (prompt 64 warmed step by step, 32 new tokens); teacher forcing
 # over 128 tokens at batch 2, bf16 (reported) and float32 (another draw of
 # weights, gated); layer 0's mLSTM at 2,048 tokens (two chunks
-# of 1,024) against its recurrence; launch.train at batch 8 x 1,024, 2
-# steps (a depth cut for the script's time limit), the config's 2
-# microbatches and remat "full" (float32 masters).
+# of 1,024) against its recurrence; launch.train at batch 8 x 1,024, one
+# step (a depth cut for the script's time limit: 4 steps until phases
+# dist and moe_ep, 2 until phase tp needed the time; a step takes 16-21
+# s), the config's 2 microbatches and remat "full" (float32 masters).
 XLSTM = dict(arch="xlstm-350m", seed=0, serve_batch=4, prompt=64, gen=32,
              tf_batch=2, tf_tokens=128, block_tokens=2048,
-             train=dict(batch=8, seq=1024, steps=2))
+             train=dict(batch=8, seq=1024, steps=1))
 # the hybrid path (phase hybrid): zamba2-2.7b at full width and depth (54
 # layers = 9 groups of 5 Mamba2 blocks and the one weight-tied attention
 # layer; d_model 2,560, 80 SSM heads of 64, state 64, conv 4; attention 32
@@ -620,17 +648,16 @@ FLASH_TOL = {"float32": 3e-5, "bfloat16": 2e-2}
 # "full", 2 microbatches, depth cut to 2 layers (2.218 B float32 master
 # parameters; parameter, gradient, m and v 35.5 GB; 4 layers until the
 # script's phases vlm, xlstm and hybrid needed the time).  8 steps at batch 8 x
-# sequence 1,024 of SyntheticLMData(seed 0), staged by prefetch_batches,
-# through TrainLoop with a failure injected at step 6, resumed and held
-# bitwise to an uninterrupted run.  A checkpoint of that state is 26.6 GB,
-# and a chip machine's disk takes at most 45 GiB of writes a call (freed
-# blocks included), so the full-width run checkpoints once, at step 6
-# (ckpt_every 6); the reduced config runs the same failure with a
-# checkpoint every 2 steps.  The reduced config's 3 steps on the card are
+# sequence 1,024 of SyntheticLMData(seed 0), staged by prefetch_batches.
+# The failure injected at step 6, resumed through TrainLoop and held
+# bitwise to an uninterrupted run, runs on the reduced config with a
+# checkpoint every 2 steps: the full-width run's one checkpoint (26.6 GB,
+# written and read in 75-85 s) is cut for the script's time.  The
+# reduced config's 3 steps on the card are
 # held to the CPU's within TRAIN_REL_L2 (float32, TF32 off, sums in
 # another order) and to a second card run bitwise.
 TRAIN = dict(arch="qwen3-14b", num_layers=2, batch=8, seq=1024, steps=8,
-             ckpt_every=6, fail_at=6, seed=0, lr=3e-4, reduced_steps=3,
+             fail_at=6, seed=0, lr=3e-4, reduced_steps=3,
              reduced_ckpt_every=2, reduced_batch=4, reduced_seq=16)
 TRAIN_REL_L2 = 1e-5
 # MoE training (phase train_moe): mixtral-8x22b at full width (phase moe's
@@ -659,6 +686,25 @@ MOE_EP = dict(arch="mixtral-8x22b", num_layers=1, seed=0, mesh=(2, 2),
               token=(2, 4096), weight=(2, 32768), decode=(4, 64, 8),
               no_drop=4.0)
 MOE_EP_DEADLINE_S = 300
+# dense tensor parallelism over a (data x model) mesh (phase tp).  (a)
+# qwen3-14b at full width cut to 4 of 40 layers, bf16, random weights from
+# SEED, on mesh (1, 4) over 4 gloo ranks on the one card (NCCL refuses two
+# ranks a card): a rank holds 10 of 40 q heads, 2 of 8 kv heads, 4,352 of
+# 17,408 MLP columns and 38,016 of 152,064 vocab rows; the prefill at
+# B=2, S=4,096 (a flash launch a layer at the rank's 10/2 heads), then a
+# 64-token prompt at batch 4 and 8 greedy decode steps.  (b) the same
+# model on mesh (1, 1) over one NCCL rank, bit for bit the no-mesh route.
+# (c) context parallel: qwen3-14b x 2 layers on mesh (1, 3) over 3 gloo
+# ranks, the prefill at B=2, S=3,072 (40 heads do not divide 3): a rank's
+# flash launch on its 1,024 query rows at q_offset 0, 1,024 or 2,048
+# against all 3,072 keys.  Each rank is held to its place of the
+# in-process emulation bit for bit, and the prefill logits to the no-mesh
+# route within LM_MAX_REL_L2.
+TP = dict(arch="qwen3-14b", num_layers=4, seed=0, mesh=(1, 4),
+          prefill=(2, 4096), decode=(4, 64, 8))
+TP_CP = dict(arch="qwen3-14b", num_layers=2, seed=0, mesh=(1, 3),
+             prefill=(2, 3072), decode=None)
+TP_DEADLINE_S = 300
 # the elementwise kernels' checks and times (phases kernels and times)
 ELEMENTWISE_N = {"bfloat16": 64 << 20, "float32": 16 << 20}
 ELEMENTWISE_SHAPES = {
@@ -1593,6 +1639,93 @@ def same_result(a, b, what: str) -> None:
               f"{what}: metrics.{f} differs")
 
 
+def check_flash_offset(dev) -> dict:
+    """flash_attention with a query offset (row i at position q_offset + i)
+    against its plain version on the card, within FLASH_TOL: both routes
+    (TMA + wgmma for bf16 at D of 64 and 128, FMA for float32 and for bf16
+    at D = 32), causal, windowed and non-causal, offsets that are and are
+    not multiples of the tiles, rows past the last key.  Then context
+    parallel's slices: the rows of a whole prompt's call equal, bit for
+    bit, the call on those rows alone at their offset (the query tiles
+    line up, so each tile's work is the same), at the mesh (1, 3) shape of
+    phase tp on the tensor-core route and at a float32 shape on the FMA
+    route, the whole prompt's call itself within FLASH_TOL of the plain
+    version (so each slice at its offset is too); and ``q_offset=0``
+    gives the call's bits without it."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_ref, uses_tensor_cores)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=dev).manual_seed(3)
+    out = {"cases": 0, "wgmma_cases": 0, "fma_cases": 0, "max_abs_err": 0.0,
+           "slices_bitwise": 0, "max_abs_err_slices": 0.0}
+
+    def rnd(dtype, *shape):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    cases = []
+    for dt in ("bfloat16", "float32"):
+        cases += [(dt, 2, 256, 768, 8, 2, 128, True, None, 512),
+                  (dt, 1, 200, 700, 4, 2, 128, True, None, 300),
+                  (dt, 1, 128, 640, 4, 1, 64, True, 100, 384),
+                  (dt, 1, 100, 500, 4, 2, 128, False, None, 400),
+                  (dt, 1, 64, 256, 2, 1, 64, True, None, 300),
+                  (dt, 2, 130, 400, 4, 2, 64, True, 77, 129)]
+    cases.append(("bfloat16", 1, 96, 300, 4, 2, 32, True, None, 150))
+    for dt, B, Sq, Skv, H, KV, D, causal, window, off in cases:
+        dtype = getattr(torch, dt)
+        q, k, v = rnd(dtype, B, Sq, H, D), rnd(dtype, B, Skv, KV, D), \
+            rnd(dtype, B, Skv, KV, D)
+        got = flash_attention(q, k, v, causal=causal, window=window,
+                              q_offset=off)
+        want = flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   q_offset=off)
+        diff = (got.float() - want.float()).abs()
+        tol = FLASH_TOL[dt]
+        case = (dt, B, Sq, Skv, H, KV, D, causal, window, off)
+        check(bool(torch.isfinite(got.float()).all())
+              and bool((diff <= tol + tol * want.float().abs()).all()),
+              f"flash q_offset {case}: max abs err {float(diff.max())} past "
+              f"tolerance {tol}")
+        out["cases"] += 1
+        out["max_abs_err"] = max(out["max_abs_err"], float(diff.max()))
+        out["wgmma_cases" if uses_tensor_cores(q, k, v) else "fma_cases"] += 1
+    check(out["wgmma_cases"] > 0 and out["fma_cases"] > 0,
+          f"flash q_offset: routes not both run: {out}")
+    for dt, B, S, H, KV, D, n in (("bfloat16",) + TP_CP["prefill"]
+                                  + (40, 8, 128, 3),
+                                  ("float32", 1, 512, 4, 2, 64, 4)):
+        dtype = getattr(torch, dt)
+        q, k, v = rnd(dtype, B, S, H, D), rnd(dtype, B, S, KV, D), \
+            rnd(dtype, B, S, KV, D)
+        whole = flash_attention(q, k, v)
+        check(torch.equal(flash_attention(q, k, v, q_offset=0), whole),
+              f"flash {dt} S={S}: q_offset=0 changed the bits")
+        want = flash_attention_ref(q, k, v).float()
+        diff = (whole.float() - want).abs()
+        tol = FLASH_TOL[dt]
+        check(bool(torch.isfinite(whole.float()).all())
+              and bool((diff <= tol + tol * want.abs()).all()),
+              f"flash {dt} S={S}: the whole prompt's call, max abs err "
+              f"{float(diff.max())} past tolerance {tol}")
+        out["max_abs_err_slices"] = max(out["max_abs_err_slices"],
+                                        float(diff.max()))
+        del want, diff
+        m = S // n
+        for r in range(n):
+            part = flash_attention(q[:, r * m:(r + 1) * m].contiguous(), k, v,
+                                   q_offset=r * m)
+            check(torch.equal(part, whole[:, r * m:(r + 1) * m]),
+                  f"flash {dt} S={S}: rows {r * m}.. at q_offset {r * m} "
+                  f"differ from the whole prompt's")
+            out["slices_bitwise"] += 1
+        del q, k, v, whole, part
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_parity(dev) -> None:
     import numpy as np
 
@@ -1623,6 +1756,11 @@ def phase_parity(dev) -> None:
             f"cuda {t2 - t1:.2f} s)")
     check(hbo_launches["parsa_cost"] > 0,
           "host_blocked_oracle never launched parsa_cost")
+    t0 = time.perf_counter()
+    got = check_flash_offset(dev)
+    log(f"flash q_offset: {json.dumps(got)} within {json.dumps(FLASH_TOL)} "
+        f"of the plain version; context-parallel slices bit for bit the "
+        f"whole prompt's rows ({time.perf_counter() - t0:.2f} s)")
 
 
 # ---------------------------------------------------------------- phase 5
@@ -2090,25 +2228,26 @@ def dist_rank(rank: int, world: int, backend: str, store: str, out_dir: str,
     np.savez(pathlib.Path(out_dir) / f"rank{rank}.npz", **out)
 
 
-def run_dist_ranks(world: int, backend: str, tmp: str,
-                   device_of) -> list[dict]:
-    """Start ``world`` ranks of ``dist_rank`` with spawn (CUDA is live in
-    this process), join them by ``DIST_DEADLINE_S``, kill any still
-    running, and fail unless every rank exited 0."""
+def run_ranks(target, world: int, backend: str, out_dir: pathlib.Path,
+              device_of, deadline_s: float, what: str, *extra) -> list[dict]:
+    """Start ``world`` processes of ``target(rank, world, backend, store,
+    out_dir, device_of(rank), *extra)`` with spawn (CUDA is live in this
+    process) over a ``file://`` store in ``out_dir``, join them by
+    ``deadline_s``, kill any still running, and fail unless every rank
+    exited 0; returns each rank's ``rank<r>.npz`` arrays."""
     import multiprocessing
 
     import numpy as np
 
     ctx = multiprocessing.get_context("spawn")
-    out_dir = pathlib.Path(tmp) / f"{backend}{world}"
     out_dir.mkdir()
     store = f"file://{out_dir / 'store'}"
-    procs = [ctx.Process(target=dist_rank, args=(
-        r, world, backend, store, str(out_dir), device_of(r)))
+    procs = [ctx.Process(target=target, args=(
+        r, world, backend, store, str(out_dir), device_of(r), *extra))
         for r in range(world)]
     for p in procs:
         p.start()
-    end = time.monotonic() + DIST_DEADLINE_S
+    end = time.monotonic() + deadline_s
     for p in procs:
         p.join(max(0.0, end - time.monotonic()))
     hung = [r for r, p in enumerate(procs) if p.is_alive()]
@@ -2116,10 +2255,11 @@ def run_dist_ranks(world: int, backend: str, tmp: str,
         if p.is_alive():
             p.kill()
             p.join()
-    check(not hung, f"dist {backend} x{world}: ranks {hung} still ran after "
-          f"{DIST_DEADLINE_S} s (killed)")
+    check(not hung, f"{what} {backend} x{world}: ranks {hung} still ran "
+          f"after {deadline_s} s (killed)")
     codes = [p.exitcode for p in procs]
-    check(not any(codes), f"dist {backend} x{world}: rank exit codes {codes}")
+    check(not any(codes), f"{what} {backend} x{world}: rank exit codes "
+          f"{codes}")
     return [dict(np.load(out_dir / f"rank{r}.npz")) for r in range(world)]
 
 
@@ -2312,8 +2452,9 @@ def phase_dist(dev, main: dict) -> dict:
 
     # (b) DIST_WORKERS ranks on this card, over gloo
     t0 = time.perf_counter()
-    ranks = run_dist_ranks(DIST_WORKERS, "gloo", tmp.name,
-                           lambda r: str(dev))
+    ranks = run_ranks(dist_rank, DIST_WORKERS, "gloo",
+                      pathlib.Path(tmp.name) / f"gloo{DIST_WORKERS}",
+                      lambda r: str(dev), DIST_DEADLINE_S, "dist")
     hold_dist_ranks(ranks, want, want_feed, want_w, want_feed_launches,
                     f"dist gloo x{DIST_WORKERS}")
     out["elastic_gloo"] = hold_dist_elastic(ranks, want_el, oracle_tmax,
@@ -2334,8 +2475,9 @@ def phase_dist(dev, main: dict) -> dict:
     n_cards = torch.cuda.device_count()
     if n_cards >= DIST_WORKERS:
         t0 = time.perf_counter()
-        ranks = run_dist_ranks(DIST_WORKERS, "nccl", tmp.name,
-                               lambda r: f"cuda:{r}")
+        ranks = run_ranks(dist_rank, DIST_WORKERS, "nccl",
+                          pathlib.Path(tmp.name) / f"nccl{DIST_WORKERS}",
+                          lambda r: f"cuda:{r}", DIST_DEADLINE_S, "dist")
         hold_dist_ranks(ranks, want, want_feed, want_w, want_feed_launches,
                         f"dist nccl x{DIST_WORKERS}")
         hold_dist_elastic(ranks, want_el, oracle_tmax,
@@ -4550,6 +4692,22 @@ def phase_moe(dev, moe: dict = MOE) -> dict:
 
 
 # ---------------------------------------------------------------- moe_ep
+def tree_digest(tree) -> str:
+    """A hash of every tensor's bytes of a tree, in its order."""
+    import hashlib
+
+    import torch
+
+    from repro_torch.tree import tree_leaves
+
+    h = hashlib.blake2b(digest_size=16)
+    for t in tree_leaves(tree):
+        if isinstance(t, torch.Tensor):
+            h.update(t.contiguous().view(-1).view(torch.uint8).cpu()
+                     .numpy().tobytes())
+    return h.hexdigest()
+
+
 MOE_EP_CALLS = threading.local()
 
 
@@ -4578,15 +4736,15 @@ def moe_call_spy():
 def moe_ep_program(dev, mesh, full=None, timers: dict | None = None) -> dict:
     """Phase moe_ep's work on one place of ``mesh`` (a rank, or a place of
     ``emulate_mesh``): mixtral-8x22b x 1 layer from SEED (``full``, the
-    whole parameter tree, or drawn here), its expert blocks kept
-    (``shard_params``); the token-path and the weight-path prefills at the
+    whole parameter tree, or drawn here), cut to its blocks
+    (``shard_params``: its experts, and its attention heads and vocab rows
+    over the model axis); the token-path and the weight-path prefills at the
     config's capacity factor, the token-path prefill again at MOE_EP's
     no-drop factor, and decode.  Returns the place's rows: logits, a digest
     of each cache, the global tokens, the branch and gathered bytes of
     every MoE call (under ``moe_call_spy``), the flash and silu launches,
     the seconds."""
     import dataclasses
-    import hashlib
 
     import numpy as np
     import torch
@@ -4598,7 +4756,6 @@ def moe_ep_program(dev, mesh, full=None, timers: dict | None = None) -> dict:
     from repro_torch.launch.sharding import activation_rules, shard_params
     from repro_torch.launch.steps import make_prefill_step, make_serve_step
     from repro_torch.models.model import build_model
-    from repro_torch.tree import tree_leaves
 
     cfg = dataclasses.replace(get_config(MOE_EP["arch"]),
                               num_layers=MOE_EP["num_layers"])
@@ -4609,13 +4766,6 @@ def moe_ep_program(dev, mesh, full=None, timers: dict | None = None) -> dict:
     rng = np.random.default_rng(MOE_EP["seed"])
     out = {}
     calls = MOE_EP_CALLS.calls = []
-
-    def digest(tree) -> str:
-        h = hashlib.blake2b(digest_size=16)
-        for t in tree_leaves(tree):
-            h.update(t.contiguous().view(-1).view(torch.uint8).cpu()
-                     .numpy().tobytes())
-        return h.hexdigest()
 
     def sync_s(t0):
         torch.cuda.synchronize(dev)
@@ -4639,7 +4789,7 @@ def moe_ep_program(dev, mesh, full=None, timers: dict | None = None) -> dict:
                                          "cache_seq": S})
         out[f"{name}/prefill_s"] = np.float64(sync_s(t0))
         out[f"{name}/logits"] = logits.float().cpu().numpy()
-        out[f"{name}/cache"] = np.asarray(digest(cache))
+        out[f"{name}/cache"] = np.asarray(tree_digest(cache))
         out[f"{name}/calls"] = np.asarray(json.dumps(calls[n0:]))
         del logits, cache
         torch.cuda.empty_cache()
@@ -4663,7 +4813,7 @@ def moe_ep_program(dev, mesh, full=None, timers: dict | None = None) -> dict:
         step_logits.append(lg.float().cpu().numpy())
     out["decode/tokens"] = np.stack(toks)
     out["decode/logits"] = np.stack(step_logits)
-    out["decode/cache"] = np.asarray(digest(cache))
+    out["decode/cache"] = np.asarray(tree_digest(cache))
     out["decode/calls"] = np.asarray(json.dumps(calls[n0:]))
     out["decode/step_s"] = np.asarray(step_s)
     out["launches"] = np.asarray(json.dumps(
@@ -4723,39 +4873,6 @@ def moe_ep_rank(rank: int, world: int, backend: str, store: str,
         dist.destroy_process_group()
     out["peak_gb"] = np.float64(torch.cuda.max_memory_allocated(dev) / 1e9)
     np.savez(pathlib.Path(out_dir) / f"rank{rank}.npz", **out)
-
-
-def run_moe_ep_ranks(backend: str, tmp: str, device_of) -> list[dict]:
-    """Start the 4 ranks of ``moe_ep_rank`` with spawn, join them by
-    MOE_EP_DEADLINE_S, kill any still running, and fail unless every rank
-    exited 0."""
-    import multiprocessing
-
-    import numpy as np
-
-    world = MOE_EP["mesh"][0] * MOE_EP["mesh"][1]
-    ctx = multiprocessing.get_context("spawn")
-    out_dir = pathlib.Path(tmp) / f"moe_ep_{backend}{world}"
-    out_dir.mkdir()
-    store = f"file://{out_dir / 'store'}"
-    procs = [ctx.Process(target=moe_ep_rank, args=(
-        r, world, backend, store, str(out_dir), device_of(r)))
-        for r in range(world)]
-    for p in procs:
-        p.start()
-    end = time.monotonic() + MOE_EP_DEADLINE_S
-    for p in procs:
-        p.join(max(0.0, end - time.monotonic()))
-    hung = [r for r, p in enumerate(procs) if p.is_alive()]
-    for p in procs:
-        if p.is_alive():
-            p.kill()
-            p.join()
-    check(not hung, f"moe_ep {backend} x{world}: ranks {hung} still ran "
-          f"after {MOE_EP_DEADLINE_S} s (killed)")
-    codes = [p.exitcode for p in procs]
-    check(not any(codes), f"moe_ep {backend} x{world}: exit codes {codes}")
-    return [dict(np.load(out_dir / f"rank{r}.npz")) for r in range(world)]
 
 
 def hold_moe_ep_ranks(ranks: list[dict], emu: list[dict], what: str) -> None:
@@ -4842,7 +4959,10 @@ def phase_moe_ep(dev, ep: dict = MOE_EP) -> dict:
 
     # (b) 4 gloo ranks on this card, mesh (2, 2)
     t0 = time.perf_counter()
-    ranks = run_moe_ep_ranks("gloo", tmp.name, lambda r: str(dev))
+    world = ep["mesh"][0] * ep["mesh"][1]
+    ranks = run_ranks(moe_ep_rank, world, "gloo",
+                      pathlib.Path(tmp.name) / f"moe_ep_gloo{world}",
+                      lambda r: str(dev), MOE_EP_DEADLINE_S, "moe_ep")
     ranks_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     sizes = dict(zip(("data", "model"), ep["mesh"]))
@@ -4913,10 +5033,12 @@ def phase_moe_ep(dev, ep: dict = MOE_EP) -> dict:
 
     # (c) 4 NCCL ranks, one card each
     n_cards = torch.cuda.device_count()
-    world = ep["mesh"][0] * ep["mesh"][1]
     if n_cards >= world:
         t0 = time.perf_counter()
-        nranks = run_moe_ep_ranks("nccl", tmp.name, lambda r: f"cuda:{r}")
+        nranks = run_ranks(moe_ep_rank, world, "nccl",
+                           pathlib.Path(tmp.name) / f"moe_ep_nccl{world}",
+                           lambda r: f"cuda:{r}", MOE_EP_DEADLINE_S,
+                           "moe_ep")
         for r, got in enumerate(nranks):
             for k in ("token/logits", "weight/logits", "decode/tokens",
                       "token/cache", "weight/cache", "decode/cache"):
@@ -4929,6 +5051,406 @@ def phase_moe_ep(dev, ep: dict = MOE_EP) -> dict:
     torch.cuda.empty_cache()
     tmp.cleanup()
     out["peak_gb_parent"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+TP_CALLS = threading.local()
+
+
+@contextlib.contextmanager
+def flash_spy():
+    """Keep the shape and query offset of every flash launch that
+    ``models.layers`` makes in the calling thread's ``TP_CALLS.flash``
+    (B, Sq, Skv, H, KV, D, causal, q_offset), when the thread set one."""
+    from repro_torch.models import layers as LL_
+
+    orig = LL_.flash_attention
+
+    def spy(q, k, v, **kw):
+        calls = getattr(TP_CALLS, "flash", None)
+        if calls is not None:
+            calls.append([*q.shape[:2], k.shape[1], q.shape[2], k.shape[2],
+                          q.shape[3], bool(kw.get("causal", True)),
+                          int(kw.get("q_offset", 0))])
+        return orig(q, k, v, **kw)
+
+    LL_.flash_attention = spy
+    try:
+        yield
+    finally:
+        LL_.flash_attention = orig
+
+
+def tp_program(dev, mesh, spec: dict, full=None, rank: bool = False) -> dict:
+    """Phase tp's work on one place of ``mesh`` (a rank, or a place of
+    ``emulate_mesh``): ``spec``'s model from its seed (``full``, the whole
+    tree, or drawn here), cut to the place's blocks (``shard_params``);
+    the prefill at ``spec["prefill"]`` and, with ``spec["decode"]``, a
+    prompt's prefill and greedy decode steps.  Returns the place's rows:
+    logits, cache digests, the global tokens, its flash launches' shapes
+    and offsets (under ``flash_spy``), and on a rank (``rank=True``) the
+    bytes it gathered (``launch.mesh.GATHERED``), seconds, launches and
+    peak memory after the cut."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import elementwise as EW
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch.sharding import activation_rules, shard_params
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models.model import build_model
+    from repro_torch.tree import tree_leaves
+
+    cfg = dataclasses.replace(get_config(spec["arch"]),
+                              num_layers=spec["num_layers"])
+    if full is None:
+        full = build_model(cfg, dev).init(spec["seed"])
+    params = shard_params(cfg, full, mesh)
+    del full
+    out = {}
+    if rank:
+        torch.cuda.empty_cache()
+        out["params_gb"] = np.float64(sum(
+            t.numel() * t.element_size() for t in tree_leaves(params)) / 1e9)
+        out["peak_gb_init"] = np.float64(
+            torch.cuda.max_memory_allocated(dev) / 1e9)
+        torch.cuda.reset_peak_memory_stats(dev)
+        FA.reset_launch_counts()
+        EW.reset_launch_counts()
+    TP_CALLS.flash = []
+    rng = np.random.default_rng(spec["seed"])
+    B, S = spec["prefill"]
+    tokens = rng.integers(0, cfg.vocab_size, (B, S), dtype=np.int32)
+    _, prefill = make_prefill_step(cfg, dev, mesh=mesh)
+    ax = activation_rules(cfg, mesh, B)["batch"]
+
+    def global_tokens(logits):
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        return M.gather_stack(tok, M.axis_group(mesh, ax)).reshape(-1) \
+            if ax is not None else tok
+
+    def sync_s(t0):
+        torch.cuda.synchronize(dev)
+        return time.perf_counter() - t0
+
+    M.reset_gathered()
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, {"tokens": tokens, "cache_seq": S})
+    out["prefill_s"] = np.float64(sync_s(t0))
+    out["prefill/gathered"] = np.int64(M.GATHERED["bytes"])
+    out["prefill/gathers"] = np.int64(M.GATHERED["calls"])
+    out["prefill/logits"] = logits.float().cpu().numpy()
+    out["prefill/cache"] = np.asarray(tree_digest(cache))
+    out["prefill/tokens"] = global_tokens(logits).cpu().numpy()
+    out["prefill/flash"] = np.asarray(json.dumps(TP_CALLS.flash))
+    del logits, cache
+    torch.cuda.empty_cache()
+    if spec["decode"]:
+        Bd, P, steps = spec["decode"]
+        prompt = rng.integers(0, cfg.vocab_size, (Bd, P), dtype=np.int32)
+        _, serve = make_serve_step(cfg, dev, mesh=mesh)
+        ax = activation_rules(cfg, mesh, Bd)["batch"]
+        logits, cache = prefill(params, {"tokens": prompt,
+                                         "cache_seq": P + steps})
+        tok = global_tokens(logits)
+        toks, step_s, step_logits = [tok.cpu().numpy()], [], []
+        M.reset_gathered()
+        for i in range(steps):
+            t0 = time.perf_counter()
+            tok, lg, cache = serve(params, {"token": tok[:, None],
+                                            "pos": P + i, "cache": cache})
+            step_s.append(sync_s(t0))
+            toks.append(tok.cpu().numpy())
+            step_logits.append(lg.float().cpu().numpy())
+        out["decode/gathered_a_step"] = np.int64(M.GATHERED["bytes"] // steps)
+        out["decode/gathers_a_step"] = np.int64(M.GATHERED["calls"] // steps)
+        out["decode/tokens"] = np.stack(toks)
+        out["decode/logits"] = np.stack(step_logits)
+        out["decode/cache"] = np.asarray(tree_digest(cache))
+        out["decode/step_s"] = np.asarray(step_s)
+        del logits, cache
+    if rank:
+        out["launches"] = np.asarray(json.dumps(
+            {**dict(FA.LAUNCHES), **dict(EW.LAUNCHES)}))
+        out["peak_gb"] = np.float64(torch.cuda.max_memory_allocated(dev) / 1e9)
+    return out
+
+
+def tp_rank(rank: int, world: int, backend: str, store: str, out_dir: str,
+            device: str, spec: dict) -> None:
+    """One gloo rank of phase tp (started with spawn): a group over
+    ``store``, a ``DeviceMesh`` of ``spec["mesh"]`` (device type cpu: the
+    mesh only holds the groups, and gloo copies card tensors through host
+    memory), ``tp_program`` with every gather timed; its arrays go to
+    ``rank<r>.npz``."""
+    import datetime
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.launch import mesh as M
+
+    dev = torch.device(device)
+    torch.cuda.set_device(dev)
+    dist.init_process_group(backend, init_method=store, rank=rank,
+                            world_size=world, timeout=datetime.timedelta(
+                                seconds=DIST_GROUP_TIMEOUT_S))
+    mesh = init_device_mesh("cpu", spec["mesh"],
+                            mesh_dim_names=("data", "model"))
+    gather_ms = []
+    gather = M.gather_stack
+
+    def timed(*a):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        y = gather(*a)
+        torch.cuda.synchronize(dev)
+        gather_ms.append((time.perf_counter() - t0) * 1e3)
+        return y
+
+    M.gather_stack = timed
+    try:
+        with flash_spy():
+            out = tp_program(dev, mesh, spec, rank=True)
+        dist.barrier()
+    finally:
+        M.gather_stack = gather
+        dist.destroy_process_group()
+    out["gather_ms"] = np.asarray(gather_ms)
+    np.savez(pathlib.Path(out_dir) / f"rank{rank}.npz", **out)
+
+
+def hold_tp(ranks: list[dict], emu: list[dict], ref_logits, spec: dict,
+            what: str) -> dict:
+    """Every rank against its place of the emulation, bit for bit (logits,
+    cache digests, tokens, flash shapes); the tokens equal on every rank;
+    the prefill logits (the batch rows of the model axis's first places)
+    within LM_MAX_REL_L2 of the no-mesh route's ``ref_logits``."""
+    import numpy as np
+    import torch
+
+    skip = ("_s", "gathered", "gathers", "gathers_a_step",
+            "gathered_a_step", "launches", "peak_gb", "peak_gb_init",
+            "params_gb", "gather_ms")
+    for r, (got, want) in enumerate(zip(ranks, emu)):
+        for k, v in want.items():
+            if k.endswith(skip):
+                continue
+            check(np.array_equal(got[k], v),
+                  f"{what} rank {r}: {k} differs from the emulation")
+        for k in ("prefill/tokens", "decode/tokens"):
+            if k in got:
+                check(np.array_equal(got[k], ranks[0][k]),
+                      f"{what}: rank {r}'s {k} differ from rank 0's")
+    m = spec["mesh"][1]
+    got = np.concatenate([ranks[r]["prefill/logits"]
+                          for r in range(0, len(ranks), m)])
+    l2 = rel_l2(torch.from_numpy(got), ref_logits.float().cpu())
+    check(l2 <= LM_MAX_REL_L2, f"{what}: prefill logits {l2:.3e} from the "
+          f"no-mesh route, past {LM_MAX_REL_L2}")
+    return {"rel_l2_no_mesh": l2}
+
+
+def tp_report(ranks: list[dict], what: str) -> list[dict]:
+    """Each rank's bytes gathered a call, prefill seconds, decode p50 /
+    p99, peak memory, gather times and flash launches by shape, logged
+    and returned."""
+    rows = []
+    for r, got in enumerate(ranks):
+        flash: dict = {}
+        for c in json.loads(str(got["prefill/flash"])):
+            key = (f"B={c[0]} Sq={c[1]} Skv={c[2]} {c[3]}/{c[4]}x{c[5]} "
+                   f"{'causal' if c[6] else 'non-causal'} q_offset={c[7]}")
+            flash[key] = flash.get(key, 0) + 1
+        row = {"prefill_s": float(got["prefill_s"]),
+               "prefill_gathered_bytes": int(got["prefill/gathered"]),
+               "prefill_gathers": int(got["prefill/gathers"]),
+               "params_gb": float(got["params_gb"]),
+               "peak_gb": float(got["peak_gb"]),
+               "peak_gb_init": float(got["peak_gb_init"]),
+               "gather_ms": spread(got["gather_ms"].tolist()),
+               "prefill_flash_by_shape": flash,
+               "launches": json.loads(str(got["launches"]))}
+        if "decode/step_s" in got:
+            ms = sorted(x * 1e3 for x in got["decode/step_s"].tolist())
+            row.update(decode_p50_ms=statistics.median(ms),
+                       decode_p99_ms=ms[min(len(ms) - 1,
+                                            int(0.99 * len(ms)))],
+                       decode_gathered_bytes_a_step=int(
+                           got["decode/gathered_a_step"]),
+                       decode_gathers_a_step=int(got["decode/gathers_a_step"]))
+        rows.append(row)
+        log(f"{what} rank {r}: gathered {row['prefill_gathered_bytes']:,} B "
+            f"in {row['prefill_gathers']} gathers a prefill"
+            + (f", {row['decode_gathered_bytes_a_step']:,} B in "
+               f"{row['decode_gathers_a_step']} a decode step"
+               if "decode_p50_ms" in row else "")
+            + f"; prefill {row['prefill_s']:.3f} s"
+            + (f"; decode p50 {row['decode_p50_ms']:.1f} ms, p99 "
+               f"{row['decode_p99_ms']:.1f} ms" if "decode_p50_ms" in row
+               else "")
+            + f"; holds {row['params_gb']:.2f} GB of weights, peak "
+            f"{row['peak_gb']:.2f} GB after the cut ({row['peak_gb_init']:.2f}"
+            f" GB with the whole tree drawn at init)")
+        log(f"{what} rank {r}: gathers {row['gather_ms']}; flash by shape "
+            f"{json.dumps(flash)}; launches {json.dumps(row['launches'])}")
+    return rows
+
+
+def phase_tp(dev, tp: dict = TP, cp: dict = TP_CP) -> dict:
+    """Dense tensor parallelism and context-parallel attention over a
+    (data x model) mesh (``launch.steps`` with ``mesh=``, ``launch.
+    sharding.shard_params``, ``models.layers``' tensor-parallel attention
+    and MLP, ``models.model``'s vocab-sharded embedding and head): (a) 4
+    gloo ranks on this card, qwen3-14b x 4 on mesh (1, 4), each rank's 10
+    q heads and 2 kv heads; (b) the same model on mesh (1, 1) over one
+    NCCL rank in this process, bit for bit the no-mesh route; (c) 3 gloo
+    ranks, qwen3-14b x 2 on mesh (1, 3), context-parallel attention with
+    flash's query offset.  (a) and (c) hold each rank to its place of the
+    in-process emulation bit for bit and the prefill logits to the no-mesh
+    route within LM_MAX_REL_L2."""
+    import dataclasses
+    import datetime
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import emulate_mesh
+    from repro_torch.launch.sharding import shard_params
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models.model import build_model
+
+    out = {"card": card_line()}
+    t_phase = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory()
+
+    def setup(spec):
+        cfg = dataclasses.replace(get_config(spec["arch"]),
+                                  num_layers=spec["num_layers"])
+        full = build_model(cfg, dev).init(spec["seed"])
+        B, S = spec["prefill"]
+        tokens = np.random.default_rng(spec["seed"]).integers(
+            0, cfg.vocab_size, (B, S), dtype=np.int32)
+        _, prefill = make_prefill_step(cfg, dev)
+        t0 = time.perf_counter()
+        logits, cache = prefill(full, {"tokens": tokens, "cache_seq": S})
+        torch.cuda.synchronize(dev)
+        return cfg, full, tokens, logits, cache, time.perf_counter() - t0
+
+    def mesh_part(spec, full, ref_logits, tag):
+        t0 = time.perf_counter()
+        world = spec["mesh"][0] * spec["mesh"][1]
+        ranks = run_ranks(tp_rank, world, "gloo",
+                          pathlib.Path(tmp.name) / tag.replace(" ", "_"),
+                          lambda r: str(dev), TP_DEADLINE_S, "tp", spec)
+        ranks_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        sizes = dict(zip(("data", "model"), spec["mesh"]))
+        with flash_spy():
+            emu = emulate_mesh(sizes, lambda m: tp_program(dev, m, spec,
+                                                           full))
+        emu_s = time.perf_counter() - t0
+        held = hold_tp(ranks, emu, ref_logits, spec, tag)
+        del emu
+        torch.cuda.empty_cache()
+        rows = tp_report(ranks, tag)
+        for r, row in enumerate(rows):
+            check(row["launches"].get("flash_attention", 0) > 0
+                  and row["launches"].get("silu_stepwise", 0) > 0,
+                  f"{tag}: rank {r}'s launches {row['launches']}")
+        return {"per_rank": rows, "ranks_s": ranks_s, "emulation_s": emu_s,
+                **held}
+
+    # (a) and (b): qwen3-14b x 4 layers
+    cfg, full, tokens, l0, c0, nomesh_s = setup(tp)
+    B, S = tp["prefill"]
+    t0 = time.perf_counter()
+    dist.init_process_group(
+        "nccl", init_method=f"file://{tmp.name}/store_tp1", rank=0,
+        world_size=1, timeout=datetime.timedelta(seconds=DIST_GROUP_TIMEOUT_S),
+        device_id=dev)
+    try:
+        mesh1 = init_device_mesh("cuda", (1, 1),
+                                 mesh_dim_names=("data", "model"))
+        mine = shard_params(cfg, full, mesh1)
+        _, prefill1 = make_prefill_step(cfg, dev, mesh=mesh1)
+        _, serve1 = make_serve_step(cfg, dev, mesh=mesh1)
+        _, serve0 = make_serve_step(cfg, dev)
+        l1, c1 = prefill1(mine, {"tokens": tokens, "cache_seq": S + 1})
+        tok = torch.argmax(l1, dim=-1).to(torch.int32)[:, None]
+        c0b = {k: torch.cat([v, torch.zeros_like(v[:, :, :1])], dim=2)
+               for k, v in c0.items()}
+        n1, d1, _ = serve1(mine, {"token": tok, "pos": S, "cache": c1})
+        n0, d0, _ = serve0(full, {"token": tok, "pos": S, "cache": c0b})
+    finally:
+        dist.destroy_process_group()
+    check(torch.equal(l1, l0) and all(torch.equal(c1[k][:, :, :S], c0[k])
+                                      for k in c0)
+          and torch.equal(d1, d0) and torch.equal(n1, n0),
+          "tp nccl x1: the (1, 1) mesh differs from the no-mesh route")
+    out["nccl1"] = {"seconds": time.perf_counter() - t0}
+    log(f"tp nccl x1: {cfg.name} x{cfg.num_layers} on mesh (1, 1), prefill "
+        f"B={B} S={S} and a decode step equal the no-mesh route bit for bit "
+        f"(logits, k, v, the next token) ({out['nccl1']['seconds']:.2f} s)")
+    del l1, c1, c0b, d1, d0, mine, c0
+    torch.cuda.empty_cache()
+    out["gloo4"] = mesh_part(tp, full, l0, "tp gloo x4")
+    out["gloo4"]["no_mesh_prefill_s"] = nomesh_s
+    for r, row in enumerate(out["gloo4"]["per_rank"]):
+        want = {f"B={B} Sq={S} Skv={S} {cfg.num_heads // 4}/"
+                f"{cfg.num_kv_heads // 4}x{cfg.head_dim} causal q_offset=0":
+                cfg.num_layers}
+        check(row["prefill_flash_by_shape"] == want,
+              f"tp gloo x4 rank {r}: flash {row['prefill_flash_by_shape']}")
+    log(f"tp gloo x4 on one card: {cfg.name} x{cfg.num_layers} on mesh "
+        f"{tp['mesh']}, every rank equals its place of the emulation bit for "
+        f"bit (prefill B={B} S={S}, {tp['decode'][2]} decode steps at batch "
+        f"{tp['decode'][0]}, tokens equal on every rank); prefill logits "
+        f"rel L2 {out['gloo4']['rel_l2_no_mesh']:.3e} from the no-mesh route "
+        f"(gate {LM_MAX_REL_L2}; no-mesh prefill {nomesh_s:.3f} s); ranks "
+        f"{out['gloo4']['ranks_s']:.2f} s, emulation "
+        f"{out['gloo4']['emulation_s']:.2f} s")
+    del full, l0
+    torch.cuda.empty_cache()
+
+    # (c) context parallel: qwen3-14b x 2 layers on mesh (1, 3)
+    cfg, full, tokens, l0, c0, nomesh_s = setup(cp)
+    del c0
+    B, S = cp["prefill"]
+    n = cp["mesh"][1]
+    check(cfg.num_heads % n != 0 and S % n == 0
+          and cfg.attn_impl == "chunked", f"tp cp: not context parallel")
+    out["cp3"] = mesh_part(cp, full, l0, "tp cp gloo x3")
+    out["cp3"]["no_mesh_prefill_s"] = nomesh_s
+    for r, row in enumerate(out["cp3"]["per_rank"]):
+        want = {f"B={B} Sq={S // n} Skv={S} {cfg.num_heads}/"
+                f"{cfg.num_kv_heads}x{cfg.head_dim} causal q_offset="
+                f"{r * S // n}": cfg.num_layers}
+        check(row["prefill_flash_by_shape"] == want,
+              f"tp cp rank {r}: flash {row['prefill_flash_by_shape']}")
+    log(f"tp cp gloo x3 on one card: {cfg.name} x{cfg.num_layers} on mesh "
+        f"{cp['mesh']} ({cfg.num_heads} heads on 3 places: context "
+        f"parallel), prefill B={B} S={S}: rank r's flash launches at "
+        f"{S // n} query rows, q_offset r x {S // n}, against {S} keys; every "
+        f"rank equals its place of the emulation bit for bit; logits rel L2 "
+        f"{out['cp3']['rel_l2_no_mesh']:.3e} from the no-mesh route (gate "
+        f"{LM_MAX_REL_L2}; no-mesh prefill {nomesh_s:.3f} s)")
+    del full, l0
+    torch.cuda.empty_cache()
+    tmp.cleanup()
+    out["launches"] = out["gloo4"]["per_rank"][0]["launches"]
+    out["launches_cp"] = out["cp3"]["per_rank"][0]["launches"]
     out["seconds"] = time.perf_counter() - t_phase
     return out
 
@@ -5922,7 +6444,6 @@ def phase_train(dev, tr: dict = TRAIN) -> dict:
     """LM training on the card; see the module docstring, item 17."""
     import dataclasses
     import functools
-    import shutil
 
     import numpy as np
     import torch
@@ -5962,10 +6483,6 @@ def phase_train(dev, tr: dict = TRAIN) -> dict:
     state_bytes = sum(x.numel() * x.element_size()
                       for x in tree_leaves((params, opt)))
     out["state_gb"] = state_bytes / 1e9
-    free = shutil.disk_usage(ROOT).free
-    check(free > 1.1 * state_bytes,
-          f"train: {free / 1e9:.1f} GB free on disk, a checkpoint of "
-          f"{state_bytes / 1e9:.1f} GB needs more")
     times, losses = [], []
     EW.reset_launch_counts()
     for b in batches(0, steps):
@@ -5996,7 +6513,6 @@ def phase_train(dev, tr: dict = TRAIN) -> dict:
         f"peak {out['peak_gb']:.2f} GB, {out['flop_per_step']:.3e} FLOP a "
         f"step = {out['bf16_peak_share']:.3f} of the dense bf16 peak; "
         f"loss {losses[0]:.4f} -> {losses[-1]:.4f}; card {out['card']}")
-    ref = [x.to("cpu", copy=True) for x in tree_leaves(params)]
     prof_batch = stage_batch(data.batch_at(steps), dev)
     out["profile_step"] = profile_window(
         lambda: train_step(params, opt, prof_batch))
@@ -6004,17 +6520,10 @@ def phase_train(dev, tr: dict = TRAIN) -> dict:
     del params, opt, met, prof_batch
     torch.cuda.empty_cache()
 
-    # (b) the same run through TrainLoop, failing at step 6, resumed
-    out["resume"] = resume_bitwise(train_step, lambda: init_state(tr["seed"]),
-                                   batches, steps, tr["fail_at"],
-                                   tr["ckpt_every"], ckpt_dir, ref)
-    log(f"train resume: {json.dumps(out['resume'])}; final parameters "
-        f"bitwise equal to the uninterrupted run's")
-    del ref
-    torch.cuda.empty_cache()
-
-    # (c) the reduced config: the card twice, bitwise, and against the CPU;
+    # (b) the reduced config: the card twice, bitwise, and against the CPU;
     # the failure at step 6 with a checkpoint every 2 steps, resumed
+    # through TrainLoop (the full-width resume, a 26.6 GB checkpoint
+    # written and read in 75-85 s, is cut for the script's time)
     out.update(reduced_train(dev, tr, ckpt_dir, steps, "train"))
     log("train: " + json.dumps(out))
     return out
@@ -6697,7 +7206,8 @@ def phase_times(dev, main: dict) -> list[dict]:
     if "lm" in main:
         rows.append(time_flash(dev, main["lm"], main["checks"],
                                main.get("moe"), main.get("mla"),
-                               main.get("encdec"), main.get("vlm")))
+                               main.get("encdec"), main.get("vlm"),
+                               main.get("tp")))
         rows.extend(time_elementwise(dev, main))
 
     # where the time goes, under torch.profiler: the main path's whole scan
@@ -6756,9 +7266,10 @@ def phase_times(dev, main: dict) -> list[dict]:
     for name, fn, n_steps, want in windows:
         # the profiler still loses whole windows on the H100 (1 of 8 scan
         # and 1 of 8 parallel-scan windows, and all 24 refine windows,
-        # with --profile-diag 8): a window that lacks a port kernel its
-        # call launched is taken again (at most twice more)
-        for tries in range(1, 4):
+        # with --profile-diag 8; on a slower host, 3 of 3 one-super-step
+        # windows late in a whole-script run): a window that lacks a port
+        # kernel its call launched is taken again (at most five more times)
+        for tries in range(1, 7):
             prof = profile_window(fn)
             if prof.get("port_kernels_count") == want:
                 break
@@ -7074,9 +7585,113 @@ def time_elementwise(dev, state: dict) -> list[dict]:
     return rows
 
 
+def time_flash_at(dev, B, Sq, Skv, H, KV, D, q_offset: int, launches,
+                  path: str) -> dict:
+    """flash_attention, causal, at one shape of phase tp on random bf16 q,
+    k, v (query row i at position q_offset + i): CUDA-graph and eager
+    times, its plain version, and scaled_dot_product_attention on the same
+    q, k, v (is_causal with GQA where the rows start at 0; else the
+    explicit (Sq, Skv) bool mask of the admissible pairs, K and V expanded
+    to the query heads outside the timed call); the max abs error against
+    the plain version, which must be within FLASH_TOL["bfloat16"] at
+    every output; the bound counts the admissible pairs."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as FA
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    q = torch.randn((B, Sq, H, D), generator=gen, device=dev).to(
+        torch.bfloat16)
+    k, v = (torch.randn((B, Skv, KV, D), generator=gen, device=dev).to(
+        torch.bfloat16) for _ in range(2))
+    saved = dict(FA.LAUNCHES)
+
+    def kern():
+        return FA.flash_attention(q, k, v, q_offset=q_offset)
+
+    want = FA.flash_attention_ref(q, k, v, q_offset=q_offset).float()
+    got = kern().float()
+    diff = (got - want).abs()
+    err, tol = float(diff.max()), FLASH_TOL["bfloat16"]
+    check(bool(torch.isfinite(got).all())
+          and bool((diff <= tol + tol * want.abs()).all()),
+          f"flash at phase tp's shape B={B}, Sq={Sq}, Skv={Skv}, H={H}, "
+          f"KV={KV}, D={D}, q_offset={q_offset}: max abs err {err} past "
+          f"tolerance {tol}")
+    del want, got, diff
+    ms = time_graph_ms(kern, 5, 11)
+    eager_ms = time_ms(kern, 5, 11)
+    plain_ms = time_ms(lambda: FA.flash_attention_ref(
+        q, k, v, q_offset=q_offset), 1, 3)
+    FA.LAUNCHES.update(saved)   # timing launches are not path launches
+    mask = FA.admissible(Sq, Skv, causal=True, window=None, device=dev,
+                         q_offset=q_offset)
+    qt = q.transpose(1, 2)
+    if q_offset == 0 and Sq == Skv:
+        kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+        library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), 5, 11)
+        library = ("torch.nn.functional.scaled_dot_product_attention("
+                   "is_causal=True, enable_gqa=True)")
+    else:
+        kt, vt = (t.repeat_interleave(H // KV, dim=2).transpose(1, 2)
+                  for t in (k, v))
+        library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask), 5, 11)
+        library = ("torch.nn.functional.scaled_dot_product_attention("
+                   "attn_mask=the (Sq, Skv) bool mask at the query offset; "
+                   "K, V expanded to the query heads)")
+    pairs = int(mask.sum())
+    flops = 4 * D * B * H * pairs
+    nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / TENSOR_BF16_FLOPS * 1e3
+    out = {"shape": f"B={B}, Sq={Sq}, Skv={Skv}, H={H}, KV={KV}, D={D}, "
+                    f"causal, q_offset={q_offset}, bfloat16",
+           "tensor_cores": FA.uses_tensor_cores(q, k, v),
+           "launches": launches, "launches_path": path,
+           "max_abs_err": err, "ms": ms, "eager_ms": eager_ms,
+           "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "flops": flops, "bytes": nbytes, "library_ms": library_ms,
+           "library": library}
+    log(f"time flash_attention ({out['shape']}): {ms * 1e3:.1f} us in a "
+        f"CUDA graph, {eager_ms * 1e3:.1f} us eager, plain "
+        f"{plain_ms * 1e3:.1f} us, sdpa {library_ms * 1e3:.1f} us, bound "
+        f"{out['bound_ms'] * 1e3:.1f} us by {out['bound_by']} ({flops:.3e} "
+        f"FLOP, {nbytes:,} bytes); max abs err {err:.3e}; {launches} "
+        f"launches ({path})")
+    del q, k, v, qt, kt, vt, mask
+    torch.cuda.empty_cache()
+    return out
+
+
+def time_flash_tp(dev, tp: dict) -> dict:
+    """flash_attention at phase tp's two new shapes: a rank's heads of
+    qwen3-14b on mesh (1, 4) (B=2, S=4,096, 10/2 x 128) and a rank's query
+    rows under context parallel on mesh (1, 3) (B=2, 1,024 rows against
+    3,072 keys, 40/8 x 128, q_offset 2,048, the last rank's)."""
+    (B, S), n = TP["prefill"], TP["mesh"][1]
+    cfg_h, cfg_kv = 40, 8
+    (Bc, Sc), nc = TP_CP["prefill"], TP_CP["mesh"][1]
+    return {
+        "rank_heads": time_flash_at(
+            dev, B, S, S, cfg_h // n, cfg_kv // n, 128, 0,
+            tp["launches"].get("flash_attention"),
+            f"phase tp (a): a rank's prefill, qwen3-14b x{TP['num_layers']} "
+            f"on mesh {TP['mesh']} (one a layer) and its decode prompt's"),
+        "q_offset": time_flash_at(
+            dev, Bc, Sc // nc, Sc, cfg_h, cfg_kv, 128, (nc - 1) * Sc // nc,
+            tp["launches_cp"].get("flash_attention"),
+            f"phase tp (c): a rank's prefill, qwen3-14b "
+            f"x{TP_CP['num_layers']} on mesh {TP_CP['mesh']} (one a layer, "
+            f"q_offset r x {Sc // nc})")}
+
+
 def time_flash(dev, lm: dict, checks: dict, moe: dict | None = None,
                mla: dict | None = None, encdec: dict | None = None,
-               vlm: dict | None = None) -> dict:
+               vlm: dict | None = None, tp: dict | None = None) -> dict:
     """flash_attention's row of the kernels line: its times at the lm
     phase's prefill shape (``time_flash_causal`` against
     ``flash_attention_ref``).  With phase moe's state, the same at its
@@ -7112,6 +7727,11 @@ def time_flash(dev, lm: dict, checks: dict, moe: dict | None = None,
         row["vlm"]["max_abs_err_check"] = \
             checks["flash_attention"]["max_abs_err_vlm_shape"]
         row["launches_vlm"] = vlm["prefill_flash_launches"]
+    if tp is not None:
+        row["tp"] = time_flash_tp(dev, tp)
+        row["launches_tp"] = {"gloo4 (a rank)": tp["launches"].get(
+            "flash_attention"), "cp gloo3 (a rank)": tp["launches_cp"].get(
+            "flash_attention")}
     return row
 
 
@@ -7208,6 +7828,10 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         state["moe_ep"] = phase_moe_ep(dev)
         log(f"moe_ep phase {time.perf_counter() - t0:.2f} s")
+    if "tp" in phases:
+        t0 = time.perf_counter()
+        state["tp"] = phase_tp(dev)
+        log(f"tp phase {time.perf_counter() - t0:.2f} s")
     if "mla" in phases:
         t0 = time.perf_counter()
         state["mla"] = phase_mla(dev)
@@ -7266,6 +7890,13 @@ def main(argv=None) -> int:
             got = state.get("moe_ep", {}).get("launches", {}).get(r["name"])
             if got:
                 r["launches_moe_ep"] = {"gloo4 (a rank)": got}
+            # a rank's launches under dense tensor parallelism (phase tp)
+            got = {tag: state["tp"][key].get(r["name"])
+                   for tag, key in (("gloo4 (a rank)", "launches"),
+                                    ("cp gloo3 (a rank)", "launches_cp"))
+                   if state.get("tp", {}).get(key, {}).get(r["name"])}
+            if got:
+                r["launches_tp"] = got
         log(f"card: {card}")
         log(json.dumps({"kernels": rows}))
     if phases != set(PHASES):

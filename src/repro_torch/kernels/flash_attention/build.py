@@ -19,11 +19,11 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_int64
 # q, k, v, o, dtype, B, Sq, Skv, H, KV, D, Dv, 9 strides, causal, window,
-# use_wgmma, stream
+# q_offset, use_wgmma, stream
 _ENTRIES = {
     "flash_attention_fwd": ("flash_attention",
                             (_P, _P, _P, _P) + (_I,) * 8 + (_L,) * 9
-                            + (_I, _I, _I, _P)),
+                            + (_I, _I, _I, _I, _P)),
 }
 
 FAMILY = KernelFamily(CSRC, SOURCES, _ENTRIES)

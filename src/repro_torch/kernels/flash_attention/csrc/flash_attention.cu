@@ -4,10 +4,13 @@
 // Replaces the TPU kernel repro/kernels/flash_attention/flash_attention.py
 // (flash_attention_kernel, _kernel) and its wrapper ops.py:flash_attention.
 // What it computes is that kernel's contract:
-//   * query positions LEFT-aligned: row i of q sits at position i, key j
-//     at position j (q_pos = q_start + iota in the TPU kernel), so a prompt
-//     attends to a cache filled from slot 0 and slots past it are masked by
-//     causality;
+//   * query positions LEFT-aligned, shifted by the query offset q_offset
+//     (0 by default): row i of q sits at position q_offset + i, key j at
+//     position j (q_pos = q_start + iota in the TPU kernel, whose offset is
+//     0), so a prompt attends to a cache filled from slot 0 and slots past
+//     it are masked by causality, and a slice of the query rows that starts
+//     at row r (context-parallel attention) passes q_offset = r and attends
+//     every key as the whole prompt's rows r.. do;
 //   * scores q.k * 1/sqrt(Dqk) in float32; masked scores take the finite
 //     NEG_INF = -1e30 (a row whose first visited tile is fully masked gets
 //     p = exp(0) there; the next admissible score clears it with
@@ -76,6 +79,7 @@ struct Params {
   int B, Sq, Skv, H, KV, D, Dv, G;  // D: the q/k head dim, Dv: v's
   long long qb, qs, qh, kb, ks, kh, vb, vs, vh;  // element strides
   int causal, window;                          // window <= 0: none
+  int qoff;                                    // position of query row 0
   float scale;
 };
 
@@ -92,17 +96,20 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
-// [first, last) KV tiles of TK keys that query rows [q0, q0 + TQ) may
-// attend to
+// [first, last) KV tiles of TK keys that query rows [q0, q0 + TQ), at
+// positions q0 + qoff.., may attend to.  The wgmma route's producer and
+// consumers both take their tile count from here: counted apart, they would
+// disagree on the mbarrier phases and hang.
 template <int TQ, int TK>
 __device__ __forceinline__ void kv_tiles(const Params& p, int q0, int& first,
                                          int& last) {
+  const int pos0 = q0 + p.qoff;
   int kv_end = p.Skv;
-  if (p.causal) kv_end = min(kv_end, q0 + TQ);
+  if (p.causal) kv_end = min(kv_end, pos0 + TQ);
   int kv_begin = 0;
-  if (p.window > 0) kv_begin = max(0, q0 - p.window + 1);
+  if (p.window > 0) kv_begin = max(0, pos0 - p.window + 1);
   first = kv_begin / TK;
-  last = (kv_end + TK - 1) / TK;
+  last = max(first, (kv_end + TK - 1) / TK);
 }
 
 // the masked score dot * scale of (query position qp, key position kp)
@@ -183,7 +190,7 @@ __global__ void __launch_bounds__(256) flash_fma(Params p) {
 
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int qp = q0 + ty * 4 + i;
+      const int qp = q0 + ty * 4 + i + p.qoff;
       float mx = -INFINITY;
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
@@ -534,6 +541,8 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
     const int lane = tid & 31, g = lane >> 2, t = lane & 3;
     const int qw0 = q0 + 64 * cw + 16 * w;  // this warp's first row
     const int r0 = qw0 + g, r1 = r0 + 8;    // this thread's two rows
+    const int pw0 = qw0 + p.qoff;           // the first row's position
+    const int p0 = r0 + p.qoff, p1 = r1 + p.qoff;
     const float scale2 = p.scale * 1.4426950408889634f;
     // this warpgroup's 64 rows of Q: 8 KB into each panel
     const uint32_t qa = sq + cw * 64 * 128;
@@ -575,8 +584,8 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
     // p = exp2(s - m) after it; m, l and the rescale a0, a1 of O updated
     auto softmax = [&](int k0) {
       const bool edge = k0 + WG_BN > p.Skv ||
-                        (p.causal && k0 + WG_BN - 1 > qw0) ||
-                        (p.window > 0 && k0 <= qw0 + 15 - p.window);
+                        (p.causal && k0 + WG_BN - 1 > pw0) ||
+                        (p.window > 0 && k0 <= pw0 + 15 - p.window);
       // edge tiles: the masked score in the log2 domain, es = 1; other
       // tiles: the raw dot, scaled inside the exponent (es = scale2) and
       // its max scaled after (scale2 > 0 keeps the order)
@@ -586,10 +595,10 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
 #pragma unroll
         for (int i = 0; i < WG_BN / 8; ++i) {
           const int kp = k0 + 8 * i + 2 * t;
-          sc[4 * i + 0] = mask_score(p, sc[4 * i + 0], scale2, r0, kp);
-          sc[4 * i + 1] = mask_score(p, sc[4 * i + 1], scale2, r0, kp + 1);
-          sc[4 * i + 2] = mask_score(p, sc[4 * i + 2], scale2, r1, kp);
-          sc[4 * i + 3] = mask_score(p, sc[4 * i + 3], scale2, r1, kp + 1);
+          sc[4 * i + 0] = mask_score(p, sc[4 * i + 0], scale2, p0, kp);
+          sc[4 * i + 1] = mask_score(p, sc[4 * i + 1], scale2, p0, kp + 1);
+          sc[4 * i + 2] = mask_score(p, sc[4 * i + 2], scale2, p1, kp);
+          sc[4 * i + 3] = mask_score(p, sc[4 * i + 3], scale2, p1, kp + 1);
           mx0 = fmaxf(mx0, fmaxf(sc[4 * i + 0], sc[4 * i + 1]));
           mx1 = fmaxf(mx1, fmaxf(sc[4 * i + 2], sc[4 * i + 3]));
         }
@@ -816,7 +825,7 @@ cudaError_t launch_fma_d(const Params& p, dim3 grid, cudaStream_t stream) {
 }  // namespace
 
 // dtype: 0 float32, 1 bfloat16.  D is q's and k's head dim, Dv v's (Dv <=
-// D).  use_wgmma: the tensor-core route (bf16, (D, Dv) in {(64, 64),
+// D).  q_offset >= 0 is the position of query row 0.  use_wgmma: the tensor-core route (bf16, (D, Dv) in {(64, 64),
 // (128, 128), (192, 128)}, 16-byte aligned bases, strides multiples of 8
 // elements, as TMA requires).  Strides are in elements.  Returns the CUDA
 // error of the launch (0 on success), or kEncodeError + the CUresult of a
@@ -825,13 +834,14 @@ extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, int dtype, int B,
     int Sq, int Skv, int H, int KV, int D, int Dv, long long qb, long long qs,
     long long qh, long long kb, long long ks, long long kh, long long vb,
-    long long vs, long long vh, int causal, int window, int use_wgmma,
-    void* stream) {
+    long long vs, long long vh, int causal, int window, int q_offset,
+    int use_wgmma, void* stream) {
   if (B <= 0 || Sq <= 0 || Skv <= 0 || KV <= 0 || H % KV != 0 || D <= 0 ||
-      D > 256 || Dv <= 0 || Dv > D || (dtype != 0 && dtype != 1))
+      D > 256 || Dv <= 0 || Dv > D || (dtype != 0 && dtype != 1) ||
+      q_offset < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  Params p{q,  k,  v,  o,  B,  Sq, Skv, H,      KV,     D, Dv, H / KV,
-           qb, qs, qh, kb, ks, kh,  vb, vs, vh, causal, window,
+  Params p{q,  k,  v,  o,  B,  Sq, Skv, H,      KV,       D, Dv, H / KV,
+           qb, qs, qh, kb, ks, kh,  vb, vs, vh, causal, window, q_offset,
            static_cast<float>(1.0 / sqrt(static_cast<double>(D)))};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (use_wgmma) {

@@ -4,8 +4,9 @@
 q (B, Sq, H, Dqk), k (B, Skv, KV, Dqk) and v (B, Skv, KV, Dv) with KV | H
 and Dv <= Dqk <= 256, in float32 or bfloat16, and returns (B, Sq, H, Dv)
 in q's dtype (Dv < Dqk: multi-head latent attention's prefill, q/k 192
-and v 128).  Query positions are left-aligned (row i at position i; see
-``ref.py``).  The
+and v 128).  Query positions are left-aligned and shifted by
+``q_offset`` (0 by default): row i of q sits at position ``q_offset + i``,
+key j at position j (see ``ref.py``).  The
 device of the tensors decides: a CUDA tensor launches the kernel (or
 raises), a CPU tensor runs ``ref.flash_attention_ref``.  There is no
 fallback from one to the other.
@@ -53,7 +54,7 @@ def reset_launch_counts() -> None:
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-           window: int | None) -> None:
+           window: int | None, q_offset: int = 0) -> None:
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("q, k, v must be 4-D (B, S, heads, D), got "
                          f"{q.dim()}-D, {k.dim()}-D, {v.dim()}-D")
@@ -75,6 +76,8 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("empty q or k")
     if window is not None and window < 1:
         raise ValueError(f"window must be a positive int or None, got {window}")
+    if not isinstance(q_offset, int) or q_offset < 0:
+        raise ValueError(f"q_offset must be an int >= 0, got {q_offset!r}")
     if not (q.device == k.device == v.device):
         raise ValueError(f"q, k, v lie on {q.device}, {k.device}, {v.device}")
 
@@ -91,13 +94,15 @@ def uses_tensor_cores(q: torch.Tensor, k: torch.Tensor,
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True,
-                    window: int | None = None) -> torch.Tensor:
+                    causal: bool = True, window: int | None = None,
+                    q_offset: int = 0) -> torch.Tensor:
     """Forward attention of ``flash_attention_kernel``'s contract (see
-    ``ref.flash_attention_ref``), GQA by head index."""
-    _check(q, k, v, window)
+    ``ref.flash_attention_ref``), GQA by head index, query row i at
+    position ``q_offset + i``."""
+    _check(q, k, v, window, q_offset)
     if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v, causal=causal, window=window)
+        return flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   q_offset=q_offset)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cpu or cuda, not {q.device}")
     if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
@@ -111,7 +116,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             _DTYPES[q.dtype], B, Sq, Skv, H, KV, D, Dv,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            int(causal), int(window or 0), int(uses_tensor_cores(q, k, v)),
+            int(causal), int(window or 0), q_offset,
+            int(uses_tensor_cores(q, k, v)),
             stream)
     if rc >= _ENCODE_ERROR:
         raise RuntimeError("flash_attention_fwd: cuTensorMapEncodeTiled "

@@ -9,10 +9,13 @@ it.  ``attention_ref`` is the port of the reference's right-aligned oracle
 two agree (Sq == Skv).
 
 Positions.  The kernel LEFT-aligns query positions: query row i sits at
-position i, key column j at position j, whatever Sq and Skv are
-(``q_pos = q_start + iota`` in the TPU kernel).  That is the prefill of a
-cache from slot 0: a prompt of S tokens attends to keys 0..S-1, and cache
-slots past S are masked by causality.  ``attention_ref`` right-aligns
+position ``q_offset + i`` (``q_offset`` 0 by default), key column j at
+position j, whatever Sq and Skv are (``q_pos = q_start + iota`` in the TPU
+kernel, whose offset is 0).  That is the prefill of a cache from slot 0: a
+prompt of S tokens attends to keys 0..S-1, and cache slots past S are
+masked by causality.  A slice of a prompt's query rows that starts at row
+r (context-parallel attention, ``models.layers``) passes ``q_offset=r``
+with every key, and its rows equal the whole prompt's rows r.. .  ``attention_ref`` right-aligns
 (``q_pos = i + Skv - Sq``), the decode convention; the two agree only when
 Sq == Skv.
 """
@@ -31,9 +34,10 @@ NEG_INF = -1e30
 
 
 def admissible(sq: int, skv: int, *, causal: bool, window: int | None,
-               device=None) -> torch.Tensor:
-    """(Sq, Skv) bool: key j admissible for query i, positions left-aligned."""
-    q_pos = torch.arange(sq, device=device)[:, None]
+               device=None, q_offset: int = 0) -> torch.Tensor:
+    """(Sq, Skv) bool: key j admissible for query i, query row i at
+    position ``q_offset + i``."""
+    q_pos = torch.arange(q_offset, q_offset + sq, device=device)[:, None]
     k_pos = torch.arange(skv, device=device)[None, :]
     ok = torch.ones(sq, skv, dtype=torch.bool, device=device)
     if causal:
@@ -44,9 +48,10 @@ def admissible(sq: int, skv: int, *, causal: bool, window: int | None,
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        *, causal: bool = True,
-                        window: int | None = None) -> torch.Tensor:
+                        *, causal: bool = True, window: int | None = None,
+                        q_offset: int = 0) -> torch.Tensor:
     """q (B, Sq, H, D), k (B, Skv, KV, D), v (B, Skv, KV, Dv) with KV | H;
+    query row i at position ``q_offset + i``;
     query head h reads KV head h // (H / KV).  Scores, softmax and the PV
     product in float32 (probabilities are not rounded to q's dtype), scale
     1/sqrt(D) (q's and k's head dim: MLA's 1/sqrt(dn + dr)), masked scores
@@ -60,7 +65,8 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kf = k.float().permute(0, 2, 1, 3)[:, :, None]          # (B, KV, 1, Skv, D)
     vf = v.float().permute(0, 2, 1, 3)[:, :, None]
     s = torch.matmul(qg, kf.transpose(-1, -2)) * (1.0 / math.sqrt(D))
-    ok = admissible(Sq, Skv, causal=causal, window=window, device=q.device)
+    ok = admissible(Sq, Skv, causal=causal, window=window, device=q.device,
+                    q_offset=q_offset)
     s = torch.where(ok, s, torch.full((), NEG_INF, device=q.device))
     p = torch.softmax(s, dim=-1)
     out = torch.matmul(p, vf)                                # (B, KV, G, Sq, Dv)

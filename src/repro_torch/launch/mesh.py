@@ -21,6 +21,14 @@ What the MoE layer's sharded route needs of a mesh, in place of
 coordinate along an axis (``DeviceMesh.get_local_rank``), the group of
 one axis or of several together (``axis_group``), every member's tensor stacked in rank
 order (``gather_stack``) and their sum in rank order (``ordered_sum``).
+Dense tensor parallelism adds the all-gather along a dimension in rank
+order (``gather_cat``): the query rows of context-parallel attention, a
+head_dim cut back to whole heads, the vocab-sharded logits;
+``launch.sharding.tensor_parallel`` hands it and ``ordered_sum`` over the
+model axis to the dense layers (``models.layers``, ``models.model``).
+Every cross-rank sum of the port is ``ordered_sum``, never an
+all-reduce, so every rank, backend and run gives the same bits;
+``GATHERED`` counts the bytes a rank receives.
 ``emulate_mesh`` runs every place of a mesh in one process, one thread a
 place, their gathers meeting in memory: the reference the ranks are held
 to bit for bit.
@@ -32,10 +40,20 @@ import os
 
 __all__ = ["make_production_mesh", "make_host_mesh", "mesh_name", "dp_axes",
            "tp_axis", "dp_size", "mesh_shape", "axis_sizes", "axis_group",
-           "gather_stack", "ordered_sum", "PlaceMesh",
-           "emulate_mesh"]
+           "gather_stack", "gather_cat", "ordered_sum", "GATHERED",
+           "reset_gathered", "PlaceMesh", "emulate_mesh"]
 
 AXES = ("pod", "data", "model")
+
+# bytes a rank received through ``gather_stack`` (every member's tensor,
+# its own included) and the gathers that moved them, since the last
+# ``reset_gathered``: over a process group only (an emulated mesh's places
+# share the module)
+GATHERED = {"bytes": 0, "calls": 0}
+
+
+def reset_gathered() -> None:
+    GATHERED["bytes"] = GATHERED["calls"] = 0
 
 
 def mesh_shape(*, multi_pod: bool = False) -> tuple[tuple, tuple]:
@@ -137,11 +155,25 @@ def gather_stack(x, group):
     x = x.contiguous()
     if n == 1:
         return x[None]
+    GATHERED["bytes"] += n * x.numel() * x.element_size()
+    GATHERED["calls"] += 1
     flat = x.view(-1).view(torch.uint8)
     out = torch.empty((n * flat.numel(),), dtype=torch.uint8,
                       device=x.device)
     _gather_flat(out, flat, group)
     return out.view(x.dtype).view((n,) + tuple(x.shape))
+
+
+def gather_cat(x, group, dim: int):
+    """Every rank's ``x`` of ``group`` concatenated along ``dim`` in the
+    group's rank order: the all-gather of a tensor cut along ``dim``
+    (``shape[dim]`` times the group's size)."""
+    import torch
+
+    parts = gather_stack(x, group)
+    if parts.shape[0] == 1:
+        return parts[0]
+    return torch.cat(parts.unbind(0), dim=dim)
 
 
 def ordered_sum(x, group):

@@ -23,7 +23,12 @@ ranks here.
 In place of the reference's ``to_named``, ``shard_tree`` cuts full
 tensors to the blocks the calling rank holds, by its mesh coordinates;
 ``shard_params`` is the placement the serving steps over a mesh take
-(``launch.steps``): the expert weights cut, every other leaf whole.
+(``launch.steps``): every leaf cut over the model axis as its
+``param_pspecs`` spec cuts it (attention heads or head_dim, MLP columns
+and rows, the vocab rows of ``embed`` and columns of ``lm_head``,
+biases), the experts also over data as their spec says; whole over data
+otherwise (FSDP of the dense weights is not ported), and MLA's attention
+leaves whole (MLA tensor parallelism is not ported).
 """
 from __future__ import annotations
 
@@ -34,12 +39,14 @@ from typing import Any
 import torch
 
 from ..configs.base import ModelConfig
+from ..models.shardctx import TensorParallel, logical_axis_rules
 from ..tree import tree_map_with_path
-from .mesh import axis_sizes
+from .mesh import axis_group, axis_sizes, gather_cat, ordered_sum
 
 __all__ = ["activation_rules", "param_pspecs", "opt_pspecs", "batch_specs",
-           "cache_specs", "shard_tree", "shard_params", "mesh_coords",
-           "batch_rows"]
+           "cache_specs", "shard_tree", "shard_spec", "shard_params",
+           "tp_layout", "tensor_parallel", "mesh_rules", "block_slices",
+           "mesh_coords", "batch_rows"]
 
 
 def _axsize(mesh, name) -> int:
@@ -268,25 +275,39 @@ def mesh_coords(mesh) -> dict:
     return {a: mesh.get_local_rank(a) for a in mesh.mesh_dim_names}
 
 
-def _block(t: torch.Tensor, spec, sizes: dict, coords: dict) -> torch.Tensor:
-    """The block of the full tensor ``t`` that the place at ``coords``
-    holds under ``spec``: a dim cut over several axes takes their
-    row-major index, the first axis major, as a ``NamedSharding`` does.
-    A copy, so that the full tensor can be freed."""
-    cut = False
-    for d, ax in enumerate(spec):
+def block_slices(shape: tuple, spec, sizes: dict, coords: dict) -> tuple:
+    """The (start, stop) of each dim of a tensor of ``shape`` that the place
+    at ``coords`` holds under ``spec``: a dim cut over several axes takes
+    their row-major index, the first axis major, as a ``NamedSharding``
+    does."""
+    out = []
+    for d, size in enumerate(shape):
+        ax = spec[d] if d < len(spec) else None
         if ax is None:
+            out.append((0, size))
             continue
         axes = ax if isinstance(ax, tuple) else (ax,)
         n, idx = 1, 0
         for a in axes:
             n, idx = n * sizes[a], idx * sizes[a] + coords[a]
-        if t.shape[d] % n:
-            raise ValueError(f"dim {d} of {tuple(t.shape)} does not split "
+        if size % n:
+            raise ValueError(f"dim {d} of {tuple(shape)} does not split "
                              f"{n} ways over {axes}")
-        m = t.shape[d] // n
-        t = t.narrow(d, idx * m, m)
-        cut = cut or n > 1
+        m = size // n
+        out.append((idx * m, (idx + 1) * m))
+    return tuple(out)
+
+
+def _block(t: torch.Tensor, spec, sizes: dict, coords: dict) -> torch.Tensor:
+    """The block of the full tensor ``t`` that the place at ``coords``
+    holds under ``spec`` (``block_slices``).  A copy where it cuts, so that
+    the full tensor can be freed; ``t`` itself where it does not."""
+    cut = False
+    for d, (a, b) in enumerate(block_slices(tuple(t.shape), spec, sizes,
+                                            coords)):
+        if b - a < t.shape[d]:
+            t = t.narrow(d, a, b - a)
+            cut = True
     return t.clone(memory_format=torch.contiguous_format) if cut else t
 
 
@@ -331,20 +352,97 @@ def shard_tree(tree, specs, mesh, coords: dict | None = None):
     return tree_map_with_path(one, tree)
 
 
+def shard_spec(cfg: ModelConfig, key: str, shape: tuple, mesh) -> tuple:
+    """The spec ``shard_params`` cuts a parameter by: its ``param_pspecs``
+    spec for the experts' ``wg``, ``wu`` and ``wd`` (the MoE layer's
+    sharded route reads their blocks, over data too with ``cfg.fsdp``);
+    nothing for MLA's attention leaves (``wq_a``, ``wkv_a``, ``wq_b``,
+    ``wk_b``, ``wv_b``, ``wo`` and the norms: MLA tensor parallelism is
+    not ported); for every other leaf its spec over the model axis alone
+    (the FSDP cut over data is not ported)."""
+    spec = _param_spec(key, shape, cfg, mesh)
+    if re.search(r"moe/(wg|wu|wd)$", key):
+        return spec
+    if cfg.mla and key.split("/")[-2:-1] == ["attn"]:
+        return (None,) * len(shape)
+    return tuple(None if a == "data" else a for a in spec)
+
+
 def shard_params(cfg: ModelConfig, params, mesh, coords: dict | None = None):
-    """The parameters a rank holds for the serving steps over a mesh: the
-    experts' ``wg``, ``wu`` and ``wd`` cut by their ``param_pspecs`` spec
-    (the MoE layer's sharded route reads its blocks), every other leaf
-    whole (the dense weights are replicated: dense tensor parallelism is
-    not ported)."""
+    """The parameters a rank holds for the serving steps over a mesh: each
+    leaf's block under ``shard_spec``.  Dense tensor parallelism
+    (``models.layers``, ``models.model``) reads the blocks of attention
+    (heads, or head_dim where the heads do not divide the model axis),
+    MLPs (``wg``, ``wu``, ``wi``, ``bi`` by column, ``wd`` by row), the
+    vocab-sharded ``embed`` and ``lm_head``; the MoE layer's sharded route
+    the experts'; a leaf its spec does not cut over the model axis (norms,
+    ``bd``, the router, a dim that does not divide) stays whole."""
     sizes = axis_sizes(mesh)
     coords = mesh_coords(mesh) if coords is None else coords
 
     def one(path, leaf):
         key = _path_str(path, keep_index=False)
-        if not re.search(r"moe/(wg|wu|wd)$", key):
-            return leaf
-        return _block(leaf, _param_spec(key, tuple(leaf.shape), cfg, mesh),
+        return _block(leaf, shard_spec(cfg, key, tuple(leaf.shape), mesh),
                       sizes, coords)
 
     return tree_map_with_path(one, params)
+
+
+def tp_layout(cfg: ModelConfig, mesh) -> dict:
+    """How ``shard_spec`` and ``cache_specs`` cut each dense block over the
+    model axis, by the role the layers read it in (``shardctx.
+    TensorParallel.layout``): "q", "kv", "o" (``wq``; ``wk`` and ``wv``;
+    ``wo``) and "cache" (the k and v caches and the cross (k, v)) are
+    "heads", "hd" (a head_dim slice of every head) or None; "mlp" and
+    "shared" (``wd``'s rows, the dense and the shared experts' MLP),
+    "embed" (``embed``'s vocab rows) and "head" (the vocab columns of
+    ``lm_head``, or of the tied ``embed.T``) are True where cut.  MLA's
+    attention and latent cache are whole."""
+    D, H, KV, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    V = cfg.padded_vocab
+
+    def cut(key, shape, dim):
+        return shard_spec(cfg, key, shape, mesh)[dim] is not None
+
+    def heads(key, shape, h):
+        spec = shard_spec(cfg, key, shape, mesh)
+        return "heads" if spec[h] else "hd" if spec[h + 1] else None
+
+    lay = {"embed": cut("embed", (V, D), 0),
+           "head": (cut("embed", (V, D), 0) if cfg.tie_embeddings
+                    else cut("lm_head", (D, V), 1)),
+           "mlp": cut("mlp/wd", (cfg.d_ff, D), 0)}
+    if cfg.num_shared_experts:
+        lay["shared"] = cut("moe/shared/wd",
+                            (cfg.d_ff * cfg.num_shared_experts, D), 0)
+    if H and not cfg.mla:
+        lay["q"] = heads("attn/wq", (D, H, hd), 1)
+        lay["kv"] = heads("attn/wk", (D, KV, hd), 1)
+        lay["o"] = heads("attn/wo", (H, hd, D), 0)
+        spec = cache_specs(cfg, {"k": torch.empty((1, 1, 1, KV, hd),
+                                                  device="meta")}, mesh)["k"]
+        lay["cache"] = "heads" if spec[3] else "hd" if spec[4] else None
+    return lay
+
+
+def tensor_parallel(cfg: ModelConfig, mesh) -> TensorParallel | None:
+    """The model axis of ``mesh`` as the dense layers read it (``shardctx.
+    tensor_parallel()``): the calling place's coordinate on it, the
+    gather and ordered sum over its group (``launch.mesh``) and
+    ``tp_layout``; None where the axis is one place."""
+    n = axis_sizes(mesh).get("model", 1)
+    if n <= 1:
+        return None
+    group = axis_group(mesh, "model")
+    return TensorParallel(
+        n, mesh.get_local_rank("model"), tp_layout(cfg, mesh),
+        gather=lambda x, dim: gather_cat(x, group, dim),
+        sum=lambda x: ordered_sum(x, group))
+
+
+def mesh_rules(cfg: ModelConfig, mesh, batch: int):
+    """The context the model runs under on a place of ``mesh`` with a
+    global batch of ``batch``: ``activation_rules`` and
+    ``tensor_parallel``."""
+    return logical_axis_rules(mesh, activation_rules(cfg, mesh, batch),
+                              tp=tensor_parallel(cfg, mesh))

@@ -9,15 +9,19 @@ Over a mesh (``mesh=``, a ``DeviceMesh`` of the ranks; ``launch.mesh``)
 the prefill and serve steps run the model under the logical-axis rules
 (``models.shardctx``) on the rank's rows of the batch, which is split
 along the axes that ``activation_rules(...)["batch"]`` names.  The rank
-passes the global ``tokens`` (or ``token``) and its own rows of the cache
-and holds ``launch.sharding.shard_params``'s parameters: the dense weights
-whole, the expert weights its blocks, which the MoE layer's sharded route
-reads (``models.moe``).  The MoE family runs on any (data x model) mesh;
-another family only with a model axis of one place (its rows are
-independent), the recurrent families not at all.  What the port does not
-run across ranks raises ``NotImplementedError`` naming its ROADMAP item:
-dense tensor parallelism, ``context_parallel`` attention, a train or eval
-step over a mesh.
+passes the global ``tokens`` (or ``token``) and its own block of the
+cache, and holds ``launch.sharding.shard_params``'s parameters: over the
+model axis its blocks of the attention heads (or head_dim where the heads
+do not divide it), the MLP columns (``wg``, ``wu``, ``wi``, ``bi``) and
+rows (``wd``), the vocab rows of ``embed`` and columns of ``lm_head``, and
+the experts (``models.layers``, ``models.model``, ``models.moe``); whole
+over the data axis (FSDP of the dense weights is not ported) and whole
+for MLA's attention (MLA tensor parallelism is not ported).  Every family
+but the recurrent ones runs on any (data x model) mesh whose specs split
+evenly: dense, VLM, encoder-decoder and MoE, ``context_parallel``
+attention where the reference takes it.  What the port does not run
+across ranks raises ``NotImplementedError`` naming its ROADMAP item: the
+recurrent families over a mesh, a train or eval step over a mesh.
 """
 from __future__ import annotations
 
@@ -28,7 +32,6 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..models.model import build_model
-from ..models.shardctx import logical_axis_rules
 from ..optim import (
     AdamWConfig,
     apply_updates,
@@ -38,7 +41,7 @@ from ..optim import (
 )
 from ..tree import tree_leaves, tree_map
 from .mesh import axis_group, axis_sizes, gather_stack
-from .sharding import activation_rules, batch_rows
+from .sharding import activation_rules, batch_rows, mesh_rules
 
 __all__ = ["make_train_step", "make_eval_step", "make_prefill_step",
            "make_serve_step"]
@@ -49,7 +52,7 @@ _ROADMAP = "ROADMAP.md Queue 1, the multi-card slices"
 def _rules_ctx(cfg, mesh, batch_size):
     if mesh is None:
         return contextlib.nullcontext()
-    return logical_axis_rules(mesh, activation_rules(cfg, mesh, batch_size))
+    return mesh_rules(cfg, mesh, batch_size)
 
 
 def _effective_microbatches(cfg, mesh, B: int) -> int:
@@ -68,24 +71,15 @@ def _effective_microbatches(cfg, mesh, B: int) -> int:
     return max(n, 1)
 
 
-def _check_mesh(cfg, mesh, seq: int | None = None) -> None:
+def _check_mesh(cfg, mesh) -> None:
     """Raise ``NotImplementedError`` where the port would run something
     across ranks that it does not compute as the reference does."""
-    tp = axis_sizes(mesh).get("model", 1)
     if cfg.family in ("xlstm", "hybrid"):
         raise NotImplementedError(
             f"the {cfg.family} family over a mesh (its prefill is a loss "
-            f"over the global batch; {_ROADMAP})")
-    if tp > 1 and cfg.family != "moe":
-        raise NotImplementedError(
-            f"dense tensor parallelism (the {cfg.family} family on a model "
-            f"axis of {tp}) is not ported ({_ROADMAP})")
-    if (tp > 1 and seq is not None and not cfg.mla
-            and cfg.num_heads % tp != 0 and seq % tp == 0
-            and cfg.attn_impl == "chunked"):
-        raise NotImplementedError(
-            f"context_parallel attention ({cfg.num_heads} heads on a model "
-            f"axis of {tp}) is not ported ({_ROADMAP})")
+            f"over the global batch, its states are not cut over the model "
+            f"axis; {_ROADMAP}, item 3a.2: the recurrent families over a "
+            f"mesh)")
 
 
 def _rows(x, mesh, rules):
@@ -116,7 +110,8 @@ def make_train_step(cfg: ModelConfig, device="cuda",
     if mesh is not None:
         raise NotImplementedError(
             f"a train step over a mesh (FSDP of the dense weights and the "
-            f"gradient reduction) is not ported ({_ROADMAP})")
+            f"gradient reduction) is not ported ({_ROADMAP}, items 3b and "
+            f"3c)")
     model = build_model(cfg, device)
     opt_cfg = opt_cfg or AdamWConfig(moment_dtype=cfg.opt_dtype)
 
@@ -176,7 +171,7 @@ def make_eval_step(cfg: ModelConfig, device="cuda", *, mesh=None):
     if mesh is not None:
         raise NotImplementedError(
             f"an eval step over a mesh (a loss over the global batch) is "
-            f"not ported ({_ROADMAP})")
+            f"not ported ({_ROADMAP}, item 3c)")
     model = build_model(cfg, device)
 
     @torch.no_grad()
@@ -198,7 +193,8 @@ def make_prefill_step(cfg: ModelConfig, device="cuda", *, flash: bool = True,
     carries ``labels``), as the reference does: their states are warmed
     by the serving loop.  With ``mesh``: the rank's rows of the global
     batch under the rules (module docstring); the logits and the cache
-    returned are the rank's rows."""
+    returned are the rank's rows (the logits over the whole padded
+    vocab, the cache the rank's block)."""
     model = build_model(cfg, device)
     if mesh is not None:
         _check_mesh(cfg, mesh)
@@ -211,8 +207,7 @@ def make_prefill_step(cfg: ModelConfig, device="cuda", *, flash: bool = True,
             if cfg.family in ("xlstm", "hybrid"):
                 return model.loss_fn(params, arrays)[1]["loss"]
             return model.prefill(params, dict(batch, **arrays), flash=flash)
-        B, S = arrays["tokens"].shape
-        _check_mesh(cfg, mesh, S)
+        B = arrays["tokens"].shape[0]
         rules = activation_rules(cfg, mesh, B)
         arrays = {k: _rows(v, mesh, rules) for k, v in arrays.items()}
         with _rules_ctx(cfg, mesh, B):
@@ -224,10 +219,11 @@ def make_prefill_step(cfg: ModelConfig, device="cuda", *, flash: bool = True,
 def make_serve_step(cfg: ModelConfig, device="cuda", *, mesh=None):
     """One greedy decode step: ``serve_step(params, batch) -> (next_token
     (B,) int32, logits, cache)``.  With ``mesh``: ``batch["token"]`` is
-    the global (B, 1), ``batch["cache"]`` the rank's rows; the logits and
-    the cache returned are the rank's rows, and ``next_token`` is the
-    global batch's, gathered over the batch axes in rank order, the same
-    on every rank, ready to feed the next step."""
+    the global (B, 1), ``batch["cache"]`` the rank's block; the logits
+    (over the whole padded vocab) and the cache returned are the rank's
+    rows, and ``next_token`` is the global batch's, gathered over the
+    batch axes in rank order, the same on every rank, ready to feed the
+    next step."""
     model = build_model(cfg, device)
     if mesh is not None:
         _check_mesh(cfg, mesh)

@@ -47,7 +47,39 @@ the flash kernel at prefill (non-causal: the kernel's left-aligned query
 positions then mask nothing), and cross-attention stays on the plain
 route in decode.  Positions of that family are absolute and sinusoidal
 (``sinusoidal_positions``), added to the inputs.
-Not ported: ``context_parallel`` (there is no mesh on one card).
+Tensor parallelism (a model axis of n > 1 places, ``shardctx.
+tensor_parallel()``, which ``launch.sharding.mesh_rules`` installs): a
+place holds the blocks of ``launch.sharding.shard_params`` and its own
+batch rows, and reads each block by ``tp.layout`` (``launch.sharding.
+tp_layout``, from the same specs); without it every layout is whole and
+the same code runs with the identity for its gathers and sums.
+  * Attention heads over the model axis where they divide it, else
+    head_dim (q and ``wo`` by the query heads, k and v by the kv heads).
+    A head_dim cut is gathered back to whole heads (``tp.gather``, rank
+    order) before the biases, qk-norm and rotary embedding, which read
+    the whole head.  Head-sharded q with
+    head-sharded k and v attends the place's own heads (the GQA groups
+    line up); head-sharded q with whole or head_dim-sharded k and v takes
+    the kv heads of its own q heads.  Where the query heads do not divide
+    n, the query sequence divides it and ``cfg.attn_impl == "chunked"``,
+    attention is ``context_parallel`` as in the reference: every place
+    holds q, k and v whole, attends its S/n query rows from row
+    r S/n (on the flash route one launch with ``q_offset``) against every
+    key, and the rows are gathered back in rank order.  Otherwise (decode,
+    Sq = 1) a head_dim-sharded q reduces the score over head_dim: each
+    place's partial q.k of its head_dim slice, their ordered sum, the
+    softmax, and the place's head_dim slice of the output.
+  * The output projection ``wo`` (rows of the place's heads or head_dim
+    slice) and an MLP's ``wd`` (rows of its columns) give partial sums,
+    added in rank order (``tp.sum``, float32 accumulation for bfloat16)
+    where the reference has one all-reduce; ``bd`` is added once, after
+    the sum.
+  * A KV cache holds the place's kv heads, or its head_dim slice of every
+    kv head (``launch.sharding.cache_specs``), written in place as without
+    a mesh; cross-attention reads the encoder's (k, v) projected to the
+    place's block (``Model._cross_kv``).
+MLA's blocks are whole on every place (MLA tensor parallelism is not
+ported): ``mla_block`` runs as without a mesh.
 """
 from __future__ import annotations
 
@@ -61,6 +93,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..kernels import elementwise as EW
 from ..kernels.flash_attention import flash_attention
+from .shardctx import ONE, tensor_parallel
 
 __all__ = ["NEG_INF", "apply_norm", "rms_head_norm", "rope_freqs",
            "apply_rope", "sinusoidal_positions", "sinusoidal_on",
@@ -298,14 +331,27 @@ def attention(q, k, v, *, q_positions, k_positions, causal=True,
     return torch.cat(outs, dim=1)
 
 
+def _project(x, w, b, lay, tp, dtype):
+    """x (B,S,D) through a (D, heads, hd) projection block and its bias:
+    (B,S,heads,hd), the place's heads where ``lay`` is "heads"; where it
+    is "hd" the place's head_dim slice, gathered to whole heads in rank
+    order before the bias (whole then) is added."""
+    B, S, D = x.shape
+    h, d = w.shape[1], w.shape[2]
+    y = (x @ w.to(dtype).reshape(D, h * d)).view(B, S, h, d)
+    if lay == "hd":
+        y = tp.gather(y, dim=3)
+    if b is not None:
+        y = y + b.to(dtype)
+    return y
+
+
 def q_projection(p, x, cfg, dtype=torch.bfloat16):
     """q (B,S,H,dh) of an attention sub-block before any rotary embedding:
-    the projection, its bias and qk-norm (cross-attention's whole query)."""
-    B, S, D = x.shape
-    H, hd = cfg.num_heads, cfg.head_dim
-    xq = (x @ p["wq"].to(dtype).reshape(D, H * hd)).view(B, S, H, hd)
-    if "bq" in p:
-        xq = xq + p["bq"].to(dtype)
+    the projection, its bias and qk-norm (cross-attention's whole query;
+    the place's heads, or whole heads, under tensor parallelism)."""
+    tp = tensor_parallel() or ONE
+    xq = _project(x, p["wq"], p.get("bq"), tp.layout.get("q"), tp, dtype)
     if cfg.qk_norm:
         xq = rms_head_norm(p["q_norm"], xq)
     return xq
@@ -314,20 +360,48 @@ def q_projection(p, x, cfg, dtype=torch.bfloat16):
 def qkv_projection(p, x, cfg, positions, dtype=torch.bfloat16):
     """q (B,S,H,dh), k and v (B,S,KV,dh) of an attention sub-block: the
     projections, biases, qk-norm and rotary embedding."""
-    B, S, D = x.shape
-    KV, hd = cfg.num_kv_heads, cfg.head_dim
+    tp = tensor_parallel() or ONE
     xq = q_projection(p, x, cfg, dtype)
-    xk = (x @ p["wk"].to(dtype).reshape(D, KV * hd)).view(B, S, KV, hd)
-    xv = (x @ p["wv"].to(dtype).reshape(D, KV * hd)).view(B, S, KV, hd)
-    if "bk" in p:
-        xk = xk + p["bk"].to(dtype)
-        xv = xv + p["bv"].to(dtype)
+    lay = tp.layout.get("kv")
+    xk = _project(x, p["wk"], p.get("bk"), lay, tp, dtype)
+    xv = _project(x, p["wv"], p.get("bv"), lay, tp, dtype)
     if cfg.qk_norm:
         xk = rms_head_norm(p["k_norm"], xk)
     if cfg.rope_theta:
         xq = apply_rope(xq, positions, cfg.rope_theta)
         xk = apply_rope(xk, positions, cfg.rope_theta)
     return xq, xk, xv
+
+
+def _kv_for_q_heads(k, v, h0: int, hq: int, G: int):
+    """The kv heads of query heads h0 .. h0 + hq - 1 (GQA group G) from k, v
+    holding every kv head: a slice where the groups line up, else one kv
+    head a query head (index_select)."""
+    if hq % G == 0:
+        sl = slice(h0 // G, h0 // G + hq // G)
+        return k[:, :, sl], v[:, :, sl]
+    if G % hq == 0 and h0 // G == (h0 + hq - 1) // G:
+        sl = slice(h0 // G, h0 // G + 1)
+        return k[:, :, sl], v[:, :, sl]
+    idx = torch.arange(h0, h0 + hq, device=k.device) // G
+    return k.index_select(2, idx), v.index_select(2, idx)
+
+
+def _sdpa_hd(q, k, v, mask, dtype, hd: int, tp):
+    """``_sdpa`` over a head_dim cut: q (B,Sq,H,hd/n), k and v (B,Skv,KV,
+    hd/n) the place's slices; the partial scores of the slice summed over
+    the places in rank order, then the scale (of the whole head_dim), the
+    mask, the softmax, and the place's slice of the output (B,Sq,H,hd/n)."""
+    B, Sq, H, dh = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    qg = q.reshape(B, Sq, KV, G, dh).permute(0, 2, 3, 1, 4)
+    kt = k.permute(0, 2, 3, 1)[:, :, None]
+    scores = tp.sum(torch.matmul(qg, kt)).float()
+    scores = scores / math.sqrt(hd) + mask[:, None, None]
+    probs = torch.softmax(scores, dim=-1).to(dtype)
+    out = torch.matmul(probs, v.permute(0, 2, 1, 3)[:, :, None])
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, v.shape[-1])
 
 
 def attention_block(p, x, cfg, positions, *, kv_cache=None, cache_len=None,
@@ -352,66 +426,107 @@ def attention_block(p, x, cfg, positions, *, kv_cache=None, cache_len=None,
     ``flash=True`` routes the attention to the flash kernel; the caller
     sets it only where positions are ``arange`` from 0 and the cache is
     written from slot 0 (prefill).
+    Under tensor parallelism the blocks are read by ``tp.layout`` (the
+    module docstring); without it every layout is whole and the gathers
+    and sums are the identity.
     """
+    tp = tensor_parallel() or ONE
     B, S, D = x.shape
-    H, hd = cfg.num_heads, cfg.head_dim
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    ring = kv_cache is not None and "kpos" in kv_cache
+    # whether xk, xv hold only the place's head_dim slice of every kv head
+    # (a cache or the cross (k, v) cut by head_dim), not whole heads
+    kv_slice = False
     if cross_kv is not None:
         xq = q_projection(p, x, cfg, dtype)
         xk, xv = cross_kv
-        if flash:
-            # non-causal: the kernel's left-aligned query positions mask
-            # nothing, so Sq < Se attends every key
-            out = flash_attention(xq, xk, xv, causal=False,
-                                  window=cfg.swa_window)
-        else:
-            Se = xk.shape[1]
-            out = attention(xq, xk, xv, q_positions=positions,
-                            k_positions=torch.arange(
-                                Se, device=x.device).expand(B, Se),
-                            causal=False, window=cfg.swa_window,
-                            impl=cfg.attn_impl, chunk=cfg.attn_chunk,
-                            dtype=dtype)
-        return out.reshape(B, S, H * hd) @ p["wo"].to(dtype).reshape(H * hd, D)
-    ring = kv_cache is not None and "kpos" in kv_cache
-    if ring and (S != 1 or flash):
-        raise ValueError(f"the SWA ring cache takes one token a call "
-                         f"(decode), not S={S}" + (" on the flash route"
-                                                    if flash else ""))
-    xq, xk, xv = qkv_projection(p, x, cfg, positions, dtype)
-    if ring:
-        Smax = kv_cache["k"].shape[1]
-        slot = cache_len % Smax
-        kv_cache["k"][:, slot] = xk[:, 0].to(kv_cache["k"].dtype)
-        kv_cache["v"][:, slot] = xv[:, 0].to(kv_cache["v"].dtype)
-        kv_cache["kpos"][slot] = cache_len
-    elif kv_cache is not None:
-        kv_cache["k"][:, cache_len:cache_len + S] = xk.to(kv_cache["k"].dtype)
-        kv_cache["v"][:, cache_len:cache_len + S] = xv.to(kv_cache["v"].dtype)
-    if flash:
-        if kv_cache is not None and cache_len != 0:
-            raise ValueError("flash=True needs cache_len == 0 (prefill)")
-        # q and k positions are both 0..S-1: the kernel's left-aligned
-        # contract; the cache slots past S would be masked by causality, so
-        # the fresh keys and values are all it needs
-        out = flash_attention(xq, xk, xv, causal=causal, window=cfg.swa_window)
+        kv_slice = tp.layout.get("cache") == "hd"
+        causal = False
+        k_positions = torch.arange(xk.shape[1], device=x.device).expand(
+            B, xk.shape[1])
     else:
-        if ring:
-            k_positions = kv_cache["kpos"].expand(B, Smax)
-            xk, xv = kv_cache["k"].to(dtype), kv_cache["v"].to(dtype)
-        elif kv_cache is not None:
-            Smax = kv_cache["k"].shape[1]
-            k_positions = torch.arange(Smax, device=x.device).expand(B, Smax)
-            # mask out unwritten cache slots by pushing their positions past q
-            k_positions = torch.where(k_positions < cache_len + S, k_positions,
-                                      2**30)
-            xk, xv = kv_cache["k"].to(dtype), kv_cache["v"].to(dtype)
-        else:
-            k_positions = positions
-        out = attention(xq, xk, xv, q_positions=positions,
-                        k_positions=k_positions, causal=causal,
-                        window=cfg.swa_window, impl=cfg.attn_impl,
-                        chunk=cfg.attn_chunk, dtype=dtype)
-    return out.reshape(B, S, H * hd) @ p["wo"].to(dtype).reshape(H * hd, D)
+        if ring and (S != 1 or flash):
+            raise ValueError(f"the SWA ring cache takes one token a call "
+                             f"(decode), not S={S}" + (
+                                 " on the flash route" if flash else ""))
+        xq, xk, xv = qkv_projection(p, x, cfg, positions, dtype)
+        k_positions = positions
+        if kv_cache is not None:
+            # the cache holds the place's kv heads, or its head_dim slice
+            # of every kv head, as the weights are cut
+            hd_cut = tp.layout.get("cache") == "hd"
+            own = tp.cut(hd) if hd_cut else slice(None)
+            ck, cv = kv_cache["k"], kv_cache["v"]
+            Smax = ck.shape[1]
+            if ring:
+                slot = cache_len % Smax
+                ck[:, slot] = xk[:, 0, :, own].to(ck.dtype)
+                cv[:, slot] = xv[:, 0, :, own].to(cv.dtype)
+                kv_cache["kpos"][slot] = cache_len
+                k_positions = kv_cache["kpos"].expand(B, Smax)
+            else:
+                ck[:, cache_len:cache_len + S] = xk[..., own].to(ck.dtype)
+                cv[:, cache_len:cache_len + S] = xv[..., own].to(cv.dtype)
+                # unwritten slots pushed past every query
+                k_positions = torch.arange(Smax, device=x.device).expand(
+                    B, Smax)
+                k_positions = torch.where(k_positions < cache_len + S,
+                                          k_positions, 2**30)
+            if flash:
+                if cache_len != 0:
+                    raise ValueError(
+                        "flash=True needs cache_len == 0 (prefill)")
+                # q and k positions are both 0..S-1; the cache slots past
+                # S are masked by causality, so the fresh keys are all it
+                # needs
+                k_positions = positions
+            else:
+                xk, xv = ck.to(dtype), cv.to(dtype)
+                kv_slice = hd_cut
+
+    def whole_heads(k, v):
+        if not kv_slice:
+            return k, v
+        return tp.gather(k, dim=3), tp.gather(v, dim=3)
+
+    def attend(q, k, v, q_pos, q_offset=0):
+        if flash:
+            return flash_attention(q, k, v, causal=causal,
+                                   window=cfg.swa_window, q_offset=q_offset)
+        return attention(q, k, v, q_positions=q_pos, k_positions=k_positions,
+                         causal=causal, window=cfg.swa_window,
+                         impl=cfg.attn_impl, chunk=cfg.attn_chunk,
+                         dtype=dtype)
+
+    q_lay = tp.layout.get("q")
+    if q_lay == "heads":
+        hq = xq.shape[2]
+        xk, xv = whole_heads(xk, xv)
+        if xk.shape[2] == KV:
+            xk, xv = _kv_for_q_heads(xk, xv, tp.rank * hq, hq, H // KV)
+        out = attend(xq, xk, xv, positions)
+    elif tp.n > 1 and S % tp.n == 0 and cfg.attn_impl == "chunked":
+        # context_parallel: the place's query rows against every key
+        rows = tp.cut(S)
+        xk, xv = whole_heads(xk, xv)
+        out = attend(xq[:, rows], xk, xv, positions[:, rows],
+                     q_offset=rows.start)
+        out = tp.gather(out, dim=1)
+    elif q_lay == "hd":
+        # the head_dim reduction of the score (decode)
+        own = tp.cut(hd)
+        if not kv_slice:
+            xk, xv = xk[..., own], xv[..., own]
+        mask = _scores_mask(positions, k_positions, cfg.swa_window, causal)
+        out = _sdpa_hd(xq[..., own], xk, xv, mask, dtype, hd, tp)
+    else:
+        xk, xv = whole_heads(xk, xv)
+        out = attend(xq, xk, xv, positions)
+    o_lay = tp.layout.get("o")
+    if o_lay == "hd" and out.shape[3] == hd:
+        out = out[..., tp.cut(hd)]
+    y = out.reshape(B, S, -1) @ p["wo"].to(dtype).reshape(-1, D)
+    return y if o_lay is None else tp.sum(y)
 
 
 # ----------------------------------------------------------------- MLA
@@ -554,7 +669,12 @@ def init_mlp(gen, cfg, dtype, device):
     return p
 
 
-def apply_mlp(p, x, kind: str, dtype=torch.bfloat16):
+def apply_mlp(p, x, kind: str, dtype=torch.bfloat16, role: str = "mlp"):
+    """The MLP of ``kind``.  Under tensor parallelism where ``role``'s
+    layout ("mlp", or "shared" for the shared experts) is cut: ``wg``,
+    ``wu``, ``wi`` and ``bi`` by column, ``wd`` by row, the partial
+    outputs added in rank order, then ``bd``."""
+    tp = tensor_parallel()
     if kind == "swiglu":
         g = x @ p["wg"].to(dtype)
         u = x @ p["wu"].to(dtype)
@@ -568,6 +688,8 @@ def apply_mlp(p, x, kind: str, dtype=torch.bfloat16):
         else:  # gelu (tanh approximation, as jax.nn.gelu's default)
             h = gelu_stepwise(h)
     out = h @ p["wd"].to(dtype)
+    if tp is not None and tp.layout.get(role):
+        out = tp.sum(out)
     if "bd" in p:
         out = out + p["bd"].to(dtype)
     return out

@@ -23,6 +23,15 @@ Its encoder adds sinusoidal positions and runs a bidirectional stack; its
 decoder adds sinusoidal positions to the token embeddings; prefill
 projects the encoder's output to every decoder layer's cross (k, v), the
 cache's ``cross``, which decode reads.
+Under tensor parallelism (``shardctx.tensor_parallel()``: the serving
+steps over a mesh, ``launch.steps``) a place holds the vocab rows
+``embed`` and the vocab columns of ``lm_head`` (or of the tied
+``embed.T``) of its coordinate on the model axis: the lookup puts each
+token's row on the place that holds it and zero elsewhere, then sums the
+places in rank order (exact: one term is not zero); the logits of its
+columns are gathered in rank order to the whole padded vocab, so that
+``argmax`` is the reference's (ties to the lowest index).  The caches
+hold the place's kv heads or head_dim slice (``layers``' docstring).
 The VLM is the dense stack; its loss puts the stub front end's
 ``patches`` ahead of the token embeddings (positions 0..P+S-1, the patch
 positions unlabelled).  Its prefill and decode read no patches: the
@@ -55,7 +64,7 @@ import torch
 from ..configs.base import ModelConfig
 from . import layers as LL
 from . import transformer as TR
-from .shardctx import bf16_grad_barrier
+from .shardctx import bf16_grad_barrier, tensor_parallel
 
 __all__ = ["Model", "build_model", "compute_dtype", "SHAPES",
            "shape_applicable", "input_specs"]
@@ -146,6 +155,17 @@ class Model:
     # ------------------------------------------------------------- helpers
     def _embed(self, params, tokens):
         table = params["embed"]
+        tp = tensor_parallel()
+        if tp is not None and tp.layout.get("embed"):
+            # the place's vocab rows: its tokens' rows, zero elsewhere,
+            # summed over the model axis in rank order
+            rows = table.shape[0]
+            local = tokens - tp.rank * rows
+            mine = (local >= 0) & (local < rows)
+            x = table[local.clamp(0, rows - 1)]
+            x = torch.where(mine[..., None], x, torch.zeros((), dtype=x.dtype,
+                                                            device=x.device))
+            return tp.sum(x).to(compute_dtype(self.cfg))
         if table.requires_grad and torch.is_grad_enabled():
             x = _EmbeddingLookup.apply(table, tokens)
         else:
@@ -157,7 +177,11 @@ class Model:
         x = LL.apply_norm(params["final_norm"], x, cfg.norm)
         x = bf16_grad_barrier(x)
         head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-        return x @ head.to(compute_dtype(cfg))
+        logits = x @ head.to(compute_dtype(cfg))
+        tp = tensor_parallel()
+        if tp is not None and tp.layout.get("head"):
+            logits = tp.gather(logits, dim=logits.dim() - 1)
+        return logits
 
     @staticmethod
     def _positions_added(x):
@@ -186,7 +210,11 @@ class Model:
         reference's layout."""
         cfg, dt = self.cfg, compute_dtype(self.cfg)
         B, Se, D = enc_out.shape
-        KV, hd = cfg.num_kv_heads, cfg.head_dim
+        # a place's block of the kv heads or head_dim under tensor
+        # parallelism (its wk, wv blocks; a whole bias cut to its slice)
+        tp = tensor_parallel()
+        hd_cut = tp is not None and tp.layout.get("kv") == "hd"
+        KV, hd = params["stack"][0]["xattn"]["wk"].shape[1:]
         # each layer's projection is written into its slice: the pair is
         # never held twice (1.18 GB at whisper-medium's B = 8)
         shape = (len(params["stack"]), B, Se, KV, hd)
@@ -197,7 +225,10 @@ class Model:
             for out, w, b in ((k, "wk", "bk"), (v, "wv", "bv")):
                 t = (enc_out @ p[w].to(dt).reshape(D, KV * hd)).view(
                     B, Se, KV, hd)
-                out[l] = t + p[b].to(dt) if b in p else t
+                if b in p:
+                    bias = p[b][:, tp.cut(p[b].shape[1])] if hd_cut else p[b]
+                    t = t + bias.to(dt)
+                out[l] = t
         return k, v
 
     def _backbone(self, params, x, positions, *, caches=None,
@@ -281,13 +312,27 @@ class Model:
             return TR.init_hybrid_states(cfg, batch, cache_seq, dev,
                                          dtype=compute_dtype(cfg))
         c = TR.init_kv_caches(self.cfg, batch, cache_seq, dev,
-                              dtype=compute_dtype(self.cfg))
+                              dtype=compute_dtype(self.cfg),
+                              **self._cache_block())
         if self.cfg.family == "encdec":
             return {"self": c, "cross": None}
         if ring and not self.cfg.mla:
             c["kpos"] = torch.full((self.cfg.num_layers, cache_seq), -(2**30),
                                    dtype=torch.int32, device=dev)
         return c
+
+    def _cache_block(self) -> dict:
+        """The kv heads and head_dim of a place's cache block under tensor
+        parallelism (its ``tp.layout["cache"]``, ``launch.sharding.
+        cache_specs``' cut); {} without it, and for MLA's latent cache
+        (whole)."""
+        cfg, tp = self.cfg, tensor_parallel()
+        lay = None if tp is None else tp.layout.get("cache")
+        if lay == "heads":
+            return {"kv_heads": cfg.num_kv_heads // tp.n}
+        if lay == "hd":
+            return {"head_dim": cfg.head_dim // tp.n}
+        return {}
 
     def decode_step(self, params, batch):
         """One token against a populated cache, full or ring, or the

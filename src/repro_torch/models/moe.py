@@ -6,8 +6,11 @@ the assignments by expert, a capacity buffer of ``capacity(cfg, T)`` rows
 an expert, the expert MLPs as batched products, and the weighted combine
 back to (T, D).  Two routes, as in the reference:
 
-  * LOCAL (no rules, or a model axis of one place): the whole dispatch on
-    the rank's tokens.
+  * LOCAL (no rules, or a model axis of one place): the whole dispatch.
+    Where the rules split the batch over several places, the rank gathers
+    its peers' tokens over the batch axes in rank order, routes and
+    dispatches the global batch as the reference does (capacity is the
+    global batch's), and keeps its own rows.
   * SHARDED (``shardctx.logical_axis_rules`` active, a model axis larger
     than one): ``_routed_sharded``, the reference's ``_routed_shard_map``
     run by each rank on its own blocks.  The rank holds its batch rows and
@@ -44,7 +47,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .layers import _dense_init, silu_stepwise
+from .layers import _dense_init, apply_mlp, silu_stepwise
 from .shardctx import current_rules
 
 __all__ = ["init_moe", "capacity", "apply_moe"]
@@ -337,29 +340,38 @@ def apply_moe(p, x, cfg, dtype=torch.bfloat16, return_aux=False, info=None):
     E = cfg.num_experts
     T = B * S
     xt = x.reshape(T, D)
-    probs, top_w, top_e = _route(p, xt, cfg)
     ctx = current_rules()
-    if _uses_sharded_route(ctx):
-        out = _routed_sharded(p, x, top_w, top_e, cfg, dtype, info=info)
-    elif _split_batch(ctx):
-        raise NotImplementedError(
-            "the local MoE route over a batch split across ranks (a model "
-            "axis of one place): the reference dispatches the global "
-            "batch, the port only the rank's rows (ROADMAP.md Queue 1, "
-            "the multi-card slices)")
+    global_batch = not _uses_sharded_route(ctx) and _split_batch(ctx)
+    if global_batch:
+        # the local route over a split batch: the global batch's tokens,
+        # gathered over the batch axes in rank order, routed and
+        # dispatched as the reference does; the rank keeps its rows
+        from ..launch.mesh import axis_group, gather_cat
+        from ..launch.sharding import batch_rows
+
+        mesh, rules = ctx
+        x_all = gather_cat(x, axis_group(mesh, rules["batch"]), dim=0)
+        rows = batch_rows(mesh, rules, x_all.shape[0])
+        xt_all = x_all.reshape(-1, D)
+        probs, top_w, top_e = _route(p, xt_all, cfg)
+        out = _routed_local(p, xt_all, top_e, top_w, cfg, dtype)
+        out = out.view(x_all.shape[0], S, D)[rows].reshape(T, D)
     else:
-        out = _routed_local(p, xt, top_e, top_w, cfg, dtype)
+        probs, top_w, top_e = _route(p, xt, cfg)
+        if _uses_sharded_route(ctx):
+            out = _routed_sharded(p, x, top_w, top_e, cfg, dtype, info=info)
+        else:
+            out = _routed_local(p, xt, top_e, top_w, cfg, dtype)
     if "shared" in p:
-        sh = p["shared"]
-        xs = xt.to(dtype)
-        g = xs @ sh["wg"].to(dtype)
-        u = xs @ sh["wu"].to(dtype)
-        out = out + (silu_stepwise(g) * u) @ sh["wd"].to(dtype)
+        # a dense MLP: the rank's column block under tensor parallelism,
+        # its partial output summed over the model axis in rank order
+        out = out + apply_mlp(p["shared"], xt.to(dtype), "swiglu", dtype,
+                              role="shared")
     out = out.reshape(B, S, D).to(dtype)
     if return_aux:
         K = cfg.num_experts_per_tok
         counts = _expert_counts(top_e.reshape(-1), E, torch.int32)
-        if _split_batch(ctx):
+        if _split_batch(ctx) and not global_batch:
             # GSPMD's means run over every token: the sums of the other
             # batch rows are gathered and added in rank order
             from ..launch.mesh import axis_sizes
@@ -373,8 +385,8 @@ def apply_moe(p, x, cfg, dtype=torch.bfloat16, return_aux=False, info=None):
                 T_all *= sizes[a]
             me = counts.float() / (T_all * K)
             ce = psum / T_all
-        else:
-            me = counts.float() / (T * K)   # mean of one_hot(top_e) over (T, K)
+        else:   # the routed tokens' means (the global batch's, gathered)
+            me = counts.float() / (probs.shape[0] * K)  # one_hot(top_e)'s
             ce = torch.mean(probs, dim=0)
         aux = E * torch.sum(me * ce)
         return out, {"aux_loss": aux, "expert_counts": counts}
@@ -392,8 +404,12 @@ def _routed_sharded_plain(p, x, cfg, mesh_shape, dtype=torch.bfloat16,
     place 0 with ``return_aux``).  The reference the ranks are held to on
     the card; nothing on the main path calls it."""
     from ..launch.mesh import emulate_mesh
-    from ..launch.sharding import activation_rules, batch_rows, shard_params
-    from .shardctx import logical_axis_rules
+    from ..launch.sharding import (
+        activation_rules,
+        batch_rows,
+        mesh_rules,
+        shard_params,
+    )
 
     B = x.shape[0]
 
@@ -401,7 +417,7 @@ def _routed_sharded_plain(p, x, cfg, mesh_shape, dtype=torch.bfloat16,
         rules = activation_rules(cfg, mesh, B)
         p_loc = shard_params(cfg, {"moe": p}, mesh)["moe"]
         rows = batch_rows(mesh, rules, B)
-        with logical_axis_rules(mesh, rules):
+        with mesh_rules(cfg, mesh, B):
             return rows, apply_moe(p_loc, x[rows], cfg, dtype=dtype,
                                    return_aux=return_aux)
 

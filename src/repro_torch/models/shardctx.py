@@ -4,7 +4,13 @@ The port of ``repro/models/shardctx.py``.  ``logical_axis_rules(mesh,
 rules)`` binds logical names ("batch", "tp", "fsdp", "expert", "vocab") to
 mesh axes for the code under it, thread-locally, as in the reference;
 ``resolve`` and ``axis_size`` read them.  The MoE layer's sharded route
-(``models.moe``) reads the rules to pick its branch and its groups.
+(``models.moe``) reads the rules to pick its branch and its groups;
+``tensor_parallel()`` gives the dense layers (``models.layers``,
+``models.model``, the shared experts of ``models.moe``) the model axis
+as ``launch.sharding.tensor_parallel`` made it: its extent, the calling
+place's coordinate on it, its gather and ordered sum, and how each dense
+block is cut (the layout is decided there, once, from the same specs
+that cut the parameters); ``ONE`` is a single place, every block whole.
 
 ``constrain(x, *axes)`` returns ``x`` unchanged, with or without rules: a
 rank's tensor already is its shard, and there is no compiler to hint (the
@@ -16,11 +22,13 @@ from __future__ import annotations
 
 import contextlib
 import threading
+from typing import Callable
 
 import torch
 
 __all__ = ["current_rules", "logical_axis_rules", "resolve", "axis_size",
-           "constrain", "bf16_grad_barrier"]
+           "TensorParallel", "ONE", "tensor_parallel", "constrain",
+           "bf16_grad_barrier"]
 
 _state = threading.local()
 
@@ -31,14 +39,17 @@ def current_rules():
 
 
 @contextlib.contextmanager
-def logical_axis_rules(mesh, rules: dict[str, object]):
-    """rules: logical name -> mesh axis (str | tuple | None)."""
-    prev = getattr(_state, "rules", None)
-    _state.rules = (mesh, dict(rules))
+def logical_axis_rules(mesh, rules: dict[str, object],
+                       tp: "TensorParallel | None" = None):
+    """rules: logical name -> mesh axis (str | tuple | None); ``tp`` the
+    model axis the dense layers read under them (``tensor_parallel()``;
+    None: every dense block whole)."""
+    prev = getattr(_state, "rules", None), getattr(_state, "tp", None)
+    _state.rules, _state.tp = (mesh, dict(rules)), tp
     try:
         yield
     finally:
-        _state.rules = prev
+        _state.rules, _state.tp = prev
 
 
 def resolve(logical_axes: tuple) -> tuple | None:
@@ -68,6 +79,36 @@ def axis_size(logical: str) -> int:
     for a in (ax if isinstance(ax, tuple) else (ax,)):
         size *= sizes[a]
     return size
+
+
+class TensorParallel:
+    """The model axis as the dense layers read it: its extent ``n``, the
+    calling place's coordinate ``rank`` on it, ``gather(x, dim)`` (every
+    place's ``x`` concatenated along ``dim`` in rank order), ``sum(x)``
+    (their sum in rank order), and ``layout``: role -> how the place's
+    block of it is cut ("q", "kv", "o", "cache": "heads", "hd" or None;
+    "mlp", "shared", "embed", "head": True where cut; a missing role is
+    whole)."""
+
+    def __init__(self, n: int, rank: int, layout: dict,
+                 gather: Callable, sum: Callable):
+        self.n, self.rank, self.layout = n, rank, dict(layout)
+        self.gather, self.sum = gather, sum
+
+    def cut(self, size: int) -> slice:
+        """This place's block of a dim of ``size`` cut ``n`` ways."""
+        m = size // self.n
+        return slice(self.rank * m, (self.rank + 1) * m)
+
+
+ONE = TensorParallel(1, 0, {}, lambda x, dim: x, lambda x: x)
+
+
+def tensor_parallel() -> TensorParallel | None:
+    """The model axis under the current rules when it spans more than one
+    place (the dense layers' weights are then the place's blocks,
+    ``launch.sharding.shard_params``), else None."""
+    return getattr(_state, "tp", None)
 
 
 def constrain(x, *logical_axes):

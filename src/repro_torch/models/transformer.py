@@ -161,7 +161,11 @@ def apply_dense_stack(params_L, x, cfg, positions, *, caches=None,
     return x, caches, aux
 
 
-def init_kv_caches(cfg, batch, cache_seq, device, dtype=torch.bfloat16):
+def init_kv_caches(cfg, batch, cache_seq, device, dtype=torch.bfloat16,
+                   kv_heads: int | None = None, head_dim: int | None = None):
+    """Zero caches of every layer; ``kv_heads`` and ``head_dim`` (default
+    the config's) give a place's block under tensor parallelism
+    (``Model.init_cache``)."""
     L = cfg.num_layers
     if cfg.mla:
         return {"c_kv": torch.zeros((L, batch, cache_seq, cfg.kv_lora_rank),
@@ -169,7 +173,8 @@ def init_kv_caches(cfg, batch, cache_seq, device, dtype=torch.bfloat16):
                 "k_rope": torch.zeros((L, batch, cache_seq,
                                        cfg.rope_head_dim),
                                       dtype=dtype, device=device)}
-    shape = (L, batch, cache_seq, cfg.num_kv_heads, cfg.head_dim)
+    shape = (L, batch, cache_seq, kv_heads or cfg.num_kv_heads,
+             head_dim or cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 

@@ -8,6 +8,13 @@ the port holds a list of layers there), ``opt_pspecs``, ``batch_specs``
 and ``cache_specs`` of every applicable shape, and ``activation_rules``,
 held equal to JAX's element by element.  Parameter trees are shapes only:
 JAX's ``eval_shape`` and the port's model on the meta device.
+
+``shard_params``' blocks on meshes (1, 4), (2, 2) and (16, 16), at every
+place, against ``NamedSharding(mesh, param_pspecs(...))
+.devices_indices_map`` computed by JAX on 256 forced host devices in one
+subprocess, with the two cuts the port does not make stated: the FSDP cut
+of a dense weight over ``data`` (the port keeps it whole over data) and
+MLA's attention leaves (whole).
 """
 import os
 import pathlib
@@ -191,7 +198,8 @@ def test_rules_context_matches_jax(mesh_name):
 def test_shard_tree_cuts_the_rank_block():
     """``shard_tree`` gives each place the block of a ``NamedSharding``
     (row-major over a dim's axes, the first major); ``shard_params`` cuts
-    only the expert weights."""
+    the expert weights over both axes and the dense weights over the model
+    axis only."""
     mesh = _stand_in("2x16x16")
     sizes = dict(mesh.shape)
     t = torch.arange(4 * 32 * 6).reshape(4, 32, 6)
@@ -212,14 +220,162 @@ def test_shard_tree_cuts_the_rank_block():
     moe, full = mine["stack"][0]["moe"], params["stack"][0]["moe"]
     assert torch.equal(moe["wg"], full["wg"][:2, :, 64:])
     assert torch.equal(moe["wd"], full["wd"][:2, 64:, :])
-    assert mine["stack"][0]["attn"]["wq"] is params["stack"][0]["attn"]["wq"]
-    assert mine["embed"] is params["embed"]
+    # dense tensor parallelism: the attention heads and the vocab rows are
+    # cut over the model axis, not over data; the norms stay whole
+    wq = params["stack"][0]["attn"]["wq"]
+    assert torch.equal(mine["stack"][0]["attn"]["wq"], wq[:, :2])
+    assert torch.equal(mine["embed"], params["embed"][:128])
+    assert torch.equal(mine["lm_head"], params["lm_head"][:, :128])
+    assert mine["final_norm"]["scale"] is params["final_norm"]["scale"]
     rows = TS.batch_rows(mesh, TS.activation_rules(cfg, mesh, 4), 4,
                          coords=dict(data=1, model=1))
     assert rows == slice(2, 4)
     np.testing.assert_array_equal(
         [TS.batch_rows(mesh, {"batch": None}, 3, dict(data=1, model=0))
          .stop], [3])
+
+
+BLOCK_MESHES = {"1x4": (1, 4), "2x2": (2, 2), "16x16": (16, 16)}
+
+_JAX_BLOCKS = r"""
+import json, sys
+import jax, numpy as np
+from jax.sharding import Mesh, NamedSharding
+from repro.configs import get_config
+from repro.launch import sharding as JS
+from repro.models.model import build_model
+
+archs, meshes, out_path = json.loads(sys.argv[1])
+devs = np.asarray(jax.devices())
+out = {}
+for arch in archs:
+    cfg = get_config(arch)
+    shapes = jax.eval_shape(build_model(cfg).init, jax.random.PRNGKey(0))
+    leaves = jax.tree_util.tree_flatten_with_path(shapes)[0]
+    for name, shape in meshes.items():
+        mesh = Mesh(devs[:int(np.prod(shape))].reshape(shape),
+                    ("data", "model"))
+        specs = jax.tree_util.tree_flatten_with_path(
+            JS.param_pspecs(cfg, shapes, mesh),
+            is_leaf=lambda x: isinstance(x, jax.sharding.PartitionSpec))[0]
+        for (kp, leaf), (_, spec) in zip(leaves, specs):
+            idx = NamedSharding(mesh, spec).devices_indices_map(leaf.shape)
+            arr = np.zeros((mesh.devices.size, len(leaf.shape), 2), np.int64)
+            for i, dev in enumerate(mesh.devices.flat):
+                for d, sl in enumerate(idx[dev]):
+                    arr[i, d] = sl.indices(leaf.shape[d])[:2]
+            out[f"{arch}|{name}|{JS._path_str(kp)}"] = arr
+np.savez(out_path, **out)
+print("JAX_BLOCKS_DONE")
+"""
+
+
+@pytest.fixture(scope="module")
+def jax_blocks(tmp_path_factory):
+    """{arch|mesh|reference path: (places, dims, 2) start and stop}: JAX's
+    blocks of every parameter at every place (row-major over the mesh)."""
+    import json
+
+    import torch_dist_ranks as R
+
+    out = tmp_path_factory.mktemp("blocks") / "blocks.npz"
+    R.run_jax(_JAX_BLOCKS, json.dumps([ARCHS, BLOCK_MESHES, str(out)]),
+              "JAX_BLOCKS_DONE", devices=256)
+    return dict(np.load(out))
+
+
+@pytest.mark.parametrize("mesh_name", list(BLOCK_MESHES))
+@pytest.mark.parametrize("arch", ARCHS)
+def test_shard_params_blocks_match_jax(jax_blocks, arch, mesh_name):
+    """Each place's block of every parameter under ``shard_params``'s cut
+    (``shard_spec``, ``block_slices``) is JAX's ``NamedSharding`` block of
+    the same leaf (its per-layer dims; the stacked layer dims whole),
+    where a dense weight's dim cut over ``data`` (FSDP, not ported) is
+    whole and MLA's attention leaves are whole."""
+    import re
+
+    cfg, jcfg = get_config(arch), jax_config(arch)
+    dm, mm = BLOCK_MESHES[mesh_name]
+    mesh = types.SimpleNamespace(shape={"data": dm, "model": mm},
+                                 axis_names=("data", "model"))
+    sizes = dict(mesh.shape)
+    jspecs = _jax_leaves(JS.param_pspecs(jcfg, _jax_params(arch), mesh),
+                         is_leaf=_is_spec)
+    cut_over_model = 0
+    for path, leaf in tree_leaves_with_path(_port_params(arch)):
+        key = TS._path_str(path, keep_index=False)
+        lead = sum(isinstance(k, int) for k in path)
+        want_all = jax_blocks[f"{arch}|{mesh_name}|{key}"]
+        jspec = tuple(jspecs[key])[lead:]
+        mla_attn = cfg.mla and key.split("/")[-2:-1] == ["attn"]
+        expert = re.search(r"moe/(wg|wu|wd)$", key) is not None
+        spec = TS.shard_spec(cfg, key, tuple(leaf.shape), mesh)
+        for place in range(dm * mm):
+            coords = {"data": place // mm, "model": place % mm}
+            got = TS.block_slices(tuple(leaf.shape), spec, sizes, coords)
+            want = want_all[place]
+            assert all(tuple(w) == (0, jshape) for w, jshape in zip(
+                want[:lead], want_all[0, :lead, 1])), key
+            want = [tuple(int(v) for v in w) for w in want[lead:]]
+            for d, ax in enumerate(jspec):
+                if mla_attn or (ax == "data" and not expert):
+                    want[d] = (0, leaf.shape[d])
+            assert list(got) == want, (key, coords, got, want)
+        cut_over_model += "model" in spec
+    if mm > 1 and cfg.family not in ("xlstm", "hybrid"):
+        assert cut_over_model > 0
+
+
+@pytest.mark.parametrize("mesh_name", list(BLOCK_MESHES))
+@pytest.mark.parametrize("arch", ARCHS)
+def test_tp_layout_agrees_with_the_blocks(arch, mesh_name):
+    """``tp_layout``, which the dense layers read, says of every attention,
+    MLP, ``embed`` and ``lm_head`` leaf the cut that ``shard_params``
+    makes of it (``shard_spec``), and of the KV cache the cut that
+    ``cache_specs`` makes."""
+    cfg = get_config(arch)
+    dm, mm = BLOCK_MESHES[mesh_name]
+    mesh = types.SimpleNamespace(shape={"data": dm, "model": mm},
+                                 axis_names=("data", "model"))
+    sizes = dict(mesh.shape)
+    coords = {"data": 0, "model": 0}
+    lay = TS.tp_layout(cfg, mesh)
+    roles = {"attn/wq": ("q", 1), "attn/wk": ("kv", 1), "attn/wv": ("kv", 1),
+             "attn/wo": ("o", 0), "xattn/wq": ("q", 1),
+             "xattn/wk": ("kv", 1), "xattn/wv": ("kv", 1),
+             "xattn/wo": ("o", 0)}
+    seen = set()
+    for path, leaf in tree_leaves_with_path(_port_params(arch)):
+        key = TS._path_str(path, keep_index=False)
+        shape = tuple(leaf.shape)
+        block = [b - a for a, b in TS.block_slices(
+            shape, TS.shard_spec(cfg, key, shape, mesh), sizes, coords)]
+        tail = "/".join(key.split("/")[-2:])
+        if tail in roles and not cfg.mla:
+            role, h = roles[tail]
+            want = ("heads" if block[h] < shape[h]
+                    else "hd" if block[h + 1] < shape[h + 1] else None)
+            assert lay[role] == want, (key, block, lay)
+            seen.add(role)
+        elif tail in ("mlp/wd", "shared/wd"):
+            assert lay[tail.split("/")[0]] == (block[0] < shape[0]), key
+            seen.add(tail.split("/")[0])
+        elif key == "embed":
+            assert lay["embed"] == (block[0] < shape[0])
+            if cfg.tie_embeddings:
+                assert lay["head"] == lay["embed"]
+        elif key == "lm_head":
+            assert lay["head"] == (block[1] < shape[1])
+    if cfg.mla or not cfg.num_heads:
+        assert "cache" not in lay
+    else:
+        spec = TS.cache_specs(cfg, {"k": torch.empty(
+            (1, 1, 1, cfg.num_kv_heads, cfg.head_dim), device="meta")},
+            mesh)["k"]
+        assert lay["cache"] == ("heads" if spec[3] else "hd" if spec[4]
+                                else None)
+    if cfg.family in ("dense", "vlm", "encdec"):
+        assert {"q", "kv", "o", "mlp"} <= seen, (arch, seen)
 
 
 def test_new_modules_import_no_jax_or_repro():

@@ -1,5 +1,6 @@
-"""Rank programs of ``tests/test_torch_dist_elastic.py`` and
-``tests/test_torch_dist_moe.py``, started by ``torch_dist_ranks.run_ranks``
+"""Rank programs of ``tests/test_torch_dist_elastic.py``,
+``tests/test_torch_dist_moe.py`` and ``tests/test_torch_dist_tp.py``,
+started by ``torch_dist_ranks.run_ranks``
 (``spawn``, a ``file://`` store, one intra-op thread a rank).  pytest does
 not collect this module.  A spawned rank imports it by name, so it imports
 neither ``jax`` nor ``repro`` at the top; the chaos replay takes the
@@ -199,15 +200,23 @@ def branch_spy():
     return seen, lambda: setattr(moe, "_routed_sharded", orig)
 
 
-def run_steps(case: dict, params: dict, tokens: np.ndarray, mesh) -> dict:
+def run_steps(case: dict, params: dict, tokens: np.ndarray, mesh,
+              frames: np.ndarray | None = None) -> dict:
     """A prefill and ``steps`` greedy decode steps of the port over
-    ``mesh``: this place's rows of the logits and caches, the global
-    tokens."""
+    ``mesh``: this place's rows of the logits and its block of the caches,
+    the global tokens, and the bytes this place gathered in the prefill
+    (over a process group; 0 in an emulated mesh).  ``frames``: the
+    encoder-decoder's global frame embeddings."""
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.convert import model_params_from_numpy
-    from repro_torch.launch.mesh import axis_group, gather_stack
+    from repro_torch.launch.mesh import (
+        GATHERED,
+        axis_group,
+        gather_stack,
+        reset_gathered,
+    )
     from repro_torch.launch.sharding import activation_rules, shard_params
     from repro_torch.launch.steps import make_prefill_step, make_serve_step
     from repro_torch.tree import tree_leaves_with_path
@@ -217,9 +226,16 @@ def run_steps(case: dict, params: dict, tokens: np.ndarray, mesh) -> dict:
     mine = shard_params(cfg, full, mesh)
     _, prefill = make_prefill_step(cfg, "cpu", mesh=mesh)
     _, serve = make_serve_step(cfg, "cpu", mesh=mesh)
-    logits, cache = prefill(mine, {"tokens": tokens,
-                                   "cache_seq": case["cache"]})
-    out = {"prefill/logits": logits.float().numpy()}
+    batch = {"tokens": tokens, "cache_seq": case["cache"]}
+    if frames is not None:
+        batch["frames"] = frames
+    emulated = not hasattr(mesh, "get_group")
+    if not emulated:
+        reset_gathered()
+    logits, cache = prefill(mine, batch)
+    out = {"prefill/logits": logits.float().numpy(),
+           "prefill/gathered": np.int64(0 if emulated
+                                        else GATHERED["bytes"])}
     batch_ax = activation_rules(cfg, mesh, case["B"])["batch"]
     tok = torch.argmax(logits, dim=-1).to(torch.int32)
     if batch_ax is not None:
@@ -244,10 +260,10 @@ def run_apply(case, p: dict, x: np.ndarray, mesh) -> dict:
     from repro_torch.launch.sharding import (
         activation_rules,
         batch_rows,
+        mesh_rules,
         shard_params,
     )
     from repro_torch.models import moe
-    from repro_torch.models.shardctx import logical_axis_rules
 
     arch, over, _, _, dt = case
     cfg = get_config(arch).reduced(**over)
@@ -257,7 +273,7 @@ def run_apply(case, p: dict, x: np.ndarray, mesh) -> dict:
     rules = activation_rules(cfg, mesh, x.shape[0])
     rows = batch_rows(mesh, rules, x.shape[0])
     info = {}
-    with logical_axis_rules(mesh, rules):
+    with mesh_rules(cfg, mesh, x.shape[0]):
         y, aux = moe.apply_moe(mine, torch.from_numpy(x[rows]).to(tdt), cfg,
                                dtype=tdt, return_aux=True, info=info)
     return {"out": y.float().numpy(), "aux": aux["aux_loss"].numpy(),
@@ -335,7 +351,8 @@ def moe_cases(rank: int, world: int, group, data_path: str) -> dict:
                 dict(zip(MESH_AXES, shape)), dtype=tdt, return_aux=True)
             out[f"apply_emu/{name}/out"] = y.float().numpy()
             out[f"apply_emu/{name}/aux"] = aux["aux_loss"].numpy()
-    # refusals: a dense family on a model axis of 2, a train step on a mesh
+    # what still refuses over a mesh (a recurrent family, a train step)
+    # and what no longer does (a dense family on a model axis of 2: "")
     mesh = meshes[(2, 2)]
     out["err/dense_tp"] = np.asarray(_raises(
         lambda: make_prefill_step(get_config("qwen3-14b").reduced(), "cpu",
@@ -343,7 +360,148 @@ def moe_cases(rank: int, world: int, group, data_path: str) -> dict:
     out["err/serve_tp"] = np.asarray(_raises(
         lambda: make_serve_step(get_config("qwen3-14b").reduced(), "cpu",
                                 mesh=mesh), NotImplementedError))
+    out["err/recurrent"] = np.asarray(_raises(
+        lambda: make_prefill_step(get_config("xlstm-350m").reduced(), "cpu",
+                                  mesh=mesh), NotImplementedError))
     out["err/train"] = np.asarray(_raises(
         lambda: make_train_step(get_config("mixtral-8x22b").reduced(),
                                 "cpu", mesh=mesh), NotImplementedError))
+    return out
+
+
+def cache_block(cfg, key: str, arr: np.ndarray, shape, rank: int):
+    """The block of a global cache leaf ``arr`` (``key`` its path under
+    ``cache/``) that rank ``rank`` of a (data, model) mesh of ``shape``
+    holds: ``launch.sharding.cache_specs``' block, MLA's latent cache cut
+    by the batch only (MLA tensor parallelism is not ported)."""
+    import types
+
+    import torch
+
+    from repro_torch.launch import sharding as TS
+
+    d, m = shape
+    stand_in = types.SimpleNamespace(shape=dict(zip(MESH_AXES, shape)),
+                                     axis_names=MESH_AXES)
+    tree = leaf = torch.empty(arr.shape, device="meta")
+    for k in reversed(key.split("/")):
+        tree = {k: tree}
+    specs = TS.cache_specs(cfg, tree, stand_in)
+    for k in key.split("/"):
+        specs = specs[k]
+    if cfg.mla:
+        specs = tuple(None if a == "model" else a for a in specs)
+    del leaf
+    coords = {"data": rank // m, "model": rank % m}
+    return TS._block(torch.from_numpy(arr), specs, dict(zip(MESH_AXES, shape)),
+                     coords).numpy()
+
+
+# ------------------------------------------------------------ dense TP
+# name -> the reduced config's overrides, the (data, model) mesh, the
+# prompt (B, S), the cache length and the greedy decode steps after it
+TP_CASES = {
+    # 4 heads and 4 kv heads on 4 model places: each its own head
+    "heads_1x4": dict(arch="qwen3-14b", over={"num_kv_heads": 4},
+                      mesh=(1, 4), B=2, S=8, cache=12, steps=4),
+    # 4 heads and 2 kv heads on 2 model places, the batch over data
+    "heads_2x2": dict(arch="qwen3-14b", over={}, mesh=(2, 2), B=2, S=8,
+                      cache=12, steps=4),
+    # 2 kv heads on 4 places: head-sharded q, head_dim-sharded k, v
+    "mixed_1x4": dict(arch="qwen3-14b", over={}, mesh=(1, 4), B=2, S=8,
+                      cache=12, steps=4),
+    # 6 heads on 4 places, S = 8: context parallel at prefill, then the
+    # head_dim reduction at decode
+    "cp_1x4": dict(arch="qwen3-14b",
+                   over={"num_heads": 6, "num_kv_heads": 2,
+                         "attn_impl": "chunked"},
+                   mesh=(1, 4), B=2, S=8, cache=12, steps=4),
+    # encoder, self-attention and cross-attention (2 kv heads: head_dim)
+    "whisper_1x4": dict(arch="whisper-medium", over={}, mesh=(1, 4), B=2,
+                        S=8, cache=12, steps=4),
+    "vlm_2x2": dict(arch="internvl2-76b", over={}, mesh=(2, 2), B=2, S=8,
+                    cache=12, steps=4),
+    # tied embeddings: the vocab-sharded embed.T is the head
+    "tied_1x4": dict(arch="command-r-35b", over={}, mesh=(1, 4), B=2, S=8,
+                     cache=12, steps=4),
+    # TP attention beside the expert-parallel route
+    "moe_2x2": dict(arch="mixtral-8x22b", over={}, mesh=(2, 2), B=2, S=8,
+                    cache=12, steps=4),
+    # a model axis of one place: the local MoE route over a split batch
+    "moe_4x1": dict(arch="mixtral-8x22b", over={}, mesh=(4, 1), B=4, S=8,
+                    cache=12, steps=4),
+}
+
+
+# name -> (arch, overrides, mesh, x shape, dtype): one MLP block under the
+# rules, its columns cut over the model axis and the partials summed
+MLP_CASES = {
+    "swiglu_bf16": ("qwen3-14b", {}, (1, 4), (2, 16), "bfloat16"),
+    "gelu_bias_bf16": ("whisper-medium", {}, (2, 2), (2, 16), "bfloat16"),
+    "swiglu_f32": ("qwen3-14b", {}, (2, 2), (2, 16), "float32"),
+}
+
+
+def run_mlp(case, p: dict, x: np.ndarray, mesh) -> np.ndarray:
+    """``layers.apply_mlp`` on this place's rows and column block."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.sharding import (
+        activation_rules,
+        batch_rows,
+        mesh_rules,
+        shard_params,
+    )
+    from repro_torch.models.layers import apply_mlp
+
+    arch, over, _, _, dt = case
+    cfg = get_config(arch).reduced(**over)
+    tdt = getattr(torch, dt)
+    mine = shard_params(cfg, {"mlp": moe_params(p, tdt)}, mesh)["mlp"]
+    rules = activation_rules(cfg, mesh, x.shape[0])
+    rows = batch_rows(mesh, rules, x.shape[0])
+    with mesh_rules(cfg, mesh, x.shape[0]):
+        y = apply_mlp(mine, torch.from_numpy(x[rows]).to(tdt), cfg.mlp,
+                      dtype=tdt)
+    return y.float().numpy()
+
+
+def tp_cases(rank: int, world: int, group, data_path: str) -> dict:
+    """Every case of ``tests/test_torch_dist_tp.py`` on this rank: each over
+    a ``DeviceMesh`` of the 4 ranks, and on rank 0 the in-process
+    emulation of every place (``launch.mesh.emulate_mesh``)."""
+    import pickle
+
+    from repro_torch.launch.mesh import emulate_mesh
+
+    with open(data_path, "rb") as f:
+        data = pickle.load(f)
+    out = {}
+    meshes = {}
+    for name, case in TP_CASES.items():
+        shape = case["mesh"]
+        if shape not in meshes:
+            meshes[shape] = _device_mesh(shape)
+        args = (data["params"][name], data["tokens"][name])
+        frames = data["frames"].get(name)
+        got = run_steps(case, *args, meshes[shape], frames=frames)
+        out.update({f"{name}/{k}": v for k, v in got.items()})
+        if rank == 0:
+            sizes = dict(zip(MESH_AXES, shape))
+            emu = emulate_mesh(sizes, lambda m, c=case, a=args, f=frames:
+                               run_steps(c, *a, m, frames=f))
+            for r, e in enumerate(emu):
+                out.update({f"emu{r}/{name}/{k}": v for k, v in e.items()})
+    for name, case in MLP_CASES.items():
+        shape = case[2]
+        if shape not in meshes:
+            meshes[shape] = _device_mesh(shape)
+        args = (data["mlp"][name], data["x"][name])
+        out[f"mlp/{name}"] = run_mlp(case, *args, meshes[shape])
+        if rank == 0:
+            emu = emulate_mesh(dict(zip(MESH_AXES, shape)),
+                               lambda m, c=case, a=args: run_mlp(c, *a, m))
+            for r, e in enumerate(emu):
+                out[f"emu{r}/mlp/{name}"] = e
     return out
