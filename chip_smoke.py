@@ -202,6 +202,22 @@ Phases, in order; any failure exits non-zero:
    logits within 5e-2 relative L2 of the no-mesh route; the bytes a rank
    gathers a call, prefill seconds, decode p50 / p99, peak memory, gather
    times and flash launches by shape, logged;
+11d. the rest of the serving path over a mesh (phase ``tp_all``), 4 gloo
+   ranks on this card that run three parts in turn, each rank's tree
+   drawn and cut one rank at a time (``draw_blocks``): (a)
+   deepseek-v2-236b x 1 layer on mesh (1, 4), a rank's 32 of 128 heads,
+   128 of 512 latent dims, 16 of 64 rope dims and 40 of 160 experts, the
+   prefill at B=2, S=4,096 (one flash launch at (192, 128) on the rank's
+   heads) and 8 greedy decode steps at batch 4 after a 64-token prompt
+   against the rank's latent block; (b) xlstm-350m x 1 group on mesh (2,
+   2) and (c) zamba2-2.7b x 1 group on mesh (1, 4): the prefill step's
+   loss over the global batch at S=4,096, then decode from the rank's
+   block of zero states over a 64-token prompt and 8 greedy steps.  Each
+   rank bit for bit its place of the in-process emulation, the tokens
+   equal on every rank, the prefill logits or the loss within 5e-2 of
+   the no-mesh route; the bytes gathered a call, prefill or loss
+   seconds, decode p50 / p99, each rank's peak and the card's memory in
+   use, and the flash launches by shape, logged;
 12. the MLA serving path (phase ``mla``): deepseek-v2-236b at full width
    (128 heads, q/k head dim 128 + 64 rotary, v 128, kv_lora 512, q_lora
    1,536, 160 experts top-6 with 2 shared) cut to 6 of 60 layers (49.8 GB
@@ -257,7 +273,7 @@ Phases, in order; any failure exits non-zero:
    at batch 4 (the prompt warmed step by step) bit-identical to
    ``decode_loop``, a profiled decode step (its kernels, busy time, idle
    share) beside its bound, teacher forcing (the parallel form's logits
-   against 128 decode steps at batch 2): the served bf16 model's
+   against 64 decode steps at batch 2): the served bf16 model's
    reported (a per-head RMS norm after a sum near 0 flips that head with
    a rounding, in the reference's two forms as in the port's), and a
    float32 model's within relative L2 5e-2; layer
@@ -270,7 +286,7 @@ Phases, in order; any failure exits non-zero:
    (9 groups of 5 Mamba2 blocks and the one weight-tied attention layer,
    random bf16 weights, bf16 SSM state): ``decode_loop_engine`` at batch 4
    bit-identical to ``decode_loop`` (a KV cache a group), a profiled
-   decode step beside its bound, teacher forcing over 128 tokens as
+   decode step beside its bound, teacher forcing over 64 tokens as
    xLSTM's (bf16 reported, float32 within 5e-2), layer 0's Mamba2 at
    1,024 tokens (the SSD's four chunks of 256)
    against its recurrence, the parallel forward (``make_prefill_step``'s
@@ -325,13 +341,14 @@ Phases, in order; any failure exits non-zero:
    phase tp's rank shape (B=2, S=4,096, 10/2 x 128) and its
    context-parallel shape (1,024 query rows against 3,072 keys, 40/8 x
    128, q_offset 2,048) beside ``scaled_dot_product_attention`` (with the
-   explicit mask at the offset);
+   explicit mask at the offset), and at phase tp_all's MLA rank shape
+   (B=2, S=4,096, 32/32 heads, (192, 128)) beside it;
    ``silu_stepwise`` at a qwen3-14b decode step's (4, 1, 17,408) and its
    prefill's (2, 4,096, 17,408) bfloat16 shapes, ``gelu_stepwise`` at
    whisper-medium's decoder step (8, 1, 4,096) and encoder (8, 1,500,
    4,096), each beside its plain chain and the one-rounding ``F.silu`` or
-   ``F.gelu``), then
-   the main, the sketched and the
+   ``F.gelu``; these LM times are taken last, after the profile
+   windows), the main, the sketched and the
    parallel scan and the whole refine under ``torch.profiler``: device
    time per round, the device's idle share, and a parallel super-step's
    kernels (one parsa_scan and one merge, no PyTorch kernel); and the
@@ -339,7 +356,7 @@ Phases, in order; any failure exits non-zero:
 
 ``--phases build,kernels,sketch``, ``--phases build,kernels,parallel``,
 ``--phases build,dist``, ``--phases build,moe_ep``, ``--phases build,tp``,
-``--phases build,kernels,stream``,
+``--phases build,tp_all``, ``--phases build,kernels,stream``,
 ``--phases build,kernels,elastic``,
 ``--phases build,kernels,serving``, ``--phases build,kernels,lm``,
 ``--phases build,kernels,moe``, ``--phases build,kernels,mla``,
@@ -370,7 +387,7 @@ PROFILE_DIAG = 0    # --profile-diag N
 LEAD_SPIN_CYCLES = 100_000_000
 PHASES = ("build", "kernels", "main", "parity", "sketch", "parallel",
           "dist", "stream", "elastic", "serving", "lm", "moe", "moe_ep", "tp",
-          "mla", "encdec", "vlm", "xlstm", "hybrid", "train", "train_moe",
+          "tp_all", "mla", "encdec", "vlm", "xlstm", "hybrid", "train", "train_moe",
           "times")
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, and the non-tensor fp32
@@ -620,14 +637,14 @@ VLM = dict(LM, arch="internvl2-76b", num_layers=24, phase="vlm",
 # vocab 50,304 padded to 50,432, attn_chunk 1,024), random weights from
 # SEED (matrices bf16, gates and recurrent weights float32).  Decode at
 # batch 4 (prompt 64 warmed step by step, 32 new tokens); teacher forcing
-# over 128 tokens at batch 2, bf16 (reported) and float32 (another draw of
-# weights, gated); layer 0's mLSTM at 2,048 tokens (two chunks
+# over 64 tokens at batch 2 (128 until phase tp_all needed the time), bf16
+# (reported) and float32 (another draw of weights, gated); layer 0's mLSTM at 2,048 tokens (two chunks
 # of 1,024) against its recurrence; launch.train at batch 8 x 1,024, one
 # step (a depth cut for the script's time limit: 4 steps until phases
 # dist and moe_ep, 2 until phase tp needed the time; a step takes 16-21
 # s), the config's 2 microbatches and remat "full" (float32 masters).
 XLSTM = dict(arch="xlstm-350m", seed=0, serve_batch=4, prompt=64, gen=32,
-             tf_batch=2, tf_tokens=128, block_tokens=2048,
+             tf_batch=2, tf_tokens=64, block_tokens=2048,
              train=dict(batch=8, seq=1024, steps=1))
 # the hybrid path (phase hybrid): zamba2-2.7b at full width and depth (54
 # layers = 9 groups of 5 Mamba2 blocks and the one weight-tied attention
@@ -635,11 +652,11 @@ XLSTM = dict(arch="xlstm-350m", seed=0, serve_batch=4, prompt=64, gen=32,
 # heads of 80, d_ff 10,240; vocab 32,000), random bf16 weights from SEED,
 # the SSM state and conv window bf16 as in the reference.  Decode at batch
 # 4 (prompt 64 warmed step by step, 32 new tokens, a KV cache a group);
-# teacher forcing over 128 tokens at batch 2 as xLSTM's; layer 0's Mamba2
+# teacher forcing over 64 tokens at batch 2 as xLSTM's; layer 0's Mamba2
 # at 1,024 tokens (the SSD's four chunks of 256) against its recurrence; the
 # parallel forward (make_prefill_step's loss) at B=2 x S=4,096.
 HYBRID = dict(arch="zamba2-2.7b", seed=0, serve_batch=4, prompt=64, gen=32,
-              tf_batch=2, tf_tokens=128, block_tokens=1024, prefill_batch=2,
+              tf_batch=2, tf_tokens=64, block_tokens=1024, prefill_batch=2,
               prefill_seq=4096)
 FLASH_TOL = {"float32": 3e-5, "bfloat16": 2e-2}
 
@@ -705,6 +722,32 @@ TP = dict(arch="qwen3-14b", num_layers=4, seed=0, mesh=(1, 4),
 TP_CP = dict(arch="qwen3-14b", num_layers=2, seed=0, mesh=(1, 3),
              prefill=(2, 3072), decode=None)
 TP_DEADLINE_S = 300
+# the rest of the serving path over a mesh (phase tp_all), every part over
+# 4 gloo ranks on the one card at full width, bf16, random weights from
+# SEED, each rank's blocks cut from a tree drawn one rank at a time (the
+# card holds one whole tree beside the blocks): (a) deepseek-v2-236b x 1
+# layer on mesh (1, 4), 5.02 B parameters, a rank 32 of 128 heads, 128 of
+# 512 latent dims, 16 of 64 rope dims and 40 of 160 experts; the prefill
+# at B=2, S=4,096 (one flash launch at (192, 128) on a rank's 32 heads),
+# then a 64-token prompt at batch 4 and 8 greedy decode steps against the
+# rank's block of the latent cache.  (b) xlstm-350m x 1 group (7 mLSTM +
+# 1 sLSTM) on mesh (2, 2): the prefill step's loss at B=4, S=4,096 over
+# the global batch, then decode from zero states over a 64-token prompt at
+# batch 4 and 8 greedy steps.  (c) zamba2-2.7b x 1 group (5 Mamba2 + the
+# shared attention layer) on mesh (1, 4), a rank 20 of 80 SSM heads and 8
+# of 32 attention heads: the loss at B=2, S=4,096, then the same decode.
+# Each rank is held to its place of the in-process emulation bit for bit,
+# and the prefill logits (a) or the loss (b, c) to the no-mesh route within
+# LM_MAX_REL_L2.
+TP_ALL = {
+    "mla": dict(arch="deepseek-v2-236b", num_layers=1, seed=0, mesh=(1, 4),
+                prefill=(2, 4096), decode=(4, 64, 8)),
+    "xlstm": dict(arch="xlstm-350m", num_layers=8, seed=0, mesh=(2, 2),
+                  loss=(4, 4096), decode=(4, 64, 8)),
+    "hybrid": dict(arch="zamba2-2.7b", num_layers=6, seed=0, mesh=(1, 4),
+                   loss=(2, 4096), decode=(4, 64, 8)),
+}
+TP_ALL_DEADLINE_S = 300
 # the elementwise kernels' checks and times (phases kernels and times)
 ELEMENTWISE_N = {"bfloat16": 64 << 20, "float32": 16 << 20}
 ELEMENTWISE_SHAPES = {
@@ -5082,6 +5125,68 @@ def flash_spy():
         LL_.flash_attention = orig
 
 
+def rank_start(dev, params) -> dict:
+    """A rank's weights and its peak so far (the tree drawn and cut); the
+    peak and the kernels' launch counts restart here."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import elementwise as EW
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.tree import tree_leaves
+
+    torch.cuda.empty_cache()
+    out = {"params_gb": np.float64(sum(
+        t.numel() * t.element_size() for t in tree_leaves(params)) / 1e9),
+        "peak_gb_init": np.float64(torch.cuda.max_memory_allocated(dev)
+                                   / 1e9)}
+    torch.cuda.reset_peak_memory_stats(dev)
+    FA.reset_launch_counts()
+    EW.reset_launch_counts()
+    return out
+
+
+def rank_end(dev) -> dict:
+    """A rank's kernel launches and peak since ``rank_start``, and the card's
+    memory in use (every process's)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import elementwise as EW
+    from repro_torch.kernels import flash_attention as FA
+
+    free, total = torch.cuda.mem_get_info(dev)
+    return {"launches": np.asarray(json.dumps(
+        {**dict(FA.LAUNCHES), **dict(EW.LAUNCHES)})),
+        "peak_gb": np.float64(torch.cuda.max_memory_allocated(dev) / 1e9),
+        "card_used_gb": np.float64((total - free) / 1e9)}
+
+
+def draw_blocks(cfg, dev, mesh, seed: int, full=None):
+    """The place's blocks (``shard_params``) of ``cfg``'s model drawn from
+    ``seed``: cut from ``full`` where it is given (an emulated place), else
+    drawn whole on the card and cut by one rank of the default process
+    group at a time, a barrier between, so that the card holds one whole
+    tree at most beside the ranks' blocks."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.sharding import shard_params
+    from repro_torch.models.model import build_model
+
+    if full is not None:
+        return shard_params(cfg, full, mesh)
+    params = None
+    for r in range(dist.get_world_size()):
+        if r == dist.get_rank():
+            whole = build_model(cfg, dev).init(seed)
+            params = shard_params(cfg, whole, mesh)
+            del whole
+            torch.cuda.empty_cache()
+        dist.barrier()
+    return params
+
+
 def tp_program(dev, mesh, spec: dict, full=None, rank: bool = False) -> dict:
     """Phase tp's work on one place of ``mesh`` (a rank, or a place of
     ``emulate_mesh``): ``spec``'s model from its seed (``full``, the whole
@@ -5098,30 +5203,17 @@ def tp_program(dev, mesh, spec: dict, full=None, rank: bool = False) -> dict:
     import torch
 
     from repro_torch.configs import get_config
-    from repro_torch.kernels import elementwise as EW
-    from repro_torch.kernels import flash_attention as FA
     from repro_torch.launch import mesh as M
-    from repro_torch.launch.sharding import activation_rules, shard_params
+    from repro_torch.launch.sharding import activation_rules
     from repro_torch.launch.steps import make_prefill_step, make_serve_step
-    from repro_torch.models.model import build_model
-    from repro_torch.tree import tree_leaves
 
     cfg = dataclasses.replace(get_config(spec["arch"]),
                               num_layers=spec["num_layers"])
-    if full is None:
-        full = build_model(cfg, dev).init(spec["seed"])
-    params = shard_params(cfg, full, mesh)
+    params = draw_blocks(cfg, dev, mesh, spec["seed"], full)
     del full
     out = {}
     if rank:
-        torch.cuda.empty_cache()
-        out["params_gb"] = np.float64(sum(
-            t.numel() * t.element_size() for t in tree_leaves(params)) / 1e9)
-        out["peak_gb_init"] = np.float64(
-            torch.cuda.max_memory_allocated(dev) / 1e9)
-        torch.cuda.reset_peak_memory_stats(dev)
-        FA.reset_launch_counts()
-        EW.reset_launch_counts()
+        out.update(rank_start(dev, params))
     TP_CALLS.flash = []
     rng = np.random.default_rng(spec["seed"])
     B, S = spec["prefill"]
@@ -5175,19 +5267,100 @@ def tp_program(dev, mesh, spec: dict, full=None, rank: bool = False) -> dict:
         out["decode/step_s"] = np.asarray(step_s)
         del logits, cache
     if rank:
-        out["launches"] = np.asarray(json.dumps(
-            {**dict(FA.LAUNCHES), **dict(EW.LAUNCHES)}))
-        out["peak_gb"] = np.float64(torch.cuda.max_memory_allocated(dev) / 1e9)
+        out.update(rank_end(dev))
+    return out
+
+
+def recurrent_program(dev, mesh, spec: dict, full=None,
+                      rank: bool = False) -> dict:
+    """Phase tp_all's work on one place of ``mesh`` for a recurrent family
+    (xlstm, hybrid): ``spec``'s model from its seed cut to the place's
+    blocks (``draw_blocks``); the prefill step's loss over the global batch
+    at ``spec["loss"]`` (next-token labels of random tokens); then
+    ``Model.init_cache`` under the rules (the place's block of zero
+    states), the serve step over a prompt (teacher forced) and greedy
+    steps (``spec["decode"]``).  The keys of ``tp_program`` (the loss as
+    ``prefill/loss``, its seconds as ``prefill_s``); the decode's logits,
+    times and gathers are the greedy steps'."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch.sharding import (
+        activation_rules,
+        batch_rows,
+        mesh_rules,
+    )
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+
+    cfg = dataclasses.replace(get_config(spec["arch"]),
+                              num_layers=spec["num_layers"])
+    params = draw_blocks(cfg, dev, mesh, spec["seed"], full)
+    del full
+    out = {}
+    if rank:
+        out.update(rank_start(dev, params))
+    TP_CALLS.flash = []
+    rng = np.random.default_rng(spec["seed"])
+    B, S = spec["loss"]
+    tokens = rng.integers(0, cfg.vocab_size, (B, S + 1), dtype=np.int32)
+    model, prefill = make_prefill_step(cfg, dev, mesh=mesh)
+
+    def sync_s(t0):
+        torch.cuda.synchronize(dev)
+        return time.perf_counter() - t0
+
+    M.reset_gathered()
+    t0 = time.perf_counter()
+    loss = prefill(params, {"tokens": tokens[:, :-1],
+                            "labels": tokens[:, 1:]})
+    out["prefill_s"] = np.float64(sync_s(t0))
+    out["prefill/gathered"] = np.int64(M.GATHERED["bytes"])
+    out["prefill/gathers"] = np.int64(M.GATHERED["calls"])
+    out["prefill/loss"] = loss.float().cpu().numpy()
+    out["prefill/flash"] = np.asarray(json.dumps(TP_CALLS.flash))
+    torch.cuda.empty_cache()
+    Bd, P, steps = spec["decode"]
+    prompt = rng.integers(0, cfg.vocab_size, (Bd, P), dtype=np.int32)
+    _, serve = make_serve_step(cfg, dev, mesh=mesh)
+    rows = batch_rows(mesh, activation_rules(cfg, mesh, Bd), Bd)
+    with mesh_rules(cfg, mesh, Bd):
+        cache = model.init_cache(len(range(Bd)[rows]), P + steps)
+    for i in range(P):
+        tok, _, cache = serve(params, {"token": torch.as_tensor(
+            prompt[:, i:i + 1], device=dev), "pos": i, "cache": cache})
+    toks, step_s, step_logits = [tok.cpu().numpy()], [], []
+    M.reset_gathered()
+    for i in range(steps):
+        t0 = time.perf_counter()
+        tok, lg, cache = serve(params, {"token": tok[:, None], "pos": P + i,
+                                        "cache": cache})
+        step_s.append(sync_s(t0))
+        toks.append(tok.cpu().numpy())
+        step_logits.append(lg.float().cpu().numpy())
+    out["decode/gathered_a_step"] = np.int64(M.GATHERED["bytes"] // steps)
+    out["decode/gathers_a_step"] = np.int64(M.GATHERED["calls"] // steps)
+    out["decode/tokens"] = np.stack(toks)
+    out["decode/logits"] = np.stack(step_logits)
+    out["decode/cache"] = np.asarray(tree_digest(cache))
+    out["decode/step_s"] = np.asarray(step_s)
+    if rank:
+        out.update(rank_end(dev))
     return out
 
 
 def tp_rank(rank: int, world: int, backend: str, store: str, out_dir: str,
-            device: str, spec: dict) -> None:
-    """One gloo rank of phase tp (started with spawn): a group over
-    ``store``, a ``DeviceMesh`` of ``spec["mesh"]`` (device type cpu: the
-    mesh only holds the groups, and gloo copies card tensors through host
-    memory), ``tp_program`` with every gather timed; its arrays go to
-    ``rank<r>.npz``."""
+            device: str, parts: dict) -> None:
+    """One gloo rank of phases tp and tp_all (started with spawn): a group
+    over ``store``; for each part of ``parts`` ({tag: spec}) in order, a
+    ``DeviceMesh`` of ``spec["mesh"]`` (device type cpu: the mesh only
+    holds the groups, and gloo copies card tensors through host memory)
+    and ``tp_program``, or ``recurrent_program`` for a recurrent family,
+    with every gather timed; its arrays go to ``rank<r>.npz``, each key
+    under its part's tag."""
     import datetime
 
     import numpy as np
@@ -5195,6 +5368,7 @@ def tp_rank(rank: int, world: int, backend: str, store: str, out_dir: str,
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
 
+    from repro_torch.configs import get_config
     from repro_torch.launch import mesh as M
 
     dev = torch.device(device)
@@ -5202,8 +5376,6 @@ def tp_rank(rank: int, world: int, backend: str, store: str, out_dir: str,
     dist.init_process_group(backend, init_method=store, rank=rank,
                             world_size=world, timeout=datetime.timedelta(
                                 seconds=DIST_GROUP_TIMEOUT_S))
-    mesh = init_device_mesh("cpu", spec["mesh"],
-                            mesh_dim_names=("data", "model"))
     gather_ms = []
     gather = M.gather_stack
 
@@ -5216,29 +5388,87 @@ def tp_rank(rank: int, world: int, backend: str, store: str, out_dir: str,
         return y
 
     M.gather_stack = timed
+    out = {}
     try:
-        with flash_spy():
-            out = tp_program(dev, mesh, spec, rank=True)
-        dist.barrier()
+        for tag, spec in parts.items():
+            mesh = init_device_mesh("cpu", spec["mesh"],
+                                    mesh_dim_names=("data", "model"))
+            family = get_config(spec["arch"]).family
+            program = (recurrent_program if family in ("xlstm", "hybrid")
+                       else tp_program)
+            gather_ms.clear()
+            with flash_spy():
+                got = program(dev, mesh, spec, rank=True)
+            got["gather_ms"] = np.asarray(gather_ms)
+            out.update({f"{tag}/{k}": v for k, v in got.items()})
+            del got
+            torch.cuda.empty_cache()
+            dist.barrier()
     finally:
         M.gather_stack = gather
         dist.destroy_process_group()
-    out["gather_ms"] = np.asarray(gather_ms)
     np.savez(pathlib.Path(out_dir) / f"rank{rank}.npz", **out)
+
+
+def tp_all_emulation(rank: int, world: int, backend: str, store: str,
+                     out_dir: str, device: str, parts: dict) -> None:
+    """Phase tp_all's in-process emulation of its parts, in a process of
+    its own (started with spawn, one of it): for each part of ``parts``
+    ({tag: spec}) its tree drawn whole from its seed and every place of
+    its mesh a thread (``emulate_mesh``); each place's arrays go to
+    ``rank0.npz`` under ``<tag>/<place>/``.  A process of its own keeps
+    the emulated places' launches (about 10⁶: four places' sLSTM and
+    decode loops) out of the script's process, whose profile windows come
+    later (phase times)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import emulate_mesh
+    from repro_torch.models.model import build_model
+
+    dev = torch.device(device)
+    torch.cuda.set_device(dev)
+    out = {}
+    for tag, spec in parts.items():
+        cfg = dataclasses.replace(get_config(spec["arch"]),
+                                  num_layers=spec["num_layers"])
+        full = build_model(cfg, dev).init(spec["seed"])
+        program = (recurrent_program if cfg.family in ("xlstm", "hybrid")
+                   else tp_program)
+        t0 = time.perf_counter()
+        with flash_spy():
+            emu = emulate_mesh(dict(zip(("data", "model"), spec["mesh"])),
+                               lambda m: program(dev, m, spec, full))
+        out[f"{tag}/seconds"] = np.float64(time.perf_counter() - t0)
+        out.update({f"{tag}/{p}/{k}": v for p, e in enumerate(emu)
+                    for k, v in e.items()})
+        del full, emu
+        torch.cuda.empty_cache()
+    np.savez(pathlib.Path(out_dir) / "rank0.npz", **out)
+
+
+def part_of(ranks: list[dict], tag: str) -> list[dict]:
+    """Each rank's arrays of one part of ``tp_rank``'s ``parts``."""
+    return [{k[len(tag) + 1:]: v for k, v in r.items()
+             if k.startswith(tag + "/")} for r in ranks]
 
 
 def hold_tp(ranks: list[dict], emu: list[dict], ref_logits, spec: dict,
             what: str) -> dict:
     """Every rank against its place of the emulation, bit for bit (logits,
-    cache digests, tokens, flash shapes); the tokens equal on every rank;
-    the prefill logits (the batch rows of the model axis's first places)
+    losses, cache digests, tokens, flash shapes); the tokens equal on every
+    rank; the prefill logits (the batch rows of the model axis's first
+    places), or the recurrent families' loss (the same on every rank),
     within LM_MAX_REL_L2 of the no-mesh route's ``ref_logits``."""
     import numpy as np
     import torch
 
     skip = ("_s", "gathered", "gathers", "gathers_a_step",
             "gathered_a_step", "launches", "peak_gb", "peak_gb_init",
-            "params_gb", "gather_ms")
+            "params_gb", "gather_ms", "card_used_gb")
     for r, (got, want) in enumerate(zip(ranks, emu)):
         for k, v in want.items():
             if k.endswith(skip):
@@ -5250,10 +5480,18 @@ def hold_tp(ranks: list[dict], emu: list[dict], ref_logits, spec: dict,
                 check(np.array_equal(got[k], ranks[0][k]),
                       f"{what}: rank {r}'s {k} differ from rank 0's")
     m = spec["mesh"][1]
-    got = np.concatenate([ranks[r]["prefill/logits"]
-                          for r in range(0, len(ranks), m)])
-    l2 = rel_l2(torch.from_numpy(got), ref_logits.float().cpu())
-    check(l2 <= LM_MAX_REL_L2, f"{what}: prefill logits {l2:.3e} from the "
+    if "prefill/loss" in ranks[0]:
+        # the recurrent families: the global loss, on every rank
+        got = torch.from_numpy(ranks[0]["prefill/loss"]).reshape(1)
+        for r in range(len(ranks)):
+            check(np.array_equal(ranks[r]["prefill/loss"],
+                                 ranks[0]["prefill/loss"]),
+                  f"{what}: rank {r}'s loss differs from rank 0's")
+    else:
+        got = torch.from_numpy(np.concatenate(
+            [ranks[r]["prefill/logits"] for r in range(0, len(ranks), m)]))
+    l2 = rel_l2(got, ref_logits.float().cpu().reshape(got.shape))
+    check(l2 <= LM_MAX_REL_L2, f"{what}: prefill {l2:.3e} from the "
           f"no-mesh route, past {LM_MAX_REL_L2}")
     return {"rel_l2_no_mesh": l2}
 
@@ -5351,9 +5589,10 @@ def phase_tp(dev, tp: dict = TP, cp: dict = TP_CP) -> dict:
     def mesh_part(spec, full, ref_logits, tag):
         t0 = time.perf_counter()
         world = spec["mesh"][0] * spec["mesh"][1]
-        ranks = run_ranks(tp_rank, world, "gloo",
-                          pathlib.Path(tmp.name) / tag.replace(" ", "_"),
-                          lambda r: str(dev), TP_DEADLINE_S, "tp", spec)
+        ranks = part_of(run_ranks(
+            tp_rank, world, "gloo",
+            pathlib.Path(tmp.name) / tag.replace(" ", "_"),
+            lambda r: str(dev), TP_DEADLINE_S, "tp", {"tp": spec}), "tp")
         ranks_s = time.perf_counter() - t0
         t0 = time.perf_counter()
         sizes = dict(zip(("data", "model"), spec["mesh"]))
@@ -5451,6 +5690,134 @@ def phase_tp(dev, tp: dict = TP, cp: dict = TP_CP) -> dict:
     tmp.cleanup()
     out["launches"] = out["gloo4"]["per_rank"][0]["launches"]
     out["launches_cp"] = out["cp3"]["per_rank"][0]["launches"]
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+def phase_tp_all(dev, parts: dict = TP_ALL) -> dict:
+    """The rest of the serving path over a (data x model) mesh (``launch.
+    steps`` with ``mesh=``): MLA tensor parallelism (``layers.mla_block``
+    on a rank's heads and latent block), the recurrent families
+    (``models.xlstm``, ``models.ssm``, their states cut by
+    ``cache_specs``) and the loss over the global batch; ``TP_ALL``'s
+    three parts over 4 gloo ranks on this card, beside their in-process
+    emulation in one process of its own (``tp_all_emulation``).  Each
+    holds every rank to its place of the emulation bit for bit and the prefill
+    logits or the loss to the no-mesh route within LM_MAX_REL_L2, and
+    logs the bytes gathered a call, the prefill (or loss) seconds, decode
+    p50 / p99, each rank's peak and the flash launches by shape."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models.model import build_model
+
+    out = {"card": card_line()}
+    t_phase = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory()
+    # the no-mesh route of every part first (the ranks' reference)
+    setups = {}
+    for tag, spec in parts.items():
+        cfg = dataclasses.replace(get_config(spec["arch"]),
+                                  num_layers=spec["num_layers"])
+        recurrent = cfg.family in ("xlstm", "hybrid")
+        full = build_model(cfg, dev).init(spec["seed"])
+        rng = np.random.default_rng(spec["seed"])
+        _, prefill = make_prefill_step(cfg, dev)
+        t0 = time.perf_counter()
+        if recurrent:
+            B, S = spec["loss"]
+            tokens = rng.integers(0, cfg.vocab_size, (B, S + 1),
+                                  dtype=np.int32)
+            ref = prefill(full, {"tokens": tokens[:, :-1],
+                                 "labels": tokens[:, 1:]})
+        else:
+            B, S = spec["prefill"]
+            tokens = rng.integers(0, cfg.vocab_size, (B, S), dtype=np.int32)
+            ref, cache = prefill(full, {"tokens": tokens, "cache_seq": S})
+            del cache
+        torch.cuda.synchronize(dev)
+        setups[tag] = (cfg, recurrent, ref, (B, S), time.perf_counter() - t0)
+        del full
+        torch.cuda.empty_cache()
+    # the emulation's process runs beside the ranks, so that the whole
+    # script fits its time limit on a slow host; the ranks' seconds are
+    # measured beside it
+    emu_box: dict = {}
+
+    def emulate():
+        t0 = time.perf_counter()
+        try:
+            emu_box["out"] = run_ranks(
+                tp_all_emulation, 1, "none",
+                pathlib.Path(tmp.name) / "emulation", lambda r: str(dev),
+                TP_ALL_DEADLINE_S, "tp_all emulation", parts)
+        except BaseException as err:     # noqa: BLE001 — re-raised below
+            emu_box["err"] = err
+        out["emulation_process_s"] = time.perf_counter() - t0
+
+    emu_thread = threading.Thread(target=emulate)
+    t0 = time.perf_counter()
+    emu_thread.start()
+    try:
+        ranks_all = run_ranks(tp_rank, 4, "gloo",
+                              pathlib.Path(tmp.name) / "ranks",
+                              lambda r: str(dev), TP_ALL_DEADLINE_S,
+                              "tp_all", parts)
+        out["ranks_s"] = time.perf_counter() - t0
+    finally:
+        emu_thread.join()
+    if "err" in emu_box:
+        raise emu_box["err"]
+    emu_all = emu_box["out"]
+    for tag, spec in parts.items():
+        cfg, recurrent, ref, (B, S), nomesh_s = setups.pop(tag)
+        name = f"tp_all {tag} gloo x4"
+        ranks = part_of(ranks_all, tag)
+        emu_part = part_of(emu_all, tag)
+        emu_s = float(emu_part[0]["seconds"])
+        emu = [part_of(emu_part, str(p))[0] for p in range(len(ranks))]
+        held = hold_tp(ranks, emu, ref, spec, name)
+        del emu, ref
+        rows = tp_report(ranks, name)
+        want = {"silu_stepwise"} if recurrent else {"flash_attention",
+                                                     "silu_stepwise"}
+        for r, row in enumerate(rows):
+            row["card_used_gb"] = float(ranks[r]["card_used_gb"])
+            check(all(row["launches"].get(k, 0) > 0 for k in want),
+                  f"{name}: rank {r}'s launches {row['launches']}")
+        if not recurrent:
+            n = spec["mesh"][1]
+            d = cfg.head_dim + cfg.rope_head_dim
+            want = {f"B={B} Sq={S} Skv={S} {cfg.num_heads // n}/"
+                    f"{cfg.num_heads // n}x{d} causal q_offset=0":
+                    cfg.num_layers}
+            for r, row in enumerate(rows):
+                check(row["prefill_flash_by_shape"] == want,
+                      f"{name} rank {r}: flash "
+                      f"{row['prefill_flash_by_shape']}")
+        out[tag] = {"per_rank": rows, "emulation_s": emu_s,
+                    "no_mesh_prefill_s": nomesh_s, **held}
+        what = "loss" if recurrent else "prefill logits"
+        log(f"{name} on one card: {cfg.name} x{cfg.num_layers} on mesh "
+            f"{spec['mesh']}, every rank equals its place of the emulation "
+            f"bit for bit ({'loss' if recurrent else 'prefill'} B={B} "
+            f"S={S}, {spec['decode'][2]} decode steps at batch "
+            f"{spec['decode'][0]} after a {spec['decode'][1]}-token prompt, "
+            f"tokens equal on every rank); {what} rel L2 "
+            f"{held['rel_l2_no_mesh']:.3e} from the no-mesh route (gate "
+            f"{LM_MAX_REL_L2}; no-mesh {nomesh_s:.3f} s); emulation "
+            f"{emu_s:.2f} s; card in use after a rank's decode "
+            f"{[row['card_used_gb'] for row in rows]} GB")
+    log(f"tp_all: the ranks ran the three parts in {out['ranks_s']:.2f} s, "
+        f"the emulation's process in {out['emulation_process_s']:.2f} s")
+    tmp.cleanup()
+    out["launches"] = {tag: out[tag]["per_rank"][0]["launches"]
+                       for tag in parts}
     out["seconds"] = time.perf_counter() - t_phase
     return out
 
@@ -7203,13 +7570,6 @@ def phase_times(dev, main: dict) -> list[dict]:
         f"{par['w1_merges']} at W=1 B={BLOCK}",
         at_shapes("packed_union_delta", merge_shapes)))
 
-    if "lm" in main:
-        rows.append(time_flash(dev, main["lm"], main["checks"],
-                               main.get("moe"), main.get("mla"),
-                               main.get("encdec"), main.get("vlm"),
-                               main.get("tp")))
-        rows.extend(time_elementwise(dev, main))
-
     # where the time goes, under torch.profiler: the main path's whole scan
     # (one launch), the sketch path's whole scan (one launch), the parallel
     # path's whole scan (its blocks in the acceptance run's order: a launch
@@ -7266,10 +7626,12 @@ def phase_times(dev, main: dict) -> list[dict]:
     for name, fn, n_steps, want in windows:
         # the profiler still loses whole windows on the H100 (1 of 8 scan
         # and 1 of 8 parallel-scan windows, and all 24 refine windows,
-        # with --profile-diag 8; on a slower host, 3 of 3 one-super-step
-        # windows late in a whole-script run): a window that lacks a port
-        # kernel its call launched is taken again (at most five more times)
-        for tries in range(1, 7):
+        # with --profile-diag 8; late in whole-script runs, 3 of 3 and 6
+        # of 6 one-super-step windows, and 5 before one held its kernels):
+        # a window that lacks a port kernel its call launched is taken
+        # again, at most 5 more times, or 11 for the two windows the check
+        # below reads
+        for tries in range(1, 13 if name.startswith("parallel") else 7):
             prof = profile_window(fn)
             if prof.get("port_kernels_count") == want:
                 break
@@ -7334,6 +7696,15 @@ def phase_times(dev, main: dict) -> list[dict]:
         "rounds_run": n_sk, "busy_s": psk["busy_s"],
         "event_span_s": psk["event_span_s"], "wall_s": psk["wall_s"],
         "per_round_us": psk["event_span_s"] * 1e6 / n_sk}
+    # the LM kernels' times (many CUDA graph captures) come after the
+    # profile windows, so that the windows run as early as they can: late
+    # in a whole-script run the profiler loses whole windows
+    if "lm" in main:
+        rows.append(time_flash(dev, main["lm"], main["checks"],
+                               main.get("moe"), main.get("mla"),
+                               main.get("encdec"), main.get("vlm"),
+                               main.get("tp"), main.get("tp_all")))
+        rows.extend(time_elementwise(dev, main))
     return rows
 
 
@@ -7689,9 +8060,91 @@ def time_flash_tp(dev, tp: dict) -> dict:
             f"q_offset r x {Sc // nc})")}
 
 
+def time_flash_mla_rank(dev, tp_all: dict) -> dict:
+    """flash_attention at phase tp_all (a)'s shape: a rank's 32 of
+    deepseek-v2-236b's 128 heads on mesh (1, 4), B=2, S=4,096, q/k 192, v
+    128, causal, on random bf16 q, k, v: CUDA-graph and eager times, its
+    plain version (``attention_ref_by_head``) and
+    scaled_dot_product_attention on the same q, k, v (the backend it
+    picked named, or "no backend takes it"); the max abs error against the
+    plain version, within FLASH_TOL["bfloat16"] at every output.  The
+    bound counts the admissible pairs: B H S (S + 1) (Dqk + Dv) FLOP."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as FA
+
+    spec = TP_ALL["mla"]
+    (B, S), n = spec["prefill"], spec["mesh"][1]
+    cfg = get_config(spec["arch"])
+    H, Dqk, Dv = (cfg.num_heads // n, cfg.head_dim + cfg.rope_head_dim,
+                  cfg.v_head_dim)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    q, k = (torch.randn((B, S, H, Dqk), generator=gen, device=dev).to(
+        torch.bfloat16) for _ in range(2))
+    v = torch.randn((B, S, H, Dv), generator=gen, device=dev).to(
+        torch.bfloat16)
+    saved = dict(FA.LAUNCHES)
+    want = attention_ref_by_head(q, k, v, None).float()
+    got = FA.flash_attention(q, k, v).float()
+    diff = (got - want).abs()
+    err, tol = float(diff.max()), FLASH_TOL["bfloat16"]
+    check(bool(torch.isfinite(got).all())
+          and bool((diff <= tol + tol * want.abs()).all()),
+          f"flash at phase tp_all's MLA rank shape: max abs err {err} past "
+          f"tolerance {tol}")
+    del want, got, diff
+    ms = time_graph_ms(lambda: FA.flash_attention(q, k, v), 5, 11)
+    eager_ms = time_ms(lambda: FA.flash_attention(q, k, v), 5, 11)
+    plain_ms = time_ms(lambda: attention_ref_by_head(q, k, v, None), 1, 3)
+    FA.LAUNCHES.update(saved)   # timing launches are not path launches
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    try:
+        from torch.nn.attention import SDPBackend
+        backend = SDPBackend(torch._fused_sdp_choice(
+            qt, kt, vt, None, 0.0, True)).name
+    except Exception as err_:  # a private query; the time stands without it
+        backend = f"not named ({type(err_).__name__})"
+    try:
+        library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True), 5, 11)
+    except RuntimeError as err_:
+        library_ms, backend = None, f"no backend takes it ({err_})"[:200]
+    flops = (Dqk + Dv) * B * H * S * (S + 1)
+    nbytes = q.element_size() * (q.numel() + k.numel() + 2 * v.numel())
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / TENSOR_BF16_FLOPS * 1e3
+    launches = tp_all["launches"]["mla"].get("flash_attention")
+    out = {"shape": f"B={B}, S={S}, H={H}, KV={H}, Dqk={Dqk}, Dv={Dv}, "
+                    f"causal, bfloat16",
+           "tensor_cores": FA.uses_tensor_cores(q, k, v),
+           "launches": launches,
+           "launches_path": f"phase tp_all (a): a rank's prefill, "
+                            f"{spec['arch']} x{spec['num_layers']} on mesh "
+                            f"{spec['mesh']}, and its decode prompt's",
+           "max_abs_err": err, "ms": ms, "eager_ms": eager_ms,
+           "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "flops": flops, "bytes": nbytes, "library_ms": library_ms,
+           "library": "torch.nn.functional.scaled_dot_product_attention("
+                      f"is_causal=True), backend {backend}"}
+    log(f"time flash_attention ({out['shape']}): {ms * 1e3:.1f} us in a "
+        f"CUDA graph, {eager_ms * 1e3:.1f} us eager, plain "
+        f"{plain_ms * 1e3:.1f} us, sdpa ({backend}) "
+        f"{'-' if library_ms is None else f'{library_ms * 1e3:.1f}'} us, "
+        f"bound {out['bound_ms'] * 1e3:.1f} us by {out['bound_by']} "
+        f"({flops:.3e} FLOP, {nbytes:,} bytes); max abs err {err:.3e}; "
+        f"{launches} launches a rank")
+    del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    return out
+
+
 def time_flash(dev, lm: dict, checks: dict, moe: dict | None = None,
                mla: dict | None = None, encdec: dict | None = None,
-               vlm: dict | None = None, tp: dict | None = None) -> dict:
+               vlm: dict | None = None, tp: dict | None = None,
+               tp_all: dict | None = None) -> dict:
     """flash_attention's row of the kernels line: its times at the lm
     phase's prefill shape (``time_flash_causal`` against
     ``flash_attention_ref``).  With phase moe's state, the same at its
@@ -7727,6 +8180,10 @@ def time_flash(dev, lm: dict, checks: dict, moe: dict | None = None,
         row["vlm"]["max_abs_err_check"] = \
             checks["flash_attention"]["max_abs_err_vlm_shape"]
         row["launches_vlm"] = vlm["prefill_flash_launches"]
+    if tp_all is not None:
+        row["tp_all"] = time_flash_mla_rank(dev, tp_all)
+        row["launches_tp_all"] = {"mla gloo4 (a rank)": tp_all["launches"][
+            "mla"].get("flash_attention")}
     if tp is not None:
         row["tp"] = time_flash_tp(dev, tp)
         row["launches_tp"] = {"gloo4 (a rank)": tp["launches"].get(
@@ -7832,6 +8289,10 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         state["tp"] = phase_tp(dev)
         log(f"tp phase {time.perf_counter() - t0:.2f} s")
+    if "tp_all" in phases:
+        t0 = time.perf_counter()
+        state["tp_all"] = phase_tp_all(dev)
+        log(f"tp_all phase {time.perf_counter() - t0:.2f} s")
     if "mla" in phases:
         t0 = time.perf_counter()
         state["mla"] = phase_mla(dev)
@@ -7897,6 +8358,13 @@ def main(argv=None) -> int:
                    if state.get("tp", {}).get(key, {}).get(r["name"])}
             if got:
                 r["launches_tp"] = got
+            # a rank's launches in the rest of the path over a mesh (phase
+            # tp_all)
+            got = {f"{tag} gloo4 (a rank)": c.get(r["name"]) for tag, c in
+                   state.get("tp_all", {}).get("launches", {}).items()
+                   if c.get(r["name"])}
+            if got:
+                r["launches_tp_all"] = got
         log(f"card: {card}")
         log(json.dumps({"kernels": rows}))
     if phases != set(PHASES):

@@ -26,9 +26,9 @@ tensors to the blocks the calling rank holds, by its mesh coordinates;
 (``launch.steps``): every leaf cut over the model axis as its
 ``param_pspecs`` spec cuts it (attention heads or head_dim, MLP columns
 and rows, the vocab rows of ``embed`` and columns of ``lm_head``,
-biases), the experts also over data as their spec says; whole over data
-otherwise (FSDP of the dense weights is not ported), and MLA's attention
-leaves whole (MLA tensor parallelism is not ported).
+biases, MLA's heads, the mLSTM's value dim, the sLSTM's ``wo`` rows and
+Mamba2's heads), the experts also over data as their spec says; whole
+over data otherwise (FSDP of the dense weights is not ported).
 """
 from __future__ import annotations
 
@@ -44,7 +44,7 @@ from ..tree import tree_map_with_path
 from .mesh import axis_group, axis_sizes, gather_cat, ordered_sum
 
 __all__ = ["activation_rules", "param_pspecs", "opt_pspecs", "batch_specs",
-           "cache_specs", "shard_tree", "shard_spec", "shard_params",
+           "cache_specs", "cache_block_shape", "shard_tree", "shard_spec", "shard_params",
            "tp_layout", "tensor_parallel", "mesh_rules", "block_slices",
            "mesh_coords", "batch_rows"]
 
@@ -226,6 +226,43 @@ def batch_specs(cfg: ModelConfig, batch_shapes: dict, mesh) -> dict:
     return out
 
 
+def _cache_spec(path: str, shape: tuple, mesh) -> tuple:
+    """The spec of one cache leaf of global ``shape`` at ``path`` (its
+    '/'-joined keys, tuple indices included: the reference's path)."""
+    name = path.split("/")[-1]
+    nd = len(shape)
+    if name == "kpos":
+        return (None,) * nd
+    if name in ("c_kv", "k_rope"):     # (L, B, S, r)
+        return (None, _dp(mesh, shape[1]), None,
+                _div(shape[3], mesh, "model"))
+    if name in ("k", "v") or "cross" in path:
+        # (L_or_G, B, S, KV, hd) or the cross (k, v) (L, B, Se, KV, hd)
+        if nd == 5:
+            kv_ax = _div(shape[3], mesh, "model")
+            hd_ax = _div(shape[4], mesh, "model") if kv_ax is None else None
+            return (None, _dp(mesh, shape[1]), None, kv_ax, hd_ax)
+    if "ssm" in path and nd == 6:       # (G, n_m, B, H, P, N)
+        return (None, None, _dp(mesh, shape[2]),
+                _div(shape[3], mesh, "model"), None, None)
+    if "conv" in path and nd == 5:      # (G, n_m, B, ks, C)
+        return (None, None, _dp(mesh, shape[2]), None,
+                _div(shape[4], mesh, "model"))
+    # xlstm states: shard batch over dp; value dim over tp when present
+    if nd == 6:                          # mLSTM C (G, n_m, B, H, dv, dk)
+        return (None, None, _dp(mesh, shape[2]),
+                None, _div(shape[4], mesh, "model"), None)
+    if nd == 5:                          # mLSTM n (G, n_m, B, H, d)
+        return (None, None, _dp(mesh, shape[2]), None, None)
+    if nd == 4:                          # sLSTM states (G, B, H, dh) / mLSTM m
+        # (dim 1 of the mLSTM m (G, n_m, B, H) is n_m, not the batch: the
+        # reference's rule, kept; models.model keeps m whole over the batch)
+        return (None, _dp(mesh, shape[1]), None, None)
+    if nd == 3:
+        return (None, _dp(mesh, shape[1]), None)
+    return (None,) * nd
+
+
 def cache_specs(cfg: ModelConfig, cache_shapes, mesh):
     """Decode caches: batch over dp, heads (or head_dim / latent dim) over
     tp.  A None leaf (the encoder-decoder's unfilled ``cross``) gets
@@ -234,39 +271,19 @@ def cache_specs(cfg: ModelConfig, cache_shapes, mesh):
     def one(path_t, leaf):
         if leaf is None:
             return None
-        path = _path_str(path_t)
-        name = path.split("/")[-1]
-        nd = leaf.ndim
-        if name == "kpos":
-            return (None,) * nd
-        if name in ("c_kv", "k_rope"):     # (L, B, S, r)
-            return (None, _dp(mesh, leaf.shape[1]), None,
-                    _div(leaf.shape[3], mesh, "model"))
-        if name in ("k", "v") or "cross" in path:
-            # (L_or_G, B, S, KV, hd) or the cross (k, v) (L, B, Se, KV, hd)
-            if nd == 5:
-                kv_ax = _div(leaf.shape[3], mesh, "model")
-                hd_ax = _div(leaf.shape[4], mesh, "model") if kv_ax is None else None
-                return (None, _dp(mesh, leaf.shape[1]), None, kv_ax, hd_ax)
-        if "ssm" in path and nd == 6:       # (G, n_m, B, H, P, N)
-            return (None, None, _dp(mesh, leaf.shape[2]),
-                    _div(leaf.shape[3], mesh, "model"), None, None)
-        if "conv" in path and nd == 5:      # (G, n_m, B, ks, C)
-            return (None, None, _dp(mesh, leaf.shape[2]), None,
-                    _div(leaf.shape[4], mesh, "model"))
-        # xlstm states: shard batch over dp; value dim over tp when present
-        if nd == 6:                          # mLSTM C (G, n_m, B, H, dv, dk)
-            return (None, None, _dp(mesh, leaf.shape[2]),
-                    None, _div(leaf.shape[4], mesh, "model"), None)
-        if nd == 5:                          # mLSTM n (G, n_m, B, H, d)
-            return (None, None, _dp(mesh, leaf.shape[2]), None, None)
-        if nd == 4:                          # sLSTM states (G, B, H, dh) / mLSTM m
-            return (None, _dp(mesh, leaf.shape[1]), None, None)
-        if nd == 3:
-            return (None, _dp(mesh, leaf.shape[1]), None)
-        return (None,) * nd
+        return _cache_spec(_path_str(path_t), tuple(leaf.shape), mesh)
 
     return tree_map_with_path(one, cache_shapes)
+
+
+def cache_block_shape(path: str, shape: tuple, mesh) -> tuple:
+    """The shape of a place's block of a cache leaf of global ``shape`` at
+    ``path`` under ``cache_specs``' cut (every place's block has the same
+    shape: the cuts are even)."""
+    sizes = axis_sizes(mesh)
+    return tuple(b - a for a, b in block_slices(
+        shape, _cache_spec(path, tuple(shape), mesh), sizes,
+        {a: 0 for a in sizes}))
 
 
 # --------------------------------------------------------------- placement
@@ -356,15 +373,11 @@ def shard_spec(cfg: ModelConfig, key: str, shape: tuple, mesh) -> tuple:
     """The spec ``shard_params`` cuts a parameter by: its ``param_pspecs``
     spec for the experts' ``wg``, ``wu`` and ``wd`` (the MoE layer's
     sharded route reads their blocks, over data too with ``cfg.fsdp``);
-    nothing for MLA's attention leaves (``wq_a``, ``wkv_a``, ``wq_b``,
-    ``wk_b``, ``wv_b``, ``wo`` and the norms: MLA tensor parallelism is
-    not ported); for every other leaf its spec over the model axis alone
-    (the FSDP cut over data is not ported)."""
+    for every other leaf its spec over the model axis alone (the FSDP cut
+    over data is not ported)."""
     spec = _param_spec(key, shape, cfg, mesh)
     if re.search(r"moe/(wg|wu|wd)$", key):
         return spec
-    if cfg.mla and key.split("/")[-2:-1] == ["attn"]:
-        return (None,) * len(shape)
     return tuple(None if a == "data" else a for a in spec)
 
 
@@ -374,9 +387,13 @@ def shard_params(cfg: ModelConfig, params, mesh, coords: dict | None = None):
     (``models.layers``, ``models.model``) reads the blocks of attention
     (heads, or head_dim where the heads do not divide the model axis),
     MLPs (``wg``, ``wu``, ``wi``, ``bi`` by column, ``wd`` by row), the
-    vocab-sharded ``embed`` and ``lm_head``; the MoE layer's sharded route
-    the experts'; a leaf its spec does not cut over the model axis (norms,
-    ``bd``, the router, a dim that does not divide) stays whole."""
+    vocab-sharded ``embed`` and ``lm_head``; MLA the heads of ``wq_b``,
+    ``wk_b``, ``wv_b`` and ``wo``; the recurrent blocks the mLSTM's value
+    dim, the sLSTM's ``wo`` rows and Mamba2's heads (``models.xlstm``,
+    ``models.ssm``); the MoE layer's sharded route the experts'; a leaf
+    its spec does not cut over the model axis (norms, ``bd``, the router,
+    ``wq_a``, ``wkv_a``, the gates, a dim that does not divide) stays
+    whole."""
     sizes = axis_sizes(mesh)
     coords = mesh_coords(mesh) if coords is None else coords
 
@@ -389,15 +406,23 @@ def shard_params(cfg: ModelConfig, params, mesh, coords: dict | None = None):
 
 
 def tp_layout(cfg: ModelConfig, mesh) -> dict:
-    """How ``shard_spec`` and ``cache_specs`` cut each dense block over the
-    model axis, by the role the layers read it in (``shardctx.
-    TensorParallel.layout``): "q", "kv", "o" (``wq``; ``wk`` and ``wv``;
-    ``wo``) and "cache" (the k and v caches and the cross (k, v)) are
-    "heads", "hd" (a head_dim slice of every head) or None; "mlp" and
+    """How ``shard_spec`` and ``cache_specs`` cut each block over the model
+    axis, by the role the layers read it in (``shardctx.TensorParallel.
+    layout``).  "q", "kv", "o" (``wq``; ``wk`` and ``wv``; ``wo``, MLA's
+    too) and "cache" (the k and v caches and the cross (k, v)) are
+    "heads", "hd" (a head_dim slice of every head) or None; "ssm_o" (the
+    Mamba2 ``wo``) likewise.  True where cut, else False: "mlp" and
     "shared" (``wd``'s rows, the dense and the shared experts' MLP),
-    "embed" (``embed``'s vocab rows) and "head" (the vocab columns of
-    ``lm_head``, or of the tied ``embed.T``) are True where cut.  MLA's
-    attention and latent cache are whole."""
+    "embed" (``embed``'s vocab rows), "head" (the vocab columns of
+    ``lm_head``, or of the tied ``embed.T``); MLA's "mla" (``wq_b``,
+    ``wk_b``, ``wv_b`` by heads), "latent" and "rope" (the ``c_kv`` cache
+    over r, the ``k_rope`` cache over dr); the mLSTM's "mlstm" (``wv``,
+    ``wz``, ``out_norm``, the rows of ``wo`` and the C state, by the
+    value dim); the sLSTM's "slstm" (the dh rows of ``wo``); Mamba2's
+    "ssm" (``wz``, ``wx``, ``w_dt``, ``dt_bias``, ``A_log``,
+    ``D_skip``, ``out_norm``, ``conv_x`` and the SSM state, by heads),
+    "conv_x" and "conv_bc" (the conv windows' channels: x's, B's and
+    C's)."""
     D, H, KV, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     V = cfg.padded_vocab
 
@@ -408,6 +433,9 @@ def tp_layout(cfg: ModelConfig, mesh) -> dict:
         spec = shard_spec(cfg, key, shape, mesh)
         return "heads" if spec[h] else "hd" if spec[h + 1] else None
 
+    def cache_cut(path, shape, dim):
+        return _cache_spec(path, shape, mesh)[dim] is not None
+
     lay = {"embed": cut("embed", (V, D), 0),
            "head": (cut("embed", (V, D), 0) if cfg.tie_embeddings
                     else cut("lm_head", (D, V), 1)),
@@ -415,13 +443,30 @@ def tp_layout(cfg: ModelConfig, mesh) -> dict:
     if cfg.num_shared_experts:
         lay["shared"] = cut("moe/shared/wd",
                             (cfg.d_ff * cfg.num_shared_experts, D), 0)
-    if H and not cfg.mla:
+    if cfg.mla:
+        r_q, r, dr = cfg.q_lora_rank, cfg.kv_lora_rank, cfg.rope_head_dim
+        dv = cfg.v_head_dim
+        lay["mla"] = cut("attn/wq_b", (r_q, H, hd + dr), 1)
+        lay["o"] = heads("attn/wo", (H, dv, D), 0)
+        lay["latent"] = cache_cut("c_kv", (1, 1, 1, r), 3)
+        lay["rope"] = cache_cut("k_rope", (1, 1, 1, dr), 3)
+    elif H and cfg.family != "xlstm":
         lay["q"] = heads("attn/wq", (D, H, hd), 1)
         lay["kv"] = heads("attn/wk", (D, KV, hd), 1)
         lay["o"] = heads("attn/wo", (H, hd, D), 0)
-        spec = cache_specs(cfg, {"k": torch.empty((1, 1, 1, KV, hd),
-                                                  device="meta")}, mesh)["k"]
+        spec = _cache_spec("k", (1, 1, 1, KV, hd), mesh)
         lay["cache"] = "heads" if spec[3] else "hd" if spec[4] else None
+    if cfg.family == "xlstm":
+        lay["mlstm"] = cut("stack/mlstm/cell/wv", (D, H, hd), 2)
+        lay["slstm"] = cut("stack/slstm/cell/wo", (H, hd, D), 1)
+    if cfg.family == "hybrid":
+        d_inner = cfg.ssm_expand * D
+        Hs, P, N = d_inner // cfg.ssm_headdim, cfg.ssm_headdim, cfg.ssm_state
+        lay["ssm"] = cut("stack/mamba/cell/wx", (D, Hs, P), 1)
+        lay["ssm_o"] = heads("stack/mamba/cell/wo", (Hs, P, D), 0)
+        ks = cfg.ssm_conv
+        lay["conv_x"] = cache_cut("conv/x", (1, 1, 1, ks, d_inner), 4)
+        lay["conv_bc"] = cache_cut("conv/B", (1, 1, 1, ks, N), 4)
     return lay
 
 

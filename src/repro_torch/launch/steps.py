@@ -6,22 +6,23 @@ parameters and the optimizer state in place and returns them (the
 reference donates them to a jitted step that returns new ones).
 
 Over a mesh (``mesh=``, a ``DeviceMesh`` of the ranks; ``launch.mesh``)
-the prefill and serve steps run the model under the logical-axis rules
-(``models.shardctx``) on the rank's rows of the batch, which is split
-along the axes that ``activation_rules(...)["batch"]`` names.  The rank
-passes the global ``tokens`` (or ``token``) and its own block of the
-cache, and holds ``launch.sharding.shard_params``'s parameters: over the
-model axis its blocks of the attention heads (or head_dim where the heads
-do not divide it), the MLP columns (``wg``, ``wu``, ``wi``, ``bi``) and
-rows (``wd``), the vocab rows of ``embed`` and columns of ``lm_head``, and
-the experts (``models.layers``, ``models.model``, ``models.moe``); whole
-over the data axis (FSDP of the dense weights is not ported) and whole
-for MLA's attention (MLA tensor parallelism is not ported).  Every family
-but the recurrent ones runs on any (data x model) mesh whose specs split
-evenly: dense, VLM, encoder-decoder and MoE, ``context_parallel``
-attention where the reference takes it.  What the port does not run
-across ranks raises ``NotImplementedError`` naming its ROADMAP item: the
-recurrent families over a mesh, a train or eval step over a mesh.
+the prefill, serve and eval steps run the model under the logical-axis
+rules (``models.shardctx``) on the rank's rows of the batch, which is
+split along the axes that ``activation_rules(...)["batch"]`` names.  The
+rank passes the global ``tokens`` (or ``token``) and its own block of the
+cache (``Model.init_cache`` under ``launch.sharding.mesh_rules``, or a
+prefill's), and holds ``launch.sharding.shard_params``'s parameters: over
+the model axis its blocks of the attention heads (or head_dim where the
+heads do not divide it), MLA's heads, the MLP columns (``wg``, ``wu``,
+``wi``, ``bi``) and rows (``wd``), the vocab rows of ``embed`` and
+columns of ``lm_head``, the experts, the mLSTM value dim, the sLSTM
+``wo`` rows and Mamba2's heads (``models.layers``, ``models.model``,
+``models.moe``, ``models.xlstm``, ``models.ssm``); whole over the data
+axis (FSDP of the dense weights is not ported).  Every family runs on any
+(data x model) mesh whose specs split evenly, ``context_parallel``
+attention where the reference takes it; the recurrent families' prefill,
+and every eval step, return the loss over the global batch.  A train step
+over a mesh raises ``NotImplementedError`` naming its ROADMAP items.
 """
 from __future__ import annotations
 
@@ -69,17 +70,6 @@ def _effective_microbatches(cfg, mesh, B: int) -> int:
     while n > 1 and (B % n or (B // n) % dp):
         n -= 1
     return max(n, 1)
-
-
-def _check_mesh(cfg, mesh) -> None:
-    """Raise ``NotImplementedError`` where the port would run something
-    across ranks that it does not compute as the reference does."""
-    if cfg.family in ("xlstm", "hybrid"):
-        raise NotImplementedError(
-            f"the {cfg.family} family over a mesh (its prefill is a loss "
-            f"over the global batch, its states are not cut over the model "
-            f"axis; {_ROADMAP}, item 3a.2: the recurrent families over a "
-            f"mesh)")
 
 
 def _rows(x, mesh, rules):
@@ -167,17 +157,32 @@ def make_train_step(cfg: ModelConfig, device="cuda",
     return model, train_step, init_state, opt_cfg
 
 
+def _loss_over_mesh(model, cfg, mesh, params, arrays):
+    """``model.loss_fn``'s metrics on the place's rows of the global batch
+    under the rules: the loss and the label count of the global batch,
+    the same on every place (``Model.loss_fn``)."""
+    B = arrays["tokens"].shape[0]
+    rules = activation_rules(cfg, mesh, B)
+    arrays = {k: _rows(v, mesh, rules) for k, v in arrays.items()}
+    with _rules_ctx(cfg, mesh, B):
+        return model.loss_fn(params, arrays)[1]
+
+
 def make_eval_step(cfg: ModelConfig, device="cuda", *, mesh=None):
-    if mesh is not None:
-        raise NotImplementedError(
-            f"an eval step over a mesh (a loss over the global batch) is "
-            f"not ported ({_ROADMAP}, item 3c)")
+    """``eval_step(params, batch) -> {"loss", "tokens"}``: the loss and the
+    label count of the batch (``Model.loss_fn``).  With ``mesh``: the
+    batch is the global one, the parameters the rank's blocks
+    (``launch.sharding.shard_params``); the rank runs its rows under the
+    rules and returns the global batch's loss and count, the same on
+    every rank."""
     model = build_model(cfg, device)
 
     @torch.no_grad()
     def eval_step(params, batch):
-        loss, metrics = model.loss_fn(params, _on(batch, model.device))
-        return metrics
+        arrays = _on(batch, model.device)
+        if mesh is None:
+            return model.loss_fn(params, arrays)[1]
+        return _loss_over_mesh(model, cfg, mesh, params, arrays)
 
     return model, eval_step
 
@@ -194,18 +199,19 @@ def make_prefill_step(cfg: ModelConfig, device="cuda", *, flash: bool = True,
     by the serving loop.  With ``mesh``: the rank's rows of the global
     batch under the rules (module docstring); the logits and the cache
     returned are the rank's rows (the logits over the whole padded
-    vocab, the cache the rank's block)."""
+    vocab, the cache the rank's block); the recurrent families' loss is
+    the global batch's, the same on every rank."""
     model = build_model(cfg, device)
-    if mesh is not None:
-        _check_mesh(cfg, mesh)
 
     @torch.no_grad()
     def prefill_step(params, batch):
         arrays = _on({k: v for k, v in batch.items() if k != "cache_seq"},
                      model.device)
-        if mesh is None:
-            if cfg.family in ("xlstm", "hybrid"):
+        if cfg.family in ("xlstm", "hybrid"):
+            if mesh is None:
                 return model.loss_fn(params, arrays)[1]["loss"]
+            return _loss_over_mesh(model, cfg, mesh, params, arrays)["loss"]
+        if mesh is None:
             return model.prefill(params, dict(batch, **arrays), flash=flash)
         B = arrays["tokens"].shape[0]
         rules = activation_rules(cfg, mesh, B)
@@ -225,8 +231,6 @@ def make_serve_step(cfg: ModelConfig, device="cuda", *, mesh=None):
     batch axes in rank order, the same on every rank, ready to feed the
     next step."""
     model = build_model(cfg, device)
-    if mesh is not None:
-        _check_mesh(cfg, mesh)
 
     @torch.no_grad()
     def serve_step(params, batch):

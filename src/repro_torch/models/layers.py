@@ -78,8 +78,10 @@ the same code runs with the identity for its gathers and sums.
     kv head (``launch.sharding.cache_specs``), written in place as without
     a mesh; cross-attention reads the encoder's (k, v) projected to the
     place's block (``Model._cross_kv``).
-MLA's blocks are whole on every place (MLA tensor parallelism is not
-ported): ``mla_block`` runs as without a mesh.
+  * MLA (``mla_block``): the place's heads of the up-projections and of
+    ``wo``; the latent cache cut over r (and k_rope's over dr), gathered
+    back to whole over its written prefix where the absorbed form attends
+    it.
 """
 from __future__ import annotations
 
@@ -553,14 +555,15 @@ def init_mla(gen, cfg, dtype, device):
 
 def mla_projection(p, x, cfg, positions, dtype=torch.bfloat16):
     """q_nope (B,S,H,dn), q_rope (B,S,H,dr) with rotary, the normalised
-    latent c_kv (B,S,r_kv) and the rotary key k_rope (B,S,dr)."""
+    latent c_kv (B,S,r_kv) and the rotary key k_rope (B,S,dr); H the heads
+    of the ``wq_b`` block (a place's, under tensor parallelism)."""
     B, S, D = x.shape
-    H, r_q, r_kv = cfg.num_heads, cfg.q_lora_rank, cfg.kv_lora_rank
-    dn, dr = cfg.head_dim, cfg.rope_head_dim
+    r_q, r_kv = cfg.q_lora_rank, cfg.kv_lora_rank
+    dn = cfg.head_dim
+    H, dq = p["wq_b"].shape[1:]
     q_lat = apply_norm({"scale": p["q_a_norm"]}, x @ p["wq_a"].to(dtype),
                        "rmsnorm")
-    q = (q_lat @ p["wq_b"].to(dtype).reshape(r_q, H * (dn + dr))).view(
-        B, S, H, dn + dr)
+    q = (q_lat @ p["wq_b"].to(dtype).reshape(r_q, H * dq)).view(B, S, H, dq)
     q_nope = q[..., :dn]
     q_rope = apply_rope(q[..., dn:], positions, cfg.rope_theta)
     kv_a = x @ p["wkv_a"].to(dtype)
@@ -606,6 +609,30 @@ def _mla_absorbed(p, q_nope, q_rope, c_all, kr_all, q_pos, valid, scale,
     return torch.einsum("bshr,rhv->bshv", ctx, p["wv_b"].to(dtype))
 
 
+def _mla_window(cache, c_kv, k_rope, cache_len: int, tp, dtype):
+    """The latent window the absorbed form attends, in ``dtype``, and its
+    valid slots: the whole cache as it stands, or, where a place holds
+    only its r (or dr) slice of it, the written prefix: the slots before
+    ``cache_len`` gathered over the model axis in rank order (none at
+    prefill), then the fresh c_kv and k_rope, which every place computes
+    whole (rounded to the cache's dtype as the cache holds them)."""
+    cc, cr = cache["c_kv"], cache["k_rope"]
+    lat, rope = tp.layout.get("latent"), tp.layout.get("rope")
+    if not (lat or rope):
+        valid = torch.arange(cc.shape[1], device=cc.device) < \
+            cache_len + c_kv.shape[1]
+        return cc.to(dtype), cr.to(dtype), valid
+    parts = []
+    for past, fresh, cut in ((cc, c_kv, lat), (cr, k_rope, rope)):
+        past = past[:, :cache_len]
+        if cut and cache_len:
+            past = tp.gather(past, dim=2)
+        parts.append(torch.cat([past, fresh.to(past.dtype)], dim=1).to(dtype))
+    valid = torch.ones(parts[0].shape[1], dtype=torch.bool,
+                       device=cc.device)
+    return parts[0], parts[1], valid
+
+
 def mla_block(p, x, cfg, positions, *, cache=None, cache_len=None,
               dtype=torch.bfloat16, flash=False):
     """DeepSeek-V2 multi-head latent attention.
@@ -618,27 +645,36 @@ def mla_block(p, x, cfg, positions, *, cache=None, cache_len=None,
     Without a cache (training): per-head k and v rebuilt and ``attention``.
     ``flash=True`` (the caller sets it only where positions are ``arange``
     from 0 and the cache is written from slot 0): the cache written, k and
-    v rebuilt, one flash kernel launch at (dn + dr, dv)."""
+    v rebuilt, one flash kernel launch at (dn + dr, dv).
+    Under tensor parallelism (``tp.layout``: "mla", "o", "latent",
+    "rope"): the place's heads of ``wq_b``, ``wk_b``, ``wv_b`` and ``wo``
+    (or ``wo``'s dv rows where the heads do not divide the model axis);
+    c_kv and k_rope are computed whole (``wkv_a`` is whole) and the place
+    writes its r slice of c_kv and its dr slice of k_rope to its cache
+    block; the absorbed form attends the latent prefix gathered back to
+    whole (``_mla_window``); the ``wo`` partials are added in rank order."""
+    tp = tensor_parallel() or ONE
     B, S, D = x.shape
-    H, dn, dr, dv = (cfg.num_heads, cfg.head_dim, cfg.rope_head_dim,
-                     cfg.v_head_dim)
+    r_kv, dr, dv = cfg.kv_lora_rank, cfg.rope_head_dim, cfg.v_head_dim
     if flash and cache is not None and cache_len != 0:
         raise ValueError("flash=True needs cache_len == 0 (prefill)")
     q_nope, q_rope, c_kv, k_rope = mla_projection(p, x, cfg, positions,
                                                   dtype)
     if cache is not None:
-        cache["c_kv"][:, cache_len:cache_len + S] = c_kv.to(
+        r_own = tp.cut(r_kv) if tp.layout.get("latent") else slice(None)
+        d_own = tp.cut(dr) if tp.layout.get("rope") else slice(None)
+        cache["c_kv"][:, cache_len:cache_len + S] = c_kv[..., r_own].to(
             cache["c_kv"].dtype)
-        cache["k_rope"][:, cache_len:cache_len + S] = k_rope.to(
+        cache["k_rope"][:, cache_len:cache_len + S] = k_rope[..., d_own].to(
             cache["k_rope"].dtype)
     if flash:
         q, k, v = mla_qkv(p, q_nope, q_rope, c_kv, k_rope, dtype)
         out = flash_attention(q, k, v, causal=True)
     elif cache is not None:
-        c_all, kr_all = cache["c_kv"].to(dtype), cache["k_rope"].to(dtype)
-        valid = torch.arange(c_all.shape[1], device=x.device) < cache_len + S
+        c_all, kr_all, valid = _mla_window(cache, c_kv, k_rope, cache_len,
+                                           tp, dtype)
         chunk = cfg.attn_chunk if cfg.attn_impl == "chunked" else S
-        scale = math.sqrt(dn + dr)
+        scale = math.sqrt(cfg.head_dim + dr)
         out = torch.cat([
             _mla_absorbed(p, q_nope[:, c:c + chunk], q_rope[:, c:c + chunk],
                           c_all, kr_all, positions[:, c:c + chunk], valid,
@@ -649,7 +685,11 @@ def mla_block(p, x, cfg, positions, *, cache=None, cache_len=None,
         out = attention(q, k, v, q_positions=positions, k_positions=positions,
                         causal=True, impl=cfg.attn_impl, chunk=cfg.attn_chunk,
                         dtype=dtype)
-    return out.reshape(B, S, H * dv) @ p["wo"].to(dtype).reshape(H * dv, D)
+    o_lay = tp.layout.get("o")
+    if o_lay == "hd":
+        out = out[..., tp.cut(dv)]
+    y = out.reshape(B, S, -1) @ p["wo"].to(dtype).reshape(-1, D)
+    return y if o_lay is None else tp.sum(y)
 
 
 # ----------------------------------------------------------------- MLPs

@@ -30,8 +30,14 @@ steps over a mesh, ``launch.steps``) a place holds the vocab rows
 token's row on the place that holds it and zero elsewhere, then sums the
 places in rank order (exact: one term is not zero); the logits of its
 columns are gathered in rank order to the whole padded vocab, so that
-``argmax`` is the reference's (ties to the lowest index).  The caches
-hold the place's kv heads or head_dim slice (``layers``' docstring).
+``argmax`` is the reference's (ties to the lowest index).  A cache or
+state is the place's block of ``launch.sharding.cache_specs``' cut
+(``init_cache``): its rows, kv heads or head_dim slice, MLA's r and dr
+slices, the mLSTM value dim, Mamba2's heads and conv channels; the
+mLSTM ``m`` state holds every row of the global batch (``_m_rows``).
+The loss over a mesh is the global batch's: the sum of nll and the
+label count of the place's rows, each added over the batch axes in rank
+order.
 The VLM is the dense stack; its loss puts the stub front end's
 ``patches`` ahead of the token embeddings (positions 0..P+S-1, the patch
 positions unlabelled).  Its prefill and decode read no patches: the
@@ -64,7 +70,12 @@ import torch
 from ..configs.base import ModelConfig
 from . import layers as LL
 from . import transformer as TR
-from .shardctx import bf16_grad_barrier, tensor_parallel
+from .shardctx import (
+    axis_size,
+    bf16_grad_barrier,
+    current_rules,
+    tensor_parallel,
+)
 
 __all__ = ["Model", "build_model", "compute_dtype", "SHAPES",
            "shape_applicable", "input_specs"]
@@ -284,8 +295,16 @@ class Model:
         logz = torch.logsumexp(logits, dim=-1)
         gold = logits.gather(-1, labels.clamp(min=0).long()[..., None])[..., 0]
         nll = (logz - gold) * mask
-        tok = torch.sum(mask)
-        loss = torch.sum(nll) / torch.clamp(tok, min=1.0)
+        nll, tok = torch.sum(nll), torch.sum(mask)
+        ctx = current_rules()
+        if ctx is not None and ctx[1].get("batch") is not None:
+            # the place's rows: both sums over the global batch, its
+            # places added in rank order
+            from ..launch.mesh import axis_group, ordered_sum
+
+            nll, tok = ordered_sum(torch.stack([nll, tok]), axis_group(
+                ctx[0], ctx[1]["batch"])).unbind(0)
+        loss = nll / torch.clamp(tok, min=1.0)
         if cfg.num_experts:
             loss = loss + 0.01 * aux / torch.full(
                 (), float(max(cfg.num_layers, 1)), device=aux.device)
@@ -304,16 +323,23 @@ class Model:
         in the reference.  The recurrent families' are their states:
         xLSTM's float32 (``transformer.init_xlstm_states``), the
         hybrid's in the compute dtype with a KV cache of ``cache_seq``
-        slots a group (``init_hybrid_states``); neither takes a ring."""
+        slots a group (``init_hybrid_states``); neither takes a ring.
+        Under the logical-axis rules (a place of a mesh) ``batch`` is the
+        place's rows, and each leaf is the place's block of the global
+        cache as ``launch.sharding.cache_specs`` cuts it
+        (``_cache_block``)."""
         cfg, dev = self.cfg, torch.device(self.device)
+        block = self._cache_block()
+        if block is not None:
+            batch = batch * axis_size("batch")
         if cfg.family == "xlstm":
-            return TR.init_xlstm_states(cfg, batch, dev)
+            return TR.init_xlstm_states(cfg, batch, dev, block=block)
         if cfg.family == "hybrid":
             return TR.init_hybrid_states(cfg, batch, cache_seq, dev,
-                                         dtype=compute_dtype(cfg))
+                                         dtype=compute_dtype(cfg),
+                                         block=block)
         c = TR.init_kv_caches(self.cfg, batch, cache_seq, dev,
-                              dtype=compute_dtype(self.cfg),
-                              **self._cache_block())
+                              dtype=compute_dtype(self.cfg), block=block)
         if self.cfg.family == "encdec":
             return {"self": c, "cross": None}
         if ring and not self.cfg.mla:
@@ -321,18 +347,62 @@ class Model:
                                    dtype=torch.int32, device=dev)
         return c
 
-    def _cache_block(self) -> dict:
-        """The kv heads and head_dim of a place's cache block under tensor
-        parallelism (its ``tp.layout["cache"]``, ``launch.sharding.
-        cache_specs``' cut); {} without it, and for MLA's latent cache
-        (whole)."""
-        cfg, tp = self.cfg, tensor_parallel()
-        lay = None if tp is None else tp.layout.get("cache")
-        if lay == "heads":
-            return {"kv_heads": cfg.num_kv_heads // tp.n}
-        if lay == "hd":
-            return {"head_dim": cfg.head_dim // tp.n}
-        return {}
+    @staticmethod
+    def _cache_block():
+        """Under the logical-axis rules (a place of a mesh): (path, global
+        shape) -> the shape of the place's block of that cache leaf under
+        ``launch.sharding.cache_specs`` (kv heads or head_dim, the latent's
+        r and dr, the mLSTM value dim, Mamba2's heads and conv channels,
+        the batch rows); None without rules (every leaf whole)."""
+        ctx = current_rules()
+        if ctx is None:
+            return None
+        from ..launch.sharding import cache_block_shape
+
+        mesh = ctx[0]
+        return lambda path, shape: cache_block_shape(path, shape, mesh)
+
+    def _m_rows(self, states, batch: int):
+        """The mLSTM m state (G, n_m, B, H) as a place steps it: ``cache_
+        specs`` cuts its dim 1, n_m, over the batch axes where they divide
+        it (the reference's rule for a 4-d state, which reads dim 1 as the
+        batch), so a place holds every row of the global batch, for all
+        blocks or for its share of them, while C and n hold its rows only.
+        Returns (the states with m replaced by the place's rows of the
+        whole m, gathered over m's axes in rank order, and a function that
+        writes them back: the stepped rows gathered over the batch axes,
+        the place's blocks of them copied into its m), or (states, None)
+        where nothing is cut."""
+        ctx = current_rules()
+        if ctx is None:
+            return states, None
+        from ..launch.mesh import axis_group, axis_sizes, gather_cat
+        from ..launch.sharding import (
+            _cache_spec,
+            batch_rows,
+            block_slices,
+            mesh_coords,
+        )
+
+        mesh, rules = ctx
+        m = states["m"][2]
+        n_m = TR._groups(self.cfg, self.cfg.xlstm_group)[1]
+        B = batch * axis_size("batch")
+        shape = (m.shape[0], n_m, B, m.shape[3])
+        ax = _cache_spec("m/2", shape, mesh)[1]
+        if ax is None and rules.get("batch") is None:
+            return states, None
+        whole = m if ax is None else gather_cat(m, axis_group(mesh, ax), 1)
+        rows = whole[:, :, batch_rows(mesh, rules, B)].clone()
+
+        def write_back():
+            new = rows if rules.get("batch") is None else gather_cat(
+                rows, axis_group(mesh, rules["batch"]), 2)
+            a, b = block_slices(shape, (None, ax, None, None),
+                                axis_sizes(mesh), mesh_coords(mesh))[1]
+            m.copy_(new[:, a:b])
+
+        return dict(states, m=states["m"][:2] + (rows,)), write_back
 
     def decode_step(self, params, batch):
         """One token against a populated cache, full or ring, or the
@@ -354,8 +424,12 @@ class Model:
                 params["stack"], x, cfg, positions, caches=cache["self"],
                 cache_len=pos, cross_kv=cache["cross"])
         else:
-            x, cache, _ = self._backbone(params, x, positions, caches=cache,
-                                         cache_len=pos)
+            states, write_back = (self._m_rows(cache, B)
+                                  if cfg.family == "xlstm" else (cache, None))
+            x, _, _ = self._backbone(params, x, positions, caches=states,
+                                     cache_len=pos)
+            if write_back is not None:
+                write_back()
         logits = self._logits(params, x)
         if cfg.padded_vocab != cfg.vocab_size:
             # never sample a padding row

@@ -86,9 +86,11 @@ class TensorParallel:
     calling place's coordinate ``rank`` on it, ``gather(x, dim)`` (every
     place's ``x`` concatenated along ``dim`` in rank order), ``sum(x)``
     (their sum in rank order), and ``layout``: role -> how the place's
-    block of it is cut ("q", "kv", "o", "cache": "heads", "hd" or None;
-    "mlp", "shared", "embed", "head": True where cut; a missing role is
-    whole)."""
+    block of it is cut ("q", "kv", "o", "cache", "ssm_o": "heads", "hd"
+    or None; "mlp", "shared", "embed", "head", MLA's "mla", "latent",
+    "rope", the mLSTM's "mlstm", the sLSTM's "slstm", Mamba2's "ssm",
+    "conv_x", "conv_bc": True where cut; a missing role is whole;
+    ``launch.sharding.tp_layout`` says which leaves each role covers)."""
 
     def __init__(self, n: int, rank: int, layout: dict,
                  gather: Callable, sum: Callable):

@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from .layers import _dense_init, silu_stepwise
+from .shardctx import ONE, tensor_parallel
 
 __all__ = ["ssm_dims", "init_mamba2", "_causal_conv", "_segsum",
            "ssd_chunked", "mamba2_block", "init_conv_cache"]
@@ -120,14 +121,40 @@ def ssd_chunked(x, log_a, B_, C_, chunk: int):
     return (y_diag + y_off).reshape(Bsz, L, H, P), final_state
 
 
+def _window(cache, fresh, lay: bool, own: slice, tp):
+    """A conv window rolled by one: the place's cache block ``cache`` (B,
+    ks, C or its ``own`` channel slice where ``lay``) without its oldest
+    row, then ``fresh`` (B, 1, C'), whose channels C' cover the block's.
+    Where they are not the block's channels the block is first gathered
+    to whole over the model axis in rank order.  Returns (the window over
+    C', the new block to write back)."""
+    past = cache[:, 1:]
+    if past.shape[2] != fresh.shape[2]:
+        past = tp.gather(past, dim=2)
+    win = torch.cat([past, fresh], dim=1)
+    if lay and win.shape[2] != cache.shape[2]:
+        return win, win[..., own]
+    return win, win
+
+
 def mamba2_block(p, x, cfg, *, state=None, conv_cache=None, chunk=256,
                  dtype=torch.bfloat16):
     """x (B, L, D) -> (out (B, L, D), final state (B, H, P, N) in
     ``dtype``, conv cache).  Decode: L == 1 with ``state`` and
     ``conv_cache`` {"x" (B, ks, H*P), "B", "C" (B, ks, N)}, whose rolled
-    window is returned (a new dict; the caller writes it back)."""
+    window is returned (a new dict; the caller writes it back).
+    Under tensor parallelism (``tp.layout`` "ssm", "ssm_o", "conv_x",
+    "conv_bc"): H is the place's SSM heads (its blocks of ``wz``, ``wx``,
+    ``w_dt``, ``dt_bias``, ``A_log``, ``D_skip``, ``out_norm``,
+    ``conv_x`` and the state); B and C are whole (``wB``, ``wC`` and
+    their convs are), the heads independent, the gated norm per head; the
+    conv windows are the place's channels (``_window``); the ``wo``
+    partials (its heads, or its P rows where the heads are whole) are
+    added in rank order."""
+    tp = tensor_parallel() or ONE
     Bsz, L, D = x.shape
-    _, H, P, N = ssm_dims(cfg)
+    _, _, P, N = ssm_dims(cfg)
+    H = p["wx"].shape[1]
 
     def proj(w):
         return x @ p[w].to(dtype).reshape(D, -1)
@@ -147,11 +174,15 @@ def mamba2_block(p, x, cfg, *, state=None, conv_cache=None, chunk=256,
         C_ = silu_stepwise(_causal_conv(C_, p["conv_C"].to(dtype)))
     else:
         ks = cfg.ssm_conv
-        cx = torch.cat([conv_cache["x"][:, 1:],
-                        xin.reshape(Bsz, 1, H * P)], dim=1)
-        cB = torch.cat([conv_cache["B"][:, 1:], B_], dim=1)
-        cC = torch.cat([conv_cache["C"][:, 1:], C_], dim=1)
-        new_conv_cache = {"x": cx, "B": cB, "C": cC}
+        cx, bx = _window(conv_cache["x"], xin.reshape(Bsz, 1, H * P),
+                         tp.layout.get("conv_x"),
+                         tp.cut(conv_cache["x"].shape[2] * tp.n), tp)
+        own = tp.cut(N)
+        cB, bB = _window(conv_cache["B"], B_, tp.layout.get("conv_bc"), own,
+                         tp)
+        cC, bC = _window(conv_cache["C"], C_, tp.layout.get("conv_bc"), own,
+                         tp)
+        new_conv_cache = {"x": bx, "B": bB, "C": bC}
         wx_ = p["conv_x"].reshape(ks, H * P).to(dtype)
         xin = silu_stepwise(torch.einsum("bkc,kc->bc", cx, wx_)).view(
             Bsz, 1, H, P)
@@ -182,7 +213,12 @@ def mamba2_block(p, x, cfg, *, state=None, conv_cache=None, chunk=256,
     yf = y.float() * silu_stepwise(z).float()
     var = (yf * yf).mean(dim=-1, keepdim=True)
     y = (yf * torch.rsqrt(var + 1e-6) * p["out_norm"]).to(dtype)
-    out = y.reshape(Bsz, L, H * P) @ p["wo"].to(dtype).reshape(H * P, D)
+    o_lay = tp.layout.get("ssm_o")
+    if o_lay == "hd":
+        y = y[..., tp.cut(P)]
+    out = y.reshape(Bsz, L, -1) @ p["wo"].to(dtype).reshape(-1, D)
+    if o_lay is not None:
+        out = tp.sum(out)
     return out, final_state.to(dtype), new_conv_cache
 
 

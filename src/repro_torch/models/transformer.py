@@ -161,22 +161,31 @@ def apply_dense_stack(params_L, x, cfg, positions, *, caches=None,
     return x, caches, aux
 
 
+def _full(path, shape, fill, block, **kw):
+    """A cache leaf of global ``shape`` filled with ``fill``; ``block``
+    (``Model._cache_block``: (path, global shape) -> the place's block
+    shape under ``launch.sharding.cache_specs``) makes it a place's
+    block."""
+    if block is not None:
+        shape = block(path, tuple(shape))
+    return torch.full(shape, fill, **kw)
+
+
 def init_kv_caches(cfg, batch, cache_seq, device, dtype=torch.bfloat16,
-                   kv_heads: int | None = None, head_dim: int | None = None):
-    """Zero caches of every layer; ``kv_heads`` and ``head_dim`` (default
-    the config's) give a place's block under tensor parallelism
-    (``Model.init_cache``)."""
+                   block=None):
+    """Zero caches of every layer; ``block`` gives a place's block of each
+    (``_full``) under tensor parallelism (``Model.init_cache``)."""
     L = cfg.num_layers
+    kw = dict(dtype=dtype, device=device)
     if cfg.mla:
-        return {"c_kv": torch.zeros((L, batch, cache_seq, cfg.kv_lora_rank),
-                                    dtype=dtype, device=device),
-                "k_rope": torch.zeros((L, batch, cache_seq,
-                                       cfg.rope_head_dim),
-                                      dtype=dtype, device=device)}
-    shape = (L, batch, cache_seq, kv_heads or cfg.num_kv_heads,
-             head_dim or cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+        return {"c_kv": _full("c_kv", (L, batch, cache_seq, cfg.kv_lora_rank),
+                              0, block, **kw),
+                "k_rope": _full("k_rope", (L, batch, cache_seq,
+                                           cfg.rope_head_dim), 0, block,
+                                **kw)}
+    shape = (L, batch, cache_seq, cfg.num_kv_heads, cfg.head_dim)
+    return {"k": _full("k", shape, 0, block, **kw),
+            "v": _full("v", shape, 0, block, **kw)}
 
 
 # ---------------------------------------------------------------- xlstm
@@ -234,18 +243,20 @@ def apply_xlstm_stack(params, x, cfg, *, states=None):
     return x, states
 
 
-def init_xlstm_states(cfg, batch, device):
+def init_xlstm_states(cfg, batch, device, block=None):
+    """Zero states (the sLSTM n ones), float32; ``block``: a place's
+    blocks (``_full``)."""
     G, n_m = _groups(cfg, cfg.xlstm_group)
     H, dh = cfg.num_heads, cfg.head_dim
     f32 = dict(dtype=torch.float32, device=device)
+    m_shapes = ((G, n_m, batch, H, dh, dh), (G, n_m, batch, H, dh),
+                (G, n_m, batch, H))
+    s = (G, batch, H, dh)
     return {
-        "m": (torch.zeros((G, n_m, batch, H, dh, dh), **f32),
-              torch.zeros((G, n_m, batch, H, dh), **f32),
-              torch.zeros((G, n_m, batch, H), **f32)),
-        "s": (torch.zeros((G, batch, H, dh), **f32),
-              torch.ones((G, batch, H, dh), **f32),
-              torch.zeros((G, batch, H, dh), **f32),
-              torch.zeros((G, batch, H, dh), **f32)),
+        "m": tuple(_full(f"m/{i}", sh, 0, block, **f32)
+                   for i, sh in enumerate(m_shapes)),
+        "s": tuple(_full(f"s/{i}", s, 1 if i == 1 else 0, block, **f32)
+                   for i in range(4)),
     }
 
 
@@ -300,16 +311,18 @@ def apply_hybrid_stack(params, x, cfg, positions, *, states=None,
     return x, states
 
 
-def init_hybrid_states(cfg, batch, cache_seq, device, dtype=torch.bfloat16):
+def init_hybrid_states(cfg, batch, cache_seq, device, dtype=torch.bfloat16,
+                       block=None):
+    """Zero states in ``dtype``; ``block``: a place's blocks (``_full``)."""
     G, n_m = _groups(cfg, cfg.hybrid_group)
     _, H, P, N = SSM.ssm_dims(cfg)
-    conv = SSM.init_conv_cache(cfg, batch, device, dtype)
+    kw = dict(dtype=dtype, device=device)
+    conv = SSM.init_conv_cache(cfg, batch, "meta", dtype)
     kv = (G, batch, cache_seq, cfg.num_kv_heads, cfg.head_dim)
     return {
-        "ssm": torch.zeros((G, n_m, batch, H, P, N), dtype=dtype,
-                           device=device),
-        "conv": {k: torch.zeros((G, n_m) + tuple(v.shape), dtype=dtype,
-                                device=device) for k, v in conv.items()},
-        "attn": {"k": torch.zeros(kv, dtype=dtype, device=device),
-                 "v": torch.zeros(kv, dtype=dtype, device=device)},
+        "ssm": _full("ssm", (G, n_m, batch, H, P, N), 0, block, **kw),
+        "conv": {k: _full(f"conv/{k}", (G, n_m) + tuple(v.shape), 0, block,
+                          **kw) for k, v in conv.items()},
+        "attn": {k: _full(f"attn/{k}", kv, 0, block, **kw)
+                 for k in ("k", "v")},
     }

@@ -25,6 +25,13 @@ The sLSTM recurrence is a Python loop over the sequence, as the
 reference's is a ``lax.scan``: no kernel exists for it in either package.
 A step is about 20 launches of PyTorch's own kernels (forward), so a
 training step at 1,024 tokens is launch-bound on the card.
+Tensor parallelism (the model axis's ``tp``, ``launch.sharding.
+tp_layout``): an mLSTM place holds a dv slice of every head (``wv``,
+``wz``, ``out_norm``, the rows of ``wo``, the C state) and q, k, the gates
+and n whole, so the parallel form and the step need no collective; the
+per-head norm's sum of squares (over dv, the cut dim) and the ``wo``
+partials are added over the places in rank order.  The sLSTM recurrence
+runs whole on every place, which holds the dh rows of ``wo``.
 """
 from __future__ import annotations
 
@@ -35,6 +42,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from .layers import _dense_init, silu_stepwise
+from .shardctx import ONE, tensor_parallel
 
 __all__ = ["NEG", "init_mlstm", "mlstm_block", "init_slstm", "slstm_block"]
 
@@ -65,15 +73,22 @@ def _heads(x, w, dtype):
     return (x @ w.to(dtype).reshape(D, -1)).view(B, L, *w.shape[1:])
 
 
-def _out(p, y, z, dtype):
+def _out(p, y, z, dtype, tp=None, dh: int = 0):
     """The per-head RMS norm (float32 statistics), the output gate silu(z)
-    and the output projection: (B, L, H, dh) -> (B, L, D)."""
-    B, L, H, dh = y.shape
+    and the output projection: (B, L, H, dv) -> (B, L, D).  ``tp``: the
+    place holds a dv slice of every head (the model axis's ``tp``, dh the
+    whole head's width): the norm's sum of squares is added over the
+    places in rank order, and so are the ``wo`` partials."""
+    B, L, H, dv = y.shape
     yf = y.float()
-    var = (yf * yf).mean(dim=-1, keepdim=True)
+    if tp is None:
+        var = (yf * yf).mean(dim=-1, keepdim=True)
+    else:
+        var = tp.sum((yf * yf).sum(dim=-1, keepdim=True)) / dh
     y = (yf * torch.rsqrt(var + 1e-6) * p["out_norm"]).to(dtype)
     y = y * silu_stepwise(z)
-    return y.reshape(B, L, H * dh) @ p["wo"].to(dtype).reshape(H * dh, -1)
+    out = y.reshape(B, L, H * dv) @ p["wo"].to(dtype).reshape(H * dv, -1)
+    return out if tp is None else tp.sum(out)
 
 
 def _mlstm_chunk(q, k, v, F_, li, start: int, cq: int, dtype):
@@ -103,6 +118,9 @@ def mlstm_block(p, x, cfg, *, state=None, chunk=1024, dtype=torch.bfloat16):
     one token, returning the new (C, n, m)."""
     B, L, D = x.shape
     dh = cfg.head_dim
+    tp = tensor_parallel()
+    if tp is not None and not tp.layout.get("mlstm"):
+        tp = None
     q = _heads(x, p["wq"], dtype).float() / math.sqrt(dh)
     k = _heads(x, p["wk"], dtype)
     v = _heads(x, p["wv"], dtype)
@@ -128,7 +146,7 @@ def mlstm_block(p, x, cfg, *, state=None, chunk=1024, dtype=torch.bfloat16):
         if state is None:
             H = cfg.num_heads
             f32 = dict(dtype=torch.float32, device=x.device)
-            C0 = torch.zeros((B, H, dh, dh), **f32)
+            C0 = torch.zeros((B, H, v.shape[-1], dh), **f32)
             n0 = torch.zeros((B, H, dh), **f32)
             m0 = torch.zeros((B, H), **f32)
         else:
@@ -146,7 +164,7 @@ def mlstm_block(p, x, cfg, *, state=None, chunk=1024, dtype=torch.bfloat16):
                             torch.exp(-m1))
         y = (num / den[..., None]).to(dtype)[:, None]
         new_state = (C1, n1, m1)
-    return _out(p, y, z, dtype), new_state
+    return _out(p, y, z, dtype, tp, dh), new_state
 
 
 def init_slstm(gen, cfg, dtype, device):
@@ -200,5 +218,10 @@ def slstm_block(p, x, cfg, *, state=None, dtype=torch.bfloat16):
         m = m1
         hs.append(h)
     hs = torch.stack(hs, dim=1).to(dtype)                     # (B, L, H, dh)
-    out = hs.reshape(B, L, H * dh) @ p["wo"].to(dtype).reshape(H * dh, D)
-    return out, (c, n, h, m)
+    tp = tensor_parallel() or ONE
+    cut = tp.layout.get("slstm")
+    if cut:
+        # the place's dh rows of wo: a partial, added in rank order
+        hs = hs[..., tp.cut(dh)]
+    out = hs.reshape(B, L, -1) @ p["wo"].to(dtype).reshape(-1, D)
+    return (tp.sum(out) if cut else out), (c, n, h, m)

@@ -286,16 +286,17 @@ def test_apply_moe_branches_and_gathers(runs):
 
 
 def test_refusals(runs):
-    """A recurrent family and a train step over a mesh still refuse,
-    naming their ROADMAP items; a dense family on a model axis of 2 no
-    longer does (its steps are ``tests/test_torch_dist_tp.py``'s)."""
+    """A train step over a mesh still refuses, naming its ROADMAP items
+    (3b, FSDP, and 3c, the gradient reduction); a dense family on a model
+    axis of 2 and a recurrent family's prefill no longer do (their steps
+    are ``tests/test_torch_dist_tp.py``'s and
+    ``tests/test_torch_dist_rest.py``'s)."""
     for got in runs[1]:
         assert str(got["err/dense_tp"]) == ""
         assert str(got["err/serve_tp"]) == ""
-        assert "xlstm family over a mesh" in str(got["err/recurrent"])
-        assert "item 3a.2" in str(got["err/recurrent"])
+        assert str(got["err/recurrent"]) == ""
         assert "train step over a mesh" in str(got["err/train"])
-        assert "item" in str(got["err/train"])
+        assert "items 3b and 3c" in str(got["err/train"])
 
 
 # ------------------------------------------------ the card (skipped here)

@@ -454,6 +454,45 @@ def test_async_overlap_is_measured_not_assumed(serving_graph):
                 f"wall {last[2]:.4f}s vs sync {last[3]:.4f}s")
 
 
+def modeled_hidden(engine) -> list[float]:
+    """The modeled pull time hidden behind compute, a request, read from
+    the engine's own records: in async mode request t's pull (its modeled
+    wire, retry penalty and virtual-link queue: ``modeled_s`` less the
+    modeled service slot) is issued when request t-1's service slot
+    begins, so up to one slot of it (``service_model_s``) ticks behind
+    that compute; request 0's, issued before the loop, hides none, and
+    nothing hides in sync mode.  Every term is on the virtual clock: the
+    host's scheduling cannot move it."""
+    svc = engine.source.config.service_model_s
+    return [min(r.modeled_s - svc, svc) if engine.prefetch and r.step > 0
+            else 0.0 for r in engine.recorder.records]
+
+
+def test_async_overlap_read_from_the_records(serving_graph):
+    """Beside the wall-clock check above (ROADMAP Queue 3 item 4): on the
+    same wire-dominated link the overlap read from the records
+    (``modeled_hidden``) equals JAX's request by request, bit for bit; the
+    async run hides a positive modeled pull time behind every request's
+    compute past the first (each pull outlasts its slot here, so a whole
+    slot), the sync run none."""
+    jp, tp, labels = _both(serving_graph)
+    bw, n = 5e4, 12
+    got = {}
+    for pkg in (jp, tp):
+        for prefetch in (False, True):
+            engine, src, _ = _engine(pkg, labels, prefetch=prefetch,
+                                     bandwidth=bw)
+            engine.run(n)
+            got[pkg.port, prefetch] = (records(engine),
+                                       modeled_hidden(engine))
+    svc = src.config.service_model_s
+    for prefetch in (False, True):
+        assert got[True, prefetch] == got[False, prefetch], prefetch
+    assert got[True, False][1] == [0.0] * n
+    hidden = got[True, True][1]
+    assert hidden[0] == 0.0 and hidden[1:] == [svc] * (n - 1), hidden
+
+
 def test_update_propagates_between_requests(serving_graph):
     """Serving is online DBPG: commits move the server weights, to the
     same ``w`` as JAX's within ``REL``; ``update=False`` leaves them."""

@@ -12,9 +12,8 @@ JAX's ``eval_shape`` and the port's model on the meta device.
 ``shard_params``' blocks on meshes (1, 4), (2, 2) and (16, 16), at every
 place, against ``NamedSharding(mesh, param_pspecs(...))
 .devices_indices_map`` computed by JAX on 256 forced host devices in one
-subprocess, with the two cuts the port does not make stated: the FSDP cut
-of a dense weight over ``data`` (the port keeps it whole over data) and
-MLA's attention leaves (whole).
+subprocess, with the one cut the port does not make stated: the FSDP cut
+of a dense weight over ``data`` (the port keeps it whole over data).
 """
 import os
 import pathlib
@@ -291,7 +290,7 @@ def test_shard_params_blocks_match_jax(jax_blocks, arch, mesh_name):
     (``shard_spec``, ``block_slices``) is JAX's ``NamedSharding`` block of
     the same leaf (its per-layer dims; the stacked layer dims whole),
     where a dense weight's dim cut over ``data`` (FSDP, not ported) is
-    whole and MLA's attention leaves are whole."""
+    whole: MLA's, the mLSTM's, the sLSTM's and Mamba2's leaves included."""
     import re
 
     cfg, jcfg = get_config(arch), jax_config(arch)
@@ -307,7 +306,6 @@ def test_shard_params_blocks_match_jax(jax_blocks, arch, mesh_name):
         lead = sum(isinstance(k, int) for k in path)
         want_all = jax_blocks[f"{arch}|{mesh_name}|{key}"]
         jspec = tuple(jspecs[key])[lead:]
-        mla_attn = cfg.mla and key.split("/")[-2:-1] == ["attn"]
         expert = re.search(r"moe/(wg|wu|wd)$", key) is not None
         spec = TS.shard_spec(cfg, key, tuple(leaf.shape), mesh)
         for place in range(dm * mm):
@@ -318,21 +316,48 @@ def test_shard_params_blocks_match_jax(jax_blocks, arch, mesh_name):
                 want[:lead], want_all[0, :lead, 1])), key
             want = [tuple(int(v) for v in w) for w in want[lead:]]
             for d, ax in enumerate(jspec):
-                if mla_attn or (ax == "data" and not expert):
+                if ax == "data" and not expert:
                     want[d] = (0, leaf.shape[d])
             assert list(got) == want, (key, coords, got, want)
         cut_over_model += "model" in spec
-    if mm > 1 and cfg.family not in ("xlstm", "hybrid"):
+    if mm > 1:
         assert cut_over_model > 0
+
+
+# the recurrent and MLA roles of ``tp_layout``: leaf (its key's end) ->
+# (role, the dim the role cuts); a role True cuts that dim
+_CUT_ROLES = {
+    "attn/wq_b": ("mla", 1), "attn/wk_b": ("mla", 1),
+    "attn/wv_b": ("mla", 1),
+    "mlstm/cell/wv": ("mlstm", 2), "mlstm/cell/wz": ("mlstm", 2),
+    "mlstm/cell/out_norm": ("mlstm", 1), "mlstm/cell/wo": ("mlstm", 1),
+    "slstm/cell/wo": ("slstm", 1),
+    "mamba/cell/wz": ("ssm", 1), "mamba/cell/wx": ("ssm", 1),
+    "mamba/cell/w_dt": ("ssm", 1), "mamba/cell/dt_bias": ("ssm", 0),
+    "mamba/cell/A_log": ("ssm", 0), "mamba/cell/D_skip": ("ssm", 0),
+    "mamba/cell/conv_x": ("ssm", 1), "mamba/cell/out_norm": ("ssm", 0),
+}
+# leaves that every role leaves whole (the layers compute them whole)
+_WHOLE = ("attn/wq_a", "attn/wkv_a", "attn/q_a_norm", "attn/kv_a_norm",
+          "mlstm/cell/wq", "mlstm/cell/wk", "mlstm/cell/w_i",
+          "mlstm/cell/w_f", "mamba/cell/wB", "mamba/cell/wC",
+          "mamba/cell/conv_B", "mamba/cell/conv_C")
+
+
+def _cache_cut(cfg, mesh, name, shape, dim) -> bool:
+    tree = {name: torch.empty(shape, device="meta")}
+    return TS.cache_specs(cfg, tree, mesh)[name][dim] is not None
 
 
 @pytest.mark.parametrize("mesh_name", list(BLOCK_MESHES))
 @pytest.mark.parametrize("arch", ARCHS)
 def test_tp_layout_agrees_with_the_blocks(arch, mesh_name):
-    """``tp_layout``, which the dense layers read, says of every attention,
-    MLP, ``embed`` and ``lm_head`` leaf the cut that ``shard_params``
-    makes of it (``shard_spec``), and of the KV cache the cut that
-    ``cache_specs`` makes."""
+    """``tp_layout``, which the layers read, says of every attention
+    (MLA's too), MLP, ``embed``, ``lm_head``, mLSTM, sLSTM and Mamba2
+    leaf the cut that ``shard_params`` makes of it (``shard_spec``), and
+    of the KV cache, MLA's latent cache, the mLSTM C, the SSM state and
+    the conv windows the cut that ``cache_specs`` makes; the leaves the
+    layers compute whole are whole."""
     cfg = get_config(arch)
     dm, mm = BLOCK_MESHES[mesh_name]
     mesh = types.SimpleNamespace(shape={"data": dm, "model": mm},
@@ -343,7 +368,7 @@ def test_tp_layout_agrees_with_the_blocks(arch, mesh_name):
     roles = {"attn/wq": ("q", 1), "attn/wk": ("kv", 1), "attn/wv": ("kv", 1),
              "attn/wo": ("o", 0), "xattn/wq": ("q", 1),
              "xattn/wk": ("kv", 1), "xattn/wv": ("kv", 1),
-             "xattn/wo": ("o", 0)}
+             "xattn/wo": ("o", 0), "mamba/cell/wo": ("ssm_o", 0)}
     seen = set()
     for path, leaf in tree_leaves_with_path(_port_params(arch)):
         key = TS._path_str(path, keep_index=False)
@@ -351,12 +376,21 @@ def test_tp_layout_agrees_with_the_blocks(arch, mesh_name):
         block = [b - a for a, b in TS.block_slices(
             shape, TS.shard_spec(cfg, key, shape, mesh), sizes, coords)]
         tail = "/".join(key.split("/")[-2:])
-        if tail in roles and not cfg.mla:
-            role, h = roles[tail]
+        tail3 = "/".join(key.split("/")[-3:])
+        if tail3 in roles or tail in roles:
+            role, h = roles[tail3 if tail3 in roles else tail]
             want = ("heads" if block[h] < shape[h]
                     else "hd" if block[h + 1] < shape[h + 1] else None)
             assert lay[role] == want, (key, block, lay)
             seen.add(role)
+        elif tail3 in _CUT_ROLES or tail in _CUT_ROLES:
+            role, d = _CUT_ROLES[tail3 if tail3 in _CUT_ROLES else tail]
+            assert lay[role] == (block[d] < shape[d]), (key, block, lay)
+            assert all(block[i] == shape[i] for i in range(len(shape))
+                       if i != d), (key, block)
+            seen.add(role)
+        elif tail3 in _WHOLE or tail in _WHOLE:
+            assert block == list(shape), (key, block)
         elif tail in ("mlp/wd", "shared/wd"):
             assert lay[tail.split("/")[0]] == (block[0] < shape[0]), key
             seen.add(tail.split("/")[0])
@@ -366,14 +400,32 @@ def test_tp_layout_agrees_with_the_blocks(arch, mesh_name):
                 assert lay["head"] == lay["embed"]
         elif key == "lm_head":
             assert lay["head"] == (block[1] < shape[1])
-    if cfg.mla or not cfg.num_heads:
+    if cfg.mla:
         assert "cache" not in lay
-    else:
+        assert lay["latent"] == _cache_cut(
+            cfg, mesh, "c_kv", (1, 1, 1, cfg.kv_lora_rank), 3)
+        assert lay["rope"] == _cache_cut(
+            cfg, mesh, "k_rope", (1, 1, 1, cfg.rope_head_dim), 3)
+        assert {"mla", "o"} <= seen, (arch, seen)
+    elif cfg.family != "xlstm":
         spec = TS.cache_specs(cfg, {"k": torch.empty(
             (1, 1, 1, cfg.num_kv_heads, cfg.head_dim), device="meta")},
             mesh)["k"]
         assert lay["cache"] == ("heads" if spec[3] else "hd" if spec[4]
                                 else None)
+    cache = TM.Model(cfg, "meta").init_cache(1, 1)
+    if cfg.family == "xlstm":
+        assert not {"q", "kv", "o", "cache"} & set(lay), lay
+        assert lay["mlstm"] == (TS.cache_specs(cfg, cache, mesh)["m"][0][4]
+                                is not None)
+        assert {"mlstm", "slstm"} <= seen, (arch, seen)
+    if cfg.family == "hybrid":
+        specs = TS.cache_specs(cfg, cache, mesh)
+        assert lay["ssm"] == (specs["ssm"][3] is not None)
+        assert lay["conv_x"] == (specs["conv"]["x"][4] is not None)
+        assert lay["conv_bc"] == (specs["conv"]["B"][4] is not None) == \
+            (specs["conv"]["C"][4] is not None)
+        assert {"ssm", "ssm_o", "q", "kv", "o"} <= seen, (arch, seen)
     if cfg.family in ("dense", "vlm", "encdec"):
         assert {"q", "kv", "o", "mlp"} <= seen, (arch, seen)
 

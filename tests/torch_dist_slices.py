@@ -1,5 +1,6 @@
 """Rank programs of ``tests/test_torch_dist_elastic.py``,
-``tests/test_torch_dist_moe.py`` and ``tests/test_torch_dist_tp.py``,
+``tests/test_torch_dist_moe.py``, ``tests/test_torch_dist_tp.py`` and
+``tests/test_torch_dist_rest.py``,
 started by ``torch_dist_ranks.run_ranks``
 (``spawn``, a ``file://`` store, one intra-op thread a rank).  pytest does
 not collect this module.  A spawned rank imports it by name, so it imports
@@ -201,12 +202,14 @@ def branch_spy():
 
 
 def run_steps(case: dict, params: dict, tokens: np.ndarray, mesh,
-              frames: np.ndarray | None = None) -> dict:
+              frames: np.ndarray | None = None,
+              step_gathered: list | None = None) -> dict:
     """A prefill and ``steps`` greedy decode steps of the port over
     ``mesh``: this place's rows of the logits and its block of the caches,
     the global tokens, and the bytes this place gathered in the prefill
     (over a process group; 0 in an emulated mesh).  ``frames``: the
-    encoder-decoder's global frame embeddings."""
+    encoder-decoder's global frame embeddings; ``step_gathered``, a list
+    that takes the bytes of each decode step."""
     import torch
 
     from repro_torch.configs import get_config
@@ -242,8 +245,12 @@ def run_steps(case: dict, params: dict, tokens: np.ndarray, mesh,
         tok = gather_stack(tok, axis_group(mesh, batch_ax)).reshape(-1)
     toks = [tok.numpy()]
     for i in range(case["steps"]):
+        if not emulated:
+            reset_gathered()
         tok, lg, cache = serve(mine, {"token": tok[:, None],
                                       "pos": case["S"] + i, "cache": cache})
+        if step_gathered is not None:
+            step_gathered.append(0 if emulated else GATHERED["bytes"])
         out[f"step{i}/logits"] = lg.float().numpy()
         toks.append(tok.numpy())
     out["tokens"] = np.stack(toks)
@@ -351,8 +358,8 @@ def moe_cases(rank: int, world: int, group, data_path: str) -> dict:
                 dict(zip(MESH_AXES, shape)), dtype=tdt, return_aux=True)
             out[f"apply_emu/{name}/out"] = y.float().numpy()
             out[f"apply_emu/{name}/aux"] = aux["aux_loss"].numpy()
-    # what still refuses over a mesh (a recurrent family, a train step)
-    # and what no longer does (a dense family on a model axis of 2: "")
+    # what still refuses over a mesh (a train step) and what no longer
+    # does (a dense family on a model axis of 2, a recurrent family: "")
     mesh = meshes[(2, 2)]
     out["err/dense_tp"] = np.asarray(_raises(
         lambda: make_prefill_step(get_config("qwen3-14b").reduced(), "cpu",
@@ -372,8 +379,7 @@ def moe_cases(rank: int, world: int, group, data_path: str) -> dict:
 def cache_block(cfg, key: str, arr: np.ndarray, shape, rank: int):
     """The block of a global cache leaf ``arr`` (``key`` its path under
     ``cache/``) that rank ``rank`` of a (data, model) mesh of ``shape``
-    holds: ``launch.sharding.cache_specs``' block, MLA's latent cache cut
-    by the batch only (MLA tensor parallelism is not ported)."""
+    holds: ``launch.sharding.cache_specs``' block."""
     import types
 
     import torch
@@ -389,8 +395,6 @@ def cache_block(cfg, key: str, arr: np.ndarray, shape, rank: int):
     specs = TS.cache_specs(cfg, tree, stand_in)
     for k in key.split("/"):
         specs = specs[k]
-    if cfg.mla:
-        specs = tuple(None if a == "model" else a for a in specs)
     del leaf
     coords = {"data": rank // m, "model": rank % m}
     return TS._block(torch.from_numpy(arr), specs, dict(zip(MESH_AXES, shape)),
@@ -504,4 +508,161 @@ def tp_cases(rank: int, world: int, group, data_path: str) -> dict:
                                lambda m, c=case, a=args: run_mlp(c, *a, m))
             for r, e in enumerate(emu):
                 out[f"emu{r}/mlp/{name}"] = e
+    return out
+
+
+# ------------------------------------------- MLA TP, recurrent, eval
+# name -> the reduced config's overrides, the (data, model) mesh, the
+# batch B, the prompt S, the cache length and the greedy decode steps
+# after it.  MLA: a prefill, then decode (``run_steps``).  The recurrent
+# families: the prefill step's loss on (tokens, labels), then decode from
+# zero states over the prompt (teacher forced) and the greedy steps.
+REST_CASES = {
+    # 4 heads, r = 32, dr = 8 on 4 model places: a head, 8 and 2 a place
+    "mla_1x4": dict(arch="deepseek-v2-236b", over={}, mesh=(1, 4), B=2,
+                    S=8, cache=12, steps=4),
+    "mla_2x2": dict(arch="deepseek-v2-236b", over={}, mesh=(2, 2), B=2,
+                    S=8, cache=12, steps=4),
+    # G = 1 group of 3 mLSTM blocks: n_m = 3 does not divide data, so the
+    # m state is whole on every place
+    "xlstm_1x4": dict(arch="xlstm-350m", over={"num_layers": 4},
+                      mesh=(1, 4), B=4, S=6, cache=10, steps=4),
+    "xlstm_2x2": dict(arch="xlstm-350m", over={"num_layers": 4},
+                      mesh=(2, 2), B=4, S=6, cache=10, steps=4),
+    # G = 2 groups of 2 mLSTM blocks: n_m = 2 divides data, so a place
+    # holds one block's m for every row of the global batch
+    "xlstm_g3_1x4": dict(arch="xlstm-350m",
+                         over={"xlstm_group": 3, "num_layers": 6},
+                         mesh=(1, 4), B=4, S=6, cache=10, steps=4),
+    "xlstm_g3_2x2": dict(arch="xlstm-350m",
+                         over={"xlstm_group": 3, "num_layers": 6},
+                         mesh=(2, 2), B=4, S=6, cache=10, steps=4),
+    # 8 SSM heads, N = 16, the shared attention's 4/2 heads
+    "hybrid_1x4": dict(arch="zamba2-2.7b", over={}, mesh=(1, 4), B=2, S=6,
+                       cache=10, steps=4),
+    "hybrid_2x2": dict(arch="zamba2-2.7b", over={}, mesh=(2, 2), B=4, S=6,
+                       cache=10, steps=4),
+}
+# name -> the eval step's (arch, overrides, mesh, (B, S))
+EVAL_CASES = {
+    "dense": ("qwen3-14b", {}, (2, 2), (4, 8)),
+    "moe": ("deepseek-v2-236b", {}, (2, 2), (4, 8)),
+    "recurrent": ("zamba2-2.7b", {}, (2, 2), (4, 8)),
+}
+
+
+def labels_of(tokens: np.ndarray) -> np.ndarray:
+    """Next-token labels of a prompt, the last position unlabelled."""
+    lab = np.roll(tokens, -1, axis=1).astype(np.int32)
+    lab[:, -1] = -1
+    return lab
+
+
+def run_recurrent(case: dict, params: dict, tokens: np.ndarray,
+                  mesh) -> dict:
+    """The recurrent families over ``mesh``: the prefill step's loss, then
+    ``Model.init_cache`` under the rules (the place's block of zero
+    states) and the serve step over the prompt and ``steps`` greedy
+    tokens.  The place's rows of every step's logits, its block of the
+    final states, the global tokens, and the bytes gathered (over a
+    process group; 0 in an emulated mesh) by the loss and by each step."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.convert import model_params_from_numpy
+    from repro_torch.launch.mesh import GATHERED, reset_gathered
+    from repro_torch.launch.sharding import (
+        activation_rules,
+        batch_rows,
+        mesh_rules,
+        shard_params,
+    )
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.tree import tree_leaves_with_path
+
+    cfg = get_config(case["arch"]).reduced(**case["over"])
+    full = model_params_from_numpy(cfg, params, device="cpu")
+    mine = shard_params(cfg, full, mesh)
+    model, prefill = make_prefill_step(cfg, "cpu", mesh=mesh)
+    _, serve = make_serve_step(cfg, "cpu", mesh=mesh)
+    emulated = not hasattr(mesh, "get_group")
+    B = tokens.shape[0]
+    reset_gathered()
+    loss = prefill(mine, {"tokens": tokens, "labels": labels_of(tokens)})
+    out = {"loss": loss.numpy(),
+           "loss_gathered": np.int64(0 if emulated else GATHERED["bytes"])}
+    rows = batch_rows(mesh, activation_rules(cfg, mesh, B), B)
+    with mesh_rules(cfg, mesh, B):
+        cache = model.init_cache(len(range(B)[rows]), case["cache"])
+    tok, toks = None, []
+    for i in range(case["S"] + case["steps"]):
+        feed = torch.from_numpy(tokens[:, i]) if i < case["S"] else tok
+        reset_gathered()
+        tok, lg, cache = serve(mine, {"token": feed[:, None], "pos": i,
+                                      "cache": cache})
+        out[f"step{i}/logits"] = lg.float().numpy()
+        out[f"step{i}/gathered"] = np.int64(0 if emulated
+                                            else GATHERED["bytes"])
+        toks.append(tok.numpy())
+    out["tokens"] = np.stack(toks)
+    for path, leaf in tree_leaves_with_path(cache):
+        out["cache/" + "/".join(map(str, path))] = leaf.float().numpy()
+    return out
+
+
+def run_mla(case: dict, params: dict, tokens: np.ndarray, mesh) -> dict:
+    """``run_steps``, with the bytes each decode step gathers (over a
+    process group; 0 in an emulated mesh)."""
+    seen = []
+    out = run_steps(case, params, tokens, mesh, step_gathered=seen)
+    out["decode_gathered"] = np.asarray(seen, np.int64)
+    return out
+
+
+def run_eval(case, params: dict, tokens: np.ndarray, mesh) -> dict:
+    """``make_eval_step(mesh=)``'s loss and label count."""
+    from repro_torch.configs import get_config
+    from repro_torch.convert import model_params_from_numpy
+    from repro_torch.launch.sharding import shard_params
+    from repro_torch.launch.steps import make_eval_step
+
+    arch, over, _, _ = case
+    cfg = get_config(arch).reduced(**over)
+    mine = shard_params(cfg, model_params_from_numpy(cfg, params,
+                                                     device="cpu"), mesh)
+    _, step = make_eval_step(cfg, "cpu", mesh=mesh)
+    m = step(mine, {"tokens": tokens, "labels": labels_of(tokens)})
+    return {k: v.numpy() for k, v in m.items()}
+
+
+def rest_cases(rank: int, world: int, group, data_path: str) -> dict:
+    """Every case of ``tests/test_torch_dist_rest.py`` on this rank: each
+    over a ``DeviceMesh`` of the 4 ranks, and on rank 0 the in-process
+    emulation of every place (``launch.mesh.emulate_mesh``)."""
+    import pickle
+
+    from repro_torch.launch.mesh import emulate_mesh
+
+    with open(data_path, "rb") as f:
+        data = pickle.load(f)
+    out, meshes = {}, {}
+
+    def one(name, fn, case, shape, args):
+        if shape not in meshes:
+            meshes[shape] = _device_mesh(shape)
+        got = fn(case, *args, meshes[shape])
+        out.update({f"{name}/{k}": v for k, v in got.items()})
+        if rank == 0:
+            emu = emulate_mesh(dict(zip(MESH_AXES, shape)),
+                               lambda m: fn(case, *args, m))
+            for r, e in enumerate(emu):
+                out.update({f"emu{r}/{name}/{k}": v for k, v in e.items()})
+
+    for name, case in REST_CASES.items():
+        fn = run_mla if case["arch"] == "deepseek-v2-236b" else run_recurrent
+        one(name, fn, case, case["mesh"],
+            (data["params"][name], data["tokens"][name]))
+    for name, case in EVAL_CASES.items():
+        one(f"eval/{name}", run_eval, case, case[2],
+            (data["eval_params"][name], data["eval_tokens"][name]))
     return out
