@@ -145,7 +145,7 @@ Phases, in order; any failure exits non-zero:
    with random bf16 weights drawn on the card, ``make_prefill_step`` at
    B=2, S=4,096 (one flash_attention launch per layer, against the plain
    route), layer 0's attention kernel against plain, greedy decode through
-   the serving engine (``decode_loop_engine``, batch 4, prompt 64, 32 new
+   the serving engine (``decode_loop_engine``, batch 4, prompt 32, 16 new
    tokens) bit-identical to ``decode_loop``, teacher forcing, cpu against
    cuda on the reduced config, peak device memory and a profile window of
    one prefill and one decode step;
@@ -208,11 +208,12 @@ Phases, in order; any failure exits non-zero:
    deepseek-v2-236b x 1 layer on mesh (1, 4), a rank's 32 of 128 heads,
    128 of 512 latent dims, 16 of 64 rope dims and 40 of 160 experts, the
    prefill at B=2, S=4,096 (one flash launch at (192, 128) on the rank's
-   heads) and 8 greedy decode steps at batch 4 after a 64-token prompt
+   heads) and 8 greedy decode steps at batch 4 after a 16-token prompt
    against the rank's latent block; (b) xlstm-350m x 1 group on mesh (2,
    2) and (c) zamba2-2.7b x 1 group on mesh (1, 4): the prefill step's
-   loss over the global batch at S=4,096, then decode from the rank's
-   block of zero states over a 64-token prompt and 8 greedy steps.  Each
+   loss over the global batch at S=1,024 and 4,096, then decode from the
+   rank's block of zero states over a 16-token prompt and 8 greedy
+   steps.  Each
    rank bit for bit its place of the in-process emulation, the tokens
    equal on every rank, the prefill logits or the loss within 5e-2 of
    the no-mesh route; the bytes gathered a call, prefill or loss
@@ -273,20 +274,20 @@ Phases, in order; any failure exits non-zero:
    at batch 4 (the prompt warmed step by step) bit-identical to
    ``decode_loop``, a profiled decode step (its kernels, busy time, idle
    share) beside its bound, teacher forcing (the parallel form's logits
-   against 64 decode steps at batch 2): the served bf16 model's
+   against 32 decode steps at batch 2): the served bf16 model's
    reported (a per-head RMS norm after a sum near 0 flips that head with
    a rounding, in the reference's two forms as in the port's), and a
    float32 model's within relative L2 5e-2; layer
    0's mLSTM at 2,048 tokens (two chunks of 1,024) against its
    recurrence, cpu against cuda on the reduced config, and
-   ``launch.train --arch xlstm-350m`` at batch 8 x 1,024 for one step (2
+   ``launch.train --arch xlstm-350m`` at batch 8 x 256 for one step (2
    microbatches, remat "full": the sLSTM's backward loop on the card),
    its losses and grad norms finite, step time, tokens/s, peak memory;
 16. the hybrid path (phase ``hybrid``): zamba2-2.7b at full width and depth
    (9 groups of 5 Mamba2 blocks and the one weight-tied attention layer,
    random bf16 weights, bf16 SSM state): ``decode_loop_engine`` at batch 4
    bit-identical to ``decode_loop`` (a KV cache a group), a profiled
-   decode step beside its bound, teacher forcing over 64 tokens as
+   decode step beside its bound, teacher forcing over 32 tokens as
    xLSTM's (bf16 reported, float32 within 5e-2), layer 0's Mamba2 at
    1,024 tokens (the SSD's four chunks of 256)
    against its recurrence, the parallel forward (``make_prefill_step``'s
@@ -317,6 +318,17 @@ Phases, in order; any failure exits non-zero:
    (within 1e-5), and its failure at step 6 with a checkpoint every 2
    steps, resumed bitwise (a full-width checkpoint, 34.9 GB, would not fit
    the disk writes a call has left after phase train's);
+17c. training over a (data x model) mesh (phase ``train_tp``,
+   ``launch.steps.make_train_step(mesh=)``): ``TRAIN_TP``'s three parts,
+   qwen3-14b x 1 on (1, 4), xlstm-350m x 8 and zamba2-2.7b x 6 on (2, 2),
+   over 4 gloo ranks on the card spawned once, 3 steps at batch 8 x
+   1,024 each after the no-mesh route's in this process: each rank's
+   losses, grad norms and sampled blocks against the no-mesh route's
+   (within 5e-2), every replicated leaf equal on its ranks after every
+   step, silu_stepwise launched and flash not; a step's seconds, the
+   forward, backward and remat bytes and gathers apart, and the peak a
+   rank; first, that two threads' backward passes cannot meet on the card
+   (an emulated mesh trains on the CPU only);
 18. each kernel timed at the shapes its path launches (CUDA events, median
    of 21 samples after warm-up; ``ms`` from launches replayed in a CUDA
    graph, ``eager_ms`` from launches made one by one from Python) beside
@@ -327,7 +339,9 @@ Phases, in order; any failure exits non-zero:
    at the per-round route's B=1,024, k=64 and at the main shape; the merge
    of a super-step at the parallel path's 8 workers and at one worker;
    ``parsa_scan`` over the main path's whole scan,
-   one launch, its plain version once, and its time a round;
+   one launch, and its time a round, and over its first
+   ``SCAN_PLAIN_BLOCKS`` blocks beside its plain version once, bit for
+   bit;
    ``refine_sweep`` at one chunk and sweep and over the main path's whole
    refine, with its chain of dependent steps; ``sketch_select`` on the
    scan's row lists at the sketch path's shape and at the main path's,
@@ -347,12 +361,14 @@ Phases, in order; any failure exits non-zero:
    prefill's (2, 4,096, 17,408) bfloat16 shapes, ``gelu_stepwise`` at
    whisper-medium's decoder step (8, 1, 4,096) and encoder (8, 1,500,
    4,096), each beside its plain chain and the one-rounding ``F.silu`` or
-   ``F.gelu``; these LM times are taken last, after the profile
-   windows), the main, the sketched and the
-   parallel scan and the whole refine under ``torch.profiler``: device
-   time per round, the device's idle share, and a parallel super-step's
-   kernels (one parsa_scan and one merge, no PyTorch kernel); and the
-   sketched scan's first blocks against ``parsa_scan_ref``.
+   ``F.gelu``; these LM times are taken last), the main, the sketched
+   and the parallel scan and the whole refine under ``torch.profiler``,
+   in a spawned process of their own (``times_windows``: late in a whole
+   run this process's profiler lost whole windows), what had
+   accumulated in each process before them logged: device time per
+   round, the device's idle share, and a parallel super-step's kernels
+   (one parsa_scan and one merge, no PyTorch kernel); and the sketched
+   scan's first blocks against ``parsa_scan_ref``.
 
 ``--phases build,kernels,sketch``, ``--phases build,kernels,parallel``,
 ``--phases build,dist``, ``--phases build,moe_ep``, ``--phases build,tp``,
@@ -362,8 +378,8 @@ Phases, in order; any failure exits non-zero:
 ``--phases build,kernels,moe``, ``--phases build,kernels,mla``,
 ``--phases build,kernels,encdec``, ``--phases build,kernels,vlm``,
 ``--phases build,kernels,xlstm``, ``--phases build,kernels,hybrid``,
-``--phases build,kernels,train`` and ``--phases build,kernels,train_moe`` are
-short checks of one path (they print no result and exit 1).
+``--phases build,kernels,train``, ``--phases build,kernels,train_moe`` and
+``--phases build,train_tp`` are short checks of one path (they print no result and exit 1).
 
 The last lines are the card, one ``{"kernels": [...]}`` JSON line and
 ``{"ok": true, "device": {...}}``.
@@ -388,11 +404,17 @@ LEAD_SPIN_CYCLES = 100_000_000
 PHASES = ("build", "kernels", "main", "parity", "sketch", "parallel",
           "dist", "stream", "elastic", "serving", "lm", "moe", "moe_ep", "tp",
           "tp_all", "mla", "encdec", "vlm", "xlstm", "hybrid", "train", "train_moe",
-          "times")
+          "train_tp", "times")
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, and the non-tensor fp32
 # rate, the only CUDA-core rate in that sheet; int32 and popcount work is
 # counted against it one operation per instruction.
+# what accumulates in the script's process ahead of phase times' profile
+# windows (ROADMAP Queue 3 item 5): torch.profiler sessions, CUDA graphs
+# captured and replayed, and the port's kernel launches on the paths
+# (each phase's counts at its end, summed: timing launches excluded)
+ACCUMULATED = {"profiler_sessions": 0, "cuda_graph_captures": 0,
+               "cuda_graph_replays": 0, "port_launches_on_paths": 0}
 HBM_BYTES_PER_S = 3.35e12
 CORE_OPS_PER_S = 67e12
 # dense bf16 tensor-core rate (same sheet): the bound of flash attention's
@@ -561,10 +583,11 @@ PORT_KERNELS = {
 # d_model 5,120, 40 query heads over 8 KV heads, head dim 128, d_ff 17,408,
 # vocab 151,936 padded to 152,064), random bf16 weights from SEED; the
 # prefill at B=2, S=4,096 into a 4,128-slot cache, the decode loop at
-# batch 4, a 64-token prompt and 32 new tokens.  Only num_layers may be cut
-# to fit the time limit, never a width.
+# batch 4, a 32-token prompt and 16 new tokens (64 and 32 until phase
+# train_tp needed the time; phases moe, mla, encdec and vlm take them
+# too).  Only num_layers may be cut to fit the time limit, never a width.
 LM = dict(arch="qwen3-14b", num_layers=None, seed=0, prefill_batch=2,
-          prefill_seq=4096, cache_seq=4128, serve_batch=4, prompt=64, gen=32)
+          prefill_seq=4096, cache_seq=4128, serve_batch=4, prompt=32, gen=16)
 LM_MAX_REL_L2 = 5e-2        # kernel route against plain route, and teacher forcing
 
 # the MoE serving path (phase moe): mixtral-8x22b at full width (d_model
@@ -574,7 +597,7 @@ LM_MAX_REL_L2 = 5e-2        # kernel route against plain route, and teacher forc
 # all, 40.9 GB of random bf16 weights from SEED; 56 layers would be 281 GB
 # and 12 about 61 GB before the prefill's transients).  The prefill at
 # B=2, S=8,192 (twice the window) into an 8,224-slot cache, the decode
-# loop at batch 4, a 64-token prompt and 32 new tokens, as phase lm.  The
+# loop at batch 4, a 32-token prompt and 16 new tokens, as phase lm.  The
 # ring cache runs the first 2 layers of the same weights with the window
 # cut to 256 (the one cut of a width: 320 decode steps wrap the 256-slot
 # ring), against a 320-slot full cache, teacher-forced at batch 1.  Layer
@@ -627,7 +650,7 @@ ENCDEC = dict(LM, arch="whisper-medium", phase="encdec", prefill_batch=8,
 # (855,703,552 parameters a layer, 2,101,346,304 of embedding and untied
 # head: 22.64 B in all, 45.3 GB of random bf16 weights from SEED; 80 layers
 # would be 141 GB).  Phase lm's prefill at B=2, S=4,096 of text (the
-# reference's prefill reads no patches), decode at batch 4 (prompt 64, 32
+# reference's prefill reads no patches), decode at batch 4 (prompt 32, 16
 # new tokens) and teacher forcing; the loss with patches at full width:
 # B=2, 256 patches normal(0, 0.1) ahead of 768 text tokens.
 VLM = dict(LM, arch="internvl2-76b", num_layers=24, phase="vlm",
@@ -636,27 +659,31 @@ VLM = dict(LM, arch="internvl2-76b", num_layers=24, phase="vlm",
 # blocks, 3 groups of 7 mLSTM + 1 sLSTM, d_model 1,024, 4 heads of 256,
 # vocab 50,304 padded to 50,432, attn_chunk 1,024), random weights from
 # SEED (matrices bf16, gates and recurrent weights float32).  Decode at
-# batch 4 (prompt 64 warmed step by step, 32 new tokens); teacher forcing
-# over 64 tokens at batch 2 (128 until phase tp_all needed the time), bf16
+# batch 4 (prompt 32 warmed step by step, 16 new tokens; 64 and 32 until
+# phase train_tp needed the time); teacher forcing over 32 tokens at
+# batch 2 (128 until phase tp_all, 64 until phase train_tp), bf16
 # (reported) and float32 (another draw of weights, gated); layer 0's mLSTM at 2,048 tokens (two chunks
-# of 1,024) against its recurrence; launch.train at batch 8 x 1,024, one
-# step (a depth cut for the script's time limit: 4 steps until phases
-# dist and moe_ep, 2 until phase tp needed the time; a step takes 16-21
-# s), the config's 2 microbatches and remat "full" (float32 masters).
-XLSTM = dict(arch="xlstm-350m", seed=0, serve_batch=4, prompt=64, gen=32,
-             tf_batch=2, tf_tokens=64, block_tokens=2048,
-             train=dict(batch=8, seq=1024, steps=1))
+# of 1,024) against its recurrence; launch.train at batch 8 x 256, one
+# step (depth cuts for the script's time limit: 4 steps until phases
+# dist and moe_ep, 2 until phase tp needed the time; sequence 1,024, 16-21
+# s a step, until phase train_tp, whose no-mesh route trains the same
+# model at 8 x 1,024), the config's 2 microbatches and remat "full"
+# (float32 masters).
+XLSTM = dict(arch="xlstm-350m", seed=0, serve_batch=4, prompt=32, gen=16,
+             tf_batch=2, tf_tokens=32, block_tokens=2048,
+             train=dict(batch=8, seq=256, steps=1))
 # the hybrid path (phase hybrid): zamba2-2.7b at full width and depth (54
 # layers = 9 groups of 5 Mamba2 blocks and the one weight-tied attention
 # layer; d_model 2,560, 80 SSM heads of 64, state 64, conv 4; attention 32
 # heads of 80, d_ff 10,240; vocab 32,000), random bf16 weights from SEED,
 # the SSM state and conv window bf16 as in the reference.  Decode at batch
-# 4 (prompt 64 warmed step by step, 32 new tokens, a KV cache a group);
-# teacher forcing over 64 tokens at batch 2 as xLSTM's; layer 0's Mamba2
+# 4 (prompt 32 warmed step by step, 16 new tokens, a KV cache a group;
+# cut as xLSTM's); teacher forcing over 32 tokens at batch 2 as xLSTM's;
+# layer 0's Mamba2
 # at 1,024 tokens (the SSD's four chunks of 256) against its recurrence; the
 # parallel forward (make_prefill_step's loss) at B=2 x S=4,096.
-HYBRID = dict(arch="zamba2-2.7b", seed=0, serve_batch=4, prompt=64, gen=32,
-              tf_batch=2, tf_tokens=64, block_tokens=1024, prefill_batch=2,
+HYBRID = dict(arch="zamba2-2.7b", seed=0, serve_batch=4, prompt=32, gen=16,
+              tf_batch=2, tf_tokens=32, block_tokens=1024, prefill_batch=2,
               prefill_seq=4096)
 FLASH_TOL = {"float32": 3e-5, "bfloat16": 2e-2}
 
@@ -729,10 +756,13 @@ TP_DEADLINE_S = 300
 # layer on mesh (1, 4), 5.02 B parameters, a rank 32 of 128 heads, 128 of
 # 512 latent dims, 16 of 64 rope dims and 40 of 160 experts; the prefill
 # at B=2, S=4,096 (one flash launch at (192, 128) on a rank's 32 heads),
-# then a 64-token prompt at batch 4 and 8 greedy decode steps against the
-# rank's block of the latent cache.  (b) xlstm-350m x 1 group (7 mLSTM +
-# 1 sLSTM) on mesh (2, 2): the prefill step's loss at B=4, S=4,096 over
-# the global batch, then decode from zero states over a 64-token prompt at
+# then a 16-token prompt at batch 4 and 8 greedy decode steps against the
+# rank's block of the latent cache (a 64-token prompt until phase
+# train_tp needed the time: the parts' emulation bounds the phase).  (b) xlstm-350m x 1 group (7 mLSTM +
+# 1 sLSTM) on mesh (2, 2): the prefill step's loss at B=4, S=1,024 (4,096
+# until phase train_tp needed the time: its emulation, GIL-bound, took
+# 35-46 s of the phase) over
+# the global batch, then decode from zero states over a 16-token prompt at
 # batch 4 and 8 greedy steps.  (c) zamba2-2.7b x 1 group (5 Mamba2 + the
 # shared attention layer) on mesh (1, 4), a rank 20 of 80 SSM heads and 8
 # of 32 attention heads: the loss at B=2, S=4,096, then the same decode.
@@ -741,13 +771,48 @@ TP_DEADLINE_S = 300
 # LM_MAX_REL_L2.
 TP_ALL = {
     "mla": dict(arch="deepseek-v2-236b", num_layers=1, seed=0, mesh=(1, 4),
-                prefill=(2, 4096), decode=(4, 64, 8)),
+                prefill=(2, 4096), decode=(4, 16, 8)),
     "xlstm": dict(arch="xlstm-350m", num_layers=8, seed=0, mesh=(2, 2),
-                  loss=(4, 4096), decode=(4, 64, 8)),
+                  loss=(4, 1024), decode=(4, 16, 8)),
     "hybrid": dict(arch="zamba2-2.7b", num_layers=6, seed=0, mesh=(1, 4),
-                   loss=(2, 4096), decode=(4, 64, 8)),
+                   loss=(2, 4096), decode=(4, 16, 8)),
 }
 TP_ALL_DEADLINE_S = 300
+# training over a (data x model) mesh (phase train_tp): make_train_step
+# with mesh= at full width, float32 masters cast to bf16 at every product,
+# each config's own microbatches and remat, 3 steps at batch 8 x sequence
+# 1,024 of SyntheticLMData(seed 0), the last 2 timed; 4 gloo ranks on the
+# one card, spawned once for the three parts, each rank's blocks drawn
+# one rank at a time (draw_blocks).  (a) qwen3-14b x 1 layer on (1, 4):
+# 1.89 B parameters, 30 GB of state at 16 B a parameter (master,
+# gradient, m, v), 7.6 GB a rank; (2, 2) would hold 15 GB a rank.  (b)
+# xlstm-350m x 8 layers (one group: 7 mLSTM + 1 sLSTM) on (2, 2): the
+# value-dim cut and the gradient sum over data.  (c) zamba2-2.7b x 6
+# layers (one group: 5 Mamba2 + the shared attention) on (2, 2).  (b) and
+# (c) compute in float32 (their masters' dtype): in bf16 the recurrent
+# families' gradients move by O(1) a leaf under a 1e-3 change of the
+# weights (a CPU run of the reduced configs on an emulated (2, 2):
+# xlstm-350m's grad norm 2.46 over the mesh against 5.35 without it,
+# within what the perturbation alone moves it), so no tolerance would
+# hold another order of bf16 sums to them; (a) is bf16.  Before the
+# ranks, the script's process runs the no-mesh train step from the same
+# masters and batches and frees it.  Each rank's losses and
+# grad_norms are held to the no-mesh route's within LM_MAX_REL_L2
+# (relative), and its blocks after the steps within LM_MAX_REL_L2
+# (relative L2 over every TRAIN_TP_SAMPLE-th element of each leaf block:
+# the whole blocks would be 7.6 GB to carry across); every leaf that
+# several ranks hold is equal on them bit for bit after every step (an
+# exact int64 checksum of its bits on the card).
+TRAIN_TP = {
+    "a": dict(arch="qwen3-14b", num_layers=1, mesh=(1, 4)),
+    "b": dict(arch="xlstm-350m", num_layers=8, mesh=(2, 2),
+              dtype="float32"),
+    "c": dict(arch="zamba2-2.7b", num_layers=6, mesh=(2, 2),
+              dtype="float32"),
+}
+TRAIN_TP_RUN = dict(batch=8, seq=1024, steps=3, seed=0, lr=3e-4)
+TRAIN_TP_SAMPLE = 97
+TRAIN_TP_DEADLINE_S = 420
 # the elementwise kernels' checks and times (phases kernels and times)
 ELEMENTWISE_N = {"bfloat16": 64 << 20, "float32": 16 << 20}
 ELEMENTWISE_SHAPES = {
@@ -5162,12 +5227,13 @@ def rank_end(dev) -> dict:
         "card_used_gb": np.float64((total - free) / 1e9)}
 
 
-def draw_blocks(cfg, dev, mesh, seed: int, full=None):
+def draw_blocks(cfg, dev, mesh, seed: int, full=None, master=False):
     """The place's blocks (``shard_params``) of ``cfg``'s model drawn from
-    ``seed``: cut from ``full`` where it is given (an emulated place), else
-    drawn whole on the card and cut by one rank of the default process
-    group at a time, a barrier between, so that the card holds one whole
-    tree at most beside the ranks' blocks."""
+    ``seed`` (float32 masters with ``master``): cut from ``full`` where it
+    is given (an emulated place), else drawn whole on the card and cut by
+    one rank of the default process group at a time, a barrier between,
+    so that the card holds one whole tree at most beside the ranks'
+    blocks."""
     import torch
     import torch.distributed as dist
 
@@ -5179,7 +5245,7 @@ def draw_blocks(cfg, dev, mesh, seed: int, full=None):
     params = None
     for r in range(dist.get_world_size()):
         if r == dist.get_rank():
-            whole = build_model(cfg, dev).init(seed)
+            whole = build_model(cfg, dev).init(seed, master=master)
             params = shard_params(cfg, whole, mesh)
             del whole
             torch.cuda.empty_cache()
@@ -7037,6 +7103,330 @@ def phase_train_moe(dev, tr: dict = TRAIN_MOE) -> dict:
 
 
 # ---------------------------------------------------------------- phase 8
+def leaf_checksums(tree):
+    """One exact int64 checksum of every leaf's float32 bits, on the card
+    (the bits weighted by their position mod 65,521 and summed in int64,
+    which wraps: integer sums in any order give the same value): equal
+    leaves give equal checksums."""
+    import torch
+
+    from repro_torch.tree import tree_leaves
+
+    sums = []
+    for t in tree_leaves(tree):
+        w = t.detach().reshape(-1).view(torch.int32)
+        acc = torch.zeros((), dtype=torch.int64, device=t.device)
+        for i in range(0, w.numel(), 1 << 24):
+            c = w[i:i + (1 << 24)].to(torch.int64)
+            pos = torch.arange(i, i + c.numel(), dtype=torch.int64,
+                               device=t.device) % 65521 + 1
+            acc += (c * pos).sum()
+        sums.append(acc)
+    return torch.stack(sums).cpu().numpy()
+
+
+def leaf_samples(tree) -> list:
+    """Every TRAIN_TP_SAMPLE-th element of each leaf (float32, on the
+    host), in tree order."""
+    from repro_torch.tree import tree_leaves
+
+    return [t.detach().reshape(-1)[::TRAIN_TP_SAMPLE].float().cpu().numpy()
+            for t in tree_leaves(tree)]
+
+
+def train_tp_cfg(spec: dict):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(spec["arch"])
+    return dataclasses.replace(cfg, num_layers=spec["num_layers"],
+                               dtype=spec.get("dtype", cfg.dtype))
+
+
+def train_tp_rank(rank: int, world: int, backend: str, store: str,
+                  out_dir: str, device: str, parts: dict, run: dict) -> None:
+    """One gloo rank of phase train_tp (started with spawn): for each part
+    of ``parts``, a ``DeviceMesh`` of its shape (device type cpu: it only
+    holds the groups), the rank's float32 blocks (``draw_blocks``, one
+    rank at a time), ``run["steps"]`` steps of ``make_train_step(mesh=)``
+    on the global batches; each step's loss, grad_norm, seconds, bytes
+    and gathers (forward, backward, remat), the checksums of its blocks
+    after it, its peak, launches and samples of its final blocks go to
+    ``rank<r>.npz`` under the part's tag."""
+    import datetime
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.launch.mesh import GATHERED, reset_gathered
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import AdamWConfig, init_opt_state
+
+    dev = torch.device(device)
+    torch.cuda.set_device(dev)
+    dist.init_process_group(backend, init_method=store, rank=rank,
+                            world_size=world, timeout=datetime.timedelta(
+                                seconds=DIST_GROUP_TIMEOUT_S))
+    out = {}
+    try:
+        for tag, spec in parts.items():
+            cfg = train_tp_cfg(spec)
+            mesh = init_device_mesh("cpu", spec["mesh"],
+                                    mesh_dim_names=("data", "model"))
+            torch.cuda.reset_peak_memory_stats(dev)
+            params = draw_blocks(cfg, dev, mesh, run["seed"], master=True)
+            opt_cfg = AdamWConfig(lr=run["lr"], moment_dtype=cfg.opt_dtype)
+            _, step, _, _ = make_train_step(cfg, dev, opt_cfg, mesh=mesh)
+            opt = init_opt_state(params, opt_cfg)
+            got = rank_start(dev, params)
+            data = SyntheticLMData(cfg.vocab_size, run["batch"], run["seq"],
+                                   seed=run["seed"])
+            rows = {k: [] for k in ("loss", "grad_norm", "step_s",
+                                    "checksums")}
+            rows.update({f"gathered_{k}": [] for k in GATHERED})
+            for t in range(run["steps"]):
+                batch = data.batch_at(t)
+                reset_gathered()
+                torch.cuda.synchronize(dev)
+                t0 = time.perf_counter()
+                params, opt, met = step(params, opt, batch)
+                torch.cuda.synchronize(dev)
+                rows["step_s"].append(time.perf_counter() - t0)
+                rows["loss"].append(float(met["loss"]))
+                rows["grad_norm"].append(float(met["grad_norm"]))
+                for k, v in GATHERED.items():
+                    rows[f"gathered_{k}"].append(v)
+                rows["checksums"].append(leaf_checksums(params))
+            got.update(rank_end(dev))
+            got.update({k: np.asarray(v) for k, v in rows.items()})
+            for i, a in enumerate(leaf_samples(params)):
+                got[f"sample/{i}"] = a
+            out.update({f"{tag}/{k}": v for k, v in got.items()})
+            del params, opt, step, got
+            torch.cuda.empty_cache()
+            dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    np.savez(pathlib.Path(out_dir) / f"rank{rank}.npz", **out)
+
+
+def emulated_backward_on_card(dev) -> dict:
+    """Whether two threads' backward passes can meet in a collective on
+    one card, as an emulated mesh's places would: each thread runs a
+    backward through a function whose backward waits (at most 2 s) for
+    the other thread's at a barrier.  PyTorch's autograd engine runs a
+    card's backward nodes on one worker thread of that device, so the
+    first node to wait holds the only thread that could run the other's."""
+    import threading as th
+
+    import torch
+
+    barrier = th.Barrier(2, timeout=2)
+
+    class Meet(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x):
+            return x.clone()
+
+        @staticmethod
+        def backward(ctx, g):
+            barrier.wait()
+            return g
+
+    done, errors = [], []
+
+    def place():
+        x = torch.ones(4, device=dev, requires_grad=True)
+        try:
+            Meet.apply(x * 2).sum().backward()
+        except th.BrokenBarrierError as e:
+            errors.append(type(e).__name__)
+            return
+        done.append(True)
+
+    t0 = time.perf_counter()
+    threads = [th.Thread(target=place) for _ in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(30)
+    check(not any(t.is_alive() for t in threads),
+          "emulated backward on the card: a thread still ran after 30 s")
+    return {"met": len(done) == 2, "errors": errors,
+            "seconds": time.perf_counter() - t0}
+
+
+def phase_train_tp(dev, parts: dict = TRAIN_TP,
+                   run: dict = TRAIN_TP_RUN) -> dict:
+    """Training over a (data x model) mesh (``launch.steps.
+    make_train_step(mesh=)``): ``TRAIN_TP``'s three parts over 4 gloo
+    ranks on this card, after the no-mesh route of each in the script's
+    process (see ``TRAIN_TP``).  The emulated mesh does not run a backward
+    on the card (``emulated_backward_on_card``): the ranks are held to the
+    no-mesh route, to each other where they hold the same leaf, and on the
+    CPU to the emulation bit for bit (``tests/test_torch_dist_train*``)."""
+    import tempfile
+    import types
+
+    import numpy as np
+    import torch
+
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.launch.sharding import replica_axes, shard_params
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.model import Model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.tree import tree_leaves, tree_leaves_with_path
+
+    out = {"card": card_line()}
+    t_phase = time.perf_counter()
+    out["emulated_backward"] = emulated_backward_on_card(dev)
+    log(f"train_tp: two threads' backward meeting on the card: "
+        f"{json.dumps(out['emulated_backward'])}")
+    axes = ("data", "model")
+    refs = {}
+    for tag, spec in parts.items():
+        cfg = train_tp_cfg(spec)
+        opt_cfg = AdamWConfig(lr=run["lr"], moment_dtype=cfg.opt_dtype)
+        _, step, init, _ = make_train_step(cfg, dev, opt_cfg)
+        data = SyntheticLMData(cfg.vocab_size, run["batch"], run["seq"],
+                               seed=run["seed"])
+        torch.cuda.reset_peak_memory_stats(dev)
+        params, opt = init(run["seed"])
+        ref = {"loss": [], "grad_norm": [], "step_s": []}
+        for t in range(run["steps"]):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            params, opt, met = step(params, opt, data.batch_at(t))
+            torch.cuda.synchronize(dev)
+            ref["step_s"].append(time.perf_counter() - t0)
+            ref["loss"].append(float(met["loss"]))
+            ref["grad_norm"].append(float(met["grad_norm"]))
+        ref["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+        ref["params"] = sum(t.numel() for t in tree_leaves(params))
+        del opt, met, step
+        torch.cuda.empty_cache()
+        d, m = spec["mesh"]
+        stand_in = types.SimpleNamespace(shape=dict(zip(axes, (d, m))),
+                                         axis_names=axes)
+        ref["samples"] = []
+        for r in range(d * m):
+            coords = {"data": r // m, "model": r % m}
+            mine = shard_params(cfg, params, stand_in, coords=coords)
+            ref["samples"].append(leaf_samples(mine))
+            del mine
+        shapes = Model(cfg, torch.device("meta")).init(master=True)
+        reps = replica_axes(cfg, shapes, stand_in)
+        ref["groups"] = []
+        for path, _ in tree_leaves_with_path(shapes):
+            rep = reps
+            for k in path:
+                rep = rep[k]
+            cut = [a for a in axes if a not in rep]
+            groups: dict = {}
+            for r in range(d * m):
+                c = {"data": r // m, "model": r % m}
+                groups.setdefault(tuple(c[a] for a in cut), []).append(r)
+            ref["groups"].append([g for g in groups.values() if len(g) > 1])
+        del params
+        torch.cuda.empty_cache()
+        refs[tag] = ref
+        log(f"train_tp {tag} no-mesh: {cfg.name} x{cfg.num_layers} "
+            f"({cfg.dtype}), "
+            f"{ref['params']:,} parameters, losses {ref['loss']}, "
+            f"grad_norms {ref['grad_norm']}, steps "
+            f"{[round(x, 3) for x in ref['step_s']]} s, peak "
+            f"{ref['peak_gb']:.2f} GB")
+    tmp = tempfile.TemporaryDirectory()
+    t0 = time.perf_counter()
+    ranks_all = run_ranks(train_tp_rank, 4, "gloo",
+                          pathlib.Path(tmp.name) / "ranks",
+                          lambda r: str(dev), TRAIN_TP_DEADLINE_S,
+                          "train_tp", parts, run)
+    out["ranks_s"] = time.perf_counter() - t0
+    tmp.cleanup()
+    for tag, spec in parts.items():
+        cfg, ref = train_tp_cfg(spec), refs.pop(tag)
+        name = f"train_tp {tag} gloo x4"
+        ranks = part_of(ranks_all, tag)
+        rows = []
+        for r, got in enumerate(ranks):
+            check(np.all(np.isfinite(got["loss"])),
+                  f"{name} rank {r}: losses {got['loss']}")
+            for k in ("loss", "grad_norm"):
+                check(np.array_equal(got[k], ranks[0][k]),
+                      f"{name}: rank {r}'s {k} {got[k]} differ from rank "
+                      f"0's {ranks[0][k]}")
+            rel = {k: [abs(a - b) / abs(b) for a, b in zip(got[k], ref[k])]
+                   for k in ("loss", "grad_norm")}
+            for k, v in rel.items():
+                check(max(v) <= LM_MAX_REL_L2,
+                      f"{name} rank {r}: {k} {list(got[k])} against the "
+                      f"no-mesh route's {ref[k]}: relative {v}")
+            want = ref["samples"][r]
+            num = sum(float(((got[f"sample/{i}"].astype(np.float64)
+                              - w.astype(np.float64)) ** 2).sum())
+                      for i, w in enumerate(want))
+            den = sum(float((w.astype(np.float64) ** 2).sum()) for w in want)
+            params_l2 = (num / den) ** 0.5
+            check(params_l2 <= LM_MAX_REL_L2,
+                  f"{name} rank {r}: blocks after {run['steps']} steps "
+                  f"{params_l2:.3e} (relative L2, sampled) from the "
+                  f"no-mesh route's")
+            launches = json.loads(str(got["launches"]))
+            check(launches.get("silu_stepwise", 0) > 0
+                  and launches.get("flash_attention", 0) == 0,
+                  f"{name} rank {r}: launches {launches}")
+            rows.append({
+                "step_s": [float(x) for x in got["step_s"]],
+                "timed_step_s": float(np.mean(got["step_s"][1:])),
+                "loss_rel": rel["loss"], "grad_norm_rel": rel["grad_norm"],
+                "params_rel_l2_sampled": params_l2,
+                **{f"{k}_a_step": [int(x) for x in got[f"gathered_{k}"]]
+                   for k in ("bytes", "calls", "bwd_bytes", "bwd_calls",
+                             "remat_bytes", "remat_calls")},
+                # of "bytes": the float32 gradients' one sum over the
+                # batch axes (data's d places) a step
+                "grad_sum_bytes_a_step": (spec["mesh"][0] * int(round(
+                    float(got["params_gb"]) * 1e9)) if spec["mesh"][0] > 1
+                    else 0),
+                "peak_gb": float(got["peak_gb"]),
+                "peak_gb_init": float(got["peak_gb_init"]),
+                "params_gb": float(got["params_gb"]),
+                "launches": launches})
+        held = 0
+        for step in range(run["steps"]):
+            for i, groups in enumerate(ref["groups"]):
+                for g in groups:
+                    for r in g[1:]:
+                        check(ranks[r]["checksums"][step][i]
+                              == ranks[g[0]]["checksums"][step][i],
+                              f"{name}: leaf {i} differs on ranks {g} "
+                              f"after step {step}")
+                        held += 1
+        out[tag] = {"per_rank": rows, "no_mesh": {
+            k: ref[k] for k in ("loss", "grad_norm", "step_s", "peak_gb",
+                                "params")}, "replica_pairs_held": held}
+        log(f"{name} on one card: {cfg.name} x{cfg.num_layers} on mesh "
+            f"{spec['mesh']}, {run['steps']} steps at B={run['batch']} "
+            f"S={run['seq']}, losses {[float(x) for x in ranks[0]['loss']]} "
+            f"(no-mesh {ref['loss']}), grad_norms "
+            f"{[float(x) for x in ranks[0]['grad_norm']]} "
+            f"(no-mesh {ref['grad_norm']}); every replicated leaf equal on "
+            f"its ranks after every step ({held} leaf-rank pairs); "
+            f"card {out['card']}")
+        for r, row in enumerate(rows):
+            log(f"  {name} rank {r}: " + json.dumps(row))
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"train_tp: the ranks ran the three parts in {out['ranks_s']:.2f} "
+        f"s; the phase {out['seconds']:.2f} s")
+    return out
+
+
 def time_ms(fn, inner: int, samples: int = 21) -> float:
     """Median per-call time over ``samples`` CUDA-event windows of ``inner``
     calls each, after one warm-up call."""
@@ -7073,6 +7463,8 @@ def time_graph_ms(fn, inner: int, samples: int = 21) -> float:
     with torch.cuda.graph(graph):
         for _ in range(inner):
             fn()
+    ACCUMULATED["cuda_graph_captures"] += 1
+    ACCUMULATED["cuda_graph_replays"] += samples + 1
     return time_ms(graph.replay, 1, samples) / inner
 
 
@@ -7117,6 +7509,7 @@ def profile_window(fn, warmup: bool = True, lead: bool = True,
     wall = time.perf_counter() - t0
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
+    ACCUMULATED["profiler_sessions"] += 1
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  schedule=schedule(wait=0, warmup=int(warmup), active=1,
                                    repeat=1)) as prof:
@@ -7171,6 +7564,135 @@ def profile_window(fn, warmup: bool = True, lead: bool = True,
     return out
 
 
+def note_launches() -> None:
+    """Add the port's kernel launches counted on the phase just run (its
+    wrappers' counts, each phase resets them at its start) to
+    ``ACCUMULATED``."""
+    from repro_torch.kernels import elementwise as EW
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels.parsa_cost import ops
+
+    ACCUMULATED["port_launches_on_paths"] += sum(
+        sum(d.values()) for d in (ops.LAUNCHES, FA.LAUNCHES, EW.LAUNCHES))
+
+
+def accumulated(dev) -> dict:
+    """What the process holds or has done ahead of a profile window:
+    ``ACCUMULATED``, the caching allocator's counts, the live threads;
+    CUPTI's activity buffers are not visible from Python."""
+    import torch
+
+    stats = torch.cuda.memory_stats(dev)
+    return {**ACCUMULATED, "threads": threading.active_count(),
+            "allocations": stats.get("allocation.all.allocated", 0),
+            "alloc_retries": stats.get("num_alloc_retries", 0),
+            "allocated_gb": torch.cuda.memory_allocated(dev) / 1e9,
+            "reserved_gb": torch.cuda.memory_reserved(dev) / 1e9,
+            "cupti_buffers": "not measured (not visible from Python)"}
+
+
+def times_windows(rank: int, world: int, backend: str, store: str,
+                  out_dir: str, device: str, payload: str,
+                  diag: int) -> None:
+    """Phase times' profile windows in a process of their own (started
+    with spawn, one of it): a fresh CUDA context and a fresh profiler.
+    Late in a whole-script run the profiler lost whole windows in the
+    script's process (ROADMAP Queue 3 item 5); here nothing has
+    accumulated.  ``payload`` holds the arrays the windows read, made by
+    phase times from the main, sketch and parallel paths' inputs (the same
+    work): the main graph's packed blocks, the sketch graph's, the
+    parallel path's blocks by worker, and the main run's sets.  Each
+    window is taken again while it lacks a port kernel its call launched,
+    at most 6 tries, or 12 for the two the parent's check reads; the
+    profiles, the tries, what had accumulated before the first window and
+    the profiled sketched scan's sets go to ``rank0.npz``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.partition import _parallel_scan
+    from repro_torch.kernels.parsa_cost import ops, popcount32
+
+    global PROFILE_DIAG
+    PROFILE_DIAG = diag
+    dev = torch.device(device)
+    torch.cuda.set_device(dev)
+    a = dict(np.load(payload))
+
+    def T(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    main = [T(a[f"main/{k}"])[None] for k in PACKED_KEYS]
+    sk = [T(a[f"sketch/{k}"])[None] for k in PACKED_KEYS]
+    par = [T(a[f"par/{k}"]) for k in PACKED_KEYS]
+    s = T(a["s_masks"])
+    k_, W = s.shape
+    nb_main, B = main[4].shape[1:]
+    scan_s = torch.zeros((1, k_, W), dtype=torch.int32, device=dev)
+    scan_sz = torch.zeros((1, k_), dtype=torch.int32, device=dev)
+    scan_parts = torch.full((1, nb_main, B), -1, dtype=torch.int32,
+                            device=dev)
+
+    def scan_kernel():
+        scan_s.zero_()
+        scan_sz.zero_()
+        scan_parts.fill_(-1)
+        ops.parsa_scan(*main, scan_s, scan_sz, scan_parts)
+
+    Ws_ = sk[3].shape[-1]
+    sk_state = [torch.zeros((1, k_, Ws_), dtype=torch.int32, device=dev),
+                torch.zeros((1, k_), dtype=torch.int32, device=dev),
+                torch.full(sk[4].shape, -1, dtype=torch.int32, device=dev)]
+
+    def sketch_scan():
+        sk_state[0].zero_()
+        sk_state[1].zero_()
+        sk_state[2].fill_(-1)
+        ops.parsa_scan(*sk, *sk_state)
+
+    m = int(a["merge_every"])
+    nb_per = par[4].shape[1]
+
+    def parallel_scan(every=m):
+        _parallel_scan(*par, torch.zeros((k_, W), dtype=torch.int32,
+                                         device=dev),
+                       torch.zeros(k_, dtype=torch.int32, device=dev), every)
+
+    cw = 32
+    n_ch = -(-W // cw)
+    need_pad = torch.nn.functional.pad(s, (0, n_ch * cw - W))
+    words_all = need_pad.view(k_, n_ch, cw).transpose(0, 1).contiguous()
+    prev_all = torch.full((n_ch, 32 * cw), -1, dtype=torch.int32, device=dev)
+    cost = popcount32(s).sum(dim=1, dtype=torch.int32)
+    n_steps_par = nb_per // m
+    windows = (
+        ("scan", scan_kernel, {"parsa_scan_kernel": 1}),
+        ("sketched scan", sketch_scan, {"parsa_scan_kernel": 1}),
+        ("parallel scan", parallel_scan,
+         {"parsa_scan_kernel": n_steps_par,
+          "union_delta_kernel": n_steps_par}),
+        ("parallel scan, one super-step", lambda: parallel_scan(nb_per),
+         {"parsa_scan_kernel": 1, "union_delta_kernel": 1}),
+        ("refine", lambda: ops.refine_scan(words_all, prev_all, cost, 2),
+         {"refine_sweep_kernel": 1}))
+    before = accumulated(dev)
+    log(f"times windows process: accumulated before the first window "
+        f"{json.dumps(before)}")
+    if diag:
+        profile_diag([(n, f, 0, w) for n, f, w in windows], diag)
+    profiles = {}
+    for name, fn, want in windows:
+        for tries in range(1, 13 if name.startswith("parallel") else 7):
+            prof = profile_window(fn)
+            if prof.get("port_kernels_count") == want:
+                break
+        prof["tries"] = tries
+        profiles[name] = prof
+    np.savez(pathlib.Path(out_dir) / "rank0.npz",
+             profiles=np.asarray(json.dumps(profiles)),
+             accumulated=np.asarray(json.dumps(before)),
+             sketch_sets=sk_state[0][0].cpu().numpy())
+
+
 def profile_diag(windows, runs: int) -> None:
     """How often ``profile_window`` records every port kernel that a
     window launched, with and without its warm-up profiler step and with a
@@ -7194,6 +7716,12 @@ def profile_diag(windows, runs: int) -> None:
                    "device_kernels": [d for _, d, _ in v],
                    "lead_kernels": [x for _, _, x in v]}
             for mode, v in seen.items()}))
+
+
+PACKED_KEYS = ("widx", "vals", "tr_ids", "tr_masks", "valid")
+# phase times: the main scan's blocks its plain version runs over (a
+# quarter of the 391; the whole scan's plain version took 30-38 s)
+SCAN_PLAIN_BLOCKS = 98
 
 
 def bound_ms(nbytes: int, nops: int) -> tuple[float, str]:
@@ -7246,8 +7774,7 @@ def phase_times(dev, main: dict) -> list[dict]:
     import torch
 
     from repro_torch.core.partition import (
-        _pad_block_stack, _parallel_scan, _trunc_flags,
-        pack_graph_blocks)
+        _pad_block_stack, _trunc_flags, pack_graph_blocks)
     from repro_torch.kernels.parsa_cost import (
         merge_worker_sets_ref, ops, parsa_cost_ref, parsa_scan_ref,
         popcount32, rebuild_block, refine_sweep_ref, select_greedy_from_cost,
@@ -7406,12 +7933,20 @@ def phase_times(dev, main: dict) -> list[dict]:
     scan_ms = time_ms(scan_kernel, 1, 5)
     check(np.array_equal(scan_s[0].cpu().numpy(), res.s_masks),
           "timed parsa_scan sets != the main path's")
-    plain_state = [torch.zeros_like(scan_s), torch.zeros_like(scan_sz),
-                   torch.full_like(scan_parts, -1)]
-    plain_ms = time_once_ms(lambda: parsa_scan_ref(*arrays, *plain_state))
-    check(all(torch.equal(a, b) for a, b in zip(
-        plain_state, (scan_s, scan_sz, scan_parts))),
-          "parsa_scan != parsa_scan_ref on the whole main scan")
+    # the plain version over the scan's first SCAN_PLAIN_BLOCKS blocks,
+    # against the kernel over the same blocks, bit for bit (the whole
+    # scan's plain version took 30-38 s of the script: a depth cut for
+    # its time limit)
+    nb_p = min(SCAN_PLAIN_BLOCKS, nb_main)
+    head_m = [x[:, :nb_p].contiguous() for x in arrays]
+    states = [[torch.zeros_like(scan_s), torch.zeros_like(scan_sz),
+               torch.full((1, nb_p, B), -1, dtype=torch.int32, device=dev)]
+              for _ in range(2)]
+    prefix_ms = time_once_ms(lambda: ops.parsa_scan(*head_m, *states[0]))
+    plain_ms = time_once_ms(lambda: parsa_scan_ref(*head_m, *states[1]))
+    check(all(torch.equal(a, b) for a, b in zip(*states)),
+          f"parsa_scan != parsa_scan_ref on the main scan's first {nb_p} "
+          "blocks")
     ops.LAUNCHES.update(saved)
     n_run, live_rows = scan_schedule(packed.valid.sum(1).tolist(), B, K)
     vals_np = packed.vals
@@ -7431,13 +7966,15 @@ def phase_times(dev, main: dict) -> list[dict]:
         f"{main['parallel']['launches']['parsa_scan']} on the parallel path)",
         shape=f"the main scan: {nb_main} blocks, B={B}, W={W}, k={K}, "
               f"{n_tr} truncated rows",
-        ms=scan_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+        ms=scan_ms, plain_ms=plain_ms, plain_blocks=nb_p,
+        prefix_ms=prefix_ms, bound_ms=b_ms, bound_by=b_by,
         bound_bytes=scan_bytes, bound_ops=scan_ops, rounds_run=n_run,
         rounds_nominal=main["rounds"], per_round_us=scan_ms * 1e3 / n_run))
     log(f"time parsa_scan (whole main scan, {n_run} rounds run of "
         f"{main['rounds']}): {scan_ms:.3f} ms, {scan_ms * 1e3 / n_run:.2f} "
-        f"us a round; plain {plain_ms:.1f} ms; bound {b_ms * 1e3:.2f} us by "
-        f"{b_by} ({scan_bytes:,} bytes, {scan_ops:,} operations)")
+        f"us a round; bound {b_ms * 1e3:.2f} us by {b_by} ({scan_bytes:,} "
+        f"bytes, {scan_ops:,} operations); its first {nb_p} blocks "
+        f"{prefix_ms:.3f} ms, plain {plain_ms:.1f} ms, bit for bit")
 
     # refine: one chunk and one sweep (as in earlier PRs), and the main
     # path's whole refine, one launch: sweeps x chunks x 1,024 dependent
@@ -7573,74 +8110,55 @@ def phase_times(dev, main: dict) -> list[dict]:
     # where the time goes, under torch.profiler: the main path's whole scan
     # (one launch), the sketch path's whole scan (one launch), the parallel
     # path's whole scan (its blocks in the acceptance run's order: a launch
-    # and a merge a super-step) and the whole refine (one launch)
+    # and a merge a super-step) and the whole refine (one launch); taken in
+    # a process of their own (times_windows): late in a whole-script run
+    # the profiler lost whole windows in this one (ROADMAP Queue 3 item 5)
+    import tempfile
+
     arrays_s = [T(x)[None] for x in (packed_s.widx, packed_s.vals,
                                      packed_s.tr_ids, packed_s.tr_masks,
                                      packed_s.valid)]
     Ws_ = packed_s.tr_masks.shape[-1]
-    sk_state = [torch.zeros((1, K, Ws_), dtype=torch.int32, device=dev),
-                torch.zeros((1, K), dtype=torch.int32, device=dev),
-                torch.full(arrays_s[4].shape, -1, dtype=torch.int32,
-                           device=dev)]
-
-    def sketch_scan():
-        sk_state[0].zero_()
-        sk_state[1].zero_()
-        sk_state[2].fill_(-1)
-        ops.parsa_scan(*arrays_s, *sk_state)
-
     nw, m, bp = PAR["workers"], PAR["merge_every"], PAR["block_size"]
     pk_p = _pad_block_stack(pack_graph_blocks(g, bp, order=order),
                             par["blocks"])
     nb_per = par["blocks"] // nw
-    par_blocks = [T(x.reshape((nw, nb_per) + x.shape[1:]))
-                  for x in (pk_p.widx, pk_p.vals, pk_p.tr_ids,
-                            pk_p.tr_masks, pk_p.valid)]
-
-    def parallel_scan(every=m):
-        _parallel_scan(*par_blocks, torch.zeros((K, W), dtype=torch.int32,
-                                                device=dev),
-                       torch.zeros(K, dtype=torch.int32, device=dev), every)
-
     n_sk, _ = scan_schedule(packed_s.valid.sum(1).tolist(), SKETCH_BLOCK, K)
     # a worker's rounds, from equal sizes at every merge (an upper bound
     # of the rounds its stale sizes let it run)
     par_rounds = sum(scan_schedule(v, bp, K)[0] for v in
-                     par_blocks[4].sum(-1).tolist())
-    saved = dict(ops.LAUNCHES)
-    profiles = {}
+                     pk_p.valid.reshape(nw, nb_per, -1).sum(-1).tolist())
     n_steps_par = nb_per // m
-    windows = (
-        ("scan", scan_kernel, n_run, {"parsa_scan_kernel": 1}),
-        ("sketched scan", sketch_scan, n_sk, {"parsa_scan_kernel": 1}),
-        ("parallel scan", parallel_scan, par_rounds,
-         {"parsa_scan_kernel": n_steps_par,
-          "union_delta_kernel": n_steps_par}),
-        ("parallel scan, one super-step",
-         lambda: parallel_scan(nb_per), par_rounds,
-         {"parsa_scan_kernel": 1, "union_delta_kernel": 1}),
-        ("refine", lambda: ops.refine_scan(words_all, prev_all, cost, 2),
-         steps, {"refine_sweep_kernel": 1}))
-    if PROFILE_DIAG:
-        profile_diag(windows, PROFILE_DIAG)
-    for name, fn, n_steps, want in windows:
-        # the profiler still loses whole windows on the H100 (1 of 8 scan
-        # and 1 of 8 parallel-scan windows, and all 24 refine windows,
-        # with --profile-diag 8; late in whole-script runs, 3 of 3 and 6
-        # of 6 one-super-step windows, and 5 before one held its kernels):
-        # a window that lacks a port kernel its call launched is taken
-        # again, at most 5 more times, or 11 for the two windows the check
-        # below reads
-        for tries in range(1, 13 if name.startswith("parallel") else 7):
-            prof = profile_window(fn)
-            if prof.get("port_kernels_count") == want:
-                break
-        prof["tries"] = tries
+    payload = {"s_masks": res.s_masks, "merge_every": np.int64(m)}
+    for key in PACKED_KEYS:
+        payload[f"main/{key}"] = getattr(packed, key)
+        payload[f"sketch/{key}"] = getattr(packed_s, key)
+        x = getattr(pk_p, key)
+        payload[f"par/{key}"] = x.reshape((nw, nb_per) + x.shape[1:])
+    tmp = tempfile.TemporaryDirectory()
+    np.savez(pathlib.Path(tmp.name) / "payload.npz", **payload)
+    del payload
+    log("times: accumulated in the script's process ahead of the profile "
+        f"windows {json.dumps(accumulated(dev))}")
+    t0 = time.perf_counter()
+    got = run_ranks(times_windows, 1, "none",
+                    pathlib.Path(tmp.name) / "windows", lambda r: str(dev),
+                    300, "times windows",
+                    str(pathlib.Path(tmp.name) / "payload.npz"),
+                    PROFILE_DIAG)[0]
+    tmp.cleanup()
+    profiles = json.loads(str(got["profiles"]))
+    n_steps = {"scan": n_run, "sketched scan": n_sk,
+               "parallel scan": par_rounds,
+               "parallel scan, one super-step": par_rounds,
+               "refine": steps}
+    for name, prof in profiles.items():
         if isinstance(prof["busy_s"], float):
-            prof["device_us_per_step"] = prof["busy_s"] * 1e6 / n_steps
-        profiles[name] = prof
-        log(f"profile {name} ({n_steps} rounds run, or dependent steps): "
-            + json.dumps(prof))
+            prof["device_us_per_step"] = prof["busy_s"] * 1e6 / n_steps[name]
+        log(f"profile {name} ({n_steps[name]} rounds run, or dependent "
+            f"steps; {prof['tries']} tries): " + json.dumps(prof))
+    log(f"times: the windows' process in {time.perf_counter() - t0:.2f} s, "
+        f"tries {json.dumps({n: p['tries'] for n, p in profiles.items()})}")
     # a super-step is one parsa_scan and one merge launch and no PyTorch
     # kernel: the window of the scan's super-steps holds one of each a
     # super-step, and fewer other device kernels from its first port
@@ -7668,17 +8186,19 @@ def phase_times(dev, main: dict) -> list[dict]:
         f"first port kernel on {others[0]} in {n_steps_par} super-steps, "
         f"{others[1]} in one; in all {win['device_kernels']} and "
         f"{one['device_kernels']}")
-    check(np.array_equal(sk_state[0][0].cpu().numpy(), sk["result"].s_masks),
+    check(np.array_equal(got["sketch_sets"], sk["result"].s_masks),
           "the profiled sketched scan's sets != the sketch path's")
     # the sketched scan's first SKETCH_REF_BLOCKS blocks (B=1,024, Ws=4,096:
     # the cost pass at 8 lanes a row) against parsa_scan_ref, bit for bit,
     # on the sketch path's own lists; the whole scan's plain version would
     # take minutes
+    saved = dict(ops.LAUNCHES)
     nb_ref = min(SKETCH_REF_BLOCKS, packed_s.valid.shape[0])
     head = [x[:, :nb_ref].contiguous() for x in arrays_s]
     ref_out = []
     for fn in (ops.parsa_scan, parsa_scan_ref):
-        st = [torch.zeros_like(sk_state[0]), torch.zeros_like(sk_state[1]),
+        st = [torch.zeros((1, K, Ws_), dtype=torch.int32, device=dev),
+              torch.zeros((1, K), dtype=torch.int32, device=dev),
               torch.full_like(head[4], -1, dtype=torch.int32)]
         fn(*head, *st)
         ref_out.append(st)
@@ -7691,6 +8211,8 @@ def phase_times(dev, main: dict) -> list[dict]:
     rows[3]["profile"] = profiles["scan"]
     rows[3]["sketched_blocks_equal_plain"] = nb_ref
     rows[3]["parallel_profile"] = profiles["parallel scan"]
+    rows[3]["profile_windows_accumulated"] = json.loads(
+        str(got["accumulated"]))
     psk = profiles["sketched scan"]
     rows[3]["sketch_scan"] = {
         "rounds_run": n_sk, "busy_s": psk["busy_s"],
@@ -8245,82 +8767,107 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         state.update(phase_main(dev))
         log(f"main phase {time.perf_counter() - t0:.2f} s")
+        note_launches()
     if "parity" in phases:
         t0 = time.perf_counter()
         phase_parity(dev)
         log(f"parity phase {time.perf_counter() - t0:.2f} s")
+        note_launches()
     if "sketch" in phases:
         t0 = time.perf_counter()
         state["sketch"] = phase_sketch(dev, state)
         log(f"sketch phase {time.perf_counter() - t0:.2f} s")
+        note_launches()
     if "parallel" in phases:
         t0 = time.perf_counter()
         state["parallel"] = phase_parallel(dev, state)
         log(f"parallel phase {time.perf_counter() - t0:.2f} s")
+        note_launches()
     if "dist" in phases:
         t0 = time.perf_counter()
         state["dist"] = phase_dist(dev, state)
         log(f"dist phase {time.perf_counter() - t0:.2f} s")
+        note_launches()
     if "stream" in phases:
         t0 = time.perf_counter()
         state["stream"] = phase_stream(dev, state)
         log(f"stream phase {time.perf_counter() - t0:.2f} s")
+        note_launches()
     if "elastic" in phases:
         t0 = time.perf_counter()
         state["elastic"] = phase_elastic(dev, state)
         log(f"elastic phase {time.perf_counter() - t0:.2f} s")
+        note_launches()
     if "serving" in phases:
         t0 = time.perf_counter()
         state["serving"] = phase_serving(dev, state)
         log(f"serving phase {time.perf_counter() - t0:.2f} s")
+        note_launches()
     if "lm" in phases:
         t0 = time.perf_counter()
         state["lm"] = phase_lm(dev)
         log(f"lm phase {time.perf_counter() - t0:.2f} s")
+        note_launches()
     if "moe" in phases:
         t0 = time.perf_counter()
         state["moe"] = phase_moe(dev)
         log(f"moe phase {time.perf_counter() - t0:.2f} s")
+        note_launches()
     if "moe_ep" in phases:
         t0 = time.perf_counter()
         state["moe_ep"] = phase_moe_ep(dev)
         log(f"moe_ep phase {time.perf_counter() - t0:.2f} s")
+        note_launches()
     if "tp" in phases:
         t0 = time.perf_counter()
         state["tp"] = phase_tp(dev)
         log(f"tp phase {time.perf_counter() - t0:.2f} s")
+        note_launches()
     if "tp_all" in phases:
         t0 = time.perf_counter()
         state["tp_all"] = phase_tp_all(dev)
         log(f"tp_all phase {time.perf_counter() - t0:.2f} s")
+        note_launches()
     if "mla" in phases:
         t0 = time.perf_counter()
         state["mla"] = phase_mla(dev)
         log(f"mla phase {time.perf_counter() - t0:.2f} s")
+        note_launches()
     if "encdec" in phases:
         t0 = time.perf_counter()
         state["encdec"] = phase_encdec(dev)
         log(f"encdec phase {time.perf_counter() - t0:.2f} s")
+        note_launches()
     if "vlm" in phases:
         t0 = time.perf_counter()
         state["vlm"] = phase_vlm(dev)
         log(f"vlm phase {time.perf_counter() - t0:.2f} s")
+        note_launches()
     if "xlstm" in phases:
         t0 = time.perf_counter()
         state["xlstm"] = phase_xlstm(dev)
         log(f"xlstm phase {time.perf_counter() - t0:.2f} s")
+        note_launches()
     if "hybrid" in phases:
         t0 = time.perf_counter()
         state["hybrid"] = phase_hybrid(dev)
         log(f"hybrid phase {time.perf_counter() - t0:.2f} s")
+        note_launches()
     if "train" in phases:
         t0 = time.perf_counter()
         state["train"] = phase_train(dev)
         log(f"train phase {time.perf_counter() - t0:.2f} s")
+        note_launches()
     if "train_moe" in phases:
         t0 = time.perf_counter()
         state["train_moe"] = phase_train_moe(dev)
         log(f"train_moe phase {time.perf_counter() - t0:.2f} s")
+        note_launches()
+    if "train_tp" in phases:
+        t0 = time.perf_counter()
+        state["train_tp"] = phase_train_tp(dev)
+        log(f"train_tp phase {time.perf_counter() - t0:.2f} s")
+        note_launches()
     if "times" in phases:
         rows = phase_times(dev, state)
         for path in ("stream", "elastic", "serving"):
@@ -8365,6 +8912,13 @@ def main(argv=None) -> int:
                    if c.get(r["name"])}
             if got:
                 r["launches_tp_all"] = got
+            # a rank's launches in training over a mesh (phase train_tp)
+            got = {f"{tag} gloo4 (a rank)": v["per_rank"][0]["launches"].get(
+                r["name"]) for tag, v in state.get("train_tp", {}).items()
+                if isinstance(v, dict) and "per_rank" in v
+                and v["per_rank"][0]["launches"].get(r["name"])}
+            if got:
+                r["launches_train_tp"] = got
         log(f"card: {card}")
         log(json.dumps({"kernels": rows}))
     if phases != set(PHASES):

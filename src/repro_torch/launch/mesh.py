@@ -32,28 +32,65 @@ all-reduce, so every rank, backend and run gives the same bits;
 ``emulate_mesh`` runs every place of a mesh in one process, one thread a
 place, their gathers meeting in memory: the reference the ranks are held
 to bit for bit.
+
+Gradients through the collectives (the train step over a mesh) follow
+Megatron's convention.  A tensor that every place of an axis holds whole
+(the same on each) has the whole gradient as its cotangent, the same on
+each place.  So ``ordered_sum``'s backward is the identity (its output is
+whole; its input a place's partial), ``gather_cat``'s and
+``gather_stack``'s is the place's own slice of the cotangent (no
+collective), and ``enter(x, group)``, the identity forward, marks every
+spot where a whole ``x`` meets work that differs between the places (a
+product with the place's block, a ``TensorParallel.cut`` slice, the
+place's query rows): its backward is ``ordered_sum`` of the places'
+partial cotangents over the group (float32 for bfloat16, rank order, the
+same bits on every place).  The parameters are whole over the batch
+axes and each place runs its own rows: their gradients are summed over
+those axes after the backward (``launch.steps``), the same rule at the
+step's scale.  Every rank runs the same graph, so every rank reaches the
+backward's collectives in the same order (remat reruns a layer's forward
+gathers in the backward, on every rank alike).  ``GATHERED`` counts the
+forward's bytes and gathers ("bytes", "calls"), the backward's
+("bwd_bytes", "bwd_calls") and the forward gathers that remat reruns
+inside the backward ("remat_bytes", "remat_calls") apart.
 """
 from __future__ import annotations
 
 import math
 import os
 
+import torch
+
 __all__ = ["make_production_mesh", "make_host_mesh", "mesh_name", "dp_axes",
            "tp_axis", "dp_size", "mesh_shape", "axis_sizes", "axis_group",
-           "gather_stack", "gather_cat", "ordered_sum", "GATHERED",
+           "gather_stack", "gather_cat", "ordered_sum", "enter", "GATHERED",
            "reset_gathered", "PlaceMesh", "emulate_mesh"]
 
 AXES = ("pod", "data", "model")
 
 # bytes a rank received through ``gather_stack`` (every member's tensor,
 # its own included) and the gathers that moved them, since the last
-# ``reset_gathered``: over a process group only (an emulated mesh's places
-# share the module)
-GATHERED = {"bytes": 0, "calls": 0}
+# ``reset_gathered``: the forward's, the backward's (``enter``) and the
+# forward gathers that remat reruns in the backward apart; over a process
+# group only (an emulated mesh's places share the module)
+GATHERED = {"bytes": 0, "calls": 0, "bwd_bytes": 0, "bwd_calls": 0,
+            "remat_bytes": 0, "remat_calls": 0}
 
 
 def reset_gathered() -> None:
-    GATHERED["bytes"] = GATHERED["calls"] = 0
+    for k in GATHERED:
+        GATHERED[k] = 0
+
+
+def _count(nbytes: int, backward: bool = False) -> None:
+    """Count a gather of ``nbytes``: the backward's, a forward rerun by
+    remat inside the backward (the autograd engine is running a graph
+    task), or the forward's."""
+    key = ("bwd" if backward else "remat"
+           if torch._C._current_graph_task_id() != -1 else "")
+    pre = key + "_" if key else ""
+    GATHERED[pre + "bytes"] += nbytes
+    GATHERED[pre + "calls"] += 1
 
 
 def mesh_shape(*, multi_pod: bool = False) -> tuple[tuple, tuple]:
@@ -140,36 +177,90 @@ def axis_group(mesh, names):
     return cache[key]
 
 
-def gather_stack(x, group):
-    """Every rank's ``x`` of ``group``, stacked in the group's rank order:
-    (n, *x.shape), the bits copied as bytes (so a gloo group gathers any
-    dtype, bfloat16 included; card tensors go through host memory there,
-    as ``core.partition._gather_flat`` says)."""
-    import torch
+def _group_rank(group) -> int:
+    return group.rank if isinstance(group, _PlaceGroup) else group.rank()
 
+
+def _stack_raw(x, group, backward: bool = False):
+    """Every rank's ``x`` of ``group`` stacked in rank order, outside
+    autograd: the bytes (see ``gather_stack``)."""
     from ..core.partition import _gather_flat
 
     if isinstance(group, _PlaceGroup):
         return group.gather(x)
     n = group.size()
-    x = x.contiguous()
+    x = x.detach().contiguous()
     if n == 1:
         return x[None]
-    GATHERED["bytes"] += n * x.numel() * x.element_size()
-    GATHERED["calls"] += 1
-    flat = x.view(-1).view(torch.uint8)
-    out = torch.empty((n * flat.numel(),), dtype=torch.uint8,
-                      device=x.device)
-    _gather_flat(out, flat, group)
-    return out.view(x.dtype).view((n,) + tuple(x.shape))
+    _count(n * x.numel() * x.element_size(), backward)
+    out = torch.empty((n,) + tuple(x.shape), dtype=x.dtype, device=x.device)
+    _gather_flat(out.view(-1).view(torch.uint8), x.view(-1).view(torch.uint8),
+                 group)
+    return out
+
+
+def _add_in_order(parts):
+    """The sum of ``parts`` (n, ...) over its first dim, one after another
+    in order; a floating dtype of fewer than 32 bits accumulated in
+    float32 and rounded once."""
+    widen = parts.is_floating_point() and parts.element_size() < 4
+    out = parts[0].float() if widen else parts[0].clone()
+    for i in range(1, parts.shape[0]):
+        out = out + parts[i]
+    return out.to(parts.dtype) if widen else out
+
+
+class _GatherStack(torch.autograd.Function):
+    """``gather_stack`` where autograd records: its output is whole on
+    every place, so its cotangent is the whole gradient, and the place's
+    own slice of it is its input's (the module docstring)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.rank = _group_rank(group)
+        return _stack_raw(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g[ctx.rank], None
+
+
+class _Enter(torch.autograd.Function):
+    """``enter``: the identity; the backward sums the places' cotangents
+    over the group in rank order."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _add_in_order(_stack_raw(g, ctx.group, backward=True)), None
+
+
+def _records(x) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+def gather_stack(x, group):
+    """Every rank's ``x`` of ``group``, stacked in the group's rank order:
+    (n, *x.shape), the bits copied as bytes (so a gloo group gathers any
+    dtype, bfloat16 included; card tensors go through host memory there,
+    as ``core.partition._gather_flat`` says).  Where autograd records
+    ``x``, the backward hands ``x`` its own slice of the cotangent."""
+    if group.size() == 1:
+        return x.contiguous()[None]
+    if _records(x):
+        return _GatherStack.apply(x, group)
+    return _stack_raw(x, group)
 
 
 def gather_cat(x, group, dim: int):
     """Every rank's ``x`` of ``group`` concatenated along ``dim`` in the
     group's rank order: the all-gather of a tensor cut along ``dim``
-    (``shape[dim]`` times the group's size)."""
-    import torch
-
+    (``shape[dim]`` times the group's size).  Backward: the place's own
+    slice of the cotangent."""
     parts = gather_stack(x, group)
     if parts.shape[0] == 1:
         return parts[0]
@@ -184,13 +275,20 @@ def ordered_sum(x, group):
     XLA's CPU all-reduce does with bfloat16: bfloat16 adds part from
     JAX's ``psum`` in the last bit of many outputs
     (``tests/test_torch_dist_moe.py`` holds at most 1% of them an ulp
-    off)."""
-    parts = gather_stack(x, group)
-    widen = x.is_floating_point() and x.element_size() < 4
-    out = parts[0].float() if widen else parts[0].clone()
-    for i in range(1, parts.shape[0]):
-        out = out + parts[i]
-    return out.to(x.dtype) if widen else out
+    off).  Backward: the identity (the output is whole on every place)."""
+    return _add_in_order(gather_stack(x, group))
+
+
+def enter(x, group):
+    """``x``, whole and the same on every place of ``group``, where it
+    meets work that differs between the places: the identity forward;
+    the backward sums the places' cotangents in rank order
+    (``ordered_sum``), so that ``x`` gets the whole gradient on every
+    place.  Without autograd recording ``x``, or on a group of one place,
+    ``x`` itself."""
+    if not _records(x) or group.size() == 1:
+        return x
+    return _Enter.apply(x, group)
 
 
 # ------------------------------------------------ a mesh in one process
@@ -234,10 +332,14 @@ class _PlaceGroup:
         return self._n
 
     def gather(self, x):
-        import torch
-
+        """The stack of every member's ``x``, outside autograd (the
+        members' tensors are detached: the places do not share a graph;
+        ``gather_stack`` gives it its backward).  Contiguous, as over a
+        process group: the layout of what a gather returns decides the
+        order of later reductions, so both routes give the same bits."""
+        x = x.detach().contiguous()
         if self._n == 1:
-            return x.contiguous()[None]
+            return x[None]
         self._slots[self.rank] = x
         self._barrier.wait()
         out = torch.stack(self._slots)

@@ -41,12 +41,12 @@ import torch
 from ..configs.base import ModelConfig
 from ..models.shardctx import TensorParallel, logical_axis_rules
 from ..tree import tree_map_with_path
-from .mesh import axis_group, axis_sizes, gather_cat, ordered_sum
+from .mesh import axis_group, axis_sizes, enter, gather_cat, ordered_sum
 
 __all__ = ["activation_rules", "param_pspecs", "opt_pspecs", "batch_specs",
            "cache_specs", "cache_block_shape", "shard_tree", "shard_spec", "shard_params",
            "tp_layout", "tensor_parallel", "mesh_rules", "block_slices",
-           "mesh_coords", "batch_rows"]
+           "mesh_coords", "batch_rows", "replica_axes"]
 
 
 def _axsize(mesh, name) -> int:
@@ -405,6 +405,31 @@ def shard_params(cfg: ModelConfig, params, mesh, coords: dict | None = None):
     return tree_map_with_path(one, params)
 
 
+def replica_axes(cfg: ModelConfig, params, mesh):
+    """A tree like ``params`` (whole tensors, or meta stand-ins of their
+    shapes: ``Model(cfg, "meta").init()``): for each leaf the mesh axes,
+    in the mesh's order, over which the places hold the same block of it
+    under ``shard_spec`` (the axes its spec does not cut): the batch axes
+    for every leaf (but the experts' cut over data with ``cfg.fsdp``),
+    and the model axis too for a leaf whole over it (norms, ``bd``, the
+    router, ``wq_a``, ``wkv_a``, the gates, a dim that does not divide).
+    The train step over a mesh counts such a leaf once in the global
+    norm, takes its scale over the other axes, and its replicas stay
+    equal bit for bit."""
+    names = tuple(axis_sizes(mesh))
+
+    def one(path, leaf):
+        spec = shard_spec(cfg, _path_str(path, keep_index=False),
+                          tuple(leaf.shape), mesh)
+        cut = set()
+        for a in spec:
+            if a is not None:
+                cut.update(a if isinstance(a, tuple) else (a,))
+        return tuple(a for a in names if a not in cut)
+
+    return tree_map_with_path(one, params)
+
+
 def tp_layout(cfg: ModelConfig, mesh) -> dict:
     """How ``shard_spec`` and ``cache_specs`` cut each block over the model
     axis, by the role the layers read it in (``shardctx.TensorParallel.
@@ -482,7 +507,8 @@ def tensor_parallel(cfg: ModelConfig, mesh) -> TensorParallel | None:
     return TensorParallel(
         n, mesh.get_local_rank("model"), tp_layout(cfg, mesh),
         gather=lambda x, dim: gather_cat(x, group, dim),
-        sum=lambda x: ordered_sum(x, group))
+        sum=lambda x: ordered_sum(x, group),
+        enter=lambda x: enter(x, group))
 
 
 def mesh_rules(cfg: ModelConfig, mesh, batch: int):

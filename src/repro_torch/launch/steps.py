@@ -21,8 +21,17 @@ columns of ``lm_head``, the experts, the mLSTM value dim, the sLSTM
 axis (FSDP of the dense weights is not ported).  Every family runs on any
 (data x model) mesh whose specs split evenly, ``context_parallel``
 attention where the reference takes it; the recurrent families' prefill,
-and every eval step, return the loss over the global batch.  A train step
-over a mesh raises ``NotImplementedError`` naming its ROADMAP items.
+and every eval step, return the loss over the global batch.
+
+The train step over a mesh runs the forward and the backward on the
+rank's rows of each microbatch under the rules: the gradients go through
+every collective (``launch.mesh``'s convention), each rank's gradient of
+a leaf is its rows' share of its block's, and the step sums them over
+the batch axes in rank order, then clips by the whole tree's norm and
+updates the rank's blocks (``optim``).  A config with ``cfg.fsdp`` on a
+mesh whose batch axes span more than one place raises
+``NotImplementedError``: FSDP of the dense weights is ROADMAP Queue 1
+item 3b.
 """
 from __future__ import annotations
 
@@ -37,12 +46,19 @@ from ..optim import (
     AdamWConfig,
     apply_updates,
     compress_grads,
+    global_norm,
     init_compression,
     init_opt_state,
 )
-from ..tree import tree_leaves, tree_map
-from .mesh import axis_group, axis_sizes, gather_stack
-from .sharding import activation_rules, batch_rows, mesh_rules
+from ..tree import tree_leaves, tree_leaves_with_path, tree_map
+from .mesh import axis_group, axis_sizes, dp_size, gather_stack, ordered_sum
+from .sharding import (
+    activation_rules,
+    batch_rows,
+    mesh_rules,
+    replica_axes,
+    shard_params,
+)
 
 __all__ = ["make_train_step", "make_eval_step", "make_prefill_step",
            "make_serve_step"]
@@ -84,6 +100,47 @@ def _on(batch, device):
         v, torch.Tensor) else v, device=device) for k, v in batch.items()}
 
 
+class _MeshPlan:
+    """What the train step over ``mesh`` reads of the parameter tree, by
+    leaf in tree order: the group each leaf's block is cut over (None
+    where the rank holds it whole), from ``replica_axes`` over the whole
+    shapes; one group an axis tuple, made once (``axis_group``)."""
+
+    def __init__(self, cfg, mesh):
+        from ..models.model import Model
+
+        shapes = Model(cfg, torch.device("meta")).init(master=True)
+        names = tuple(axis_sizes(mesh))
+        groups: dict = {}
+
+        def group(axes):
+            if axes not in groups:
+                groups[axes] = axis_group(mesh, axes)
+            return groups[axes]
+
+        reps = replica_axes(cfg, shapes, mesh)
+        self.cut = []
+        for path, _ in tree_leaves_with_path(shapes):
+            rep = reps
+            for k in path:
+                rep = rep[k]
+            axes = tuple(a for a in names if a not in rep)
+            self.cut.append(group(axes) if axes else None)
+        self.group = group
+
+
+def _sum_over(grads: list, group) -> None:
+    """Each float32 gradient replaced, in place, by its sum over
+    ``group`` in rank order: one ``ordered_sum`` of them all, flattened
+    into one buffer."""
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    flat = ordered_sum(flat, group)
+    i = 0
+    for g in grads:
+        g.copy_(flat[i:i + g.numel()].view(g.shape))
+        i += g.numel()
+
+
 def make_train_step(cfg: ModelConfig, device="cuda",
                     opt_cfg: AdamWConfig | None = None, *, mesh=None):
     """(model, train_step, init_state, opt_cfg).
@@ -95,52 +152,76 @@ def make_train_step(cfg: ModelConfig, device="cuda",
     gives the reference's ``0 + g1 + g2 ...``), divided by n, optionally
     compressed (``cfg.grad_compress``), then one AdamW update.
     ``init_state(seed)`` gives float32 master parameters and a fresh
-    optimizer state.  A mesh raises: a train step over a mesh is not
-    ported."""
-    if mesh is not None:
+    optimizer state.
+
+    With ``mesh`` (a ``DeviceMesh`` of the ranks, or an ``emulate_mesh``
+    place): ``batch`` is the global batch and the parameters and the
+    optimizer state are the rank's blocks (``init_state`` cuts them with
+    ``launch.sharding.shard_params``).  The microbatches are cut from the
+    global batch first, in the reference's order (microbatch i is rows
+    i·B/n .. (i+1)·B/n - 1), and the rank runs its rows of each under the
+    rules; the gradients are summed over the batch axes in rank order,
+    divided by n, compressed with the whole leaves' scales, clipped by
+    the whole tree's norm (``optim.global_norm(grads, cut)``) and
+    applied to the rank's blocks.  The loss, the label count and the
+    norm are the global batch's, the same bits on every rank.  A config
+    with ``cfg.fsdp`` on a mesh whose batch axes span more than one
+    place raises ``NotImplementedError`` (item 3b)."""
+    if mesh is not None and cfg.fsdp and dp_size(mesh) > 1:
         raise NotImplementedError(
-            f"a train step over a mesh (FSDP of the dense weights and the "
-            f"gradient reduction) is not ported ({_ROADMAP}, items 3b and "
-            f"3c)")
+            f"a train step of a config with fsdp=True over a mesh whose "
+            f"batch axes span more than one place needs FSDP of the dense "
+            f"weights, which is not ported ({_ROADMAP}, item 3b)")
     model = build_model(cfg, device)
     opt_cfg = opt_cfg or AdamWConfig(moment_dtype=cfg.opt_dtype)
+    plan = None if mesh is None else _MeshPlan(cfg, mesh)
 
     def train_step(params, opt_state, batch):
         batch = _on(batch, model.device)
         B = batch["tokens"].shape[0]
-        n = _effective_microbatches(cfg, None, B)
+        n = _effective_microbatches(cfg, mesh, B)
+        bs = B // n
+        rules = None if mesh is None else activation_rules(cfg, mesh, bs)
         leaves = tree_leaves(params)
         for p in leaves:
             p.requires_grad_(True)
             p.grad = None
-        if n == 1:
-            loss, metrics = model.loss_fn(params, batch)
-            loss.backward()
-            metrics = {k: v.detach() for k, v in metrics.items()}
-        else:
-            bs = B // n
-            l_sum = torch.zeros((), dtype=torch.float32, device=model.device)
-            tok = torch.zeros((), dtype=torch.float32, device=model.device)
-            for i in range(n):
-                mb = {k: v[i * bs:(i + 1) * bs] for k, v in batch.items()}
+        l_sum = torch.zeros((), dtype=torch.float32, device=model.device)
+        tok = torch.zeros((), dtype=torch.float32, device=model.device)
+        for i in range(n):
+            mb = batch if n == 1 else {k: v[i * bs:(i + 1) * bs]
+                                       for k, v in batch.items()}
+            if mesh is not None:
+                mb = {k: _rows(v, mesh, rules) for k, v in mb.items()}
+            with _rules_ctx(cfg, mesh, bs):
                 loss_i, m_i = model.loss_fn(params, mb)
                 loss_i.backward()
+            if n == 1:
+                metrics = {k: v.detach() for k, v in m_i.items()}
+            else:
                 l_sum = l_sum + loss_i.detach()
                 tok = tok + m_i["tokens"]
-            n_t = torch.full((), float(n), device=model.device)
-            for p in leaves:
-                p.grad.div_(n_t)
-            loss = l_sum / n_t
-            metrics = {"loss": loss, "tokens": tok}
         for p in leaves:
             p.requires_grad_(False)
         grads = tree_map(lambda p: p.grad, params)
         for p in leaves:
             p.grad = None
+        if rules is not None and rules["batch"] is not None:
+            group = plan.group(rules["batch"] if isinstance(
+                rules["batch"], tuple) else (rules["batch"],))
+            if group.size() > 1:
+                _sum_over(tree_leaves(grads), group)
+        if n > 1:
+            n_t = torch.full((), float(n), device=model.device)
+            for g in tree_leaves(grads):
+                g.div_(n_t)
+            metrics = {"loss": l_sum / n_t, "tokens": tok}
+        cut = None if plan is None else plan.cut
         if cfg.grad_compress:
-            grads, comp = compress_grads(grads, opt_state["comp"])
+            grads, comp = compress_grads(grads, opt_state["comp"], cut)
+        gn = None if cut is None else global_norm(grads, cut)
         params, opt_state, om = apply_updates(params, grads, opt_state,
-                                              opt_cfg)
+                                              opt_cfg, grad_norm=gn)
         del grads
         if cfg.grad_compress:
             opt_state["comp"] = comp
@@ -149,6 +230,8 @@ def make_train_step(cfg: ModelConfig, device="cuda",
 
     def init_state(seed: int = 0):
         params = model.init(seed, master=True)
+        if mesh is not None:
+            params = shard_params(cfg, params, mesh)
         opt = init_opt_state(params, opt_cfg)
         if cfg.grad_compress:
             opt["comp"] = init_compression(params)

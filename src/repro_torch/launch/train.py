@@ -40,10 +40,15 @@ from .steps import make_train_step
 __all__ = ["build", "main"]
 
 
-def build(cfg, device="cuda", lr=3e-4):
-    """(model, train_step, init_state) for ``cfg`` on ``device``."""
+def build(cfg, device="cuda", lr=3e-4, *, mesh=None):
+    """(model, train_step, init_state) for ``cfg`` on ``device``; with
+    ``mesh`` (a ``DeviceMesh`` of the ranks) the train step over it, on
+    the rank's blocks (``launch.steps.make_train_step``).  ``main`` and
+    ``TrainLoop`` pass no mesh, as the reference's ``main`` does;
+    checkpoints of a mesh's blocks are not ported (ROADMAP Queue 1)."""
     opt_cfg = AdamWConfig(lr=lr, moment_dtype=cfg.opt_dtype)
-    model, train_step, init_state, _ = make_train_step(cfg, device, opt_cfg)
+    model, train_step, init_state, _ = make_train_step(cfg, device, opt_cfg,
+                                                       mesh=mesh)
     return model, train_step, init_state
 
 

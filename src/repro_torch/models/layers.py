@@ -82,6 +82,13 @@ the same code runs with the identity for its gathers and sums.
     ``wo``; the latent cache cut over r (and k_rope's over dr), gathered
     back to whole over its written prefix where the absorbed form attends
     it.
+  * Training (``launch.mesh``'s gradient convention): every whole tensor
+    that meets the place's block or slice is ``tp.enter``-ed first, its
+    backward the ordered sum of the places' cotangents: x into cut
+    projections (once for q, k and v), a whole qk-norm scale on the
+    place's heads, whole k and v cut to the place's kv heads, q, k and v
+    into context parallel's rows, a whole output cut to a head_dim slice,
+    MLA's latent and rotary key into the place's heads, the MLP's x.
 """
 from __future__ import annotations
 
@@ -348,14 +355,20 @@ def _project(x, w, b, lay, tp, dtype):
     return y
 
 
-def q_projection(p, x, cfg, dtype=torch.bfloat16):
+def q_projection(p, x, cfg, dtype=torch.bfloat16, entered=None):
     """q (B,S,H,dh) of an attention sub-block before any rotary embedding:
     the projection, its bias and qk-norm (cross-attention's whole query;
-    the place's heads, or whole heads, under tensor parallelism)."""
+    the place's heads, or whole heads, under tensor parallelism, x then
+    ``tp.enter``-ed, or ``entered``, the caller's)."""
     tp = tensor_parallel() or ONE
-    xq = _project(x, p["wq"], p.get("bq"), tp.layout.get("q"), tp, dtype)
+    lay = tp.layout.get("q")
+    if lay is not None:
+        x = tp.enter(x) if entered is None else entered
+    xq = _project(x, p["wq"], p.get("bq"), lay, tp, dtype)
     if cfg.qk_norm:
-        xq = rms_head_norm(p["q_norm"], xq)
+        # a whole scale on the place's heads is entered too
+        xq = rms_head_norm(tp.enter(p["q_norm"]) if lay == "heads"
+                           else p["q_norm"], xq)
     return xq
 
 
@@ -363,12 +376,17 @@ def qkv_projection(p, x, cfg, positions, dtype=torch.bfloat16):
     """q (B,S,H,dh), k and v (B,S,KV,dh) of an attention sub-block: the
     projections, biases, qk-norm and rotary embedding."""
     tp = tensor_parallel() or ONE
-    xq = q_projection(p, x, cfg, dtype)
     lay = tp.layout.get("kv")
+    # x meets the place's blocks: entered once for every cut projection
+    xe = tp.enter(x) if lay is not None or tp.layout.get("q") else x
+    xq = q_projection(p, x, cfg, dtype, entered=xe)
+    if lay is not None:
+        x = xe
     xk = _project(x, p["wk"], p.get("bk"), lay, tp, dtype)
     xv = _project(x, p["wv"], p.get("bv"), lay, tp, dtype)
     if cfg.qk_norm:
-        xk = rms_head_norm(p["k_norm"], xk)
+        xk = rms_head_norm(tp.enter(p["k_norm"]) if lay == "heads"
+                           else p["k_norm"], xk)
     if cfg.rope_theta:
         xq = apply_rope(xq, positions, cfg.rope_theta)
         xk = apply_rope(xk, positions, cfg.rope_theta)
@@ -401,7 +419,8 @@ def _sdpa_hd(q, k, v, mask, dtype, hd: int, tp):
     kt = k.permute(0, 2, 3, 1)[:, :, None]
     scores = tp.sum(torch.matmul(qg, kt)).float()
     scores = scores / math.sqrt(hd) + mask[:, None, None]
-    probs = torch.softmax(scores, dim=-1).to(dtype)
+    # whole probabilities against the place's slice of v
+    probs = tp.enter(torch.softmax(scores, dim=-1).to(dtype))
     out = torch.matmul(probs, v.permute(0, 2, 1, 3)[:, :, None])
     return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, v.shape[-1])
 
@@ -500,33 +519,36 @@ def attention_block(p, x, cfg, positions, *, kv_cache=None, cache_len=None,
                          impl=cfg.attn_impl, chunk=cfg.attn_chunk,
                          dtype=dtype)
 
+    # a whole tensor that meets the place's heads, rows or slice is
+    # ``tp.enter``-ed first (its backward sums the places' cotangents)
     q_lay = tp.layout.get("q")
     if q_lay == "heads":
         hq = xq.shape[2]
         xk, xv = whole_heads(xk, xv)
         if xk.shape[2] == KV:
-            xk, xv = _kv_for_q_heads(xk, xv, tp.rank * hq, hq, H // KV)
+            xk, xv = _kv_for_q_heads(tp.enter(xk), tp.enter(xv),
+                                     tp.rank * hq, hq, H // KV)
         out = attend(xq, xk, xv, positions)
     elif tp.n > 1 and S % tp.n == 0 and cfg.attn_impl == "chunked":
         # context_parallel: the place's query rows against every key
         rows = tp.cut(S)
         xk, xv = whole_heads(xk, xv)
-        out = attend(xq[:, rows], xk, xv, positions[:, rows],
-                     q_offset=rows.start)
+        out = attend(tp.enter(xq)[:, rows], tp.enter(xk), tp.enter(xv),
+                     positions[:, rows], q_offset=rows.start)
         out = tp.gather(out, dim=1)
     elif q_lay == "hd":
         # the head_dim reduction of the score (decode)
         own = tp.cut(hd)
         if not kv_slice:
-            xk, xv = xk[..., own], xv[..., own]
+            xk, xv = tp.enter(xk)[..., own], tp.enter(xv)[..., own]
         mask = _scores_mask(positions, k_positions, cfg.swa_window, causal)
-        out = _sdpa_hd(xq[..., own], xk, xv, mask, dtype, hd, tp)
+        out = _sdpa_hd(tp.enter(xq)[..., own], xk, xv, mask, dtype, hd, tp)
     else:
         xk, xv = whole_heads(xk, xv)
         out = attend(xq, xk, xv, positions)
     o_lay = tp.layout.get("o")
     if o_lay == "hd" and out.shape[3] == hd:
-        out = out[..., tp.cut(hd)]
+        out = tp.enter(out)[..., tp.cut(hd)]
     y = out.reshape(B, S, -1) @ p["wo"].to(dtype).reshape(-1, D)
     return y if o_lay is None else tp.sum(y)
 
@@ -563,6 +585,9 @@ def mla_projection(p, x, cfg, positions, dtype=torch.bfloat16):
     H, dq = p["wq_b"].shape[1:]
     q_lat = apply_norm({"scale": p["q_a_norm"]}, x @ p["wq_a"].to(dtype),
                        "rmsnorm")
+    tp = tensor_parallel()
+    if tp is not None and tp.layout.get("mla"):
+        q_lat = tp.enter(q_lat)     # into the place's heads of wq_b
     q = (q_lat @ p["wq_b"].to(dtype).reshape(r_q, H * dq)).view(B, S, H, dq)
     q_nope = q[..., :dn]
     q_rope = apply_rope(q[..., dn:], positions, cfg.rope_theta)
@@ -660,6 +685,9 @@ def mla_block(p, x, cfg, positions, *, cache=None, cache_len=None,
         raise ValueError("flash=True needs cache_len == 0 (prefill)")
     q_nope, q_rope, c_kv, k_rope = mla_projection(p, x, cfg, positions,
                                                   dtype)
+    if tp.layout.get("mla"):
+        # the whole latent and rotary key meet the place's heads
+        c_kv, k_rope = tp.enter(c_kv), tp.enter(k_rope)
     if cache is not None:
         r_own = tp.cut(r_kv) if tp.layout.get("latent") else slice(None)
         d_own = tp.cut(dr) if tp.layout.get("rope") else slice(None)
@@ -687,7 +715,7 @@ def mla_block(p, x, cfg, positions, *, cache=None, cache_len=None,
                         dtype=dtype)
     o_lay = tp.layout.get("o")
     if o_lay == "hd":
-        out = out[..., tp.cut(dv)]
+        out = tp.enter(out)[..., tp.cut(dv)]
     y = out.reshape(B, S, -1) @ p["wo"].to(dtype).reshape(-1, D)
     return y if o_lay is None else tp.sum(y)
 
@@ -715,6 +743,8 @@ def apply_mlp(p, x, kind: str, dtype=torch.bfloat16, role: str = "mlp"):
     ``wu``, ``wi`` and ``bi`` by column, ``wd`` by row, the partial
     outputs added in rank order, then ``bd``."""
     tp = tensor_parallel()
+    if tp is not None and tp.layout.get(role):
+        x = tp.enter(x)     # whole x into the place's columns
     if kind == "swiglu":
         g = x @ p["wg"].to(dtype)
         u = x @ p["wu"].to(dtype)

@@ -35,9 +35,16 @@ state is the place's block of ``launch.sharding.cache_specs``' cut
 (``init_cache``): its rows, kv heads or head_dim slice, MLA's r and dr
 slices, the mLSTM value dim, Mamba2's heads and conv channels; the
 mLSTM ``m`` state holds every row of the global batch (``_m_rows``).
-The loss over a mesh is the global batch's: the sum of nll and the
-label count of the place's rows, each added over the batch axes in rank
-order.
+The loss over a mesh reads the place's vocab columns of the logits
+(``_nll_vocab_cut``: the row's log-sum-exp and the label's logit added
+over the model axis in rank order), and is the global batch's: the sum
+of nll and the label count of the place's rows, each added over the
+batch axes in rank order (whose backward is the identity: each place's gradient is its
+rows', summed over the batch axes by ``launch.steps``).  Where autograd
+records, a whole tensor that meets the place's block (the head's input,
+the encoder's output into the cross-attention's kv blocks, a whole bias
+cut to a head_dim slice) is ``tp.enter``-ed (``launch.mesh``); the
+vocab block's lookup keeps ``_EmbeddingLookup``'s ordered backward.
 The VLM is the dense stack; its loss puts the stub front end's
 ``patches`` ahead of the token embeddings (positions 0..P+S-1, the patch
 positions unlabelled).  Its prefill and decode read no patches: the
@@ -173,26 +180,57 @@ class Model:
             rows = table.shape[0]
             local = tokens - tp.rank * rows
             mine = (local >= 0) & (local < rows)
-            x = table[local.clamp(0, rows - 1)]
+            x = self._lookup(table, local.clamp(0, rows - 1))
             x = torch.where(mine[..., None], x, torch.zeros((), dtype=x.dtype,
                                                             device=x.device))
             return tp.sum(x).to(compute_dtype(self.cfg))
-        if table.requires_grad and torch.is_grad_enabled():
-            x = _EmbeddingLookup.apply(table, tokens)
-        else:
-            x = table[tokens]
-        return x.to(compute_dtype(self.cfg))
+        return self._lookup(table, tokens).to(compute_dtype(self.cfg))
 
-    def _logits(self, params, x):
+    @staticmethod
+    def _lookup(table, tokens):
+        """``table[tokens]``, through ``_EmbeddingLookup``'s ordered
+        backward where autograd records the table."""
+        if table.requires_grad and torch.is_grad_enabled():
+            return _EmbeddingLookup.apply(table, tokens)
+        return table[tokens]
+
+    def _logits(self, params, x, gather: bool = True):
+        """The head's logits of x; under tensor parallelism the place's
+        vocab columns, gathered to the whole padded vocab in rank order
+        unless ``gather=False``."""
         cfg = self.cfg
         x = LL.apply_norm(params["final_norm"], x, cfg.norm)
         x = bf16_grad_barrier(x)
         head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-        logits = x @ head.to(compute_dtype(cfg))
         tp = tensor_parallel()
-        if tp is not None and tp.layout.get("head"):
+        cut = tp is not None and tp.layout.get("head")
+        if cut:
+            x = tp.enter(x)     # whole x into the place's vocab columns
+        logits = x @ head.to(compute_dtype(cfg))
+        if cut and gather:
             logits = tp.gather(logits, dim=logits.dim() - 1)
         return logits
+
+    def _nll_vocab_cut(self, params, x, labels, tp):
+        """Each token's -log softmax at its label from the place's vocab
+        columns of the logits (float32), never gathering them whole: the
+        row max over the places (exact, outside autograd), each place's
+        sum of exp(logit - max) added over the places in rank order, and
+        the label's logit from the place that holds it (one nonzero term
+        in the ordered sum).  The same function as the whole row's
+        ``logsumexp`` less the label's logit; a place holds (B, S, V/n)
+        float32 where the whole row would take (B, S, V)."""
+        local = self._logits(params, x, gather=False).float()
+        v = local.shape[-1]
+        peak = tp.gather(local.detach().amax(dim=-1)[None], 0).amax(dim=0)
+        total = tp.sum(torch.exp(local - peak[..., None]).sum(dim=-1))
+        logz = peak + torch.log(total)
+        lab = labels.clamp(min=0).long() - tp.rank * v
+        mine = (lab >= 0) & (lab < v)
+        gold = local.gather(-1, lab.clamp(0, v - 1)[..., None])[..., 0]
+        gold = tp.sum(torch.where(mine, gold, torch.zeros(
+            (), dtype=gold.dtype, device=gold.device)))
+        return logz - gold
 
     @staticmethod
     def _positions_added(x):
@@ -225,6 +263,8 @@ class Model:
         # parallelism (its wk, wv blocks; a whole bias cut to its slice)
         tp = tensor_parallel()
         hd_cut = tp is not None and tp.layout.get("kv") == "hd"
+        if tp is not None and tp.layout.get("kv") is not None:
+            enc_out = tp.enter(enc_out)     # into the place's wk, wv blocks
         KV, hd = params["stack"][0]["xattn"]["wk"].shape[1:]
         # each layer's projection is written into its slice: the pair is
         # never held twice (1.18 GB at whisper-medium's B = 8)
@@ -237,7 +277,8 @@ class Model:
                 t = (enc_out @ p[w].to(dt).reshape(D, KV * hd)).view(
                     B, Se, KV, hd)
                 if b in p:
-                    bias = p[b][:, tp.cut(p[b].shape[1])] if hd_cut else p[b]
+                    bias = (tp.enter(p[b])[:, tp.cut(p[b].shape[1])]
+                            if hd_cut else p[b])
                     t = t + bias.to(dt)
                 out[l] = t
         return k, v
@@ -290,11 +331,16 @@ class Model:
                                            device=labels.device), labels],
                                dim=1)
         x, _, aux = self._backbone(params, x, positions, cross_kv=cross_kv)
-        logits = self._logits(params, x).float()
         mask = (labels >= 0).float()
-        logz = torch.logsumexp(logits, dim=-1)
-        gold = logits.gather(-1, labels.clamp(min=0).long()[..., None])[..., 0]
-        nll = (logz - gold) * mask
+        tp = tensor_parallel()
+        if tp is not None and tp.layout.get("head"):
+            nll = self._nll_vocab_cut(params, x, labels, tp) * mask
+        else:
+            logits = self._logits(params, x).float()
+            logz = torch.logsumexp(logits, dim=-1)
+            gold = logits.gather(-1, labels.clamp(min=0).long()[..., None])[
+                ..., 0]
+            nll = (logz - gold) * mask
         nll, tok = torch.sum(nll), torch.sum(mask)
         ctx = current_rules()
         if ctx is not None and ctx[1].get("batch") is not None:

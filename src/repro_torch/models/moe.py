@@ -31,6 +31,13 @@ back to (T, D).  Two routes, as in the reference:
     ``_routed_sharded_plain`` runs every place of a mesh in one process
     (``launch.mesh.emulate_mesh``): the reference the ranks are held to on
     the card.
+  * The backward over a mesh (``launch.mesh``'s convention): the sharded
+    route ``enter``s the tokens and their gates, whole on every place of
+    the model axis, before the place's experts; the local route over a
+    split batch takes its aux term's probabilities from the place's own
+    rows, summed over the batch axes, so that every term's gradient runs
+    through the place's rows (the parameters' gradients are summed over
+    those axes after the backward).
 
 Determinism.  The dispatch writes each kept assignment to its own buffer
 row (dropped ones to a spare row that is sliced off), and the combine sums
@@ -243,7 +250,7 @@ def _routed_sharded(p, x, top_w, top_e, cfg, dtype, info=None):
     module docstring): x (B_loc, S, D), the rank's routing (T_loc, K),
     the rank's expert blocks in ``p``.  Returns (T_loc, D).  ``info``, a
     dict, receives the branch and the bytes this rank gathered."""
-    from ..launch.mesh import axis_group, gather_stack, ordered_sum
+    from ..launch.mesh import axis_group, enter, gather_stack, ordered_sum
 
     mesh, rules = current_rules()
     B_loc, S, D = x.shape
@@ -252,9 +259,13 @@ def _routed_sharded(p, x, top_w, top_e, cfg, dtype, info=None):
     plan = _Plan(cfg, mesh, rules, T_loc,
                  wg.numel() + wu.numel() + wd.numel())
     _check_blocks(p, cfg, plan)
-    xt = x.reshape(T_loc, D)
+    # the tokens and their gates, whole on every place of the model axis,
+    # meet the place's experts: entered (their backward sums the places'
+    # cotangents in rank order)
+    tp_group = axis_group(mesh, plan.tp_ax)
+    xt = enter(x.reshape(T_loc, D), tp_group)
     te2 = top_e.reshape(T_loc, -1)
-    tw2 = top_w.reshape(T_loc, -1)
+    tw2 = enter(top_w.reshape(T_loc, -1), tp_group)
     gathered = 0
     if plan.fsdp:
         fgroup = axis_group(mesh, plan.fsdp_ax)
@@ -371,7 +382,17 @@ def apply_moe(p, x, cfg, dtype=torch.bfloat16, return_aux=False, info=None):
     if return_aux:
         K = cfg.num_experts_per_tok
         counts = _expert_counts(top_e.reshape(-1), E, torch.int32)
-        if _split_batch(ctx) and not global_batch:
+        if global_batch:
+            # the global batch's counts; the probabilities of the place's
+            # rows, summed over the batch axes in rank order, so that the
+            # aux term's gradient runs through the place's own rows (its
+            # parameters' gradients are summed over those axes after the
+            # backward, as every other term's)
+            T_all = top_e.shape[0]
+            own = probs.view(-1, S, E)[rows].reshape(T, E)
+            me = counts.float() / (T_all * K)
+            ce = _batch_sum(torch.sum(own, dim=0), *ctx) / T_all
+        elif _split_batch(ctx):
             # GSPMD's means run over every token: the sums of the other
             # batch rows are gathered and added in rank order
             from ..launch.mesh import axis_sizes

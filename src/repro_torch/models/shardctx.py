@@ -27,7 +27,8 @@ from typing import Callable
 import torch
 
 __all__ = ["current_rules", "logical_axis_rules", "resolve", "axis_size",
-           "TensorParallel", "ONE", "tensor_parallel", "constrain",
+           "TensorParallel", "ONE", "tensor_parallel", "bind_rules",
+           "constrain",
            "bf16_grad_barrier"]
 
 _state = threading.local()
@@ -85,7 +86,10 @@ class TensorParallel:
     """The model axis as the dense layers read it: its extent ``n``, the
     calling place's coordinate ``rank`` on it, ``gather(x, dim)`` (every
     place's ``x`` concatenated along ``dim`` in rank order), ``sum(x)``
-    (their sum in rank order), and ``layout``: role -> how the place's
+    (their sum in rank order), ``enter(x)`` (the identity where a tensor
+    whole on every place meets the place's block or slice; its backward
+    sums the places' cotangents in rank order: ``launch.mesh.enter``),
+    and ``layout``: role -> how the place's
     block of it is cut ("q", "kv", "o", "cache", "ssm_o": "heads", "hd"
     or None; "mlp", "shared", "embed", "head", MLA's "mla", "latent",
     "rope", the mLSTM's "mlstm", the sLSTM's "slstm", Mamba2's "ssm",
@@ -93,9 +97,10 @@ class TensorParallel:
     ``launch.sharding.tp_layout`` says which leaves each role covers)."""
 
     def __init__(self, n: int, rank: int, layout: dict,
-                 gather: Callable, sum: Callable):
+                 gather: Callable, sum: Callable,
+                 enter: Callable = lambda x: x):
         self.n, self.rank, self.layout = n, rank, dict(layout)
-        self.gather, self.sum = gather, sum
+        self.gather, self.sum, self.enter = gather, sum, enter
 
     def cut(self, size: int) -> slice:
         """This place's block of a dim of ``size`` cut ``n`` ways."""
@@ -111,6 +116,28 @@ def tensor_parallel() -> TensorParallel | None:
     place (the dense layers' weights are then the place's blocks,
     ``launch.sharding.shard_params``), else None."""
     return getattr(_state, "tp", None)
+
+
+def bind_rules(fn: Callable) -> Callable:
+    """``fn`` run under the rules and the ``TensorParallel`` current now,
+    on whichever thread calls it.  Remat reruns a layer's forward inside
+    the backward, on the autograd engine's own thread for a card's
+    tensors, where the caller's thread-local rules are not set; a rerun
+    without them would skip the layer's gathers and read its blocks as
+    whole.  ``fn`` itself where no rules are set."""
+    saved = getattr(_state, "rules", None), getattr(_state, "tp", None)
+    if saved == (None, None):
+        return fn
+
+    def run(*args, **kwargs):
+        prev = getattr(_state, "rules", None), getattr(_state, "tp", None)
+        _state.rules, _state.tp = saved
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            _state.rules, _state.tp = prev
+
+    return run
 
 
 def constrain(x, *logical_axes):

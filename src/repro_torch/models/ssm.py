@@ -150,19 +150,24 @@ def mamba2_block(p, x, cfg, *, state=None, conv_cache=None, chunk=256,
     their convs are), the heads independent, the gated norm per head; the
     conv windows are the place's channels (``_window``); the ``wo``
     partials (its heads, or its P rows where the heads are whole) are
-    added in rank order."""
+    added in rank order.  Where autograd records, x into the place's
+    heads, the whole B and C, and a whole y cut to its P rows are
+    ``tp.enter``-ed (``launch.mesh``)."""
     tp = tensor_parallel() or ONE
     Bsz, L, D = x.shape
     _, _, P, N = ssm_dims(cfg)
     H = p["wx"].shape[1]
+    heads_cut = bool(tp.layout.get("ssm"))
+    # x into the place's heads of wz, wx and w_dt
+    xe = tp.enter(x) if heads_cut else x
 
-    def proj(w):
+    def proj(w, x=xe):
         return x @ p[w].to(dtype).reshape(D, -1)
 
     z = proj("wz").view(Bsz, L, H, P)
     xin = proj("wx").view(Bsz, L, H, P)
-    B_, C_ = proj("wB"), proj("wC")
-    dt = F.softplus(x.float() @ p["w_dt"] + p["dt_bias"])        # (B,L,H)
+    B_, C_ = proj("wB", x), proj("wC", x)
+    dt = F.softplus(xe.float() @ p["w_dt"] + p["dt_bias"])       # (B,L,H)
     A = -torch.exp(p["A_log"])                                   # (H,) < 0
 
     new_conv_cache = None
@@ -172,6 +177,9 @@ def mamba2_block(p, x, cfg, *, state=None, conv_cache=None, chunk=256,
             p["conv_x"].reshape(-1, H * P).to(dtype))).view(Bsz, L, H, P)
         B_ = silu_stepwise(_causal_conv(B_, p["conv_B"].to(dtype)))
         C_ = silu_stepwise(_causal_conv(C_, p["conv_C"].to(dtype)))
+        if heads_cut:
+            # whole B and C against the place's heads
+            B_, C_ = tp.enter(B_), tp.enter(C_)
     else:
         ks = cfg.ssm_conv
         cx, bx = _window(conv_cache["x"], xin.reshape(Bsz, 1, H * P),
@@ -215,7 +223,7 @@ def mamba2_block(p, x, cfg, *, state=None, conv_cache=None, chunk=256,
     y = (yf * torch.rsqrt(var + 1e-6) * p["out_norm"]).to(dtype)
     o_lay = tp.layout.get("ssm_o")
     if o_lay == "hd":
-        y = y[..., tp.cut(P)]
+        y = tp.enter(y)[..., tp.cut(P)]
     out = y.reshape(Bsz, L, -1) @ p["wo"].to(dtype).reshape(-1, D)
     if o_lay is not None:
         out = tp.sum(out)

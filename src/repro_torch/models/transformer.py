@@ -51,7 +51,7 @@ from . import layers as LL
 from . import moe as MOE
 from . import ssm as SSM
 from . import xlstm as XL
-from .shardctx import bf16_grad_barrier
+from .shardctx import bf16_grad_barrier, bind_rules
 
 __all__ = ["init_layer", "apply_layer", "init_dense_stack",
            "apply_dense_stack", "init_kv_caches", "init_xlstm_stack",
@@ -114,9 +114,13 @@ def _save_dots(ctx, op, *args, **kwargs):
 
 
 def _remat(fn, cfg):
-    """``fn`` under the checkpoint policy ``cfg.remat``."""
+    """``fn`` under the checkpoint policy ``cfg.remat``.  Under the rules
+    of a mesh the recomputed forward runs under the rules current when
+    the layer first ran (``shardctx.bind_rules``), and reruns its forward
+    gathers in the backward, on every rank alike."""
     if cfg.remat == "none":
         return fn
+    fn = bind_rules(fn)
     kw = {}
     if cfg.remat == "dots":
         kw["context_fn"] = functools.partial(

@@ -31,7 +31,12 @@ tp_layout``): an mLSTM place holds a dv slice of every head (``wv``,
 and n whole, so the parallel form and the step need no collective; the
 per-head norm's sum of squares (over dv, the cut dim) and the ``wo``
 partials are added over the places in rank order.  The sLSTM recurrence
-runs whole on every place, which holds the dh rows of ``wo``.
+runs whole on every place, which holds the dh rows of ``wo``.  Where
+autograd records (the train step over a mesh), every whole tensor that
+meets the place's slice (x into ``wv`` and ``wz``; q, k, the cumulative
+forget gate and the input gate into the parallel form; the summed norm;
+the sLSTM's hidden states into ``wo``'s rows) is ``tp.enter``-ed, so
+its backward sums the places' cotangents (``launch.mesh``).
 """
 from __future__ import annotations
 
@@ -84,7 +89,8 @@ def _out(p, y, z, dtype, tp=None, dh: int = 0):
     if tp is None:
         var = (yf * yf).mean(dim=-1, keepdim=True)
     else:
-        var = tp.sum((yf * yf).sum(dim=-1, keepdim=True)) / dh
+        # whole over the places, then against the place's slice of y
+        var = tp.enter(tp.sum((yf * yf).sum(dim=-1, keepdim=True)) / dh)
     y = (yf * torch.rsqrt(var + 1e-6) * p["out_norm"]).to(dtype)
     y = y * silu_stepwise(z)
     out = y.reshape(B, L, H * dv) @ p["wo"].to(dtype).reshape(H * dv, -1)
@@ -123,8 +129,10 @@ def mlstm_block(p, x, cfg, *, state=None, chunk=1024, dtype=torch.bfloat16):
         tp = None
     q = _heads(x, p["wq"], dtype).float() / math.sqrt(dh)
     k = _heads(x, p["wk"], dtype)
-    v = _heads(x, p["wv"], dtype)
-    z = _heads(x, p["wz"], dtype)
+    # x into the place's value-dim blocks of wv and wz
+    xe = x if tp is None else tp.enter(x)
+    v = _heads(xe, p["wv"], dtype)
+    z = _heads(xe, p["wz"], dtype)
     xf = x.float()
     li = xf @ p["w_i"] + p["b_i"]                             # log input gate
     lf = F.logsigmoid(xf @ p["w_f"] + p["b_f"])
@@ -132,6 +140,9 @@ def mlstm_block(p, x, cfg, *, state=None, chunk=1024, dtype=torch.bfloat16):
     new_state = None
     if state is None and L > 1:
         F_ = torch.cumsum(lf, dim=1)                          # (B, L, H)
+        if tp is not None:
+            # whole, against the place's value-dim slice of v
+            q, k, F_, li = (tp.enter(t) for t in (q, k, F_, li))
         nq = max(1, L // chunk) if L % chunk == 0 else 1
         cq = L // nq
         remat = torch.is_grad_enabled() and any(
@@ -222,6 +233,6 @@ def slstm_block(p, x, cfg, *, state=None, dtype=torch.bfloat16):
     cut = tp.layout.get("slstm")
     if cut:
         # the place's dh rows of wo: a partial, added in rank order
-        hs = hs[..., tp.cut(dh)]
+        hs = tp.enter(hs)[..., tp.cut(dh)]
     out = hs.reshape(B, L, -1) @ p["wo"].to(dtype).reshape(-1, D)
     return (tp.sum(out) if cut else out), (c, n, h, m)

@@ -44,19 +44,43 @@ def init_opt_state(params, cfg: AdamWConfig) -> dict:
 
 
 @torch.no_grad()
-def global_norm(tree) -> torch.Tensor:
-    """sqrt(Σ_leaves Σ x²) in float32: one sum a leaf, then their sum."""
+def global_norm(tree, cut=None) -> torch.Tensor:
+    """sqrt(Σ_leaves Σ x²) in float32: one sum a leaf, then their sum in
+    tree order.  Over a mesh ``tree`` holds the place's blocks and
+    ``cut`` lists, a leaf in tree order, the group its leaf is cut over
+    (``launch.mesh.axis_group`` of the axes that cut it), or None where
+    the place holds it whole: each cut leaf's square sum is summed over
+    its group in rank order (one ``ordered_sum`` a group, of every such
+    leaf's sum at once), a whole leaf counted once, so every place gets
+    the whole tree's norm, the same bits on each."""
     sums = [torch.sum(torch.square(x.float())) for x in tree_leaves(tree)]
+    if cut is not None:
+        from ..launch.mesh import ordered_sum
+
+        if len(cut) != len(sums):
+            raise ValueError(f"cut names {len(cut)} leaves, the tree has "
+                             f"{len(sums)}")
+        by_group: dict = {}
+        for i, g in enumerate(cut):
+            if g is not None:
+                by_group.setdefault(id(g), (g, []))[1].append(i)
+        for g, idx in by_group.values():
+            total = ordered_sum(torch.stack([sums[i] for i in idx]), g)
+            for j, i in enumerate(idx):
+                sums[i] = total[j]
     return torch.sqrt(torch.sum(torch.stack(sums)))
 
 
 @torch.no_grad()
-def apply_updates(params, grads, state: dict, cfg: AdamWConfig):
+def apply_updates(params, grads, state: dict, cfg: AdamWConfig,
+                  grad_norm: torch.Tensor | None = None):
     """One AdamW step, in place: (params, state, {"grad_norm"}).  ``grads``
     is a tree like ``params`` (float32 or the parameters' dtype); it is
-    consumed (scaled in place when it is float32)."""
+    consumed (scaled in place when it is float32).  ``grad_norm``: the
+    norm the clipping reads (over a mesh, the whole tree's:
+    ``global_norm(grads, cut)``); by default ``global_norm(grads)``."""
     step = state["step"] + 1
-    gn = global_norm(grads)
+    gn = global_norm(grads) if grad_norm is None else grad_norm
     scale = torch.clamp(
         torch.full_like(gn, cfg.clip_norm) / torch.clamp(gn, min=1e-12),
         max=1.0)

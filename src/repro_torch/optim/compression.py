@@ -31,19 +31,40 @@ def init_compression(params) -> CompressionState:
 
 
 @torch.no_grad()
-def compress_grads(grads, state: CompressionState):
+def compress_grads(grads, state: CompressionState, cut=None):
     """(wire, {"ef": e'}): the dequantized int8 values each leaf sends and
-    the new error-feedback buffers."""
+    the new error-feedback buffers.  Over a mesh ``grads`` and the
+    buffers are the place's blocks and ``cut`` lists, a leaf in tree
+    order, the group its leaf is cut over, or None (``adamw.
+    global_norm``): a group of leaves' max|g + e| is then the whole
+    leaves', the max over the places of that group (exact in any order),
+    so the scale is the reference's."""
     groups: dict = {}
-    for (path, g), (_, e) in zip(tree_leaves_with_path(grads),
-                                 tree_leaves_with_path(state["ef"])):
+    cuts: dict = {}
+    leaves = zip(tree_leaves_with_path(grads),
+                 tree_leaves_with_path(state["ef"]))
+    for i, ((path, g), (_, e)) in enumerate(leaves):
         key = tuple("*" if isinstance(k, int) else k for k in path)
         groups.setdefault(key, []).append((path, g.float() + e))
+        if cut is not None:
+            cuts.setdefault(key, cut[i])
+    amaxes = {key: torch.amax(torch.stack([torch.amax(torch.abs(tot))
+                                           for _, tot in members]))
+              for key, members in groups.items()}
+    if cut is not None:
+        from ..launch.mesh import gather_stack
+
+        by_group: dict = {}
+        for key, g in cuts.items():
+            if g is not None:
+                by_group.setdefault(id(g), (g, []))[1].append(key)
+        for g, keys in by_group.values():
+            every = gather_stack(torch.stack([amaxes[k] for k in keys]), g)
+            for j, key in enumerate(keys):
+                amaxes[key] = torch.amax(every[:, j])
     wire, ef = {}, {}
-    for members in groups.values():
-        amax = torch.amax(torch.stack([torch.amax(torch.abs(tot))
-                                       for _, tot in members]))
-        amax = torch.clamp(amax, min=1e-12)
+    for key, members in groups.items():
+        amax = torch.clamp(amaxes[key], min=1e-12)
         scale = amax / torch.full_like(amax, 127.0)
         for path, tot in members:
             w = torch.clamp(torch.round(tot / scale), -127, 127) * scale

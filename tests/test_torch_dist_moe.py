@@ -286,17 +286,21 @@ def test_apply_moe_branches_and_gathers(runs):
 
 
 def test_refusals(runs):
-    """A train step over a mesh still refuses, naming its ROADMAP items
-    (3b, FSDP, and 3c, the gradient reduction); a dense family on a model
-    axis of 2 and a recurrent family's prefill no longer do (their steps
-    are ``tests/test_torch_dist_tp.py``'s and
-    ``tests/test_torch_dist_rest.py``'s)."""
+    """A train step of a config with ``fsdp=True`` on a mesh whose batch
+    axes span more than one place still refuses, naming its ROADMAP item
+    (3b, FSDP of the dense weights); a train step of the reduced mixtral
+    (``fsdp=False``), a dense family on a model axis of 2 and a recurrent
+    family's prefill no longer do (their steps are
+    ``tests/test_torch_dist_train.py``'s, ``tests/test_torch_dist_tp.py``'s
+    and ``tests/test_torch_dist_rest.py``'s)."""
     for got in runs[1]:
         assert str(got["err/dense_tp"]) == ""
         assert str(got["err/serve_tp"]) == ""
         assert str(got["err/recurrent"]) == ""
-        assert "train step over a mesh" in str(got["err/train"])
-        assert "items 3b and 3c" in str(got["err/train"])
+        assert str(got["err/train"]) == ""
+        assert "fsdp=True" in str(got["err/train_fsdp"])
+        assert "item 3b" in str(got["err/train_fsdp"])
+        assert "3c" not in str(got["err/train_fsdp"])
 
 
 # ------------------------------------------------ the card (skipped here)

@@ -358,8 +358,9 @@ def moe_cases(rank: int, world: int, group, data_path: str) -> dict:
                 dict(zip(MESH_AXES, shape)), dtype=tdt, return_aux=True)
             out[f"apply_emu/{name}/out"] = y.float().numpy()
             out[f"apply_emu/{name}/aux"] = aux["aux_loss"].numpy()
-    # what still refuses over a mesh (a train step) and what no longer
-    # does (a dense family on a model axis of 2, a recurrent family: "")
+    # what still refuses over a mesh (a train step with fsdp=True over a
+    # split batch) and what no longer does (a dense family on a model axis
+    # of 2, a recurrent family, a train step with fsdp=False: "")
     mesh = meshes[(2, 2)]
     out["err/dense_tp"] = np.asarray(_raises(
         lambda: make_prefill_step(get_config("qwen3-14b").reduced(), "cpu",
@@ -373,6 +374,9 @@ def moe_cases(rank: int, world: int, group, data_path: str) -> dict:
     out["err/train"] = np.asarray(_raises(
         lambda: make_train_step(get_config("mixtral-8x22b").reduced(),
                                 "cpu", mesh=mesh), NotImplementedError))
+    out["err/train_fsdp"] = np.asarray(_raises(
+        lambda: make_train_step(get_config("mixtral-8x22b").reduced(
+            fsdp=True), "cpu", mesh=mesh), NotImplementedError))
     return out
 
 
