@@ -175,16 +175,20 @@ Phases, in order; any failure exits non-zero:
    mesh (1, 1), equal to the no-mesh route bit for bit; (b) 4 gloo ranks
    on this card, mesh (2, 2) (4 experts a model rank, F split over data;
    each rank's expert blocks, and since phase tp its 24/4 attention heads
-   and 16,384 vocab rows, cut by ``launch.sharding.shard_params``): a
+   and 16,384 vocab rows, and since FSDP of the dense weights its embed,
+   attention and router over data too, gathered a layer at a time, cut by
+   ``launch.sharding.shard_params``): a
    prefill at B=2, S=4,096 (the token path), one at B=2, S=32,768 (the
    weight path) and 8 greedy decode steps at batch 4 (the token path),
    each rank's logits, cache digests and tokens bit for bit equal to its
    place of the in-process emulation (``launch.mesh.emulate_mesh``), the
    ranks' tokens equal, the logits at capacity factor 4 (no drop) within
    5e-2 relative L2 of the no-mesh route (at the config's 1.25
-   reported); the branch and gathered bytes of every MoE call, prefill
-   seconds, gather and sum milliseconds, decode p50, peak memory and
-   launches a rank; (c) NCCL at 4 ranks where 4 cards are visible;
+   reported); the branch and gathered bytes of every MoE call, every
+   gather's bytes by kind a prefill and a decode step (the FSDP gathers
+   apart), prefill seconds, gather and sum milliseconds, decode p50, peak
+   memory and launches a rank; (c) NCCL at 4 ranks where 4 cards are
+   visible;
 11c. dense tensor parallelism over a (data x model) mesh (phase ``tp``):
    (a) qwen3-14b at full width cut to 4 layers on mesh (1, 4) over 4 gloo
    ranks on this card (a rank's 10 of 40 q heads, 2 of 8 kv heads, 4,352
@@ -203,8 +207,8 @@ Phases, in order; any failure exits non-zero:
    gathers a call, prefill seconds, decode p50 / p99, peak memory, gather
    times and flash launches by shape, logged;
 11d. the rest of the serving path over a mesh (phase ``tp_all``), 4 gloo
-   ranks on this card that run three parts in turn, each rank's tree
-   drawn and cut one rank at a time (``draw_blocks``): (a)
+   ranks on this card that run three parts in turn, each rank's blocks
+   drawn a leaf at a time, every rank at once (``draw_blocks``): (a)
    deepseek-v2-236b x 1 layer on mesh (1, 4), a rank's 32 of 128 heads,
    128 of 512 latent dims, 16 of 64 rope dims and 40 of 160 experts, the
    prefill at B=2, S=4,096 (one flash launch at (192, 128) on the rank's
@@ -319,16 +323,21 @@ Phases, in order; any failure exits non-zero:
    steps, resumed bitwise (a full-width checkpoint, 34.9 GB, would not fit
    the disk writes a call has left after phase train's);
 17c. training over a (data x model) mesh (phase ``train_tp``,
-   ``launch.steps.make_train_step(mesh=)``): ``TRAIN_TP``'s three parts,
+   ``launch.steps.make_train_step(mesh=)``): ``TRAIN_TP``'s four parts,
    qwen3-14b x 1 on (1, 4), xlstm-350m x 8 and zamba2-2.7b x 6 on (2, 2),
-   over 4 gloo ranks on the card spawned once, 3 steps at batch 8 x
-   1,024 each after the no-mesh route's in this process: each rank's
-   losses, grad norms and sampled blocks against the no-mesh route's
-   (within 5e-2), every replicated leaf equal on its ranks after every
-   step, silu_stepwise launched and flash not; a step's seconds, the
-   forward, backward and remat bytes and gathers apart, and the peak a
-   rank; first, that two threads' backward passes cannot meet on the card
-   (an emulated mesh trains on the CPU only);
+   2 steps at batch 8 x 1,024, and (d) FSDP of the dense weights,
+   command-r-35b x 1 on (2, 2) with ``fsdp=True`` (its blocks cut over
+   data too, drawn a leaf at a time: a bf16 prefill at B=2 x 4,096 with
+   flash at a rank's 32/4 heads and 2 greedy decode steps, then 2 train
+   steps at batch 2 x 1,024), over 4 gloo ranks on the card spawned once,
+   each part after the no-mesh route's in this process: each rank's
+   losses, grad norms, sampled blocks (and (d)'s prefill and decode
+   logits) against the no-mesh route's (within 5e-2), every replicated
+   leaf equal on its ranks after every step, silu_stepwise launched and
+   flash not in training; a step's seconds, the forward, FSDP, backward
+   and remat bytes and gathers apart, and the peak a rank ((d): at most
+   16 GB after the cut); first, that two threads' backward passes cannot
+   meet on the card (an emulated mesh trains on the CPU only);
 18. each kernel timed at the shapes its path launches (CUDA events, median
    of 21 samples after warm-up; ``ms`` from launches replayed in a CUDA
    graph, ``eager_ms`` from launches made one by one from Python) beside
@@ -356,7 +365,9 @@ Phases, in order; any failure exits non-zero:
    context-parallel shape (1,024 query rows against 3,072 keys, 40/8 x
    128, q_offset 2,048) beside ``scaled_dot_product_attention`` (with the
    explicit mask at the offset), and at phase tp_all's MLA rank shape
-   (B=2, S=4,096, 32/32 heads, (192, 128)) beside it;
+   (B=2, S=4,096, 32/32 heads, (192, 128)) beside it, and at phase
+   train_tp (d)'s FSDP serving rank shape (B=1, S=4,096, 32/4 x 128)
+   beside it;
    ``silu_stepwise`` at a qwen3-14b decode step's (4, 1, 17,408) and its
    prefill's (2, 4,096, 17,408) bfloat16 shapes, ``gelu_stepwise`` at
    whisper-medium's decoder step (8, 1, 4,096) and encoder (8, 1,500,
@@ -719,7 +730,9 @@ TRAIN_MOE = dict(arch="mixtral-8x22b", num_layers=1, batch=8, seq=1024,
 # the MoE family over a (data x model) mesh (phase moe_ep): mixtral-8x22b
 # at full width (phase moe's widths) cut to 1 layer, fsdp (the config's
 # own), bf16, random weights from SEED, on mesh (2, 2): 4 experts a model
-# rank, F sharded 2 ways over data.  The reference's token-path rule puts
+# rank, F sharded 2 ways over data, and (since FSDP of the dense weights)
+# the embed, attention and router cut over data and gathered a layer at a
+# time in every prefill and decode step.  The reference's token-path rule puts
 # T_loc < 16,384 on the token path: a prefill at B=2, S=4,096 (T_loc
 # 4,096) and decode take it, a prefill at B=2, S=32,768 (T_loc 32,768)
 # the weight path.  Decode: a 64-token prompt at batch 4, 8 greedy steps.
@@ -730,6 +743,10 @@ MOE_EP = dict(arch="mixtral-8x22b", num_layers=1, seed=0, mesh=(2, 2),
               token=(2, 4096), weight=(2, 32768), decode=(4, 64, 8),
               no_drop=4.0)
 MOE_EP_DEADLINE_S = 300
+# the launch.mesh.GATHERED keys phase moe_ep logs a prefill and a decode
+# step: the gathers of activations and experts, and of the dense weights
+# cut over data (FSDP)
+MOE_EP_GATHERED = ("bytes", "calls", "fsdp_bytes", "fsdp_calls")
 # dense tensor parallelism over a (data x model) mesh (phase tp).  (a)
 # qwen3-14b at full width cut to 4 of 40 layers, bf16, random weights from
 # SEED, on mesh (1, 4) over 4 gloo ranks on the one card (NCCL refuses two
@@ -780,10 +797,11 @@ TP_ALL = {
 TP_ALL_DEADLINE_S = 300
 # training over a (data x model) mesh (phase train_tp): make_train_step
 # with mesh= at full width, float32 masters cast to bf16 at every product,
-# each config's own microbatches and remat, 3 steps at batch 8 x sequence
-# 1,024 of SyntheticLMData(seed 0), the last 2 timed; 4 gloo ranks on the
-# one card, spawned once for the three parts, each rank's blocks drawn
-# one rank at a time (draw_blocks).  (a) qwen3-14b x 1 layer on (1, 4):
+# each config's own microbatches and remat, 2 steps at batch 8 x sequence
+# 1,024 of SyntheticLMData(seed 0), the second timed; 4 gloo ranks on the
+# one card, spawned once for the four parts, each rank's blocks drawn a
+# leaf at a time, every rank at once (draw_blocks).  (a) qwen3-14b x 1
+# layer on (1, 4):
 # 1.89 B parameters, 30 GB of state at 16 B a parameter (master,
 # gradient, m, v), 7.6 GB a rank; (2, 2) would hold 15 GB a rank.  (b)
 # xlstm-350m x 8 layers (one group: 7 mLSTM + 1 sLSTM) on (2, 2): the
@@ -802,17 +820,33 @@ TP_ALL_DEADLINE_S = 300
 # (relative L2 over every TRAIN_TP_SAMPLE-th element of each leaf block:
 # the whole blocks would be 7.6 GB to carry across); every leaf that
 # several ranks hold is equal on them bit for bit after every step (an
-# exact int64 checksum of its bits on the card).
+# exact int64 checksum of its bits on the card).  (d) FSDP of the dense
+# weights (ROADMAP Queue 1 item 3b): command-r-35b x 1 layer at full
+# width (2.80 B parameters: the tied embed 2.10 B, a layer 0.70 B) with
+# its fsdp=True on (2, 2), every dim its spec names "data" cut over data:
+# a rank holds a quarter of the tree (11.2 GB of float32 state), against
+# half without the cut (22.4 GB a rank, 89.7 GB for 4: more than the
+# card).  First a bf16 prefill at B=2 x 4,096 (flash at a rank's 32/4
+# heads x 128) and 2 greedy decode steps fed the no-mesh route's tokens,
+# then 2 train steps at batch 2 x 1,024 (one microbatch at dp 2),
+# float32 masters, bf16 compute, remat "full".  Every part's steps 3 -> 2
+# since (d) (its time).
 TRAIN_TP = {
     "a": dict(arch="qwen3-14b", num_layers=1, mesh=(1, 4)),
     "b": dict(arch="xlstm-350m", num_layers=8, mesh=(2, 2),
               dtype="float32"),
     "c": dict(arch="zamba2-2.7b", num_layers=6, mesh=(2, 2),
               dtype="float32"),
+    "d": dict(arch="command-r-35b", num_layers=1, mesh=(2, 2),
+              remat="full", run=dict(batch=2, seq=1024),
+              serve=dict(prefill=(2, 4096), decode=2)),
 }
-TRAIN_TP_RUN = dict(batch=8, seq=1024, steps=3, seed=0, lr=3e-4)
+TRAIN_TP_RUN = dict(batch=8, seq=1024, steps=2, seed=0, lr=3e-4)
 TRAIN_TP_SAMPLE = 97
-TRAIN_TP_DEADLINE_S = 420
+TRAIN_TP_DEADLINE_S = 480
+# part (d)'s gate: a rank's peak after the cut, its blocks and optimizer
+# state (11.2 GB) beside one layer's and the embedding's gathered weights
+TRAIN_TP_FSDP_PEAK_GB = 16.0
 # the elementwise kernels' checks and times (phases kernels and times)
 ELEMENTWISE_N = {"bfloat16": 64 << 20, "float32": 16 << 20}
 ELEMENTWISE_SHAPES = {
@@ -4845,13 +4879,17 @@ def moe_ep_program(dev, mesh, full=None, timers: dict | None = None) -> dict:
     """Phase moe_ep's work on one place of ``mesh`` (a rank, or a place of
     ``emulate_mesh``): mixtral-8x22b x 1 layer from SEED (``full``, the
     whole parameter tree, or drawn here), cut to its blocks
-    (``shard_params``: its experts, and its attention heads and vocab rows
-    over the model axis); the token-path and the weight-path prefills at the
-    config's capacity factor, the token-path prefill again at MOE_EP's
-    no-drop factor, and decode.  Returns the place's rows: logits, a digest
-    of each cache, the global tokens, the branch and gathered bytes of
-    every MoE call (under ``moe_call_spy``), the flash and silu launches,
-    the seconds."""
+    (``shard_params``: its experts over both axes; with the config's
+    fsdp=True its embed, attention and router over the data axis too,
+    gathered a layer at a time in every prefill and decode step; its
+    attention heads and vocab rows over the model axis); the token-path
+    and the weight-path prefills at the config's capacity factor, the
+    token-path prefill again at MOE_EP's no-drop factor, and decode.
+    Returns the place's rows: logits, a digest of each cache, the global
+    tokens, the branch and gathered bytes of every MoE call (under
+    ``moe_call_spy``), the bytes and gathers of every prefill and decode
+    step by kind (``launch.mesh.GATHERED``: the FSDP gathers apart), the
+    flash and silu launches, the seconds."""
     import dataclasses
 
     import numpy as np
@@ -4860,10 +4898,14 @@ def moe_ep_program(dev, mesh, full=None, timers: dict | None = None) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.kernels import elementwise as EW
     from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch import mesh as M
     from repro_torch.launch.mesh import axis_group, gather_stack
     from repro_torch.launch.sharding import activation_rules, shard_params
     from repro_torch.launch.steps import make_prefill_step, make_serve_step
     from repro_torch.models.model import build_model
+
+    def gathered():
+        return np.asarray([M.GATHERED[k] for k in MOE_EP_GATHERED])
 
     cfg = dataclasses.replace(get_config(MOE_EP["arch"]),
                               num_layers=MOE_EP["num_layers"])
@@ -4892,10 +4934,12 @@ def moe_ep_program(dev, mesh, full=None, timers: dict | None = None) -> dict:
             cfg, moe_capacity_factor=MOE_EP["no_drop"]))
         _, prefill = make_prefill_step(c, dev, mesh=mesh)
         n0 = len(calls)
+        M.reset_gathered()
         t0 = time.perf_counter()
         logits, cache = prefill(params, {"tokens": tokens,
                                          "cache_seq": S})
         out[f"{name}/prefill_s"] = np.float64(sync_s(t0))
+        out[f"{name}/mesh_gathered"] = gathered()
         out[f"{name}/logits"] = logits.float().cpu().numpy()
         out[f"{name}/cache"] = np.asarray(tree_digest(cache))
         out[f"{name}/calls"] = np.asarray(json.dumps(calls[n0:]))
@@ -4912,11 +4956,14 @@ def moe_ep_program(dev, mesh, full=None, timers: dict | None = None) -> dict:
     tok = torch.argmax(logits, dim=-1).to(torch.int32)
     tok = gather_stack(tok, axis_group(mesh, ax)).reshape(-1)
     toks, step_s, step_logits = [tok.cpu().numpy()], [], []
+    step_gathered = []
     for i in range(steps):
+        M.reset_gathered()
         t0 = time.perf_counter()
         tok, lg, cache = serve(params, {"token": tok[:, None],
                                         "pos": P + i, "cache": cache})
         step_s.append(sync_s(t0))
+        step_gathered.append(gathered())
         toks.append(tok.cpu().numpy())
         step_logits.append(lg.float().cpu().numpy())
     out["decode/tokens"] = np.stack(toks)
@@ -4924,6 +4971,7 @@ def moe_ep_program(dev, mesh, full=None, timers: dict | None = None) -> dict:
     out["decode/cache"] = np.asarray(tree_digest(cache))
     out["decode/calls"] = np.asarray(json.dumps(calls[n0:]))
     out["decode/step_s"] = np.asarray(step_s)
+    out["decode/mesh_gathered"] = np.stack(step_gathered)
     out["launches"] = np.asarray(json.dumps(
         {**dict(FA.LAUNCHES), **dict(EW.LAUNCHES)}))
     if timers is not None:
@@ -4989,9 +5037,10 @@ def hold_moe_ep_ranks(ranks: list[dict], emu: list[dict], what: str) -> None:
     tokens against each other."""
     import numpy as np
 
-    # launches are not compared: the emulation's places share the counts
+    # launches and GATHERED are not compared: the emulation's places share
+    # the counts
     skip = ("prefill_s", "step_s", "gather_ms", "sum_ms", "peak_gb",
-            "launches")
+            "launches", "mesh_gathered")
     for r, (got, want) in enumerate(zip(ranks, emu)):
         for k, v in want.items():
             if k.endswith(skip):
@@ -5101,12 +5150,19 @@ def phase_moe_ep(dev, ep: dict = MOE_EP) -> dict:
     for r, got in enumerate(ranks):
         gathered = {n: sum(c["gathered_bytes"] for c in json.loads(
             str(got[f"{n}/calls"]))) for n in ("token", "weight", "decode")}
+        mesh_gathered = {
+            **{n: dict(zip(MOE_EP_GATHERED, map(int, got[
+                f"{n}/mesh_gathered"]))) for n in ("token", "weight",
+                                                  "no_drop")},
+            "decode_a_step": [dict(zip(MOE_EP_GATHERED, map(int, g)))
+                              for g in got["decode/mesh_gathered"]]}
         row = {"peak_gb": float(got["peak_gb"]),
                "prefill_s": {n: float(got[f"{n}/prefill_s"])
                              for n in ("token", "weight", "no_drop")},
                "decode_p50_ms": statistics.median(
                    got["decode/step_s"].tolist()) * 1e3,
                "gathered_bytes": gathered,
+               "mesh_gathered": mesh_gathered,
                "gather_ms": [float(x) for x in got["gather_ms"]],
                "sum_ms": [float(x) for x in got["sum_ms"]],
                "launches": json.loads(str(got["launches"]))}
@@ -5116,6 +5172,9 @@ def phase_moe_ep(dev, ep: dict = MOE_EP) -> dict:
             f"{row['prefill_s']['weight']:.2f} s; decode p50 "
             f"{row['decode_p50_ms']:.1f} ms; peak {row['peak_gb']:.1f} GB")
         log(f"moe_ep gloo x4 rank {r}: gathered {json.dumps(gathered)} B")
+        log(f"moe_ep gloo x4 rank {r}: every gather by kind, a prefill and "
+            f"a decode step (the FSDP gathers apart) "
+            f"{json.dumps(mesh_gathered)}")
         log(f"moe_ep gloo x4 rank {r}: gather {spread(row['gather_ms'])}")
         log(f"moe_ep gloo x4 rank {r}: sum {spread(row['sum_ms'])}")
         log(f"moe_ep gloo x4 rank {r}: launches {json.dumps(row['launches'])}")
@@ -5230,27 +5289,18 @@ def rank_end(dev) -> dict:
 def draw_blocks(cfg, dev, mesh, seed: int, full=None, master=False):
     """The place's blocks (``shard_params``) of ``cfg``'s model drawn from
     ``seed`` (float32 masters with ``master``): cut from ``full`` where it
-    is given (an emulated place), else drawn whole on the card and cut by
-    one rank of the default process group at a time, a barrier between,
-    so that the card holds one whole tree at most beside the ranks'
-    blocks."""
-    import torch
-    import torch.distributed as dist
-
-    from repro_torch.launch.sharding import shard_params
+    is given (an emulated place), else drawn on the card a leaf at a time
+    and cut right after each draw (``Model.init(keep=)``: the same blocks
+    bit for bit), a rank's peak its blocks and one whole leaf.  The ranks
+    of a phase draw at once: the largest draw, phase train_tp (d)'s, is
+    4 x 11.5 GB."""
+    from repro_torch.launch.sharding import keep_blocks, shard_params
     from repro_torch.models.model import build_model
 
     if full is not None:
         return shard_params(cfg, full, mesh)
-    params = None
-    for r in range(dist.get_world_size()):
-        if r == dist.get_rank():
-            whole = build_model(cfg, dev).init(seed, master=master)
-            params = shard_params(cfg, whole, mesh)
-            del whole
-            torch.cuda.empty_cache()
-        dist.barrier()
-    return params
+    return build_model(cfg, dev).init(seed, master=master,
+                                      keep=keep_blocks(cfg, mesh))
 
 
 def tp_program(dev, mesh, spec: dict, full=None, rank: bool = False) -> dict:
@@ -7141,19 +7191,108 @@ def train_tp_cfg(spec: dict):
 
     cfg = get_config(spec["arch"])
     return dataclasses.replace(cfg, num_layers=spec["num_layers"],
-                               dtype=spec.get("dtype", cfg.dtype))
+                               dtype=spec.get("dtype", cfg.dtype),
+                               remat=spec.get("remat", cfg.remat))
+
+
+def train_tp_run(run: dict, spec: dict) -> dict:
+    """``run`` with a part's own batch, sequence or steps."""
+    return dict(run, **spec.get("run", {}))
+
+
+def fsdp_serve(cfg, dev, mesh, spec: dict, seed: int, feed=None) -> dict:
+    """Phase train_tp (d)'s serving: the bf16 model from ``seed`` (a
+    rank's blocks drawn a leaf at a time, ``draw_blocks``, over ``mesh``;
+    the whole tree without one), the prefill at ``spec["serve"]
+    ["prefill"]`` with flash, then ``spec["serve"]["decode"]`` greedy
+    decode steps fed ``feed`` (the no-mesh route's tokens; its own greedy
+    tokens where None).  Returns the place's rows of the prefill's and
+    each step's logits (float32, on the host), the global tokens fed and
+    picked, and over a mesh its flash launches' shapes, the bytes of each
+    kind (``GATHERED``) and seconds of the prefill and a decode step, its
+    peak and launches after the cut (``rank_start``, ``rank_end``)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch.sharding import activation_rules
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models.model import build_model
+
+    B, S = spec["serve"]["prefill"]
+    steps = spec["serve"]["decode"]
+    tokens = np.random.default_rng(seed).integers(0, cfg.vocab_size, (B, S),
+                                                  dtype=np.int32)
+    out = {}
+    if mesh is None:
+        params = build_model(cfg, dev).init(seed)
+    else:
+        params = draw_blocks(cfg, dev, mesh, seed)
+        out.update({f"serve/{k}": v for k, v in rank_start(
+            dev, params).items()})
+    _, prefill = make_prefill_step(cfg, dev, mesh=mesh)
+    _, serve = make_serve_step(cfg, dev, mesh=mesh)
+    ax = None if mesh is None else activation_rules(cfg, mesh, B)["batch"]
+
+    def global_tokens(logits):
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        return M.gather_stack(tok, M.axis_group(mesh, ax)).reshape(-1) \
+            if ax is not None else tok
+
+    def gathered():
+        return np.asarray([M.GATHERED[k] for k in sorted(M.GATHERED)])
+
+    TP_CALLS.flash = []
+    M.reset_gathered()
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, {"tokens": tokens,
+                                     "cache_seq": S + steps})
+    torch.cuda.synchronize(dev)
+    out["serve/prefill_s"] = np.float64(time.perf_counter() - t0)
+    out["serve/prefill_gathered"] = gathered()
+    out["serve/flash"] = np.asarray(json.dumps(TP_CALLS.flash))
+    out["serve/prefill_logits"] = logits.float().cpu().numpy()
+    tok = global_tokens(logits)
+    fed, picked, step_s, step_logits, step_gathered = [], [], [], [], []
+    for i in range(steps):
+        if feed is not None:
+            tok = torch.as_tensor(feed[i], device=dev)
+        fed.append(tok.cpu().numpy())
+        M.reset_gathered()
+        t0 = time.perf_counter()
+        tok, lg, cache = serve(params, {"token": tok[:, None],
+                                        "pos": S + i, "cache": cache})
+        torch.cuda.synchronize(dev)
+        step_s.append(time.perf_counter() - t0)
+        step_gathered.append(gathered())
+        step_logits.append(lg.float().cpu().numpy())
+        picked.append(tok.cpu().numpy())
+    out.update({"serve/fed": np.stack(fed), "serve/picked": np.stack(picked),
+                "serve/step_s": np.asarray(step_s),
+                "serve/step_logits": np.stack(step_logits),
+                "serve/step_gathered": np.stack(step_gathered),
+                "serve/gathered_keys": np.asarray(json.dumps(
+                    sorted(M.GATHERED)))})
+    if mesh is not None:
+        out.update({f"serve/{k}": v for k, v in rank_end(dev).items()})
+    del params, logits, cache, lg
+    torch.cuda.empty_cache()
+    return out
 
 
 def train_tp_rank(rank: int, world: int, backend: str, store: str,
                   out_dir: str, device: str, parts: dict, run: dict) -> None:
     """One gloo rank of phase train_tp (started with spawn): for each part
     of ``parts``, a ``DeviceMesh`` of its shape (device type cpu: it only
-    holds the groups), the rank's float32 blocks (``draw_blocks``, one
-    rank at a time), ``run["steps"]`` steps of ``make_train_step(mesh=)``
-    on the global batches; each step's loss, grad_norm, seconds, bytes
-    and gathers (forward, backward, remat), the checksums of its blocks
-    after it, its peak, launches and samples of its final blocks go to
-    ``rank<r>.npz`` under the part's tag."""
+    holds the groups); a part with ``serve`` first runs ``fsdp_serve``
+    on its bf16 blocks; then the rank's float32 blocks (``draw_blocks``,
+    a leaf at a time), the part's ``run["steps"]`` steps of
+    ``make_train_step(mesh=)`` on the global batches; each step's loss,
+    grad_norm, seconds, bytes and gathers (forward, FSDP, backward,
+    remat), the checksums of its blocks after it, its peak, launches and
+    samples of its final blocks go to ``rank<r>.npz`` under the part's
+    tag."""
     import datetime
 
     import numpy as np
@@ -7163,8 +7302,11 @@ def train_tp_rank(rank: int, world: int, backend: str, store: str,
 
     from repro_torch.data import SyntheticLMData
     from repro_torch.launch.mesh import GATHERED, reset_gathered
+    from repro_torch.launch.sharding import replica_axes
     from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.model import Model
     from repro_torch.optim import AdamWConfig, init_opt_state
+    from repro_torch.tree import tree_leaves, tree_leaves_with_path
 
     dev = torch.device(device)
     torch.cuda.set_device(dev)
@@ -7174,21 +7316,41 @@ def train_tp_rank(rank: int, world: int, backend: str, store: str,
     out = {}
     try:
         for tag, spec in parts.items():
-            cfg = train_tp_cfg(spec)
+            cfg, run_p = train_tp_cfg(spec), train_tp_run(run, spec)
             mesh = init_device_mesh("cpu", spec["mesh"],
                                     mesh_dim_names=("data", "model"))
+            got, t_part = {}, time.perf_counter()
+            if spec.get("serve"):
+                torch.cuda.reset_peak_memory_stats(dev)
+                with flash_spy():
+                    got.update(fsdp_serve(cfg, dev, mesh, spec,
+                                          run_p["seed"], spec["feed"]))
+                dist.barrier()
             torch.cuda.reset_peak_memory_stats(dev)
-            params = draw_blocks(cfg, dev, mesh, run["seed"], master=True)
-            opt_cfg = AdamWConfig(lr=run["lr"], moment_dtype=cfg.opt_dtype)
+            params = draw_blocks(cfg, dev, mesh, run_p["seed"], master=True)
+            opt_cfg = AdamWConfig(lr=run_p["lr"],
+                                  moment_dtype=cfg.opt_dtype)
             _, step, _, _ = make_train_step(cfg, dev, opt_cfg, mesh=mesh)
             opt = init_opt_state(params, opt_cfg)
-            got = rank_start(dev, params)
-            data = SyntheticLMData(cfg.vocab_size, run["batch"], run["seq"],
-                                   seed=run["seed"])
+            got.update(rank_start(dev, params))
+            # the float32 bytes of the leaves whole over data: the
+            # gradient sum over data moves these, the FSDP leaves' not
+            shapes = Model(cfg, torch.device("meta")).init(master=True)
+            reps = replica_axes(cfg, shapes, mesh)
+            whole = 0
+            for (path, _), t in zip(tree_leaves_with_path(shapes),
+                                    tree_leaves(params)):
+                rep = reps
+                for k in path:
+                    rep = rep[k]
+                whole += t.numel() * 4 if "data" in rep else 0
+            got["data_whole_gb"] = np.float64(whole / 1e9)
+            data = SyntheticLMData(cfg.vocab_size, run_p["batch"],
+                                   run_p["seq"], seed=run_p["seed"])
             rows = {k: [] for k in ("loss", "grad_norm", "step_s",
                                     "checksums")}
             rows.update({f"gathered_{k}": [] for k in GATHERED})
-            for t in range(run["steps"]):
+            for t in range(run_p["steps"]):
                 batch = data.batch_at(t)
                 reset_gathered()
                 torch.cuda.synchronize(dev)
@@ -7202,6 +7364,7 @@ def train_tp_rank(rank: int, world: int, backend: str, store: str,
                     rows[f"gathered_{k}"].append(v)
                 rows["checksums"].append(leaf_checksums(params))
             got.update(rank_end(dev))
+            got["part_s"] = np.float64(time.perf_counter() - t_part)
             got.update({k: np.asarray(v) for k, v in rows.items()})
             for i, a in enumerate(leaf_samples(params)):
                 got[f"sample/{i}"] = a
@@ -7263,12 +7426,14 @@ def emulated_backward_on_card(dev) -> dict:
 def phase_train_tp(dev, parts: dict = TRAIN_TP,
                    run: dict = TRAIN_TP_RUN) -> dict:
     """Training over a (data x model) mesh (``launch.steps.
-    make_train_step(mesh=)``): ``TRAIN_TP``'s three parts over 4 gloo
+    make_train_step(mesh=)``): ``TRAIN_TP``'s four parts over 4 gloo
     ranks on this card, after the no-mesh route of each in the script's
-    process (see ``TRAIN_TP``).  The emulated mesh does not run a backward
-    on the card (``emulated_backward_on_card``): the ranks are held to the
-    no-mesh route, to each other where they hold the same leaf, and on the
-    CPU to the emulation bit for bit (``tests/test_torch_dist_train*``)."""
+    process (see ``TRAIN_TP``; part (d)'s serving first, ``fsdp_serve``).
+    The emulated mesh does not run a backward on the card
+    (``emulated_backward_on_card``): the ranks are held to the no-mesh
+    route, to each other where they hold the same leaf, and on the CPU to
+    the emulation bit for bit (``tests/test_torch_dist_train*``,
+    ``tests/test_torch_dist_fsdp.py``)."""
     import tempfile
     import types
 
@@ -7288,17 +7453,29 @@ def phase_train_tp(dev, parts: dict = TRAIN_TP,
     log(f"train_tp: two threads' backward meeting on the card: "
         f"{json.dumps(out['emulated_backward'])}")
     axes = ("data", "model")
-    refs = {}
+    refs, parts = {}, {tag: dict(spec) for tag, spec in parts.items()}
     for tag, spec in parts.items():
-        cfg = train_tp_cfg(spec)
-        opt_cfg = AdamWConfig(lr=run["lr"], moment_dtype=cfg.opt_dtype)
-        _, step, init, _ = make_train_step(cfg, dev, opt_cfg)
-        data = SyntheticLMData(cfg.vocab_size, run["batch"], run["seq"],
-                               seed=run["seed"])
-        torch.cuda.reset_peak_memory_stats(dev)
-        params, opt = init(run["seed"])
+        cfg, run_p = train_tp_cfg(spec), train_tp_run(run, spec)
         ref = {"loss": [], "grad_norm": [], "step_s": []}
-        for t in range(run["steps"]):
+        t_part = time.perf_counter()
+        if spec.get("serve"):
+            torch.cuda.reset_peak_memory_stats(dev)
+            ref["serve"] = fsdp_serve(cfg, dev, None, spec, run_p["seed"])
+            ref["serve_peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+            spec["feed"] = list(ref["serve"]["serve/fed"])
+            log(f"train_tp {tag} no-mesh serving: {cfg.name} "
+                f"x{cfg.num_layers} ({cfg.dtype}), prefill "
+                f"{spec['serve']['prefill']} "
+                f"{float(ref['serve']['serve/prefill_s']):.3f} s, decode "
+                f"steps {[round(float(x), 4) for x in ref['serve']['serve/step_s']]} "
+                f"s, peak {ref['serve_peak_gb']:.2f} GB")
+        opt_cfg = AdamWConfig(lr=run_p["lr"], moment_dtype=cfg.opt_dtype)
+        _, step, init, _ = make_train_step(cfg, dev, opt_cfg)
+        data = SyntheticLMData(cfg.vocab_size, run_p["batch"], run_p["seq"],
+                               seed=run_p["seed"])
+        torch.cuda.reset_peak_memory_stats(dev)
+        params, opt = init(run_p["seed"])
+        for t in range(run_p["steps"]):
             torch.cuda.synchronize(dev)
             t0 = time.perf_counter()
             params, opt, met = step(params, opt, data.batch_at(t))
@@ -7334,6 +7511,7 @@ def phase_train_tp(dev, parts: dict = TRAIN_TP,
             ref["groups"].append([g for g in groups.values() if len(g) > 1])
         del params
         torch.cuda.empty_cache()
+        ref["no_mesh_s"] = time.perf_counter() - t_part
         refs[tag] = ref
         log(f"train_tp {tag} no-mesh: {cfg.name} x{cfg.num_layers} "
             f"({cfg.dtype}), "
@@ -7351,6 +7529,7 @@ def phase_train_tp(dev, parts: dict = TRAIN_TP,
     tmp.cleanup()
     for tag, spec in parts.items():
         cfg, ref = train_tp_cfg(spec), refs.pop(tag)
+        run_p = train_tp_run(run, spec)
         name = f"train_tp {tag} gloo x4"
         ranks = part_of(ranks_all, tag)
         rows = []
@@ -7374,7 +7553,7 @@ def phase_train_tp(dev, parts: dict = TRAIN_TP,
             den = sum(float((w.astype(np.float64) ** 2).sum()) for w in want)
             params_l2 = (num / den) ** 0.5
             check(params_l2 <= LM_MAX_REL_L2,
-                  f"{name} rank {r}: blocks after {run['steps']} steps "
+                  f"{name} rank {r}: blocks after {run_p['steps']} steps "
                   f"{params_l2:.3e} (relative L2, sampled) from the "
                   f"no-mesh route's")
             launches = json.loads(str(got["launches"]))
@@ -7387,19 +7566,32 @@ def phase_train_tp(dev, parts: dict = TRAIN_TP,
                 "loss_rel": rel["loss"], "grad_norm_rel": rel["grad_norm"],
                 "params_rel_l2_sampled": params_l2,
                 **{f"{k}_a_step": [int(x) for x in got[f"gathered_{k}"]]
-                   for k in ("bytes", "calls", "bwd_bytes", "bwd_calls",
-                             "remat_bytes", "remat_calls")},
+                   for k in ("bytes", "calls", "fsdp_bytes", "fsdp_calls",
+                             "bwd_bytes", "bwd_calls", "fsdp_bwd_bytes",
+                             "fsdp_bwd_calls", "remat_bytes",
+                             "remat_calls")},
                 # of "bytes": the float32 gradients' one sum over the
-                # batch axes (data's d places) a step
+                # batch axes (data's d places) a step, of the leaves whole
+                # over data (an FSDP leaf's gradient is complete already)
                 "grad_sum_bytes_a_step": (spec["mesh"][0] * int(round(
-                    float(got["params_gb"]) * 1e9)) if spec["mesh"][0] > 1
-                    else 0),
+                    float(got["data_whole_gb"]) * 1e9))
+                    if spec["mesh"][0] > 1 else 0),
                 "peak_gb": float(got["peak_gb"]),
                 "peak_gb_init": float(got["peak_gb_init"]),
                 "params_gb": float(got["params_gb"]),
                 "launches": launches})
+            if spec.get("serve"):
+                rows[-1]["serve"] = hold_fsdp_serve(
+                    got, ref["serve"], spec, cfg, r, name)
+                check(max(rows[-1]["peak_gb"],
+                          rows[-1]["serve"]["peak_gb"])
+                      <= TRAIN_TP_FSDP_PEAK_GB,
+                      f"{name} rank {r}: peak after the cut "
+                      f"{rows[-1]['peak_gb']:.2f} GB training, "
+                      f"{rows[-1]['serve']['peak_gb']:.2f} GB serving "
+                      f"(gate {TRAIN_TP_FSDP_PEAK_GB} GB)")
         held = 0
-        for step in range(run["steps"]):
+        for step in range(run_p["steps"]):
             for i, groups in enumerate(ref["groups"]):
                 for g in groups:
                     for r in g[1:]:
@@ -7410,21 +7602,81 @@ def phase_train_tp(dev, parts: dict = TRAIN_TP,
                         held += 1
         out[tag] = {"per_rank": rows, "no_mesh": {
             k: ref[k] for k in ("loss", "grad_norm", "step_s", "peak_gb",
-                                "params")}, "replica_pairs_held": held}
+                                "params", "no_mesh_s")},
+            "ranks_part_s": max(float(g["part_s"]) for g in ranks),
+            "replica_pairs_held": held}
+        if spec.get("serve"):
+            out[tag]["no_mesh"]["serve_peak_gb"] = ref["serve_peak_gb"]
         log(f"{name} on one card: {cfg.name} x{cfg.num_layers} on mesh "
-            f"{spec['mesh']}, {run['steps']} steps at B={run['batch']} "
-            f"S={run['seq']}, losses {[float(x) for x in ranks[0]['loss']]} "
+            f"{spec['mesh']}, {run_p['steps']} steps at B={run_p['batch']} "
+            f"S={run_p['seq']}, losses {[float(x) for x in ranks[0]['loss']]} "
             f"(no-mesh {ref['loss']}), grad_norms "
             f"{[float(x) for x in ranks[0]['grad_norm']]} "
             f"(no-mesh {ref['grad_norm']}); every replicated leaf equal on "
-            f"its ranks after every step ({held} leaf-rank pairs); "
+            f"its ranks after every step ({held} leaf-rank pairs); the "
+            f"part {ref['no_mesh_s']:.2f} s without a mesh, "
+            f"{out[tag]['ranks_part_s']:.2f} s on the ranks; "
             f"card {out['card']}")
         for r, row in enumerate(rows):
             log(f"  {name} rank {r}: " + json.dumps(row))
     out["seconds"] = time.perf_counter() - t_phase
-    log(f"train_tp: the ranks ran the three parts in {out['ranks_s']:.2f} "
-        f"s; the phase {out['seconds']:.2f} s")
+    log(f"train_tp: the ranks ran the {len(parts)} parts in "
+        f"{out['ranks_s']:.2f} s; the phase {out['seconds']:.2f} s")
     return out
+
+
+def hold_fsdp_serve(got: dict, ref: dict, spec: dict, cfg, r: int,
+                    name: str) -> dict:
+    """Phase train_tp (d)'s serving on rank ``r`` against the no-mesh
+    route's: its rows of the prefill's and each decode step's logits
+    within LM_MAX_REL_L2 (relative L2 over the real vocab), the tokens it
+    was fed the no-mesh route's, one flash launch at its (B_loc, S, S,
+    heads, kv heads, head dim) and no other; returns its bytes and
+    seconds for the log."""
+    import numpy as np
+
+    d, m = spec["mesh"]
+    B, S = spec["serve"]["prefill"]
+    b = B // d
+    rows = slice((r // m) * b, (r // m + 1) * b)
+    V = cfg.vocab_size
+
+    def rel_l2(a, w):
+        a, w = a[..., :V].astype(np.float64), w[..., :V].astype(np.float64)
+        return float(np.sqrt(((a - w) ** 2).sum() / (w ** 2).sum()))
+
+    errs = [rel_l2(got["serve/prefill_logits"],
+                   ref["serve/prefill_logits"][rows])]
+    errs += [rel_l2(got["serve/step_logits"][i],
+                    ref["serve/step_logits"][i][rows])
+             for i in range(spec["serve"]["decode"])]
+    check(max(errs) <= LM_MAX_REL_L2,
+          f"{name} rank {r} serving: logits {errs} (relative L2) from the "
+          f"no-mesh route's")
+    check(np.array_equal(got["serve/fed"], ref["serve/fed"]),
+          f"{name} rank {r} serving: fed other tokens than the no-mesh "
+          f"route's")
+    want = [[b, S, S, cfg.num_heads // m, cfg.num_kv_heads // m,
+             cfg.head_dim, True, 0]]
+    flash = json.loads(str(got["serve/flash"]))
+    launches = json.loads(str(got["serve/launches"]))
+    check(flash == want and launches.get("flash_attention", 0) == 1,
+          f"{name} rank {r} serving: flash {flash}, launches {launches}, "
+          f"want one at {want[0]}")
+    keys = json.loads(str(got["serve/gathered_keys"]))
+    return {"prefill_s": float(got["serve/prefill_s"]),
+            "decode_step_s": [float(x) for x in got["serve/step_s"]],
+            "prefill_gathered": dict(zip(keys, map(
+                int, got["serve/prefill_gathered"]))),
+            "decode_gathered_a_step": [dict(zip(keys, map(int, g)))
+                                       for g in got["serve/step_gathered"]],
+            "logits_rel_l2": errs,
+            "greedy_as_no_mesh": bool(np.array_equal(
+                got["serve/picked"], ref["serve/picked"])),
+            "flash": flash, "launches": launches,
+            "peak_gb": float(got["serve/peak_gb"]),
+            "peak_gb_draw": float(got["serve/peak_gb_init"]),
+            "params_gb": float(got["serve/params_gb"])}
 
 
 def time_ms(fn, inner: int, samples: int = 21) -> float:
@@ -8225,7 +8477,8 @@ def phase_times(dev, main: dict) -> list[dict]:
         rows.append(time_flash(dev, main["lm"], main["checks"],
                                main.get("moe"), main.get("mla"),
                                main.get("encdec"), main.get("vlm"),
-                               main.get("tp"), main.get("tp_all")))
+                               main.get("tp"), main.get("tp_all"),
+                               main.get("train_tp")))
         rows.extend(time_elementwise(dev, main))
     return rows
 
@@ -8480,8 +8733,9 @@ def time_elementwise(dev, state: dict) -> list[dict]:
 
 def time_flash_at(dev, B, Sq, Skv, H, KV, D, q_offset: int, launches,
                   path: str) -> dict:
-    """flash_attention, causal, at one shape of phase tp on random bf16 q,
-    k, v (query row i at position q_offset + i): CUDA-graph and eager
+    """flash_attention, causal, at one shape of a path over a mesh (phases
+    tp and train_tp) on random bf16 q, k, v (query row i at position
+    q_offset + i): CUDA-graph and eager
     times, its plain version, and scaled_dot_product_attention on the same
     q, k, v (is_causal with GQA where the rows start at 0; else the
     explicit (Sq, Skv) bool mask of the admissible pairs, K and V expanded
@@ -8509,7 +8763,7 @@ def time_flash_at(dev, B, Sq, Skv, H, KV, D, q_offset: int, launches,
     err, tol = float(diff.max()), FLASH_TOL["bfloat16"]
     check(bool(torch.isfinite(got).all())
           and bool((diff <= tol + tol * want.abs()).all()),
-          f"flash at phase tp's shape B={B}, Sq={Sq}, Skv={Skv}, H={H}, "
+          f"flash at {path}'s shape B={B}, Sq={Sq}, Skv={Skv}, H={H}, "
           f"KV={KV}, D={D}, q_offset={q_offset}: max abs err {err} past "
           f"tolerance {tol}")
     del want, got, diff
@@ -8580,6 +8834,24 @@ def time_flash_tp(dev, tp: dict) -> dict:
             f"phase tp (c): a rank's prefill, qwen3-14b "
             f"x{TP_CP['num_layers']} on mesh {TP_CP['mesh']} (one a layer, "
             f"q_offset r x {Sc // nc})")}
+
+
+def time_flash_fsdp(dev, train_tp: dict) -> dict:
+    """flash_attention at phase train_tp (d)'s shape: a rank's rows and
+    heads of command-r-35b's serving prefill on mesh (2, 2) with FSDP
+    (B=1, S=4,096, 32/4 x 128, causal), by ``time_flash_at``."""
+    from repro_torch.configs import get_config
+
+    spec = TRAIN_TP["d"]
+    cfg = get_config(spec["arch"])
+    (B, S), (d, m) = spec["serve"]["prefill"], spec["mesh"]
+    return time_flash_at(
+        dev, B // d, S, S, cfg.num_heads // m, cfg.num_kv_heads // m,
+        cfg.head_dim, 0,
+        train_tp["d"]["per_rank"][0]["serve"]["launches"].get(
+            "flash_attention"),
+        f"phase train_tp (d): a rank's FSDP serving prefill, "
+        f"{spec['arch']} x{spec['num_layers']} on mesh {spec['mesh']}")
 
 
 def time_flash_mla_rank(dev, tp_all: dict) -> dict:
@@ -8666,7 +8938,8 @@ def time_flash_mla_rank(dev, tp_all: dict) -> dict:
 def time_flash(dev, lm: dict, checks: dict, moe: dict | None = None,
                mla: dict | None = None, encdec: dict | None = None,
                vlm: dict | None = None, tp: dict | None = None,
-               tp_all: dict | None = None) -> dict:
+               tp_all: dict | None = None,
+               train_tp: dict | None = None) -> dict:
     """flash_attention's row of the kernels line: its times at the lm
     phase's prefill shape (``time_flash_causal`` against
     ``flash_attention_ref``).  With phase moe's state, the same at its
@@ -8674,7 +8947,9 @@ def time_flash(dev, lm: dict, checks: dict, moe: dict | None = None,
     (192, 128) shape (``mla``); with phase encdec's, its times at the
     encoder's and the cross-attention's non-causal shapes (``encdec``,
     measured in that phase); with phase vlm's, at internvl2's 64/8-head
-    causal shape (``vlm``, against the plain version a head at a time)."""
+    causal shape (``vlm``, against the plain version a head at a time);
+    with phase train_tp's, at part (d)'s FSDP serving shape
+    (``train_tp``)."""
     from repro_torch.kernels import flash_attention as FA
 
     row = {
@@ -8711,6 +8986,8 @@ def time_flash(dev, lm: dict, checks: dict, moe: dict | None = None,
         row["launches_tp"] = {"gloo4 (a rank)": tp["launches"].get(
             "flash_attention"), "cp gloo3 (a rank)": tp["launches_cp"].get(
             "flash_attention")}
+    if train_tp is not None and "d" in train_tp:
+        row["train_tp"] = time_flash_fsdp(dev, train_tp)
     return row
 
 
@@ -8919,6 +9196,15 @@ def main(argv=None) -> int:
                 and v["per_rank"][0]["launches"].get(r["name"])}
             if got:
                 r["launches_train_tp"] = got
+            # a rank's launches in (d)'s FSDP serving (phase train_tp)
+            got = {f"{tag} serving gloo4 (a rank)":
+                   v["per_rank"][0]["serve"]["launches"].get(r["name"])
+                   for tag, v in state.get("train_tp", {}).items()
+                   if isinstance(v, dict) and "per_rank" in v
+                   and "serve" in v["per_rank"][0]
+                   and v["per_rank"][0]["serve"]["launches"].get(r["name"])}
+            if got:
+                r["launches_train_tp_serving"] = got
         log(f"card: {card}")
         log(json.dumps({"kernels": rows}))
     if phases != set(PHASES):

@@ -53,6 +53,21 @@ gathers in the backward, on every rank alike).  ``GATHERED`` counts the
 forward's bytes and gathers ("bytes", "calls"), the backward's
 ("bwd_bytes", "bwd_calls") and the forward gathers that remat reruns
 inside the backward ("remat_bytes", "remat_calls") apart.
+
+One rule more covers a weight cut over the data axis (FSDP, ZeRO-3:
+``launch.sharding.fsdp_plan``).  Gathered for use (``gather_weight``),
+it meets each data place's own rows of the batch, so its cotangent on a
+place is a partial, not the whole gradient.  The backward of that
+gather is an ordered reduce-scatter: the places' cotangents are added in
+rank order (in float32 for bfloat16) and the place keeps its own slice,
+so the leaf's gradient is complete over data, and the batch-axes sum
+after the backward skips the data axis for it (it still sums over
+``pod``).  The embedding lookup of a table cut over data
+(``lookup_cut``) moves the tokens' rows instead of the table, the same
+rule: its backward sends each place the cotangents of its slice.
+``GATHERED`` counts these bytes under their own keys ("fsdp_bytes",
+"fsdp_calls"; the backward's "fsdp_bwd_bytes", "fsdp_bwd_calls"); the
+forward gathers that remat reruns stay in "remat_bytes".
 """
 from __future__ import annotations
 
@@ -63,7 +78,8 @@ import torch
 
 __all__ = ["make_production_mesh", "make_host_mesh", "mesh_name", "dp_axes",
            "tp_axis", "dp_size", "mesh_shape", "axis_sizes", "axis_group",
-           "gather_stack", "gather_cat", "ordered_sum", "enter", "GATHERED",
+           "gather_stack", "gather_cat", "ordered_sum", "enter",
+           "gather_weight", "lookup_cut", "GATHERED",
            "reset_gathered", "PlaceMesh", "emulate_mesh"]
 
 AXES = ("pod", "data", "model")
@@ -71,10 +87,12 @@ AXES = ("pod", "data", "model")
 # bytes a rank received through ``gather_stack`` (every member's tensor,
 # its own included) and the gathers that moved them, since the last
 # ``reset_gathered``: the forward's, the backward's (``enter``) and the
-# forward gathers that remat reruns in the backward apart; over a process
-# group only (an emulated mesh's places share the module)
+# forward gathers that remat reruns in the backward apart, and the
+# FSDP gathers of weights cut over data and their reduce-scatters apart;
+# over a process group only (an emulated mesh's places share the module)
 GATHERED = {"bytes": 0, "calls": 0, "bwd_bytes": 0, "bwd_calls": 0,
-            "remat_bytes": 0, "remat_calls": 0}
+            "remat_bytes": 0, "remat_calls": 0, "fsdp_bytes": 0,
+            "fsdp_calls": 0, "fsdp_bwd_bytes": 0, "fsdp_bwd_calls": 0}
 
 
 def reset_gathered() -> None:
@@ -82,13 +100,17 @@ def reset_gathered() -> None:
         GATHERED[k] = 0
 
 
-def _count(nbytes: int, backward: bool = False) -> None:
+def _count(nbytes: int, backward: bool = False, fsdp: bool = False) -> None:
     """Count a gather of ``nbytes``: the backward's, a forward rerun by
     remat inside the backward (the autograd engine is running a graph
-    task), or the forward's."""
-    key = ("bwd" if backward else "remat"
-           if torch._C._current_graph_task_id() != -1 else "")
-    pre = key + "_" if key else ""
+    task), or the forward's; an FSDP one (``fsdp``) under its own keys,
+    but for remat's reruns."""
+    if backward:
+        pre = "fsdp_bwd_" if fsdp else "bwd_"
+    elif torch._C._current_graph_task_id() != -1:
+        pre = "remat_"
+    else:
+        pre = "fsdp_" if fsdp else ""
     GATHERED[pre + "bytes"] += nbytes
     GATHERED[pre + "calls"] += 1
 
@@ -181,7 +203,7 @@ def _group_rank(group) -> int:
     return group.rank if isinstance(group, _PlaceGroup) else group.rank()
 
 
-def _stack_raw(x, group, backward: bool = False):
+def _stack_raw(x, group, backward: bool = False, fsdp: bool = False):
     """Every rank's ``x`` of ``group`` stacked in rank order, outside
     autograd: the bytes (see ``gather_stack``)."""
     from ..core.partition import _gather_flat
@@ -192,10 +214,75 @@ def _stack_raw(x, group, backward: bool = False):
     x = x.detach().contiguous()
     if n == 1:
         return x[None]
-    _count(n * x.numel() * x.element_size(), backward)
+    _count(n * x.numel() * x.element_size(), backward, fsdp)
     out = torch.empty((n,) + tuple(x.shape), dtype=x.dtype, device=x.device)
     _gather_flat(out.view(-1).view(torch.uint8), x.view(-1).view(torch.uint8),
                  group)
+    return out
+
+
+def _exchange_raw(parts, group, backward: bool = False):
+    """The all-to-all of ``parts`` (n, ...), one slice a member: returns
+    (n, ...) whose slice j is member j's ``parts[rank]``, outside
+    autograd, the bits copied as bytes (``all_to_all_single``; a gloo
+    group's card tensors go through host memory, as ``gather_stack``'s
+    do).  A member receives n slices, where a gather of the whole
+    ``parts`` would bring n times as many."""
+    import torch.distributed as dist
+
+    if isinstance(group, _PlaceGroup):
+        return group.exchange(parts)
+    parts = parts.detach().contiguous()
+    n = group.size()
+    if n == 1:
+        return parts
+    _count(parts.numel() * parts.element_size(), backward, fsdp=True)
+    flat = parts.view(-1).view(torch.uint8)
+    out = torch.empty_like(flat)
+    if flat.device.type != "cpu" and dist.get_backend(group) == "gloo":
+        host = torch.empty(out.shape, dtype=out.dtype)
+        dist.all_to_all_single(host, flat.cpu(), group=group)
+        out.copy_(host)
+    else:
+        dist.all_to_all_single(out, flat, group=group)
+    return out.view(parts.dtype).view(parts.shape)
+
+
+def _widened(dtype: torch.dtype) -> torch.dtype:
+    """float32 for a floating dtype of fewer than 32 bits, else ``dtype``:
+    what a sum of such parts is accumulated in."""
+    if dtype.is_floating_point and torch.finfo(dtype).bits < 32:
+        return torch.float32
+    return dtype
+
+
+# bytes of the cotangent a piece of a weight's reduce-scatter moves at a
+# time: its buffers are a few pieces beside the sum, not a few weights
+_PIECE_BYTES = 1 << 26
+
+
+def _reduce_scatter(g, group, dim: int):
+    """The place's slice along ``dim`` of the sum of every member's ``g``
+    (the members' partials of one whole weight of two or more dims),
+    added in rank order in ``_widened(g.dtype)`` and not rounded back:
+    one all-to-all a piece along another dim (``_PIECE_BYTES`` of ``g`` a
+    piece), so that the send and receive buffers stay small beside the
+    sum."""
+    n = group.size()
+    shape = list(g.shape)
+    shape[dim] //= n
+    out = torch.empty(shape, dtype=_widened(g.dtype), device=g.device)
+    pdim = 1 if dim == 0 else 0
+    rows = g.shape[pdim]
+    step = max(1, _PIECE_BYTES * rows // (g.numel() * g.element_size()))
+    for a in range(0, rows, step):
+        size = min(step, rows - a)
+        mine = _exchange_raw(torch.stack(g.narrow(pdim, a, size).chunk(
+            n, dim=dim)), group, backward=True)
+        acc = out.narrow(pdim, a, size)
+        acc.copy_(mine[0])
+        for i in range(1, n):
+            acc.add_(mine[i])
     return out
 
 
@@ -237,6 +324,79 @@ class _Enter(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return _add_in_order(_stack_raw(g, ctx.group, backward=True)), None
+
+
+class _GatherWeight(torch.autograd.Function):
+    """``gather_weight``: the forward casts the block and gathers the
+    places' blocks along ``dim``; the backward (where autograd records)
+    is the ordered reduce-scatter of the module docstring."""
+
+    @staticmethod
+    def forward(ctx, w, group, dim, dtype):
+        ctx.group, ctx.dim, ctx.wdtype = group, dim, w.dtype
+        parts = _stack_raw(w.to(dtype), group, fsdp=True)
+        return torch.cat(parts.unbind(0), dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_reduce_scatter(g, ctx.group, ctx.dim).to(ctx.wdtype), None,
+                None, None)
+
+
+def gather_weight(w, group, dim: int, dtype):
+    """The whole weight from the place's block ``w`` of a weight cut along
+    ``dim`` over ``group`` (the data axis, FSDP): ``w`` cast to ``dtype``
+    (the dtype the layers read it in) and the places' blocks concatenated
+    along ``dim`` in rank order.  The cast is inside: where autograd
+    records ``w`` (a float32 master), the backward adds the places'
+    ``dtype`` cotangents in float32 in rank order (one ``all_to_all``:
+    each place receives the others' partials of its own slice only) and
+    returns the sum in ``w``'s dtype, never rounded to ``dtype`` first;
+    a large weight's in pieces (``_reduce_scatter``)."""
+    return _GatherWeight.apply(w, group, dim, dtype)
+
+
+class _LookupCut(torch.autograd.Function):
+    """``lookup_cut``; the backward where autograd records the table's
+    block."""
+
+    @staticmethod
+    def forward(ctx, block, tokens, group, dtype):
+        every = _stack_raw(tokens, group, fsdp=True)
+        rows = block[every.long()].to(dtype)     # (n, *tokens, D/n)
+        mine = _exchange_raw(rows, group)
+        ctx.save_for_backward(every)
+        ctx.group, ctx.rows, ctx.bdtype = group, block.shape[0], block.dtype
+        return torch.cat(mine.unbind(0), dim=-1)
+
+    @staticmethod
+    def backward(ctx, g):
+        (every,) = ctx.saved_tensors
+        n = ctx.group.size()
+        theirs = _exchange_raw(torch.stack(g.chunk(n, dim=-1)), ctx.group,
+                               backward=True)
+        flat = every.reshape(-1).long()
+        order = torch.argsort(flat, stable=True)
+        lengths = torch.bincount(flat, minlength=ctx.rows)
+        rows = theirs.reshape(flat.numel(), -1)[order].to(ctx.bdtype)
+        return torch.segment_reduce(rows, "sum", lengths=lengths,
+                                    axis=0), None, None, None
+
+
+def lookup_cut(block, tokens, group, dtype):
+    """``table[tokens]`` in ``dtype`` from the place's block (V, D/n) of a
+    table cut along its last dim over ``group`` (the data axis, FSDP),
+    ``tokens`` the place's own: the group's tokens are gathered, each
+    place looks up its columns of every member's rows and sends each
+    member its own (``all_to_all``), so no place holds the whole table.
+    The same bits as the whole table's lookup.  Where autograd records
+    the block, the backward sends each place the members' cotangents of
+    its columns and sums them a table row at a time in a fixed order (a
+    stable sort of the group's positions by token, then one ordered
+    segment sum a row, in the block's dtype), as
+    ``models.model._EmbeddingLookup`` does for a whole table: the
+    block's gradient is then complete over the group."""
+    return _LookupCut.apply(block, tokens, group, dtype)
 
 
 def _records(x) -> bool:
@@ -344,6 +504,18 @@ class _PlaceGroup:
         self._barrier.wait()
         out = torch.stack(self._slots)
         self._barrier.wait()    # every member has read the slots
+        return out
+
+    def exchange(self, parts):
+        """The all-to-all of ``parts`` (n, ...): slice j of the result is
+        member j's ``parts[rank]`` (``_exchange_raw``), contiguous."""
+        parts = parts.detach().contiguous()
+        if self._n == 1:
+            return parts
+        self._slots[self.rank] = parts
+        self._barrier.wait()
+        out = torch.stack([p[self.rank] for p in self._slots])
+        self._barrier.wait()
         return out
 
 

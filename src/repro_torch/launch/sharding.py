@@ -22,30 +22,46 @@ ranks here.
 
 In place of the reference's ``to_named``, ``shard_tree`` cuts full
 tensors to the blocks the calling rank holds, by its mesh coordinates;
-``shard_params`` is the placement the serving steps over a mesh take
-(``launch.steps``): every leaf cut over the model axis as its
-``param_pspecs`` spec cuts it (attention heads or head_dim, MLP columns
-and rows, the vocab rows of ``embed`` and columns of ``lm_head``,
-biases, MLA's heads, the mLSTM's value dim, the sLSTM's ``wo`` rows and
-Mamba2's heads), the experts also over data as their spec says; whole
-over data otherwise (FSDP of the dense weights is not ported).
+``shard_params`` is the placement every step over a mesh takes
+(``launch.steps``): every leaf cut as its ``param_pspecs`` spec cuts it,
+over the model axis (attention heads or head_dim, MLP columns and rows,
+the vocab rows of ``embed`` and columns of ``lm_head``, biases, MLA's
+heads, the mLSTM's value dim, the sLSTM's ``wo`` rows and Mamba2's
+heads) and, with ``cfg.fsdp`` and a data axis, over data (ZeRO-3: the
+embedding's and the head's d_model, the projections' input or output
+dim, MLA's ranks, the router, the experts).  ``fsdp_plan`` says, for
+each dense leaf, the dim cut over data; under ``mesh_rules`` the layers
+gather such a leaf a block of parameters at a time
+(``shardctx.fsdp()``, ``launch.mesh.gather_weight``), and the MoE layer
+its experts itself.
 """
 from __future__ import annotations
 
+import functools
 import math
 import re
+import types
 from typing import Any
 
 import torch
 
 from ..configs.base import ModelConfig
-from ..models.shardctx import TensorParallel, logical_axis_rules
-from ..tree import tree_map_with_path
-from .mesh import axis_group, axis_sizes, enter, gather_cat, ordered_sum
+from ..models.shardctx import Fsdp, TensorParallel, logical_axis_rules
+from ..tree import tree_leaves_with_path, tree_map_with_path
+from .mesh import (
+    axis_group,
+    axis_sizes,
+    enter,
+    gather_cat,
+    gather_weight,
+    lookup_cut,
+    ordered_sum,
+)
 
 __all__ = ["activation_rules", "param_pspecs", "opt_pspecs", "batch_specs",
-           "cache_specs", "cache_block_shape", "shard_tree", "shard_spec", "shard_params",
-           "tp_layout", "tensor_parallel", "mesh_rules", "block_slices",
+           "cache_specs", "cache_block_shape", "shard_tree", "shard_spec",
+           "shard_params", "keep_blocks", "tp_layout", "tensor_parallel",
+           "fsdp_plan", "fsdp_gather", "mesh_rules", "block_slices",
            "mesh_coords", "batch_rows", "replica_axes"]
 
 
@@ -371,19 +387,30 @@ def shard_tree(tree, specs, mesh, coords: dict | None = None):
 
 def shard_spec(cfg: ModelConfig, key: str, shape: tuple, mesh) -> tuple:
     """The spec ``shard_params`` cuts a parameter by: its ``param_pspecs``
-    spec for the experts' ``wg``, ``wu`` and ``wd`` (the MoE layer's
-    sharded route reads their blocks, over data too with ``cfg.fsdp``);
-    for every other leaf its spec over the model axis alone (the FSDP cut
-    over data is not ported)."""
-    spec = _param_spec(key, shape, cfg, mesh)
-    if re.search(r"moe/(wg|wu|wd)$", key):
-        return spec
-    return tuple(None if a == "data" else a for a in spec)
+    spec, the data axis included (``cfg.fsdp``)."""
+    return _param_spec(key, shape, cfg, mesh)
+
+
+def keep_blocks(cfg: ModelConfig, mesh, coords: dict | None = None):
+    """``keep(path, tensor)``: the block of the whole parameter ``tensor``
+    at ``path`` (a ``tree`` path, list indices included) that the place at
+    ``coords`` (default: the calling rank's) holds under ``shard_spec``,
+    a copy where it cuts; ``Model.init(keep=)`` draws through it a leaf at
+    a time, ``shard_params`` cuts a whole tree with it."""
+    sizes = axis_sizes(mesh)
+    coords = mesh_coords(mesh) if coords is None else coords
+
+    def keep(path, leaf):
+        key = _path_str(path, keep_index=False)
+        return _block(leaf, shard_spec(cfg, key, tuple(leaf.shape), mesh),
+                      sizes, coords)
+
+    return keep
 
 
 def shard_params(cfg: ModelConfig, params, mesh, coords: dict | None = None):
-    """The parameters a rank holds for the serving steps over a mesh: each
-    leaf's block under ``shard_spec``.  Dense tensor parallelism
+    """The parameters a rank holds for the steps over a mesh: each leaf's
+    block under ``shard_spec`` (``keep_blocks``).  Dense tensor parallelism
     (``models.layers``, ``models.model``) reads the blocks of attention
     (heads, or head_dim where the heads do not divide the model axis),
     MLPs (``wg``, ``wu``, ``wi``, ``bi`` by column, ``wd`` by row), the
@@ -393,16 +420,9 @@ def shard_params(cfg: ModelConfig, params, mesh, coords: dict | None = None):
     ``models.ssm``); the MoE layer's sharded route the experts'; a leaf
     its spec does not cut over the model axis (norms, ``bd``, the router,
     ``wq_a``, ``wkv_a``, the gates, a dim that does not divide) stays
-    whole."""
-    sizes = axis_sizes(mesh)
-    coords = mesh_coords(mesh) if coords is None else coords
-
-    def one(path, leaf):
-        key = _path_str(path, keep_index=False)
-        return _block(leaf, shard_spec(cfg, key, tuple(leaf.shape), mesh),
-                      sizes, coords)
-
-    return tree_map_with_path(one, params)
+    whole over it.  With ``cfg.fsdp`` and a data axis every leaf whose
+    spec names ``data`` is cut over it too (``fsdp_plan``)."""
+    return tree_map_with_path(keep_blocks(cfg, mesh, coords), params)
 
 
 def replica_axes(cfg: ModelConfig, params, mesh):
@@ -410,9 +430,9 @@ def replica_axes(cfg: ModelConfig, params, mesh):
     shapes: ``Model(cfg, "meta").init()``): for each leaf the mesh axes,
     in the mesh's order, over which the places hold the same block of it
     under ``shard_spec`` (the axes its spec does not cut): the batch axes
-    for every leaf (but the experts' cut over data with ``cfg.fsdp``),
-    and the model axis too for a leaf whole over it (norms, ``bd``, the
-    router, ``wq_a``, ``wkv_a``, the gates, a dim that does not divide).
+    for every leaf but those cut over data (``cfg.fsdp``), and the model
+    axis too for a leaf whole over it (norms, ``bd``, the router,
+    ``wq_a``, ``wkv_a``, the gates, a dim that does not divide).
     The train step over a mesh counts such a leaf once in the global
     norm, takes its scale over the other axes, and its replicas stay
     equal bit for bit."""
@@ -511,9 +531,68 @@ def tensor_parallel(cfg: ModelConfig, mesh) -> TensorParallel | None:
         enter=lambda x: enter(x, group))
 
 
+_EXPERTS = re.compile(r"moe/(wg|wu|wd)$")
+
+
+def fsdp_plan(cfg: ModelConfig, mesh) -> dict:
+    """{parameter key (its path without list indices): (the dim cut over
+    data, the place's block shape, the dtype the layers read it in)} for
+    every dense leaf that ``shard_spec`` cuts over the data axis; empty
+    without ``cfg.fsdp`` or a data axis of more than one place.  Worked
+    out from the whole shapes on the meta device: whether a dim divides
+    decides the cut, and a block cannot tell.  The dtype is the leaf's
+    in the serving tree (the compute dtype of a matrix, float32 of the
+    router and the gate projections), so a float32 master is cast where
+    the layers would cast it.  The experts are the MoE layer's own
+    (``models.moe`` gathers them).  Worked out once for a config and the
+    mesh's axis sizes (``mesh_rules`` asks on every step), and read-only."""
+    sizes = axis_sizes(mesh)
+    if not cfg.fsdp or sizes.get("data", 1) <= 1:
+        return {}
+    return _fsdp_plan(cfg, tuple(sizes.items()))
+
+
+@functools.lru_cache(maxsize=64)
+def _fsdp_plan(cfg: ModelConfig, sizes: tuple) -> types.MappingProxyType:
+    from ..models.model import Model
+
+    sizes = dict(sizes)
+    mesh = types.SimpleNamespace(shape=sizes, axis_names=tuple(sizes))
+    meta = Model(cfg, torch.device("meta"))
+    dtypes = {_path_str(p, keep_index=False): t.dtype
+              for p, t in tree_leaves_with_path(meta.init())}
+    plan = {}
+    for path, leaf in tree_leaves_with_path(meta.init(master=True)):
+        key = _path_str(path, keep_index=False)
+        spec = shard_spec(cfg, key, tuple(leaf.shape), mesh)
+        if "data" not in spec or _EXPERTS.search(key) or key in plan:
+            continue
+        block = tuple(b - a for a, b in block_slices(
+            tuple(leaf.shape), spec, sizes, {a: 0 for a in sizes}))
+        plan[key] = (spec.index("data"), block, dtypes[key])
+    return types.MappingProxyType(plan)
+
+
+def fsdp_gather(cfg: ModelConfig, mesh) -> Fsdp | None:
+    """The data axis's cut of the dense weights as the layers read it
+    (``shardctx.fsdp()``): ``fsdp_plan`` and the gathers over the data
+    axis's group (``launch.mesh.gather_weight``, ``lookup_cut``); None
+    where nothing is cut over data."""
+    plan = fsdp_plan(cfg, mesh)
+    if not plan:
+        return None
+    group = axis_group(mesh, "data")
+    return Fsdp(plan,
+                gather=lambda w, dim, dtype: gather_weight(w, group, dim,
+                                                           dtype),
+                lookup=lambda block, tokens, dtype: lookup_cut(
+                    block, tokens, group, dtype))
+
+
 def mesh_rules(cfg: ModelConfig, mesh, batch: int):
     """The context the model runs under on a place of ``mesh`` with a
-    global batch of ``batch``: ``activation_rules`` and
-    ``tensor_parallel``."""
+    global batch of ``batch``: ``activation_rules``,
+    ``tensor_parallel`` and ``fsdp_gather``."""
     return logical_axis_rules(mesh, activation_rules(cfg, mesh, batch),
-                              tp=tensor_parallel(cfg, mesh))
+                              tp=tensor_parallel(cfg, mesh),
+                              fsdp=fsdp_gather(cfg, mesh))

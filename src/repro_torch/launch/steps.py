@@ -17,8 +17,10 @@ heads do not divide it), MLA's heads, the MLP columns (``wg``, ``wu``,
 ``wi``, ``bi``) and rows (``wd``), the vocab rows of ``embed`` and
 columns of ``lm_head``, the experts, the mLSTM value dim, the sLSTM
 ``wo`` rows and Mamba2's heads (``models.layers``, ``models.model``,
-``models.moe``, ``models.xlstm``, ``models.ssm``); whole over the data
-axis (FSDP of the dense weights is not ported).  Every family runs on any
+``models.moe``, ``models.xlstm``, ``models.ssm``); with ``cfg.fsdp`` and
+a data axis, over data too (``launch.sharding.fsdp_plan``), each block
+of parameters gathered whole over data where a layer reads it
+(``models.shardctx.fsdp()``).  Every family runs on any
 (data x model) mesh whose specs split evenly, ``context_parallel``
 attention where the reference takes it; the recurrent families' prefill,
 and every eval step, return the loss over the global batch.
@@ -26,12 +28,13 @@ and every eval step, return the loss over the global batch.
 The train step over a mesh runs the forward and the backward on the
 rank's rows of each microbatch under the rules: the gradients go through
 every collective (``launch.mesh``'s convention), each rank's gradient of
-a leaf is its rows' share of its block's, and the step sums them over
-the batch axes in rank order, then clips by the whole tree's norm and
-updates the rank's blocks (``optim``).  A config with ``cfg.fsdp`` on a
-mesh whose batch axes span more than one place raises
-``NotImplementedError``: FSDP of the dense weights is ROADMAP Queue 1
-item 3b.
+a leaf whole over data is its rows' share of its block's, and the step
+sums them over the batch axes in rank order; a leaf cut over data
+(FSDP) has its gradient complete over data from its gather's
+reduce-scatter, and is summed over the other batch axes only (``pod``).
+Then the step clips by the whole tree's norm and updates the rank's
+blocks (``optim``).  ``init_state`` draws the rank's blocks a leaf at a
+time (``Model.init(keep=)``), never the whole tree.
 """
 from __future__ import annotations
 
@@ -51,19 +54,17 @@ from ..optim import (
     init_opt_state,
 )
 from ..tree import tree_leaves, tree_leaves_with_path, tree_map
-from .mesh import axis_group, axis_sizes, dp_size, gather_stack, ordered_sum
+from .mesh import axis_group, axis_sizes, gather_stack, ordered_sum
 from .sharding import (
     activation_rules,
     batch_rows,
+    keep_blocks,
     mesh_rules,
     replica_axes,
-    shard_params,
 )
 
 __all__ = ["make_train_step", "make_eval_step", "make_prefill_step",
            "make_serve_step"]
-
-_ROADMAP = "ROADMAP.md Queue 1, the multi-card slices"
 
 
 def _rules_ctx(cfg, mesh, batch_size):
@@ -88,6 +89,11 @@ def _effective_microbatches(cfg, mesh, B: int) -> int:
     return max(n, 1)
 
 
+def _axes(ax) -> tuple:
+    """A rule's mesh axes as a tuple (None: none)."""
+    return () if ax is None else ax if isinstance(ax, tuple) else (ax,)
+
+
 def _rows(x, mesh, rules):
     """The rank's rows of a global (B, ...) tensor."""
     return x[batch_rows(mesh, rules, x.shape[0])]
@@ -103,8 +109,9 @@ def _on(batch, device):
 class _MeshPlan:
     """What the train step over ``mesh`` reads of the parameter tree, by
     leaf in tree order: the group each leaf's block is cut over (None
-    where the rank holds it whole), from ``replica_axes`` over the whole
-    shapes; one group an axis tuple, made once (``axis_group``)."""
+    where the rank holds it whole) and the mesh axes it is replicated
+    over, from ``replica_axes`` over the whole shapes; one group an axis
+    tuple, made once (``axis_group``)."""
 
     def __init__(self, cfg, mesh):
         from ..models.model import Model
@@ -119,14 +126,36 @@ class _MeshPlan:
             return groups[axes]
 
         reps = replica_axes(cfg, shapes, mesh)
-        self.cut = []
+        self.cut, self.reps = [], []
         for path, _ in tree_leaves_with_path(shapes):
             rep = reps
             for k in path:
                 rep = rep[k]
             axes = tuple(a for a in names if a not in rep)
             self.cut.append(group(axes) if axes else None)
+            self.reps.append(rep)
         self.group = group
+        self.fsdp = any("data" not in r for r in self.reps) and \
+            axis_sizes(mesh).get("data", 1) > 1
+
+    def batch_sums(self, batch_ax) -> list:
+        """[(group, leaf indices)]: the leaves' gradients summed over the
+        batch axes ``batch_ax`` (the rules' "batch") that each is
+        replicated over, one group of axes at a time: every batch axis
+        for a leaf whole over data, the others (``pod``) for one cut over
+        data, whose gather's reduce-scatter summed it over data already;
+        none where those axes are one place."""
+        by: dict = {}
+        for i, rep in enumerate(self.reps):
+            over = tuple(a for a in _axes(batch_ax) if a in rep)
+            if over:
+                by.setdefault(over, []).append(i)
+        out = []
+        for over, idx in by.items():
+            g = self.group(over)
+            if g.size() > 1:
+                out.append((g, idx))
+        return out
 
 
 def _sum_over(grads: list, group) -> None:
@@ -156,22 +185,20 @@ def make_train_step(cfg: ModelConfig, device="cuda",
 
     With ``mesh`` (a ``DeviceMesh`` of the ranks, or an ``emulate_mesh``
     place): ``batch`` is the global batch and the parameters and the
-    optimizer state are the rank's blocks (``init_state`` cuts them with
-    ``launch.sharding.shard_params``).  The microbatches are cut from the
+    optimizer state are the rank's blocks (``init_state`` draws them a
+    leaf at a time, each cut as ``launch.sharding.shard_params`` cuts
+    it).  The microbatches are cut from the
     global batch first, in the reference's order (microbatch i is rows
     i·B/n .. (i+1)·B/n - 1), and the rank runs its rows of each under the
     rules; the gradients are summed over the batch axes in rank order,
     divided by n, compressed with the whole leaves' scales, clipped by
     the whole tree's norm (``optim.global_norm(grads, cut)``) and
     applied to the rank's blocks.  The loss, the label count and the
-    norm are the global batch's, the same bits on every rank.  A config
-    with ``cfg.fsdp`` on a mesh whose batch axes span more than one
-    place raises ``NotImplementedError`` (item 3b)."""
-    if mesh is not None and cfg.fsdp and dp_size(mesh) > 1:
-        raise NotImplementedError(
-            f"a train step of a config with fsdp=True over a mesh whose "
-            f"batch axes span more than one place needs FSDP of the dense "
-            f"weights, which is not ported ({_ROADMAP}, item 3b)")
+    norm are the global batch's, the same bits on every rank.  With
+    ``cfg.fsdp`` the blocks are cut over data too (module docstring); a
+    microbatch whose rows do not split over the data axis then raises
+    ``ValueError``: its places would run the same rows, and the gathers'
+    reduce-scatter would count each row's gradient once a place."""
     model = build_model(cfg, device)
     opt_cfg = opt_cfg or AdamWConfig(moment_dtype=cfg.opt_dtype)
     plan = None if mesh is None else _MeshPlan(cfg, mesh)
@@ -182,6 +209,11 @@ def make_train_step(cfg: ModelConfig, device="cuda",
         n = _effective_microbatches(cfg, mesh, B)
         bs = B // n
         rules = None if mesh is None else activation_rules(cfg, mesh, bs)
+        if plan is not None and plan.fsdp and "data" not in _axes(
+                rules["batch"]):
+            raise ValueError(
+                f"{cfg.name}: a microbatch of {bs} rows does not split "
+                f"over the data axis, which cuts the weights (fsdp=True)")
         leaves = tree_leaves(params)
         for p in leaves:
             p.requires_grad_(True)
@@ -207,10 +239,9 @@ def make_train_step(cfg: ModelConfig, device="cuda",
         for p in leaves:
             p.grad = None
         if rules is not None and rules["batch"] is not None:
-            group = plan.group(rules["batch"] if isinstance(
-                rules["batch"], tuple) else (rules["batch"],))
-            if group.size() > 1:
-                _sum_over(tree_leaves(grads), group)
+            flat = tree_leaves(grads)
+            for group, idx in plan.batch_sums(rules["batch"]):
+                _sum_over([flat[i] for i in idx], group)
         if n > 1:
             n_t = torch.full((), float(n), device=model.device)
             for g in tree_leaves(grads):
@@ -229,9 +260,8 @@ def make_train_step(cfg: ModelConfig, device="cuda",
         return params, opt_state, metrics
 
     def init_state(seed: int = 0):
-        params = model.init(seed, master=True)
-        if mesh is not None:
-            params = shard_params(cfg, params, mesh)
+        params = model.init(seed, master=True, keep=None if mesh is None
+                            else keep_blocks(cfg, mesh))
         opt = init_opt_state(params, opt_cfg)
         if cfg.grad_compress:
             opt["comp"] = init_compression(params)

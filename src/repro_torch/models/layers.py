@@ -115,14 +115,32 @@ NEG_INF = -1e30
 
 
 # --------------------------------------------------------------------- init
-def _dense_init(gen: torch.Generator, shape, scale_axis, dtype, device):
+def _dense_init(gen: torch.Generator, shape, scale_axis, dtype, device,
+                keep=None, name=None):
     """Normal(0, 1/fan_in) drawn on ``device`` from ``gen``, in ``dtype``
     (the reference's ``_dense_init`` scale; other numbers than
-    ``jax.random`` for the same seed)."""
+    ``jax.random`` for the same seed); passed to ``keep`` as ``name``
+    where it is given (``kept``)."""
     axes = (scale_axis,) if isinstance(scale_axis, int) else scale_axis
     fan_in = int(np.prod([shape[a] for a in axes]))
     w = torch.randn(shape, generator=gen, dtype=dtype, device=device)
-    return w.mul_(1.0 / math.sqrt(fan_in))
+    return kept(keep, name, w.mul_(1.0 / math.sqrt(fan_in)))
+
+
+def kept(keep, name, t):
+    """``keep((name,), t)``: what the caller of ``Model.init(keep=)``
+    keeps of the tensor just drawn (a rank's block of it), so that the
+    whole tensor can be freed before the next draw; ``t`` without
+    ``keep``."""
+    return t if keep is None else keep((name,), t)
+
+
+def sub_keep(keep, *prefix):
+    """``keep`` of a sub-tree at ``prefix`` (keys and list indices): the
+    paths it is handed are taken from the sub-tree's root."""
+    if keep is None:
+        return None
+    return lambda path, t: keep(prefix + tuple(path), t)
 
 
 # --------------------------------------------------------------------- norms
@@ -265,13 +283,14 @@ def sinusoidal_on(seq: int, d_model: int, device: torch.device):
 
 
 # ----------------------------------------------------------------- attention
-def init_attention(gen, cfg, dtype, device):
+def init_attention(gen, cfg, dtype, device, keep=None):
     D, H, KV, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    kw = dict(dtype=dtype, device=device, keep=keep)
     p = {
-        "wq": _dense_init(gen, (D, H, hd), 0, dtype, device),
-        "wk": _dense_init(gen, (D, KV, hd), 0, dtype, device),
-        "wv": _dense_init(gen, (D, KV, hd), 0, dtype, device),
-        "wo": _dense_init(gen, (H, hd, D), (0, 1), dtype, device),
+        "wq": _dense_init(gen, (D, H, hd), 0, name="wq", **kw),
+        "wk": _dense_init(gen, (D, KV, hd), 0, name="wk", **kw),
+        "wv": _dense_init(gen, (D, KV, hd), 0, name="wv", **kw),
+        "wo": _dense_init(gen, (H, hd, D), (0, 1), name="wo", **kw),
     }
     f32 = dict(dtype=torch.float32, device=device)
     if cfg.use_bias:
@@ -554,7 +573,7 @@ def attention_block(p, x, cfg, positions, *, kv_cache=None, cache_len=None,
 
 
 # ----------------------------------------------------------------- MLA
-def init_mla(gen, cfg, dtype, device):
+def init_mla(gen, cfg, dtype, device, keep=None):
     """The low-rank query path (wq_a, q_a_norm, wq_b), the latent kv path
     (wkv_a, kv_a_norm) and the up-projections of the latent to per-head
     keys (wk_b) and values (wv_b), and wo, at the reference's scales; the
@@ -563,15 +582,16 @@ def init_mla(gen, cfg, dtype, device):
     r_kv, r_q = cfg.kv_lora_rank, cfg.q_lora_rank
     dn, dr, dv = cfg.head_dim, cfg.rope_head_dim, cfg.v_head_dim
     f32 = dict(dtype=torch.float32, device=device)
+    kw = dict(dtype=dtype, device=device, keep=keep)
     return {
-        "wq_a": _dense_init(gen, (D, r_q), 0, dtype, device),
+        "wq_a": _dense_init(gen, (D, r_q), 0, name="wq_a", **kw),
         "q_a_norm": torch.ones(r_q, **f32),
-        "wq_b": _dense_init(gen, (r_q, H, dn + dr), 0, dtype, device),
-        "wkv_a": _dense_init(gen, (D, r_kv + dr), 0, dtype, device),
+        "wq_b": _dense_init(gen, (r_q, H, dn + dr), 0, name="wq_b", **kw),
+        "wkv_a": _dense_init(gen, (D, r_kv + dr), 0, name="wkv_a", **kw),
         "kv_a_norm": torch.ones(r_kv, **f32),
-        "wk_b": _dense_init(gen, (r_kv, H, dn), 0, dtype, device),
-        "wv_b": _dense_init(gen, (r_kv, H, dv), 0, dtype, device),
-        "wo": _dense_init(gen, (H, dv, D), (0, 1), dtype, device),
+        "wk_b": _dense_init(gen, (r_kv, H, dn), 0, name="wk_b", **kw),
+        "wv_b": _dense_init(gen, (r_kv, H, dv), 0, name="wv_b", **kw),
+        "wo": _dense_init(gen, (H, dv, D), (0, 1), name="wo", **kw),
     }
 
 
@@ -721,16 +741,17 @@ def mla_block(p, x, cfg, positions, *, cache=None, cache_len=None,
 
 
 # ----------------------------------------------------------------- MLPs
-def init_mlp(gen, cfg, dtype, device):
+def init_mlp(gen, cfg, dtype, device, keep=None):
     D, Fd = cfg.d_model, cfg.d_ff
+    kw = dict(dtype=dtype, device=device, keep=keep)
     if cfg.mlp == "swiglu":
         return {
-            "wg": _dense_init(gen, (D, Fd), 0, dtype, device),
-            "wu": _dense_init(gen, (D, Fd), 0, dtype, device),
-            "wd": _dense_init(gen, (Fd, D), 0, dtype, device),
+            "wg": _dense_init(gen, (D, Fd), 0, name="wg", **kw),
+            "wu": _dense_init(gen, (D, Fd), 0, name="wu", **kw),
+            "wd": _dense_init(gen, (Fd, D), 0, name="wd", **kw),
         }
-    p = {"wi": _dense_init(gen, (D, Fd), 0, dtype, device),
-         "wd": _dense_init(gen, (Fd, D), 0, dtype, device)}
+    p = {"wi": _dense_init(gen, (D, Fd), 0, name="wi", **kw),
+         "wd": _dense_init(gen, (Fd, D), 0, name="wd", **kw)}
     if cfg.use_bias:
         p["bi"] = torch.zeros(Fd, dtype=torch.float32, device=device)
         p["bd"] = torch.zeros(D, dtype=torch.float32, device=device)

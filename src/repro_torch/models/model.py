@@ -45,6 +45,13 @@ records, a whole tensor that meets the place's block (the head's input,
 the encoder's output into the cross-attention's kv blocks, a whole bias
 cut to a head_dim slice) is ``tp.enter``-ed (``launch.mesh``); the
 vocab block's lookup keeps ``_EmbeddingLookup``'s ordered backward.
+With the data axis's cut of the dense weights (``shardctx.fsdp()``:
+FSDP over a mesh) ``embed`` is the place's block of d_model too and
+``lm_head`` of its rows: the lookup moves the tokens' rows, never the
+table (``launch.mesh.lookup_cut``), and the head gathers its weight whole
+over data in the compute dtype (``launch.mesh.gather_weight``), once a
+call, a tied ``embed`` included; the layers gather theirs
+(``transformer``).
 The VLM is the dense stack; its loss puts the stub front end's
 ``patches`` ahead of the token embeddings (positions 0..P+S-1, the patch
 positions unlabelled).  Its prefill and decode read no patches: the
@@ -75,12 +82,14 @@ import math
 import torch
 
 from ..configs.base import ModelConfig
+from ..tree import tree_map_with_path
 from . import layers as LL
 from . import transformer as TR
 from .shardctx import (
     axis_size,
     bf16_grad_barrier,
     current_rules,
+    fsdp,
     tensor_parallel,
 )
 
@@ -123,14 +132,22 @@ class Model:
     device: torch.device = torch.device("cuda")
 
     # ------------------------------------------------------------- params
-    def init(self, seed: int = 0, *, master: bool = False) -> dict:
+    def init(self, seed: int = 0, *, master: bool = False,
+             keep=None) -> dict:
         """Random weights with the reference's scales, drawn on the device
         from ``torch.Generator(device).manual_seed(seed)`` one tensor at a
         time, in the compute dtype (serving: a float32 copy of a
         14.8 B-parameter model would be 59 GB), or as float32 masters with
         ``master=True`` (training).  Other numbers than ``jax.random`` for
         the same seed: to carry the reference's weights across, use
-        ``convert.model_params_from_numpy``."""
+        ``convert.model_params_from_numpy``.  ``keep(path, tensor)`` (a
+        ``tree`` path, list indices included; ``launch.sharding.
+        keep_blocks``) takes each tensor right after its draw and returns
+        what the tree holds of it (a rank's block), so the whole tensor
+        is freed before the next draw: the peak is the blocks and one
+        whole leaf.  The generator makes the same calls in the same
+        order with or without ``keep``: each block is the one ``keep``
+        cuts from the whole tree."""
         cfg, dev = self.cfg, torch.device(self.device)
         dt = torch.float32 if master else compute_dtype(cfg)
         # on the meta device (shapes only: launch.sharding's specs of a
@@ -138,28 +155,45 @@ class Model:
         gen = (None if dev.type == "meta" else
                torch.Generator(device=dev).manual_seed(seed))
         D, V = cfg.d_model, cfg.padded_vocab
+        drawn = set()
+
+        def keep_drawn(path, t):
+            drawn.add(tuple(path))
+            return keep(path, t)
+
+        k = None if keep is None else keep_drawn
         params = {
-            "embed": torch.randn((V, D), generator=gen, dtype=dt,
-                                 device=dev).mul_(0.02),
+            "embed": LL.kept(k, "embed", torch.randn(
+                (V, D), generator=gen, dtype=dt, device=dev).mul_(0.02)),
             "final_norm": LL.init_norm(cfg, dev),
         }
         if not cfg.tie_embeddings:
-            params["lm_head"] = torch.randn(
+            params["lm_head"] = LL.kept(k, "lm_head", torch.randn(
                 (D, V), generator=gen, dtype=dt, device=dev).mul_(
-                    0.02 / math.sqrt(D))
+                    0.02 / math.sqrt(D)))
         fam = cfg.family
         if fam == "encdec":
-            params["enc"] = TR.init_dense_stack(gen, cfg, dt, dev,
-                                                n_layers=cfg.encoder_layers)
+            params["enc"] = TR.init_dense_stack(
+                gen, cfg, dt, dev, n_layers=cfg.encoder_layers,
+                keep=LL.sub_keep(k, "enc"))
             params["enc_norm"] = LL.init_norm(cfg, dev)
+        stack = LL.sub_keep(k, "stack")
         if fam == "xlstm":
-            params["stack"] = TR.init_xlstm_stack(gen, cfg, dt, dev)
+            params["stack"] = TR.init_xlstm_stack(gen, cfg, dt, dev,
+                                                  keep=stack)
         elif fam == "hybrid":
-            params["stack"] = TR.init_hybrid_stack(gen, cfg, dt, dev)
+            params["stack"] = TR.init_hybrid_stack(gen, cfg, dt, dev,
+                                                   keep=stack)
         else:
             params["stack"] = TR.init_dense_stack(gen, cfg, dt, dev,
-                                                  cross=fam == "encdec")
-        return params
+                                                  cross=fam == "encdec",
+                                                  keep=stack)
+        if keep is None:
+            return params
+        # the leaves init fills with one value (norms, biases), kept last
+        return tree_map_with_path(
+            lambda path, t: t if tuple(path) in drawn else keep(path, t),
+            params)
 
     @staticmethod
     def param_count(params) -> int:
@@ -186,13 +220,29 @@ class Model:
             return tp.sum(x).to(compute_dtype(self.cfg))
         return self._lookup(table, tokens).to(compute_dtype(self.cfg))
 
-    @staticmethod
-    def _lookup(table, tokens):
+    def _lookup(self, table, tokens):
         """``table[tokens]``, through ``_EmbeddingLookup``'s ordered
-        backward where autograd records the table."""
+        backward where autograd records the table; from the place's block
+        of a table cut over data, in the compute dtype
+        (``launch.mesh.lookup_cut``: the same bits, its backward ordered
+        too)."""
+        fs = fsdp()
+        if fs is not None and fs.cuts("embed"):
+            return fs.lookup(table, tokens, "embed", compute_dtype(self.cfg))
         if table.requires_grad and torch.is_grad_enabled():
             return _EmbeddingLookup.apply(table, tokens)
         return table[tokens]
+
+    def _head(self, params):
+        """The head's weight (D, V), the tied ``embed.T`` or ``lm_head``:
+        under the data axis's cut gathered whole over data in the compute
+        dtype (once a call: the lookup never gathers the table)."""
+        key = "embed" if self.cfg.tie_embeddings else "lm_head"
+        w = params[key]
+        fs = fsdp()
+        if fs is not None and fs.cuts(key):
+            w = fs.leaf(w, key)
+        return w.T if self.cfg.tie_embeddings else w
 
     def _logits(self, params, x, gather: bool = True):
         """The head's logits of x; under tensor parallelism the place's
@@ -201,7 +251,7 @@ class Model:
         cfg = self.cfg
         x = LL.apply_norm(params["final_norm"], x, cfg.norm)
         x = bf16_grad_barrier(x)
-        head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+        head = self._head(params)
         tp = tensor_parallel()
         cut = tp is not None and tp.layout.get("head")
         if cut:
@@ -250,7 +300,8 @@ class Model:
         pos = torch.arange(Se, dtype=torch.int32,
                            device=x.device).expand(B, Se)
         x, _, _ = TR.apply_dense_stack(params["enc"], x, cfg, pos,
-                                       causal=False, flash=flash)
+                                       causal=False, flash=flash,
+                                       prefix="enc")
         return LL.apply_norm(params["enc_norm"], x, cfg.norm)
 
     def _cross_kv(self, params, enc_out):
@@ -272,7 +323,7 @@ class Model:
         k = torch.empty(shape, dtype=dt, device=enc_out.device)
         v = torch.empty(shape, dtype=dt, device=enc_out.device)
         for l, p in enumerate(params["stack"]):
-            p = p["xattn"]
+            p = TR._gathered(p["xattn"], "stack/xattn")
             for out, w, b in ((k, "wk", "bk"), (v, "wv", "bv")):
                 t = (enc_out @ p[w].to(dt).reshape(D, KV * hd)).view(
                     B, Se, KV, hd)

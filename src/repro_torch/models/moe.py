@@ -19,8 +19,10 @@ back to (T, D).  Two routes, as in the reference:
     experts), else hidden-sharded (every expert on the rank's FFN slice).
     With ``cfg.fsdp`` and a data axis the weights' other dim is sharded
     over data too, and the rank either all-gathers its weights (the weight
-    path) or, where that moves fewer bytes (the reference's rule, decode),
-    all-gathers the tokens of its data peers instead (the token path).
+    path, ``launch.mesh.gather_weight``) or, where that moves fewer bytes
+    (the reference's rule, decode), all-gathers the tokens of its data
+    peers instead (the token path, never taken where autograd records:
+    a train step gathers the weights, the same function).
     The partial (T, D) outputs are gathered over the model axis (the
     token path: model and data together) and added in rank order, in the
     compute dtype, where the reference has one ``psum``: every rank,
@@ -33,7 +35,8 @@ back to (T, D).  Two routes, as in the reference:
     the card.
   * The backward over a mesh (``launch.mesh``'s convention): the sharded
     route ``enter``s the tokens and their gates, whole on every place of
-    the model axis, before the place's experts; the local route over a
+    the model axis, before the place's experts; the experts' gather over
+    data (FSDP) reduce-scatters their cotangents; the local route over a
     split batch takes its aux term's probabilities from the place's own
     rows, summed over the batch axes, so that every term's gradient runs
     through the place's rows (the parameters' gradients are summed over
@@ -54,30 +57,33 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .layers import _dense_init, apply_mlp, silu_stepwise
-from .shardctx import current_rules
+from .layers import _dense_init, apply_mlp, silu_stepwise, sub_keep
+from .shardctx import axis_size, current_rules
 
 __all__ = ["init_moe", "capacity", "apply_moe"]
 
 
-def init_moe(gen, cfg, dtype, device):
+def init_moe(gen, cfg, dtype, device, keep=None):
     """Router (D, E), experts wg/wu (E, D, F) and wd (E, F, D), and the
     shared experts' MLP when ``cfg.num_shared_experts``.  The router stays
     float32 whatever ``dtype`` is: the reference casts it to float32 where
-    it routes."""
+    it routes.  ``keep``: see ``layers.kept``."""
     D, Fd, E = cfg.d_model, cfg.d_ff, cfg.num_experts
+    kw = dict(dtype=dtype, device=device, keep=keep)
     p = {
-        "router": _dense_init(gen, (D, E), 0, torch.float32, device),
-        "wg": _dense_init(gen, (E, D, Fd), 1, dtype, device),
-        "wu": _dense_init(gen, (E, D, Fd), 1, dtype, device),
-        "wd": _dense_init(gen, (E, Fd, D), 1, dtype, device),
+        "router": _dense_init(gen, (D, E), 0, torch.float32, device,
+                              keep=keep, name="router"),
+        "wg": _dense_init(gen, (E, D, Fd), 1, name="wg", **kw),
+        "wu": _dense_init(gen, (E, D, Fd), 1, name="wu", **kw),
+        "wd": _dense_init(gen, (E, Fd, D), 1, name="wd", **kw),
     }
     if cfg.num_shared_experts:
         Fs = cfg.d_ff * cfg.num_shared_experts
+        kw["keep"] = sub_keep(keep, "shared")
         p["shared"] = {
-            "wg": _dense_init(gen, (D, Fs), 0, dtype, device),
-            "wu": _dense_init(gen, (D, Fs), 0, dtype, device),
-            "wd": _dense_init(gen, (Fs, D), 0, dtype, device),
+            "wg": _dense_init(gen, (D, Fs), 0, name="wg", **kw),
+            "wu": _dense_init(gen, (D, Fs), 0, name="wu", **kw),
+            "wd": _dense_init(gen, (Fs, D), 0, name="wd", **kw),
         }
     return p
 
@@ -198,7 +204,8 @@ class _Plan:
     body: expert-parallel or hidden-sharded, ZeRO-sharded weights or not,
     the weight path or the token path."""
 
-    def __init__(self, cfg, mesh, rules, T_loc: int, w_numel: int):
+    def __init__(self, cfg, mesh, rules, T_loc: int, w_numel: int,
+                 recording: bool = False):
         from ..launch.mesh import axis_sizes
 
         sizes = axis_sizes(mesh)
@@ -210,7 +217,7 @@ class _Plan:
         self.fsdp = (self.fsdp_ax is not None and cfg.fsdp
                      and cfg.d_model % self.nd == 0)
         self.token_path = False
-        if self.fsdp and self.ep:
+        if self.fsdp and self.ep and not recording:
             nd = self.nd
             gather_bytes = w_numel * 2 * (nd - 1)
             token_bytes = 3 * T_loc * cfg.d_model * 2 * (nd - 1) * nd
@@ -224,6 +231,18 @@ class _Plan:
         return (("expert" if self.ep else "hidden") + "/"
                 + ("token" if self.token_path else
                    "weight" if self.fsdp else "local-weights"))
+
+
+def _gather_experts(ws, ep: bool, group, dtype) -> tuple:
+    """The experts' (wg, wu, wd) whole over the data axis's ``group``
+    from the place's blocks, in ``dtype``: expert-parallel blocks are cut
+    along F (wg's and wu's dim 2, wd's dim 1), hidden-sharded ones along
+    D (dim 1, and wd's dim 2).  The backward reduce-scatters
+    (``launch.mesh.gather_weight``)."""
+    from ..launch.mesh import gather_weight
+
+    dims = (2, 2, 1) if ep else (1, 1, 2)
+    return tuple(gather_weight(w, group, d, dtype) for w, d in zip(ws, dims))
 
 
 def _check_blocks(p, cfg, plan):
@@ -256,8 +275,10 @@ def _routed_sharded(p, x, top_w, top_e, cfg, dtype, info=None):
     B_loc, S, D = x.shape
     T_loc = B_loc * S
     wg, wu, wd = p["wg"], p["wu"], p["wd"]
+    recording = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (x, top_w, wg, wu, wd))
     plan = _Plan(cfg, mesh, rules, T_loc,
-                 wg.numel() + wu.numel() + wd.numel())
+                 wg.numel() + wu.numel() + wd.numel(), recording)
     _check_blocks(p, cfg, plan)
     # the tokens and their gates, whole on every place of the model axis,
     # meet the place's experts: entered (their backward sums the places'
@@ -271,15 +292,12 @@ def _routed_sharded(p, x, top_w, top_e, cfg, dtype, info=None):
         fgroup = axis_group(mesh, plan.fsdp_ax)
     if plan.fsdp and not plan.token_path:
         # ZeRO-3: re-materialize full weights in the compute dtype
-        ax_g = 2 if plan.ep else 1
-        ws = []
-        for w, ax in ((wg, ax_g), (wu, ax_g), (wd, 1 if plan.ep else 2)):
-            stack = gather_stack(w.to(dtype), fgroup)
-            gathered += stack.numel() * stack.element_size()
-            ws.append(torch.cat(stack.unbind(0), dim=ax))
-            del stack
-        wg, wu, wd = ws
+        wg, wu, wd = _gather_experts((wg, wu, wd), plan.ep, fgroup, dtype)
+        gathered += sum(w.numel() * w.element_size() for w in (wg, wu, wd))
     if plan.token_path:
+        if recording:
+            raise RuntimeError("the MoE token path has no backward over "
+                               "data: a train step takes the weight path")
         tok = []
         for t in (xt, te2, tw2):
             stack = gather_stack(t, fgroup)
@@ -365,6 +383,12 @@ def apply_moe(p, x, cfg, dtype=torch.bfloat16, return_aux=False, info=None):
         rows = batch_rows(mesh, rules, x_all.shape[0])
         xt_all = x_all.reshape(-1, D)
         probs, top_w, top_e = _route(p, xt_all, cfg)
+        if rules.get("fsdp") and D % axis_size("fsdp") == 0:
+            # the experts cut over data (hidden-sharded specs: a model
+            # axis of one place), gathered whole
+            ws = _gather_experts((p["wg"], p["wu"], p["wd"]), False,
+                                 axis_group(mesh, rules["fsdp"]), dtype)
+            p = dict(p, wg=ws[0], wu=ws[1], wd=ws[2])
         out = _routed_local(p, xt_all, top_e, top_w, cfg, dtype)
         out = out.view(x_all.shape[0], S, D)[rows].reshape(T, D)
     else:
@@ -431,6 +455,7 @@ def _routed_sharded_plain(p, x, cfg, mesh_shape, dtype=torch.bfloat16,
         mesh_rules,
         shard_params,
     )
+    from .transformer import _gathered as gathered_layer
 
     B = x.shape[0]
 
@@ -439,6 +464,9 @@ def _routed_sharded_plain(p, x, cfg, mesh_shape, dtype=torch.bfloat16,
         p_loc = shard_params(cfg, {"moe": p}, mesh)["moe"]
         rows = batch_rows(mesh, rules, B)
         with mesh_rules(cfg, mesh, B):
+            # the router and the shared experts, gathered over data as
+            # the layer gathers them (transformer.apply_layer)
+            p_loc = gathered_layer(p_loc, "stack/moe")
             return rows, apply_moe(p_loc, x[rows], cfg, dtype=dtype,
                                    return_aux=return_aux)
 

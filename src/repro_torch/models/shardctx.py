@@ -11,6 +11,10 @@ as ``launch.sharding.tensor_parallel`` made it: its extent, the calling
 place's coordinate on it, its gather and ordered sum, and how each dense
 block is cut (the layout is decided there, once, from the same specs
 that cut the parameters); ``ONE`` is a single place, every block whole.
+``fsdp()`` gives the layers the data axis's cut of the dense weights
+(``launch.sharding.fsdp_gather``): a block of parameters gathered whole
+over data at the top of the layer that reads it; None without a data
+cut, and under ``ONE``.
 
 ``constrain(x, *axes)`` returns ``x`` unchanged, with or without rules: a
 rank's tensor already is its shard, and there is no compiler to hint (the
@@ -27,7 +31,8 @@ from typing import Callable
 import torch
 
 __all__ = ["current_rules", "logical_axis_rules", "resolve", "axis_size",
-           "TensorParallel", "ONE", "tensor_parallel", "bind_rules",
+           "TensorParallel", "ONE", "tensor_parallel", "Fsdp", "fsdp",
+           "bind_rules",
            "constrain",
            "bf16_grad_barrier"]
 
@@ -39,18 +44,28 @@ def current_rules():
     return getattr(_state, "rules", None)
 
 
+def _saved() -> tuple:
+    return tuple(getattr(_state, k, None) for k in ("rules", "tp", "fsdp"))
+
+
+def _restore(saved: tuple) -> None:
+    _state.rules, _state.tp, _state.fsdp = saved
+
+
 @contextlib.contextmanager
 def logical_axis_rules(mesh, rules: dict[str, object],
-                       tp: "TensorParallel | None" = None):
+                       tp: "TensorParallel | None" = None,
+                       fsdp: "Fsdp | None" = None):
     """rules: logical name -> mesh axis (str | tuple | None); ``tp`` the
     model axis the dense layers read under them (``tensor_parallel()``;
-    None: every dense block whole)."""
-    prev = getattr(_state, "rules", None), getattr(_state, "tp", None)
-    _state.rules, _state.tp = (mesh, dict(rules)), tp
+    None: every dense block whole); ``fsdp`` the data axis's cut of the
+    dense weights (``fsdp()``; None: whole over data)."""
+    prev = _saved()
+    _restore(((mesh, dict(rules)), tp, fsdp))
     try:
         yield
     finally:
-        _state.rules, _state.tp = prev
+        _restore(prev)
 
 
 def resolve(logical_axes: tuple) -> tuple | None:
@@ -118,24 +133,88 @@ def tensor_parallel() -> TensorParallel | None:
     return getattr(_state, "tp", None)
 
 
+class Fsdp:
+    """The data axis's cut of the dense weights as the layers read it.
+    ``plan``: parameter key (its path without list indices) -> (the dim
+    cut over data, the place's block shape, the dtype the layers read
+    it in), ``launch.sharding.fsdp_plan``; ``gather(w, dim, dtype)`` the
+    whole weight from the place's block (``launch.mesh.gather_weight``);
+    ``lookup(block, tokens, dtype)`` the embedding lookup from the
+    place's block of a table cut along d_model (``launch.mesh.
+    lookup_cut``).  Called on a block of parameters (a layer's dict, a
+    recurrent block's, the model's) and the key of its root, it returns
+    the same structure with every leaf the plan cuts gathered whole; a
+    leaf that is not the place's block raises, as the experts'
+    ``models.moe._check_blocks`` does: a whole tensor where a block is
+    expected would be read wrong without a word."""
+
+    def __init__(self, plan: dict, gather: Callable, lookup: Callable):
+        self.plan, self._gather, self._lookup = dict(plan), gather, lookup
+
+    def cuts(self, key: str) -> bool:
+        return key in self.plan
+
+    def _block(self, w, key: str) -> tuple:
+        dim, block, dtype = self.plan[key]
+        if tuple(w.shape) != block:
+            raise ValueError(
+                f"{key} is cut over the data axis: this place's block is "
+                f"{block}, got {tuple(w.shape)}; cut the parameters with "
+                f"launch.sharding.shard_params")
+        return dim, dtype
+
+    def leaf(self, w, key: str):
+        """The whole (over data) weight of the place's block ``w`` at
+        ``key``, in the dtype the layers read it in."""
+        dim, dtype = self._block(w, key)
+        return self._gather(w, dim, dtype)
+
+    def lookup(self, block, tokens, key: str, dtype):
+        """``table[tokens]`` in ``dtype`` from the place's block of the
+        table at ``key``, cut along its last dim."""
+        dim, _ = self._block(block, key)
+        if dim != block.dim() - 1:
+            raise ValueError(f"{key}: a lookup needs the table cut along "
+                             f"d_model, its dim {dim} is cut")
+        return self._lookup(block, tokens, dtype)
+
+    def __call__(self, tree, prefix: str):
+        def walk(t, key):
+            if isinstance(t, dict):
+                return {k: walk(v, f"{key}/{k}") for k, v in t.items()}
+            if isinstance(t, (list, tuple)):
+                return type(t)(walk(v, key) for v in t)
+            return self.leaf(t, key) if key in self.plan else t
+
+        return walk(tree, prefix)
+
+
+def fsdp() -> Fsdp | None:
+    """The data axis's cut of the dense weights under the current rules
+    (the layers' weights are then the place's blocks over data too), or
+    None where nothing is cut over data."""
+    return getattr(_state, "fsdp", None)
+
+
 def bind_rules(fn: Callable) -> Callable:
-    """``fn`` run under the rules and the ``TensorParallel`` current now,
-    on whichever thread calls it.  Remat reruns a layer's forward inside
-    the backward, on the autograd engine's own thread for a card's
-    tensors, where the caller's thread-local rules are not set; a rerun
+    """``fn`` run under the rules, the ``TensorParallel`` and the ``Fsdp``
+    current now, on whichever thread calls it.  Remat reruns a layer's
+    forward inside the backward, on the autograd engine's own thread for
+    a card's tensors, where the caller's thread-local rules are not set; a rerun
     without them would skip the layer's gathers and read its blocks as
-    whole.  ``fn`` itself where no rules are set."""
-    saved = getattr(_state, "rules", None), getattr(_state, "tp", None)
-    if saved == (None, None):
+    whole (the layer's FSDP gathers included, which remat reruns).
+    ``fn`` itself where no rules are set."""
+    saved = _saved()
+    if saved == (None, None, None):
         return fn
 
     def run(*args, **kwargs):
-        prev = getattr(_state, "rules", None), getattr(_state, "tp", None)
-        _state.rules, _state.tp = saved
+        prev = _saved()
+        _restore(saved)
         try:
             return fn(*args, **kwargs)
         finally:
-            _state.rules, _state.tp = prev
+            _restore(prev)
 
     return run
 

@@ -36,28 +36,32 @@ def ssm_dims(cfg):
     return d_inner, d_inner // cfg.ssm_headdim, cfg.ssm_headdim, cfg.ssm_state
 
 
-def init_mamba2(gen, cfg, dtype, device):
+def init_mamba2(gen, cfg, dtype, device, keep=None):
     """A Mamba2 block's parameters: the projections ``wz``, ``wx`` (D, H,
     P), ``wB``, ``wC`` (D, N), ``wo`` (H, P, D) and the conv weights
     ``conv_x`` (ks, H, P), ``conv_B``, ``conv_C`` (ks, N) in ``dtype``;
     ``w_dt`` (D, H), ``dt_bias`` (zeros), ``A_log`` (zeros), ``D_skip``
-    (ones) and ``out_norm`` (H, P) float32."""
+    (ones) and ``out_norm`` (H, P) float32.  ``keep``: see
+    ``layers.kept``."""
     D = cfg.d_model
     _, H, P, N = ssm_dims(cfg)
     ks = cfg.ssm_conv
     f32 = dict(dtype=torch.float32, device=device)
 
-    def w(shape, axis=0, dt=dtype):
-        return _dense_init(gen, shape, axis, dt, device)
+    def w(name, shape, axis=0, dt=dtype):
+        return _dense_init(gen, shape, axis, dt, device, keep=keep,
+                           name=name)
 
     return {
-        "wz": w((D, H, P)), "wx": w((D, H, P)), "wB": w((D, N)),
-        "wC": w((D, N)), "w_dt": w((D, H), dt=torch.float32),
+        "wz": w("wz", (D, H, P)), "wx": w("wx", (D, H, P)),
+        "wB": w("wB", (D, N)), "wC": w("wC", (D, N)),
+        "w_dt": w("w_dt", (D, H), dt=torch.float32),
         "dt_bias": torch.zeros(H, **f32), "A_log": torch.zeros(H, **f32),
         "D_skip": torch.ones(H, **f32),
-        "conv_x": w((ks, H, P)), "conv_B": w((ks, N)), "conv_C": w((ks, N)),
+        "conv_x": w("conv_x", (ks, H, P)), "conv_B": w("conv_B", (ks, N)),
+        "conv_C": w("conv_C", (ks, N)),
         "out_norm": torch.ones((H, P), **f32),
-        "wo": w((H, P, D), (0, 1)),
+        "wo": w("wo", (H, P, D), (0, 1)),
     }
 
 

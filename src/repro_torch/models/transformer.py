@@ -35,6 +35,12 @@ the hybrid's {"ssm": (G, n_m, B, H, P, N), "conv": {"x", "B", "C"} at
 compute dtype: each group's shared attention writes its own slice of the
 KV cache, although the weights are one.  ``cfg.remat`` wraps a whole
 group, as the reference's ``_remat`` does.
+
+Under a data axis's cut of the dense weights (``shardctx.fsdp()``: FSDP
+over a mesh) a layer, a recurrent block and the shared attention gather
+their blocks whole over data at their top, inside the remat checkpoint:
+a place holds one block's gathered weights beside its own blocks, and
+remat gathers them again in the backward, on every rank alike.
 """
 from __future__ import annotations
 
@@ -51,7 +57,7 @@ from . import layers as LL
 from . import moe as MOE
 from . import ssm as SSM
 from . import xlstm as XL
-from .shardctx import bf16_grad_barrier, bind_rules
+from .shardctx import bf16_grad_barrier, bind_rules, fsdp
 
 __all__ = ["init_layer", "apply_layer", "init_dense_stack",
            "apply_dense_stack", "init_kv_caches", "init_xlstm_stack",
@@ -59,28 +65,43 @@ __all__ = ["init_layer", "apply_layer", "init_dense_stack",
            "apply_hybrid_stack", "init_hybrid_states"]
 
 
-def init_layer(gen, cfg, dtype, device, cross=False):
+def init_layer(gen, cfg, dtype, device, cross=False, keep=None):
     """A layer's parameters; ``cross=True`` adds the decoder's
-    cross-attention (``ln_x``, ``xattn``)."""
+    cross-attention (``ln_x``, ``xattn``).  ``keep(path, tensor)``
+    (``Model.init``) takes each drawn tensor right after its draw."""
+    sub = functools.partial(LL.sub_keep, keep)
     p = {"ln1": LL.init_norm(cfg, device), "ln2": LL.init_norm(cfg, device),
          "attn": (LL.init_mla if cfg.mla else LL.init_attention)(
-             gen, cfg, dtype, device)}
+             gen, cfg, dtype, device, keep=sub("attn"))}
     if cross:
         p["ln_x"] = LL.init_norm(cfg, device)
-        p["xattn"] = LL.init_attention(gen, cfg, dtype, device)
+        p["xattn"] = LL.init_attention(gen, cfg, dtype, device,
+                                       keep=sub("xattn"))
     if cfg.num_experts:
-        p["moe"] = MOE.init_moe(gen, cfg, dtype, device)
+        p["moe"] = MOE.init_moe(gen, cfg, dtype, device, keep=sub("moe"))
     else:
-        p["mlp"] = LL.init_mlp(gen, cfg, dtype, device)
+        p["mlp"] = LL.init_mlp(gen, cfg, dtype, device, keep=sub("mlp"))
     return p
 
 
+def _gathered(p, prefix: str):
+    """``p``, a block of parameters at ``prefix``, with every leaf cut
+    over data gathered whole (``shardctx.fsdp()``); ``p`` itself without
+    a data cut."""
+    fs = fsdp()
+    return p if fs is None else fs(p, prefix)
+
+
 def apply_layer(p, x, cfg, positions, *, cache=None, cache_len=None,
-                cross_kv=None, causal=True, flash=False):
+                cross_kv=None, causal=True, flash=False, prefix="stack"):
     """(x, aux): the layer's output and its MoE auxiliary loss (float32),
     None for a dense layer (the reference's 0: nothing to add).  A layer
-    with ``xattn`` (the decoder's) attends ``cross_kv``, its (k, v)."""
+    with ``xattn`` (the decoder's) attends ``cross_kv``, its (k, v).
+    ``prefix``: the key of the layer's parameters in the model's tree
+    (``stack``, ``enc``, ``stack/shared_attn``), which names its leaves
+    in the data axis's cut."""
     dt = getattr(torch, cfg.dtype)
+    p = _gathered(p, prefix)
     h = LL.apply_norm(p["ln1"], x, cfg.norm)
     if cfg.mla:
         a = LL.mla_block(p["attn"], h, cfg, positions, cache=cache,
@@ -130,16 +151,18 @@ def _remat(fn, cfg):
     return functools.partial(checkpoint, fn, use_reentrant=False, **kw)
 
 
-def init_dense_stack(gen, cfg, dtype, device, n_layers=None, cross=False):
+def init_dense_stack(gen, cfg, dtype, device, n_layers=None, cross=False,
+                     keep=None):
     """One parameter dict per layer (``n_layers``, default
     ``cfg.num_layers``), drawn one tensor at a time."""
-    return [init_layer(gen, cfg, dtype, device, cross=cross)
-            for _ in range(n_layers or cfg.num_layers)]
+    return [init_layer(gen, cfg, dtype, device, cross=cross,
+                       keep=LL.sub_keep(keep, l))
+            for l in range(n_layers or cfg.num_layers)]
 
 
 def apply_dense_stack(params_L, x, cfg, positions, *, caches=None,
                       cache_len=None, cross_kv=None, causal=True,
-                      flash=False):
+                      flash=False, prefix="stack"):
     """A loop over the layers (and the layer slices of the caches); each
     layer under ``cfg.remat`` where autograd records it.  ``cross_kv``:
     the decoder's cross (k, v), a pair of (L, B, Se, KV, dh) tensors whose
@@ -159,7 +182,7 @@ def apply_dense_stack(params_L, x, cfg, positions, *, caches=None,
                                                 cross_kv[1][l])
         x, a = layer(p, x, cfg, positions, cache=cache_l,
                      cache_len=cache_len, cross_kv=ckv_l, causal=causal,
-                     flash=flash)
+                     flash=flash, prefix=prefix)
         if a is not None:
             aux = aux + a
     return x, caches, aux
@@ -198,16 +221,17 @@ def _groups(cfg, group: int) -> tuple[int, int]:
     return cfg.num_layers // group, group - 1
 
 
-def init_xlstm_stack(gen, cfg, dtype, device):
+def init_xlstm_stack(gen, cfg, dtype, device, keep=None):
     G, n_m = _groups(cfg, cfg.xlstm_group)
 
-    def block(init):
+    def block(init, *path):
         return {"ln": LL.init_norm(cfg, device),
-                "cell": init(gen, cfg, dtype, device)}
+                "cell": init(gen, cfg, dtype, device,
+                             keep=LL.sub_keep(keep, *path, "cell"))}
 
-    return {"mlstm": [[block(XL.init_mlstm) for _ in range(n_m)]
-                      for _ in range(G)],
-            "slstm": [block(XL.init_slstm) for _ in range(G)]}
+    return {"mlstm": [[block(XL.init_mlstm, "mlstm", g, i)
+                       for i in range(n_m)] for g in range(G)],
+            "slstm": [block(XL.init_slstm, "slstm", g) for g in range(G)]}
 
 
 def _xlstm_group(mlstm, slstm, x, cfg, g=None, states=None):
@@ -215,6 +239,7 @@ def _xlstm_group(mlstm, slstm, x, cfg, g=None, states=None):
     (decode) each block steps from its slice of them, written in place."""
     dt = getattr(torch, cfg.dtype)
     for i, p in enumerate(mlstm):
+        p = _gathered(p, "stack/mlstm")
         h = LL.apply_norm(p["ln"], x, cfg.norm)
         if states is None:
             h, _ = XL.mlstm_block(p["cell"], h, cfg, chunk=cfg.attn_chunk,
@@ -225,6 +250,7 @@ def _xlstm_group(mlstm, slstm, x, cfg, g=None, states=None):
             for s, n in zip(st, new):
                 s.copy_(n)
         x = x + h
+    slstm = _gathered(slstm, "stack/slstm")
     h = LL.apply_norm(slstm["ln"], x, cfg.norm)
     st = None if states is None else tuple(s[g] for s in states["s"])
     h, new = XL.slstm_block(slstm["cell"], h, cfg, state=st, dtype=dt)
@@ -265,12 +291,15 @@ def init_xlstm_states(cfg, batch, device, block=None):
 
 
 # ---------------------------------------------------------------- hybrid
-def init_hybrid_stack(gen, cfg, dtype, device):
+def init_hybrid_stack(gen, cfg, dtype, device, keep=None):
     G, n_m = _groups(cfg, cfg.hybrid_group)
     return {"mamba": [[{"ln": LL.init_norm(cfg, device),
-                        "cell": SSM.init_mamba2(gen, cfg, dtype, device)}
-                       for _ in range(n_m)] for _ in range(G)],
-            "shared_attn": init_layer(gen, cfg, dtype, device)}
+                        "cell": SSM.init_mamba2(
+                            gen, cfg, dtype, device,
+                            keep=LL.sub_keep(keep, "mamba", g, i, "cell"))}
+                       for i in range(n_m)] for g in range(G)],
+            "shared_attn": init_layer(gen, cfg, dtype, device,
+                                      keep=LL.sub_keep(keep, "shared_attn"))}
 
 
 def _hybrid_group(mamba, shared, x, cfg, positions, g=None, states=None,
@@ -280,6 +309,7 @@ def _hybrid_group(mamba, shared, x, cfg, positions, g=None, states=None,
     window and the attention writes the group's KV slice, all in place."""
     dt = getattr(torch, cfg.dtype)
     for i, p in enumerate(mamba):
+        p = _gathered(p, "stack/mamba")
         h = LL.apply_norm(p["ln"], x, cfg.norm)
         if states is None:
             h, _, _ = SSM.mamba2_block(p["cell"], h, cfg,
@@ -297,7 +327,7 @@ def _hybrid_group(mamba, shared, x, cfg, positions, g=None, states=None,
     cache = (None if states is None
              else {k: c[g] for k, c in states["attn"].items()})
     x, _ = apply_layer(shared, x, cfg, positions, cache=cache,
-                       cache_len=cache_len)
+                       cache_len=cache_len, prefix="stack/shared_attn")
     return x
 
 

@@ -46,7 +46,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from .layers import _dense_init, silu_stepwise
+from .layers import _dense_init, kept, silu_stepwise
 from .shardctx import ONE, tensor_parallel
 
 __all__ = ["NEG", "init_mlstm", "mlstm_block", "init_slstm", "slstm_block"]
@@ -55,20 +55,24 @@ NEG = -1e30
 _GATES = ("i", "f", "z", "o")
 
 
-def init_mlstm(gen, cfg, dtype, device):
+def init_mlstm(gen, cfg, dtype, device, keep=None):
     """An mLSTM block's parameters: ``wq``, ``wk``, ``wv``, ``wz`` (D, H,
     dh) and ``wo`` (H, dh, D) in ``dtype``; the gates ``w_i``, ``w_f``
     (D, H), ``b_i`` (zeros), ``b_f`` (3: open forget gates) and
-    ``out_norm`` (H, dh) float32."""
+    ``out_norm`` (H, dh) float32.  ``keep``: see ``layers.kept``."""
     D, H, dh = cfg.d_model, cfg.num_heads, cfg.head_dim
     f32 = dict(dtype=torch.float32, device=device)
-    p = {w: _dense_init(gen, (D, H, dh), 0, dtype, device)
+    p = {w: _dense_init(gen, (D, H, dh), 0, dtype, device, keep=keep,
+                        name=w)
          for w in ("wq", "wk", "wv", "wz")}
-    p.update(w_i=_dense_init(gen, (D, H), 0, torch.float32, device),
-             w_f=_dense_init(gen, (D, H), 0, torch.float32, device),
+    p.update(w_i=_dense_init(gen, (D, H), 0, torch.float32, device,
+                             keep=keep, name="w_i"),
+             w_f=_dense_init(gen, (D, H), 0, torch.float32, device,
+                             keep=keep, name="w_f"),
              b_i=torch.zeros(H, **f32), b_f=torch.full((H,), 3.0, **f32),
              out_norm=torch.ones((H, dh), **f32),
-             wo=_dense_init(gen, (H, dh, D), (0, 1), dtype, device))
+             wo=_dense_init(gen, (H, dh, D), (0, 1), dtype, device,
+                            keep=keep, name="wo"))
     return p
 
 
@@ -178,18 +182,22 @@ def mlstm_block(p, x, cfg, *, state=None, chunk=1024, dtype=torch.bfloat16):
     return _out(p, y, z, dtype, tp, dh), new_state
 
 
-def init_slstm(gen, cfg, dtype, device):
+def init_slstm(gen, cfg, dtype, device, keep=None):
     """An sLSTM block's parameters: for each gate g in i, f, z, o the input
     projection ``w_g`` (D, H, dh), the recurrent ``r_g`` (H, dh, dh, scaled
     by 0.1) and the bias ``b_g`` (H, dh; ones for f, else zeros), all
-    float32; ``wo`` (H, dh, D) in ``dtype``."""
+    float32; ``wo`` (H, dh, D) in ``dtype``.  ``keep``: see
+    ``layers.kept``."""
     D, H, dh = cfg.d_model, cfg.num_heads, cfg.head_dim
     f32 = dict(dtype=torch.float32, device=device)
-    p = {"wo": _dense_init(gen, (H, dh, D), (0, 1), dtype, device)}
+    p = {"wo": _dense_init(gen, (H, dh, D), (0, 1), dtype, device,
+                           keep=keep, name="wo")}
     for g in _GATES:
-        p[f"w_{g}"] = _dense_init(gen, (D, H, dh), 0, torch.float32, device)
-        p[f"r_{g}"] = _dense_init(gen, (H, dh, dh), 1, torch.float32,
-                                  device).mul_(0.1)
+        p[f"w_{g}"] = _dense_init(gen, (D, H, dh), 0, torch.float32, device,
+                                  keep=keep, name=f"w_{g}")
+        # scaled before it is kept: keep's block of the scaled tensor
+        p[f"r_{g}"] = kept(keep, f"r_{g}", _dense_init(
+            gen, (H, dh, dh), 1, torch.float32, device).mul_(0.1))
         p[f"b_{g}"] = (torch.ones if g == "f" else torch.zeros)((H, dh), **f32)
     return p
 

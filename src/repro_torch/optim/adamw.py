@@ -87,26 +87,42 @@ def apply_updates(params, grads, state: dict, cfg: AdamWConfig,
     stepf = step.float()
     bc1 = 1 - torch.pow(cfg.b1, stepf)
     bc2 = 1 - torch.pow(cfg.b2, stepf)
-    for p, g, m, v in zip(tree_leaves(params), tree_leaves(grads),
-                          tree_leaves(state["m"]), tree_leaves(state["v"])):
-        g = g.float().mul_(scale) if g.dtype == torch.float32 else \
-            g.float() * scale
-        m32 = m.mul_(cfg.b1) if m.dtype == torch.float32 else m.float() * cfg.b1
-        m32.add_(g * (1 - cfg.b1))
-        v32 = v.mul_(cfg.b2) if v.dtype == torch.float32 else v.float() * cfg.b2
-        v32.add_(torch.square(g) * (1 - cfg.b2))
-        del g
-        den = torch.div(v32, bc2).sqrt_().add_(cfg.eps)   # sqrt(v̂) + eps
-        u = torch.div(m32, bc1).div_(den)                  # m̂ / (sqrt(v̂) + eps)
-        del den
-        p32 = p.float()
-        u.add_(p32 * cfg.weight_decay).mul_(cfg.lr)
-        if p.dtype == torch.float32:
-            p.sub_(u)
-        else:
-            p.copy_(p32 - u)
-        if m32 is not m:
-            m.copy_(m32)
-            v.copy_(v32)
+    # every leaf is contiguous (drawn, cut to a copy, zeros, or autograd's
+    # gradient in its parameter's layout), so its flat view is in place
+    for leaf in zip(tree_leaves(params), tree_leaves(grads),
+                    tree_leaves(state["m"]), tree_leaves(state["v"])):
+        flat = [t.view(-1) for t in leaf]
+        for i in range(0, flat[0].numel(), _PIECE):
+            _update(*(t[i:i + _PIECE] for t in flat), cfg, scale, bc1, bc2)
     state["step"] = step
     return params, state, {"grad_norm": gn}
+
+
+# elements a piece of a leaf's update: its temporaries are a few pieces,
+# not a few leaves (a rank's 0.5 G-element embedding block would take 6 GB)
+_PIECE = 1 << 24
+
+
+def _update(p, g, m, v, cfg: AdamWConfig, scale, bc1, bc2) -> None:
+    """The update of one leaf, or of a piece of its flattened elements
+    (every operation is elementwise: the same bits either way), in
+    place."""
+    g = g.float().mul_(scale) if g.dtype == torch.float32 else \
+        g.float() * scale
+    m32 = m.mul_(cfg.b1) if m.dtype == torch.float32 else m.float() * cfg.b1
+    m32.add_(g * (1 - cfg.b1))
+    v32 = v.mul_(cfg.b2) if v.dtype == torch.float32 else v.float() * cfg.b2
+    v32.add_(torch.square(g) * (1 - cfg.b2))
+    del g
+    den = torch.div(v32, bc2).sqrt_().add_(cfg.eps)   # sqrt(v̂) + eps
+    u = torch.div(m32, bc1).div_(den)                  # m̂ / (sqrt(v̂) + eps)
+    del den
+    p32 = p.float()
+    u.add_(p32 * cfg.weight_decay).mul_(cfg.lr)
+    if p.dtype == torch.float32:
+        p.sub_(u)
+    else:
+        p.copy_(p32 - u)
+    if m32 is not m:
+        m.copy_(m32)
+        v.copy_(v32)

@@ -12,11 +12,13 @@ JAX's ``eval_shape`` and the port's model on the meta device.
 ``shard_params``' blocks on meshes (1, 4), (2, 2) and (16, 16), at every
 place, against ``NamedSharding(mesh, param_pspecs(...))
 .devices_indices_map`` computed by JAX on 256 forced host devices in one
-subprocess, with the one cut the port does not make stated: the FSDP cut
-of a dense weight over ``data`` (the port keeps it whole over data).
+subprocess, the FSDP cut over ``data`` included; ``Model.init(keep=)``
+(the blocks drawn a leaf at a time) against the whole tree cut, and the
+data axis's gather plan (``fsdp_plan``, ``shardctx.Fsdp``).
 """
 import os
 import pathlib
+import re
 import subprocess
 import sys
 import types
@@ -197,8 +199,9 @@ def test_rules_context_matches_jax(mesh_name):
 def test_shard_tree_cuts_the_rank_block():
     """``shard_tree`` gives each place the block of a ``NamedSharding``
     (row-major over a dim's axes, the first major); ``shard_params`` cuts
-    the expert weights over both axes and the dense weights over the model
-    axis only."""
+    the expert weights over both axes, and with ``fsdp=True`` the dense
+    weights too: over the model axis as tensor parallelism reads them and
+    over data where their spec names it (FSDP)."""
     mesh = _stand_in("2x16x16")
     sizes = dict(mesh.shape)
     t = torch.arange(4 * 32 * 6).reshape(4, 32, 6)
@@ -220,11 +223,12 @@ def test_shard_tree_cuts_the_rank_block():
     assert torch.equal(moe["wg"], full["wg"][:2, :, 64:])
     assert torch.equal(moe["wd"], full["wd"][:2, 64:, :])
     # dense tensor parallelism: the attention heads and the vocab rows are
-    # cut over the model axis, not over data; the norms stay whole
+    # cut over the model axis; FSDP: d_model over data (place 1 of 2 holds
+    # rows 32..63 of 64); the norms stay whole
     wq = params["stack"][0]["attn"]["wq"]
-    assert torch.equal(mine["stack"][0]["attn"]["wq"], wq[:, :2])
-    assert torch.equal(mine["embed"], params["embed"][:128])
-    assert torch.equal(mine["lm_head"], params["lm_head"][:, :128])
+    assert torch.equal(mine["stack"][0]["attn"]["wq"], wq[32:, :2])
+    assert torch.equal(mine["embed"], params["embed"][:128, 32:])
+    assert torch.equal(mine["lm_head"], params["lm_head"][32:, :128])
     assert mine["final_norm"]["scale"] is params["final_norm"]["scale"]
     rows = TS.batch_rows(mesh, TS.activation_rules(cfg, mesh, 4), 4,
                          coords=dict(data=1, model=1))
@@ -289,10 +293,8 @@ def test_shard_params_blocks_match_jax(jax_blocks, arch, mesh_name):
     """Each place's block of every parameter under ``shard_params``'s cut
     (``shard_spec``, ``block_slices``) is JAX's ``NamedSharding`` block of
     the same leaf (its per-layer dims; the stacked layer dims whole),
-    where a dense weight's dim cut over ``data`` (FSDP, not ported) is
-    whole: MLA's, the mLSTM's, the sLSTM's and Mamba2's leaves included."""
-    import re
-
+    the data axis's cut (FSDP) included: MLA's, the mLSTM's, the sLSTM's
+    and Mamba2's leaves too."""
     cfg, jcfg = get_config(arch), jax_config(arch)
     dm, mm = BLOCK_MESHES[mesh_name]
     mesh = types.SimpleNamespace(shape={"data": dm, "model": mm},
@@ -305,8 +307,6 @@ def test_shard_params_blocks_match_jax(jax_blocks, arch, mesh_name):
         key = TS._path_str(path, keep_index=False)
         lead = sum(isinstance(k, int) for k in path)
         want_all = jax_blocks[f"{arch}|{mesh_name}|{key}"]
-        jspec = tuple(jspecs[key])[lead:]
-        expert = re.search(r"moe/(wg|wu|wd)$", key) is not None
         spec = TS.shard_spec(cfg, key, tuple(leaf.shape), mesh)
         for place in range(dm * mm):
             coords = {"data": place // mm, "model": place % mm}
@@ -315,9 +315,6 @@ def test_shard_params_blocks_match_jax(jax_blocks, arch, mesh_name):
             assert all(tuple(w) == (0, jshape) for w, jshape in zip(
                 want[:lead], want_all[0, :lead, 1])), key
             want = [tuple(int(v) for v in w) for w in want[lead:]]
-            for d, ax in enumerate(jspec):
-                if ax == "data" and not expert:
-                    want[d] = (0, leaf.shape[d])
             assert list(got) == want, (key, coords, got, want)
         cut_over_model += "model" in spec
     if mm > 1:
@@ -354,10 +351,12 @@ def _cache_cut(cfg, mesh, name, shape, dim) -> bool:
 def test_tp_layout_agrees_with_the_blocks(arch, mesh_name):
     """``tp_layout``, which the layers read, says of every attention
     (MLA's too), MLP, ``embed``, ``lm_head``, mLSTM, sLSTM and Mamba2
-    leaf the cut that ``shard_params`` makes of it (``shard_spec``), and
-    of the KV cache, MLA's latent cache, the mLSTM C, the SSM state and
-    the conv windows the cut that ``cache_specs`` makes; the leaves the
-    layers compute whole are whole."""
+    leaf the cut that ``shard_params`` makes of it over the model axis
+    (``shard_spec``; the data axis's cut, FSDP, is gathered back before
+    a layer reads a leaf), and of the KV cache, MLA's latent cache, the
+    mLSTM C, the SSM state and the conv windows the cut that
+    ``cache_specs`` makes; the leaves the layers compute whole are whole
+    over the model axis."""
     cfg = get_config(arch)
     dm, mm = BLOCK_MESHES[mesh_name]
     mesh = types.SimpleNamespace(shape={"data": dm, "model": mm},
@@ -373,8 +372,10 @@ def test_tp_layout_agrees_with_the_blocks(arch, mesh_name):
     for path, leaf in tree_leaves_with_path(_port_params(arch)):
         key = TS._path_str(path, keep_index=False)
         shape = tuple(leaf.shape)
+        over_model = tuple(None if a == "data" else a for a in
+                           TS.shard_spec(cfg, key, shape, mesh))
         block = [b - a for a, b in TS.block_slices(
-            shape, TS.shard_spec(cfg, key, shape, mesh), sizes, coords)]
+            shape, over_model, sizes, coords)]
         tail = "/".join(key.split("/")[-2:])
         tail3 = "/".join(key.split("/")[-3:])
         if tail3 in roles or tail in roles:
@@ -428,6 +429,98 @@ def test_tp_layout_agrees_with_the_blocks(arch, mesh_name):
         assert {"ssm", "ssm_o", "q", "kv", "o"} <= seen, (arch, seen)
     if cfg.family in ("dense", "vlm", "encdec"):
         assert {"q", "kv", "o", "mlp"} <= seen, (arch, seen)
+
+
+# one configuration of each family, its weights cut over data
+_KEEP_ARCHS = ("command-r-35b", "deepseek-v2-236b", "whisper-medium",
+               "internvl2-76b", "xlstm-350m", "zamba2-2.7b")
+
+
+@pytest.mark.parametrize("arch", _KEEP_ARCHS)
+def test_init_keep_draws_the_blocks(arch):
+    """``Model.init(seed, keep=keep_blocks(...))``, each leaf cut right
+    after its draw, gives every place of (2, 2) the blocks of
+    ``shard_params(cfg, init(seed))`` bit for bit: the generator makes
+    the same calls in the same order.  The data axis cuts every leaf
+    its spec names it in (``fsdp=True``), and ``keep`` sees each path
+    once."""
+    cfg = get_config(arch).reduced(fsdp=True)
+    mesh = types.SimpleNamespace(shape={"data": 2, "model": 2},
+                                 axis_names=("data", "model"))
+    model = TM.Model(cfg, "cpu")
+    whole = model.init(3, master=True)
+    n_cut = 0
+    for place in range(4):
+        coords = {"data": place // 2, "model": place % 2}
+        want = TS.shard_params(cfg, whole, mesh, coords=coords)
+        seen = []
+        keep = TS.keep_blocks(cfg, mesh, coords)
+
+        def spy(path, t, keep=keep, seen=seen):
+            seen.append(tuple(path))
+            return keep(path, t)
+
+        got = model.init(3, master=True, keep=spy)
+        assert len(seen) == len(set(seen)) == len(tree_leaves_with_path(
+            whole))
+        for (pg, g), (pw, w), (_, t) in zip(tree_leaves_with_path(got),
+                                            tree_leaves_with_path(want),
+                                            tree_leaves_with_path(whole)):
+            assert pg == pw and g.dtype == w.dtype, (pg, pw)
+            assert torch.equal(g, w), pg
+            n_cut += g.numel() < t.numel()
+    assert n_cut > 0
+
+
+@pytest.mark.parametrize("arch", _KEEP_ARCHS)
+def test_fsdp_plan_names_the_dense_leaves_cut_over_data(arch):
+    """``fsdp_plan`` lists each dense leaf whose spec names ``data``, with
+    that dim, the place's block shape and the dtype the layers read it in
+    (the serving tree's); the experts are the MoE layer's; a config
+    without ``fsdp``, or a data axis of one place, cuts nothing."""
+    cfg = get_config(arch).reduced(fsdp=True)
+    mesh = types.SimpleNamespace(shape={"data": 2, "model": 2},
+                                 axis_names=("data", "model"))
+    plan = TS.fsdp_plan(cfg, mesh)
+    serving = {TS._path_str(p, keep_index=False): t for p, t in
+               tree_leaves_with_path(TM.Model(cfg, "meta").init())}
+    want = {}
+    for key, t in serving.items():
+        spec = TS.shard_spec(cfg, key, tuple(t.shape), mesh)
+        if "data" in spec and not re.search(r"moe/(wg|wu|wd)$", key):
+            block = TS.block_slices(tuple(t.shape), spec, mesh.shape,
+                                    {"data": 1, "model": 1})
+            want[key] = (spec.index("data"),
+                         tuple(b - a for a, b in block), t.dtype)
+    assert plan == want and plan
+    assert TS.fsdp_plan(get_config(arch).reduced(), mesh) == {}
+    one = types.SimpleNamespace(shape={"data": 1, "model": 4},
+                                axis_names=("data", "model"))
+    assert TS.fsdp_plan(cfg, one) == {}
+
+
+def test_fsdp_gather_refuses_a_whole_leaf():
+    """A place handed a whole weight where the data axis's plan says it
+    holds a block raises (``shardctx.Fsdp``), as the experts' check
+    does, before any gather: it would otherwise read the weight wrong
+    without a word."""
+    cfg = get_config("command-r-35b").reduced(fsdp=True)
+    mesh = types.SimpleNamespace(shape={"data": 2, "model": 1},
+                                 axis_names=("data", "model"))
+    calls = []
+    fs = TC.Fsdp(TS.fsdp_plan(cfg, mesh),
+                 gather=lambda w, dim, dt: calls.append(dim) or w,
+                 lookup=lambda b, t, dt: calls.append("lookup") or b[t])
+    whole = TM.Model(cfg, "cpu").init(0)
+    with pytest.raises(ValueError, match="stack/attn/wq is cut over the "
+                       "data axis"):
+        fs(whole["stack"][0], "stack")
+    with pytest.raises(ValueError, match="embed is cut"):
+        fs.lookup(whole["embed"], torch.zeros(2, dtype=torch.long), "embed",
+                  torch.float32)
+    mine = TS.shard_params(cfg, whole, mesh, coords={"data": 1, "model": 0})
+    fs(mine["stack"][0], "stack")
+    assert calls and not any(c == "lookup" for c in calls)
 
 
 def test_new_modules_import_no_jax_or_repro():

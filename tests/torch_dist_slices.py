@@ -161,6 +161,14 @@ STEP_CASES = {
     # a dense family on a model axis of one place: its rows split 4 ways
     "dense_dp": dict(arch="qwen3-14b", over={}, mesh=(4, 1), B=4, S=8,
                      cache=16, steps=4),
+    # FSDP of the dense weights: every block cut over data too, gathered a
+    # layer at a time; the tied embed looked up from its d_model blocks
+    "cmdr_fsdp": dict(arch="command-r-35b", over={"fsdp": True},
+                      mesh=(2, 2), B=2, S=12, cache=16, steps=3),
+    # the local MoE route over a split batch with its experts cut over
+    # data (hidden-sharded specs on a model axis of one place)
+    "mix_fsdp_dp": dict(arch="mixtral-8x22b", over={"fsdp": True},
+                        mesh=(4, 1), B=4, S=8, cache=16, steps=3),
 }
 # name -> (arch, overrides, mesh, x shape, dtype): apply_moe with aux
 APPLY_CASES = {
@@ -271,6 +279,7 @@ def run_apply(case, p: dict, x: np.ndarray, mesh) -> dict:
         shard_params,
     )
     from repro_torch.models import moe
+    from repro_torch.models.transformer import _gathered
 
     arch, over, _, _, dt = case
     cfg = get_config(arch).reduced(**over)
@@ -281,6 +290,9 @@ def run_apply(case, p: dict, x: np.ndarray, mesh) -> dict:
     rows = batch_rows(mesh, rules, x.shape[0])
     info = {}
     with mesh_rules(cfg, mesh, x.shape[0]):
+        # the router and the shared experts gathered over data, as the
+        # layer gathers them (transformer.apply_layer)
+        mine = _gathered(mine, "stack/moe")
         y, aux = moe.apply_moe(mine, torch.from_numpy(x[rows]).to(tdt), cfg,
                                dtype=tdt, return_aux=True, info=info)
     return {"out": y.float().numpy(), "aux": aux["aux_loss"].numpy(),
@@ -358,9 +370,9 @@ def moe_cases(rank: int, world: int, group, data_path: str) -> dict:
                 dict(zip(MESH_AXES, shape)), dtype=tdt, return_aux=True)
             out[f"apply_emu/{name}/out"] = y.float().numpy()
             out[f"apply_emu/{name}/aux"] = aux["aux_loss"].numpy()
-    # what still refuses over a mesh (a train step with fsdp=True over a
-    # split batch) and what no longer does (a dense family on a model axis
-    # of 2, a recurrent family, a train step with fsdp=False: "")
+    # what no longer refuses over a mesh (a dense family on a model axis
+    # of 2, a recurrent family, a train step with fsdp=False, and one with
+    # fsdp=True over a split batch: "")
     mesh = meshes[(2, 2)]
     out["err/dense_tp"] = np.asarray(_raises(
         lambda: make_prefill_step(get_config("qwen3-14b").reduced(), "cpu",

@@ -1,5 +1,6 @@
 """The train step over a (data x model) mesh: the cases of
-``tests/test_torch_dist_train.py`` and ``tests/test_torch_dist_train_rec.py``,
+``tests/test_torch_dist_train.py``, ``tests/test_torch_dist_train_rec.py``
+and ``tests/test_torch_dist_fsdp.py``,
 the rank program both run (``train_cases``, started by
 ``torch_dist_ranks.run_ranks``), the JAX script both run in one subprocess
 on 4 forced host devices, and the checks both make.  pytest does not
@@ -83,12 +84,38 @@ CASES = {
                        spread=True),
     "hybrid_2x2": dict(arch="zamba2-2.7b", over={}, mesh=(2, 2),
                        spread=True),
+    # FSDP of the dense weights (fsdp=True: every dim the spec names
+    # "data" cut over it, gathered a layer at a time, reduce-scattered in
+    # the backward): the tied embed, layernorm and 2 microbatches
+    "cmdr_fsdp_2x2": dict(arch="command-r-35b", over={"fsdp": True},
+                          mesh=(2, 2)),
+    "cmdr_fsdp_4x1": dict(arch="command-r-35b", over={"fsdp": True},
+                          mesh=(4, 1)),
+    # squared ReLU, an untied lm_head, bf16 moments
+    "nemotron_fsdp_2x2": dict(arch="nemotron-4-340b", over={"fsdp": True},
+                              mesh=(2, 2)),
+    # the experts and the router over data
+    "mixtral_fsdp_2x2": dict(arch="mixtral-8x22b", over={"fsdp": True},
+                             mesh=(2, 2)),
+    # MLA's ranks over data, a shared expert
+    "deepseek_fsdp_2x2": dict(arch="deepseek-v2-236b", over={"fsdp": True},
+                              mesh=(2, 2)),
+    "vlm_fsdp_2x2": dict(arch="internvl2-76b", over={"fsdp": True},
+                         mesh=(2, 2), spread=True),
+    "xlstm_fsdp_2x2": dict(arch="xlstm-350m",
+                           over={"fsdp": True, "num_layers": 4},
+                           mesh=(2, 2), spread=True),
+    "hybrid_fsdp_2x2": dict(arch="zamba2-2.7b", over={"fsdp": True},
+                            mesh=(2, 2), spread=True),
 }
 DENSE = ("qwen_2x2", "qwen_1x4", "codeqwen_2x2", "hd_1x4", "cp_1x4",
          "mixtral_2x2", "deepseek_1x4", "whisper_2x2", "vlm_2x2",
          "compress_2x2")
 RECURRENT = ("qwen_4x1", "mixtral_4x1", "xlstm_1x4", "xlstm_2x2",
              "xlstm_g3_1x4", "xlstm_g3_2x2", "hybrid_1x4", "hybrid_2x2")
+FSDP = ("cmdr_fsdp_2x2", "cmdr_fsdp_4x1", "nemotron_fsdp_2x2",
+        "mixtral_fsdp_2x2", "deepseek_fsdp_2x2", "vlm_fsdp_2x2",
+        "xlstm_fsdp_2x2", "hybrid_fsdp_2x2")
 
 # vectors that init fills with one value (ones, zeros, a constant): drawn
 # here so that a place reading another place's slice of them shows
@@ -228,9 +255,10 @@ def make_data(names) -> dict:
     return {"params": params, "batches": batches}
 
 
-def start(tmp, names):
-    """Write the data, start JAX on 4 forced host devices, run the ranks;
-    returns (JAX's arrays, each rank's arrays)."""
+def start(tmp, names, jax_procs: int = 1):
+    """Write the data, start JAX on 4 forced host devices (in
+    ``jax_procs`` subprocesses, the cases dealt among them in turn), run
+    the ranks; returns (JAX's arrays, each rank's arrays)."""
     import functools
 
     import torch_dist_ranks as R
@@ -238,17 +266,22 @@ def start(tmp, names):
     data_path = tmp / "data.pkl"
     with open(data_path, "wb") as f:
         pickle.dump(make_data(names), f)
-    jax_proc = R.start_jax(JAX_SCRIPT, json.dumps(
-        [list(names), CASES, str(data_path), str(tmp / "jax.pkl"),
-         SPREAD_RUNS], default=list), devices=WORLD)
+    procs = [R.start_jax(JAX_SCRIPT, json.dumps(
+        [list(names[i::jax_procs]), CASES, str(data_path),
+         str(tmp / f"jax{i}.pkl"), SPREAD_RUNS], default=list),
+        devices=WORLD) for i in range(jax_procs)]
     try:
         ranks = R.run_ranks(functools.partial(
             train_cases, names=tuple(names), data_path=str(data_path)),
             WORLD, tmp / "ranks")
     finally:
-        R.finish_jax(jax_proc, "JAX_DIST_TRAIN_DONE")
-    with open(tmp / "jax.pkl", "rb") as f:
-        return pickle.load(f), ranks
+        for proc in procs:
+            R.finish_jax(proc, "JAX_DIST_TRAIN_DONE")
+    out = {}
+    for i in range(jax_procs):
+        with open(tmp / f"jax{i}.pkl", "rb") as f:
+            out.update(pickle.load(f))
+    return out, ranks
 
 
 # ------------------------------------------------------------ a rank
