@@ -834,7 +834,7 @@ TP_ALL_DEADLINE_S = 300
 TRAIN_TP = {
     "a": dict(arch="qwen3-14b", num_layers=1, mesh=(1, 4)),
     "b": dict(arch="xlstm-350m", num_layers=8, mesh=(2, 2),
-              dtype="float32"),
+              dtype="float32", ckpt=True),
     "c": dict(arch="zamba2-2.7b", num_layers=6, mesh=(2, 2),
               dtype="float32"),
     "d": dict(arch="command-r-35b", num_layers=1, mesh=(2, 2),
@@ -5346,6 +5346,9 @@ def tp_program(dev, mesh, spec: dict, full=None, rank: bool = False) -> dict:
         torch.cuda.synchronize(dev)
         return time.perf_counter() - t0
 
+    if rank:
+        out.update(held_record("prefill", params, mesh, cfg,
+                               {"tokens": tokens}))
     M.reset_gathered()
     t0 = time.perf_counter()
     logits, cache = prefill(params, {"tokens": tokens, "cache_seq": S})
@@ -5366,6 +5369,9 @@ def tp_program(dev, mesh, spec: dict, full=None, rank: bool = False) -> dict:
         logits, cache = prefill(params, {"tokens": prompt,
                                          "cache_seq": P + steps})
         tok = global_tokens(logits)
+        if rank:
+            out.update(held_record("decode", params, mesh, cfg,
+                                   {"token": tok[:, None]}, cache=cache))
         toks, step_s, step_logits = [tok.cpu().numpy()], [], []
         M.reset_gathered()
         for i in range(steps):
@@ -5429,6 +5435,9 @@ def recurrent_program(dev, mesh, spec: dict, full=None,
         torch.cuda.synchronize(dev)
         return time.perf_counter() - t0
 
+    if rank:
+        out.update(held_record("prefill", params, mesh, cfg, {
+            "tokens": tokens[:, :-1], "labels": tokens[:, 1:]}))
     M.reset_gathered()
     t0 = time.perf_counter()
     loss = prefill(params, {"tokens": tokens[:, :-1],
@@ -5445,6 +5454,10 @@ def recurrent_program(dev, mesh, spec: dict, full=None,
     rows = batch_rows(mesh, activation_rules(cfg, mesh, Bd), Bd)
     with mesh_rules(cfg, mesh, Bd):
         cache = model.init_cache(len(range(Bd)[rows]), P + steps)
+    if rank:
+        out.update(held_record("decode", params, mesh, cfg, {
+            "token": torch.as_tensor(prompt[:, :1], device=dev)},
+            cache=cache))
     for i in range(P):
         tok, _, cache = serve(params, {"token": torch.as_tensor(
             prompt[:, i:i + 1], device=dev), "pos": i, "cache": cache})
@@ -5725,7 +5738,7 @@ def phase_tp(dev, tp: dict = TP, cp: dict = TP_CP) -> dict:
                   and row["launches"].get("silu_stepwise", 0) > 0,
                   f"{tag}: rank {r}'s launches {row['launches']}")
         return {"per_rank": rows, "ranks_s": ranks_s, "emulation_s": emu_s,
-                **held}
+                **held, "rank0": ranks[0]}
 
     # (a) and (b): qwen3-14b x 4 layers
     cfg, full, tokens, l0, c0, nomesh_s = setup(tp)
@@ -5762,6 +5775,8 @@ def phase_tp(dev, tp: dict = TP, cp: dict = TP_CP) -> dict:
     torch.cuda.empty_cache()
     out["gloo4"] = mesh_part(tp, full, l0, "tp gloo x4")
     out["gloo4"]["no_mesh_prefill_s"] = nomesh_s
+    out["gloo4"]["dryrun"] = dryrun_serving(
+        "tp gloo x4", cfg, tp, out["gloo4"].pop("rank0"))
     for r, row in enumerate(out["gloo4"]["per_rank"]):
         want = {f"B={B} Sq={S} Skv={S} {cfg.num_heads // 4}/"
                 f"{cfg.num_kv_heads // 4}x{cfg.head_dim} causal q_offset=0":
@@ -5787,6 +5802,7 @@ def phase_tp(dev, tp: dict = TP, cp: dict = TP_CP) -> dict:
     check(cfg.num_heads % n != 0 and S % n == 0
           and cfg.attn_impl == "chunked", f"tp cp: not context parallel")
     out["cp3"] = mesh_part(cp, full, l0, "tp cp gloo x3")
+    del out["cp3"]["rank0"]
     out["cp3"]["no_mesh_prefill_s"] = nomesh_s
     for r, row in enumerate(out["cp3"]["per_rank"]):
         want = {f"B={B} Sq={S // n} Skv={S} {cfg.num_heads}/"
@@ -5917,7 +5933,8 @@ def phase_tp_all(dev, parts: dict = TP_ALL) -> dict:
                       f"{name} rank {r}: flash "
                       f"{row['prefill_flash_by_shape']}")
         out[tag] = {"per_rank": rows, "emulation_s": emu_s,
-                    "no_mesh_prefill_s": nomesh_s, **held}
+                    "no_mesh_prefill_s": nomesh_s, **held,
+                    "dryrun": dryrun_serving(name, cfg, spec, ranks[0])}
         what = "loss" if recurrent else "prefill logits"
         log(f"{name} on one card: {cfg.name} x{cfg.num_layers} on mesh "
             f"{spec['mesh']}, every rank equals its place of the emulation "
@@ -7184,6 +7201,123 @@ def leaf_samples(tree) -> list:
             for t in tree_leaves(tree)]
 
 
+def tree_nbytes(tree) -> int:
+    """The bytes of a tree's tensors and numpy arrays (a host int counts
+    nothing: a decode's ``pos``)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.tree import tree_leaves
+
+    return sum(t.numel() * t.element_size() if isinstance(t, torch.Tensor)
+               else t.nbytes if isinstance(t, np.ndarray) else 0
+               for t in tree_leaves(tree))
+
+
+def tree_numel(tree) -> int:
+    from repro_torch.tree import tree_leaves
+
+    return sum(t.numel() for t in tree_leaves(tree))
+
+
+def held_record(kind: str, params, mesh, cfg, batch: dict, cache=None,
+                opt=None) -> dict:
+    """What the calling rank holds of a step's inputs, for the dry-run
+    check (``dryrun_check``): its weights' bytes and elements, the
+    optimizer state's bytes, the batch as the rank passes it (global) and
+    the rank's rows of it (its block under the reference's
+    ``batch_specs``), and a decode's cache blocks, under
+    ``mem/<kind>/``."""
+    import numpy as np
+
+    from repro_torch.launch.sharding import activation_rules, batch_rows
+
+    B = next(iter(batch.values())).shape[0]
+    rows = batch_rows(mesh, activation_rules(cfg, mesh, B), B)
+    out = {"params": tree_nbytes(params), "params_elems": tree_numel(params),
+           "batch": tree_nbytes(batch),
+           "batch_rows": tree_nbytes({k: v[rows] for k, v in batch.items()})}
+    if opt is not None:
+        out["opt"] = tree_nbytes(opt)
+    if cache is not None:
+        out["cache"] = tree_nbytes(cache)
+    return {f"mem/{kind}/{k}": np.int64(v) for k, v in out.items()}
+
+
+def dryrun_check(what: str, cfg, mesh: tuple, info: dict, got: dict,
+                 peak_gb: float) -> dict:
+    """The port's dry-run cell (``launch.dryrun.run_cell``) at a part's own
+    config, depth, mesh and shape against what rank 0 held (``got``'s
+    ``mem/<kind>/`` keys, ``held_record``): its ``held_bytes`` equal to
+    the bytes rank 0 held (weights, optimizer state, the batch or token
+    as passed, the cache blocks), its ``argument_bytes`` equal to the
+    same blocks at the reference's element sizes (float32 weights; the
+    batch's rows of rank 0; a decode's 4-byte ``pos``, which the xLSTM
+    step does not read); the held bytes at most rank 0's measured peak,
+    and the arguments too where the rank holds the reference's float32
+    weights (training: serving holds compute-dtype ones, half the
+    reference's); the peak estimate logged beside the peak."""
+    from repro_torch.launch.dryrun import run_cell
+
+    kind = info["kind"]
+    mem_k = {k.split("/")[-1]: int(v) for k, v in got.items()
+             if k.startswith(f"mem/{kind}/")}
+    cell = run_cell(cfg.name, kind, False, verbose=False, cfg_override=cfg,
+                    label=what, mesh=tuple(mesh), info=info)
+    check(cell["status"] == "ok", f"{what}: dry-run {cell.get('error')}")
+    mem = cell["memory"]
+    held = mem_k["params"] + mem_k.get("opt", 0)
+    ref = 4 * mem_k["params_elems"] + mem_k.get("opt", 0)
+    if kind == "decode":
+        held += mem_k["batch"] + mem_k["cache"]
+        ref += mem_k["batch_rows"] + mem_k["cache"] + (
+            0 if cfg.family == "xlstm" else 4)
+    else:
+        held += mem_k["batch"]
+        ref += mem_k["batch_rows"]
+    peak = int(round(peak_gb * 1e9))
+    check(mem["held_bytes"] == held,
+          f"{what}: dry-run held_bytes {mem['held_bytes']:,} ({mem['held']})"
+          f" against {held:,} B that rank 0 held ({mem_k})")
+    check(mem["argument_bytes"] == ref,
+          f"{what}: dry-run argument_bytes {mem['argument_bytes']:,} "
+          f"({mem['arguments']}) against {ref:,} B of rank 0's blocks at "
+          f"the reference's element sizes ({mem_k})")
+    check(mem["held_bytes"] <= peak,
+          f"{what}: held {mem['held_bytes']:,} B past the peak {peak:,} B")
+    gated = mem["held"]["params"] == mem["arguments"]["params"]
+    if gated:
+        check(mem["argument_bytes"] <= peak,
+              f"{what}: arguments {mem['argument_bytes']:,} B past rank 0's "
+              f"peak {peak:,} B")
+    row = {"argument_bytes": mem["argument_bytes"],
+           "held_bytes": mem["held_bytes"],
+           "peak_estimate_bytes": mem["peak_estimate_bytes"],
+           "peak_terms": mem["peak_terms"], "peak_bytes": peak,
+           "argument_le_peak_gated": gated}
+    log(f"{what} dry-run ({kind}, B={info['batch']} S={info['seq']}, mesh "
+        f"{tuple(mesh)}): arguments {mem['argument_bytes']:,} B, held "
+        f"{mem['held_bytes']:,} B, both equal to rank 0's blocks; peak "
+        f"estimate {mem['peak_estimate_bytes']:,} B ({mem['peak_terms']}) "
+        f"beside rank 0's measured peak {peak:,} B"
+        + ("" if gated else " (arguments not gated by the peak: the port "
+           "serves from compute-dtype weights, the reference takes float32 "
+           "ones)"))
+    return row
+
+
+def dryrun_serving(what: str, cfg, spec: dict, got: dict) -> dict:
+    """``dryrun_check`` of a serving part's prefill (or the recurrent
+    families' loss) and decode cells against rank 0's ``got``."""
+    B, S = spec["prefill"] if "prefill" in spec else spec["loss"]
+    Bd, P, steps = spec["decode"]
+    peak = float(got["peak_gb"])
+    return {"prefill": dryrun_check(what, cfg, spec["mesh"], {
+        "kind": "prefill", "batch": B, "seq": S}, got, peak),
+        "decode": dryrun_check(what, cfg, spec["mesh"], {
+            "kind": "decode", "batch": Bd, "seq": P + steps}, got, peak)}
+
+
 def train_tp_cfg(spec: dict):
     import dataclasses
 
@@ -7242,6 +7376,9 @@ def fsdp_serve(cfg, dev, mesh, spec: dict, seed: int, feed=None) -> dict:
     def gathered():
         return np.asarray([M.GATHERED[k] for k in sorted(M.GATHERED)])
 
+    if mesh is not None:
+        out.update({f"serve/{k}": v for k, v in held_record(
+            "prefill", params, mesh, cfg, {"tokens": tokens}).items()})
     TP_CALLS.flash = []
     M.reset_gathered()
     torch.cuda.synchronize(dev)
@@ -7258,6 +7395,10 @@ def fsdp_serve(cfg, dev, mesh, spec: dict, seed: int, feed=None) -> dict:
     for i in range(steps):
         if feed is not None:
             tok = torch.as_tensor(feed[i], device=dev)
+        if i == 0 and mesh is not None:
+            out.update({f"serve/{k}": v for k, v in held_record(
+                "decode", params, mesh, cfg, {"token": tok[:, None]},
+                cache=cache).items()})
         fed.append(tok.cpu().numpy())
         M.reset_gathered()
         t0 = time.perf_counter()
@@ -7347,11 +7488,14 @@ def train_tp_rank(rank: int, world: int, backend: str, store: str,
             got["data_whole_gb"] = np.float64(whole / 1e9)
             data = SyntheticLMData(cfg.vocab_size, run_p["batch"],
                                    run_p["seq"], seed=run_p["seed"])
+            got.update(held_record("train", params, mesh, cfg,
+                                   data.batch_at(0), opt=opt))
             rows = {k: [] for k in ("loss", "grad_norm", "step_s",
                                     "checksums")}
             rows.update({f"gathered_{k}": [] for k in GATHERED})
-            for t in range(run_p["steps"]):
-                batch = data.batch_at(t)
+            last = {}
+
+            def timed(params, opt, batch):
                 reset_gathered()
                 torch.cuda.synchronize(dev)
                 t0 = time.perf_counter()
@@ -7363,7 +7507,28 @@ def train_tp_rank(rank: int, world: int, backend: str, store: str,
                 for k, v in GATHERED.items():
                     rows[f"gathered_{k}"].append(v)
                 rows["checksums"].append(leaf_checksums(params))
+                last["state"] = (params, opt)
+                return params, opt, met
+
+            t = 0
+            if spec.get("ckpt"):
+                # the first step through TrainLoop(mesh=): it saves at step
+                # 1 and fails at step 1; the run goes on from the state in
+                # memory, the uninterrupted run
+                ckpt_dir = pathlib.Path(out_dir) / "ckpt"
+                got.update(train_tp_fail(timed, params, opt, mesh, cfg,
+                                         ckpt_dir, [data.batch_at(0),
+                                                    data.batch_at(1)]))
+                params, opt = last["state"]
+                t = 1
+            for t in range(t, run_p["steps"]):
+                params, opt, _ = timed(params, opt, data.batch_at(t))
             got.update(rank_end(dev))
+            if spec.get("ckpt"):
+                got["ckpt/opt_checksums"] = leaf_checksums(opt)
+                got.update(train_tp_resume(
+                    cfg, dev, mesh, step, opt_cfg, run_p, ckpt_dir,
+                    data.batch_at(1), rank))
             got["part_s"] = np.float64(time.perf_counter() - t_part)
             got.update({k: np.asarray(v) for k, v in rows.items()})
             for i, a in enumerate(leaf_samples(params)):
@@ -7375,6 +7540,107 @@ def train_tp_rank(rank: int, world: int, backend: str, store: str,
     finally:
         dist.destroy_process_group()
     np.savez(pathlib.Path(out_dir) / f"rank{rank}.npz", **out)
+
+
+def train_tp_fail(step, params, opt, mesh, cfg, ckpt_dir,
+                  batches) -> dict:
+    """Phase train_tp (b)'s interrupted run: ``TrainLoop(step, mesh=)``
+    from the rank's blocks, a checkpoint every step and the failure
+    injected at step 1: one step, its save (the logical arrays gathered
+    on every rank, rank 0 writing: ``CheckpointManager.timings``), then
+    ``SimulatedFailure`` on every rank.  The step updates the blocks in
+    place, and the caller's run goes on from them, uninterrupted."""
+    import numpy as np
+
+    from repro_torch.launch.sharding import state_specs
+    from repro_torch.runtime import FaultConfig, SimulatedFailure, TrainLoop
+
+    loop = TrainLoop(step, FaultConfig(ckpt_dir=str(ckpt_dir), ckpt_every=1,
+                                       fail_at_step=1),
+                     mesh=mesh, specs=state_specs(cfg, mesh))
+    raised = ""
+    t0 = time.perf_counter()
+    try:
+        loop.run(params, opt, batches)
+    except SimulatedFailure as e:
+        raised = str(e)
+    out = {"ckpt/raised": np.asarray(raised),
+           "ckpt/loop_s": np.float64(time.perf_counter() - t0)}
+    out.update({f"ckpt/save_{k}": np.float64(v)
+                for k, v in loop.mgr.timings.items()})
+    return out
+
+
+def train_tp_resume(cfg, dev, mesh, step, opt_cfg, run_p: dict, ckpt_dir,
+                    batch, rank: int) -> dict:
+    """Phase train_tp (b)'s resume, on every rank: ``TrainLoop(mesh=)``'s
+    ``resume_or`` restores the step-1 checkpoint in place into blocks
+    drawn from another seed, and runs step 2 on ``batch`` (its blocks'
+    and optimizer state's checksums, for the uninterrupted run's); then
+    the same checkpoint restored onto meshes (1, 4) and (4, 1), every
+    block held to the cut of the logical arrays read from the npz
+    (``block_slices``).  Rank 0 deletes the directory at the end."""
+    import shutil
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.ckpt import restore_checkpoint
+    from repro_torch.ckpt.checkpoint import read_arrays
+    from repro_torch.launch.sharding import (
+        _at,
+        _block,
+        axis_sizes,
+        mesh_coords,
+        state_specs,
+    )
+    from repro_torch.optim import init_opt_state
+    from repro_torch.runtime import FaultConfig, TrainLoop
+    from repro_torch.tree import tree_leaves_with_path
+
+    def fresh(m):
+        p = draw_blocks(cfg, dev, m, run_p["seed"] + 1, master=True)
+        return p, init_opt_state(p, opt_cfg)
+
+    out = {}
+    loop = TrainLoop(step, FaultConfig(ckpt_dir=str(ckpt_dir),
+                                       ckpt_every=1 << 30),
+                     mesh=mesh, specs=state_specs(cfg, mesh))
+    t0 = time.perf_counter()
+    start, p, o = loop.resume_or(lambda: fresh(mesh))
+    torch.cuda.synchronize(dev)
+    out["ckpt/restore_s"] = np.float64(time.perf_counter() - t0)
+    out["ckpt/start"] = np.int64(start)
+    p, o, _ = loop.run(p, o, [batch], start_step=start)
+    out["ckpt/resumed_checksums"] = leaf_checksums(p)
+    out["ckpt/resumed_opt_checksums"] = leaf_checksums(o)
+    del p, o
+    arrays, _ = read_arrays(ckpt_dir, 1)
+    for shape in ((1, 4), (4, 1)):
+        m = init_device_mesh("cpu", shape, mesh_dim_names=("data", "model"))
+        specs = state_specs(cfg, m)
+        p, o = fresh(m)
+        t0 = time.perf_counter()
+        st = restore_checkpoint(ckpt_dir, 1, {"params": p, "opt": o},
+                                mesh=m, specs=specs, inplace=True)
+        torch.cuda.synchronize(dev)
+        tag = "x".join(map(str, shape))
+        out[f"ckpt/restore_{tag}_s"] = np.float64(time.perf_counter() - t0)
+        sizes, coords = axis_sizes(m), mesh_coords(m)
+        out[f"ckpt/restore_{tag}_equal"] = np.bool_(all(
+            torch.equal(leaf.cpu(), _block(
+                torch.from_numpy(arrays["::".join(map(str, path))]),
+                _at(specs, path) or (), sizes, coords))
+            for path, leaf in tree_leaves_with_path(st)))
+        del p, o, st
+    del arrays
+    torch.cuda.empty_cache()
+    dist.barrier()
+    if rank == 0:
+        shutil.rmtree(ckpt_dir)
+    return out
 
 
 def emulated_backward_on_card(dev) -> dict:
@@ -7520,12 +7786,18 @@ def phase_train_tp(dev, parts: dict = TRAIN_TP,
             f"{[round(x, 3) for x in ref['step_s']]} s, peak "
             f"{ref['peak_gb']:.2f} GB")
     tmp = tempfile.TemporaryDirectory()
+    # the dry-run's production table (every config and shape on (16, 16)
+    # and (2, 16, 16), no card) in a process of its own beside the ranks
+    table = dryrun_table_start(pathlib.Path(tmp.name) / "dryrun")
     t0 = time.perf_counter()
-    ranks_all = run_ranks(train_tp_rank, 4, "gloo",
-                          pathlib.Path(tmp.name) / "ranks",
-                          lambda r: str(dev), TRAIN_TP_DEADLINE_S,
-                          "train_tp", parts, run)
-    out["ranks_s"] = time.perf_counter() - t0
+    try:
+        ranks_all = run_ranks(train_tp_rank, 4, "gloo",
+                              pathlib.Path(tmp.name) / "ranks",
+                              lambda r: str(dev), TRAIN_TP_DEADLINE_S,
+                              "train_tp", parts, run)
+        out["ranks_s"] = time.perf_counter() - t0
+    finally:
+        out["dryrun_table"] = dryrun_table_finish(table)
     tmp.cleanup()
     for tag, spec in parts.items():
         cfg, ref = train_tp_cfg(spec), refs.pop(tag)
@@ -7590,6 +7862,21 @@ def phase_train_tp(dev, parts: dict = TRAIN_TP,
                       f"{rows[-1]['peak_gb']:.2f} GB training, "
                       f"{rows[-1]['serve']['peak_gb']:.2f} GB serving "
                       f"(gate {TRAIN_TP_FSDP_PEAK_GB} GB)")
+        dry = {"train": dryrun_check(
+            name, cfg, spec["mesh"], {"kind": "train",
+                                      "batch": run_p["batch"],
+                                      "seq": run_p["seq"]},
+            ranks[0], float(ranks[0]["peak_gb"]))}
+        if spec.get("serve"):
+            got = {k[len("serve/"):]: v for k, v in ranks[0].items()
+                   if k.startswith("serve/")}
+            B, S = spec["serve"]["prefill"]
+            steps = spec["serve"]["decode"]
+            dry.update(dryrun_serving(
+                f"{name} serving", cfg, {"mesh": spec["mesh"],
+                                         "prefill": (B, S),
+                                         "decode": (B, S, steps)}, got))
+        ckpt = hold_train_tp_ckpt(ranks, name) if spec.get("ckpt") else None
         held = 0
         for step in range(run_p["steps"]):
             for i, groups in enumerate(ref["groups"]):
@@ -7604,7 +7891,9 @@ def phase_train_tp(dev, parts: dict = TRAIN_TP,
             k: ref[k] for k in ("loss", "grad_norm", "step_s", "peak_gb",
                                 "params", "no_mesh_s")},
             "ranks_part_s": max(float(g["part_s"]) for g in ranks),
-            "replica_pairs_held": held}
+            "replica_pairs_held": held, "dryrun": dry}
+        if ckpt is not None:
+            out[tag]["ckpt"] = ckpt
         if spec.get("serve"):
             out[tag]["no_mesh"]["serve_peak_gb"] = ref["serve_peak_gb"]
         log(f"{name} on one card: {cfg.name} x{cfg.num_layers} on mesh "
@@ -7623,6 +7912,85 @@ def phase_train_tp(dev, parts: dict = TRAIN_TP,
     log(f"train_tp: the ranks ran the {len(parts)} parts in "
         f"{out['ranks_s']:.2f} s; the phase {out['seconds']:.2f} s")
     return out
+
+
+def hold_train_tp_ckpt(ranks: list[dict], name: str) -> dict:
+    """Phase train_tp (b)'s checkpoint on every rank: the failure raised at
+    step 1; ``resume_or`` from step 1 and step 2 bit for bit the
+    uninterrupted run's step 2 (the blocks' and the optimizer state's
+    exact checksums); the restores onto (1, 4) and (4, 1) bit-equal to
+    the cut of the logical arrays.  Returns rank 0's save (bytes, gather
+    and write seconds) and each rank's restore seconds, logged."""
+    import numpy as np
+
+    for r, got in enumerate(ranks):
+        check(str(got["ckpt/raised"]) == "injected failure at step 1",
+              f"{name} rank {r}: the failure at step 1 was not raised "
+              f"({str(got['ckpt/raised'])!r})")
+        check(int(got["ckpt/start"]) == 1,
+              f"{name} rank {r}: resumed at step {int(got['ckpt/start'])}")
+        check(np.array_equal(got["ckpt/resumed_checksums"],
+                             got["checksums"][-1])
+              and np.array_equal(got["ckpt/resumed_opt_checksums"],
+                                 got["ckpt/opt_checksums"]),
+              f"{name} rank {r}: step 2 after the resume differs from the "
+              f"uninterrupted run's")
+        for tag in ("1x4", "4x1"):
+            check(bool(got[f"ckpt/restore_{tag}_equal"]),
+                  f"{name} rank {r}: the restore onto {tag} is not the "
+                  f"cut of the logical arrays")
+    row = {"bytes_written": int(ranks[0]["ckpt/save_bytes"]),
+           "gather_s": float(ranks[0]["ckpt/save_gather_s"]),
+           "write_s": float(ranks[0]["ckpt/save_write_s"]),
+           "gather_s_ranks": [float(g["ckpt/save_gather_s"])
+                              for g in ranks],
+           "restore_s": [float(g["ckpt/restore_s"]) for g in ranks],
+           "restore_1x4_s": [float(g["ckpt/restore_1x4_s"]) for g in ranks],
+           "restore_4x1_s": [float(g["ckpt/restore_4x1_s"]) for g in ranks]}
+    log(f"{name} checkpoint: TrainLoop(mesh=) saved step 1 "
+        f"({row['bytes_written']:,} B of logical arrays; gathered and "
+        f"copied to the host in {row['gather_s']:.2f} s, written in "
+        f"{row['write_s']:.2f} s by rank 0), failed at step 1 on every "
+        f"rank; resume_or restored it in {row['restore_s']} s a rank and "
+        f"step 2 equals the uninterrupted run's bit for bit on every rank; "
+        f"restored onto (1, 4) in {row['restore_1x4_s']} s and (4, 1) in "
+        f"{row['restore_4x1_s']} s, every block the cut of the logical "
+        f"arrays; card {card_line()}")
+    return row
+
+
+def dryrun_table_start(out_dir: pathlib.Path):
+    """Start ``python -m repro_torch.launch.dryrun --all --both-meshes``
+    into ``out_dir`` (the production meshes: ``REPRO_MESH`` unset)."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env.pop("REPRO_MESH", None)
+    return subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+         "--both-meshes", "--force", "--out", str(out_dir)], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), \
+        time.perf_counter()
+
+
+def dryrun_table_finish(started) -> dict:
+    """Wait for ``dryrun_table_start``'s process (killed past 300 s) and
+    fail on any ``fail`` cell or a non-zero exit."""
+    proc, t0 = started
+    try:
+        text, _ = proc.communicate(timeout=300)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        text, _ = proc.communicate()
+    seconds = time.perf_counter() - t0
+    summary = [x for x in text.splitlines()
+               if x.startswith("dry-run summary:")]
+    check(proc.returncode == 0 and summary and " fail=0 " in summary[-1]
+          + " ", f"dry-run table: exit {proc.returncode}, "
+          f"{summary or text[-2000:]}")
+    log(f"dry-run production table (--all --both-meshes, no card): "
+        f"{summary[-1]} in {seconds:.2f} s")
+    return {"summary": summary[-1], "seconds": seconds}
 
 
 def hold_fsdp_serve(got: dict, ref: dict, spec: dict, cfg, r: int,

@@ -19,7 +19,19 @@ Fault-tolerance contract (``runtime/fault.py`` builds on it):
     complete, so a crash mid-save never corrupts the latest checkpoint;
   * restart: ``latest_step`` finds the newest complete manifest;
   * any device: the manifest records logical shapes, so a restore may land
-    on another device than the save (``restore_checkpoint(device=...)``).
+    on another device than the save (``restore_checkpoint(device=...)``);
+  * any mesh (the reference's ``restore_checkpoint(..., shardings=)``):
+    a save over a mesh (``mesh=`` and ``specs=``, a tree of each leaf's
+    spec, ``launch.sharding.state_specs``) writes the logical arrays,
+    the same files as a save of the whole tree without a mesh: each
+    leaf's blocks are gathered over the axes its spec cuts, a leaf at a
+    time on the caller's thread (host copy first), and the place at
+    coordinate 0 of every axis writes and publishes; every place then
+    meets the others once (``_agree``) before the step is seen.  A
+    restore over a mesh reads the members on every place and keeps the
+    place's block of each (``launch.sharding.block_slices``), so the
+    mesh may differ from the saving one (another shape, another data
+    width), or be none.
 
 Each array is written with one write of its buffer and read back with a
 few large reads into a preallocated array (``np.savez`` / ``np.load`` go
@@ -33,6 +45,7 @@ import os
 import pathlib
 import shutil
 import threading
+import time
 import zipfile
 
 import numpy as np
@@ -66,9 +79,76 @@ def _to_host(leaf) -> tuple[np.ndarray, str]:
     return a, str(a.dtype)
 
 
-def _flatten(tree) -> dict:
-    return {_key(path): _to_host(leaf)
-            for path, leaf in tree_leaves_with_path(tree)}
+def _flatten(tree, mesh=None, specs=None) -> dict:
+    """{key: a leaf's host copy and logical dtype}.  Over a mesh, of the
+    logical tree of the place's blocks ``tree``: every place gathers
+    each leaf (a leaf at a time, the collectives in tree order on every
+    place), and the writing place keeps the host copies."""
+    writes, out = mesh is None or _writes(mesh), {}
+    for path, leaf in tree_leaves_with_path(tree):
+        if mesh is not None and isinstance(leaf, torch.Tensor):
+            from ..launch.sharding import _at
+
+            leaf = _whole(leaf, _at(specs, path), mesh)
+        if writes:
+            out[_key(path)] = _to_host(leaf)
+    return out
+
+
+def _writes(mesh) -> bool:
+    """Whether the calling place writes the files: the place at
+    coordinate 0 of every axis (rank 0 of a ``DeviceMesh``)."""
+    return all(mesh.get_local_rank(a) == 0 for a in mesh.mesh_dim_names)
+
+
+def _whole(leaf: torch.Tensor, spec, mesh) -> torch.Tensor:
+    """The logical tensor of the place's block ``leaf`` under ``spec``:
+    gathered along each dim the spec cuts over its axes' group in rank
+    order (``launch.mesh.gather_cat``), a dim after another.  A leaf
+    whole over an axis is the place's own (each place holds the same)."""
+    from ..launch.mesh import axis_group, gather_cat
+
+    names = mesh.mesh_dim_names
+    t = leaf.detach()
+    for d, ax in enumerate(spec or ()):
+        if ax is None:
+            continue
+        axes = ax if isinstance(ax, tuple) else (ax,)
+        if list(axes) != sorted(axes, key=names.index):
+            raise ValueError(f"spec {spec}: axes {axes} out of the mesh's "
+                             f"order {names}")
+        t = gather_cat(t, axis_group(mesh, axes), d)
+    return t
+
+
+def _agree(mesh, ok: bool) -> bool:
+    """Every place's ``ok``, met over the whole mesh (one gather of a flag
+    in rank order: the barrier every place reaches before a saved step
+    can be seen); True when every place's was."""
+    from ..launch.mesh import axis_group, gather_stack
+
+    dev = getattr(mesh, "device_type", "cpu")
+    if dev == "cuda":
+        dev = torch.device("cuda", torch.cuda.current_device())
+    flag = torch.tensor([int(ok)], dtype=torch.int32, device=dev)
+    return bool(gather_stack(flag, axis_group(
+        mesh, mesh.mesh_dim_names)).min().item())
+
+
+class _MeshSave:
+    """A save over a mesh in flight: ``join()`` waits for the writing
+    place's thread, then meets every place (``_agree``) and raises on
+    every place if the write failed."""
+
+    def __init__(self, thread, mesh, errors: list):
+        self.thread, self.mesh, self.errors = thread, mesh, errors
+
+    def join(self):
+        if self.thread is not None:
+            self.thread.join()
+        if not _agree(self.mesh, not self.errors):
+            raise RuntimeError("checkpoint write failed on the writing "
+                               f"place: {self.errors or 'see its error'}")
 
 
 def _write_npz(path, arrays: dict) -> None:
@@ -100,36 +180,75 @@ def _read_npy(zf: zipfile.ZipFile, key: str) -> np.ndarray:
     return out
 
 
-def save_checkpoint(directory, step: int, tree, *, blocking: bool = True):
+def save_checkpoint(directory, step: int, tree, *, blocking: bool = True,
+                    mesh=None, specs=None, timings: dict | None = None):
     """Write ``tree`` as step ``step`` of ``directory``.  The tensors are
     copied to the host before this returns; with ``blocking=False`` a
-    thread writes and publishes the files, and is returned."""
+    thread writes and publishes the files, and is returned.
+
+    Over a mesh (``mesh``, a ``DeviceMesh`` or an ``emulate_mesh`` place,
+    and ``specs``, each leaf's spec), ``tree`` is the place's blocks and
+    every place calls this: the logical arrays are gathered (module
+    docstring) and the place at coordinate 0 writes them; a blocking
+    save returns once every place has met after the publish, a
+    non-blocking one returns a handle whose ``join()`` does.  A failed
+    write raises on every place.  ``timings`` (a dict) receives the
+    seconds of the host copy (``gather_s``, the gathers included), of
+    the write (``write_s``, once it ends) and the bytes of the arrays
+    (``bytes``)."""
+    if mesh is not None and specs is None:
+        raise ValueError("a save over a mesh needs each leaf's spec "
+                         "(specs=; launch.sharding.state_specs)")
+    writes = mesh is None or _writes(mesh)
     directory = pathlib.Path(directory)
-    directory.mkdir(parents=True, exist_ok=True)
     tmp = directory / f"step_{step}.tmp"
     final = directory / f"step_{step}"
-    if tmp.exists():
-        shutil.rmtree(tmp)
-    tmp.mkdir()
-    flat = _flatten(tree)
+    if writes:
+        directory.mkdir(parents=True, exist_ok=True)
+        if tmp.exists():
+            shutil.rmtree(tmp)
+        tmp.mkdir()
+    t0 = time.perf_counter()
+    flat = _flatten(tree, mesh, specs)
+    if timings is not None:
+        timings.update(gather_s=time.perf_counter() - t0, bytes=sum(
+            a.nbytes for a, _ in flat.values()))
+    errors: list = []
 
     def _write():
-        _write_npz(tmp / "shard_0.npz", {k: a for k, (a, _) in flat.items()})
-        manifest = {
-            "step": step,
-            "arrays": {k: {"shape": list(a.shape), "dtype": dt}
-                       for k, (a, dt) in flat.items()},
-            "format": 1,
-        }
-        (tmp / "manifest.json").write_text(json.dumps(manifest))
-        os.replace(tmp, final)  # atomic publish
+        t1 = time.perf_counter()
+        try:
+            _write_npz(tmp / "shard_0.npz",
+                       {k: a for k, (a, _) in flat.items()})
+            manifest = {
+                "step": step,
+                "arrays": {k: {"shape": list(a.shape), "dtype": dt}
+                           for k, (a, dt) in flat.items()},
+                "format": 1,
+            }
+            (tmp / "manifest.json").write_text(json.dumps(manifest))
+            os.replace(tmp, final)  # atomic publish
+        except BaseException as e:      # noqa: BLE001 — raised on join
+            if mesh is None:
+                raise
+            errors.append(repr(e))
+        if timings is not None:
+            timings["write_s"] = time.perf_counter() - t1
 
+    thread = None
+    if writes:
+        if blocking:
+            _write()
+        else:
+            thread = threading.Thread(target=_write, daemon=True)
+            thread.start()
+    if mesh is None:
+        return thread
+    handle = _MeshSave(thread, mesh, errors)
     if blocking:
-        _write()
+        handle.join()
         return None
-    t = threading.Thread(target=_write, daemon=True)
-    t.start()
-    return t
+    return handle
 
 
 def latest_step(directory) -> int | None:
@@ -163,16 +282,29 @@ def _as_tensor(a: np.ndarray, logical: str) -> torch.Tensor:
 
 
 def restore_checkpoint(directory, step: int, like_tree, *, device=None,
-                       inplace: bool = False):
+                       inplace: bool = False, mesh=None, specs=None):
     """Restore into the structure of ``like_tree``: a tree of the same
     paths whose leaves are tensors of each like leaf's dtype, on
     ``device`` (default: the like leaf's device).  ``inplace=True`` copies
     the values into ``like_tree``'s own tensors and returns it, so a
     restore needs no second copy of the state on the device.  The like
     leaves may be tensors on the ``meta`` device (a structure only), given
-    a ``device``."""
+    a ``device``.
+
+    Over a mesh (``mesh`` and ``specs``, each leaf's spec on this mesh:
+    ``launch.sharding.state_specs``), ``like_tree`` is the place's
+    blocks: each logical array is read and the place keeps its block
+    (``block_slices``), whatever mesh, or none, saved it."""
+    if mesh is not None and specs is None:
+        raise ValueError("a restore over a mesh needs each leaf's spec "
+                         "(specs=; launch.sharding.state_specs)")
     path_dir = pathlib.Path(directory) / f"step_{step}"
     manifest = json.loads((path_dir / "manifest.json").read_text())["arrays"]
+    if mesh is not None:
+        from ..launch.mesh import axis_sizes
+        from ..launch.sharding import _at, _block, mesh_coords
+
+        sizes, coords = axis_sizes(mesh), mesh_coords(mesh)
     with zipfile.ZipFile(path_dir / "shard_0.npz") as zf:
         members = set(zf.namelist())
 
@@ -182,6 +314,8 @@ def restore_checkpoint(directory, step: int, like_tree, *, device=None,
                 raise KeyError(f"checkpoint missing array {key!r}")
             t = _as_tensor(_read_npy(zf, key),
                            manifest.get(key, {}).get("dtype", ""))
+            if mesh is not None:
+                t = _block(t, _at(specs, path) or (), sizes, coords)
             if tuple(t.shape) != tuple(like.shape):
                 raise ValueError(f"{key!r}: checkpoint shape "
                                  f"{tuple(t.shape)}, expected "
@@ -198,22 +332,32 @@ def restore_checkpoint(directory, step: int, like_tree, *, device=None,
 
 
 class CheckpointManager:
-    """Every-N-steps manager with async saves and bounded retention."""
+    """Every-N-steps manager with async saves and bounded retention.  Over
+    a mesh (``mesh``, ``specs``) every place calls ``maybe_save`` and
+    ``wait`` alike: each save gathers on every place, the writing place
+    writes and collects, and ``wait`` holds every place until the save is
+    published.  ``timings`` holds the last save's (``save_checkpoint``)."""
 
-    def __init__(self, directory, every: int = 100, keep: int = 3):
+    def __init__(self, directory, every: int = 100, keep: int = 3, *,
+                 mesh=None, specs=None):
         self.directory = pathlib.Path(directory)
         self.every = every
         self.keep = keep
-        self._pending: threading.Thread | None = None
+        self.mesh, self.specs = mesh, specs
+        self.timings: dict = {}
+        self._pending = None
 
     def maybe_save(self, step: int, tree, *, blocking: bool = False):
         if step % self.every:
             return False
         if self._pending is not None:
             self._pending.join()  # backpressure: one in-flight save
+        self.timings = {"step": step}
         self._pending = save_checkpoint(
-            self.directory, step, tree, blocking=blocking)
-        self._gc()
+            self.directory, step, tree, blocking=blocking, mesh=self.mesh,
+            specs=self.specs, timings=self.timings)
+        if self.mesh is None or _writes(self.mesh):
+            self._gc()
         return True
 
     def wait(self):

@@ -62,7 +62,8 @@ __all__ = ["activation_rules", "param_pspecs", "opt_pspecs", "batch_specs",
            "cache_specs", "cache_block_shape", "shard_tree", "shard_spec",
            "shard_params", "keep_blocks", "tp_layout", "tensor_parallel",
            "fsdp_plan", "fsdp_gather", "mesh_rules", "block_slices",
-           "mesh_coords", "batch_rows", "replica_axes"]
+           "block_shape", "block_bytes", "state_specs", "mesh_coords",
+           "batch_rows", "replica_axes"]
 
 
 def _axsize(mesh, name) -> int:
@@ -223,6 +224,23 @@ def opt_pspecs(cfg: ModelConfig, params, mesh):
     return {"m": ps, "v": ps, "step": ()}
 
 
+def state_specs(cfg: ModelConfig, mesh) -> dict:
+    """The spec of every leaf of a training state ``{"params", "opt"}``
+    (``launch.steps.make_train_step``'s ``init_state``) over ``mesh``,
+    from the whole shapes on the meta device: ``param_pspecs`` for the
+    parameters, ``opt_pspecs`` for the moments (the scalar ``step``
+    whole) and, with ``cfg.grad_compress``, the parameters' specs for
+    the error feedback ``opt["comp"]["ef"]``.  A checkpoint over a mesh
+    gathers and cuts each leaf by it (``ckpt.checkpoint``)."""
+    from ..models.model import Model
+
+    shapes = Model(cfg, torch.device("meta")).init(master=True)
+    opt = opt_pspecs(cfg, shapes, mesh)
+    if cfg.grad_compress:
+        opt["comp"] = {"ef": opt["m"]}
+    return {"params": opt["m"], "opt": opt}
+
+
 # --------------------------------------------------------------------- batch
 def batch_specs(cfg: ModelConfig, batch_shapes: dict, mesh) -> dict:
     out: dict[str, Any] = {}
@@ -294,12 +312,8 @@ def cache_specs(cfg: ModelConfig, cache_shapes, mesh):
 
 def cache_block_shape(path: str, shape: tuple, mesh) -> tuple:
     """The shape of a place's block of a cache leaf of global ``shape`` at
-    ``path`` under ``cache_specs``' cut (every place's block has the same
-    shape: the cuts are even)."""
-    sizes = axis_sizes(mesh)
-    return tuple(b - a for a, b in block_slices(
-        shape, _cache_spec(path, tuple(shape), mesh), sizes,
-        {a: 0 for a in sizes}))
+    ``path`` under ``cache_specs``' cut."""
+    return block_shape(shape, _cache_spec(path, tuple(shape), mesh), mesh)
 
 
 # --------------------------------------------------------------- placement
@@ -329,6 +343,37 @@ def block_slices(shape: tuple, spec, sizes: dict, coords: dict) -> tuple:
         m = size // n
         out.append((idx * m, (idx + 1) * m))
     return tuple(out)
+
+
+def block_shape(shape: tuple, spec, mesh) -> tuple:
+    """The shape of a place's block of a tensor of whole ``shape`` under
+    ``spec`` (every place's block has the same shape: the cuts are
+    even)."""
+    sizes = axis_sizes(mesh)
+    return tuple(b - a for a, b in block_slices(
+        tuple(shape), spec or (), sizes, {a: 0 for a in sizes}))
+
+
+def _at(specs, path):
+    """The entry of a spec tree at a ``tree`` path."""
+    for k in path:
+        specs = specs[k]
+    return specs
+
+
+def block_bytes(tree, specs, mesh, itemsize: int | None = None) -> int:
+    """The bytes of a place's blocks of ``tree`` (whole tensors, or meta
+    stand-ins of their shapes) under ``specs`` (a tree of the same
+    structure; None or ``()`` keeps a leaf whole): each block's element
+    count times its leaf's element size, or ``itemsize`` where given.
+    None leaves count nothing."""
+    total = 0
+    for path, leaf in tree_leaves_with_path(tree):
+        if leaf is None:
+            continue
+        n = math.prod(block_shape(tuple(leaf.shape), _at(specs, path), mesh))
+        total += n * (leaf.element_size() if itemsize is None else itemsize)
+    return total
 
 
 def _block(t: torch.Tensor, spec, sizes: dict, coords: dict) -> torch.Tensor:
@@ -370,14 +415,8 @@ def shard_tree(tree, specs, mesh, coords: dict | None = None):
     sizes = axis_sizes(mesh)
     coords = mesh_coords(mesh) if coords is None else coords
 
-    def at(path):
-        s = specs
-        for k in path:
-            s = s[k]
-        return s
-
     def one(path, leaf):
-        spec = at(path)
+        spec = _at(specs, path)
         if not isinstance(leaf, torch.Tensor) or not spec:
             return leaf
         return _block(leaf, spec, sizes, coords)

@@ -43,9 +43,13 @@ __all__ = ["build", "main"]
 def build(cfg, device="cuda", lr=3e-4, *, mesh=None):
     """(model, train_step, init_state) for ``cfg`` on ``device``; with
     ``mesh`` (a ``DeviceMesh`` of the ranks) the train step over it, on
-    the rank's blocks (``launch.steps.make_train_step``).  ``main`` and
-    ``TrainLoop`` pass no mesh, as the reference's ``main`` does;
-    checkpoints of a mesh's blocks are not ported (ROADMAP Queue 1)."""
+    the rank's blocks (``launch.steps.make_train_step``).  ``main`` passes
+    no mesh, as the reference's ``main`` does.  Over a mesh, checkpoints
+    of the rank's blocks go through ``TrainLoop(train_step, fault,
+    mesh=mesh, specs=launch.sharding.state_specs(cfg, mesh))``: every rank
+    gathers the logical arrays and rank 0 writes them, and ``resume_or
+    (lambda: init_state(seed))`` restores each rank's blocks in place,
+    onto any mesh."""
     opt_cfg = AdamWConfig(lr=lr, moment_dtype=cfg.opt_dtype)
     model, train_step, init_state, _ = make_train_step(cfg, device, opt_cfg,
                                                        mesh=mesh)

@@ -613,7 +613,7 @@ def shape_applicable(cfg: ModelConfig, shape: str) -> tuple[bool, str]:
     return True, ""
 
 
-def input_specs(cfg: ModelConfig, shape: str) -> dict:
+def input_specs(cfg: ModelConfig, shape) -> dict:
     """Stand-ins for every model input of a (configuration, shape) cell:
     tensors on ``torch.device("meta")``, shapes and dtypes only, nothing
     allocated.  Train and prefill: ``tokens`` and ``labels`` (B, S) int32,
@@ -624,8 +624,11 @@ def input_specs(cfg: ModelConfig, shape: str) -> dict:
     ring of ``swa_window`` slots at ``long_500k`` where the configuration
     has a window, and the encoder-decoder's cross cache, a (k, v) pair of
     (L, B, encoder_seq, KV, head_dim).  (The reference's ``dp_devices``,
-    which it never reads, is left out.)"""
-    info = SHAPES[shape]
+    which it never reads, is left out.)  ``shape`` is a name of
+    ``SHAPES`` or a dict of its form (``kind``, ``batch``, ``seq``; a
+    decode's ``seq`` its cache's length, and ``ring`` True for the SWA
+    ring)."""
+    info = SHAPES[shape] if isinstance(shape, str) else shape
     B, S = info["batch"], info["seq"]
     meta = torch.device("meta")
     f = compute_dtype(cfg)
@@ -640,7 +643,8 @@ def input_specs(cfg: ModelConfig, shape: str) -> dict:
         if cfg.family == "vlm":
             batch["patches"] = sd((B, cfg.num_patches, cfg.d_model), f)
         return batch
-    ring = bool(cfg.swa_window) and shape == "long_500k"
+    ring = bool(cfg.swa_window) and (shape == "long_500k" if isinstance(
+        shape, str) else info.get("ring", False))
     cache_seq = min(S, cfg.swa_window) if ring else S
     cache = Model(cfg, meta).init_cache(B, cache_seq, ring=ring)
     if cfg.family == "encdec":

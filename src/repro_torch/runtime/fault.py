@@ -4,8 +4,9 @@ training, and per-link fault handling for the serving pull path.
   * ``TrainLoop`` — steps a train_step with a ``CheckpointManager``;
     resume is exact (tested bitwise on the parameters); failure injection
     raises ``SimulatedFailure`` at a chosen step; a restore may land on
-    another device than the save (``TrainLoop(device=...)``), because
-    checkpoints store logical arrays;
+    another device than the save (``TrainLoop(device=...)``), or on
+    another mesh (``TrainLoop(mesh=..., specs=...)``, the reference's
+    ``shardings=``), because checkpoints store logical arrays;
   * ``RetryPolicy`` — per-link retry/timeout admission: a source shard that
     cannot deliver within its (backed-off) deadlines is dropped for the
     step and the worker falls back to its stale buffer (§4.3 bounded
@@ -188,15 +189,29 @@ class TrainLoop:
     ``fault.ckpt_every`` steps (async, one save in flight; the tensors are
     copied to the host first, so the next step may update them in place).
     ``device`` picks where ``resume_or`` restores: None restores into the
-    tensors ``init_fn`` builds, in place; a device restores onto it."""
+    tensors ``init_fn`` builds, in place; a device restores onto it.
+
+    Over a mesh (``mesh``, the ``DeviceMesh`` the train step runs over,
+    and ``specs``, ``launch.sharding.state_specs(cfg, mesh)``), every
+    rank runs the loop on its blocks: a save gathers the logical arrays
+    on every rank and rank 0 writes them, the format of a save without a
+    mesh; ``resume_or`` restores each rank's blocks of the newest
+    checkpoint, whichever mesh wrote it, in place into ``init_fn()``'s;
+    the injected failure is raised on every rank at the same step, after
+    every rank has met the last save's publish."""
 
     def __init__(self, train_step: Callable, fault: FaultConfig,
-                 device=None):
+                 device=None, *, mesh=None, specs=None):
+        if mesh is not None and (specs is None or device is not None):
+            raise ValueError("TrainLoop(mesh=) takes specs= "
+                             "(launch.sharding.state_specs) and restores "
+                             "in place (no device=)")
         self.train_step = train_step
         self.fault = fault
         self.mgr = CheckpointManager(fault.ckpt_dir, fault.ckpt_every,
-                                     fault.keep)
+                                     fault.keep, mesh=mesh, specs=specs)
         self.device = device
+        self.mesh, self.specs = mesh, specs
 
     def resume_or(self, init_fn: Callable):
         """Restore the newest checkpoint into ``init_fn()``'s structure,
@@ -207,7 +222,8 @@ class TrainLoop:
             return 0, params, opt
         state = restore_checkpoint(
             self.fault.ckpt_dir, step, {"params": params, "opt": opt},
-            device=self.device, inplace=self.device is None)
+            device=self.device, inplace=self.device is None,
+            mesh=self.mesh, specs=self.specs)
         return step, state["params"], state["opt"]
 
     def run(self, params, opt_state, batches, start_step: int = 0,
